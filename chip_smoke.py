@@ -15,15 +15,24 @@ Phases, in order; any failure raises and exits non-zero with no result:
        K8 gather:   72x6 and 36x4 tables, 3 x 2,073,600 indices with
                     out-of-range ones;
        K7 a-trous:  1080x1920, 4 passes;
-  4. render the golden NEE config (tests/test_golden.py:36-40, 96x64,
-     4 frames) on the card and on the CPU: PSNR > 40 dB between them and
-     against tests/goldens/cornell_nee.npy;
-  5. the main path: render_frame at 1920x1080, lighting="nee", Cornell
-     camera (1,1,3.4) -> (1,1,0), fov 45; 5 warm-up and 20 timed frames.
-     The launch counters are zeroed just before and read just after; every
-     kernel must have launched. Prints frame ms, rays per frame (the trace
-     wrappers' batch sizes, full-batch as bench.py:7-13 counts them) and
-     peak device memory.
+       K3-K6 ReSTIR: the inputs each wrapper got in frame 2 of a 1080p
+                    default ReSTIR render (live history; K3 with K=16 on
+                    the box's 2 lights, K5 with 5 taps, K6 with 3), plus
+                    K3 on 65,536 seeded lanes and a random 600-light
+                    table. Seeds bit-equal, M exact, winners agreeing on
+                    > 99.5% of lanes, the rest to test_restir_math.py's
+                    tolerances;
+  4. render the golden configs (tests/test_golden.py:36-40, 96x64): NEE
+     4 frames and ReSTIR 8 frames, on the card and on the CPU; PSNR > 40
+     dB between them and against tests/goldens/cornell_{nee,restir}.npy;
+  5. the main path: render_frame at 1920x1080 with the default config
+     (lighting="restir"), Cornell camera (1,1,3.4) -> (1,1,0), fov 45; 5
+     warm-up and 20 timed frames. The launch counters are zeroed just
+     before and read just after; all eight kernels must have launched, and
+     the rays per frame (the trace wrappers' batch sizes) must equal
+     bench.py:7-13's count. Prints frame ms, Mray/s, peak device memory
+     and the synced stage ms. Then the 1080p NEE frame, 2 warm-up and 5
+     timed frames, with its own launch check of K1, K2, K7 and K8.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -45,10 +54,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KW = dict(width=96, height=64, bounces=4, virtual_bounces=3,
                  ris_candidates=8, di_spatial_samples=3, gi_spatial_samples=2,
                  denoise_passes=2, lighting="nee")
+GOLDEN_FRAMES = {"nee": 4, "restir": 8}     # tests/test_golden.py:18-19
 CAMERA = dict(position=(1.0, 1.0, 3.4), target=(1.0, 1.0, 0.0), fov_y=45.0)
 TRACE_AGREE = 0.9999      # tri / hit / occluded agreement on the card
 UVT_ATOL = 1e-5           # t, u, v where tri agrees
 ATROUS_ATOL = 1e-5
+WINNER_AGREE = 0.995      # test_restir_math.py:209
 PSNR_MIN = 40.0           # tests/test_golden.py:80
 REPS = 10
 
@@ -232,6 +243,151 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
     return results
 
 
+# -- phase 3, K3-K6: the ReSTIR kernels on a live frame's inputs ---------------
+
+RESTIR_WRAPPERS = {
+    "ris_audition": "ris_audition_plain",
+    "di_temporal": "di_temporal_plain",
+    "di_spatial": "di_spatial_plain",
+    "gi_spatial": "gi_spatial_plain",
+}
+# What each kernel's outputs are held to: (winner id, exact fields,
+# {field: (rtol, atol)} compared on lanes whose winner agrees).
+RESTIR_CHECKS = {
+    "ris_audition": ("light_idx", ("M",),
+                     {"w_sum": (5e-4, 1e-6), "light_pos": (1e-5, 1e-6),
+                      "W": (3e-4, 1e-5)}),
+    "di_temporal": ("light_idx", ("M",),
+                    {"w_sum": (5e-4, 1e-6), "light_pos": (1e-5, 1e-6),
+                     "W": (3e-4, 1e-5)}),
+    "di_spatial": ("light_idx", ("M", "has"),
+                   {"w_sum": (5e-4, 1e-6), "light_pos": (1e-5, 1e-6),
+                    "w_spatial": (3e-4, 1e-5), "f_y_w": (3e-4, 1e-5)}),
+    "gi_spatial": ("sample_tri", ("try_gi",),
+                   {"gdir": (1e-5, 1e-6), "gdist": (1e-5, 1e-6),
+                    "contrib_pre": (3e-4, 1e-5)}),
+}
+
+
+def capture_restir_inputs(dev, width=1920, height=1080, frame=2):
+    """The arguments each K3-K6 wrapper got in frame `frame` of a default
+    ReSTIR render at width x height."""
+    import contextlib
+
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_restir
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+    from sunray_tpu_torch.scene import cornell_box
+
+    cfg = RenderConfig(width=width, height=height)
+    scene = cornell_box(device=dev)
+    mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
+    state = RenderState.create(cfg, dev)
+    for _ in range(frame):
+        state, _, _ = render_frame(scene, cfg, state, mats)
+    captured = {}
+
+    @contextlib.contextmanager
+    def recording():
+        saved = {name: getattr(cuda_restir, name) for name in RESTIR_WRAPPERS}
+
+        def wrap(name):
+            def call(*args):
+                captured.setdefault(name, args)
+                return saved[name](*args)
+            return call
+
+        for name in RESTIR_WRAPPERS:
+            setattr(cuda_restir, name, wrap(name))
+        try:
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(cuda_restir, name, fn)
+
+    with recording():
+        render_frame(scene, cfg, state, mats)
+    torch.cuda.synchronize()
+    check(set(captured) == set(RESTIR_WRAPPERS),
+          f"frame {frame} called only {sorted(captured)}")
+    return captured
+
+
+def compare_restir(name, args, label):
+    """Kernel against plain on the same arguments; returns (agree, err)."""
+    from sunray_tpu_torch.ops import cuda_restir
+
+    seed_k, out_k = getattr(cuda_restir, name)(*args)
+    seed_p, out_p = getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args)
+    torch.cuda.synchronize()
+    win, exact, close = RESTIR_CHECKS[name]
+    check(torch.equal(seed_k, seed_p), f"{name} {label}: seeds differ")
+    for key in exact:
+        check(torch.equal(out_k[key], out_p[key]),
+              f"{name} {label}: {key} differs")
+    same = out_k[win] == out_p[win]
+    agree = same.float().mean().item()
+    err = 0.0
+    for key, (rtol, atol) in close.items():
+        a, b = out_k[key][same], out_p[key][same]
+        if a.numel():
+            err = max(err, (a - b).abs().max().item())
+            check(torch.allclose(a, b, rtol=rtol, atol=atol),
+                  f"{name} {label}: {key} off by {(a - b).abs().max().item()}")
+    log(f"  {name} {label}: winner agree {agree:.7f}, max abs err on agreeing "
+        f"lanes {err:.3g}")
+    check(agree > WINNER_AGREE, f"{name} {label}: agreement {agree}")
+    return agree, err
+
+
+def phase_restir_kernels(dev, n_random=65536, n_lights=600):
+    from sunray_tpu_torch.ops import cuda_restir
+
+    log("phase 3: K3-K6 against their plain versions")
+    captured = capture_restir_inputs(dev)
+    results = {}
+    for name, args in captured.items():
+        agree, err = compare_restir(name, args, "1080p frame 2")
+        results[name] = dict(agree=agree, max_abs_err=err, args=args)
+
+    # K3 on a random table of many lights (shared-memory table) and
+    # random surfaces.
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def unit(n):
+        v = torch.randn((n, 3), generator=gen, device=dev)
+        return (v / v.norm(dim=-1, keepdim=True)).contiguous()
+
+    v0 = rand(n_lights, 3, lo=0.0, hi=2.0)
+    table = cuda_restir.LightTable(
+        v0, (v0 + rand(n_lights, 3, lo=-0.3, hi=0.3)).contiguous(),
+        (v0 + rand(n_lights, 3, lo=-0.3, hi=0.3)).contiguous(),
+        rand(n_lights, 3, lo=0.0, hi=20.0))
+    seed = torch.randint(0, 2**32, (n_random,), generator=gen, device=dev,
+                         dtype=torch.int64)
+    args = (table, seed, rand(n_random, 3, lo=0.0, hi=2.0), unit(n_random),
+            unit(n_random), rand(n_random, 3), rand(n_random, lo=0.05),
+            rand(n_random), 16, rand(n_random) > 0.2)
+    agree, err = compare_restir("ris_audition", args,
+                                f"{n_random} lanes x {n_lights} lights")
+    r = results["ris_audition"]
+    r["agree"] = min(r["agree"], agree)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    for name, r in results.items():
+        args = r.pop("args")
+        r["ms"] = time_ms(lambda: getattr(cuda_restir, name)(*args))
+        r["plain_ms"] = time_ms(
+            lambda: getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args))
+        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms")
+    return results
+
+
 # -- phases 4 and 5: frames --------------------------------------------------
 
 def render(cfg, device, frames):
@@ -251,28 +407,40 @@ def render(cfg, device, frames):
 def phase_golden(dev):
     from sunray_tpu_torch.config import RenderConfig
 
-    log("phase 4: golden NEE config, card vs CPU")
-    cfg = RenderConfig(**GOLDEN_KW)
-    gpu = render(cfg, dev, 4).cpu().numpy()
-    cpu = render(cfg, "cpu", 4).numpy()
-    p_cc = psnr(gpu, cpu)
-    golden = np.load(os.path.join(REPO, "tests", "goldens", "cornell_nee.npy"))
-    p_g = psnr(gpu, golden)
-    log(f"  PSNR card vs CPU {p_cc:.2f} dB, card vs golden {p_g:.2f} dB")
-    check(p_cc > PSNR_MIN, f"card vs CPU PSNR {p_cc:.2f} dB")
-    check(p_g > PSNR_MIN, f"card vs golden PSNR {p_g:.2f} dB")
-    return p_cc, p_g
+    out = {}
+    for lighting, frames in GOLDEN_FRAMES.items():
+        log(f"phase 4: golden {lighting} config, {frames} frames, card vs CPU")
+        cfg = RenderConfig(**dict(GOLDEN_KW, lighting=lighting))
+        gpu = render(cfg, dev, frames).cpu().numpy()
+        cpu = render(cfg, "cpu", frames).numpy()
+        p_cc = psnr(gpu, cpu)
+        golden = np.load(os.path.join(REPO, "tests", "goldens",
+                                      f"cornell_{lighting}.npy"))
+        p_g = psnr(gpu, golden)
+        log(f"  PSNR card vs CPU {p_cc:.2f} dB, card vs golden {p_g:.2f} dB")
+        check(p_cc > PSNR_MIN, f"{lighting}: card vs CPU PSNR {p_cc:.2f} dB")
+        check(p_g > PSNR_MIN, f"{lighting}: card vs golden PSNR {p_g:.2f} dB")
+        out[lighting] = (p_cc, p_g)
+    return out
 
 
-def phase_main(dev, width=1920, height=1080, n_warm=5, n_timed=20):
+def rays_expected(cfg, aux):
+    """bench.py:7-13: P * (ris_rounds + 3 + final_rounds - 1 + 2 + T_gi)."""
+    return cfg.width * cfg.height * (aux["ris_rounds"] + 3
+                                     + aux["final_rounds"] - 1 + 2
+                                     + cfg.gi_spatial_samples)
+
+
+def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
+               height=1080):
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.config import RenderConfig
     from sunray_tpu_torch.ops import cuda_build, cuda_trace
     from sunray_tpu_torch.render.pipeline import RenderState, render_frame
     from sunray_tpu_torch.scene import cornell_box
 
-    log(f"phase 5: main path, {width}x{height} Cornell NEE frame")
-    cfg = RenderConfig(width=width, height=height, lighting="nee")
+    log(f"phase 5: {width}x{height} Cornell frame, lighting={lighting!r}")
+    cfg = RenderConfig(width=width, height=height, lighting=lighting)
     scene = cornell_box(device=dev)
     mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height, device=dev)
     state = RenderState.create(cfg, dev)
@@ -287,9 +455,11 @@ def phase_main(dev, width=1920, height=1080, n_warm=5, n_timed=20):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     rays0 = sum(cuda_trace.rays.values())
+    expected = 0
     t0 = time.perf_counter()
     for _ in range(n_timed):
         state, ldr, aux = render_frame(scene, cfg, state, mats)
+        expected += rays_expected(cfg, aux) if lighting == "restir" else 0
     torch.cuda.synchronize()
     frame_s = (time.perf_counter() - t0) / n_timed
     launches = dict(cuda_build.launches)
@@ -307,7 +477,11 @@ def phase_main(dev, width=1920, height=1080, n_warm=5, n_timed=20):
     check(ldr_np.shape == (height, width, 3), f"ldr shape {ldr_np.shape}")
     check(bool(np.isfinite(ldr_np).all()), "non-finite ldr")
     check(0.05 < mean < 0.95, f"ldr mean {mean}")
-    for name in ("trace_closest", "trace_occluded", "gather_rows", "atrous_pass"):
+    if lighting == "restir":
+        check(rays_per_frame * n_timed == expected,
+              f"rays/frame {rays_per_frame} != bench.py's count "
+              f"{expected / n_timed}")
+    for name in kernels:
         check(launches.get(name, 0) > 0, f"kernel {name} never launched")
     stage_breakdown(scene, cfg, state, mats, frame_s)
     return launches
@@ -358,7 +532,16 @@ KERNELS = {
                     "sunray_tpu/ops/pallas_gather.py:193"),
     "atrous_pass": ("sunray_tpu_torch/csrc/atrous.cu",
                     "sunray_tpu/ops/pallas_image.py:258"),
+    "ris_audition": ("sunray_tpu_torch/csrc/restir.cu",
+                     "sunray_tpu/ops/pallas_restir.py:291"),
+    "di_temporal": ("sunray_tpu_torch/csrc/restir.cu",
+                    "sunray_tpu/ops/pallas_restir.py:1044"),
+    "di_spatial": ("sunray_tpu_torch/csrc/restir.cu",
+                   "sunray_tpu/ops/pallas_restir.py:566"),
+    "gi_spatial": ("sunray_tpu_torch/csrc/restir.cu",
+                   "sunray_tpu/ops/pallas_restir.py:791"),
 }
+NEE_KERNELS = ("trace_closest", "trace_occluded", "gather_rows", "atrous_pass")
 
 
 def main():
@@ -386,8 +569,10 @@ def main():
             log(f"  ptxas: {line.strip()}")
 
     kernels = phase_kernels(dev)
+    kernels.update(phase_restir_kernels(dev))
     phase_golden(dev)
-    launches = phase_main(dev)
+    launches = phase_main(dev, "restir", tuple(KERNELS), n_warm=5, n_timed=20)
+    phase_main(dev, "nee", NEE_KERNELS, n_warm=2, n_timed=5)
 
     out = []
     for name, (source, replaces) in KERNELS.items():

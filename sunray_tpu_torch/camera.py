@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from sunray_tpu_torch.ops.fp import dot3, fma
+from sunray_tpu_torch.ops.fp import dot3, fma, sqrt
 
 Z_NEAR = 0.1   # camera.rs:44
 Z_FAR = 100.0  # camera.rs:45
@@ -35,7 +35,7 @@ class Camera:
 
 
 def _norm(v):
-    return torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+    return sqrt((v * v).sum(dim=-1, keepdim=True))
 
 
 def _cross(a, b):
@@ -140,7 +140,7 @@ def generate_rays(matrices, width: int, height: int):
     p = proj_inverse
     tgt = [fma(p[i, 0], dx2, p[i, 1] * dy2) + p[i, 2] + p[i, 3]
            for i in range(3)]
-    norm = torch.sqrt(dot3(tgt[0], tgt[0], tgt[1], tgt[1], tgt[2], tgt[2]))
+    norm = sqrt(dot3(tgt[0], tgt[0], tgt[1], tgt[1], tgt[2], tgt[2]))
     tgt = [t / norm for t in tgt]
 
     m = view_inverse

@@ -44,10 +44,19 @@ def scene_from_numpy(fields: dict, device="cpu") -> SceneBuffers:
 
 def state_from_numpy(fields: dict, device="cpu") -> RenderState:
     """RenderState from numpy arrays; fields["res_di"] and fields["res_gi"]
-    are dicts of reservoir fields."""
+    are dicts of reservoir fields. Live reservoirs carry over as they are;
+    their ids (light_idx, sample_tri) become int32 planes."""
+    ids = {"res_di": "light_idx", "res_gi": "sample_tri"}
+
+    def reservoir(cls, name):
+        def build(d, dev):
+            return _build(cls, {k: (np.asarray(v, np.int32) if k == ids[name]
+                                    else v) for k, v in d.items()}, dev)
+        return build
+
     return _build(RenderState, fields, device, nested={
-        "res_di": lambda d, dev: _build(restir.ReservoirDI, d, dev),
-        "res_gi": lambda d, dev: _build(restir.ReservoirGI, d, dev),
+        "res_di": reservoir(restir.ReservoirDI, "res_di"),
+        "res_gi": reservoir(restir.ReservoirGI, "res_gi"),
     })
 
 

@@ -1,0 +1,615 @@
+// K3-K6: the ReSTIR merge kernels (RIS audition, DI temporal merge, DI
+// spatial merge, GI spatial merge).
+//
+// Replace sunray_tpu/ops/pallas_restir.py: ris_audition_pallas (_kernel),
+// di_temporal_pallas (_di_temporal_kernel), di_spatial_pallas
+// (_di_spatial_kernel) and gi_spatial_pallas (_gi_spatial_kernel). The TPU
+// kernels hold 4096 pixels as (8, 512) planes in VMEM, rebuild the PCG
+// draws through a 31-bit split (Mosaic has no uint32 -> f32 cast), fetch
+// lights by select chains or one-hot MXU products, and take every
+// neighbour and history reservoir as planes gathered outside the kernel.
+//
+// What bounds them here: per pixel a few hundred fp32 operations against
+// ~100-300 bytes of reservoir and surface data (a 2M-pixel launch moves
+// 0.2-0.6 GB, ~0.1-0.2 ms at 3.35 TB/s; K3 with K=16 candidates is
+// ~16 x 150 operations a pixel, ~5 GFLOP, ~75 us at the fp32 peak).
+// Design: one thread per pixel over plain (P,) and (P, 3) arrays, every
+// intermediate in registers; no (K, P) or (T, P) plane is ever written.
+// K3 stages the light table (48 bytes a light) in shared memory when it
+// fits and otherwise reads it through __ldg; K4 reads the history
+// reservoir at the reprojected pixel and K5 each neighbour at its shared
+// offset in place; K3-K5 read light emission from the table. Light and
+// triangle ids stay int32 throughout.
+//
+// Numerics follow the plain PyTorch versions (ops/cuda_restir.py, which
+// follow the JAX package's jnp paths) operation for operation. The
+// library is built with --fmad=false, so the only fused multiply-adds are
+// the fmaf() calls, placed where the plain versions call ops/fp.fma; x^5
+// is x * ((x*x) * (x*x)); sqrt and division are IEEE (no fast math). The
+// draws are the jnp PCG draws in uint32, u = (float)result * 2^-32-ish
+// (rng.py:45-51), not the Pallas 31-bit split; seeds come back bit-equal.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxTaps = 8;
+constexpr float kPi = 3.14159f;
+constexpr float kInvPi = 0.3183101415634155f;          // f32(1 / f32(kPi))
+constexpr float kInvU32Max = 2.3283064365386963e-10f;  // f32(1 / 4294967295)
+// f32(1 / f32(e1 - e0)) of the smoothsteps (restir.py:711-713).
+constexpr float kInvSs0990 = 11.11111068725586f;       // (0.9, 0.99)
+constexpr float kInvSs0520 = 6.666666507720947f;       // (0.05, 0.20)
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 ld3(const float* __restrict__ p, long long i) {
+  return {__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
+}
+__device__ __forceinline__ void st3(float* __restrict__ p, long long i, V3 v) {
+  p[3 * i] = v.x;
+  p[3 * i + 1] = v.y;
+  p[3 * i + 2] = v.z;
+}
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 divs(V3 a, float s) { return {a.x / s, a.y / s, a.z / s}; }
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 sel(bool m, V3 a, V3 b) { return m ? a : b; }
+__device__ __forceinline__ float comp(V3 a, int c) { return c == 0 ? a.x : (c == 1 ? a.y : a.z); }
+
+// jnp.sum(a * b, -1): fma(a2, b2, fma(a1, b1, a0 * b0))   (ops/fp.dot)
+__device__ __forceinline__ float dot3(V3 a, V3 b) {
+  return fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x));
+}
+// a0*b0 + a1*b1 + a2*b2 written out: fma(a2, b2, fma(a0, b0, a1 * b1))  (ops/fp.sum3)
+__device__ __forceinline__ float sum3(V3 a, V3 b) {
+  return fmaf(a.z, b.z, fmaf(a.x, b.x, a.y * b.y));
+}
+__device__ __forceinline__ float safe_sqrt(float x) { return sqrtf(fmaxf(x, 1e-20f)); }
+// brdf.vec_norm: the squares summed unfused.
+__device__ __forceinline__ float vec_norm(V3 v) {
+  return safe_sqrt(v.x * v.x + v.y * v.y + v.z * v.z);
+}
+__device__ __forceinline__ float pow5(float x) {
+  const float x2 = x * x;
+  return x * (x2 * x2);
+}
+
+// rt_utils.slang:54-59 (ops/rng.rnd).
+__device__ __forceinline__ float rnd(uint32_t& seed) {
+  seed = seed * 747796405u + 2891336453u;
+  const uint32_t shift = (seed >> 28) + 4u;
+  const uint32_t word = ((seed >> shift) ^ seed) * 277803737u;
+  const uint32_t result = (word >> 22) ^ word;
+  return (float)result * kInvU32Max;
+}
+
+struct Surface {
+  V3 pos, n, v, al;
+  float rough, metal;
+};
+
+__device__ __forceinline__ Surface load_surface(const float* pos, const float* nrm,
+                                                const float* view, const float* alb,
+                                                const float* rough, const float* metal,
+                                                long long i) {
+  return {ld3(pos, i), ld3(nrm, i), ld3(view, i), ld3(alb, i), __ldg(rough + i),
+          __ldg(metal + i)};
+}
+
+// GGX D*V*F + Lambert of a light sample, unshadowed (rt_utils.slang:203-234).
+// planar = true rounds as brdf.eval_p_hat_planar (written-out dot products),
+// false as brdf.eval_unshadowed_light (jnp.sum reductions). Returns f_y
+// (rgb); p_hat is its max channel.
+template <bool planar>
+__device__ __forceinline__ V3 eval_light(const Surface& s, V3 em, V3 lpos, V3 lnrm) {
+  V3 l = sub(lpos, s.pos);
+  const float dist =
+      fmaxf(planar ? safe_sqrt(sum3(l, l)) : vec_norm(l), 1e-4f);
+  l = divs(l, dist);
+  const float ndl = fmaxf(planar ? sum3(s.n, l) : dot3(s.n, l), 0.0f);
+  const float cos_light =
+      fmaxf(planar ? -sum3(lnrm, l) : dot3(lnrm, neg(l)), 0.0f);
+  const bool lit = ndl > 0.0f && cos_light > 0.0f;
+  V3 h = add(s.v, l);
+  const float h_n = fmaxf(planar ? safe_sqrt(sum3(h, h)) : vec_norm(h), 1e-12f);
+  h = divs(h, h_n);
+  const float ndh = fmaxf(planar ? sum3(s.n, h) : dot3(s.n, h), 0.0f);
+  const float vdh = fmaxf(planar ? sum3(s.v, h) : dot3(s.v, h), 0.0f);
+  const float ndv = fmaxf(planar ? sum3(s.n, s.v) : dot3(s.n, s.v), 0.001f);
+  const float a = s.rough * s.rough;
+  const float a2 = a * a;
+  const float denom = fmaf(ndh * ndh, a2 - 1.0f, 1.0f);
+  const float d_term = a2 / (denom * kPi * denom);
+  const float one_m = 1.0f - a2;
+  const float ggx_l = ndv * sqrtf(fmaf(ndl * ndl, one_m, a2));
+  const float root_v = sqrtf(fmaf(ndv * ndv, one_m, a2));
+  const float v_term = 0.5f / fmaxf(fmaf(ndl, root_v, ggx_l), 1e-4f);
+  const float dv = d_term * v_term;
+  const float fres5 = pow5(1.0f - vdh);
+  const float geometry = ndl * cos_light / fmaxf(dist * dist, 1e-4f);
+  const float base = 0.04f * (1.0f - s.metal);
+  float out[3];
+  for (int c = 0; c < 3; ++c) {
+    const float al = comp(s.al, c);
+    const float f0 = fmaf(al, s.metal, base);
+    const float f = fmaf(1.0f - f0, fres5, f0);
+    const float shade = fmaf(dv, f, al * (1.0f - s.metal) * (1.0f - f) * kInvPi);
+    out[c] = lit ? comp(em, c) * shade * geometry : 0.0f;
+  }
+  return {out[0], out[1], out[2]};
+}
+
+__device__ __forceinline__ float max3(V3 v) { return fmaxf(fmaxf(v.x, v.y), v.z); }
+
+// brdf.gi_target_pdf (planar = false) / gi_target_pdf_planar (true).
+template <bool planar>
+__device__ __forceinline__ float gi_p_hat(const Surface& s, V3 spos, V3 srad) {
+  V3 w = sub(spos, s.pos);
+  const float d = fmaxf(planar ? safe_sqrt(sum3(w, w)) : vec_norm(w), 1e-4f);
+  w = divs(w, d);
+  const float ndl = fmaxf(planar ? sum3(s.n, w) : dot3(s.n, w), 0.0f);
+  float p = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float fd = comp(s.al, c) * (1.0f - s.metal) * kInvPi;
+    const float contrib = comp(srad, c) * fd * ndl;
+    p = c == 0 ? contrib : fmaxf(p, contrib);
+  }
+  return p;
+}
+
+// The accumulate-and-take step of merge_di / merge_gi (restir.py:94-124).
+__device__ __forceinline__ bool merge(float& w_sum, float& m, float new_m, float weight,
+                                      float u, bool enable) {
+  m = m + (enable ? new_m : 0.0f);
+  weight = enable ? weight : 0.0f;
+  w_sum = w_sum + weight;
+  return enable && (u < weight / fmaxf(w_sum, 1e-4f));
+}
+
+__device__ __forceinline__ float smoothstep(float e0, float inv, float x) {
+  const float t = fminf(fmaxf((x - e0) * inv, 0.0f), 1.0f);
+  return t * t * (3.0f - 2.0f * t);
+}
+__device__ __forceinline__ float one_minus_smoothstep(float e0, float inv, float x) {
+  const float t = fminf(fmaxf((x - e0) * inv, 0.0f), 1.0f);
+  return fmaf(-(t * t), 3.0f - 2.0f * t, 1.0f);
+}
+
+__device__ __forceinline__ V3 emission(const float* __restrict__ em, int idx, int n_lights) {
+  return ld3(em, min(max(idx, 0), n_lights - 1));
+}
+
+// ---- K3 --------------------------------------------------------------------
+
+// Light table packed (L, 12): v0, v1, v2, emission; staged in shared
+// memory (kSmem) or read through the read-only cache.
+template <bool kSmem>
+__global__ void __launch_bounds__(kThreads)
+ris_audition_kernel(const float* __restrict__ g_tab, int n_lights,
+                    const long long* __restrict__ seed_in, const float* __restrict__ pos,
+                    const float* __restrict__ nrm, const float* __restrict__ view,
+                    const float* __restrict__ alb, const float* __restrict__ rough,
+                    const float* __restrict__ metal, const uint8_t* __restrict__ enable_in,
+                    int n, int k, long long* __restrict__ seed_out, float* __restrict__ o_pos,
+                    float* __restrict__ o_nrm, float* __restrict__ o_wsum,
+                    float* __restrict__ o_m, int32_t* __restrict__ o_idx,
+                    float* __restrict__ o_w) {
+  extern __shared__ float s_tab[];
+  if (kSmem) {
+    for (int j = threadIdx.x; j < 12 * n_lights; j += blockDim.x) s_tab[j] = g_tab[j];
+    __syncthreads();
+  }
+  auto tab = [&](int j) { return kSmem ? s_tab[j] : __ldg(g_tab + j); };
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Surface s = load_surface(pos, nrm, view, alb, rough, metal, i);
+  const bool enable = enable_in[i] != 0;
+  uint32_t seed = (uint32_t)seed_in[i];
+
+  float w_sum = 0.0f;
+  int r_idx = 0;
+  V3 r_pos = {0.0f, 0.0f, 0.0f}, r_nrm = r_pos, r_em = r_pos;
+  const float lf = (float)n_lights;
+  for (int c = 0; c < k; ++c) {
+    const float u_pick = rnd(seed);
+    const float u1 = rnd(seed);
+    const float u2 = rnd(seed);
+    const float u_keep = rnd(seed);
+    const int idx = min((int)(u_pick * lf), n_lights - 1);
+    const int b = 12 * idx;
+    const V3 v0 = {tab(b), tab(b + 1), tab(b + 2)};
+    const V3 v1 = {tab(b + 3), tab(b + 4), tab(b + 5)};
+    const V3 v2 = {tab(b + 6), tab(b + 7), tab(b + 8)};
+    const V3 em = {tab(b + 9), tab(b + 10), tab(b + 11)};
+    const V3 e1 = sub(v1, v0), e2 = sub(v2, v0);
+    const V3 cr = {fmaf(e1.y, e2.z, -(e1.z * e2.y)), fmaf(e1.z, e2.x, -(e1.x * e2.z)),
+                   fmaf(e1.x, e2.y, -(e1.y * e2.x))};
+    const float cr_n = safe_sqrt(sum3(cr, cr));
+    const float area = 0.5f * cr_n;
+    const V3 ln = divs(cr, fmaxf(cr_n, 1e-12f));
+    const float sqr1 = sqrtf(u1);
+    const float bu = 1.0f - sqr1;
+    const float bv = u2 * sqr1;
+    const float bw = 1.0f - bu - bv;
+    const V3 lp = {fmaf(v2.x, bw, fmaf(v0.x, bu, v1.x * bv)),
+                   fmaf(v2.y, bw, fmaf(v0.y, bu, v1.y * bv)),
+                   fmaf(v2.z, bw, fmaf(v0.z, bu, v1.z * bv))};
+    const float p_hat = max3(eval_light<true>(s, em, lp, ln));
+    const float wi = enable ? p_hat * fmaxf(lf * area, 1e-4f) : 0.0f;
+    w_sum = w_sum + wi;
+    if (enable && u_keep < wi / fmaxf(w_sum, 1e-4f)) {
+      r_idx = idx;
+      r_pos = lp;
+      r_nrm = ln;
+      r_em = em;
+    }
+  }
+  const float m = enable ? (float)k : 0.0f;
+  // W for the winner (ray_gen_ris.slang:225-231), its emission kept in
+  // registers from its take.
+  const float p_hat_w = max3(eval_light<false>(s, r_em, r_pos, r_nrm));
+  const float w = w_sum / fmaxf(m * p_hat_w, 1e-4f);
+  seed_out[i] = (long long)seed;
+  st3(o_pos, i, r_pos);
+  st3(o_nrm, i, r_nrm);
+  o_wsum[i] = w_sum;
+  o_m[i] = m;
+  o_idx[i] = r_idx;
+  o_w[i] = (enable && w_sum > 0.0f) ? w : 0.0f;
+}
+
+// ---- K4 --------------------------------------------------------------------
+
+struct DiTemporalArgs {
+  const float* em;
+  int n_lights;
+  const long long* seed;
+  const float *r_pos, *r_nrm, *r_wsum, *r_m;
+  const int32_t* r_idx;
+  const float* r_w;
+  const float *h_pos, *h_nrm, *h_w, *h_m;
+  const int32_t* h_idx;
+  const float *h_hn, *h_depth;
+  long long n_hist;
+  const long long* pi;
+  const uint8_t* ok;
+  const float *pos, *nrm, *view, *alb, *rough, *metal, *vdist;
+  int n;
+  float m_clamp, w_clamp;
+  long long* seed_out;
+  float *o_pos, *o_nrm, *o_wsum, *o_m;
+  int32_t* o_idx;
+  float* o_w;
+};
+
+__global__ void __launch_bounds__(kThreads) di_temporal_kernel(DiTemporalArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const Surface s = load_surface(a.pos, a.nrm, a.view, a.alb, a.rough, a.metal, i);
+  uint32_t seed = (uint32_t)a.seed[i];
+  const long long j = min(max(a.pi[i], 0ll), a.n_hist - 1);
+  const V3 h_pos = ld3(a.h_pos, j), h_nrm = ld3(a.h_nrm, j);
+  float h_m = fminf(__ldg(a.h_m + j), a.m_clamp);
+  const float h_w = fminf(__ldg(a.h_w + j), a.w_clamp);
+  const int h_idx = min(__ldg(a.h_idx + j), a.n_lights - 1);
+  const float vd = __ldg(a.vdist + i);
+  const float ndot = dot3(s.n, ld3(a.h_hn, j));
+  const float depth_diff = fabsf(vd - __ldg(a.h_depth + j)) / fmaxf(vd, 1e-4f);
+  h_m = h_m * (smoothstep(0.9f, kInvSs0990, ndot) *
+               one_minus_smoothstep(0.05f, kInvSs0520, depth_diff));
+  const bool use = a.ok[i] != 0 && h_w > 0.0f;
+  const V3 h_em = emission(a.em, h_idx, a.n_lights);
+  const float p_hat_hist = max3(eval_light<false>(s, h_em, h_pos, h_nrm));
+  const float u_m = rnd(seed);
+  float w_sum = __ldg(a.r_wsum + i);
+  float m = __ldg(a.r_m + i);
+  const bool take = merge(w_sum, m, h_m, p_hat_hist * h_w * h_m, u_m, use);
+  const int r_idx = __ldg(a.r_idx + i);
+  const int idx = take ? h_idx : r_idx;
+  const V3 lp = take ? h_pos : ld3(a.r_pos, i);
+  const V3 ln = take ? h_nrm : ld3(a.r_nrm, i);
+  const V3 em = take ? h_em : emission(a.em, r_idx, a.n_lights);
+  const float p_hat_m = max3(eval_light<false>(s, em, lp, ln));
+  const float w_new = w_sum / fmaxf(m * p_hat_m, 1e-4f);
+  a.seed_out[i] = (long long)seed;
+  st3(a.o_pos, i, lp);
+  st3(a.o_nrm, i, ln);
+  a.o_wsum[i] = w_sum;
+  a.o_m[i] = m;
+  a.o_idx[i] = idx;
+  a.o_w[i] = use ? w_new : __ldg(a.r_w + i);
+}
+
+// ---- K5 --------------------------------------------------------------------
+
+struct DiSpatialArgs {
+  const float* em;
+  int n_lights;
+  const long long* seed;
+  const float *c_pos, *c_nrm, *c_w, *c_m;
+  const int32_t* c_idx;
+  const uint8_t* pending;
+  const float *gnormal, *gdepth, *cur_depth;
+  const float *pos, *nrm, *view, *alb, *rough, *metal;
+  int width, height;
+  int taps[2 * kMaxTaps];
+  int n_taps;
+  float w_clamp, m_clamp, ws_clamp;
+  long long* seed_out;
+  float *o_pos, *o_nrm, *o_wsum, *o_m;
+  int32_t* o_idx;
+  float *o_wspatial, *o_fy;
+  uint8_t* o_has;
+};
+
+__global__ void __launch_bounds__(kThreads) di_spatial_kernel(DiSpatialArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = a.width * a.height;
+  if (i >= n) return;
+  const Surface s = load_surface(a.pos, a.nrm, a.view, a.alb, a.rough, a.metal, i);
+  const bool pending = a.pending[i] != 0;
+  uint32_t seed = (uint32_t)a.seed[i];
+
+  // Centre merge (the pixel's own reservoir, ray_gen_final.slang:147-158).
+  const int c_raw = __ldg(a.c_idx + i);
+  const float c_w = __ldg(a.c_w + i), c_m = __ldg(a.c_m + i);
+  const bool c_ok = pending && c_w > 0.0f && c_raw < a.n_lights;
+  const int c_idx = min(c_raw, a.n_lights - 1);
+  const V3 c_pos = ld3(a.c_pos, i), c_nrm = ld3(a.c_nrm, i);
+  const V3 c_em = emission(a.em, c_idx, a.n_lights);
+  const float p_hat_c = max3(eval_light<false>(s, c_em, c_pos, c_nrm));
+  const float u_m = rnd(seed);
+  float w_sum = 0.0f, m_acc = 0.0f;
+  const bool c_take = merge(w_sum, m_acc, c_m, p_hat_c * c_w * c_m, u_m, c_ok);
+  int r_idx = c_take ? c_idx : 0;
+  const V3 zero = {0.0f, 0.0f, 0.0f};
+  V3 r_pos = sel(c_take, c_pos, zero), r_nrm = sel(c_take, c_nrm, zero);
+  V3 r_em = c_take ? c_em : emission(a.em, 0, a.n_lights);
+
+  // Shared-offset taps, each neighbour read in place (pathtrace.py:583-599).
+  const int x = i % a.width, y = i / a.width;
+  const float cur = __ldg(a.cur_depth + i);
+  for (int t = 0; t < a.n_taps; ++t) {
+    const float u = rnd(seed);
+    const int nx = x + a.taps[2 * t], ny = y + a.taps[2 * t + 1];
+    if (nx < 0 || ny < 0 || nx >= a.width || ny >= a.height) continue;
+    const long long j = (long long)ny * a.width + nx;
+    const bool ok = dot3(s.n, ld3(a.gnormal, j)) >= 0.9f &&
+                    fabsf(cur - __ldg(a.gdepth + j)) <= 0.1f * cur;
+    const float w_cl = fminf(__ldg(a.c_w + j), a.w_clamp);
+    const float m_cl = fminf(__ldg(a.c_m + j), a.m_clamp);
+    const int idx_raw = __ldg(a.c_idx + j);
+    const bool use = pending && ok && w_cl > 0.0f && idx_raw < a.n_lights;
+    if (!use) continue;  // merge() with enable false leaves every value
+    const int idx = min(idx_raw, a.n_lights - 1);
+    const V3 lp = ld3(a.c_pos, j), ln = ld3(a.c_nrm, j);
+    const V3 em = emission(a.em, idx, a.n_lights);
+    const float p_hat = max3(eval_light<true>(s, em, lp, ln));
+    if (merge(w_sum, m_acc, m_cl, p_hat * w_cl * m_cl, u, true)) {
+      r_idx = idx;
+      r_pos = lp;
+      r_nrm = ln;
+      r_em = em;
+    }
+  }
+
+  // Resolve, clamp and the winner's f_y (ray_gen_final.slang:203-222).
+  const V3 f_y = eval_light<false>(s, r_em, r_pos, r_nrm);
+  const float w_spatial = fminf(w_sum / fmaxf(m_acc * max3(f_y), 1e-3f), a.ws_clamp);
+  a.seed_out[i] = (long long)seed;
+  st3(a.o_pos, i, r_pos);
+  st3(a.o_nrm, i, r_nrm);
+  a.o_wsum[i] = w_sum;
+  a.o_m[i] = m_acc;
+  a.o_idx[i] = r_idx;
+  a.o_wspatial[i] = w_spatial;
+  st3(a.o_fy, i, f_y);
+  a.o_has[i] = (pending && w_sum > 0.0f) ? 1 : 0;
+}
+
+// ---- K6 --------------------------------------------------------------------
+
+struct GiSpatialArgs {
+  const long long* seed;
+  const float *c_spos, *c_srad;
+  const int32_t* c_stri;
+  const float *c_wsum, *c_m;
+  const float *t_spos, *t_srad;           // (T, P, 3)
+  const int32_t* t_stri;                  // (T, P)
+  const float *t_w, *t_m, *t_jac;         // (T, P)
+  const uint8_t* t_ok;                    // (T, P)
+  int n_taps;
+  const uint8_t* pending;
+  const float *pos, *nrm, *alb, *metal;
+  int n;
+  float w_clamp;
+  long long* seed_out;
+  float *o_gdir, *o_gdist;
+  int32_t* o_stri;
+  uint8_t* o_try;
+  float* o_contrib;
+};
+
+__global__ void __launch_bounds__(kThreads) gi_spatial_kernel(GiSpatialArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  Surface s;
+  s.pos = ld3(a.pos, i);
+  s.n = ld3(a.nrm, i);
+  s.al = ld3(a.alb, i);
+  s.metal = __ldg(a.metal + i);
+  s.v = {0.0f, 0.0f, 0.0f};
+  s.rough = 0.0f;
+  uint32_t seed = (uint32_t)a.seed[i];
+  float w_sum = __ldg(a.c_wsum + i), m_acc = __ldg(a.c_m + i);
+  V3 r_pos = ld3(a.c_spos, i), r_rad = ld3(a.c_srad, i);
+  int r_tri = __ldg(a.c_stri + i);
+  for (int t = 0; t < a.n_taps; ++t) {
+    const long long j = (long long)t * a.n + i;
+    const float u = rnd(seed);
+    if (a.t_ok[j] == 0) continue;  // merge() with enable false leaves every value
+    const V3 spos = ld3(a.t_spos, j), srad = ld3(a.t_srad, j);
+    const float w_t = __ldg(a.t_w + j), m_t = __ldg(a.t_m + j);
+    const float p_hat = gi_p_hat<true>(s, spos, srad);
+    if (merge(w_sum, m_acc, m_t, p_hat * w_t * m_t * __ldg(a.t_jac + j), u, true)) {
+      r_pos = spos;
+      r_rad = srad;
+      r_tri = __ldg(a.t_stri + j);
+    }
+  }
+  // Final resolve (ray_gen_final.slang:305-327).
+  const float p_hat_f = gi_p_hat<false>(s, r_pos, r_rad);
+  float w_gi = p_hat_f > 1e-3f
+                   ? w_sum / (fmaxf(m_acc, 1.0f) * fmaxf(p_hat_f, 1e-9f))
+                   : 0.0f;
+  w_gi = fminf(w_gi, a.w_clamp);
+  const V3 gvec = sub(r_pos, s.pos);
+  const float gdist = fmaxf(vec_norm(gvec), 1e-4f);
+  const V3 gdir = divs(gvec, gdist);
+  const float gndl = fmaxf(dot3(s.n, gdir), 0.0f);
+  const bool pending = a.pending[i] != 0;
+  a.seed_out[i] = (long long)seed;
+  st3(a.o_gdir, i, gdir);
+  a.o_gdist[i] = gdist;
+  a.o_stri[i] = r_tri;
+  a.o_try[i] = (pending && w_gi > 0.0f && gndl > 0.0f) ? 1 : 0;
+  const float scale = gndl * w_gi;
+  V3 contrib;
+  contrib.x = r_rad.x * (s.al.x * (1.0f - s.metal) * kInvPi) * scale;
+  contrib.y = r_rad.y * (s.al.y * (1.0f - s.metal) * kInvPi) * scale;
+  contrib.z = r_rad.z * (s.al.z * (1.0f - s.metal) * kInvPi) * scale;
+  st3(a.o_contrib, i, contrib);
+}
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" {
+
+int sunray_ris_audition(const float* tab, int n_lights, const long long* seed,
+                        const float* pos, const float* nrm, const float* view,
+                        const float* alb, const float* rough, const float* metal,
+                        const uint8_t* enable, int n, int k, long long* seed_out,
+                        float* o_pos, float* o_nrm, float* o_wsum, float* o_m,
+                        int32_t* o_idx, float* o_w, void* stream) {
+  if (n > 0) {
+    const size_t bytes = sizeof(float) * 12 * (size_t)n_lights;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (bytes <= 48 * 1024) {
+      ris_audition_kernel<true><<<blocks_for(n), kThreads, bytes, s>>>(
+          tab, n_lights, seed, pos, nrm, view, alb, rough, metal, enable, n, k, seed_out,
+          o_pos, o_nrm, o_wsum, o_m, o_idx, o_w);
+    } else {
+      ris_audition_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+          tab, n_lights, seed, pos, nrm, view, alb, rough, metal, enable, n, k, seed_out,
+          o_pos, o_nrm, o_wsum, o_m, o_idx, o_w);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sunray_di_temporal(const float* em, int n_lights, const long long* seed,
+                       const float* r_pos, const float* r_nrm, const float* r_wsum,
+                       const float* r_m, const int32_t* r_idx, const float* r_w,
+                       const float* h_pos, const float* h_nrm, const float* h_w,
+                       const float* h_m, const int32_t* h_idx, const float* h_hn,
+                       const float* h_depth, long long n_hist, const long long* pi,
+                       const uint8_t* ok, const float* pos, const float* nrm,
+                       const float* view, const float* alb, const float* rough,
+                       const float* metal, const float* vdist, int n, float m_clamp,
+                       float w_clamp, long long* seed_out, float* o_pos, float* o_nrm,
+                       float* o_wsum, float* o_m, int32_t* o_idx, float* o_w,
+                       void* stream) {
+  if (n > 0) {
+    DiTemporalArgs a = {em,    n_lights, seed,  r_pos, r_nrm,   r_wsum,   r_m,   r_idx,
+                        r_w,   h_pos,    h_nrm, h_w,   h_m,     h_idx,    h_hn,  h_depth,
+                        n_hist, pi,      ok,    pos,   nrm,     view,     alb,   rough,
+                        metal, vdist,    n,     m_clamp, w_clamp, seed_out, o_pos, o_nrm,
+                        o_wsum, o_m,     o_idx, o_w};
+    di_temporal_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sunray_di_spatial(const float* em, int n_lights, const long long* seed,
+                      const float* c_pos, const float* c_nrm, const float* c_w,
+                      const float* c_m, const int32_t* c_idx, const uint8_t* pending,
+                      const float* gnormal, const float* gdepth, const float* cur_depth,
+                      const float* pos, const float* nrm, const float* view,
+                      const float* alb, const float* rough, const float* metal, int width,
+                      int height, const int* taps, int n_taps, float w_clamp,
+                      float m_clamp, float ws_clamp, long long* seed_out, float* o_pos,
+                      float* o_nrm, float* o_wsum, float* o_m, int32_t* o_idx,
+                      float* o_wspatial, float* o_fy, uint8_t* o_has, void* stream) {
+  if (n_taps < 0 || n_taps > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = width * height;
+  if (n > 0) {
+    DiSpatialArgs a;
+    a.em = em;
+    a.n_lights = n_lights;
+    a.seed = seed;
+    a.c_pos = c_pos;
+    a.c_nrm = c_nrm;
+    a.c_w = c_w;
+    a.c_m = c_m;
+    a.c_idx = c_idx;
+    a.pending = pending;
+    a.gnormal = gnormal;
+    a.gdepth = gdepth;
+    a.cur_depth = cur_depth;
+    a.pos = pos;
+    a.nrm = nrm;
+    a.view = view;
+    a.alb = alb;
+    a.rough = rough;
+    a.metal = metal;
+    a.width = width;
+    a.height = height;
+    for (int t = 0; t < 2 * kMaxTaps; ++t) a.taps[t] = taps[t];
+    a.n_taps = n_taps;
+    a.w_clamp = w_clamp;
+    a.m_clamp = m_clamp;
+    a.ws_clamp = ws_clamp;
+    a.seed_out = seed_out;
+    a.o_pos = o_pos;
+    a.o_nrm = o_nrm;
+    a.o_wsum = o_wsum;
+    a.o_m = o_m;
+    a.o_idx = o_idx;
+    a.o_wspatial = o_wspatial;
+    a.o_fy = o_fy;
+    a.o_has = o_has;
+    di_spatial_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sunray_gi_spatial(const long long* seed, const float* c_spos, const float* c_srad,
+                      const int32_t* c_stri, const float* c_wsum, const float* c_m,
+                      const float* t_spos, const float* t_srad,
+                      const int32_t* t_stri, const float* t_w,
+                      const float* t_m, const float* t_jac, const uint8_t* t_ok, int n_taps,
+                      const uint8_t* pending, const float* pos, const float* nrm,
+                      const float* alb, const float* metal, int n, float w_clamp,
+                      long long* seed_out, float* o_gdir, float* o_gdist, int32_t* o_stri,
+                      uint8_t* o_try, float* o_contrib, void* stream) {
+  if (n_taps < 0 || n_taps > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    GiSpatialArgs a = {seed,    c_spos, c_srad, c_stri, c_wsum,   c_m,    t_spos,
+                       t_srad,  t_stri, t_w,    t_m,    t_jac,    t_ok,   n_taps,
+                       pending, pos,    nrm,    alb,    metal,    n,      w_clamp,
+                       seed_out, o_gdir, o_gdist, o_stri, o_try,  o_contrib};
+    gi_spatial_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,8 +1,24 @@
-"""BRDF math for the NEE path: ONB, GGX VNDF sampling, cosine hemisphere.
+"""BRDF math: ONB, GGX VNDF sampling, cosine hemisphere, and the ReSTIR
+target functions (unshadowed light, GI target pdf, their planar forms).
 
-Port of the subset of sunray_tpu/ops/brdf.py that the forward NEE frame
-calls, formula for formula (rt_utils.slang:150-201). All functions
-broadcast over leading dims; vectors are (..., 3).
+Port of sunray_tpu/ops/brdf.py, formula for formula (rt_utils.slang:
+150-263). All functions broadcast over leading dims; vectors are
+(..., 3).
+
+The target functions round as XLA's CPU backend compiles the reference
+(ops/fp.py): a division by PI is a multiply by float32(1 / PI); a
+multiply feeding an add is fused where the multiply has no other use
+(a per-pixel factor broadcast over the three channels, such as
+0.04 * (1 - metal), has other uses); which of two products is fused
+was read off XLA's results and is pinned by tests/test_torch_restir.py;
+jnp.sum over a 3-vector is the chain
+fma(x2, y2, fma(x1, y1, x0 * y0)), except a sum of squares of a vector
+computed in the same fusion (vec_norm), which XLA leaves unfused; a
+sum written out as x0*y0 + x1*y1 + x2*y2 is
+fma(x2, y2, fma(x0, y0, x1 * y1)) (fp.sum3).
+The planar forms take lists of three component tensors that broadcast
+(surface attributes (P,) against sample planes (K, P)), as the JAX
+planar forms do.
 """
 
 from __future__ import annotations
@@ -13,6 +29,9 @@ from sunray_tpu_torch.ops import fp
 
 PI = 3.14159  # the reference uses 3.14159 (not pi) throughout
 PI_VNDF = 3.14159265  # sample_ggx_vndf uses the longer constant (rt_utils.slang:192)
+# float32(1 / float32(PI)): XLA turns x / PI into x * INV_PI.
+INV_PI = torch.tensor(1.0, dtype=torch.float32).div(
+    torch.tensor(PI, dtype=torch.float32)).item()
 
 
 def dot(a, b):
@@ -21,12 +40,13 @@ def dot(a, b):
 
 def safe_sqrt(x, eps=1e-20):
     """sqrt with a finite gradient at 0."""
-    return torch.sqrt(torch.clamp(x, min=eps))
+    return fp.sqrt(torch.clamp(x, min=eps))
 
 
 def vec_norm(v, eps=1e-20):
-    """Gradient-safe vector norm."""
-    return safe_sqrt(fp.dot(v, v), eps)
+    """Gradient-safe vector norm; the squares summed unfused."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return safe_sqrt(x * x + y * y + z * z, eps)
 
 
 def normalize(v, eps=0.0):
@@ -76,14 +96,14 @@ def build_onb(n):
 def smith_g1_ggx(NdotX, alpha):
     """rt_utils.slang:165-169."""
     a2 = alpha * alpha
-    denom = NdotX + torch.sqrt(a2 + (1.0 - a2) * NdotX * NdotX)
+    denom = NdotX + fp.sqrt(a2 + (1.0 - a2) * NdotX * NdotX)
     return 2.0 * NdotX / torch.clamp(denom, min=1e-4)
 
 
 def cosine_hemisphere(normal, r1, r2):
     """get_random_bounce (rt_utils.slang:171-177)."""
     phi = 2.0 * PI * r1
-    r = torch.sqrt(r2)
+    r = fp.sqrt(r2)
     u, v = build_onb(normal)
     d = (
         u * (torch.cos(phi) * r)[..., None]
@@ -106,7 +126,7 @@ def sample_ggx_vndf(normal, v_world, roughness, r1, r2):
 
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
     inv_len = torch.where(
-        lensq > 0.0, 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-30)), 0.0
+        lensq > 0.0, 1.0 / fp.sqrt(torch.clamp(lensq, min=1e-30)), 0.0
     )
     t1 = torch.where(
         (lensq > 0.0)[..., None],
@@ -116,17 +136,17 @@ def sample_ggx_vndf(normal, v_world, roughness, r1, r2):
     )
     t2 = cross(vh, t1)
 
-    rr = torch.sqrt(r1)
+    rr = fp.sqrt(r1)
     phi = 2.0 * PI_VNDF * r2
     p1 = rr * torch.cos(phi)
     p2 = rr * torch.sin(phi)
     s = 0.5 * (1.0 + vh[..., 2])
-    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    p2 = (1.0 - s) * fp.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
 
     nh = (
         p1[..., None] * t1
         + p2[..., None] * t2
-        + torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))[..., None] * vh
+        + fp.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))[..., None] * vh
     )
     hl = normalize(
         torch.stack(
@@ -135,3 +155,116 @@ def sample_ggx_vndf(normal, v_world, roughness, r1, r2):
         )
     )
     return t * hl[..., 0:1] + b * hl[..., 1:2] + normal * hl[..., 2:3]
+
+
+def smith_v_ggx(NdotV, NdotL, alpha):
+    """rt_utils.slang:158-163."""
+    a2 = alpha * alpha
+    ggx_l = NdotV * fp.sqrt(fp.fma(NdotL * NdotL, 1.0 - a2, a2))
+    root_v = fp.sqrt(fp.fma(NdotV * NdotV, 1.0 - a2, a2))
+    return 0.5 / torch.clamp(fp.fma(NdotL, root_v, ggx_l), min=1e-4)
+
+
+def _fresnel_mix(f0, vdh):
+    """f0 + (1 - f0) * (1 - VdotH)^5, fused."""
+    return fp.fma(1.0 - f0, fp.pow5(1.0 - vdh), f0)
+
+
+def eval_unshadowed_light(hit_pos, hit_normal, v_view, hit_albedo, roughness,
+                          metallic, light_emission, light_pos, light_normal):
+    """Unshadowed direct-light contribution (rt_utils.slang:203-234): GGX
+    D*V*F specular + Lambert diffuse, times NdotL * cos_light / dist^2.
+    Returns (..., 3) RGB."""
+    l = light_pos - hit_pos
+    dist = torch.clamp(vec_norm(l), min=1e-4)
+    l = l / dist[..., None]
+    ndl = torch.clamp(dot(hit_normal, l), min=0.0)
+    cos_light = torch.clamp(dot(light_normal, -l), min=0.0)
+    lit = (ndl > 0.0) & (cos_light > 0.0)
+    h = normalize(v_view + l, eps=1e-12)
+    ndh = torch.clamp(dot(hit_normal, h), min=0.0)
+    vdh = torch.clamp(dot(v_view, h), min=0.0)
+    ndv = torch.clamp(dot(hit_normal, v_view), min=0.001)
+
+    a = roughness * roughness
+    a2 = a * a
+    denom = fp.fma(ndh * ndh, a2 - 1.0, 1.0)
+    d_term = a2 / (denom * PI * denom)
+    m = metallic[..., None]
+    f0 = fp.fma(hit_albedo, m, 0.04 * (1.0 - m))
+    f = _fresnel_mix(f0, vdh[..., None])
+    dv = (d_term * smith_v_ggx(ndv, ndl, a))[..., None]
+    shade = fp.fma(dv, f, hit_albedo * (1.0 - m) * (1.0 - f) * INV_PI)
+    geometry = ndl * cos_light / torch.clamp(dist * dist, min=1e-4)
+    out = light_emission * shade * geometry[..., None]
+    return torch.where(lit[..., None], out, 0.0)
+
+
+def luminance_max(rgb):
+    """p_hat = max channel (the ReSTIR target function)."""
+    return rgb.amax(dim=-1)
+
+
+def gi_target_pdf(shade_pos, shade_normal, albedo, metallic, sample_pos,
+                  sample_radiance):
+    """rt_utils.slang:255-263."""
+    w = sample_pos - shade_pos
+    d = torch.clamp(vec_norm(w), min=1e-4)
+    ndl = torch.clamp(dot(shade_normal, w / d[..., None]), min=0.0)
+    f_diffuse = albedo * (1.0 - metallic[..., None]) * INV_PI
+    return (sample_radiance * f_diffuse * ndl[..., None]).amax(dim=-1)
+
+
+def eval_p_hat_planar(px, nx, vx, al, rough, metal, em, lpos, lnrm):
+    """Planar form of eval_unshadowed_light -> p_hat (brdf.py:197-252):
+    px/nx/vx/al and lpos/lnrm/em are lists of three broadcasting component
+    planes, rough/metal single planes. Returns (p_hat, lit, [f_r, f_g, f_b]).
+    The same formulas as eval_unshadowed_light with the planar roundings
+    (fp.sum3 for the written-out dot products)."""
+    l = [lpos[a] - px[a] for a in range(3)]
+    dist = torch.clamp(safe_sqrt(fp.sum3(l, l)), min=1e-4)
+    l = [l[a] / dist for a in range(3)]
+    ndl = torch.clamp(fp.sum3(nx, l), min=0.0)
+    cos_light = torch.clamp(-fp.sum3(lnrm, l), min=0.0)
+    lit = (ndl > 0.0) & (cos_light > 0.0)
+    h = [vx[a] + l[a] for a in range(3)]
+    h_n = torch.clamp(safe_sqrt(fp.sum3(h, h)), min=1e-12)
+    h = [h[a] / h_n for a in range(3)]
+    ndh = torch.clamp(fp.sum3(nx, h), min=0.0)
+    vdh = torch.clamp(fp.sum3(vx, h), min=0.0)
+    ndv = torch.clamp(fp.sum3(nx, vx), min=0.001)
+    a_r = rough * rough
+    a2 = a_r * a_r
+    denom = fp.fma(ndh * ndh, a2 - 1.0, 1.0)
+    d_term = a2 / (denom * PI * denom)
+    one_m = 1.0 - a2
+    ggx_l = ndv * fp.sqrt(fp.fma(ndl * ndl, one_m, a2))
+    root_v = fp.sqrt(fp.fma(ndv * ndv, one_m, a2))
+    v_term = 0.5 / torch.clamp(fp.fma(ndl, root_v, ggx_l), min=1e-4)
+    fres5 = fp.pow5(1.0 - vdh)
+    geometry = ndl * cos_light / torch.clamp(dist * dist, min=1e-4)
+    dv = d_term * v_term
+    base = 0.04 * (1.0 - metal)
+    p_hat = None
+    fc = []
+    for c in range(3):
+        f0 = fp.fma(al[c], metal, base)
+        f = fp.fma(1.0 - f0, fres5, f0)
+        shade = fp.fma(dv, f, al[c] * (1.0 - metal) * (1.0 - f) * INV_PI)
+        out_c = torch.where(lit, em[c] * shade * geometry, 0.0)
+        fc.append(out_c)
+        p_hat = out_c if p_hat is None else torch.maximum(p_hat, out_c)
+    return p_hat, lit, fc
+
+
+def gi_target_pdf_planar(px, nx, al, metal, spos, srad):
+    """Planar form of gi_target_pdf (brdf.py:255-270)."""
+    w = [spos[a] - px[a] for a in range(3)]
+    d = torch.clamp(safe_sqrt(fp.sum3(w, w)), min=1e-4)
+    w = [w[a] / d for a in range(3)]
+    ndl = torch.clamp(fp.sum3(nx, w), min=0.0)
+    p_hat = None
+    for c in range(3):
+        contrib = srad[c] * (al[c] * (1.0 - metal) * INV_PI) * ndl
+        p_hat = contrib if p_hat is None else torch.maximum(p_hat, contrib)
+    return p_hat

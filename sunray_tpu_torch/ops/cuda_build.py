@@ -2,7 +2,8 @@
 
 All sources under `sunray_tpu_torch/csrc/` compile into one shared library
 with a plain C interface, at first use, into `build/sunray_tpu_torch/` at
-the repository root (ignored by git). The file name carries a hash of the
+the repository root (ignored by git): one nvcc per source, all started
+together, then one link. The file name carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale one is never
 loaded. Nothing here runs at import time: the CPU tests import every
 module on a host that has no nvcc and no card.
@@ -36,11 +37,11 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sunray_tpu_torch"
-SOURCES = ("trace.cu", "gather.cu", "atrous.cu")
+SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 launches: collections.Counter = collections.Counter()
@@ -79,16 +80,34 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(CSRC_DIR / s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(SOURCES, objs)]
+    report = []
+    failed = []
+    for s, proc in zip(SOURCES, procs):
+        text = proc.communicate()[0]
+        report.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{s}: nvcc exited {proc.returncode}:\n{text}")
+    if failed:
+        raise KernelError("\n".join(failed))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelError(
-            f"nvcc exited {proc.returncode}:\n{proc.stdout}{proc.stderr}"
-        )
+    link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                           "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise KernelError(f"link exited {link.returncode}:\n"
+                          f"{link.stdout}{link.stderr}")
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, "".join(report)
 
 
 def _declare(lib):
@@ -99,8 +118,20 @@ def _declare(lib):
                                           p, p]
     lib.sunray_gather_rows.argtypes = [p, p, i, i, i64, i64, p, p]
     lib.sunray_atrous_pass.argtypes = [p, p, p, p, p, i, i, i, p, p]
+    lib.sunray_ris_audition.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i,
+                                        p, p, p, p, p, p, p, p]
+    lib.sunray_di_temporal.argtypes = ([p, i, p] + [p] * 6 + [p] * 7
+                                       + [i64, p, p] + [p] * 7 + [i, f, f]
+                                       + [p] * 7 + [p])
+    lib.sunray_di_spatial.argtypes = ([p, i, p] + [p] * 5 + [p] * 4 + [p] * 6
+                                      + [i, i, ctypes.POINTER(i), i, f, f, f]
+                                      + [p] * 9 + [p])
+    lib.sunray_gi_spatial.argtypes = ([p] + [p] * 5 + [p] * 7 + [i, p]
+                                      + [p] * 4 + [i, f] + [p] * 6 + [p])
     for fn in (lib.sunray_trace_closest, lib.sunray_trace_occluded,
-               lib.sunray_gather_rows, lib.sunray_atrous_pass):
+               lib.sunray_gather_rows, lib.sunray_atrous_pass,
+               lib.sunray_ris_audition, lib.sunray_di_temporal,
+               lib.sunray_di_spatial, lib.sunray_gi_spatial):
         fn.restype = ctypes.c_int
     return lib
 

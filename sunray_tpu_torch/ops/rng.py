@@ -60,3 +60,22 @@ def rnd2(seed):
     seed, u1 = rnd(seed)
     seed, u2 = rnd(seed)
     return seed, u1, u2
+
+
+def rnd_chain(seed, n: int):
+    """n consecutive draws at once, bit-exact with n sequential rnd calls
+    (rng.py:61-96): the LCG state after j draws is alpha_j * seed + beta_j
+    mod 2^32. Returns (new_seed (...,), draws (..., n) float32)."""
+    a, c = 747796405, 2891336453
+    seeds = []
+    al, be = 1, 0
+    seed = _u32(seed)
+    for _ in range(n):
+        al = (a * al) & _MASK
+        be = (a * be + c) & _MASK
+        seeds.append((_mul32(seed, al) + be) & _MASK)
+    seeds = torch.stack(seeds, dim=-1)
+    shift = (seeds >> 28) + 4
+    word = _mul32((seeds >> shift) ^ seeds, 277803737)
+    result = (word >> 22) ^ word
+    return seeds[..., -1], result.to(torch.float32) * _INV_U32_MAX

@@ -1,16 +1,26 @@
-"""Pass 1 — primary walk + G-buffer, port of sunray_tpu/render/gbuffer.py
-up to ris_pass's non-ReSTIR return (gbuffer.py:276-277).
+"""Pass 1 — primary walk, G-buffer, ReSTIR DI audition and the GI initial
+sample; port of sunray_tpu/render/gbuffer.py.
 
-The virtual-bounce walk (glass/mirror passthrough to the first diffuse
-surface, ray_gen_ris.slang:69-141) runs as a Python loop over full ray
-batches with an active mask: the peeled first round always runs, then
-rounds continue while i < virtual_bounces and any lane is active
-(ops/loops.bounded_loop's forward semantics). The RIS audition and the DI
-/ GI temporal reuse are the next port slice and raise.
+  phase 1: the virtual-bounce walk (glass/mirror passthrough to the first
+           diffuse surface, ray_gen_ris.slang:69-141) as a Python loop
+           over full ray batches with an active mask: the peeled first
+           round always runs, then rounds continue while
+           i < virtual_bounces and any lane is active
+           (ops/loops.bounded_loop's forward semantics);
+  phase 2: RIS audition (K3), DI temporal reuse (K4) and the winner's
+           visibility ray (ray_gen_ris.slang:174-302);
+  phase 3: the GI initial sample, one cosine bounce with NEE at its hit,
+           and GI temporal reuse (ray_gen_ris.slang:311-439).
+
+The DI visibility ray and the GI NEE shadow ray go to the tracer in one
+2P-ray call (gbuffer.py:354-366). Per pixel the RNG stream runs: walk,
+audition (4K draws), DI jitter (2), DI merge (1), GI bounce (2), NEE pick
+and point (3), GI jitter (2), GI merge (1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -21,12 +31,21 @@ from sunray_tpu_torch.camera import (
     project_to_prev_uv,
 )
 from sunray_tpu_torch.ops import rng as rng_mod
-from sunray_tpu_torch.ops.brdf import dot, reflect, refract, vec_norm
-from sunray_tpu_torch.ops.fp import fma
+from sunray_tpu_torch.ops.brdf import (
+    INV_PI,
+    PI,
+    cosine_hemisphere,
+    dot,
+    gi_target_pdf,
+    reflect,
+    refract,
+    vec_norm,
+)
+from sunray_tpu_torch.ops.fp import fma, pow5
 from sunray_tpu_torch.ops.intersect import Hit
 from sunray_tpu_torch.render import restir
 from sunray_tpu_torch.render.shade import shade_hits
-from sunray_tpu_torch.render.trace import trace_closest
+from sunray_tpu_torch.render.trace import trace_closest, trace_occluded
 
 SKY_DEPTH = 100000.0  # ray_gen_ris.slang:155 sentinel
 
@@ -71,7 +90,7 @@ def transmissive_bounce(seed, ray_d, surf_normal, surf_ior, surf_pos):
     eta = torch.where(is_inside, ior, 1.0 / ior)
     cos_theta = torch.clamp(dot(-ray_d, n), max=1.0)
     r0 = ((1.0 - eta) / (1.0 + eta)) ** 2
-    fresnel = r0 + (1.0 - r0) * (1.0 - cos_theta) ** 5
+    fresnel = r0 + (1.0 - r0) * pow5(1.0 - cos_theta)
     refracted = refract(ray_d, n, eta)
     tir = vec_norm(refracted) < 0.01
     fresnel = torch.where(tir, 1.0, fresnel)
@@ -180,13 +199,8 @@ def primary_walk(scene, cfg, tracer, origins, dirs, seed):
 
 def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
              res_di_hist, res_gi_hist, frame_count):
-    """Pass 1 up to the G-buffer. Returns (GBuffer, ReservoirDI,
-    ReservoirGI, PrimaryHit, walk rounds). ReSTIR lighting raises."""
-    if cfg.lighting == "restir" and lights is not None and lights.num > 0:
-        raise NotImplementedError(
-            "ReSTIR lighting (RIS audition, temporal reuse) is not ported; "
-            "use lighting='nee' or 'brdf'"
-        )
+    """Full pass 1. Returns (GBuffer, ReservoirDI, ReservoirGI, PrimaryHit,
+    walk rounds); the reservoirs are empty unless lighting is "restir"."""
     w, h = cfg.width, cfg.height
     p = w * h
     origins, dirs = generate_rays(mats, w, h)
@@ -198,6 +212,7 @@ def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
     seed = rng_mod.init_seed(pix, frame_count)
 
     walk = primary_walk(scene, cfg, tracer, origins, dirs, seed)
+    seed = walk["seed"]
     found = walk["found"]
 
     # Reprojection + motion vectors (ray_gen_ris.slang:118-136).
@@ -236,5 +251,116 @@ def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
         prev_uv=prev_uv,
         prev_valid=prev_valid,
     )
-    return (gbuf, restir.ReservoirDI.empty(p, dev),
-            restir.ReservoirGI.empty(p, dev), hitd, walk["i"])
+    if cfg.lighting != "restir" or lights is None or lights.num == 0:
+        return (gbuf, restir.ReservoirDI.empty(p, dev),
+                restir.ReservoirGI.empty(p, dev), hitd, walk["i"])
+    r_di, r_gi = _restir_samples(scene, cfg, tracer, lights, seed, hitd,
+                                 res_di_hist, res_gi_hist, frame_count)
+    return gbuf, r_di, r_gi, hitd, walk["i"]
+
+
+def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
+                    res_di_hist, res_gi_hist, frame_count):
+    """Phases 2 and 3 of pass 1: the DI and GI reservoirs of this frame."""
+    w, h = cfg.width, cfg.height
+    p = w * h
+    found = hitd.found
+    pos, normal = hitd.pos, hitd.normal
+    attrs = (hitd.v_view, hitd.albedo, hitd.roughness, hitd.metallic)
+
+    # --- Phase 2: RIS + temporal + visibility (DI) ---
+    enable_di = found & (hitd.roughness > 0.2)
+    seed, r_di = restir.ris_audition(lights, seed, pos, normal, *attrs,
+                                     cfg.ris_candidates, enable_di)
+    seed, r_di = restir.di_temporal_reuse(
+        lights, cfg, seed, r_di, res_di_hist, hitd.prev_uv, hitd.prev_valid,
+        frame_count, pos, normal, *attrs, hitd.virtual_distance, w, h,
+        enable_di,
+    )
+    # Visibility reuse (ray_gen_ris.slang:277-302), traced below together
+    # with the GI NEE shadow ray.
+    vis_vec = r_di.light_pos - pos
+    vis_dist = torch.clamp(vec_norm(vis_vec), min=1e-4)
+    vis_dir = vis_vec / vis_dist[:, None]
+    facing = dot(normal, vis_dir) > 0.0
+    vis_origin = fma(normal, 1e-3, pos)
+    vis_exclude = lights.world_tri[r_di.light_idx.long()]
+
+    # --- Phase 3: GI initial sample (ray_gen_ris.slang:311-406) ---
+    seed, g1, g2 = rng_mod.rnd2(seed)
+    gi_dir = cosine_hemisphere(normal, g1, g2)
+    gi_ndl = torch.clamp(dot(normal, gi_dir), min=0.0)
+    gi_enable = found & (gi_ndl > 0.0)
+    gi_origin = fma(normal, 1e-3, pos)
+    gi_hit = trace_closest(tracer, gi_origin, gi_dir)
+    gi_surf = shade_hits(scene, gi_origin, gi_dir, gi_hit,
+                         face_forward=cfg.face_forward_normals)
+    gi_found = gi_enable & gi_surf.valid & (gi_surf.dist > 0.0)
+    g3 = gi_found[:, None]
+    sample_pos = torch.where(g3, gi_surf.pos, 0.0)
+    sample_normal = torch.where(g3, gi_surf.normal, 0.0)
+    sample_radiance = torch.where(g3, gi_surf.emission, 0.0)
+
+    # NEE at x2 (ray_gen_ris.slang:344-391).
+    seed, u_pick = rng_mod.rnd(seed)
+    nee_idx = torch.clamp((u_pick * lights.num).to(torch.int32),
+                          max=lights.num - 1)
+    seed, n1, n2 = rng_mod.rnd2(seed)
+    nee_pos, nee_normal, nee_em, nee_area = lights.sample_point(nee_idx, n1,
+                                                                n2)
+    to_light = nee_pos - sample_pos
+    nee_dist = torch.clamp(vec_norm(to_light), min=1e-4)
+    to_light = to_light / nee_dist[:, None]
+    nee_cos_surf = torch.clamp(dot(sample_normal, to_light), min=0.0)
+    nee_cos_light = torch.clamp(dot(nee_normal, -to_light), min=0.0)
+    nee_try = gi_found & (nee_cos_surf > 0.0) & (nee_cos_light > 0.0)
+    occ2 = trace_occluded(
+        tracer,
+        torch.cat([vis_origin, fma(sample_normal, 1e-3, sample_pos)]),
+        torch.cat([vis_dir, to_light]),
+        torch.cat([vis_dist, nee_dist]),
+        exclude=torch.cat([vis_exclude, lights.world_tri[nee_idx.long()]]),
+    )
+    keep_w = (r_di.W > 0.0) & facing & ~occ2[:p]
+    r_di = dataclasses.replace(
+        r_di, W=torch.where(keep_w, r_di.W, 0.0),
+        hit_normal=torch.where(found[:, None], normal, 0.0),
+        depth=hitd.virtual_distance,
+    )
+    r_di = restir.sky_emptied(r_di, found)
+
+    nee_ok = nee_try & ~occ2[p:]
+    nee_pdf_sa = (nee_dist * nee_dist) / torch.clamp(
+        nee_cos_light * nee_area * lights.num, min=1e-4)
+    nee_contrib = (nee_em * gi_surf.albedo * nee_cos_surf[:, None]
+                   / (nee_pdf_sa[:, None] * PI))
+    sample_radiance = torch.clamp(
+        sample_radiance + torch.where(nee_ok[:, None], nee_contrib, 0.0),
+        max=cfg.gi_radiance_clamp)
+
+    p_hat = gi_target_pdf(pos, normal, hitd.albedo, hitd.metallic,
+                          sample_pos, sample_radiance)
+    pdf = gi_ndl * INV_PI
+    w_sum = torch.where(pdf > 0.0, p_hat / torch.clamp(pdf, min=1e-9), 0.0)
+    r_gi = restir.ReservoirGI(
+        sample_pos=sample_pos,
+        w_sum=torch.where(gi_enable, w_sum, 0.0),
+        sample_radiance=sample_radiance,
+        M=torch.where(gi_enable, 1.0, 0.0),
+        sample_normal=sample_normal,
+        W=torch.where(gi_enable & (p_hat > 0.0),
+                      w_sum / torch.clamp(p_hat, min=1e-9), 0.0),
+        hit_normal=torch.zeros_like(sample_pos),
+        depth=torch.zeros_like(p_hat),
+        sample_tri=torch.where(gi_found, gi_hit.tri, -1).to(torch.int32),
+    )
+    seed, r_gi = restir.gi_temporal_reuse(
+        cfg, seed, r_gi, res_gi_hist, hitd.prev_uv, hitd.prev_valid,
+        frame_count, pos, normal, hitd.albedo, hitd.metallic,
+        hitd.virtual_distance, w, h, found,
+    )
+    r_gi = dataclasses.replace(
+        r_gi, hit_normal=torch.where(found[:, None], normal, 0.0),
+        depth=hitd.virtual_distance,
+    )
+    return r_di, restir.sky_emptied(r_gi, found)

@@ -1,15 +1,25 @@
-"""Pass 2 — the bounce walk with plain NEE, port of the "nee" and "brdf"
-branches of sunray_tpu/render/pathtrace.py (pathtrace.py:98-386).
+"""Pass 2 — the bounce walk with ReSTIR DI/GI spatial reuse or plain NEE;
+port of sunray_tpu/render/pathtrace.py.
 
-One closest-hit trace per round over the full batch with masked lanes; a
-lane leaves the walk on a miss, emission brightness > 1, throughput death
-or Russian roulette. With lighting="nee" every rough bounce within
-SHADOW_BOUNCES does next-event estimation (ray_gen_final.slang:328-382).
-Round 0 reuses pass 1's stored primary hit instead of re-tracing it.
+  phase A: the bounce walk. One closest-hit trace per round over the full
+           batch with masked lanes; a lane leaves the walk on a miss,
+           emission brightness > 1, throughput death, Russian roulette,
+           or, with ReSTIR, at its first rough hit within SHADOW_BOUNCES:
+           that hit's surface is frozen for phase B. With lighting="nee"
+           every rough bounce within SHADOW_BOUNCES does next-event
+           estimation (ray_gen_final.slang:328-382). Round 0 reuses pass
+           1's stored primary hit instead of re-tracing it.
+  phase B: ReSTIR DI spatial reuse (K5) and GI spatial reuse (tap prep
+           with one T*P-ray visibility call, then K6) at the frozen hits
+           (ray_gen_final.slang:136-327), with shared tap offsets
+           (cfg.spatial_taps="shared"), and one 2P-ray call for the DI
+           winner and the GI final visibility.
 
 RNG stream order per round, for every lane whatever its mask:
 transmissive_bounce's draw, then NEE u_pick, n1, n2 (nee only), then
-ur1, ur2, then u_lobe, then u_rr (pathtrace.py:200-315).
+ur1, ur2, then u_lobe, then u_rr (pathtrace.py:200-315). Phase B then
+draws the DI centre merge (1), the DI taps (rnd_chain(T_di)) and the GI
+taps (rnd_chain(T_gi)).
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import numpy as np
 import torch
 
 from sunray_tpu_torch.camera import generate_rays
+from sunray_tpu_torch.ops import cuda_restir
 from sunray_tpu_torch.ops import rng as rng_mod
 from sunray_tpu_torch.ops.brdf import (
     PI,
@@ -30,7 +41,8 @@ from sunray_tpu_torch.ops.brdf import (
     smith_g1_ggx,
     vec_norm,
 )
-from sunray_tpu_torch.ops.fp import fma
+from sunray_tpu_torch.ops.cuda_restir import neighbour_ok, shift_flat
+from sunray_tpu_torch.ops.fp import dot3, fma, pow5, sqrt
 from sunray_tpu_torch.render.gbuffer import (
     _sel3,
     reuse_hit,
@@ -72,10 +84,9 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     (first_tri, first_t), reused as round 0's hit."""
     w, h = cfg.width, cfg.height
     num_lights = lights.num if lights is not None else 0
-    if cfg.lighting == "restir" and num_lights > 0:
-        raise NotImplementedError("ReSTIR spatial reuse is not ported")
     if cfg.samples != 1:
         raise NotImplementedError("samples > 1 is not ported")
+    use_restir = cfg.lighting == "restir" and num_lights > 0
     use_nee = cfg.lighting == "nee" and num_lights > 0
 
     p = w * h
@@ -89,6 +100,7 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     bn_r1, bn_r2 = _blue_noise_rands(cfg, frame_count, dev)
 
     z3 = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+    z = torch.zeros((p,), dtype=torch.float32, device=dev)
     c = dict(
         i=0,
         seed=seed,
@@ -98,6 +110,10 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         radiance=z3,
         active=torch.ones((p,), dtype=torch.bool, device=dev),
         prev_did_nee=torch.zeros((p,), dtype=torch.bool, device=dev),
+        # frozen first-rough-hit state for phase B
+        pending=torch.zeros((p,), dtype=torch.bool, device=dev),
+        f_pos=z3, f_normal=z3, f_albedo=z3, f_rough=z, f_metal=z,
+        f_view=z3, f_throughput=z3,
     )
 
     def body(c, reuse=None):
@@ -137,6 +153,11 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         surface = live2 & ~trans
         rough = surface & (roughness > 0.2)
 
+        # ReSTIR trigger: freeze and leave the walk.
+        trigger = torch.zeros((p,), dtype=torch.bool, device=dev)
+        if use_restir:
+            trigger = rough & ~c["pending"] & (i < cfg.shadow_bounces)
+
         # Plain NEE branch (ray_gen_final.slang:328-382).
         prev_did_nee = torch.zeros((p,), dtype=torch.bool, device=dev)
         if use_nee:
@@ -169,13 +190,14 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             radiance = radiance + torch.where(vis[:, None], contrib, 0.0)
             prev_did_nee = cand
 
-        # BRDF bounce (ray_gen_final.slang:385-427).
-        brdf_lane = surface
+        # BRDF bounce (ray_gen_final.slang:385-427) for surface lanes that
+        # did not trigger ReSTIR.
+        brdf_lane = surface & ~trigger
         n = surf.normal
         v_view = -c["ray_d"]
         f0 = 0.04 * (1.0 - metallic[:, None]) + surf.albedo * metallic[:, None]
         cos_nv = torch.clamp(dot(n, v_view), min=0.0)
-        fres = f0 + (1.0 - f0) * torch.clamp(1.0 - cos_nv, 0.0, 1.0)[:, None] ** 5
+        fres = f0 + (1.0 - f0) * pow5(torch.clamp(1.0 - cos_nv, 0.0, 1.0))[:, None]
         p_spec = torch.clamp(fres.amax(dim=-1), 0.05, 1.0)
 
         seed2, ur1, ur2 = rng_mod.rnd2(seed2)
@@ -221,7 +243,8 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             trans, o_t,
             _sel3(brdf_lane, fma(surf.normal, 1e-3, surf.pos), c["ray_o"]),
         )
-        still = c["active"] & surf.valid & ~stop_bright & ~die & ~rr_die
+        still = (c["active"] & surf.valid & ~stop_bright & ~trigger & ~die
+                 & ~rr_die)
         return dict(
             i=i + 1,
             seed=seed2,
@@ -231,11 +254,180 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             radiance=radiance,
             active=still,
             prev_did_nee=prev_did_nee,
+            pending=c["pending"] | trigger,
+            f_pos=_sel3(trigger, surf.pos, c["f_pos"]),
+            f_normal=_sel3(trigger, surf.normal, c["f_normal"]),
+            f_albedo=_sel3(trigger, surf.albedo, c["f_albedo"]),
+            f_rough=torch.where(trigger, roughness, c["f_rough"]),
+            f_metal=torch.where(trigger, metallic, c["f_metal"]),
+            f_view=_sel3(trigger, -c["ray_d"], c["f_view"]),
+            f_throughput=_sel3(trigger, throughput, c["f_throughput"]),
         )
 
     if cfg.bounces > 0:
         c = body(c, reuse=first_hit)
     while c["i"] < cfg.bounces and bool(c["active"].any()):
         c = body(c)
+    radiance = c["radiance"]
+    if use_restir:
+        radiance = radiance + _spatial_reuse(
+            cfg, tracer, lights, mats, gbuf, r_di, r_gi, c["seed"], c,
+            origins[0], frame_count,
+        )
     # total_radiance = min(radiance, 10) (ray_gen_final.slang:430-431).
-    return torch.clamp(c["radiance"], max=cfg.radiance_clamp), c["i"]
+    return torch.clamp(radiance, max=cfg.radiance_clamp), c["i"]
+
+
+def _shared_taps(frame_count, count, radius, salt):
+    """Per-iteration shared disc offsets (cfg.spatial_taps == "shared",
+    pathtrace.py:438-460): the reference's area-uniform disc
+    (ray_gen_final.slang:164-167) drawn once per iteration from a
+    frame-seeded scalar stream. Returns a list of (dx, dy) Python ints."""
+    s = rng_mod.init_seed(torch.tensor(salt, dtype=torch.int64),
+                          frame_count.to(torch.int64).cpu())
+    taps = []
+    for _ in range(count):
+        s, ua, ur = rng_mod.rnd2(s)
+        ang = ua * 2.0 * PI
+        r = sqrt(ur) * radius
+        taps.append((int((torch.cos(ang) * r).to(torch.int32)),
+                     int((torch.sin(ang) * r).to(torch.int32))))
+    return taps
+
+
+def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
+                   cam_origin, frame_count):
+    """Phase B: ReSTIR DI + GI spatial reuse at the frozen first-rough hits
+    (ray_gen_final.slang:136-327), shared taps. Returns radiance to add,
+    (P, 3)."""
+    w, h = cfg.width, cfg.height
+    p = w * h
+    pending = c["pending"]
+    pos, normal, albedo = c["f_pos"], c["f_normal"], c["f_albedo"]
+    rough, metal, v_view = c["f_rough"], c["f_metal"], c["f_view"]
+    throughput = c["f_throughput"]
+    current_depth = vec_norm(pos - cam_origin)
+
+    # ---- DI spatial (ray_gen_final.slang:139-222), K5 ----
+    di_taps = _shared_taps(frame_count, cfg.di_spatial_samples,
+                           cfg.di_spatial_radius, 0x51A7D1)
+    seed, di = cuda_restir.di_spatial(
+        lights.table, seed,
+        {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
+                                       "M", "light_idx")},
+        di_taps, pending, gbuf.normal, gbuf.depth, current_depth, pos, normal,
+        v_view, albedo, rough, metal, w, h,
+        (cfg.di_temporal_w_clamp, cfg.di_temporal_m_clamp,
+         cfg.di_spatial_w_clamp),
+    )
+    # DI winner shadow ray, traced with the GI final visibility ray.
+    sdir = di["light_pos"] - pos
+    sdist = torch.clamp(vec_norm(sdir), min=1e-4)
+    sdir = sdir / sdist[:, None]
+    facing = dot(normal, sdir) > 0.0
+    di_exclude = lights.world_tri[di["light_idx"].long()]
+
+    # ---- GI spatial (ray_gen_final.slang:224-327): tap prep, K6 ----
+    gi_taps = _shared_taps(frame_count, cfg.gi_spatial_samples,
+                           cfg.gi_spatial_radius, 0x6E5B2F)
+    taps = _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
+                        normal, current_depth, cam_origin)
+    seed, gi = cuda_restir.gi_spatial(
+        seed,
+        {k: getattr(r_gi, k) for k in ("sample_pos", "sample_radiance",
+                                       "sample_tri", "w_sum", "M")},
+        taps, pending, pos, normal, albedo, metal, cfg.gi_spatial_w_clamp,
+    )
+
+    # One trace for the DI winner shadow ray and the GI final visibility
+    # ray, then the adds in the reference's order (DI, then GI;
+    # ray_gen_final.slang:203-222, 305-327).
+    occ2 = trace_occluded(
+        tracer, torch.cat([pos, pos]), torch.cat([sdir, gi["gdir"]]),
+        torch.cat([sdist, gi["gdist"]]),
+        exclude=torch.cat([di_exclude, gi["sample_tri"]]),
+    )
+    lit = di["has"] & facing & ~occ2[:p]
+    radiance = torch.where(
+        lit[:, None], di["f_y_w"] * throughput * di["w_spatial"][:, None], 0.0)
+    ok_gi = gi["try_gi"] & ~occ2[p:]
+    return radiance + torch.where(ok_gi[:, None],
+                                  gi["contrib_pre"] * throughput, 0.0)
+
+
+def _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
+                 normal, current_depth, cam_origin):
+    """Every GI tap but its merge draw (pathtrace.py:833-898): neighbour
+    fetch by whole-image shifts, validity, the neighbour's primary point
+    x1 rebuilt from its depth, the reconnection Jacobian, and one
+    occlusion call for all T taps' visibility rays. Returns the (T, P[, 3])
+    planes K6 takes."""
+    w, h = cfg.width, cfg.height
+    p = w * h
+    dev = pos.device
+    pix = torch.arange(p, device=dev)
+    px, py = pix % w, pix // w
+    proj_inverse = mats["proj_inverse"]
+    view_inverse = mats["view_inverse"]
+    keys = ("sample_pos", "sample_radiance", "sample_tri", "W", "M")
+    planes = {k: [] for k in keys + ("jac", "ok")}
+    rays = []
+    inv_w = torch.tensor(1.0 / w, dtype=torch.float32).item()
+    inv_h = torch.tensor(1.0 / h, dtype=torch.float32).item()
+    for dx, dy in gi_taps:
+        ok, n_depth = neighbour_ok(dx, dy, w, h, normal, current_depth,
+                                   gbuf.normal, gbuf.depth)
+        nr = {k: shift_flat(getattr(r_gi, k), dx, dy, h, w)
+              for k in keys + ("sample_normal",)}
+        ok = ok & (not (dx == 0 and dy == 0)) & (nr["W"] > 0.0)
+        nr["W"] = torch.clamp(nr["W"], max=cfg.gi_temporal_w_clamp)
+        nr["M"] = torch.clamp(nr["M"], max=cfg.gi_spatial_m_clamp)
+
+        # The neighbour's primary point x1 (ray_gen_final.slang:253-258),
+        # rounded as camera.generate_rays is.
+        ndx = ((px + dx).to(torch.float32) + 0.5) * inv_w * 2.0 - 1.0
+        ndy = ((py + dy).to(torch.float32) + 0.5) * inv_h * 2.0 - 1.0
+        tgt = [fma(proj_inverse[i, 0], ndx, proj_inverse[i, 1] * ndy)
+               + proj_inverse[i, 2] + proj_inverse[i, 3] for i in range(3)]
+        norm = sqrt(dot3(tgt[0], tgt[0], tgt[1], tgt[1], tgt[2], tgt[2]))
+        tgt = [t / norm for t in tgt]
+        ndir = torch.stack(
+            [fma(view_inverse[i, 2], tgt[2],
+                 fma(view_inverse[i, 0], tgt[0], view_inverse[i, 1] * tgt[1]))
+             for i in range(3)], dim=-1)
+        neighbour_x1 = fma(ndir, n_depth[:, None], cam_origin)
+
+        w_new = nr["sample_pos"] - pos
+        w_old = nr["sample_pos"] - neighbour_x1
+        d_new = torch.clamp(vec_norm(w_new), min=1e-4)
+        d_old = torch.clamp(vec_norm(w_old), min=1e-4)
+        n_x2 = nr["sample_normal"]
+        cos_new = torch.clamp(dot(n_x2, -w_new / d_new[:, None]), min=0.0)
+        cos_old = torch.clamp(dot(n_x2, -w_old / d_old[:, None]), min=0.0)
+        ok = ok & (cos_new > 0.0) & (cos_old > 0.0)
+        jac = (cos_new * d_old * d_old) / torch.clamp(
+            cos_old * d_new * d_new, min=1e-4)
+        jac = torch.clamp(jac, 0.0, cfg.gi_jacobian_clamp)
+        gdir = w_new / d_new[:, None]
+        ok = pending & ok & (dot(normal, gdir) > 0.0)
+        rays.append((gdir, d_new, nr["sample_tri"]))
+        for k in keys:
+            planes[k].append(nr[k])
+        planes["jac"].append(jac)
+        planes["ok"].append(ok)
+    t_n = len(gi_taps)
+    if t_n:
+        occ = trace_occluded(
+            tracer, torch.cat([pos] * t_n), torch.cat([r[0] for r in rays]),
+            torch.cat([r[1] for r in rays]),
+            exclude=torch.cat([r[2] for r in rays]),
+        )
+        planes["ok"] = [ok & ~occ[k * p:(k + 1) * p]
+                        for k, ok in enumerate(planes["ok"])]
+        return {k: torch.stack(v).contiguous() for k, v in planes.items()}
+    empty = {k: torch.zeros((0, p) + tuple(getattr(r_gi, k).shape[1:]),
+                            dtype=getattr(r_gi, k).dtype, device=dev)
+             for k in keys}
+    empty["jac"] = torch.zeros((0, p), device=dev)
+    empty["ok"] = torch.zeros((0, p), dtype=torch.bool, device=dev)
+    return empty

@@ -6,8 +6,9 @@ final walk -> temporal accumulation -> denoise xN -> tonemap. Everything
 runs on the device of the scene tensors; the frame never moves to the
 CPU on its own.
 
-Covered: lighting "nee" and "brdf", the brute-force tracer, a trivial
-texture atlas, one sample per pixel, forward only. check_supported()
+Covered: lighting "restir" (the default: shared spatial taps, f32
+shading), "nee" and "brdf"; the brute-force tracer, a trivial texture
+atlas, one sample per pixel, forward only. check_supported()
 raises NotImplementedError for every other configuration instead of
 rendering something else. The stages run under torch.profiler ranges
 named as the JAX package's named scopes (ris_pass, final_pass, taa,
@@ -60,8 +61,8 @@ class RenderState:
 def check_supported(scene, cfg) -> None:
     """Raise NotImplementedError for a configuration this port does not
     cover (the tracer checks live in render/trace.make_tracer)."""
+    restir = cfg.lighting == "restir" and scene.num_lights > 0
     unsupported = {
-        "lighting='restir'": cfg.lighting == "restir" and scene.num_lights > 0,
         f"lighting={cfg.lighting!r}": cfg.lighting not in ("restir", "nee",
                                                            "brdf"),
         "textured atlases": not scene.textures.trivial,
@@ -73,6 +74,11 @@ def check_supported(scene, cfg) -> None:
                                                and cfg.taa_kernel != "jnp"),
         "history_gather_force=True": cfg.history_gather_force is True,
         f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
+        f"spatial_taps={cfg.spatial_taps!r}": (restir
+                                               and cfg.spatial_taps != "shared"),
+        "history_joint_gather=True": restir and cfg.history_joint_gather,
+        f"shading_dtype={cfg.shading_dtype!r}": (restir
+                                                 and cfg.shading_dtype != "f32"),
     }
     missing = [name for name, hit in unsupported.items() if hit]
     if missing:

@@ -1,9 +1,13 @@
-"""Reservoirs and the light table — the part of sunray_tpu/render/restir.py
-(restir.py:44-165) that the NEE frame needs.
+"""ReSTIR DI / GI reservoirs, the light table, RIS audition and temporal
+reuse — port of sunray_tpu/render/restir.py.
 
-The reservoirs ride the frame state with their JAX shapes; the NEE path
-only carries them (empty) from frame to frame. RIS audition, temporal and
-spatial reuse are the next port slice.
+The reservoirs ride the frame state with their JAX fields and shapes
+(light_idx and sample_tri int32). The merge-heavy steps run through the
+K3/K4 wrappers of ops/cuda_restir.py (plain PyTorch on the CPU, the hand
+kernels on a card). History reads are direct indexed loads at the
+reprojected pixel, the plain-gather branch of the reference
+(restir.py:452; ops/banded.py takes it on every backend but the TPU):
+no banded or shift ladder, no window-select kernel.
 """
 
 from __future__ import annotations
@@ -12,8 +16,17 @@ import dataclasses
 
 import torch
 
-from sunray_tpu_torch.ops.brdf import cross, normalize, vec_norm
-from sunray_tpu_torch.ops.fp import fma
+from sunray_tpu_torch.ops import cuda_restir
+from sunray_tpu_torch.ops import rng as rng_mod
+from sunray_tpu_torch.ops.brdf import (
+    cross,
+    dot,
+    gi_target_pdf,
+    normalize,
+    vec_norm,
+)
+from sunray_tpu_torch.ops.cuda_restir import one_minus_smoothstep, smoothstep
+from sunray_tpu_torch.ops.fp import fma, sqrt
 
 
 def _zeros(p, device, *shape):
@@ -77,6 +90,8 @@ class Lights:
         self.num = lv.shape[0]
         # World-triangle id per light, for occlusion-query exclusion.
         self.world_tri = scene.light_world_tri
+        self.table = cuda_restir.LightTable(
+            *(x.contiguous() for x in (self.v0, self.v1, self.v2, le)))
 
     def gather(self, idx):
         """Light triangles by index: (v0, v1, v2, emission), idx (N,)."""
@@ -91,9 +106,108 @@ class Lights:
         cr = cross(v1 - v0, v2 - v0)
         area = 0.5 * vec_norm(cr)
         nrm = normalize(cr, eps=1e-12)
-        sqr1 = torch.sqrt(u1)
+        sqr1 = sqrt(u1)
         u = 1.0 - sqr1
         v = u2 * sqr1
         w = 1.0 - u - v
         pos = fma(v2, w[:, None], fma(v0, u[:, None], v1 * v[:, None]))
         return pos, nrm, em, area
+
+
+def _where_fields(res, mask, other):
+    """Per-field where(mask, res, other) over two reservoirs."""
+    out = {}
+    for f in dataclasses.fields(res):
+        x, e = getattr(res, f.name), getattr(other, f.name)
+        m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+        out[f.name] = torch.where(m, x, e)
+    return type(res)(**out)
+
+
+def sky_emptied(res, found):
+    """Sky pixels store an empty reservoir (ray_gen_ris.slang:160-171)."""
+    return _where_fields(res, found, type(res).empty(found.shape[0],
+                                                     found.device))
+
+
+def ris_audition(lights: Lights, seed, hit_pos, hit_normal, v_view, albedo,
+                 roughness, metallic, candidates: int, enable):
+    """RIS candidate audition (ray_gen_ris.slang:189-231) through K3.
+    Returns (seed, ReservoirDI) with W resolved."""
+    seed, f = cuda_restir.ris_audition(
+        lights.table, seed, hit_pos, hit_normal, v_view, albedo, roughness,
+        metallic, candidates, enable,
+    )
+    p = hit_pos.shape[0]
+    z = torch.zeros((p,), dtype=torch.float32, device=hit_pos.device)
+    return seed, ReservoirDI(hit_normal=torch.zeros_like(hit_pos), depth=z,
+                             **f)
+
+
+def reproject(seed, prev_uv, prev_valid, frame_count, enable, width, height):
+    """Jittered history pixel (ray_gen_ris.slang:233-240): two draws, then
+    int(prev_pixel + jitter), jitter in [-0.5, 0.5). Returns (seed, pi
+    (P,) int64 in range, ok)."""
+    seed, j1, j2 = rng_mod.rnd2(seed)
+    px = torch.floor(prev_uv[:, 0] * width + (j1 - 0.5)).to(torch.int64)
+    py = torch.floor(prev_uv[:, 1] * height + (j2 - 0.5)).to(torch.int64)
+    in_bounds = (px >= 0) & (py >= 0) & (px < width) & (py < height)
+    ok = enable & prev_valid & in_bounds & (frame_count > 0)
+    pi = torch.clamp(py * width + px, 0, width * height - 1)
+    return seed, pi, ok
+
+
+def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
+                      history: ReservoirDI, prev_uv, prev_valid, frame_count,
+                      hit_pos, hit_normal, v_view, albedo, roughness, metallic,
+                      virtual_distance, width, height, enable):
+    """DI temporal reuse with jittered reprojection and normal/depth
+    confidence (ray_gen_ris.slang:233-267). The jitter draw and the
+    reprojection come first in the pixel's stream, outside K4, as in the
+    reference (pallas_restir.py:903-906); K4 reads the history in place."""
+    seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count, enable,
+                             width, height)
+    seed, f = cuda_restir.di_temporal(
+        lights.table, seed, dataclasses.asdict(r), dataclasses.asdict(history),
+        pi, ok, hit_pos, hit_normal, v_view, albedo, roughness, metallic,
+        virtual_distance, cfg.di_temporal_m_clamp, cfg.di_temporal_w_clamp,
+    )
+    return seed, dataclasses.replace(r, **f)
+
+
+def gi_temporal_reuse(cfg, seed, r: ReservoirGI, history: ReservoirGI,
+                      prev_uv, prev_valid, frame_count, hit_pos, hit_normal,
+                      albedo, metallic, virtual_distance, width, height,
+                      enable):
+    """GI temporal reuse (ray_gen_ris.slang:408-432), plain PyTorch (the
+    reference has no kernel for it)."""
+    seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count, enable,
+                             width, height)
+    h = ReservoirGI(**{f.name: getattr(history, f.name)[pi]
+                       for f in dataclasses.fields(history)})
+    conf = (smoothstep(0.8, 0.95, dot(hit_normal, h.hit_normal))
+            * one_minus_smoothstep(
+                0.05, 0.20,
+                torch.abs(virtual_distance - h.depth)
+                / torch.clamp(virtual_distance, min=1e-4)))
+    h_m = torch.clamp(h.M, max=cfg.gi_temporal_m_clamp) * conf
+    h_w = torch.clamp(h.W, max=cfg.gi_temporal_w_clamp)
+    use = ok & (h_w > 0.0) & (h_m > 0.0)
+    p_hat_hist = gi_target_pdf(hit_pos, hit_normal, albedo, metallic,
+                               h.sample_pos, h.sample_radiance)
+    seed, u_m = rng_mod.rnd(seed)
+    w_sum, m, take = cuda_restir.merge(r.w_sum, r.M, h_m,
+                                       p_hat_hist * h_w * h_m, u_m, use)
+    t3 = take[:, None]
+    r = dataclasses.replace(
+        r, w_sum=w_sum, M=m,
+        sample_pos=torch.where(t3, h.sample_pos, r.sample_pos),
+        sample_normal=torch.where(t3, h.sample_normal, r.sample_normal),
+        sample_radiance=torch.where(t3, h.sample_radiance, r.sample_radiance),
+        sample_tri=torch.where(take, h.sample_tri, r.sample_tri),
+    )
+    p_hat_m = gi_target_pdf(hit_pos, hit_normal, albedo, metallic,
+                            r.sample_pos, r.sample_radiance)
+    w_new = torch.where(p_hat_m > 1e-6,
+                        r.w_sum / torch.clamp(r.M * p_hat_m, min=1e-9), 0.0)
+    return seed, dataclasses.replace(r, W=torch.where(use, w_new, r.W))

@@ -1,7 +1,7 @@
-"""PyTorch port on the card: every CUDA kernel (K1, K2, K7, K8) against its
-plain PyTorch version, and the golden NEE frame on the card against the
-CPU. Skipped where there is no CUDA device. This file imports no JAX, so
-it also runs on a machine without it:
+"""PyTorch port on the card: every CUDA kernel (K1-K8) against its plain
+PyTorch version, and the golden NEE and ReSTIR frames on the card against
+the CPU. Skipped where there is no CUDA device. This file imports no JAX,
+so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
@@ -13,7 +13,7 @@ import torch
 from sunray_tpu_torch.camera import Camera, camera_matrices, generate_rays
 from sunray_tpu_torch.config import RenderConfig
 from sunray_tpu_torch.ops import cuda_build, cuda_gather, cuda_image, cuda_trace
-from sunray_tpu_torch.ops import intersect
+from sunray_tpu_torch.ops import cuda_restir, intersect
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 from sunray_tpu_torch.scene import cornell_box
 from torch_parity import CAMERA, GOLDEN_KW, cuda_device, n, psnr  # noqa: F401
@@ -104,8 +104,9 @@ def test_kernel_rejects_bad_input(cuda_device):
                                             device=cuda_device))
 
 
-def test_frame_on_card_matches_cpu(cuda_device):
-    cfg = RenderConfig(**GOLDEN_KW)
+@pytest.mark.parametrize("lighting,frames", [("nee", 4), ("restir", 8)])
+def test_frame_on_card_matches_cpu(lighting, frames, cuda_device):
+    cfg = RenderConfig(**dict(GOLDEN_KW, lighting=lighting))
     ldrs = {}
     for dev in ("cpu", cuda_device):
         scene = cornell_box(device=dev)
@@ -113,12 +114,104 @@ def test_frame_on_card_matches_cpu(cuda_device):
                                device=dev)
         state = RenderState.create(cfg, dev)
         cuda_build.launches.clear()
-        for _ in range(4):
+        for _ in range(frames):
             state, ldr, _ = render_frame(scene, cfg, state, mats)
         assert ldr.device == torch.device(dev)
         ldrs[str(dev)] = n(ldr)
     p = psnr(ldrs["cpu"], ldrs[str(cuda_device)])
     assert p > 40.0, f"PSNR card vs CPU = {p:.2f} dB"
-    for name in ("trace_closest", "trace_occluded", "gather_rows",
-                 "atrous_pass"):
+    names = ["trace_closest", "trace_occluded", "gather_rows", "atrous_pass"]
+    if lighting == "restir":
+        names += list(RESTIR)
+    for name in names:
         assert cuda_build.launches[name] > 0, name
+
+
+# K3-K6: kernel -> plain version, and what each is held to: (winner id,
+# exact fields, fields compared on lanes whose winner agrees).
+RESTIR = {
+    "ris_audition": ("ris_audition_plain", "light_idx", ("M",),
+                     ("w_sum", "light_pos", "W")),
+    "di_temporal": ("di_temporal_plain", "light_idx", ("M",),
+                    ("w_sum", "light_pos", "W")),
+    "di_spatial": ("di_spatial_plain", "light_idx", ("M", "has"),
+                   ("w_sum", "light_pos", "w_spatial", "f_y_w")),
+    "gi_spatial": ("gi_spatial_plain", "sample_tri", ("try_gi",),
+                   ("gdir", "gdist", "contrib_pre")),
+}
+
+
+def _restir_frame_inputs(dev, frame=2):
+    """The arguments each K3-K6 wrapper got in frame `frame` of the golden
+    ReSTIR config on the card (live history)."""
+    cfg = RenderConfig(**dict(GOLDEN_KW, lighting="restir"))
+    scene = cornell_box(device=dev)
+    mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height,
+                           device=dev)
+    state = RenderState.create(cfg, dev)
+    for _ in range(frame):
+        state, _, _ = render_frame(scene, cfg, state, mats)
+    captured = {}
+    saved = {name: getattr(cuda_restir, name) for name in RESTIR}
+
+    def recorder(name):
+        def call(*args):
+            captured.setdefault(name, args)
+            return saved[name](*args)
+        return call
+
+    try:
+        for name in RESTIR:
+            setattr(cuda_restir, name, recorder(name))
+        render_frame(scene, cfg, state, mats)
+    finally:
+        for name, fn in saved.items():
+            setattr(cuda_restir, name, fn)
+    return captured
+
+
+def _check_restir(name, args):
+    plain, win, exact, close = RESTIR[name]
+    seed_k, out_k = getattr(cuda_restir, name)(*args)
+    seed_p, out_p = getattr(cuda_restir, plain)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(seed_k, seed_p)
+    for key in exact:
+        assert torch.equal(out_k[key], out_p[key]), key
+    same = out_k[win] == out_p[win]
+    assert same.float().mean().item() > 0.995
+    for key in close:
+        torch.testing.assert_close(out_k[key][same], out_p[key][same],
+                                   rtol=3e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(RESTIR))
+def test_restir_kernels_match_plain(name, cuda_device):
+    captured = _restir_frame_inputs(cuda_device)
+    _check_restir(name, captured[name])
+
+
+@pytest.mark.parametrize("n_lights", [2, 600, 1500])
+def test_ris_audition_kernel_light_tables(n_lights, cuda_device):
+    """K3 with the light table in shared memory (2, 600 lights) and read
+    from global memory (1,500 lights: 72 KB)."""
+    rng = np.random.default_rng(n_lights)
+    p = 20_000
+
+    def f(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)
+                                ).to(cuda_device)
+
+    def unit():
+        v = rng.normal(size=(p, 3))
+        return torch.from_numpy((v / np.linalg.norm(v, axis=1, keepdims=True)
+                                 ).astype(np.float32)).to(cuda_device)
+
+    v0 = f(n_lights, 3, hi=2.0)
+    table = cuda_restir.LightTable(v0, v0 + f(n_lights, 3, lo=-0.3, hi=0.3),
+                                   v0 + f(n_lights, 3, lo=-0.3, hi=0.3),
+                                   f(n_lights, 3, hi=20.0))
+    seed = torch.from_numpy(rng.integers(0, 2**32, p)).to(cuda_device)
+    args = (table, seed, f(p, 3, hi=2.0), unit(), unit(), f(p, 3),
+            f(p, lo=0.05), f(p), 16, f(p) > 0.2)
+    _check_restir("ris_audition", args)

@@ -21,6 +21,7 @@ from sunray_tpu.utils import bluenoise as jnoise
 from sunray_tpu_torch import camera as pcam
 from sunray_tpu_torch import config as pconfig
 from sunray_tpu_torch.ops import brdf as pbrdf
+from sunray_tpu_torch.ops import fp
 from sunray_tpu_torch.ops import rng as prng
 from sunray_tpu_torch.render import pathtrace as ppath
 from sunray_tpu_torch.utils import bluenoise as pnoise
@@ -84,6 +85,45 @@ def test_camera_matrices_and_rays(size, cam):
     puv, pok = pcam.project_to_prev_uv(mats["view_proj"], t(pts))
     np.testing.assert_allclose(n(puv), np.asarray(juv), atol=1e-5, rtol=1e-6)
     np.testing.assert_array_equal(n(pok), np.asarray(jok))
+
+
+@pytest.mark.parametrize("cam", [
+    dict(position=(1.0, 1.0, 3.4), target=(1.0, 1.0, 0.0), fov_y=45.0),
+    dict(position=(0.3, 1.7, 3.0), target=(1.2, 0.8, 0.2), fov_y=60.0),
+])
+def test_camera_directions_bit_exact_1080p(cam):
+    """Every 1920x1080 camera ray bit-equal to jax.jit(generate_rays): the
+    normalisation's root is taken correctly rounded (fp.sqrt), as XLA
+    takes it."""
+    w, h = 1920, 1080
+    jm = jcam.camera_matrices(jcam.Camera(**cam), w, h)
+    jo, jd = jax.jit(lambda m: jcam.generate_rays(m, w, h))(jm)
+    po, pd = pcam.generate_rays({k: t(v) for k, v in jm.items()}, w, h)
+    np.testing.assert_array_equal(n(pd).view(np.uint32),
+                                  np.asarray(jd).view(np.uint32))
+    np.testing.assert_array_equal(n(po), np.asarray(jo))
+
+
+def test_pow5_bit_exact():
+    """fp.pow5 multiplies as lax.integer_pow lowers x ** 5."""
+    a = np.random.default_rng(5).uniform(size=1_000_000).astype(np.float32)
+    x = np.concatenate([1.0 - a, a * 4.0 - 2.0]).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v: v ** 5)(x))
+    np.testing.assert_array_equal(n(fp.pow5(t(x))).view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_sqrt_correctly_rounded():
+    rng = np.random.default_rng(6)
+    # Normal float32 values only: XLA's CPU backend flushes subnormals to
+    # zero, which no renderer value reaches (every root is clamped first).
+    x = np.concatenate([rng.uniform(0.0, 4.0, 1_000_000),
+                        rng.uniform(1e-37, 1e-30, 1000),
+                        [0.0, 1.0, 4.0, 1.2e-38, 3.4e38, np.inf]]
+                       ).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.sqrt)(x))
+    np.testing.assert_array_equal(n(fp.sqrt(t(x))).view(np.uint32),
+                                  want.view(np.uint32))
 
 
 def test_blue_noise_identical():
