@@ -33,8 +33,26 @@ Phases, in order; any failure raises and exits non-zero with no result:
      bench.py:7-13's count. Prints frame ms, Mray/s, peak device memory
      and the synced stage ms. Then the 1080p NEE frame, 2 warm-up and 5
      timed frames, with its own launch check of K1, K2, K7 and K8.
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+  6. the big-mesh slice (tests/torch_big_scene.py: the Cornell box with a
+     mirror icosphere of 81,920 triangles, 81,956 in all, traced through a
+     binned ClusterSet of 641 clusters, 161 superclusters):
+       K10-K12 against their plain versions on the rays the tracer got in
+       frame 2 of the 1080p big-mesh frame (camera rays for K10, the GI
+       bounce rays for K11/K12; closest and any-hit), rays agreeing on
+       >= 99.99%, t/u/v within 1e-5, K11 bit-equal; the overflow share;
+       the small big-mesh config (subdiv 3, cluster_k 32, 48x32, 3
+       frames) on the card and on the CPU, PSNR > 40 dB; the 1080p
+       big-mesh frame with the default config, 5 warm-up and 20 timed
+       frames, counters zeroed before: K3-K8 and K10-K12 must launch,
+       rays per frame as bench.py counts them, ldr finite with mean in
+       (0.05, 0.95), synced stage times and one profiled frame's device
+       time by kernel; then one 480x270 frame, binned against
+       tracer="brute" (K1/K2 over all 81,956 triangles), PSNR > 40 dB.
+The line before the last is {"kernels": [...]}: per kernel its launches
+on its slice's main path, its error, kernel / plain / library ms (CUDA
+events, median of 10) and its bound (the larger of bytes over 3.35 TB/s
+and operations over 67 TFLOP/s fp32, from this run's inputs). The last
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -62,6 +80,14 @@ ATROUS_ATOL = 1e-5
 WINNER_AGREE = 0.995      # test_restir_math.py:209
 PSNR_MIN = 40.0           # tests/test_golden.py:80
 REPS = 10
+HBM_BYTES_S = 3.35e12     # H100 SXM data sheet
+FP32_OPS_S = 67e12
+TEST_OPS = 53             # one Moller-Trumbore ray-triangle test, fp32 ops
+SLAB_OPS = 27             # one ray-box slab test (K11)
+BIG_SUBDIV = 6
+SMALL_BIG = dict(GOLDEN_KW, lighting="restir", width=48, height=32,
+                 cluster_k=32)
+SMALL_BIG_SUBDIV, SMALL_BIG_FRAMES = 3, 3
 
 
 def check(cond, msg):
@@ -87,6 +113,16 @@ def time_ms(fn, reps=REPS):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / FP32_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
 
 
 def psnr(a, b):
@@ -127,6 +163,25 @@ def compare_occluded(tris, o, d, tmax, exclude, label):
         f"agree {frac:.7f}, occluded rate {p.float().mean().item():.4f}")
     check(frac >= TRACE_AGREE, f"K2 {label}: agreement {frac} < {TRACE_AGREE}")
     return frac, err
+
+
+def occluded_tests(tris, o, d, tmax, exclude, step=1 << 16):
+    """Ray-triangle tests an any-hit trace needs: each ray up to and with
+    its first occluder in triangle order, else all of them."""
+    from sunray_tpu_torch.ops import intersect
+
+    n_tris = tris[0].shape[0]
+    ids = torch.arange(n_tris, device=o.device)
+    total = 0
+    for s in range(0, o.shape[0], step):
+        sl = slice(s, s + step)
+        _, _, _, valid = intersect.moller_trumbore(
+            o[sl], d[sl], *tris, intersect.T_MIN, tmax[sl, None])
+        valid &= ids[None, :] != exclude[sl, None]
+        first = torch.where(valid.any(dim=1), valid.int().argmax(dim=1) + 1,
+                            n_tris)
+        total += int(first.sum())
+    return total
 
 
 def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
@@ -182,17 +237,22 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
     rtmax = (rand(nr) * 6.0).contiguous()
     f_ro, e_ro = compare_occluded(rtris, ro, rd, rtmax, rex, "random")
 
+    n_tris = tris[0].shape[0]
+    smax = (dist - 1e-3).contiguous()
     results["trace_closest"] = dict(
         agree=min(f_cam, f_b, f_r), max_abs_err=max(e_cam, e_b, e_r),
         ms=time_ms(lambda: cuda_trace.trace_closest(tris, o, d)),
         plain_ms=time_ms(lambda: intersect.trace_closest_brute(tris, o, d)),
+        bound=bound(n * 41 + nbytes(*tris), n * n_tris * TEST_OPS),
     )
     results["trace_occluded"] = dict(
         agree=min(f_s, f_ro), max_abs_err=max(e_s, e_ro),
         ms=time_ms(lambda: cuda_trace.trace_occluded(
-            tris, pos, sdir, dist - 1e-3, exclude=ex)),
+            tris, pos, sdir, smax, exclude=ex)),
         plain_ms=time_ms(lambda: intersect.trace_occluded_brute(
-            tris, pos, sdir, dist - 1e-3, exclude=ex)),
+            tris, pos, sdir, smax, exclude=ex)),
+        bound=bound(n * 33 + nbytes(*tris),
+                    occluded_tests(tris, pos, sdir, smax, ex) * TEST_OPS),
     )
 
     # K8: the shade pass's two fetches, with out-of-range indices.
@@ -211,10 +271,13 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
         exact &= bool(torch.equal(k, p))
     log(f"  K8 gather_rows: 72x6 @ 3x{n} and 36x4 @ 1x{n}, bit-exact {exact}")
     check(exact, "K8 gather_rows differs from its plain version")
+    vidx_c = vidx.clamp(0, vgeo.shape[0] - 1).long()
     results["gather_rows"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: cuda_gather.gather_rows(vgeo, vidx)),
         plain_ms=time_ms(lambda: cuda_gather.gather_rows_plain(vgeo, vidx)),
+        library_ms=time_ms(lambda: vgeo[vidx_c]),
+        bound=bound(nbytes(vgeo, vidx) + vidx.numel() * vgeo.shape[1] * 4, 0),
     )
 
     # K7: 1080p guides shaped like a G-buffer (sky band, smooth patches).
@@ -236,6 +299,8 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
         max_abs_err=err,
         ms=time_ms(lambda: cuda_image.atrous_denoise(*args)) / 4.0,
         plain_ms=time_ms(lambda: cuda_image.atrous_denoise_plain(*args)) / 4.0,
+        # per pass: 5 guide planes read, color written; 25 taps of ~40 ops
+        bound=bound(nbytes(*args[:5]) + nbytes(color), h * w * 25 * 40),
     )
     for name, r in results.items():
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -341,6 +406,35 @@ def compare_restir(name, args, label):
     return agree, err
 
 
+def flatten(x):
+    """Every tensor inside nested tuples, lists, dicts and dataclasses."""
+    import dataclasses
+
+    if torch.is_tensor(x):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif isinstance(x, dict):
+        x = list(x.values())
+    elif not isinstance(x, (tuple, list)):
+        return []
+    return [t for item in x for t in flatten(item)]
+
+
+def restir_lane_ops(name, args):
+    """fp32 operations per lane, counted from csrc/restir.cu: a candidate's
+    light sample and target function ~150 (K3), a temporal merge ~300
+    (K4), a spatial tap's test, target and merge ~200 (K5) and ~150 (K6),
+    plus ~300 / ~200 for the centre and the resolve."""
+    if name == "ris_audition":
+        return 150 * args[8]
+    if name == "di_temporal":
+        return 300
+    if name == "di_spatial":
+        return 300 + 200 * len(args[3])
+    return 200 + 150 * args[2]["ok"].shape[0]
+
+
 def phase_restir_kernels(dev, n_random=65536, n_lights=600):
     from sunray_tpu_torch.ops import cuda_restir
 
@@ -380,6 +474,10 @@ def phase_restir_kernels(dev, n_random=65536, n_lights=600):
 
     for name, r in results.items():
         args = r.pop("args")
+        lanes = (args[0] if name == "gi_spatial" else args[1]).shape[0]
+        out = getattr(cuda_restir, name)(*args)
+        r["bound"] = bound(nbytes(*flatten(args)) + nbytes(*flatten(out)),
+                           lanes * restir_lane_ops(name, args))
         r["ms"] = time_ms(lambda: getattr(cuda_restir, name)(*args))
         r["plain_ms"] = time_ms(
             lambda: getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args))
@@ -388,19 +486,236 @@ def phase_restir_kernels(dev, n_random=65536, n_lights=600):
     return results
 
 
+# -- phase 6, K10-K12: the binned tracer on a live big-mesh frame's rays ------
+
+def capture_binned_rays(dev, width=1920, height=1080, frame=2):
+    """The frame's refit ClusterSet and the rays pass 1 traced in frame
+    `frame` of the 1080p big-mesh render: its first coherent query (the
+    camera rays) and its last incoherent closest query (the GI bounce)."""
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import binned_trace
+    from sunray_tpu_torch.render import gbuffer
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+
+    cfg = RenderConfig(width=width, height=height)
+    scene = big_scene(dev)
+    accel = big_accel(scene, cfg)
+    mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
+    state = RenderState.create(cfg, dev)
+    for _ in range(frame):
+        state, _, _ = render_frame(scene, cfg, state, mats, accel)
+    calls = []
+    saved = gbuffer.trace_closest
+
+    def record(ctx, orig, d, *args, coherent=True, **kw):
+        calls.append((orig, d, coherent))
+        return saved(ctx, orig, d, *args, coherent=coherent, **kw)
+
+    gbuffer.trace_closest = record
+    try:
+        render_frame(scene, cfg, state, mats, accel)
+    finally:
+        gbuffer.trace_closest = saved
+    torch.cuda.synchronize()
+    camera = [c for c in calls if c[2]]
+    bounce = [c for c in calls if not c[2]]
+    check(camera and bounce, f"frame {frame} made no coherent or no "
+          "incoherent closest query")
+    cs = binned_trace.refit_cluster_set(
+        accel, tuple(t.contiguous() for t in scene.world_triangle_vertices()))
+    return cs, camera[0][:2], bounce[-1][:2]
+
+
+def compare_hits(name, k, p, label):
+    """Closest results (t, tri, u, v) of a kernel and its plain version:
+    (fraction of rays with equal tri, max |t,u,v| error where they agree)."""
+    torch.cuda.synchronize()
+    agree = k[1] == p[1]
+    frac = agree.float().mean().item()
+    both = agree & (p[1] >= 0)
+    err = max(((a[both] - b[both]).abs().max().item() if both.any() else 0.0)
+              for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])))
+    log(f"  {name} closest {label}: {p[1].numel()} lanes, tri/hit agree "
+        f"{frac:.7f}, max |t,u,v| err {err:.3g}, hit rate "
+        f"{(p[1] >= 0).float().mean().item():.4f}")
+    check(frac >= TRACE_AGREE, f"{name} {label}: agreement {frac}")
+    check(err <= UVT_ATOL, f"{name} {label}: t/u/v error {err}")
+    return frac, err
+
+
+def compare_occ(name, k, p, label):
+    torch.cuda.synchronize()
+    frac = (k == p).float().mean().item()
+    log(f"  {name} any-hit {label}: {p.numel()} lanes, agree {frac:.7f}, "
+        f"occluded rate {p.float().mean().item():.4f}")
+    check(frac >= TRACE_AGREE, f"{name} {label}: agreement {frac}")
+    return frac
+
+
+def phase_binned_kernels(dev):
+    from sunray_tpu_torch.ops import binned_trace as bt
+    from sunray_tpu_torch.ops import cuda_binned as cb
+    from sunray_tpu_torch.ops.intersect import T_MAX, T_MIN
+
+    log("phase 6: K10-K12 against their plain versions (1080p big-mesh "
+        "frame 2's rays)")
+    cs, (co, cd), (go, gd) = capture_binned_rays(dev)
+    k_tris = cs.tri_pack.shape[2]
+    pack_bytes = cs.num_clusters * 10 * k_tris * 4
+    results = {}
+
+    # K10: the camera rays through the block path's own preparation.
+    o_s, d_s, tx_s, ex_s, _ = bt._reorder_rays(cs, co, cd, T_MAX, None)
+    k10 = {}
+    for label, tmax, closest in (("camera", tx_s, True),
+                                 ("camera tmax 2.5", torch.full_like(tx_s, 2.5),
+                                  False)):
+        o_t, d_t, tn, tx, ex, n, nb = bt._prep(o_s, d_s, T_MIN, tmax, ex_s)
+        hit, entry = bt._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo,
+                                       cs.aabb_hi, nb)
+        order, ents, count = bt._work_list(hit, entry)
+        args = (order, ents, count, o_t, d_t, tn, tx, ex, cs.tri_pack, closest)
+        stats = {}
+        k = cb.binned_round(*args)
+        p = cb.binned_round_plain(*args, stats=stats)
+        if closest:
+            agree, err = compare_hits("K10", k, p, label)
+        else:
+            agree, err = compare_occ("K10", k, p, label), 0.0
+        log(f"    {nb} blocks, {int(count.sum())} culled work items "
+            f"({int(count.sum()) / (nb * cs.num_clusters):.4f} of all), "
+            f"{stats['items']} run after early exit")
+        k10[label] = dict(agree=agree, err=err, args=args, items=stats["items"],
+                          lanes=o_t.shape[1], lists=nbytes(order, ents, count))
+    cam = k10["camera"]
+    results["binned_round"] = dict(
+        agree=min(r["agree"] for r in k10.values()),
+        max_abs_err=max(r["err"] for r in k10.values()),
+        ms=time_ms(lambda: cb.binned_round(*cam["args"])),
+        plain_ms=time_ms(lambda: cb.binned_round_plain(*cam["args"])),
+        bound=bound(cam["lanes"] * 52 + pack_bytes + cam["lists"],
+                    cam["items"] * cb.BLOCK_RAYS * k_tris * TEST_OPS))
+
+    # K11 and K12: the GI bounce rays through the pair stream's preparation.
+    o_t, d_t, tn, tx, ex, n, nb = bt._prep(go, gd, T_MIN, T_MAX, None)
+    box = bt.supercluster_boxes(cs)
+    ks, kc = cb.cluster_scan(o_t, d_t, tn, tx, box)
+    ps, pc = cb.cluster_scan_plain(o_t, d_t, tn, tx, box)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(ks, ps) and torch.equal(kc, pc))
+    over = (pc > cb.L_SLOTS).float().mean().item()
+    log(f"  K11 cluster_scan: {o_t.shape[1]} lanes x {box.shape[0]} "
+        f"superclusters, bit-exact {exact}; superclusters hit per ray: mean "
+        f"{pc.float().mean().item():.3f}, max {int(pc.max())}; overflow "
+        f"(> {cb.L_SLOTS}) share {over:.6f}")
+    check(exact, "K11 cluster_scan differs from its plain version")
+    lanes = o_t.shape[1]
+    results["cluster_scan"] = dict(
+        max_abs_err=0.0, overflow_share=over,
+        ms=time_ms(lambda: cb.cluster_scan(o_t, d_t, tn, tx, box)),
+        plain_ms=time_ms(lambda: cb.cluster_scan_plain(o_t, d_t, tn, tx, box)),
+        bound=bound(lanes * (32 + 36) + nbytes(box),
+                    lanes * box.shape[0] * SLAB_OPS))
+
+    cid_s, pos_s, runs, n_sc, _ = bt._pair_stream_prep(cs, o_t, d_t, tn, tx)
+    live = int((cid_s < n_sc).sum())
+    log(f"  K12 pair_round: {cid_s.numel()} pair lanes, {live} live, "
+        f"{int(runs.sum())} work items")
+    args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs.tri_pack, n_sc)
+    f_c, e_c = compare_hits("K12", cb.pair_round(*args),
+                            cb.pair_round_plain(*args), "GI bounce")
+    short = tx.clamp(max=1.0)
+    occ_args = (cid_s, pos_s, runs, o_t, d_t, tn, short, ex, cs.tri_pack, n_sc)
+    f_o = compare_occ("K12", cb.pair_round(*occ_args, closest=False),
+                      cb.pair_round_plain(*occ_args, closest=False),
+                      "GI bounce tmax 1")
+    results["pair_round"] = dict(
+        agree=min(f_c, f_o), max_abs_err=e_c,
+        ms=time_ms(lambda: cb.pair_round(*args)),
+        plain_ms=time_ms(lambda: cb.pair_round_plain(*args)),
+        bound=bound(nbytes(cid_s, pos_s, runs) + lanes * 36 + pack_bytes
+                    + cid_s.numel() * 16,
+                    live * cb.SC_K * k_tris * TEST_OPS))
+    for name, r in results.items():
+        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    return results
+
+
+def phase_big_small(dev):
+    """The small big-mesh config on the card and on the CPU."""
+    from sunray_tpu_torch.config import RenderConfig
+
+    log(f"phase 6: small big-mesh config (subdiv {SMALL_BIG_SUBDIV}, "
+        f"cluster_k {SMALL_BIG['cluster_k']}, {SMALL_BIG_FRAMES} frames), "
+        "card vs CPU")
+    cfg = RenderConfig(**SMALL_BIG)
+    gpu = render(cfg, dev, SMALL_BIG_FRAMES, SMALL_BIG_SUBDIV).cpu().numpy()
+    cpu = render(cfg, "cpu", SMALL_BIG_FRAMES, SMALL_BIG_SUBDIV).numpy()
+    p = psnr(gpu, cpu)
+    log(f"  PSNR card vs CPU {p:.2f} dB")
+    check(p > PSNR_MIN, f"small big-mesh: card vs CPU PSNR {p:.2f} dB")
+
+
+def phase_big_vs_brute(dev, width=480, height=270):
+    """One big-mesh frame through the binned tracer and through
+    tracer="brute" (K1/K2 over every triangle)."""
+    from sunray_tpu_torch.config import RenderConfig
+
+    log(f"phase 6: {width}x{height} big-mesh frame, binned vs brute")
+    binned = render(RenderConfig(width=width, height=height), dev, 1,
+                    BIG_SUBDIV).cpu().numpy()
+    t0 = time.perf_counter()
+    brute = render(RenderConfig(width=width, height=height, tracer="brute"),
+                   dev, 1, BIG_SUBDIV, binned=False).cpu().numpy()
+    p = psnr(binned, brute)
+    log(f"  PSNR binned vs brute {p:.2f} dB (brute frame "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(p > PSNR_MIN, f"big-mesh binned vs brute PSNR {p:.2f} dB")
+
+
 # -- phases 4 and 5: frames --------------------------------------------------
 
-def render(cfg, device, frames):
+def big_scene(device, subdiv=BIG_SUBDIV):
+    """tests/torch_big_scene.py's Cornell box + mirror icosphere."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_big_scene import big_scene_args
+
+    from sunray_tpu_torch.scene.types import MaterialTable, build_scene
+
+    args = big_scene_args(subdiv)
+    return build_scene(**dict(args, device=device, materials=MaterialTable.build(
+        args["materials"], device)))
+
+
+def big_accel(scene, cfg):
+    """The load-time ClusterSet, as the JAX Renderer builds it
+    (renderer.py:114-117)."""
+    from sunray_tpu_torch.ops import binned_trace
+
+    return binned_trace.build_cluster_set(scene.world_triangle_vertices(),
+                                          k=cfg.cluster_k)
+
+
+def render(cfg, device, frames, subdiv=None, binned=True):
+    """ldr after `frames` frames of the Cornell box, or of the big-mesh
+    scene at `subdiv`, through its ClusterSet unless binned=False."""
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.render.pipeline import RenderState, render_frame
     from sunray_tpu_torch.scene import cornell_box
 
-    scene = cornell_box(device=device)
+    if subdiv is None:
+        scene, accel = cornell_box(device=device), None
+    else:
+        scene = big_scene(device, subdiv)
+        accel = big_accel(scene, cfg) if binned else None
     mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height, device=device)
     state = RenderState.create(cfg, device)
     ldr = None
     for _ in range(frames):
-        state, ldr, _ = render_frame(scene, cfg, state, mats)
+        state, ldr, _ = render_frame(scene, cfg, state, mats, accel)
     return ldr
 
 
@@ -432,16 +747,23 @@ def rays_expected(cfg, aux):
 
 
 def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
-               height=1080):
+               height=1080, big=False):
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.config import RenderConfig
     from sunray_tpu_torch.ops import cuda_build, cuda_trace
     from sunray_tpu_torch.render.pipeline import RenderState, render_frame
     from sunray_tpu_torch.scene import cornell_box
 
-    log(f"phase 5: {width}x{height} Cornell frame, lighting={lighting!r}")
     cfg = RenderConfig(width=width, height=height, lighting=lighting)
-    scene = cornell_box(device=dev)
+    if big:
+        log(f"phase 6: {width}x{height} big-mesh frame, lighting={lighting!r}")
+        scene = big_scene(dev)
+        accel = big_accel(scene, cfg)
+        log(f"  {scene.num_tris} triangles, {accel.num_clusters} clusters of "
+            f"{cfg.cluster_k}")
+    else:
+        log(f"phase 5: {width}x{height} Cornell frame, lighting={lighting!r}")
+        scene, accel = cornell_box(device=dev), None
     mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height, device=dev)
     state = RenderState.create(cfg, dev)
     torch.cuda.synchronize()
@@ -451,14 +773,14 @@ def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
     cuda_trace.rays.clear()
     t0 = time.perf_counter()
     for _ in range(n_warm):
-        state, ldr, aux = render_frame(scene, cfg, state, mats)
+        state, ldr, aux = render_frame(scene, cfg, state, mats, accel)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     rays0 = sum(cuda_trace.rays.values())
     expected = 0
     t0 = time.perf_counter()
     for _ in range(n_timed):
-        state, ldr, aux = render_frame(scene, cfg, state, mats)
+        state, ldr, aux = render_frame(scene, cfg, state, mats, accel)
         expected += rays_expected(cfg, aux) if lighting == "restir" else 0
     torch.cuda.synchronize()
     frame_s = (time.perf_counter() - t0) / n_timed
@@ -483,11 +805,62 @@ def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
               f"{expected / n_timed}")
     for name in kernels:
         check(launches.get(name, 0) > 0, f"kernel {name} never launched")
-    stage_breakdown(scene, cfg, state, mats, frame_s)
+    stage_breakdown(scene, cfg, state, mats, frame_s, accel)
+    if big:
+        profile_frame(scene, cfg, state, mats, accel)
     return launches
 
 
-def stage_breakdown(scene, cfg, state, mats, frame_s, frames=3):
+def profile_frame(scene, cfg, state, mats, accel, rows=12):
+    """Device time of one frame by kernel (torch.profiler), grouped into
+    the port's kernels, sorts and the rest of PyTorch, and the `rows`
+    kernels that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sunray_tpu_torch.render.pipeline import render_frame
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_frame(scene, cfg, state, mats, accel)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    ours = ("binned_kernel", "scan_kernel", "pair_kernel", "closest_kernel",
+            "occluded_kernel", "gather_rows_kernel", "atrous_kernel",
+            "ris_audition_kernel", "di_temporal_kernel", "di_spatial_kernel",
+            "gi_spatial_kernel")
+    stages = ("ris_pass", "final_pass", "taa", "denoise", "postprocess")
+    groups = {"port kernels": 0.0, "sort": 0.0, "other PyTorch": 0.0}
+    kernels = [e for e in events
+               if "CUDA" in str(getattr(e, "device_type", "")) and dev_us(e) > 0
+               and e.key not in stages]
+    for e in kernels:
+        key = e.key.lower()
+        if any(k in key for k in ours):
+            groups["port kernels"] += dev_us(e)
+        elif "sort" in key or "radix" in key:
+            groups["sort"] += dev_us(e)
+        else:
+            groups["other PyTorch"] += dev_us(e)
+    total = sum(groups.values())
+    if total <= 0:
+        log("  profile: no device time recorded (not measured)")
+        return
+    log("  profiled frame, device time: " + ", ".join(
+        f"{k} {v / 1e3:.3f} ms ({v / total:.1%})" for k, v in groups.items())
+        + f"; {total / 1e3:.3f} ms busy of {wall_ms:.3f} ms wall (idle "
+        f"{max(0.0, 1.0 - total / 1e3 / wall_ms):.1%}, profiler on)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:rows]:
+        log(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:70]}")
+
+
+def stage_breakdown(scene, cfg, state, mats, frame_s, accel=None, frames=3):
     """Host-clock ms per frame of each stage of render_frame, the device
     synchronised at each stage's start and end. render_frame's profiler
     ranges are swapped for synchronising timers for these frames only, so
@@ -512,7 +885,7 @@ def stage_breakdown(scene, cfg, state, mats, frame_s, frames=3):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(frames):
-        state, _, _ = pipeline.render_frame(scene, cfg, state, mats)
+        state, _, _ = pipeline.render_frame(scene, cfg, state, mats, accel)
     torch.cuda.synchronize()
     total_s = (time.perf_counter() - t0) / frames
     pipeline.record_function = profiler_range
@@ -540,10 +913,20 @@ KERNELS = {
                    "sunray_tpu/ops/pallas_restir.py:566"),
     "gi_spatial": ("sunray_tpu_torch/csrc/restir.cu",
                    "sunray_tpu/ops/pallas_restir.py:791"),
+    "binned_round": ("sunray_tpu_torch/csrc/binned.cu",
+                     "sunray_tpu/ops/binned_trace.py:546"),
+    "cluster_scan": ("sunray_tpu_torch/csrc/binned.cu",
+                     "sunray_tpu/ops/binned_trace.py:752"),
+    "pair_round": ("sunray_tpu_torch/csrc/binned.cu",
+                   "sunray_tpu/ops/binned_trace.py:962"),
 }
+BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
+CORNELL_KERNELS = tuple(k for k in KERNELS if k not in BINNED_KERNELS)
 NEE_KERNELS = ("trace_closest", "trace_occluded", "gather_rows", "atrous_pass")
-
-
+# The big-mesh frame: every query goes through the binned tracer.
+BIG_KERNELS = BINNED_KERNELS + tuple(k for k in CORNELL_KERNELS
+                                     if k not in ("trace_closest",
+                                                  "trace_occluded"))
 def main():
     check(torch.cuda.is_available(), "no CUDA device available")
     sys.path.insert(0, REPO)
@@ -571,8 +954,15 @@ def main():
     kernels = phase_kernels(dev)
     kernels.update(phase_restir_kernels(dev))
     phase_golden(dev)
-    launches = phase_main(dev, "restir", tuple(KERNELS), n_warm=5, n_timed=20)
+    # Each kernel's launches are read on its own slice's main path.
+    launches = phase_main(dev, "restir", CORNELL_KERNELS, n_warm=5, n_timed=20)
     phase_main(dev, "nee", NEE_KERNELS, n_warm=2, n_timed=5)
+    kernels.update(phase_binned_kernels(dev))
+    phase_big_small(dev)
+    big_launches = phase_main(dev, "restir", BIG_KERNELS, n_warm=5, n_timed=20,
+                              big=True)
+    launches.update({k: big_launches[k] for k in BINNED_KERNELS})
+    phase_big_vs_brute(dev)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -580,9 +970,12 @@ def main():
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"]}
-        if "agree" in r:
-            entry["agree"] = r["agree"]
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                 "bound_by": r["bound"][1],
+                 "library_ms": r.get("library_ms")}
+        for key in ("agree", "overflow_share"):
+            if key in r:
+                entry[key] = r[key]
         out.append(entry)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

@@ -7,14 +7,24 @@ Pallas TPU kernel on the ported path is a hand-written CUDA kernel under
 `csrc/`, built with nvcc at first use and bound with ctypes
 (`ops/cuda_build.py`).
 
-Ported so far: the forward frame with `lighting="nee"` (or "brdf") on a
-scene small enough for the brute-force tracer, with a trivial texture
-atlas. Everything else raises NotImplementedError (render/pipeline.py).
+Ported so far: the forward frame with `lighting="restir"` (the default,
+shared spatial taps), "nee" or "brdf", with a trivial texture atlas, on
+the brute-force tracer (scenes up to `brute_force_max_tris`) or on the
+binned tracer with a ClusterSet accel (`render_frame(..., accel=
+ops.binned_trace.build_cluster_set(...))`, any size). Everything else
+raises NotImplementedError (render/pipeline.py, render/trace.py).
+
+Entry points build on the card (`device="cuda"`) unless the caller names
+another device; without a card such a call raises.
 
 Kernels:
   - K1/K2 brute closest / occlusion trace -> ops/cuda_trace.py, csrc/trace.cu
   - K8 small-table row gather            -> ops/cuda_gather.py, csrc/gather.cu
   - K7 a-trous denoise pass              -> ops/cuda_image.py, csrc/atrous.cu
+  - K3-K6 ReSTIR audition, temporal and spatial reuse
+                                         -> ops/cuda_restir.py, csrc/restir.cu
+  - K10-K12 binned trace: block walk, supercluster scan, pair stream
+                                         -> ops/cuda_binned.py, csrc/binned.cu
 """
 
 import torch

@@ -78,7 +78,7 @@ def perspective_gl(aspect, fov_y_rad, znear, zfar):
     return proj
 
 
-def camera_matrices(camera: Camera, width: int, height: int, device="cpu"):
+def camera_matrices(camera: Camera, width: int, height: int, device="cuda"):
     """-> dict with view_inverse, proj_inverse, view_proj (camera.rs:33-63),
     each a (4, 4) float32 tensor on `device`."""
     eye = torch.tensor(camera.position, dtype=_F32, device=device)

@@ -1,4 +1,5 @@
-"""Carry scenes, frame state and camera matrices into the port from numpy.
+"""Carry scenes, frame state, camera matrices and cluster sets into the port
+from numpy.
 
 Each function takes a dict of numpy arrays keyed by the field names that
 the JAX package's dataclasses use (nested dicts for the nested ones), so
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sunray_tpu_torch.ops.binned_trace import ClusterSet
 from sunray_tpu_torch.render import restir
 from sunray_tpu_torch.render.pipeline import RenderState
 from sunray_tpu_torch.scene.types import MaterialTable, SceneBuffers, TextureAtlas
@@ -33,7 +35,7 @@ def _build(cls, fields: dict, device, nested=None):
     return cls(**kw)
 
 
-def scene_from_numpy(fields: dict, device="cpu") -> SceneBuffers:
+def scene_from_numpy(fields: dict, device="cuda") -> SceneBuffers:
     """SceneBuffers from numpy arrays; fields["materials"] and
     fields["textures"] are dicts of MaterialTable / TextureAtlas fields."""
     return _build(SceneBuffers, fields, device, nested={
@@ -42,7 +44,7 @@ def scene_from_numpy(fields: dict, device="cpu") -> SceneBuffers:
     })
 
 
-def state_from_numpy(fields: dict, device="cpu") -> RenderState:
+def state_from_numpy(fields: dict, device="cuda") -> RenderState:
     """RenderState from numpy arrays; fields["res_di"] and fields["res_gi"]
     are dicts of reservoir fields. Live reservoirs carry over as they are;
     their ids (light_idx, sample_tri) become int32 planes."""
@@ -60,6 +62,19 @@ def state_from_numpy(fields: dict, device="cpu") -> RenderState:
     })
 
 
-def mats_from_numpy(mats: dict, device="cpu") -> dict:
+def mats_from_numpy(mats: dict, device="cuda") -> dict:
     """Camera matrices dict (view_inverse, proj_inverse, view_proj)."""
     return {k: _t(np.asarray(v, np.float32), device) for k, v in mats.items()}
+
+
+def cluster_set_from_numpy(fields: dict, device="cuda") -> ClusterSet:
+    """ClusterSet from the JAX package's fields (tri_ids, tri_pack, aabb_lo,
+    aabb_hi). Its float32 pack carries the ids bitcast in row 9; the port's
+    pack is the same bits as int32 words."""
+    pack = np.ascontiguousarray(np.asarray(fields["tri_pack"], np.float32))
+    return ClusterSet(
+        tri_ids=_t(np.asarray(fields["tri_ids"], np.int32), device),
+        tri_pack=_t(pack.view(np.int32), device),
+        aabb_lo=_t(np.asarray(fields["aabb_lo"], np.float32), device),
+        aabb_hi=_t(np.asarray(fields["aabb_hi"], np.float32), device),
+    )

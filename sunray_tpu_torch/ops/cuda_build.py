@@ -37,7 +37,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sunray_tpu_torch"
-SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu")
+SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu", "binned.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -128,10 +128,20 @@ def _declare(lib):
                                       + [p] * 9 + [p])
     lib.sunray_gi_spatial.argtypes = ([p] + [p] * 5 + [p] * 7 + [i, p]
                                       + [p] * 4 + [i, f] + [p] * 6 + [p])
+    binned = [p, p, p, i, i, p, p, p, p, p, p, i]
+    lib.sunray_binned_closest.argtypes = binned + [p, p, p, p, p]
+    lib.sunray_binned_occluded.argtypes = binned + [p, p]
+    lib.sunray_cluster_scan.argtypes = [p, p, p, p, i, p, i, p, p, p]
+    pairs = [p, p, p, i, i, p, p, p, p, p, i, p, i, i]
+    lib.sunray_pair_closest.argtypes = pairs + [p, p, p, p, p]
+    lib.sunray_pair_occluded.argtypes = pairs + [p, p]
     for fn in (lib.sunray_trace_closest, lib.sunray_trace_occluded,
                lib.sunray_gather_rows, lib.sunray_atrous_pass,
                lib.sunray_ris_audition, lib.sunray_di_temporal,
-               lib.sunray_di_spatial, lib.sunray_gi_spatial):
+               lib.sunray_di_spatial, lib.sunray_gi_spatial,
+               lib.sunray_binned_closest, lib.sunray_binned_occluded,
+               lib.sunray_cluster_scan, lib.sunray_pair_closest,
+               lib.sunray_pair_occluded):
         fn.restype = ctypes.c_int
     return lib
 

@@ -5,8 +5,9 @@ trace_occluded_pallas); the kernels are in csrc/trace.cu. Each wrapper
 takes the plain PyTorch version (ops/intersect.py) for CPU tensors and
 launches its kernel for CUDA tensors; there is no other path.
 
-`rays` counts the rays handed to each query, whatever the device: the
-full-batch ray accounting of bench.py:7-13 is the sum of these.
+`rays` counts the rays of each query that render/trace.py serves, whatever
+the tracer and the device: the full-batch ray accounting of bench.py:7-13
+is the sum of these.
 """
 
 from __future__ import annotations
@@ -61,7 +62,6 @@ def _on_cpu(tris, *tensors):
 def trace_closest(tris, orig, d, tmin=T_MIN, tmax=T_MAX) -> Hit:
     """Closest hit of every ray (N, 3) over triangles (v0, v1, v2), each
     (T, 3). tmin/tmax: scalars or (N,) tensors."""
-    rays["closest"] += orig.shape[0]
     if _on_cpu(tris, orig, d, tmin, tmax):
         return intersect.trace_closest_brute(tris, orig, d, tmin, tmax)
     dev = _check("trace_closest", tris, orig, d)
@@ -88,7 +88,6 @@ def trace_closest(tris, orig, d, tmin=T_MIN, tmax=T_MAX) -> Hit:
 def trace_occluded(tris, orig, d, tmax, tmin=T_MIN, exclude=None):
     """Any hit in [tmin, tmax] of every ray, skipping triangle exclude[i]
     (int32, -1 = none). Returns (N,) bool, True = occluded."""
-    rays["occluded"] += orig.shape[0]
     if _on_cpu(tris, orig, d, tmin, tmax, exclude):
         return intersect.trace_occluded_brute(tris, orig, d, tmax, tmin,
                                               exclude=exclude)

@@ -141,7 +141,8 @@ def primary_walk(scene, cfg, tracer, origins, dirs, seed):
     )
 
     def body(c, first):
-        hit = trace_closest(tracer, c["ray_o"], c["ray_d"])
+        # Rounds after the peeled first one are incoherent (gbuffer.py:199).
+        hit = trace_closest(tracer, c["ray_o"], c["ray_d"], coherent=first)
         tri0 = torch.where(hit.hit, hit.tri, -1)
         t0 = torch.where(hit.hit, hit.t, 1e9)
         if first:
@@ -292,7 +293,7 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
     gi_ndl = torch.clamp(dot(normal, gi_dir), min=0.0)
     gi_enable = found & (gi_ndl > 0.0)
     gi_origin = fma(normal, 1e-3, pos)
-    gi_hit = trace_closest(tracer, gi_origin, gi_dir)
+    gi_hit = trace_closest(tracer, gi_origin, gi_dir, coherent=False)
     gi_surf = shade_hits(scene, gi_origin, gi_dir, gi_hit,
                          face_forward=cfg.face_forward_normals)
     gi_found = gi_enable & gi_surf.valid & (gi_surf.dist > 0.0)
@@ -320,6 +321,7 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
         torch.cat([vis_dir, to_light]),
         torch.cat([vis_dist, nee_dist]),
         exclude=torch.cat([vis_exclude, lights.world_tri[nee_idx.long()]]),
+        coherent=False,
     )
     keep_w = (r_di.W > 0.0) & facing & ~occ2[:p]
     r_di = dataclasses.replace(

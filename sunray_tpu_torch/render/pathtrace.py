@@ -116,12 +116,13 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         f_view=z3, f_throughput=z3,
     )
 
-    def body(c, reuse=None):
+    def body(c, reuse=None, coherent=True):
         i = c["i"]
         if reuse is not None:
             hit = reuse_hit(*reuse)
         else:
-            hit = trace_closest(tracer, c["ray_o"], c["ray_d"])
+            hit = trace_closest(tracer, c["ray_o"], c["ray_d"],
+                                coherent=coherent)
         surf = shade_hits(scene, c["ray_o"], c["ray_d"], hit,
                           face_forward=cfg.face_forward_normals)
         live = c["active"] & surf.valid
@@ -267,7 +268,7 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     if cfg.bounces > 0:
         c = body(c, reuse=first_hit)
     while c["i"] < cfg.bounces and bool(c["active"].any()):
-        c = body(c)
+        c = body(c, coherent=False)     # pathtrace.py:361
     radiance = c["radiance"]
     if use_restir:
         radiance = radiance + _spatial_reuse(
@@ -346,6 +347,7 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
         tracer, torch.cat([pos, pos]), torch.cat([sdir, gi["gdir"]]),
         torch.cat([sdist, gi["gdist"]]),
         exclude=torch.cat([di_exclude, gi["sample_tri"]]),
+        coherent=False,
     )
     lit = di["has"] & facing & ~occ2[:p]
     radiance = torch.where(
@@ -421,6 +423,7 @@ def _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
             tracer, torch.cat([pos] * t_n), torch.cat([r[0] for r in rays]),
             torch.cat([r[1] for r in rays]),
             exclude=torch.cat([r[2] for r in rays]),
+            coherent=False,
         )
         planes["ok"] = [ok & ~occ[k * p:(k + 1) * p]
                         for k, ok in enumerate(planes["ok"])]

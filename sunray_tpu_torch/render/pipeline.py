@@ -7,7 +7,8 @@ runs on the device of the scene tensors; the frame never moves to the
 CPU on its own.
 
 Covered: lighting "restir" (the default: shared spatial taps, f32
-shading), "nee" and "brdf"; the brute-force tracer, a trivial texture
+shading), "nee" and "brdf"; the brute-force tracer or the binned tracer
+with a ClusterSet accel (scenes above the brute-force limit), a trivial texture
 atlas, one sample per pixel, forward only. check_supported()
 raises NotImplementedError for every other configuration instead of
 rendering something else. The stages run under torch.profiler ranges
@@ -45,7 +46,7 @@ class RenderState:
     frame_count: torch.Tensor        # () int32
 
     @staticmethod
-    def create(cfg, device="cpu") -> "RenderState":
+    def create(cfg, device="cuda") -> "RenderState":
         p = cfg.width * cfg.height
         return RenderState(
             accum=torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
@@ -87,15 +88,18 @@ def check_supported(scene, cfg) -> None:
         )
 
 
-def render_frame(scene, cfg, state: RenderState, mats):
+def render_frame(scene, cfg, state: RenderState, mats, accel=None):
     """One frame. mats: camera matrices dict from camera_matrices().
 
+    accel: optional load-time binned_trace.ClusterSet (built from the
+    scene's world triangles with k=cfg.cluster_k, as the JAX Renderer
+    does, renderer.py:114-117), refit inside (render/trace.make_tracer).
     Returns (new_state, ldr (H, W, 3) in [0, 1], aux)."""
     check_supported(scene, cfg)
     w, h = cfg.width, cfg.height
     frame_count = state.frame_count
 
-    tracer = make_tracer(scene, cfg)
+    tracer = make_tracer(scene, cfg, accel)
     lights = restir.Lights(scene) if scene.num_lights > 0 else None
 
     with record_function("ris_pass"):

@@ -45,7 +45,7 @@ class ReservoirDI:
     depth: torch.Tensor          # (P,)
 
     @staticmethod
-    def empty(p: int, device="cpu") -> "ReservoirDI":
+    def empty(p: int, device="cuda") -> "ReservoirDI":
         return ReservoirDI(
             light_pos=_zeros(p, device, 3), w_sum=_zeros(p, device),
             light_normal=_zeros(p, device, 3), M=_zeros(p, device),
@@ -68,7 +68,7 @@ class ReservoirGI:
     sample_tri: torch.Tensor       # (P,) int32, -1 = none
 
     @staticmethod
-    def empty(p: int, device="cpu") -> "ReservoirGI":
+    def empty(p: int, device="cuda") -> "ReservoirGI":
         return ReservoirGI(
             sample_pos=_zeros(p, device, 3), w_sum=_zeros(p, device),
             sample_radiance=_zeros(p, device, 3), M=_zeros(p, device),

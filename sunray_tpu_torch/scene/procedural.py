@@ -64,7 +64,7 @@ class _MeshBuilder:
         self.add_quad(b[2], t[2], t[3], b[3], prim)   # +z side
         self.add_quad(b[3], t[3], t[0], b[0], prim)   # -x side
 
-    def build(self, instances=None, device="cpu") -> SceneBuffers:
+    def build(self, instances=None, device="cuda") -> SceneBuffers:
         if instances is None:
             # One identity instance per primitive that has triangles.
             prims = sorted(set(self.prim_of_tri))
@@ -80,7 +80,7 @@ class _MeshBuilder:
         )
 
 
-def cornell_box(light_emission: float = 15.0, device="cpu") -> SceneBuffers:
+def cornell_box(light_emission: float = 15.0, device="cuda") -> SceneBuffers:
     """The classic Cornell box in a [0,2]^3-ish volume, camera looking -z.
 
     Walls: white floor/ceiling/back, red left, green right; area light near

@@ -53,7 +53,7 @@ class TextureAtlas:
     filt: torch.Tensor
 
     @staticmethod
-    def empty(device="cpu") -> "TextureAtlas":
+    def empty(device="cuda") -> "TextureAtlas":
         return TextureAtlas(
             data=torch.ones((1, 1, 1, 4), dtype=torch.float32, device=device),
             size=torch.ones((1, 2), dtype=torch.int32, device=device),
@@ -82,7 +82,7 @@ class MaterialTable:
     tex_index: torch.Tensor         # (M, 5) int32, NULL_TEXTURE = none
 
     @staticmethod
-    def build(records: list, device="cpu") -> "MaterialTable":
+    def build(records: list, device="cuda") -> "MaterialTable":
         """records: list of dicts with the scalar fields above."""
         m = len(records)
 
@@ -185,7 +185,7 @@ def build_scene(
     tangents=None,
     uvs=None,
     textures: Optional[TextureAtlas] = None,
-    device="cpu",
+    device="cuda",
 ) -> SceneBuffers:
     """Assemble SceneBuffers from host (numpy) mesh data, as
     sunray_tpu.scene.types.build_scene does, onto `device`.

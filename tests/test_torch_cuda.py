@@ -1,6 +1,7 @@
-"""PyTorch port on the card: every CUDA kernel (K1-K8) against its plain
-PyTorch version, and the golden NEE and ReSTIR frames on the card against
-the CPU. Skipped where there is no CUDA device. This file imports no JAX,
+"""PyTorch port on the card: every CUDA kernel (K1-K8, K10-K12) against its
+plain PyTorch version, the golden NEE and ReSTIR frames and the small
+big-mesh frame on the card against the CPU, and the entry points' default
+device. Skipped where there is no CUDA device. This file imports no JAX,
 so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
@@ -13,9 +14,10 @@ import torch
 from sunray_tpu_torch.camera import Camera, camera_matrices, generate_rays
 from sunray_tpu_torch.config import RenderConfig
 from sunray_tpu_torch.ops import cuda_build, cuda_gather, cuda_image, cuda_trace
-from sunray_tpu_torch.ops import cuda_restir, intersect
+from sunray_tpu_torch.ops import binned_trace, cuda_binned, cuda_restir, intersect
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 from sunray_tpu_torch.scene import cornell_box
+from torch_big_scene import big_scene_args, icosphere
 from torch_parity import CAMERA, GOLDEN_KW, cuda_device, n, psnr  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -215,3 +217,149 @@ def test_ris_audition_kernel_light_tables(n_lights, cuda_device):
     args = (table, seed, f(p, 3, hi=2.0), unit(), unit(), f(p, 3),
             f(p, lo=0.05), f(p), 16, f(p) > 0.2)
     _check_restir("ris_audition", args)
+
+
+# K10-K12: the binned tracer. Rays agree (tri and hit, or occluded) on
+# >= 99.99% of lanes and t/u/v within 1e-5 where they do, the bar
+# chip_smoke.py holds them to; K11 bit for bit.
+AGREE, UVT_ATOL = 0.9999, 1e-5
+
+
+def _binned_case(dev, kind, k=128):
+    """A ClusterSet over a subdivided icosphere plus random triangles, and
+    rays: "camera" a fan, "random" anywhere, "center" from the middle
+    (many superclusters per ray: the overflow case at k=32)."""
+    rng = np.random.default_rng(7)
+    verts, faces = icosphere(4)
+    v0 = rng.normal(size=(3000, 3)).astype(np.float32) * 2.0
+    tris = [np.concatenate([verts[faces[:, c]], v0 + (
+        rng.normal(size=v0.shape) * 0.2).astype(np.float32) * (c > 0)])
+        for c in range(3)]
+    cs = binned_trace.build_cluster_set(
+        tuple(torch.from_numpy(x).to(dev) for x in tris), k=k)
+    m = 60_000
+    if kind == "camera":
+        o = np.broadcast_to(np.float32([0.0, 0.0, 6.0]), (m, 3)).copy()
+        d = np.concatenate([rng.uniform(-0.5, 0.5, (m, 2)),
+                            -np.ones((m, 1))], axis=1)
+    else:
+        o = rng.normal(size=(m, 3)) * (0.1 if kind == "center" else 3.0)
+        d = rng.normal(size=(m, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.abs(rng.normal(size=m)) * 4.0 + 0.2
+    ex = rng.integers(-1, tris[0].shape[0], size=m)
+    f = lambda x, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x)).to(dev, dt)
+    return cs, f(o), f(d), f(tmax), f(ex, torch.int32)
+
+
+def _check_closest(k, p):
+    torch.cuda.synchronize()
+    agree = k[1] == p[1]
+    assert agree.float().mean().item() >= AGREE
+    both = agree & (p[1] >= 0)
+    assert (p[1] >= 0).any()
+    for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])):
+        assert (a[both] - b[both]).abs().max().item() <= UVT_ATOL
+
+
+def _check_occ(k, p):
+    torch.cuda.synchronize()
+    assert (k == p).float().mean().item() >= AGREE
+    assert 0.0 < p.float().mean().item() < 1.0
+
+
+@pytest.mark.parametrize("kind", ["camera", "random"])
+def test_binned_round_kernel_matches_plain(kind, cuda_device):
+    cs, o, d, tmax, ex = _binned_case(cuda_device, kind)
+    o, d, tmax, ex, _ = binned_trace._reorder_rays(cs, o, d, tmax, ex)
+    o_t, d_t, tn, tx, ex, _, nb = binned_trace._prep(o, d, 1e-3, tmax, ex)
+    hit, entry = binned_trace._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo,
+                                             cs.aabb_hi, nb)
+    order, ents, count = binned_trace._work_list(hit, entry)
+    args = (order, ents, count, o_t, d_t, tn, tx, ex, cs.tri_pack)
+    cuda_build.launches.clear()
+    _check_closest(cuda_binned.binned_round(*args),
+                   cuda_binned.binned_round_plain(*args))
+    _check_occ(cuda_binned.binned_round(*args, closest=False),
+               cuda_binned.binned_round_plain(*args, closest=False))
+    assert cuda_build.launches["binned_round"] == 2
+
+
+@pytest.mark.parametrize("k", [128, 32])
+def test_scan_and_pair_kernels_match_plain(k, cuda_device):
+    cs, o, d, tmax, ex = _binned_case(cuda_device, "center", k)
+    o_t, d_t, tn, tx, ex, _, _ = binned_trace._prep(o, d, 1e-3, tmax, ex)
+    box = binned_trace.supercluster_boxes(cs)
+    got = cuda_binned.cluster_scan(o_t, d_t, tn, tx, box)
+    want = cuda_binned.cluster_scan_plain(o_t, d_t, tn, tx, box)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if k == 32:
+        assert (want[1] > cuda_binned.L_SLOTS).any()     # the overflow case
+    cid_s, pos_s, runs, n_sc, _ = binned_trace._pair_stream_prep(
+        cs, o_t, d_t, tn, tx)
+    args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs.tri_pack, n_sc)
+    _check_closest(cuda_binned.pair_round(*args),
+                   cuda_binned.pair_round_plain(*args))
+    _check_occ(cuda_binned.pair_round(*args, closest=False),
+               cuda_binned.pair_round_plain(*args, closest=False))
+
+
+@pytest.mark.parametrize("path", ["block", "pairs"])
+def test_binned_traces_card_match_cpu(path, cuda_device):
+    """The whole binned trace (sorts, cull, kernels, overflow fallback) on
+    the card against the same on the CPU (plain versions)."""
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        cs, o, d, tmax, ex = _binned_case(dev, "center", 32)
+        if path == "block":
+            h = binned_trace.trace_closest_binned(cs, o, d, tmax=tmax,
+                                                  exclude=ex, reorder=True)
+            occ = binned_trace.trace_occluded_binned(cs, o, d, tmax,
+                                                     exclude=ex, reorder=True)
+        else:
+            h = binned_trace.trace_closest_pairs(cs, o, d, tmax=tmax)
+            occ = binned_trace.trace_occluded_pairs(cs, o, d, tmax, exclude=ex)
+        outs.append((tuple(x.cpu() for x in h), occ.cpu()))
+    (kh, ko), (ph, po) = outs
+    _check_closest((kh[0], torch.where(kh[4], kh[1], -1), kh[2], kh[3]),
+                   (ph[0], torch.where(ph[4], ph[1], -1), ph[2], ph[3]))
+    assert (ko == po).float().mean().item() >= AGREE
+
+
+def test_big_mesh_frame_on_card_matches_cpu(cuda_device):
+    """The small big-mesh config (mirror sphere at subdiv 3, cluster_k 32)
+    on the card against the CPU; K10-K12 launch."""
+    from sunray_tpu_torch.scene.types import MaterialTable, build_scene
+
+    cfg = RenderConfig(**dict(GOLDEN_KW, lighting="restir", width=48,
+                              height=32, cluster_k=32))
+    ldrs = {}
+    for dev in ("cpu", cuda_device):
+        args = big_scene_args(3)
+        scene = build_scene(**dict(args, device=dev, materials=MaterialTable.build(
+            args["materials"], dev)))
+        accel = binned_trace.build_cluster_set(scene.world_triangle_vertices(),
+                                               k=cfg.cluster_k)
+        mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height,
+                               device=dev)
+        state = RenderState.create(cfg, dev)
+        cuda_build.launches.clear()
+        for _ in range(3):
+            state, ldr, _ = render_frame(scene, cfg, state, mats, accel)
+        ldrs[str(dev)] = n(ldr)
+    p = psnr(ldrs["cpu"], ldrs[str(cuda_device)])
+    assert p > 40.0, f"PSNR card vs CPU = {p:.2f} dB"
+    for name in ("binned_round", "cluster_scan", "pair_round"):
+        assert cuda_build.launches[name] > 0, name
+
+
+def test_entry_points_default_to_cuda(cuda_device):
+    from sunray_tpu_torch import convert
+
+    cfg = RenderConfig(width=8, height=8)
+    assert cornell_box().positions.is_cuda
+    assert camera_matrices(Camera(**CAMERA), 8, 8)["view_proj"].is_cuda
+    assert RenderState.create(cfg).accum.is_cuda
+    assert convert.mats_from_numpy({"m": np.eye(4)})["m"].is_cuda

@@ -70,7 +70,7 @@ def test_rng_bit_exact():
 def test_camera_matrices_and_rays(size, cam):
     w, h = size
     jm = jcam.camera_matrices(jcam.Camera(**cam), w, h)
-    pm = pcam.camera_matrices(pcam.Camera(**cam), w, h)
+    pm = pcam.camera_matrices(pcam.Camera(**cam), w, h, device="cpu")
     for k in ("view_inverse", "proj_inverse", "view_proj"):
         np.testing.assert_allclose(n(pm[k]), np.asarray(jm[k]), atol=1e-6)
     mats = {k: t(v) for k, v in jm.items()}

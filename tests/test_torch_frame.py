@@ -41,9 +41,10 @@ def frames():
     jstate = JState.create(jcfg)
 
     cfg = RenderConfig(**GOLDEN_KW)
-    scene = convert.scene_from_numpy(to_numpy(jscene))
-    mats = convert.mats_from_numpy({k: np.asarray(v) for k, v in jmats.items()})
-    state = RenderState.create(cfg)
+    scene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
+    mats = convert.mats_from_numpy({k: np.asarray(v) for k, v in jmats.items()},
+                                   device="cpu")
+    state = RenderState.create(cfg, device="cpu")
 
     out = dict(jax=[], port=[], jstates=[], scene=scene, mats=mats, cfg=cfg)
     for _ in range(FRAMES):
@@ -93,7 +94,7 @@ def test_state_shapes_and_counter(frames):
 
 def test_state_from_numpy_continues_jax_frames(frames):
     """The JAX state after two frames, carried across, renders frame 3."""
-    state = convert.state_from_numpy(frames["jstates"][1])
+    state = convert.state_from_numpy(frames["jstates"][1], device="cpu")
     assert int(state.frame_count) == 2
     _, ldr, _ = render_frame(frames["scene"], frames["cfg"], state,
                              frames["mats"])
@@ -119,9 +120,9 @@ def test_uncovered_configs_raise(name, frames):
                               **UNCOVERED.get(name, {}))
     scene = frames["scene"]
     if name == "textured_atlas":
-        atlas = TextureAtlas.empty()
+        atlas = TextureAtlas.empty(device="cpu")
         atlas.data = torch.ones((2, 4, 4, 4))
         scene = dataclasses.replace(scene, textures=atlas)
     with pytest.raises(NotImplementedError):
-        render_frame(scene, cfg, RenderState.create(cfg), frames["mats"])
+        render_frame(scene, cfg, RenderState.create(cfg, device="cpu"), frames["mats"])
 

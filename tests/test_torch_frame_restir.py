@@ -46,10 +46,10 @@ def frames():
     jstate = JState.create(jcfg)
 
     cfg = RenderConfig(**KW)
-    scene = convert.scene_from_numpy(to_numpy(jscene))
+    scene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
     mats = convert.mats_from_numpy({k: np.asarray(v)
-                                    for k, v in jmats.items()})
-    state = RenderState.create(cfg)
+                                    for k, v in jmats.items()}, device="cpu")
+    state = RenderState.create(cfg, device="cpu")
 
     out = dict(jax=[], port=[], jstates=[], states=[], rays=[], scene=scene,
                mats=mats, cfg=cfg)
@@ -122,7 +122,7 @@ def test_rays_per_frame_as_bench_counts(frames):
 def test_state_from_numpy_continues_jax_frames(frames):
     """The JAX state after four frames, carried across with its live
     reservoirs, renders frame 5."""
-    state = convert.state_from_numpy(frames["jstates"][3])
+    state = convert.state_from_numpy(frames["jstates"][3], device="cpu")
     assert int(state.frame_count) == 4
     assert state.res_di.light_idx.dtype == torch.int32
     assert state.res_gi.sample_tri.dtype == torch.int32

@@ -408,7 +408,7 @@ def test_di_temporal_reuse_matches_jax(jlights):
     js, jout = jax.jit(jrun)(js0, jres, jr.ReservoirDI(**hist), *attrs)
     r = pr.ReservoirDI(**{k: t(np.asarray(v))
                           for k, v in dataclasses.asdict(jres).items()})
-    lights = pr.Lights(convert.scene_from_numpy(to_numpy(jcornell_box())))
+    lights = pr.Lights(convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu"))
     ps, pout = pr.di_temporal_reuse(
         lights, cfg, t(_u32(js0).astype(np.int64)), r,
         pr.ReservoirDI(**{k: t(v) for k, v in hist.items()}),
@@ -486,8 +486,9 @@ def phase_b():
     from sunray_tpu.render.gbuffer import GBuffer as JGBuffer
 
     jmats = jcm(JCamera(**CAMERA), jcfg.width, jcfg.height)
-    scene = convert.scene_from_numpy(to_numpy(jscene))
-    mats = convert.mats_from_numpy({k: np.asarray(v) for k, v in jmats.items()})
+    scene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
+    mats = convert.mats_from_numpy({k: np.asarray(v) for k, v in jmats.items()},
+                                   device="cpu")
     captured = {}
     orig = ppt._spatial_reuse
 
@@ -498,7 +499,7 @@ def phase_b():
 
     ppt._spatial_reuse = capture
     try:
-        state = RenderState.create(cfg)
+        state = RenderState.create(cfg, device="cpu")
         for _ in range(3):
             state, _, _ = render_frame(scene, cfg, state, mats)
     finally:

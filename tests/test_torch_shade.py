@@ -91,7 +91,7 @@ def _hits(scene, w=64, h=48, seed=0):
 @pytest.mark.parametrize("face_forward", [False, True])
 def test_shade_hits_matches_reference(face_forward):
     jscene = jcornell_box()
-    pscene = convert.scene_from_numpy(to_numpy(jscene))
+    pscene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
     for o, d, hit in _hits(jscene):
         want = jshade.shade_hits(jscene, jnp.asarray(o), jnp.asarray(d), hit,
                                  face_forward=face_forward)
@@ -109,8 +109,8 @@ def test_shade_hits_matches_reference(face_forward):
 
 
 def test_shade_hits_textured_atlas_raises():
-    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()))
-    atlas = TextureAtlas.empty()
+    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu")
+    atlas = TextureAtlas.empty(device="cpu")
     atlas.data = torch.ones((2, 4, 4, 4))
     pscene.textures = atlas
     z = torch.zeros(4)
@@ -129,7 +129,7 @@ def test_world_triangles_match_reference():
     xf[:, :, :3] += rng.normal(size=xf[:, :, :3].shape).astype(np.float32) * 0.2
     xf[:, :, 3] += rng.normal(size=xf[:, :, 3].shape).astype(np.float32)
     jscene = jscene.replace(inst_transform=jnp.asarray(xf))
-    pscene = convert.scene_from_numpy(to_numpy(jscene))
+    pscene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
     want = jax.jit(lambda s: s.world_triangle_vertices())(jscene)
     for g, w_ in zip(pscene.world_triangle_vertices(), want):
         np.testing.assert_allclose(n(g), np.asarray(w_), atol=1e-6)

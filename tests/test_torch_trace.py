@@ -153,7 +153,7 @@ def test_render_trace_matches_reference():
     from sunray_tpu.config import RenderConfig as JConfig
 
     jctx = jtrace.make_tracer(jscene, JConfig(**jcfg_kw))
-    pscene = convert.scene_from_numpy(to_numpy(jscene))
+    pscene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
     pctx = ptrace.make_tracer(pscene, pconfig.RenderConfig(**jcfg_kw))
     tris, so, sd, smax, sex = (CASES["cornell_shadow"][i] for i in range(5))
     smax = smax.copy()
@@ -167,11 +167,27 @@ def test_render_trace_matches_reference():
     _check_closest(gh, wh)
 
 
-@pytest.mark.parametrize("kw", [dict(tracer="bvh"), dict(tracer="binned"),
+@pytest.mark.parametrize("kw", [dict(tracer="bvh"), dict(tracer="bvh2"),
                                 dict(tracer="auto", brute_force_max_tris=16),
                                 dict(trace_impl="woop")])
 def test_make_tracer_uncovered_raises(kw):
-    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()))
+    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu")
     with pytest.raises(NotImplementedError):
         ptrace.make_tracer(pscene, pconfig.RenderConfig(**kw))
+
+
+def test_make_tracer_binned_without_accel_is_brute():
+    """tracer="binned" with no ClusterSet resolves to brute force, as the
+    JAX make_tracer does (trace.py:113-127)."""
+    from sunray_tpu.config import RenderConfig as JConfig
+
+    jscene = jcornell_box()
+    jctx = jtrace.make_tracer(jscene, JConfig(tracer="binned"))
+    assert jctx.binned is None and jctx.bvh is None
+    pscene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
+    pctx = ptrace.make_tracer(pscene, pconfig.RenderConfig(tracer="binned"))
+    assert pctx.binned is None
+    _, o, d, _, _ = CASES["cornell_camera"]
+    _check_closest(ptrace.trace_closest(pctx, t(o), t(d)),
+                   jtrace.trace_closest(jctx, o, d))
 
