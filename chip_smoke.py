@@ -36,10 +36,13 @@ Phases, in order; any failure raises and exits non-zero with no result:
   6. the big-mesh slice (tests/torch_big_scene.py: the Cornell box with a
      mirror icosphere of 81,920 triangles, 81,956 in all, traced through a
      binned ClusterSet of 641 clusters, 161 superclusters):
-       K10-K12 against their plain versions on the rays the tracer got in
-       frame 2 of the 1080p big-mesh frame (camera rays for K10, the GI
-       bounce rays for K11/K12; closest and any-hit), rays agreeing on
-       >= 99.99%, t/u/v within 1e-5, K11 bit-equal; the overflow share;
+       K10-K12 against their plain versions on the queries the tracer got
+       in frame 2 of the 1080p big-mesh frame: the camera rays (K10
+       closest), the GI bounce rays (K11, K12 closest, K10 closest on the
+       overflow fallback) and the 3P GI taps' visibility rays with their
+       exclude ids (K11, K12 any-hit, K10 any-hit on the fallback); rays
+       agreeing on >= 99.99%, t/u/v within 1e-5, K11 bit-equal; the
+       overflow share;
        the small big-mesh config (subdiv 3, cluster_k 32, 48x32, 3
        frames) on the card and on the CPU, PSNR > 40 dB; the 1080p
        big-mesh frame with the default config, 5 warm-up and 20 timed
@@ -51,8 +54,10 @@ Phases, in order; any failure raises and exits non-zero with no result:
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel / plain / library ms (CUDA
 events, median of 10) and its bound (the larger of bytes over 3.35 TB/s
-and operations over 67 TFLOP/s fp32, from this run's inputs). The last
-is {"ok": true, "device": {...}}.
+and operations over 67 TFLOP/s fp32, from this run's inputs; a trace
+counts the ray-triangle tests its rays need, e.g. K10 and K12 the
+clusters whose box a ray enters before its closest hit). The last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -489,13 +494,16 @@ def phase_restir_kernels(dev, n_random=65536, n_lights=600):
 # -- phase 6, K10-K12: the binned tracer on a live big-mesh frame's rays ------
 
 def capture_binned_rays(dev, width=1920, height=1080, frame=2):
-    """The frame's refit ClusterSet and the rays pass 1 traced in frame
-    `frame` of the 1080p big-mesh render: its first coherent query (the
-    camera rays) and its last incoherent closest query (the GI bounce)."""
+    """The frame's refit ClusterSet and three queries the tracer got in
+    frame `frame` of the 1080p big-mesh render: pass 1's first coherent
+    closest query (the camera rays, orig, d), its last incoherent one (the
+    GI bounce, orig, d), and pass 2's largest incoherent any-hit query (the
+    GI taps' visibility, 3P rays: orig, d, tmax, exclude)."""
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.config import RenderConfig
     from sunray_tpu_torch.ops import binned_trace
-    from sunray_tpu_torch.render import gbuffer
+    from sunray_tpu_torch.ops.intersect import T_MIN
+    from sunray_tpu_torch.render import gbuffer, pathtrace
     from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 
     cfg = RenderConfig(width=width, height=height)
@@ -505,138 +513,235 @@ def capture_binned_rays(dev, width=1920, height=1080, frame=2):
     state = RenderState.create(cfg, dev)
     for _ in range(frame):
         state, _, _ = render_frame(scene, cfg, state, mats, accel)
-    calls = []
-    saved = gbuffer.trace_closest
+    closest, occluded = [], []
+    saved = gbuffer.trace_closest, pathtrace.trace_occluded
 
-    def record(ctx, orig, d, *args, coherent=True, **kw):
-        calls.append((orig, d, coherent))
-        return saved(ctx, orig, d, *args, coherent=coherent, **kw)
+    def record_closest(ctx, orig, d, *args, coherent=True, **kw):
+        closest.append((orig, d, coherent))
+        return saved[0](ctx, orig, d, *args, coherent=coherent, **kw)
 
-    gbuffer.trace_closest = record
+    def record_occluded(ctx, orig, d, tmax, tmin=T_MIN, exclude=None,
+                        coherent=True):
+        check(tmin == T_MIN, "visibility query with a non-default tmin")
+        occluded.append((orig, d, tmax, exclude, coherent))
+        return saved[1](ctx, orig, d, tmax, tmin, exclude, coherent)
+
+    gbuffer.trace_closest = record_closest
+    pathtrace.trace_occluded = record_occluded
     try:
         render_frame(scene, cfg, state, mats, accel)
     finally:
-        gbuffer.trace_closest = saved
+        gbuffer.trace_closest, pathtrace.trace_occluded = saved
     torch.cuda.synchronize()
-    camera = [c for c in calls if c[2]]
-    bounce = [c for c in calls if not c[2]]
-    check(camera and bounce, f"frame {frame} made no coherent or no "
-          "incoherent closest query")
+    camera = [c[:2] for c in closest if c[2]]
+    bounce = [c[:2] for c in closest if not c[2]]
+    vis = [c[:4] for c in occluded if not c[4] and c[3] is not None]
+    check(camera and bounce and vis, f"frame {frame} made no coherent or no "
+          "incoherent closest query, or no incoherent any-hit query")
     cs = binned_trace.refit_cluster_set(
         accel, tuple(t.contiguous() for t in scene.world_triangle_vertices()))
-    return cs, camera[0][:2], bounce[-1][:2]
+    return cs, camera[0], bounce[-1], max(vis, key=lambda c: c[0].shape[0])
 
 
-def compare_hits(name, k, p, label):
-    """Closest results (t, tri, u, v) of a kernel and its plain version:
-    (fraction of rays with equal tri, max |t,u,v| error where they agree)."""
+def compare_hits(name, k, p, label, live=None):
+    """Closest results (t, tri, u, v) of a kernel and its plain version on
+    the lanes `live` (all if None): (fraction of those lanes with equal
+    tri, max |t,u,v| error where they agree)."""
     torch.cuda.synchronize()
+    if live is not None:
+        k, p = [x[live] for x in k], [x[live] for x in p]
     agree = k[1] == p[1]
-    frac = agree.float().mean().item()
+    n, differ = agree.numel(), int((~agree).sum())
+    frac = 1.0 - differ / n
     both = agree & (p[1] >= 0)
     err = max(((a[both] - b[both]).abs().max().item() if both.any() else 0.0)
               for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])))
-    log(f"  {name} closest {label}: {p[1].numel()} lanes, tri/hit agree "
-        f"{frac:.7f}, max |t,u,v| err {err:.3g}, hit rate "
+    log(f"  {name} closest {label}: {n} lanes, tri/hit differ on {differ} "
+        f"(agree {frac:.7f}), max |t,u,v| err {err:.3g}, hit rate "
         f"{(p[1] >= 0).float().mean().item():.4f}")
     check(frac >= TRACE_AGREE, f"{name} {label}: agreement {frac}")
     check(err <= UVT_ATOL, f"{name} {label}: t/u/v error {err}")
     return frac, err
 
 
-def compare_occ(name, k, p, label):
+def compare_occ(name, k, p, label, live=None):
     torch.cuda.synchronize()
-    frac = (k == p).float().mean().item()
-    log(f"  {name} any-hit {label}: {p.numel()} lanes, agree {frac:.7f}, "
-        f"occluded rate {p.float().mean().item():.4f}")
+    if live is not None:
+        k, p = k[live], p[live]
+    n, differ = p.numel(), int((k != p).sum())
+    frac = 1.0 - differ / n
+    log(f"  {name} any-hit {label}: {n} lanes, differ on {differ} (agree "
+        f"{frac:.7f}), occluded rate {p.float().mean().item():.4f}")
     check(frac >= TRACE_AGREE, f"{name} {label}: agreement {frac}")
     return frac
 
 
-def phase_binned_kernels(dev):
+def block_args(cs, orig, d, tmax, exclude):
+    """K10's inputs for (N, 3) rays, as trace_*_binned(reorder=True) makes
+    them: coherence sort, padding to blocks, cull and work lists."""
+    from sunray_tpu_torch.ops import binned_trace as bt
+    from sunray_tpu_torch.ops.intersect import T_MIN
+
+    o_s, d_s, tx_s, ex_s, _ = bt._reorder_rays(cs, orig, d, tmax, exclude)
+    o_t, d_t, tn, tx, ex, _, nb = bt._prep(o_s, d_s, T_MIN, tx_s, ex_s)
+    hit, entry = bt._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo, cs.aabb_hi, nb)
+    order, ents, count = bt._work_list(hit, entry)
+    return (order, ents, count, o_t, d_t, tn, tx, ex, cs.tri_pack)
+
+
+def box_entered(o, d, lower, upper, lo, hi):
+    """Whether each ray (o, d: (..., 3)) enters the box [lo, hi] (..., 3)
+    at a t in [lower, upper] (broadcasting; K11's slab test)."""
+    from sunray_tpu_torch.ops.cuda_binned import _inv
+
+    inv = _inv(d)
+    t1, t2 = (lo - o) * inv, (hi - o) * inv
+    tnear = torch.minimum(t1, t2).amax(dim=-1)
+    tfar = torch.maximum(t1, t2).amin(dim=-1)
+    return (tnear <= tfar) & (tfar >= lower) & (tnear <= upper)
+
+
+def needed_block_tests(cs, o_t, d_t, tn, tx, t_hit, step=1 << 14):
+    """Cluster tests a closest-hit query needs, whatever the walk: for each
+    ray lane, the clusters whose box it enters between tmin and its
+    closest hit (its tmax on a miss); each of these could hold a nearer
+    hit, the others cannot. Lanes with tmax = -inf need none."""
+    total = 0
+    upper = torch.minimum(tx, t_hit)
+    for s in range(0, tn.shape[0], step):
+        sl = slice(s, s + step)
+        total += int(box_entered(o_t[:, sl].T[:, None], d_t[:, sl].T[:, None],
+                                 tn[sl, None], upper[sl, None], cs.aabb_lo,
+                                 cs.aabb_hi).sum())
+    return total
+
+
+def needed_pair_tests(cs, cid_s, pos_s, n_sc, o_t, d_t, tn, tx, t_pair,
+                      step=1 << 20):
+    """Cluster tests the pair lanes need: for each live lane, the clusters
+    of its supercluster whose box its ray enters between the first ray's
+    tmin (as K12 reads it) and the lane's closest hit (its tmax on a
+    miss). t_pair: K12's closest t per pair position."""
+    from sunray_tpu_torch.ops.cuda_binned import SC_K
+
+    c, nl = cs.num_clusters, tn.shape[0]
+    live = torch.nonzero(cid_s < n_sc)[:, 0]
+    sub = torch.arange(SC_K, device=cid_s.device)
+    total = 0
+    for s in range(0, live.shape[0], step):
+        lane = live[s:s + step]
+        pos = pos_s[lane].long()
+        ray = pos % nl
+        cl = cid_s[lane].long()[:, None] * SC_K + sub[None, :]
+        ok = cl < c
+        cl = cl.clamp(max=c - 1)
+        upper = torch.minimum(tx[ray], t_pair[pos])[:, None]
+        hit = box_entered(o_t[:, ray].T[:, None], d_t[:, ray].T[:, None], tn[0],
+                          upper, cs.aabb_lo[cl], cs.aabb_hi[cl])
+        total += int((hit & ok).sum())
+    return total
+
+
+def pair_stream_checks(cs, label, orig, d, tmax, exclude, closest):
+    """K11, K12 and the overflow fallback's K10 against their plain
+    versions on one pair-stream query, prepared as trace_*_pairs prepares
+    it. Returns (agreement of K10, of K12, K11 exact, overflow share,
+    K11's and K12's inputs)."""
     from sunray_tpu_torch.ops import binned_trace as bt
     from sunray_tpu_torch.ops import cuda_binned as cb
-    from sunray_tpu_torch.ops.intersect import T_MAX, T_MIN
+    from sunray_tpu_torch.ops.intersect import T_MIN
 
-    log("phase 6: K10-K12 against their plain versions (1080p big-mesh "
-        "frame 2's rays)")
-    cs, (co, cd), (go, gd) = capture_binned_rays(dev)
-    k_tris = cs.tri_pack.shape[2]
-    pack_bytes = cs.num_clusters * 10 * k_tris * 4
-    results = {}
-
-    # K10: the camera rays through the block path's own preparation.
-    o_s, d_s, tx_s, ex_s, _ = bt._reorder_rays(cs, co, cd, T_MAX, None)
-    k10 = {}
-    for label, tmax, closest in (("camera", tx_s, True),
-                                 ("camera tmax 2.5", torch.full_like(tx_s, 2.5),
-                                  False)):
-        o_t, d_t, tn, tx, ex, n, nb = bt._prep(o_s, d_s, T_MIN, tmax, ex_s)
-        hit, entry = bt._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo,
-                                       cs.aabb_hi, nb)
-        order, ents, count = bt._work_list(hit, entry)
-        args = (order, ents, count, o_t, d_t, tn, tx, ex, cs.tri_pack, closest)
-        stats = {}
-        k = cb.binned_round(*args)
-        p = cb.binned_round_plain(*args, stats=stats)
-        if closest:
-            agree, err = compare_hits("K10", k, p, label)
-        else:
-            agree, err = compare_occ("K10", k, p, label), 0.0
-        log(f"    {nb} blocks, {int(count.sum())} culled work items "
-            f"({int(count.sum()) / (nb * cs.num_clusters):.4f} of all), "
-            f"{stats['items']} run after early exit")
-        k10[label] = dict(agree=agree, err=err, args=args, items=stats["items"],
-                          lanes=o_t.shape[1], lists=nbytes(order, ents, count))
-    cam = k10["camera"]
-    results["binned_round"] = dict(
-        agree=min(r["agree"] for r in k10.values()),
-        max_abs_err=max(r["err"] for r in k10.values()),
-        ms=time_ms(lambda: cb.binned_round(*cam["args"])),
-        plain_ms=time_ms(lambda: cb.binned_round_plain(*cam["args"])),
-        bound=bound(cam["lanes"] * 52 + pack_bytes + cam["lists"],
-                    cam["items"] * cb.BLOCK_RAYS * k_tris * TEST_OPS))
-
-    # K11 and K12: the GI bounce rays through the pair stream's preparation.
-    o_t, d_t, tn, tx, ex, n, nb = bt._prep(go, gd, T_MIN, T_MAX, None)
+    o_t, d_t, tn, tx, ex, _, _ = bt._prep(orig, d, T_MIN, tmax, exclude)
     box = bt.supercluster_boxes(cs)
     ks, kc = cb.cluster_scan(o_t, d_t, tn, tx, box)
     ps, pc = cb.cluster_scan_plain(o_t, d_t, tn, tx, box)
     torch.cuda.synchronize()
     exact = bool(torch.equal(ks, ps) and torch.equal(kc, pc))
-    over = (pc > cb.L_SLOTS).float().mean().item()
-    log(f"  K11 cluster_scan: {o_t.shape[1]} lanes x {box.shape[0]} "
+    overflow = pc > cb.L_SLOTS
+    over = overflow[tx > -torch.inf].float().mean().item()
+    log(f"  K11 cluster_scan {label}: {o_t.shape[1]} lanes x {box.shape[0]} "
         f"superclusters, bit-exact {exact}; superclusters hit per ray: mean "
         f"{pc.float().mean().item():.3f}, max {int(pc.max())}; overflow "
         f"(> {cb.L_SLOTS}) share {over:.6f}")
-    check(exact, "K11 cluster_scan differs from its plain version")
-    lanes = o_t.shape[1]
-    results["cluster_scan"] = dict(
-        max_abs_err=0.0, overflow_share=over,
-        ms=time_ms(lambda: cb.cluster_scan(o_t, d_t, tn, tx, box)),
-        plain_ms=time_ms(lambda: cb.cluster_scan_plain(o_t, d_t, tn, tx, box)),
-        bound=bound(lanes * (32 + 36) + nbytes(box),
-                    lanes * box.shape[0] * SLAB_OPS))
+    check(exact, f"K11 cluster_scan {label} differs from its plain version")
 
-    cid_s, pos_s, runs, n_sc, _ = bt._pair_stream_prep(cs, o_t, d_t, tn, tx)
+    cid_s, pos_s, runs, n_sc, overflow = bt._pair_stream_prep(cs, o_t, d_t, tn,
+                                                              tx)
     live = int((cid_s < n_sc).sum())
-    log(f"  K12 pair_round: {cid_s.numel()} pair lanes, {live} live, "
+    log(f"  K12 pair_round {label}: {cid_s.numel()} pair lanes, {live} live, "
         f"{int(runs.sum())} work items")
     args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs.tri_pack, n_sc)
-    f_c, e_c = compare_hits("K12", cb.pair_round(*args),
-                            cb.pair_round_plain(*args), "GI bounce")
-    short = tx.clamp(max=1.0)
-    occ_args = (cid_s, pos_s, runs, o_t, d_t, tn, short, ex, cs.tri_pack, n_sc)
-    f_o = compare_occ("K12", cb.pair_round(*occ_args, closest=False),
-                      cb.pair_round_plain(*occ_args, closest=False),
-                      "GI bounce tmax 1")
+    compare = compare_hits if closest else compare_occ
+    live_pos = torch.zeros_like(cid_s, dtype=torch.bool)
+    live_pos[pos_s[cid_s < n_sc].long()] = True
+    k12 = compare("K12", cb.pair_round(*args, closest=closest),
+                  cb.pair_round_plain(*args, closest=closest),
+                  f"{label}, live pair lanes", live=live_pos)
+
+    # The overflow rays through the block path, the others masked out.
+    fb = block_args(cs, o_t.T, d_t.T, torch.where(overflow, tx, -torch.inf), ex)
+    k10 = compare("K10", cb.binned_round(*fb, closest=closest),
+                  cb.binned_round_plain(*fb, closest=closest),
+                  f"{label}, overflow fallback", live=fb[6] > -torch.inf)
+    return k10, k12, exact, over, (o_t, d_t, tn, tx, box), args
+
+
+def phase_binned_kernels(dev):
+    from sunray_tpu_torch.ops import cuda_binned as cb
+    from sunray_tpu_torch.ops.intersect import T_MAX
+
+    log("phase 6: K10-K12 against their plain versions (1080p big-mesh "
+        "frame 2's rays)")
+    cs, (co, cd), (go, gd), (vo, vd, vmax, vex) = capture_binned_rays(dev)
+    k_tris = cs.tri_pack.shape[2]
+    pack_bytes = cs.num_clusters * 10 * k_tris * 4
+    results = {}
+
+    # K10: the camera rays through the block path.
+    args = block_args(cs, co, cd, T_MAX, None)
+    order, ents, count, o_t, d_t, tn, tx = args[:7]
+    k = cb.binned_round(*args)
+    f_cam, e_cam = compare_hits("K10", k, cb.binned_round_plain(*args), "camera")
+    nb = count.shape[0]
+    tests = needed_block_tests(cs, o_t, d_t, tn, tx, k[0])
+    log(f"    {nb} blocks, {int(count.sum())} culled work items "
+        f"({int(count.sum()) / (nb * cs.num_clusters):.4f} of all); "
+        f"{tests} cluster tests needed ({tests / co.shape[0]:.3f} per ray)")
+
+    # K11, K12 and the fallback: the GI bounce rays (closest) and the GI
+    # taps' visibility rays with their exclude ids (any-hit), through the
+    # pair stream as render/trace.py sends them.
+    f10_b, f12_b, _, over, scan_in, pair_args = pair_stream_checks(
+        cs, "GI bounce", go, gd, T_MAX, None, closest=True)
+    seg = torch.as_tensor(vmax, dtype=torch.float32, device=dev) - 1e-3
+    f10_v, f12_v, _, over_v, _, _ = pair_stream_checks(
+        cs, "GI-tap visibility", vo, vd, seg, vex, closest=False)
+
+    results["binned_round"] = dict(
+        agree=min(f_cam, f10_b[0], f10_v), max_abs_err=max(e_cam, f10_b[1]),
+        ms=time_ms(lambda: cb.binned_round(*args)),
+        plain_ms=time_ms(lambda: cb.binned_round_plain(*args)),
+        bound=bound(o_t.shape[1] * 52 + pack_bytes + nbytes(order, ents, count),
+                    tests * k_tris * TEST_OPS))
+    lanes = scan_in[0].shape[1]
+    results["cluster_scan"] = dict(
+        max_abs_err=0.0, overflow_share=over,
+        ms=time_ms(lambda: cb.cluster_scan(*scan_in)),
+        plain_ms=time_ms(lambda: cb.cluster_scan_plain(*scan_in)),
+        bound=bound(lanes * (32 + 36) + nbytes(scan_in[4]),
+                    lanes * scan_in[4].shape[0] * SLAB_OPS))
+    cid_s, pos_s, _, o_p, d_p, tn_p, tx_p = pair_args[:7]
+    t_pair = cb.pair_round(*pair_args)[0]
+    p_tests = needed_pair_tests(cs, cid_s, pos_s, pair_args[9], o_p, d_p, tn_p,
+                                tx_p, t_pair)
+    log(f"  K12 GI bounce: {p_tests} cluster tests needed; overflow share "
+        f"GI bounce {over:.6f}, GI-tap visibility {over_v:.6f}")
     results["pair_round"] = dict(
-        agree=min(f_c, f_o), max_abs_err=e_c,
-        ms=time_ms(lambda: cb.pair_round(*args)),
-        plain_ms=time_ms(lambda: cb.pair_round_plain(*args)),
-        bound=bound(nbytes(cid_s, pos_s, runs) + lanes * 36 + pack_bytes
-                    + cid_s.numel() * 16,
-                    live * cb.SC_K * k_tris * TEST_OPS))
+        agree=min(f12_b[0], f12_v), max_abs_err=f12_b[1],
+        ms=time_ms(lambda: cb.pair_round(*pair_args)),
+        plain_ms=time_ms(lambda: cb.pair_round_plain(*pair_args)),
+        bound=bound(nbytes(*pair_args[:3]) + lanes * 36 + pack_bytes
+                    + cid_s.numel() * 16, p_tests * k_tris * TEST_OPS))
     for name, r in results.items():
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "

@@ -117,14 +117,13 @@ def _closest_out(best_t, best_tri, best_u, best_v):
 # -- K10 ----------------------------------------------------------------------
 
 def binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex, pack,
-                       closest=True, stats=None):
+                       closest=True):
     """K10's function. order/ents: (NB, C) per-block cluster ids and entry
     bounds, near to far, the first count[b] of row b live. Returns
     (t, tri, u, v) per lane (t = inf, tri = -1, u = v = 0 on a miss), or
     occ (bool): lanes with tmax = -inf start resolved (t = -inf, occluded;
     binned_trace.py:302-309, :346-347) and an any-hit lane reads occluded
-    only in a block that has work. stats["items"], if given, counts the
-    (block, cluster) items that ran (not skipped)."""
+    only in a block that has work."""
     nb, k = count.shape[0], pack.shape[2]
     dev = o_t.device
     dead = tx == -torch.inf
@@ -136,7 +135,6 @@ def binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex, pack,
     lanes_of = (torch.arange(nb, device=dev)[:, None] * BLOCK_RAYS
                 + torch.arange(BLOCK_RAYS, device=dev)[None, :])
     step = max(1, _plain_elems(dev) // (BLOCK_RAYS * k))
-    items = 0
     for j in range(int(count.max()) if nb else 0):
         blocks = torch.nonzero(count > j)[:, 0]
         for s in range(0, blocks.shape[0], step):
@@ -147,7 +145,6 @@ def binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex, pack,
             else:
                 run = ~occ[lanes].all(dim=1)
             b, lanes = b[run], lanes[run]
-            items += int(b.shape[0])
             o, d, rn, rx, re = _rays(o_t, d_t, tn, tx, ex, lanes[..., None])
             hits = tile_hits(o, d, rn, rx, re, pack[order[b, j].long()])
             if not closest:
@@ -159,48 +156,49 @@ def binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex, pack,
             best_tri[lanes] = torch.where(better, tile_tri, best_tri[lanes])
             best_u[lanes] = torch.where(better, tile_u, best_u[lanes])
             best_v[lanes] = torch.where(better, tile_v, best_v[lanes])
-    if stats is not None:
-        stats["items"] = items
     if closest:
         return _closest_out(best_t, best_tri, best_u, best_v)
     return occ & (count > 0).repeat_interleave(BLOCK_RAYS)
 
 
-def _check_rays(name, o_t, d_t, tn, tx, ex):
-    dev = cuda_build.require_cuda(name, o_t, d_t, tn, tx, ex)
+def _check_rays(name, o_t, d_t, tn, tx):
+    """The float32 ray planes (3, NL) x 2 and (NL,) x 2; returns (device,
+    NL)."""
+    dev = cuda_build.require_cuda(name, o_t, d_t, tn, tx)
     nl = tn.shape[0]
     for x in (o_t, d_t, tn, tx):
         cuda_build.require_dtype(name, x, torch.float32)
-    cuda_build.require_dtype(name, ex, torch.int32)
     if (o_t.shape != (3, nl) or d_t.shape != (3, nl) or tx.shape != (nl,)
-            or ex.shape != (nl,) or nl % BLOCK_RAYS):
+            or nl % BLOCK_RAYS):
         raise cuda_build.KernelError(f"{name}: ray planes must be (3, NL) and "
                                      f"(NL,) with NL a multiple of {BLOCK_RAYS}")
     return dev, nl
 
 
-def _check_pack(name, pack, dev):
-    cuda_build.require_cuda(name, pack)
+def _check_trace_inputs(name, o_t, d_t, tn, tx, ex, pack):
+    """The ray planes, the int32 exclude plane and the (C, 16, K) int32
+    pack; returns (device, NL, C, K)."""
+    dev, nl = _check_rays(name, o_t, d_t, tn, tx)
+    cuda_build.require_cuda(name, o_t, ex, pack)
+    cuda_build.require_dtype(name, ex, torch.int32)
     cuda_build.require_dtype(name, pack, torch.int32)
-    if pack.dim() != 3 or pack.shape[1] != PACK_ROWS or pack.device != dev:
-        raise cuda_build.KernelError(f"{name}: pack must be (C, 16, K) on "
-                                     f"{dev}, got {tuple(pack.shape)}")
-    return pack.shape[0], pack.shape[2]
-
-
-def _on_cpu(*tensors):
-    return all(t.device.type == "cpu" for t in tensors)
+    if ex.shape != (nl,):
+        raise cuda_build.KernelError(f"{name}: exclude must be ({nl},)")
+    if pack.dim() != 3 or pack.shape[1] != PACK_ROWS:
+        raise cuda_build.KernelError(f"{name}: pack must be (C, 16, K), got "
+                                     f"{tuple(pack.shape)}")
+    return dev, nl, pack.shape[0], pack.shape[2]
 
 
 def binned_round(order, ents, count, o_t, d_t, tn, tx, ex, pack, closest=True):
     """K10 (see binned_round_plain)."""
-    if _on_cpu(order, ents, count, o_t, d_t, tn, tx, ex, pack):
+    if cuda_build.on_cpu(order, ents, count, o_t, d_t, tn, tx, ex, pack):
         return binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex,
                                   pack, closest)
-    dev, nl = _check_rays("binned_round", o_t, d_t, tn, tx, ex)
-    c, k = _check_pack("binned_round", pack, dev)
+    dev, nl, c, k = _check_trace_inputs("binned_round", o_t, d_t, tn, tx, ex,
+                                        pack)
     nb = nl // BLOCK_RAYS
-    cuda_build.require_cuda("binned_round", order, ents, count)
+    cuda_build.require_cuda("binned_round", o_t, order, ents, count)
     for x, dt in ((order, torch.int32), (ents, torch.float32),
                   (count, torch.int32)):
         cuda_build.require_dtype("binned_round", x, dt)
@@ -273,13 +271,12 @@ def cluster_scan_plain(o_t, d_t, tn, tx, sc_box):
 
 def cluster_scan(o_t, d_t, tn, tx, sc_box):
     """K11 (see cluster_scan_plain)."""
-    if _on_cpu(o_t, d_t, tn, tx, sc_box):
+    if cuda_build.on_cpu(o_t, d_t, tn, tx, sc_box):
         return cluster_scan_plain(o_t, d_t, tn, tx, sc_box)
-    ex = torch.empty((tn.shape[0],), dtype=torch.int32, device=tn.device)
-    dev, nl = _check_rays("cluster_scan", o_t, d_t, tn, tx, ex)
-    cuda_build.require_cuda("cluster_scan", sc_box)
+    dev, nl = _check_rays("cluster_scan", o_t, d_t, tn, tx)
+    cuda_build.require_cuda("cluster_scan", o_t, sc_box)
     cuda_build.require_dtype("cluster_scan", sc_box, torch.float32)
-    if sc_box.dim() != 2 or sc_box.shape[1] != 6 or sc_box.device != dev:
+    if sc_box.dim() != 2 or sc_box.shape[1] != 6:
         raise cuda_build.KernelError("cluster_scan: boxes must be (S, 6)")
     slots = torch.empty((L_SLOTS, nl), dtype=torch.int32, device=dev)
     cnt = torch.empty((nl,), dtype=torch.int32, device=dev)
@@ -337,12 +334,12 @@ def pair_round_plain(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack, n_sc,
 def pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack, n_sc,
                closest=True):
     """K12 (see pair_round_plain)."""
-    if _on_cpu(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack):
+    if cuda_build.on_cpu(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack):
         return pair_round_plain(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex,
                                 pack, n_sc, closest)
-    dev, nl = _check_rays("pair_round", o_t, d_t, tn, tx, ex)
-    c, k = _check_pack("pair_round", pack, dev)
-    cuda_build.require_cuda("pair_round", cid_s, pos_s, runs)
+    dev, nl, c, k = _check_trace_inputs("pair_round", o_t, d_t, tn, tx, ex,
+                                        pack)
+    cuda_build.require_cuda("pair_round", o_t, cid_s, pos_s, runs)
     for x in (cid_s, pos_s, runs):
         cuda_build.require_dtype("pair_round", x, torch.int32)
     n_p = cid_s.shape[0]

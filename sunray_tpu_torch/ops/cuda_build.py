@@ -166,6 +166,13 @@ def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def on_cpu(*tensors) -> bool:
+    """True when every tensor argument lies on the CPU (non-tensors, e.g.
+    scalar bounds or None, are ignored): the wrappers' test for taking the
+    plain version."""
+    return all(t.device.type == "cpu" for t in tensors if torch.is_tensor(t))
+
+
 def require_cuda(name: str, *tensors) -> torch.device:
     """Every tensor on one CUDA device and contiguous; returns the device."""
     dev = tensors[0].device

@@ -35,7 +35,7 @@ def gather_rows(table, idx):
             f"{tuple(table.shape)} and {tuple(idx.shape)}")
     if table.dtype not in _DTYPES:
         raise cuda_build.KernelError(f"gather_rows: table dtype {table.dtype}")
-    if table.device.type == "cpu" and idx.device.type == "cpu":
+    if cuda_build.on_cpu(table, idx):
         return gather_rows_plain(table, idx)
     dev = cuda_build.require_cuda("gather_rows", table, idx)
     cuda_build.require_dtype("gather_rows", idx, torch.int32)

@@ -108,7 +108,7 @@ def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int):
     CPU tensors take the plain passes; CUDA tensors launch K7 once per pass,
     the color ping-ponging between two buffers."""
     guides = (color, depth, normal, roughness, diffuse)
-    if all(t.device.type == "cpu" for t in guides):
+    if cuda_build.on_cpu(*guides):
         return atrous_denoise_plain(color, depth, normal, roughness, diffuse,
                                     passes)
     name = "atrous_pass"

@@ -62,10 +62,6 @@ def _planes(x):
     return [x[..., 0], x[..., 1], x[..., 2]]
 
 
-def _on_cpu(*tensors):
-    return all(t.device.type == "cpu" for t in tensors if torch.is_tensor(t))
-
-
 def _stack_sel(planes, slot, base):
     """planes (K, P) -> per lane planes[slot] where slot >= 0, else base."""
     got = torch.gather(planes, 0, slot.clamp(min=0).long()[None])[0]
@@ -440,7 +436,7 @@ def ris_audition(table: LightTable, seed, hit_pos, hit_normal, v_view, albedo,
     """K3. Returns (seed', reservoir fields dict) as ris_audition_plain."""
     args = (seed, hit_pos, hit_normal, v_view, albedo, roughness, metallic,
             enable)
-    if _on_cpu(*table, *args):
+    if cuda_build.on_cpu(*table, *args):
         return ris_audition_plain(table, seed, hit_pos, hit_normal, v_view,
                                   albedo, roughness, metallic, candidates,
                                   enable)
@@ -482,7 +478,7 @@ def di_temporal(table: LightTable, seed, r, hist, pi, ok, hit_pos, hit_normal,
               "hit_normal", "depth")
     lanes = (seed, hit_pos, hit_normal, v_view, albedo, roughness, metallic,
              virtual_distance, pi, ok, *(r[k] for k in r_keys))
-    if _on_cpu(*table, *lanes, *(hist[k] for k in h_keys)):
+    if cuda_build.on_cpu(*table, *lanes, *(hist[k] for k in h_keys)):
         return di_temporal_plain(table, seed, r, hist, pi, ok, hit_pos,
                                  hit_normal, v_view, albedo, roughness,
                                  metallic, virtual_distance, m_clamp, w_clamp)
@@ -541,7 +537,7 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
     lanes = (seed, pending, gnormal, gdepth, current_depth, hit_pos,
              hit_normal, v_view, albedo, roughness, metallic,
              *(center[k] for k in c_keys))
-    if _on_cpu(*table, *lanes):
+    if cuda_build.on_cpu(*table, *lanes):
         return di_spatial_plain(table, seed, center, taps, pending, gnormal,
                                 gdepth, current_depth, hit_pos, hit_normal,
                                 v_view, albedo, roughness, metallic, width,
@@ -594,7 +590,7 @@ def gi_spatial(seed, center, taps, pending, hit_pos, hit_normal, albedo,
               "ok")
     lanes = (seed, pending, hit_pos, hit_normal, albedo, metallic,
              *(center[k] for k in c_keys), *(taps[k] for k in t_keys))
-    if _on_cpu(*lanes):
+    if cuda_build.on_cpu(*lanes):
         return gi_spatial_plain(seed, center, taps, pending, hit_pos,
                                 hit_normal, albedo, metallic, w_clamp)
     name = "gi_spatial"

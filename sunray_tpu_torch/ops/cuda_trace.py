@@ -54,15 +54,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _on_cpu(tris, *tensors):
-    return all(x.device.type == "cpu" for x in (*tris, *tensors)
-               if torch.is_tensor(x))
-
-
 def trace_closest(tris, orig, d, tmin=T_MIN, tmax=T_MAX) -> Hit:
     """Closest hit of every ray (N, 3) over triangles (v0, v1, v2), each
     (T, 3). tmin/tmax: scalars or (N,) tensors."""
-    if _on_cpu(tris, orig, d, tmin, tmax):
+    if cuda_build.on_cpu(*tris, orig, d, tmin, tmax):
         return intersect.trace_closest_brute(tris, orig, d, tmin, tmax)
     dev = _check("trace_closest", tris, orig, d)
     n, n_tris = orig.shape[0], tris[0].shape[0]
@@ -88,7 +83,7 @@ def trace_closest(tris, orig, d, tmin=T_MIN, tmax=T_MAX) -> Hit:
 def trace_occluded(tris, orig, d, tmax, tmin=T_MIN, exclude=None):
     """Any hit in [tmin, tmax] of every ray, skipping triangle exclude[i]
     (int32, -1 = none). Returns (N,) bool, True = occluded."""
-    if _on_cpu(tris, orig, d, tmin, tmax, exclude):
+    if cuda_build.on_cpu(*tris, orig, d, tmin, tmax, exclude):
         return intersect.trace_occluded_brute(tris, orig, d, tmax, tmin,
                                               exclude=exclude)
     dev = _check("trace_occluded", tris, orig, d)
