@@ -22,9 +22,17 @@ Phases, in order; any failure raises and exits non-zero with no result:
                     table. Seeds bit-equal, M exact, winners agreeing on
                     > 99.5% of lanes, the rest to test_restir_math.py's
                     tolerances;
+       K9, K13, K14 (the kernel switches): the inputs each wrapper got in
+                    frame 3 of the 1080p switches frame (phase 7; the first
+                    frame whose TAA reads history): K9 on its
+                    raw, history and use mask (within 1e-6, bit-equality
+                    printed), K13 on the joint DI+GI read and on the TAA
+                    corners (bit-equal), K14 on every shadow query with its
+                    exclude ids (>= 99.99% of rays, differing lanes printed);
   4. render the golden configs (tests/test_golden.py:36-40, 96x64): NEE
-     4 frames and ReSTIR 8 frames, on the card and on the CPU; PSNR > 40
-     dB between them and against tests/goldens/cornell_{nee,restir}.npy;
+     4 frames, ReSTIR 8 frames and ReSTIR with the kernel switches 4
+     frames, on the card and on the CPU; PSNR > 40 dB between them and,
+     for NEE and ReSTIR, against tests/goldens/cornell_{nee,restir}.npy;
   5. the main path: render_frame at 1920x1080 with the default config
      (lighting="restir"), Cornell camera (1,1,3.4) -> (1,1,0), fov 45; 5
      warm-up and 20 timed frames. The launch counters are zeroed just
@@ -51,12 +59,22 @@ Phases, in order; any failure raises and exits non-zero with no result:
        (0.05, 0.95), synced stage times and one profiled frame's device
        time by kernel; then one 480x270 frame, binned against
        tracer="brute" (K1/K2 over all 81,956 triangles), PSNR > 40 dB.
+  7. the kernel-switches slice (cornell_restir_switches_1080p): the 1080p
+     Cornell ReSTIR frame with taa_kernel="pallas",
+     history_select_kernel="auto", history_joint_gather=True and
+     trace_impl="woop"; 5 warm-up and 20 timed frames, counters zeroed
+     before: K1, K3-K9, K13 and K14 must launch and K2 must not; rays per
+     frame as bench.py counts them; ldr finite with mean in (0.05, 0.95);
+     synced stage times; then 3 frames with history_select_kernel="auto"
+     and 3 with "off" from a fresh state: ldr bit-equal (K13 only moves
+     words).
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel / plain / library ms (CUDA
 events, median of 10) and its bound (the larger of bytes over 3.35 TB/s
 and operations over 67 TFLOP/s fp32, from this run's inputs; a trace
 counts the ray-triangle tests its rays need, e.g. K10 and K12 the
-clusters whose box a ray enters before its closest hit). The last is
+clusters whose box a ray enters before its closest hit, K2 and K14 the
+tests up to each ray's first occluder). The last is
 {"ok": true, "device": {...}}.
 """
 
@@ -93,6 +111,14 @@ BIG_SUBDIV = 6
 SMALL_BIG = dict(GOLDEN_KW, lighting="restir", width=48, height=32,
                  cluster_k=32)
 SMALL_BIG_SUBDIV, SMALL_BIG_FRAMES = 3, 3
+# The kernel-switches slice (phase 7) and its golden-size config (phase 4).
+SWITCHES = dict(taa_kernel="pallas", history_select_kernel="auto",
+                history_joint_gather=True, trace_impl="woop")
+SWITCH_FRAMES = 4
+TAA_ATOL = 1e-6
+# One Woop test in csrc/trace.cu's woop_hit, an fmaf counted as two: 33 for
+# the six dot products, 22 for the epilogue's products, compares, selects.
+WOOP_OPS = 55
 
 
 def check(cond, msg):
@@ -276,14 +302,18 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
         exact &= bool(torch.equal(k, p))
     log(f"  K8 gather_rows: 72x6 @ 3x{n} and 36x4 @ 1x{n}, bit-exact {exact}")
     check(exact, "K8 gather_rows differs from its plain version")
-    vidx_c = vidx.clamp(0, vgeo.shape[0] - 1).long()
-    results["gather_rows"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: cuda_gather.gather_rows(vgeo, vidx)),
-        plain_ms=time_ms(lambda: cuda_gather.gather_rows_plain(vgeo, vidx)),
-        library_ms=time_ms(lambda: vgeo[vidx_c]),
-        bound=bound(nbytes(vgeo, vidx) + vidx.numel() * vgeo.shape[1] * 4, 0),
-    )
+    # K8b: the 72x6 vertex table at 3 index vectors; K8a: the 36x4
+    # triangle table at one.
+    for name, table, idx in (("gather_rows_multi", vgeo, vidx),
+                             ("gather_rows", tpack, tidx)):
+        idx_c = idx.clamp(0, table.shape[0] - 1).long()
+        results[name] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: cuda_gather.gather_rows(table, idx)),
+            plain_ms=time_ms(lambda: cuda_gather.gather_rows_plain(table, idx)),
+            library_ms=time_ms(lambda: table[idx_c]),
+            bound=bound(nbytes(table, idx) + idx.numel() * table.shape[1] * 4, 0),
+        )
 
     # K7: 1080p guides shaped like a G-buffer (sky band, smooth patches).
     h, w = height, width
@@ -488,6 +518,172 @@ def phase_restir_kernels(dev, n_random=65536, n_lights=600):
             lambda: getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args))
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms")
+    return results
+
+
+# -- phase 3, K9, K13, K14: the kernel switches on a live frame's inputs ------
+
+SWITCH_WRAPPERS = {
+    "taa_clamp_blend": "cuda_image",
+    "history_gather": "cuda_history",
+    "trace_occluded_woop": "cuda_trace",
+}
+
+
+def capture_switch_inputs(dev, width=1920, height=1080, frame=3):
+    """Every call of the K9, K13 and K14 wrappers, (args, kwargs), in frame
+    `frame` of the 1080p Cornell ReSTIR render with the kernel switches
+    (frame 3: TAA reads history from frame_count 3 on)."""
+    import importlib
+
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+    from sunray_tpu_torch.scene import cornell_box
+
+    cfg = RenderConfig(width=width, height=height, **SWITCHES)
+    scene = cornell_box(device=dev)
+    mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
+    state = RenderState.create(cfg, dev)
+    for _ in range(frame):
+        state, _, _ = render_frame(scene, cfg, state, mats)
+    mods = {name: importlib.import_module(f"sunray_tpu_torch.ops.{mod}")
+            for name, mod in SWITCH_WRAPPERS.items()}
+    saved = {name: getattr(mods[name], name) for name in SWITCH_WRAPPERS}
+    calls = {name: [] for name in SWITCH_WRAPPERS}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return saved[name](*args, **kwargs)
+        return call
+
+    try:
+        for name in SWITCH_WRAPPERS:
+            setattr(mods[name], name, wrap(name))
+        render_frame(scene, cfg, state, mats)
+    finally:
+        for name, fn in saved.items():
+            setattr(mods[name], name, fn)
+    torch.cuda.synchronize()
+    check(len(calls["taa_clamp_blend"]) == 1 and len(calls["history_gather"]) == 2
+          and calls["trace_occluded_woop"],
+          f"frame {frame}: wrapper calls {({k: len(v) for k, v in calls.items()})}")
+    return calls
+
+
+def woop_tests(woop, o, d, tmax, exclude, step=1 << 16):
+    """Woop tests an any-hit trace needs: each ray up to and with its
+    first occluder in triangle order, else all of them."""
+    from sunray_tpu_torch.ops import intersect
+
+    n_tris = woop[0].shape[1]
+    ids = torch.arange(n_tris, device=o.device)
+    total = 0
+    for s in range(0, o.shape[0], step):
+        sl = slice(s, s + step)
+        valid = intersect.woop_hits(woop, o[sl], d[sl], intersect.T_MIN,
+                                    tmax[sl, None])
+        if exclude is not None:
+            valid &= ids[None, :] != exclude[sl, None]
+        first = torch.where(valid.any(dim=1), valid.int().argmax(dim=1) + 1,
+                            n_tris)
+        total += int(first.sum())
+    return total
+
+
+def phase_switch_kernels(dev):
+    from sunray_tpu_torch.ops import cuda_history, cuda_image, cuda_trace, intersect
+
+    log("phase 3: K9, K13, K14 against their plain versions (1080p switches "
+        "frame 3's inputs)")
+    calls = capture_switch_inputs(dev)
+    results = {}
+
+    # K9 on the frame's raw, history and use mask.
+    (taa_args, _), = calls["taa_clamp_blend"]
+    raw, hist, use, factor = taa_args
+    k = cuda_image.taa_clamp_blend(*taa_args)
+    p = cuda_image.taa_clamp_blend_plain(*taa_args)
+    torch.cuda.synchronize()
+    err = (k - p).abs().max().item()
+    share = use.float().mean().item()
+    log(f"  K9 taa_clamp_blend: {tuple(raw.shape)}, use share {share:.4f}, "
+        f"bit-equal {torch.equal(k, p)}, max abs err {err:.3g}")
+    check(err <= TAA_ATOL, f"K9 error {err} > {TAA_ATOL}")
+    check(share > 0.5, f"K9: history used on only {share} of pixels")
+    n_px = use.numel()
+    results["taa_clamp_blend"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: cuda_image.taa_clamp_blend(*taa_args)),
+        plain_ms=time_ms(lambda: cuda_image.taa_clamp_blend_plain(*taa_args)),
+        # raw, history, mask read once, the image written once; ~120 fp32
+        # operations a pixel (9 luminances, 8 gated min/max, clamp, blend)
+        bound=bound(nbytes(raw, hist, use) + nbytes(raw), n_px * 120))
+
+    # K13 on the joint DI+GI read (ris_pass) and the TAA corners.
+    timed = {}
+    for (args, _), label in zip(calls["history_gather"],
+                                ("joint DI+GI read", "TAA corners")):
+        fields, idx = args
+        k = cuda_history.history_gather(fields, idx)
+        p = cuda_history.history_gather_plain(fields, idx)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(k, p))
+        words = sum(f[0].numel() for f in fields)
+        log(f"  K13 history_gather {label}: {idx.shape[0]} lanes x {words} words "
+            f"({len(fields)} fields), bit-equal {exact}")
+        check(exact, f"K13 {label} differs from its plain version")
+        timed[label] = (fields, idx, words)
+    fields, idx, words = timed["joint DI+GI read"]
+    m = idx.shape[0]
+    packed = torch.cat([f.view(torch.float32).reshape(f.shape[0], -1)
+                        for f in fields], dim=1).contiguous()
+    corners = timed["TAA corners"]
+    results["history_gather"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: cuda_history.history_gather(fields, idx)),
+        plain_ms=time_ms(lambda: cuda_history.history_gather_plain(fields, idx)),
+        library_ms=time_ms(lambda: packed.index_select(0, idx)),
+        taa_corners_ms=time_ms(lambda: cuda_history.history_gather(*corners[:2])),
+        bound=bound(nbytes(idx) + 2 * m * words * 4, 0))
+    log(f"  K13 on the TAA corners: {results['history_gather']['taa_corners_ms']:.4f} ms")
+
+    # K14 on every shadow query of the frame, with its exclude ids.
+    agree, err, worst = [], 0.0, None
+    for args, kwargs in calls["trace_occluded_woop"]:
+        woop, o, d, tmax, tmin = args
+        exclude = kwargs.get("exclude")
+        k = cuda_trace.trace_occluded_woop(woop, o, d, tmax, tmin, exclude=exclude)
+        p = intersect.trace_occluded_woop(woop, o, d, tmax, tmin, exclude=exclude)
+        torch.cuda.synchronize()
+        differ = int((k != p).sum())
+        frac = 1.0 - differ / p.numel()
+        log(f"  K14 trace_occluded_woop: {o.shape[0]} rays x {woop[0].shape[1]} "
+            f"tris, exclude {'yes' if exclude is not None else 'no'}, differ on "
+            f"{differ} (agree {frac:.7f}), occluded rate "
+            f"{p.float().mean().item():.4f}")
+        check(frac >= TRACE_AGREE, f"K14: agreement {frac} < {TRACE_AGREE}")
+        agree.append(frac)
+        err = max(err, float(differ > 0))
+        if worst is None or o.shape[0] > worst[1].shape[0]:
+            worst = (woop, o, d, tmax, tmin, exclude)
+    woop, o, d, tmax, tmin, exclude = worst
+    check(tmin == intersect.T_MIN, "shadow query with a non-default tmin")
+    results["trace_occluded_woop"] = dict(
+        agree=min(agree), max_abs_err=err,
+        ms=time_ms(lambda: cuda_trace.trace_occluded_woop(
+            woop, o, d, tmax, tmin, exclude=exclude)),
+        plain_ms=time_ms(lambda: intersect.trace_occluded_woop(
+            woop, o, d, tmax, tmin, exclude=exclude)),
+        bound=bound(o.shape[0] * 33 + nbytes(*woop),
+                    woop_tests(woop, o, d, tmax, exclude) * WOOP_OPS))
+    log(f"  K14 timed on the {o.shape[0]}-ray query")
+    for name, r in results.items():
+        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+            f", bound {r['bound'][0]:.4f} ms ({r['bound'][1]})"
+            + (f", library {r['library_ms']:.4f} ms" if "library_ms" in r else ""))
     return results
 
 
@@ -841,6 +1037,15 @@ def phase_golden(dev):
         check(p_cc > PSNR_MIN, f"{lighting}: card vs CPU PSNR {p_cc:.2f} dB")
         check(p_g > PSNR_MIN, f"{lighting}: card vs golden PSNR {p_g:.2f} dB")
         out[lighting] = (p_cc, p_g)
+    log(f"phase 4: golden restir config with the kernel switches, "
+        f"{SWITCH_FRAMES} frames, card vs CPU")
+    cfg = RenderConfig(**dict(GOLDEN_KW, lighting="restir", **SWITCHES))
+    gpu = render(cfg, dev, SWITCH_FRAMES).cpu().numpy()
+    cpu = render(cfg, "cpu", SWITCH_FRAMES).numpy()
+    p_cc = psnr(gpu, cpu)
+    log(f"  PSNR card vs CPU {p_cc:.2f} dB")
+    check(p_cc > PSNR_MIN, f"switches: card vs CPU PSNR {p_cc:.2f} dB")
+    out["switches"] = (p_cc, None)
     return out
 
 
@@ -852,15 +1057,24 @@ def rays_expected(cfg, aux):
 
 
 def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
-               height=1080, big=False):
+               height=1080, big=False, switches=None, absent=()):
+    """One slice's main path: the frame at width x height, counters zeroed
+    before the warm-up and read after the timed frames. switches: config
+    overrides (the kernel-switches slice, phase 7); absent: kernels that
+    must not launch."""
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.config import RenderConfig
     from sunray_tpu_torch.ops import cuda_build, cuda_trace
     from sunray_tpu_torch.render.pipeline import RenderState, render_frame
     from sunray_tpu_torch.scene import cornell_box
 
-    cfg = RenderConfig(width=width, height=height, lighting=lighting)
-    if big:
+    cfg = RenderConfig(width=width, height=height, lighting=lighting,
+                       **(switches or {}))
+    if switches:
+        log(f"phase 7: {width}x{height} Cornell frame, lighting={lighting!r}, "
+            f"switches {switches}")
+        scene, accel = cornell_box(device=dev), None
+    elif big:
         log(f"phase 6: {width}x{height} big-mesh frame, lighting={lighting!r}")
         scene = big_scene(dev)
         accel = big_accel(scene, cfg)
@@ -910,10 +1124,35 @@ def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
               f"{expected / n_timed}")
     for name in kernels:
         check(launches.get(name, 0) > 0, f"kernel {name} never launched")
+    for name in absent:
+        check(launches.get(name, 0) == 0, f"kernel {name} launched")
     stage_breakdown(scene, cfg, state, mats, frame_s, accel)
     if big:
         profile_frame(scene, cfg, state, mats, accel)
+    if switches:
+        history_select_bit_equal(scene, cfg, mats, dev)
     return launches
+
+
+def history_select_bit_equal(scene, cfg, mats, dev, frames=3):
+    """The frame with history_select_kernel "auto" (K13) and "off" (plain
+    indexing) from a fresh state: ldr bit-equal."""
+    import dataclasses
+
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+
+    ldrs = []
+    for select in ("auto", "off"):
+        c = dataclasses.replace(cfg, history_select_kernel=select)
+        state = RenderState.create(c, dev)
+        for _ in range(frames):
+            state, ldr, _ = render_frame(scene, c, state, mats)
+        ldrs.append(ldr)
+    torch.cuda.synchronize()
+    same = torch.equal(ldrs[0], ldrs[1])
+    log(f"  history_select_kernel auto vs off, {frames} frames: ldr bit-equal "
+        f"{same}")
+    check(same, "history_select_kernel auto and off frames differ")
 
 
 def profile_frame(scene, cfg, state, mats, accel, rows=12):
@@ -939,7 +1178,8 @@ def profile_frame(scene, cfg, state, mats, accel, rows=12):
     ours = ("binned_kernel", "scan_kernel", "pair_kernel", "closest_kernel",
             "occluded_kernel", "gather_rows_kernel", "atrous_kernel",
             "ris_audition_kernel", "di_temporal_kernel", "di_spatial_kernel",
-            "gi_spatial_kernel")
+            "gi_spatial_kernel", "taa_kernel", "history_gather_kernel",
+            "occluded_woop_kernel")
     stages = ("ris_pass", "final_pass", "taa", "denoise", "postprocess")
     groups = {"port kernels": 0.0, "sort": 0.0, "other PyTorch": 0.0}
     kernels = [e for e in events
@@ -1007,7 +1247,9 @@ KERNELS = {
     "trace_occluded": ("sunray_tpu_torch/csrc/trace.cu",
                        "sunray_tpu/ops/pallas_trace.py:380"),
     "gather_rows": ("sunray_tpu_torch/csrc/gather.cu",
-                    "sunray_tpu/ops/pallas_gather.py:193"),
+                    "sunray_tpu/ops/pallas_gather.py:212"),
+    "gather_rows_multi": ("sunray_tpu_torch/csrc/gather.cu",
+                          "sunray_tpu/ops/pallas_gather.py:193"),
     "atrous_pass": ("sunray_tpu_torch/csrc/atrous.cu",
                     "sunray_tpu/ops/pallas_image.py:258"),
     "ris_audition": ("sunray_tpu_torch/csrc/restir.cu",
@@ -1024,10 +1266,22 @@ KERNELS = {
                      "sunray_tpu/ops/binned_trace.py:752"),
     "pair_round": ("sunray_tpu_torch/csrc/binned.cu",
                    "sunray_tpu/ops/binned_trace.py:962"),
+    "taa_clamp_blend": ("sunray_tpu_torch/csrc/taa.cu",
+                        "sunray_tpu/ops/pallas_image.py:390"),
+    "history_gather": ("sunray_tpu_torch/csrc/history.cu",
+                       "sunray_tpu/ops/pallas_window.py:139"),
+    "trace_occluded_woop": ("sunray_tpu_torch/csrc/trace.cu",
+                            "sunray_tpu/ops/pallas_trace.py:329"),
 }
 BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
-CORNELL_KERNELS = tuple(k for k in KERNELS if k not in BINNED_KERNELS)
-NEE_KERNELS = ("trace_closest", "trace_occluded", "gather_rows", "atrous_pass")
+SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
+CORNELL_KERNELS = tuple(k for k in KERNELS
+                        if k not in BINNED_KERNELS + SWITCH_KERNELS)
+NEE_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
+               "gather_rows_multi", "atrous_pass")
+# The switches frame: K14 takes every occlusion query, so K2 stays idle.
+SLICE_KERNELS = SWITCH_KERNELS + tuple(k for k in CORNELL_KERNELS
+                                       if k != "trace_occluded")
 # The big-mesh frame: every query goes through the binned tracer.
 BIG_KERNELS = BINNED_KERNELS + tuple(k for k in CORNELL_KERNELS
                                      if k not in ("trace_closest",
@@ -1058,10 +1312,15 @@ def main():
 
     kernels = phase_kernels(dev)
     kernels.update(phase_restir_kernels(dev))
+    kernels.update(phase_switch_kernels(dev))
     phase_golden(dev)
     # Each kernel's launches are read on its own slice's main path.
     launches = phase_main(dev, "restir", CORNELL_KERNELS, n_warm=5, n_timed=20)
     phase_main(dev, "nee", NEE_KERNELS, n_warm=2, n_timed=5)
+    slice_launches = phase_main(dev, "restir", SLICE_KERNELS, n_warm=5,
+                                n_timed=20, switches=SWITCHES,
+                                absent=("trace_occluded",))
+    launches.update({k: slice_launches[k] for k in SWITCH_KERNELS})
     kernels.update(phase_binned_kernels(dev))
     phase_big_small(dev)
     big_launches = phase_main(dev, "restir", BIG_KERNELS, n_warm=5, n_timed=20,

@@ -37,7 +37,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sunray_tpu_torch"
-SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu", "binned.cu")
+SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu", "binned.cu",
+           "taa.cu", "history.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -135,13 +136,18 @@ def _declare(lib):
     pairs = [p, p, p, i, i, p, p, p, p, p, i, p, i, i]
     lib.sunray_pair_closest.argtypes = pairs + [p, p, p, p, p]
     lib.sunray_pair_occluded.argtypes = pairs + [p, p]
+    lib.sunray_trace_occluded_woop.argtypes = [p, p, p, f, p, f, p, p, p, i, i,
+                                               p, p]
+    lib.sunray_taa_clamp_blend.argtypes = [p, p, p, i, i, f, p, p]
+    lib.sunray_history_gather.argtypes = [p, p, p, i, p, i64, i64, p]
     for fn in (lib.sunray_trace_closest, lib.sunray_trace_occluded,
                lib.sunray_gather_rows, lib.sunray_atrous_pass,
                lib.sunray_ris_audition, lib.sunray_di_temporal,
                lib.sunray_di_spatial, lib.sunray_gi_spatial,
                lib.sunray_binned_closest, lib.sunray_binned_occluded,
                lib.sunray_cluster_scan, lib.sunray_pair_closest,
-               lib.sunray_pair_occluded):
+               lib.sunray_pair_occluded, lib.sunray_trace_occluded_woop,
+               lib.sunray_taa_clamp_blend, lib.sunray_history_gather):
         fn.restype = ctypes.c_int
     return lib
 

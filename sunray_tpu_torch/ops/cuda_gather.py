@@ -9,6 +9,10 @@ gather_rows(table (K, C), idx (G, N)) -> (G, C, N): the (C, N) layout of
 the TPU kernel's output, so callers take (N,) columns. Indices clamp to
 [0, K-1] as at pallas_gather.py:57,126. float32 and int32 tables are
 copied word for word, bit-exact.
+
+The launch counts keep the two TPU kernels apart: "gather_rows" for one
+index vector (G = 1, onehot_gather_cols, K8a), "gather_rows_multi" for
+several (onehot_gather_cols_multi, K8b).
 """
 
 from __future__ import annotations
@@ -49,5 +53,5 @@ def gather_rows(table, idx):
         cuda_build.stream_ptr(),
     )
     cuda_build.check_launch("gather_rows", err)
-    cuda_build.launches["gather_rows"] += 1
+    cuda_build.launches["gather_rows" if g == 1 else "gather_rows_multi"] += 1
     return out

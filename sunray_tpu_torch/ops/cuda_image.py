@@ -1,10 +1,12 @@
-"""K7: edge-avoiding a-trous denoise, one kernel launch per pass.
+"""K7: edge-avoiding a-trous denoise, one kernel launch per pass; K9: the
+TAA 3x3 clamp and blend.
 
-Counterpart of the a-trous half of sunray_tpu/ops/pallas_image.py
-(atrous_denoise_tpu); the kernel is csrc/atrous.cu. The plain PyTorch
-version of a pass, atrous_denoise_pass, ports the jnp pass
-sunray_tpu/render/postprocess.py:307-375 (which the JAX tests hold equal
-to the Pallas kernel). All images are (H, W, C) float32.
+Counterpart of sunray_tpu/ops/pallas_image.py (atrous_denoise_tpu,
+taa_clamp_blend_tpu); the kernels are csrc/atrous.cu and csrc/taa.cu. The
+plain PyTorch versions port the jnp passes of
+sunray_tpu/render/postprocess.py (atrous_denoise_pass, :307-375, and
+taa_clamp_blend, :204-232), which the JAX tests hold equal to the Pallas
+kernels. All images are (H, W, C) float32.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 
 from sunray_tpu_torch.ops import cuda_build
 from sunray_tpu_torch.ops.brdf import vec_norm
+from sunray_tpu_torch.ops.fp import fma
 
 LUMA = (0.2126, 0.7152, 0.0722)
 ATROUS_KERNEL = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
@@ -137,3 +140,52 @@ def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int):
         cuda_build.launches[name] += 1
         src = dst
     return src
+
+
+def taa_clamp_blend_plain(raw, hist, use_history, accumulation_factor):
+    """3x3 luminance-gated neighbourhood min/max of `raw`, history clamped
+    into that box, lerped by `accumulation_factor`, falling back to `raw`
+    where `use_history` is False (temporal_accumulation.slang:60-132)."""
+    center_luma = luminance(raw)
+    luma_threshold = torch.clamp(center_luma * 5.0, min=0.08)
+    min_c = raw
+    max_c = raw
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dx == 0 and dy == 0:
+                continue
+            nb = shift2d(raw, dy, dx)
+            ok = ((luminance(nb) - center_luma).abs() < luma_threshold)[..., None]
+            min_c = torch.where(ok, torch.minimum(min_c, nb), min_c)
+            max_c = torch.where(ok, torch.maximum(max_c, nb), max_c)
+    clamped = torch.minimum(torch.maximum(hist, min_c), max_c)
+    blended = fma(raw - clamped, accumulation_factor, clamped)
+    return torch.where(use_history[..., None], blended, raw)
+
+
+def taa_clamp_blend(raw, hist, use_history, accumulation_factor):
+    """K9: taa_clamp_blend_plain in one launch. raw, hist: (H, W, 3)
+    float32; use_history: (H, W) bool. Forward only: the TPU kernel's
+    backward is the jnp path, and differentiable frames never take it."""
+    if cuda_build.on_cpu(raw, hist, use_history):
+        return taa_clamp_blend_plain(raw, hist, use_history,
+                                     accumulation_factor)
+    name = "taa_clamp_blend"
+    dev = cuda_build.require_cuda(name, raw, hist, use_history)
+    h, w = raw.shape[:2]
+    for x in (raw, hist):
+        cuda_build.require_dtype(name, x, torch.float32)
+        if tuple(x.shape) != (h, w, 3):
+            raise cuda_build.KernelError(f"{name}: expected {(h, w, 3)}, got "
+                                         f"{tuple(x.shape)}")
+    cuda_build.require_dtype(name, use_history, torch.bool)
+    if tuple(use_history.shape) != (h, w):
+        raise cuda_build.KernelError(f"{name}: use mask {tuple(use_history.shape)}")
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    err = cuda_build.library().sunray_taa_clamp_blend(
+        raw.data_ptr(), hist.data_ptr(), use_history.data_ptr(), h, w,
+        float(accumulation_factor), out.data_ptr(), cuda_build.stream_ptr(),
+    )
+    cuda_build.check_launch(name, err)
+    cuda_build.launches[name] += 1
+    return out

@@ -1,9 +1,10 @@
-"""K1 / K2: brute-force closest-hit and occlusion trace on the card.
+"""K1 / K2 / K14: brute-force closest-hit and occlusion trace on the card.
 
 Counterpart of sunray_tpu/ops/pallas_trace.py (trace_closest_pallas,
-trace_occluded_pallas); the kernels are in csrc/trace.cu. Each wrapper
-takes the plain PyTorch version (ops/intersect.py) for CPU tensors and
-launches its kernel for CUDA tensors; there is no other path.
+trace_occluded_pallas, trace_occluded_woop); the kernels are in
+csrc/trace.cu. Each wrapper takes the plain PyTorch version
+(ops/intersect.py) for CPU tensors and launches its kernel for CUDA
+tensors; there is no other path.
 
 `rays` counts the rays of each query that render/trace.py serves, whatever
 the tracer and the device: the full-batch ray accounting of bench.py:7-13
@@ -104,4 +105,43 @@ def trace_occluded(tris, orig, d, tmax, tmin=T_MIN, exclude=None):
     )
     cuda_build.check_launch("trace_occluded", err)
     cuda_build.launches["trace_occluded"] += 1
+    return occ
+
+
+def trace_occluded_woop(woop, orig, d, tmax, tmin=T_MIN, exclude=None):
+    """K14: any hit in [tmin, tmax] through the Woop transforms woop = (a
+    (6, T, 8), eps (T, 1)) of ops/intersect.woop_matrices, skipping
+    triangle exclude[i] (int32, -1 = none). Returns (N,) bool."""
+    a, eps = woop
+    name = "trace_occluded_woop"
+    if cuda_build.on_cpu(a, eps, orig, d, tmin, tmax, exclude):
+        return intersect.trace_occluded_woop(woop, orig, d, tmax, tmin,
+                                             exclude=exclude)
+    dev = cuda_build.require_cuda(name, orig, d, a, eps)
+    for x in (orig, d, a, eps):
+        cuda_build.require_dtype(name, x, torch.float32)
+    if orig.dim() != 2 or orig.shape[1] != 3 or orig.shape != d.shape:
+        raise cuda_build.KernelError(f"{name}: expected (N, 3) rays, got "
+                                     f"{tuple(orig.shape)} {tuple(d.shape)}")
+    n_tris = a.shape[1]
+    if a.shape != (6, n_tris, 8) or eps.shape != (n_tris, 1):
+        raise cuda_build.KernelError(f"{name}: expected (6, T, 8) and (T, 1), "
+                                     f"got {tuple(a.shape)} {tuple(eps.shape)}")
+    n = orig.shape[0]
+    tn, tn_s = _bound(name, tmin, n, dev)
+    tx, tx_s = _bound(name, tmax, n, dev)
+    if exclude is not None:
+        cuda_build.require_cuda(name, orig, exclude)
+        cuda_build.require_dtype(name, exclude, torch.int32)
+        if exclude.shape != (n,):
+            raise cuda_build.KernelError(f"{name}: exclude must be (N,)")
+    lib = cuda_build.library()
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    err = lib.sunray_trace_occluded_woop(
+        orig.data_ptr(), d.data_ptr(), _ptr(tn), tn_s, _ptr(tx), tx_s,
+        _ptr(exclude), a.data_ptr(), eps.data_ptr(), n, n_tris, occ.data_ptr(),
+        cuda_build.stream_ptr(),
+    )
+    cuda_build.check_launch(name, err)
+    cuda_build.launches[name] += 1
     return occ

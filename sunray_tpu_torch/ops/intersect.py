@@ -1,5 +1,5 @@
 """Ray-triangle intersection and the brute-force tracer — the plain
-PyTorch versions of kernels K1 and K2.
+PyTorch versions of kernels K1, K2 and K14.
 
 Port of sunray_tpu/ops/intersect.py: Moller-Trumbore over dense
 (rays x triangles) blocks, no backface culling, closest-hit and
@@ -7,6 +7,11 @@ occlusion queries. Cross products and dot products round as XLA's CPU
 backend rounds the JAX code's jnp.cross / jnp.sum (ops/fp.py), and the
 CUDA kernel (csrc/trace.cu) uses fmaf() in the same places, so the three
 agree bit for bit on the same rays.
+
+The Woop occlusion test (trace_impl="woop") is the plain version of K14:
+woop_matrices and trace_occluded_woop port sunray_tpu/ops/pallas_trace.py
+(woop_matrices, _occluded_woop_kernel), with the kernel's matmul written
+out as multiply-adds in the order XLA's CPU backend evaluates it.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from sunray_tpu_torch.ops.fp import cross3, dot3
+from sunray_tpu_torch.ops.fp import cross, cross3, dot, dot3, fma
 
 T_MIN = 1e-3      # ray.TMin = 0.001 everywhere in the reference shaders
 T_MAX = 1e4       # ray.TMax = 10000.0
@@ -124,6 +129,84 @@ def trace_occluded_brute(tris, orig, d, tmax, tmin=T_MIN, exclude=None):
         sl = slice(s, min(s + step, n))
         _, _, _, valid = moller_trumbore(orig[sl], d[sl], v0, v1, v2,
                                          tn[sl], tx[sl])
+        if exclude is not None:
+            valid = valid & (ids[None, :] != exclude[sl, None])
+        outs.append(valid.any(dim=-1))
+    if not outs:
+        return torch.zeros((0,), dtype=torch.bool, device=orig.device)
+    return torch.cat(outs)
+
+
+def woop_matrices(tris):
+    """Per-triangle Woop transforms (pallas_trace.py:158-205): the rows of
+    W = [e1 e2 n]^-1 = [e2 x n; n x e1; n] / n.n, so that a point's
+    barycentric and height coordinates are W (x - v0).
+
+    Returns (a (6, T, 8) float32, eps (T, 1)): component-major rows
+    [uo, vo, wo, ud, vd, wd]; an o-row is (r, -r.v0, 0, 0, 0, 0) against
+    X = (o, 1, d, 0), a d-row (0, 0, 0, 0, r, 0). eps = DET_EPS / n.n, the
+    |wd| threshold equal to Moller-Trumbore's |det| > DET_EPS; degenerate
+    triangles get +inf (never hit). Rounded as jax.jit rounds the JAX
+    function (bit-equal, tests/test_torch_switches.py)."""
+    v0, v1, v2 = tris
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = cross(e1, e2)
+    nn = dot(n, n)
+    ok = nn > 0.0
+    inv = torch.where(ok, 1.0 / torch.where(ok, nn, 1.0), 0.0)
+    a = v0.new_zeros((6, v0.shape[0], 8))
+    for k, r in enumerate((cross(e2, n) * inv[:, None],
+                           cross(n, e1) * inv[:, None],
+                           n * inv[:, None])):
+        a[k, :, 0:3] = r
+        a[k, :, 3] = -dot(r, v0)
+        a[3 + k, :, 4:7] = r
+    eps = torch.where(ok, DET_EPS * inv, torch.inf)[:, None]
+    return a.contiguous(), eps.contiguous()
+
+
+def woop_hits(woop, orig, d, tmin, tmax):
+    """The (B, T) hit mask of rays (B, 3) against every triangle: the
+    division-free test of _occluded_woop_kernel. The six dot products are
+    the o-rows fma(r2, oz, fma(r1, oy, r0 * ox)) + c and the d-rows
+    fma(r2, dz, fma(r1, dy, r0 * dx)), as XLA's CPU dot sums the kernel's
+    matmul. With sw = sign(wd), den = |wd|, U = fma(uo, wd, -(wo * ud)) *
+    sw (= u * |wd|), V likewise and S = -wo * sw (= t * |wd|), a hit is
+    den > eps, U, V >= 0, U + V <= den and tmin * den <= S <= tmax * den.
+    tmin, tmax: (B, 1) or scalars."""
+    a, eps = woop
+    o = [orig[:, c:c + 1] for c in range(3)]
+    dd = [d[:, c:c + 1] for c in range(3)]
+    uo, vo, wo = [dot3(a[k, :, 0], o[0], a[k, :, 1], o[1], a[k, :, 2], o[2])
+                  + a[k, :, 3] for k in range(3)]
+    ud, vd, wd = [dot3(a[k, :, 4], dd[0], a[k, :, 5], dd[1], a[k, :, 6], dd[2])
+                  for k in range(3, 6)]
+    sw = torch.where(wd >= 0.0, 1.0, -1.0)
+    den = wd * sw
+    us = fma(uo, wd, -(wo * ud)) * sw
+    vs = fma(vo, wd, -(wo * vd)) * sw
+    ws = -wo * sw
+    return ((den > eps[:, 0]) & (us >= 0.0) & (vs >= 0.0) & (us + vs <= den)
+            & (ws >= tmin * den) & (ws <= tmax * den))
+
+
+def trace_occluded_woop(woop, orig, d, tmax, tmin=T_MIN, exclude=None):
+    """Any hit in [tmin, tmax] through the Woop transforms (woop_hits):
+    True = occluded. woop: (a, eps) from woop_matrices; exclude: optional
+    (N,) int32 triangle id ignored per ray, -1 = none."""
+    orig = orig.reshape(-1, 3)
+    d = d.reshape(-1, 3)
+    n = orig.shape[0]
+    tn = _per_ray(tmin, n, orig.device)
+    tx = _per_ray(tmax, n, orig.device)
+    n_tris = woop[0].shape[1]
+    ids = torch.arange(n_tris, dtype=torch.int32, device=orig.device)
+    outs = []
+    step = _block(n_tris)
+    for s in range(0, n, step):
+        sl = slice(s, min(s + step, n))
+        valid = woop_hits(woop, orig[sl], d[sl], tn[sl], tx[sl])
         if exclude is not None:
             valid = valid & (ids[None, :] != exclude[sl, None])
         outs.append(valid.any(dim=-1))

@@ -273,10 +273,19 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
     enable_di = found & (hitd.roughness > 0.2)
     seed, r_di = restir.ris_audition(lights, seed, pos, normal, *attrs,
                                      cfg.ris_candidates, enable_di)
+    if cfg.history_joint_gather:
+        # One shared reprojection and one gather for the DI and GI
+        # histories (gbuffer.py:305-313); the GI merge reuses pre_gi.
+        seed, h_di, h_gi, base_ok = restir.gather_temporal_histories(
+            cfg, seed, res_di_hist, res_gi_hist, hitd.prev_uv,
+            hitd.prev_valid, frame_count, w, h)
+        pre_di, pre_gi = (h_di, base_ok), (h_gi, base_ok)
+    else:
+        pre_di = pre_gi = None
     seed, r_di = restir.di_temporal_reuse(
         lights, cfg, seed, r_di, res_di_hist, hitd.prev_uv, hitd.prev_valid,
         frame_count, pos, normal, *attrs, hitd.virtual_distance, w, h,
-        enable_di,
+        enable_di, pregathered=pre_di,
     )
     # Visibility reuse (ray_gen_ris.slang:277-302), traced below together
     # with the GI NEE shadow ray.
@@ -359,7 +368,7 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
     seed, r_gi = restir.gi_temporal_reuse(
         cfg, seed, r_gi, res_gi_hist, hitd.prev_uv, hitd.prev_valid,
         frame_count, pos, normal, hitd.albedo, hitd.metallic,
-        hitd.virtual_distance, w, h, found,
+        hitd.virtual_distance, w, h, found, pregathered=pre_gi,
     )
     r_gi = dataclasses.replace(
         r_gi, hit_normal=torch.where(found[:, None], normal, 0.0),

@@ -7,9 +7,11 @@ runs on the device of the scene tensors; the frame never moves to the
 CPU on its own.
 
 Covered: lighting "restir" (the default: shared spatial taps, f32
-shading), "nee" and "brdf"; the brute-force tracer or the binned tracer
-with a ClusterSet accel (scenes above the brute-force limit), a trivial texture
-atlas, one sample per pixel, forward only. check_supported()
+shading; the joint DI+GI history gather), "nee" and "brdf"; the
+brute-force tracer (Moller-Trumbore or Woop occlusion) or the binned
+tracer with a ClusterSet accel (scenes above the brute-force limit), a
+trivial texture atlas, one sample per pixel, forward only; TAA on the
+plain path or K9, history reads plain or through K13. check_supported()
 raises NotImplementedError for every other configuration instead of
 rendering something else. The stages run under torch.profiler ranges
 named as the JAX package's named scopes (ris_pass, final_pass, taa,
@@ -71,13 +73,10 @@ def check_supported(scene, cfg) -> None:
         "samples > 1": cfg.samples != 1,
         "differentiable frames": cfg.differentiable,
         "shadow_boundary_grads": cfg.shadow_boundary_grads,
-        f"taa_kernel={cfg.taa_kernel!r} (K9)": (cfg.enable_taa
-                                               and cfg.taa_kernel != "jnp"),
         "history_gather_force=True": cfg.history_gather_force is True,
         f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
         f"spatial_taps={cfg.spatial_taps!r}": (restir
                                                and cfg.spatial_taps != "shared"),
-        "history_joint_gather=True": restir and cfg.history_joint_gather,
         f"shading_dtype={cfg.shading_dtype!r}": (restir
                                                  and cfg.shading_dtype != "f32"),
     }
@@ -122,8 +121,10 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
     accum = raw_img
     if cfg.enable_taa:
         with record_function("taa"):
-            accum = temporal_accumulate(raw_img, motion_img, state.accum,
-                                        frame_count, cfg.accumulation_factor)
+            accum = temporal_accumulate(
+                raw_img, motion_img, state.accum, frame_count,
+                cfg.accumulation_factor, kernel=cfg.taa_kernel,
+                history_select_kernel=restir.history_kernel_ok(cfg))
     den = accum
     if cfg.denoise_passes > 0:
         with record_function("denoise"):

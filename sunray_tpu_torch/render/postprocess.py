@@ -3,9 +3,12 @@
 Port of sunray_tpu/render/postprocess.py. The TAA history is read by the
 direct bilinear_sample (postprocess.py:50-75), which is what the JAX
 package does off the TPU (plain gathers, ops/banded.py); the TPU-only band
-rejection is not ported. The denoise dispatches to K7
-(ops/cuda_image.py). All images are (H, W, C) float32. The history fetch
-and blend round their multiply-adds as the reference does (ops/fp.py).
+rejection is not ported. With history_select_kernel the four bilinear
+corners are fetched in one K13 launch (ops/cuda_history.py); kernel
+"pallas" (or "auto" on the card) runs the clamp and blend as K9
+(ops/cuda_image.taa_clamp_blend), else its plain version. The denoise
+dispatches to K7. All images are (H, W, C) float32. The history fetch and
+blend round their multiply-adds as the reference does (ops/fp.py).
 """
 
 from __future__ import annotations
@@ -13,14 +16,16 @@ from __future__ import annotations
 import torch
 
 from sunray_tpu_torch.camera import pixel_centers
+from sunray_tpu_torch.ops import cuda_history, cuda_image
 from sunray_tpu_torch.ops.fp import fma
 from sunray_tpu_torch.ops.cuda_image import (
     LUMA,
     atrous_denoise,
     atrous_denoise_pass,
-    luminance,
-    shift2d,
 )
+
+# The plain clamp and blend (the JAX package's jnp taa_clamp_blend).
+taa_clamp_blend = cuda_image.taa_clamp_blend_plain
 
 ACCUMULATION_FACTOR = 0.14   # temporal_accumulation.slang:30
 
@@ -31,9 +36,10 @@ __all__ = [
 ]
 
 
-def bilinear_sample(img, uv):
+def bilinear_sample(img, uv, select_kernel=False):
     """Manual bilinear fetch at continuous uv, clamp-to-edge
-    (temporal_accumulation.slang:42-58). img: (H, W, C); uv: (H, W, 2)."""
+    (temporal_accumulation.slang:42-58). img: (H, W, C); uv: (H, W, 2).
+    select_kernel: fetch the four corners in one history_gather (K13)."""
     h, w = img.shape[:2]
     px = fma(uv[..., 0], float(w), -0.5)
     py = fma(uv[..., 1], float(h), -0.5)
@@ -42,44 +48,33 @@ def bilinear_sample(img, uv):
     fx = (px - bx)[..., None]
     fy = (py - by)[..., None]
 
-    def at(ix, iy):
-        return img[iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+    def flat(ix, iy):
+        return iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
 
-    h00 = at(bx, by)
-    h10 = at(bx + 1, by)
-    h01 = at(bx, by + 1)
-    h11 = at(bx + 1, by + 1)
+    corners = [flat(bx, by), flat(bx + 1, by), flat(bx, by + 1),
+               flat(bx + 1, by + 1)]
+    table = img.reshape(h * w, -1)
+    if select_kernel:
+        rows = cuda_history.history_gather(
+            [table], torch.cat([c.reshape(-1) for c in corners]))[0]
+        h00, h10, h01, h11 = rows.reshape(4, *img.shape)
+    else:
+        h00, h10, h01, h11 = (table[c] for c in corners)
     top = fma(h00, 1 - fx, h10 * fx)
     bottom = fma(h01, 1 - fx, h11 * fx)
     return fma(top, 1 - fy, bottom * fy)
 
 
-def taa_clamp_blend(raw, hist, use_history, accumulation_factor):
-    """3x3 luminance-gated neighbourhood min/max of `raw`, history clamped
-    into that box, lerped by `accumulation_factor`, falling back to `raw`
-    where `use_history` is False (temporal_accumulation.slang:60-132)."""
-    center_luma = luminance(raw)
-    luma_threshold = torch.clamp(center_luma * 5.0, min=0.08)
-    min_c = raw
-    max_c = raw
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            if dx == 0 and dy == 0:
-                continue
-            nb = shift2d(raw, dy, dx)
-            ok = ((luminance(nb) - center_luma).abs() < luma_threshold)[..., None]
-            min_c = torch.where(ok, torch.minimum(min_c, nb), min_c)
-            max_c = torch.where(ok, torch.maximum(max_c, nb), max_c)
-    clamped = torch.minimum(torch.maximum(hist, min_c), max_c)
-    blended = fma(raw - clamped, accumulation_factor, clamped)
-    return torch.where(use_history[..., None], blended, raw)
-
-
 def temporal_accumulate(raw, motion, history, frame_count,
-                        accumulation_factor=ACCUMULATION_FACTOR):
+                        accumulation_factor=ACCUMULATION_FACTOR, kernel="jnp",
+                        history_select_kernel=False):
     """TAA (temporal_accumulation.slang:60-132). raw, history: (H, W, 3);
     motion: (H, W, 2); frame_count: int or 0-d tensor. Returns the new
-    accumulation image (next frame's history)."""
+    accumulation image (next frame's history).
+
+    kernel: "pallas" runs the clamp and blend as K9, "auto" does so on the
+    card, "jnp" takes the plain version (the JAX switch's names).
+    history_select_kernel: fetch the history corners through K13."""
     h, w = raw.shape[:2]
     dev = raw.device
     vv, uu = torch.meshgrid(pixel_centers(h, dev), pixel_centers(w, dev),
@@ -88,8 +83,11 @@ def temporal_accumulate(raw, motion, history, frame_count,
     prev_uv = uv - motion
 
     off_screen = ((prev_uv < 0.0) | (prev_uv > 1.0)).any(dim=-1)
-    hist = bilinear_sample(history, prev_uv)
+    hist = bilinear_sample(history, prev_uv, history_select_kernel)
     use_history = (~off_screen) & (torch.as_tensor(frame_count, device=dev) > 2)
+    if kernel == "pallas" or (kernel == "auto" and dev.type == "cuda"):
+        return cuda_image.taa_clamp_blend(raw.contiguous(), hist.contiguous(),
+                                          use_history, accumulation_factor)
     return taa_clamp_blend(raw, hist, use_history, accumulation_factor)
 
 

@@ -7,7 +7,11 @@ K3/K4 wrappers of ops/cuda_restir.py (plain PyTorch on the CPU, the hand
 kernels on a card). History reads are direct indexed loads at the
 reprojected pixel, the plain-gather branch of the reference
 (restir.py:452; ops/banded.py takes it on every backend but the TPU):
-no banded or shift ladder, no window-select kernel.
+no banded or shift ladder. With history_select_kernel="auto" the reads
+that are not fused into K4 go through the history gather K13
+(ops/cuda_history.py), which moves the same words; with
+history_joint_gather one reprojection and one K13 launch read the DI and
+GI histories together (gather_temporal_histories).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import dataclasses
 
 import torch
 
-from sunray_tpu_torch.ops import cuda_restir
+from sunray_tpu_torch.ops import cuda_history, cuda_restir
 from sunray_tpu_torch.ops import rng as rng_mod
 from sunray_tpu_torch.ops.brdf import (
     cross,
@@ -157,16 +161,61 @@ def reproject(seed, prev_uv, prev_valid, frame_count, enable, width, height):
     return seed, pi, ok
 
 
+def history_kernel_ok(cfg) -> bool:
+    """The gate of the history gather kernel K13 (restir.py:510-517):
+    history_select_kernel="auto" on a forward frame. The JAX gate also
+    asks for a TPU; here the wrapper launches K13 for tensors on the card
+    and runs its plain version on the CPU."""
+    return cfg.history_select_kernel == "auto" and not cfg.differentiable
+
+
+def _read_histories(cfg, reservoirs, idx):
+    """The reservoirs' fields at idx in one gather (K13 under
+    history_kernel_ok, plain indexing otherwise), each w_sum left out and
+    returned as zeros: the merges read only the destination's w_sum
+    (restir.py:488-507)."""
+    names = [[f.name for f in dataclasses.fields(r) if f.name != "w_sum"]
+             for r in reservoirs]
+    fields = [getattr(r, k) for r, ks in zip(reservoirs, names) for k in ks]
+    gather = (cuda_history.history_gather if history_kernel_ok(cfg)
+              else cuda_history.history_gather_plain)
+    rows = iter(gather(fields, idx))
+    w_sum = torch.zeros((idx.shape[0],), dtype=torch.float32, device=idx.device)
+    return [type(r)(w_sum=w_sum, **{k: next(rows) for k in ks})
+            for r, ks in zip(reservoirs, names)]
+
+
+def gather_temporal_histories(cfg, seed, hist_di: ReservoirDI,
+                              hist_gi: ReservoirGI, prev_uv, prev_valid,
+                              frame_count, width, height):
+    """history_joint_gather (restir.py:524-568): ONE jittered reprojection
+    and ONE gather of the DI and GI histories, where the reference draws a
+    jitter for each. Returns (seed, h_di, h_gi, base_ok) with both w_sum
+    zeroed; base_ok leaves out each pass's enable mask."""
+    seed, pi, base_ok = reproject(seed, prev_uv, prev_valid, frame_count, True,
+                                  width, height)
+    h_di, h_gi = _read_histories(cfg, (hist_di, hist_gi), pi)
+    return seed, h_di, h_gi, base_ok
+
+
 def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
                       history: ReservoirDI, prev_uv, prev_valid, frame_count,
                       hit_pos, hit_normal, v_view, albedo, roughness, metallic,
-                      virtual_distance, width, height, enable):
+                      virtual_distance, width, height, enable,
+                      pregathered=None):
     """DI temporal reuse with jittered reprojection and normal/depth
     confidence (ray_gen_ris.slang:233-267). The jitter draw and the
     reprojection come first in the pixel's stream, outside K4, as in the
-    reference (pallas_restir.py:903-906); K4 reads the history in place."""
-    seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count, enable,
-                             width, height)
+    reference (pallas_restir.py:903-906); K4 reads the history in place.
+    pregathered: (history, base_ok) from gather_temporal_histories; K4
+    then reads that history at its own lane."""
+    if pregathered is not None:
+        history, base_ok = pregathered
+        ok = enable & base_ok
+        pi = torch.arange(hit_pos.shape[0], device=hit_pos.device)
+    else:
+        seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count,
+                                 enable, width, height)
     seed, f = cuda_restir.di_temporal(
         lights.table, seed, dataclasses.asdict(r), dataclasses.asdict(history),
         pi, ok, hit_pos, hit_normal, v_view, albedo, roughness, metallic,
@@ -178,13 +227,17 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
 def gi_temporal_reuse(cfg, seed, r: ReservoirGI, history: ReservoirGI,
                       prev_uv, prev_valid, frame_count, hit_pos, hit_normal,
                       albedo, metallic, virtual_distance, width, height,
-                      enable):
+                      enable, pregathered=None):
     """GI temporal reuse (ray_gen_ris.slang:408-432), plain PyTorch (the
-    reference has no kernel for it)."""
-    seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count, enable,
-                             width, height)
-    h = ReservoirGI(**{f.name: getattr(history, f.name)[pi]
-                       for f in dataclasses.fields(history)})
+    reference has no kernel for it); the history read is K13's under
+    history_kernel_ok. pregathered: as in di_temporal_reuse."""
+    if pregathered is not None:
+        h, base_ok = pregathered
+        ok = enable & base_ok
+    else:
+        seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count,
+                                 enable, width, height)
+        h, = _read_histories(cfg, (history,), pi)
     conf = (smoothstep(0.8, 0.95, dot(hit_normal, h.hit_normal))
             * one_minus_smoothstep(
                 0.05, 0.20,

@@ -5,9 +5,11 @@ TracerCtx holds the frame's world triangles and, with a ClusterSet accel,
 the set refit from them. trace_closest/trace_occluded go to the brute
 wrappers (K1/K2, ops/cuda_trace.py) or to the binned tracer
 (ops/binned_trace.py: the block path with K10 for coherent batches, the
-pair stream with K11/K12 for incoherent ones). Every wrapper launches its
-CUDA kernel for tensors on the card and runs its plain PyTorch version on
-the CPU. The BVH, two-level and alpha-cutout backends are not ported.
+pair stream with K11/K12 for incoherent ones). With trace_impl="woop" and
+no accel, occlusion queries go through the Woop transforms (K14), built
+once per frame. Every wrapper launches its CUDA kernel for tensors on the
+card and runs its plain PyTorch version on the CPU. The BVH, two-level and
+alpha-cutout backends are not ported.
 
 `cuda_trace.rays` counts each query's rays once, here: the full-batch ray
 accounting of bench.py:7-13 is the sum (the binned overflow fallback's
@@ -28,6 +30,10 @@ class TracerCtx(NamedTuple):
     # Binned backend: the load-time ClusterSet refit to this frame's
     # triangles (render/trace.py:83-92); None = brute force.
     binned: Optional[binned_trace.ClusterSet] = None
+    # trace_impl="woop" on the brute path: (a (6, T, 8), eps (T, 1)) from
+    # intersect.woop_matrices (render/trace.py:120-126); None = Moller-
+    # Trumbore.
+    woop: Optional[tuple] = None
 
 
 def make_tracer(scene, cfg, accel=None) -> TracerCtx:
@@ -37,8 +43,10 @@ def make_tracer(scene, cfg, accel=None) -> TracerCtx:
     world triangles; the binned tracer then serves every query, whatever
     cfg.tracer says (as on the TPU). Without one, "auto" resolves to brute
     force up to cfg.brute_force_max_tris and "binned" to brute force (the
-    JAX make_tracer, trace.py:113-127); anything else raises."""
-    if cfg.trace_impl != "mt":
+    JAX make_tracer, trace.py:113-127); anything else raises. The binned
+    tracer ignores trace_impl, as the JAX make_tracer returns before its
+    Woop check (trace.py:79-92)."""
+    if cfg.trace_impl not in ("mt", "woop"):
         raise NotImplementedError(f"trace_impl={cfg.trace_impl!r} is not ported")
     if cfg.alpha_mask_tracing or scene.has_alpha_mask:
         raise NotImplementedError("alpha-cutout tracing is not ported")
@@ -57,7 +65,8 @@ def make_tracer(scene, cfg, accel=None) -> TracerCtx:
             f"{cfg.brute_force_max_tris} and no ClusterSet accel was given; "
             "the LBVH backend (ops/bvh.py) is not ported"
         )
-    return TracerCtx(tris=tris)
+    woop = intersect.woop_matrices(tris) if cfg.trace_impl == "woop" else None
+    return TracerCtx(tris=tris, woop=woop)
 
 
 def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
@@ -91,7 +100,10 @@ def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
     orig, d = orig.contiguous(), d.contiguous()
     seg = (tmax - 1e-3).contiguous()
     exclude = None if exclude is None else exclude.contiguous()
-    if ctx.binned is None:
+    if ctx.woop is not None:
+        occ = cuda_trace.trace_occluded_woop(ctx.woop, orig, d, seg, tmin,
+                                             exclude=exclude)
+    elif ctx.binned is None:
         occ = cuda_trace.trace_occluded(ctx.tris, orig, d, seg, tmin,
                                         exclude=exclude)
     elif not coherent:

@@ -1,7 +1,7 @@
-"""PyTorch port on the card: every CUDA kernel (K1-K8, K10-K12) against its
-plain PyTorch version, the golden NEE and ReSTIR frames and the small
-big-mesh frame on the card against the CPU, and the entry points' default
-device. Skipped where there is no CUDA device. This file imports no JAX,
+"""PyTorch port on the card: every CUDA kernel (K1-K14) against its plain
+PyTorch version, the golden NEE and ReSTIR frames, the golden ReSTIR frame
+with the kernel switches and the small big-mesh frame on the card against
+the CPU, and the entry points' default device. Skipped where there is no CUDA device. This file imports no JAX,
 so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
@@ -14,6 +14,7 @@ import torch
 from sunray_tpu_torch.camera import Camera, camera_matrices, generate_rays
 from sunray_tpu_torch.config import RenderConfig
 from sunray_tpu_torch.ops import cuda_build, cuda_gather, cuda_image, cuda_trace
+from sunray_tpu_torch.ops import cuda_history
 from sunray_tpu_torch.ops import binned_trace, cuda_binned, cuda_restir, intersect
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 from sunray_tpu_torch.scene import cornell_box
@@ -122,7 +123,8 @@ def test_frame_on_card_matches_cpu(lighting, frames, cuda_device):
         ldrs[str(dev)] = n(ldr)
     p = psnr(ldrs["cpu"], ldrs[str(cuda_device)])
     assert p > 40.0, f"PSNR card vs CPU = {p:.2f} dB"
-    names = ["trace_closest", "trace_occluded", "gather_rows", "atrous_pass"]
+    names = ["trace_closest", "trace_occluded", "gather_rows",
+             "gather_rows_multi", "atrous_pass"]
     if lighting == "restir":
         names += list(RESTIR)
     for name in names:
@@ -363,3 +365,98 @@ def test_entry_points_default_to_cuda(cuda_device):
     assert camera_matrices(Camera(**CAMERA), 8, 8)["view_proj"].is_cuda
     assert RenderState.create(cfg).accum.is_cuda
     assert convert.mats_from_numpy({"m": np.eye(4)})["m"].is_cuda
+
+
+# K9, K13, K14: the Cornell frame's kernel switches.
+
+@pytest.mark.parametrize("size", [(270, 480), (37, 53)])
+def test_taa_kernel_matches_plain(size, cuda_device):
+    rng = np.random.default_rng(size[0])
+    h, w = size
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.uniform(size=s).astype(np.float32)).to(cuda_device)
+    raw = 3.0 * f(h, w, 3)
+    raw[h // 3:h // 2, w // 4:w // 2] *= 20.0
+    hist = 3.0 * f(h, w, 3)
+    use = f(h, w) > 0.3
+    use[0], use[:, -1] = False, False
+    got = cuda_image.taa_clamp_blend(raw, hist, use, 0.14)
+    want = cuda_image.taa_clamp_blend_plain(raw, hist, use, 0.14)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[~use], raw[~use])
+
+
+def test_history_gather_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(11)
+    p, m = 300_000, 1_200_000
+    fields = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device)
+              for s in ((p, 3), (p,), (p, 3), (p,), (p, 3), (p,))]
+    ids = rng.integers(-2**31, 2**31 - 1, size=p, dtype=np.int64).astype(np.int32)
+    fields += [torch.from_numpy(ids).to(cuda_device),
+               torch.from_numpy(ids.view(np.float32).copy()).to(cuda_device)]
+    idx = torch.from_numpy(rng.integers(-3, p + 3, size=m)).to(cuda_device)
+    cuda_build.launches.clear()
+    got = cuda_history.history_gather(fields, idx)
+    want = cuda_history.history_gather_plain(fields, idx)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["history_gather"] == 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(cuda_build.KernelError):
+        cuda_history.history_gather(fields, idx.int())
+
+
+def test_window_select_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(2)
+    c, p, pad = 8, 40_000, 1024
+    table = torch.from_numpy(rng.normal(size=(c, p + 2 * pad)).astype(np.float32))
+    key = torch.from_numpy(rng.integers(-1, 4, size=p).astype(np.int32))
+    taps, g = [0, -1, -200, -201], 333
+    want = cuda_history.window_select(table, key, g, taps, pad_l=pad)
+    got = cuda_history.window_select(table.to(cuda_device), key.to(cuda_device),
+                                     g, taps, pad_l=pad)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["cornell", "random"])
+def test_woop_kernel_matches_plain(case, cuda_device):
+    """K14 with and without exclude ids; "random" has 4,096 triangles, 32
+    shared-memory chunks."""
+    tris, o, d, tmax, ex = _trace_case(case, cuda_device)
+    woop = intersect.woop_matrices(tris)
+    for exclude in (None, ex):
+        got = cuda_trace.trace_occluded_woop(woop, o, d, tmax, exclude=exclude)
+        want = intersect.trace_occluded_woop(woop, o, d, tmax, exclude=exclude)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert 0.0 < want.float().mean().item() < 1.0
+        mt = intersect.trace_occluded_brute(tris, o, d, tmax, exclude=exclude)
+        assert (got == mt).float().mean().item() >= 0.9995
+
+
+SWITCHES = dict(taa_kernel="pallas", history_select_kernel="auto",
+                history_joint_gather=True, trace_impl="woop")
+
+
+def test_switches_frame_on_card_matches_cpu(cuda_device):
+    """The golden ReSTIR config with the four switches, 4 frames, card
+    against CPU; K9, K13 and K14 launch and K2 does not."""
+    cfg = RenderConfig(**dict(GOLDEN_KW, lighting="restir", **SWITCHES))
+    ldrs = {}
+    for dev in ("cpu", cuda_device):
+        scene = cornell_box(device=dev)
+        mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height,
+                               device=dev)
+        state = RenderState.create(cfg, dev)
+        cuda_build.launches.clear()
+        for _ in range(4):
+            state, ldr, _ = render_frame(scene, cfg, state, mats)
+        ldrs[str(dev)] = n(ldr)
+    p = psnr(ldrs["cpu"], ldrs[str(cuda_device)])
+    assert p > 40.0, f"PSNR card vs CPU = {p:.2f} dB"
+    for name in ("taa_clamp_blend", "history_gather", "trace_occluded_woop",
+                 "trace_closest", "di_temporal"):
+        assert cuda_build.launches[name] > 0, name
+    assert cuda_build.launches["trace_occluded"] == 0

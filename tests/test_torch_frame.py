@@ -104,13 +104,11 @@ def test_state_from_numpy_continues_jax_frames(frames):
 
 UNCOVERED = {
     "perpixel_taps": dict(lighting="restir", spatial_taps="perpixel"),
-    "history_joint_gather": dict(lighting="restir", history_joint_gather=True),
     "shading_bf16": dict(lighting="restir", shading_dtype="bf16"),
     "bvh": dict(tracer="bvh"),
     "edge_antialias": dict(edge_antialias=True),
     "samples": dict(samples=2),
     "differentiable": dict(differentiable=True),
-    "taa_kernel": dict(taa_kernel="pallas"),
 }
 
 

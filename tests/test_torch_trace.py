@@ -168,8 +168,7 @@ def test_render_trace_matches_reference():
 
 
 @pytest.mark.parametrize("kw", [dict(tracer="bvh"), dict(tracer="bvh2"),
-                                dict(tracer="auto", brute_force_max_tris=16),
-                                dict(trace_impl="woop")])
+                                dict(tracer="auto", brute_force_max_tris=16)])
 def test_make_tracer_uncovered_raises(kw):
     pscene = convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu")
     with pytest.raises(NotImplementedError):
