@@ -27,7 +27,9 @@ Phases, in order; any failure raises and exits non-zero with no result:
                     frame whose TAA reads history): K9 on its
                     raw, history and use mask (within 1e-6, bit-equality
                     printed), K13 on the joint DI+GI read and on the TAA
-                    corners (bit-equal), K14 on every shadow query with its
+                    corners (bit-equal; its time, index_select's on the
+                    packed (P, 29) table and the corners' in one run), K14
+                    on every shadow query with its
                     exclude ids (>= 99.99% of rays, differing lanes printed);
   4. render the golden configs (tests/test_golden.py:36-40, 96x64): NEE
      4 frames, ReSTIR 8 frames and ReSTIR with the kernel switches 4
@@ -49,16 +51,20 @@ Phases, in order; any failure raises and exits non-zero with no result:
        closest), the GI bounce rays (K11, K12 closest, K10 closest on the
        overflow fallback) and the 3P GI taps' visibility rays with their
        exclude ids (K11, K12 any-hit, K10 any-hit on the fallback); rays
-       agreeing on >= 99.99%, t/u/v within 1e-5, K11 bit-equal; the
-       overflow share;
+       agreeing on >= 99.99%, t/u/v within 1e-5, K11 bit-equal, K10 and
+       the plain model of its walk (binned_round_warp) bit-equal on every
+       live lane; the overflow share; K10 timed on each of its three
+       launches, with its bound and its cluster tests: needed, run by the
+       warp rule (the model's count) and the old per-block items;
        the small big-mesh config (subdiv 3, cluster_k 32, 48x32, 3
        frames) on the card and on the CPU, PSNR > 40 dB; the 1080p
        big-mesh frame with the default config, 5 warm-up and 20 timed
        frames, counters zeroed before: K3-K8 and K10-K12 must launch,
        rays per frame as bench.py counts them, ldr finite with mean in
        (0.05, 0.95), synced stage times and one profiled frame's device
-       time by kernel; then one 480x270 frame, binned against
-       tracer="brute" (K1/K2 over all 81,956 triangles), PSNR > 40 dB.
+       time by kernel, and K10's by launch; then one 480x270 frame, binned
+       against tracer="brute" (K1/K2 over all 81,956 triangles), PSNR > 40
+       dB.
   7. the kernel-switches slice (cornell_restir_switches_1080p): the 1080p
      Cornell ReSTIR frame with taa_kernel="pallas",
      history_select_kernel="auto", history_joint_gather=True and
@@ -69,8 +75,10 @@ Phases, in order; any failure raises and exits non-zero with no result:
      and 3 with "off" from a fresh state: ldr bit-equal (K13 only moves
      words).
 The line before the last is {"kernels": [...]}: per kernel its launches
-on its slice's main path, its error, kernel / plain / library ms (CUDA
-events, median of 10) and its bound (the larger of bytes over 3.35 TB/s
+on its slice's main path, its error, kernel and library ms (CUDA events
+around 10 calls enqueued behind a spin kernel, so run back to back, a
+call; median of 3), plain ms (CUDA events around one call, median of 10)
+and its bound (the larger of bytes over 3.35 TB/s
 and operations over 67 TFLOP/s fp32, from this run's inputs; a trace
 counts the ray-triangle tests its rays need, e.g. K10 and K12 the
 clusters whose box a ray enters before its closest hit, K2 and K14 the
@@ -131,7 +139,8 @@ def log(msg):
 
 
 def time_ms(fn, reps=REPS):
-    """Median of `reps` CUDA-event timings of fn() after two warm-ups."""
+    """Median of `reps` CUDA-event timings of fn() after two warm-ups: a
+    plain version's time, its host work included."""
     for _ in range(2):
         fn()
     times = []
@@ -143,6 +152,45 @@ def time_ms(fn, reps=REPS):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+_SPIN_CYCLES_PER_MS = []
+
+
+def device_ms(fn, reps=REPS):
+    """A kernel's or a library call's time on the card, a call: `reps`
+    calls enqueued behind a spin kernel (torch.cuda._sleep) that outlasts
+    their host work, with CUDA events around the calls alone; median of 3.
+    The card runs them back to back, so no host time enters, where events
+    around one call read the wrapper's host work when it is longer than
+    the kernel."""
+    if not _SPIN_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(_SPIN_CYCLES_PER_MS[0] * (2.0 * host_ms + 1.0)))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -272,13 +320,13 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
     smax = (dist - 1e-3).contiguous()
     results["trace_closest"] = dict(
         agree=min(f_cam, f_b, f_r), max_abs_err=max(e_cam, e_b, e_r),
-        ms=time_ms(lambda: cuda_trace.trace_closest(tris, o, d)),
+        ms=device_ms(lambda: cuda_trace.trace_closest(tris, o, d)),
         plain_ms=time_ms(lambda: intersect.trace_closest_brute(tris, o, d)),
         bound=bound(n * 41 + nbytes(*tris), n * n_tris * TEST_OPS),
     )
     results["trace_occluded"] = dict(
         agree=min(f_s, f_ro), max_abs_err=max(e_s, e_ro),
-        ms=time_ms(lambda: cuda_trace.trace_occluded(
+        ms=device_ms(lambda: cuda_trace.trace_occluded(
             tris, pos, sdir, smax, exclude=ex)),
         plain_ms=time_ms(lambda: intersect.trace_occluded_brute(
             tris, pos, sdir, smax, exclude=ex)),
@@ -309,9 +357,9 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
         idx_c = idx.clamp(0, table.shape[0] - 1).long()
         results[name] = dict(
             max_abs_err=0.0,
-            ms=time_ms(lambda: cuda_gather.gather_rows(table, idx)),
+            ms=device_ms(lambda: cuda_gather.gather_rows(table, idx)),
             plain_ms=time_ms(lambda: cuda_gather.gather_rows_plain(table, idx)),
-            library_ms=time_ms(lambda: table[idx_c]),
+            library_ms=device_ms(lambda: table[idx_c]),
             bound=bound(nbytes(table, idx) + idx.numel() * table.shape[1] * 4, 0),
         )
 
@@ -332,7 +380,7 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
     check(err <= ATROUS_ATOL, f"K7 error {err} > {ATROUS_ATOL}")
     results["atrous_pass"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: cuda_image.atrous_denoise(*args)) / 4.0,
+        ms=device_ms(lambda: cuda_image.atrous_denoise(*args)) / 4.0,
         plain_ms=time_ms(lambda: cuda_image.atrous_denoise_plain(*args)) / 4.0,
         # per pass: 5 guide planes read, color written; 25 taps of ~40 ops
         bound=bound(nbytes(*args[:5]) + nbytes(color), h * w * 25 * 40),
@@ -513,7 +561,7 @@ def phase_restir_kernels(dev, n_random=65536, n_lights=600):
         out = getattr(cuda_restir, name)(*args)
         r["bound"] = bound(nbytes(*flatten(args)) + nbytes(*flatten(out)),
                            lanes * restir_lane_ops(name, args))
-        r["ms"] = time_ms(lambda: getattr(cuda_restir, name)(*args))
+        r["ms"] = device_ms(lambda: getattr(cuda_restir, name)(*args))
         r["plain_ms"] = time_ms(
             lambda: getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args))
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
@@ -615,7 +663,7 @@ def phase_switch_kernels(dev):
     n_px = use.numel()
     results["taa_clamp_blend"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: cuda_image.taa_clamp_blend(*taa_args)),
+        ms=device_ms(lambda: cuda_image.taa_clamp_blend(*taa_args)),
         plain_ms=time_ms(lambda: cuda_image.taa_clamp_blend_plain(*taa_args)),
         # raw, history, mask read once, the image written once; ~120 fp32
         # operations a pixel (9 luminances, 8 gated min/max, clamp, blend)
@@ -643,12 +691,15 @@ def phase_switch_kernels(dev):
     corners = timed["TAA corners"]
     results["history_gather"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: cuda_history.history_gather(fields, idx)),
+        ms=device_ms(lambda: cuda_history.history_gather(fields, idx)),
         plain_ms=time_ms(lambda: cuda_history.history_gather_plain(fields, idx)),
-        library_ms=time_ms(lambda: packed.index_select(0, idx)),
-        taa_corners_ms=time_ms(lambda: cuda_history.history_gather(*corners[:2])),
+        library_ms=device_ms(lambda: packed.index_select(0, idx)),
+        taa_corners_ms=device_ms(lambda: cuda_history.history_gather(*corners[:2])),
         bound=bound(nbytes(idx) + 2 * m * words * 4, 0))
-    log(f"  K13 on the TAA corners: {results['history_gather']['taa_corners_ms']:.4f} ms")
+    r = results["history_gather"]
+    log(f"  K13 joint read: kernel {r['ms']:.4f} ms, index_select on the packed "
+        f"table {r['library_ms']:.4f} ms, kernel at {r['bound'][0] / r['ms']:.1%} "
+        f"of the bound; TAA corners {r['taa_corners_ms']:.4f} ms")
 
     # K14 on every shadow query of the frame, with its exclude ids.
     agree, err, worst = [], 0.0, None
@@ -673,7 +724,7 @@ def phase_switch_kernels(dev):
     check(tmin == intersect.T_MIN, "shadow query with a non-default tmin")
     results["trace_occluded_woop"] = dict(
         agree=min(agree), max_abs_err=err,
-        ms=time_ms(lambda: cuda_trace.trace_occluded_woop(
+        ms=device_ms(lambda: cuda_trace.trace_occluded_woop(
             woop, o, d, tmax, tmin, exclude=exclude)),
         plain_ms=time_ms(lambda: intersect.trace_occluded_woop(
             woop, o, d, tmax, tmin, exclude=exclude)),
@@ -782,7 +833,7 @@ def block_args(cs, orig, d, tmax, exclude):
     o_t, d_t, tn, tx, ex, _, nb = bt._prep(o_s, d_s, T_MIN, tx_s, ex_s)
     hit, entry = bt._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo, cs.aabb_hi, nb)
     order, ents, count = bt._work_list(hit, entry)
-    return (order, ents, count, o_t, d_t, tn, tx, ex, cs.tri_pack)
+    return (order, ents, count, o_t, d_t, tn, tx, ex, cs)
 
 
 def box_entered(o, d, lower, upper, lo, hi):
@@ -838,11 +889,84 @@ def needed_pair_tests(cs, cid_s, pos_s, n_sc, o_t, d_t, tn, tx, t_pair,
     return total
 
 
+def compare_k10(args, closest, label, live=None):
+    """K10 against its plain version on one launch's inputs: the lanes
+    `live` (all if None) bit-equal, and so is the plain model of the
+    kernel's walk (binned_round_warp), whose count of the tests it runs is
+    returned with the agreement: (agreement, error, rule tests)."""
+    from sunray_tpu_torch.ops import cuda_binned as cb
+
+    k = cb.binned_round(*args, closest=closest)
+    p = cb.binned_round_plain(*args, closest=closest)
+    model, rule = cb.binned_round_warp(*args, closest=closest)
+    torch.cuda.synchronize()
+    if closest:
+        frac, err = compare_hits("K10", k, p, label, live)
+    else:
+        frac, err = compare_occ("K10", k, p, label, live), 0.0
+    sel = (lambda x: x) if live is None else (lambda x: x[live])  # noqa: E731
+    for name, out in (("kernel", k), ("walk model", model)):
+        same = (all(torch.equal(sel(a).view(torch.int32), sel(b).view(torch.int32))
+                    for a, b in zip(out, p)) if closest
+                else torch.equal(sel(out), sel(p)))
+        check(same, f"K10 {label}: the {name} is not bit-equal to plain")
+    log(f"    K10 {label}: kernel and walk model bit-equal to plain on every "
+        "lane")
+    return frac, err, rule
+
+
+def needed_anyhit_tests(cs, o_t, d_t, tn, tx, occ, step=1 << 14):
+    """Cluster tests an any-hit query needs, whatever the walk: one for
+    each occluded lane (its occluder's cluster), and for each other lane
+    every cluster whose box its segment [tmin, tmax] enters. Lanes with
+    tmax = -inf need none."""
+    live = tx > -torch.inf
+    total = int((occ & live).sum())
+    free = torch.nonzero(live & ~occ)[:, 0]
+    for s in range(0, free.shape[0], step):
+        lane = free[s:s + step]
+        total += int(box_entered(o_t[:, lane].T[:, None], d_t[:, lane].T[:, None],
+                                 tn[lane, None], tx[lane, None], cs.aabb_lo,
+                                 cs.aabb_hi).sum())
+    return total
+
+
+def k10_launch(cs, label, args, closest, rule, plain_reps=REPS):
+    """K10 timed on one launch's inputs, with its bound (the cluster tests
+    its rays need) and its counts: needed tests, tests the warp rule runs
+    (`rule`, from binned_round_warp) and the old per-block items."""
+    from sunray_tpu_torch.ops import cuda_binned as cb
+
+    order, ents, count, o_t, d_t, tn, tx = args[:7]
+    k_tris = cs.tri_pack.shape[2]
+    out = cb.binned_round(*args, closest=closest)
+    needed = (needed_block_tests(cs, o_t, d_t, tn, tx, out[0]) if closest
+              else needed_anyhit_tests(cs, o_t, d_t, tn, tx, out))
+    items = int(count.sum())
+    live = int((tx > -torch.inf).sum())
+    r = dict(
+        ms=device_ms(lambda: cb.binned_round(*args, closest=closest)),
+        plain_ms=time_ms(lambda: cb.binned_round_plain(*args, closest=closest),
+                         reps=plain_reps),
+        bound=bound(o_t.shape[1] * 52 + cs.num_clusters * 10 * k_tris * 4
+                    + nbytes(order, ents, count), needed * k_tris * TEST_OPS),
+        needed_tests=needed, rule_tests=rule, block_items=items)
+    log(f"  K10 {label}: {live} live lanes, {count.shape[0]} blocks; cluster "
+        f"tests needed {needed} ({needed / max(live, 1):.3f} per live lane), run "
+        f"by the warp rule {rule} ({rule / max(needed, 1):.2f}x needed); old "
+        f"per-block items {items} ({items * cb.BLOCK_RAYS} lane tests, "
+        f"{items * cb.BLOCK_RAYS / max(needed, 1):.2f}x needed); kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+        f"{r['bound'][0] / r['ms']:.1%} of it)")
+    return r
+
+
 def pair_stream_checks(cs, label, orig, d, tmax, exclude, closest):
     """K11, K12 and the overflow fallback's K10 against their plain
     versions on one pair-stream query, prepared as trace_*_pairs prepares
     it. Returns (agreement of K10, of K12, K11 exact, overflow share,
-    K11's and K12's inputs)."""
+    K11's, K12's and the fallback K10's inputs)."""
     from sunray_tpu_torch.ops import binned_trace as bt
     from sunray_tpu_torch.ops import cuda_binned as cb
     from sunray_tpu_torch.ops.intersect import T_MIN
@@ -866,7 +990,7 @@ def pair_stream_checks(cs, label, orig, d, tmax, exclude, closest):
     live = int((cid_s < n_sc).sum())
     log(f"  K12 pair_round {label}: {cid_s.numel()} pair lanes, {live} live, "
         f"{int(runs.sum())} work items")
-    args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs.tri_pack, n_sc)
+    args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc)
     compare = compare_hits if closest else compare_occ
     live_pos = torch.zeros_like(cid_s, dtype=torch.bool)
     live_pos[pos_s[cid_s < n_sc].long()] = True
@@ -876,10 +1000,9 @@ def pair_stream_checks(cs, label, orig, d, tmax, exclude, closest):
 
     # The overflow rays through the block path, the others masked out.
     fb = block_args(cs, o_t.T, d_t.T, torch.where(overflow, tx, -torch.inf), ex)
-    k10 = compare("K10", cb.binned_round(*fb, closest=closest),
-                  cb.binned_round_plain(*fb, closest=closest),
-                  f"{label}, overflow fallback", live=fb[6] > -torch.inf)
-    return k10, k12, exact, over, (o_t, d_t, tn, tx, box), args
+    k10 = compare_k10(fb, closest, f"{label}, overflow fallback",
+                      live=fb[6] > -torch.inf)
+    return k10, k12, exact, over, (o_t, d_t, tn, tx, box), args, fb
 
 
 def phase_binned_kernels(dev):
@@ -895,34 +1018,37 @@ def phase_binned_kernels(dev):
 
     # K10: the camera rays through the block path.
     args = block_args(cs, co, cd, T_MAX, None)
-    order, ents, count, o_t, d_t, tn, tx = args[:7]
-    k = cb.binned_round(*args)
-    f_cam, e_cam = compare_hits("K10", k, cb.binned_round_plain(*args), "camera")
+    count = args[2]
+    f_cam, e_cam, rule = compare_k10(args, True, "camera")
     nb = count.shape[0]
-    tests = needed_block_tests(cs, o_t, d_t, tn, tx, k[0])
     log(f"    {nb} blocks, {int(count.sum())} culled work items "
-        f"({int(count.sum()) / (nb * cs.num_clusters):.4f} of all); "
-        f"{tests} cluster tests needed ({tests / co.shape[0]:.3f} per ray)")
+        f"({int(count.sum()) / (nb * cs.num_clusters):.4f} of all)")
+    cam = k10_launch(cs, "camera", args, True, rule)
 
     # K11, K12 and the fallback: the GI bounce rays (closest) and the GI
     # taps' visibility rays with their exclude ids (any-hit), through the
     # pair stream as render/trace.py sends them.
-    f10_b, f12_b, _, over, scan_in, pair_args = pair_stream_checks(
+    f10_b, f12_b, _, over, scan_in, pair_args, fb_b = pair_stream_checks(
         cs, "GI bounce", go, gd, T_MAX, None, closest=True)
     seg = torch.as_tensor(vmax, dtype=torch.float32, device=dev) - 1e-3
-    f10_v, f12_v, _, over_v, _, _ = pair_stream_checks(
+    f10_v, f12_v, _, over_v, _, _, fb_v = pair_stream_checks(
         cs, "GI-tap visibility", vo, vd, seg, vex, closest=False)
+    fb_close = k10_launch(cs, "GI bounce overflow fallback (closest)", fb_b,
+                          True, f10_b[2], plain_reps=3)
+    fb_any = k10_launch(cs, "GI-tap visibility overflow fallback (any-hit)",
+                        fb_v, False, f10_v[2], plain_reps=3)
 
+    # The kernels line's row: the camera launch, the fallbacks beside it.
     results["binned_round"] = dict(
-        agree=min(f_cam, f10_b[0], f10_v), max_abs_err=max(e_cam, f10_b[1]),
-        ms=time_ms(lambda: cb.binned_round(*args)),
-        plain_ms=time_ms(lambda: cb.binned_round_plain(*args)),
-        bound=bound(o_t.shape[1] * 52 + pack_bytes + nbytes(order, ents, count),
-                    tests * k_tris * TEST_OPS))
+        cam, agree=min(f_cam, f10_b[0], f10_v[0]),
+        max_abs_err=max(e_cam, f10_b[1]),
+        fallback_closest_ms=fb_close["ms"], fallback_anyhit_ms=fb_any["ms"],
+        fallback_closest_bound_ms=fb_close["bound"][0],
+        fallback_anyhit_bound_ms=fb_any["bound"][0])
     lanes = scan_in[0].shape[1]
     results["cluster_scan"] = dict(
         max_abs_err=0.0, overflow_share=over,
-        ms=time_ms(lambda: cb.cluster_scan(*scan_in)),
+        ms=device_ms(lambda: cb.cluster_scan(*scan_in)),
         plain_ms=time_ms(lambda: cb.cluster_scan_plain(*scan_in)),
         bound=bound(lanes * (32 + 36) + nbytes(scan_in[4]),
                     lanes * scan_in[4].shape[0] * SLAB_OPS))
@@ -934,7 +1060,7 @@ def phase_binned_kernels(dev):
         f"GI bounce {over:.6f}, GI-tap visibility {over_v:.6f}")
     results["pair_round"] = dict(
         agree=min(f12_b[0], f12_v), max_abs_err=f12_b[1],
-        ms=time_ms(lambda: cb.pair_round(*pair_args)),
+        ms=device_ms(lambda: cb.pair_round(*pair_args)),
         plain_ms=time_ms(lambda: cb.pair_round_plain(*pair_args)),
         bound=bound(nbytes(*pair_args[:3]) + lanes * 36 + pack_bytes
                     + cid_s.numel() * 16, p_tests * k_tris * TEST_OPS))
@@ -1203,6 +1329,14 @@ def profile_frame(scene, cfg, state, mats, accel, rows=12):
         f"{max(0.0, 1.0 - total / 1e3 / wall_ms):.1%}, profiler on)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:rows]:
         log(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:70]}")
+    walk = sorted((e for e in prof.events() if "binned_kernel" in e.name
+                   and "CUDA" in str(getattr(e, "device_type", ""))),
+                  key=lambda e: e.time_range.start)
+    log("  K10 by launch, device ms, in frame order: " + ", ".join(
+        f"{'closest' if '<true>' in e.name else 'any-hit'} "
+        f"{e.time_range.elapsed_us() / 1e3:.3f}" for e in walk)
+        + f"; {len(walk)} launches, "
+        f"{sum(e.time_range.elapsed_us() for e in walk) / 1e3:.3f} ms")
 
 
 def stage_breakdown(scene, cfg, state, mats, frame_s, accel=None, frames=3):
@@ -1337,7 +1471,10 @@ def main():
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1],
                  "library_ms": r.get("library_ms")}
-        for key in ("agree", "overflow_share"):
+        for key in ("agree", "overflow_share", "needed_tests", "rule_tests",
+                    "block_items", "fallback_closest_ms", "fallback_anyhit_ms",
+                    "fallback_closest_bound_ms", "fallback_anyhit_bound_ms",
+                    "taa_corners_ms"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

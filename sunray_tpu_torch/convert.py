@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sunray_tpu_torch.ops.binned_trace import ClusterSet
+from sunray_tpu_torch.ops.binned_trace import ClusterSet, cluster_set
 from sunray_tpu_torch.render import restir
 from sunray_tpu_torch.render.pipeline import RenderState
 from sunray_tpu_torch.scene.types import MaterialTable, SceneBuffers, TextureAtlas
@@ -72,7 +72,7 @@ def cluster_set_from_numpy(fields: dict, device="cuda") -> ClusterSet:
     aabb_hi). Its float32 pack carries the ids bitcast in row 9; the port's
     pack is the same bits as int32 words."""
     pack = np.ascontiguousarray(np.asarray(fields["tri_pack"], np.float32))
-    return ClusterSet(
+    return cluster_set(
         tri_ids=_t(np.asarray(fields["tri_ids"], np.int32), device),
         tri_pack=_t(pack.view(np.int32), device),
         aabb_lo=_t(np.asarray(fields["aabb_lo"], np.float32), device),

@@ -14,27 +14,57 @@
 // get per-block lists whose lengths are known on the device.
 //
 // What bounds them: the triangle tests. One test is ~50 fp32 operations
-// and one IEEE division; a ray reads 36 bytes and writes 16. K10 and K12
-// run (items that survive the cull and the early exit) x 512 lanes x 128
-// triangles tests; at 2M camera rays against the 82k-triangle sphere that
-// is tens of GFLOP against ~100 MB, so operations bound them, as they bound
-// K11's slab tests (every ray against every supercluster box).
+// and one IEEE division; a ray reads 36 bytes and writes 16. A trace needs,
+// per ray, the clusters whose box the ray enters before its closest hit
+// (2.5 a camera ray on the 82k-triangle sphere) x 128 triangles tests:
+// tens of GFLOP against ~100 MB at 2M rays, so operations bound K10 and
+// K12, as they bound K11's slab tests (every ray against every
+// supercluster box). What a kernel runs beyond those needed tests is its
+// cull's slack.
 //
 // Design:
-//   K10: one CTA of 512 threads per ray block, one thread per ray. The
-//        block walks its clusters order[b, 0:count[b]] near to far; before
-//        each it votes (__syncthreads_and) to skip the cluster when every
-//        lane's best t is below the cluster's entry bound (any-hit: to stop
-//        once every lane is occluded), then stages the cluster's K
-//        triangles in shared memory (v0, e1, e2, id: 10 words each, 5 KB
-//        at K = 128) and every thread tests its ray against all of them.
+//   K10: one thread per ray; each block's clusters order[b, 0:count[b]]
+//        walked near to far. The cull is per warp: before a cluster's K
+//        triangle tests every lane slab-tests its own ray against the
+//        cluster's box between tmin and min(tmax, best t) (any-hit: tmax,
+//        and only while not occluded), and a warp none of whose lanes can
+//        meet the box skips the tests (__any_sync). A warp of a camera
+//        block is 32 neighbouring pixels of one row and needs a few
+//        clusters, where the 512-pixel strip's list holds ~20.
+//        Why the skip changes no output: a hit Moller-Trumbore accepts is,
+//        up to its roundings, a point of the triangle, so of the box. Those
+//        roundings move it by a few ulps of the coordinates in play (the
+//        ray's origin, the triangle's vertices); along a grazing ray that
+//        becomes a long stretch of t, which K11's slack in t does not cover
+//        (a hit 1.4e-3 before a flat wall's box, ROADMAP Queue 3). So each
+//        face of the box moves out by 1e-4 (1 + |box| + |origin|), max
+//        norms: the cluster's share is in the ClusterSet's walk_box, the
+//        lane adds its origin's. That is ~1,700 ulps of every coordinate
+//        in play, on the box's thin axis too, whose slab then spans a t
+//        range that grows as the ray turns parallel to it, as the error
+//        does. tests/test_torch_binned_cull.py holds it on grazing, wall
+//        corner and box corner rays.
+//        The block's vote stays the TPU kernel's, which decides what the
+//        plain version runs: closest-hit passes a cluster when every lane of
+//        the 512 has its best t below the block's entry bound, so one CTA
+//        of 512 threads owns the block; any-hit stops a lane's walk once it
+//        is occluded, which no later test can change, so four CTAs of 128
+//        share a block and stop on their own.
+//        Staging is off the critical path: clusters come from the
+//        ClusterSet's edge pack (v0, e1 = v1 - v0, e2 = v2 - v0, id: 10
+//        rows of K words, one contiguous 5 KB run per cluster at K = 128,
+//        made once per refit) into two shared-memory buffers by cp.async.
+//        While the CTA tests one cluster, the copy of the next listed
+//        cluster that some lane may still need (vote and box test on the
+//        best t before that test, so never one it needs skipped) is in
+//        flight. Blocks with nothing listed exit before any copy.
 //   K11: one thread per ray lane; the supercluster boxes are staged in
 //        shared memory in tiles of 256 (161 at full size: one tile); each
 //        thread records its first 8 hits in ascending id and counts all.
 //   K12: one CTA of 512 threads per block of 512 pair lanes sorted by
 //        supercluster. The block walks its runs of equal supercluster id
-//        (runs[b] of them, from _pair_work), stages the run's SC_K
-//        clusters (20 KB at K = 128), and the lanes of that run test all
+//        (runs[b] of them, from _pair_work), copies the run's SC_K
+//        clusters from the edge pack (20 KB at K = 128), and the lanes of that run test all
 //        SC_K * K triangles. Each lane writes its result at its pair
 //        position (the unsort is this scatter).
 //
@@ -57,8 +87,7 @@ namespace {
 constexpr int kBlockRays = 512;
 constexpr int kSlots = 8;        // L_SLOTS
 constexpr int kScK = 4;          // SC_K
-constexpr int kPackRows = 16;
-constexpr int kIdRow = 9;
+constexpr int kEdgeRows = 10;   // edge pack rows: v0, e1 = v1 - v0, e2 = v2 - v0, id
 constexpr int kScTile = 256;     // K11 boxes per shared-memory tile
 constexpr float kDetEps = 1e-9f;
 
@@ -82,19 +111,13 @@ __device__ __forceinline__ Tris carve(int* smem, int n) {
   return s;
 }
 
-// Stage cluster `c` of the pack into slots [base, base + k).
-__device__ __forceinline__ void stage(const Tris& s, const int* __restrict__ pack,
-                                      int c, int k, int base) {
-  const int* p = pack + static_cast<int64_t>(c) * kPackRows * k;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    for (int a = 0; a < 3; ++a) {
-      const float a0 = __int_as_float(p[a * k + j]);
-      s.v0[a][base + j] = a0;
-      s.e1[a][base + j] = __int_as_float(p[(3 + a) * k + j]) - a0;
-      s.e2[a][base + j] = __int_as_float(p[(6 + a) * k + j]) - a0;
-    }
-    s.id[base + j] = p[kIdRow * k + j];
-  }
+// Copy cluster c of the edge pack into slots [base, base + k) of a
+// carve(smem, n) layout.
+__device__ __forceinline__ void stage(int* smem, int n, const int* __restrict__ edges, int c,
+                                      int k, int base) {
+  const int* p = edges + static_cast<int64_t>(c) * kEdgeRows * k;
+  for (int j = threadIdx.x; j < k; j += blockDim.x)
+    for (int row = 0; row < kEdgeRows; ++row) smem[row * n + base + j] = p[row * k + j];
 }
 
 struct Ray {
@@ -171,43 +194,141 @@ __device__ __forceinline__ bool any_slot(const Tris& s, int n, const Ray& r) {
   return false;
 }
 
+__device__ __forceinline__ float inv_dir(float v) {
+  const float tiny = v >= 0.0f ? 1e-12f : -1e-12f;
+  return 1.0f / (fabsf(v) < 1e-12f ? tiny : v);
+}
+
 // ---- K10 --------------------------------------------------------------------
 
+constexpr int kAnyHitCta = 128;     // K10 any-hit lanes a CTA (closest: the block)
+constexpr float kBoxPad = 1e-4f;    // the lane's share of the box pad
+constexpr float kBoxSlack = 1e-4f;  // K11's
+
+__device__ __forceinline__ void cp_async16(int* smem, const int* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* smem, const int* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Start copying cluster c of the edge pack (kEdgeRows * k contiguous words)
+// into a shared buffer laid out as carve() reads it.
+__device__ __forceinline__ void stage_async(int* buf, const int* __restrict__ edges, int c,
+                                            int k) {
+  const int n = kEdgeRows * k;
+  const int* src = edges + static_cast<int64_t>(c) * n;
+  if ((k & 3) == 0) {
+    for (int q = threadIdx.x * 4; q < n; q += blockDim.x * 4) cp_async16(buf + q, src + q);
+  } else {
+    for (int q = threadIdx.x; q < n; q += blockDim.x) cp_async4(buf + q, src + q);
+  }
+}
+
+// Whether the ray (inverse direction ix, iy, iz) can meet the box [lo3,
+// hi3], grown by po on every face, at a t in [tmin, upper]: K11's slab test
+// and slack.
+__device__ __forceinline__ bool enters(const float* __restrict__ box, const Ray& r, float ix,
+                                       float iy, float iz, float po, float upper) {
+  const float t1x = (__ldg(box + 0) - po - r.ox) * ix, t2x = (__ldg(box + 3) + po - r.ox) * ix;
+  const float t1y = (__ldg(box + 1) - po - r.oy) * iy, t2y = (__ldg(box + 4) + po - r.oy) * iy;
+  const float t1z = (__ldg(box + 2) - po - r.oz) * iz, t2z = (__ldg(box + 5) + po - r.oz) * iz;
+  const float tnc = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  const float tfc = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  return tnc <= tfc + kBoxSlack && tfc >= r.tmin - kBoxSlack && tnc <= upper + kBoxSlack;
+}
+
 template <bool kClosest>
-__global__ void __launch_bounds__(kBlockRays)
+__global__ void __launch_bounds__(kClosest ? kBlockRays : kAnyHitCta)
 binned_kernel(const int* __restrict__ order, const float* __restrict__ ents,
               const int* __restrict__ count, int n_c, const float* __restrict__ o_t,
               const float* __restrict__ d_t, const float* __restrict__ tn,
               const float* __restrict__ tx, const int* __restrict__ ex,
-              const int* __restrict__ pack, int k, float* __restrict__ t_out,
-              int32_t* __restrict__ tri_out, float* __restrict__ u_out,
-              float* __restrict__ v_out, uint8_t* __restrict__ occ_out, int nl) {
-  extern __shared__ int smem[];
-  const Tris s = carve(smem, k);
-  const int b = blockIdx.x;
-  const int i = b * kBlockRays + threadIdx.x;
+              const int* __restrict__ edges, const float* __restrict__ box, int k,
+              float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+              float* __restrict__ u_out, float* __restrict__ v_out,
+              uint8_t* __restrict__ occ_out, int nl) {
+  extern __shared__ __align__(16) int walk_smem[];
+  constexpr int kCta = kClosest ? kBlockRays : kAnyHitCta;
+  const int b = blockIdx.x / (kBlockRays / kCta);
+  const int i = blockIdx.x * kCta + threadIdx.x;
   const Ray r = load_ray(i, nl, o_t, d_t, tn[i], tx, ex);
+  const float ix = inv_dir(r.dx), iy = inv_dir(r.dy), iz = inv_dir(r.dz);
+  const float po = kBoxPad * fmaxf(fmaxf(fabsf(r.ox), fabsf(r.oy)), fabsf(r.oz));
   const bool dead = r.tmax == -INFINITY;   // padding: resolved from the start
   float best_t = dead ? -INFINITY : INFINITY, best_u = 0.0f, best_v = 0.0f;
   int best_tri = -1;
   bool occ = dead;
   const int n = count[b];
   const int64_t row = static_cast<int64_t>(b) * n_c;
-  for (int j = 0; j < n; ++j) {
-    // Also the barrier that frees the previous cluster's shared slots.
-    if (kClosest) {
-      if (__syncthreads_and(best_t < ents[row + j])) continue;
-    } else if (__syncthreads_and(occ)) {
+
+  // The lane's box test on cluster c, bounded by its running result
+  // (state passed by value, so that it stays in registers).
+  auto needs = [&](int c, float bt, bool oc) {
+    const float upper = kClosest ? fminf(r.tmax, bt) : (oc ? -INFINITY : r.tmax);
+    return enters(box + 6 * static_cast<int64_t>(c), r, ix, iy, iz, po, upper);
+  };
+  // The list position after j that the CTA may still need, or n: not one
+  // the vote passes, and one whose box some lane can meet. Every position
+  // looked at costs a barrier, so once this returns every thread is past
+  // the tests that came before the call.
+  auto next = [&](int j, float bt, bool oc) {
+    for (++j; j < n; ++j) {
+      if (kClosest) {
+        if (__syncthreads_and(bt < ents[row + j])) continue;
+      } else if (__syncthreads_and(oc)) {
+        return n;
+      }
+      if (__syncthreads_or(needs(order[row + j], bt, oc))) return j;
+    }
+    return n;
+  };
+
+  const int slots = kEdgeRows * k;
+  int cur = next(-1, best_t, occ);
+  int buf = 0;
+  if (cur < n) stage_async(walk_smem, edges, order[row + cur], k);
+  cp_async_commit();
+  while (cur < n) {
+    // Barriers inside next() free the other buffer before its copy starts.
+    const int nxt = next(cur, best_t, occ);
+    if (nxt < n) stage_async(walk_smem + (buf ^ 1) * slots, edges, order[row + nxt], k);
+    cp_async_commit();
+    cp_async_wait<1>();   // this thread's copies of cluster `cur` landed
+    // The barrier that makes every thread's copies visible; the vote again
+    // on the current results (next() voted before the last cluster's tests).
+    const bool pass = kClosest ? __syncthreads_and(best_t < ents[row + cur])
+                               : __syncthreads_and(occ);
+    if (!pass) {
+      const Tris s = carve(walk_smem + buf * slots, k);
+      if (__any_sync(0xffffffffu, needs(order[row + cur], best_t, occ))) {
+        if (kClosest) {
+          closest_slots<false>(s, k, r, best_t, best_tri, best_u, best_v);
+        } else if (!occ) {
+          occ = any_slot<false>(s, k, r);
+        }
+      }
+    } else if (!kClosest) {
       break;
     }
-    stage(s, pack, order[row + j], k, 0);
-    __syncthreads();
-    if (kClosest) {
-      closest_slots<false>(s, k, r, best_t, best_tri, best_u, best_v);
-    } else if (!occ) {
-      occ = any_slot<false>(s, k, r);
-    }
+    cur = nxt;
+    buf ^= 1;
   }
+  cp_async_wait<0>();
   if (kClosest) {
     const bool hit = best_tri >= 0;
     t_out[i] = hit ? best_t : INFINITY;
@@ -220,11 +341,6 @@ binned_kernel(const int* __restrict__ order, const float* __restrict__ ents,
 }
 
 // ---- K11 --------------------------------------------------------------------
-
-__device__ __forceinline__ float inv_dir(float v) {
-  const float tiny = v >= 0.0f ? 1e-12f : -1e-12f;
-  return 1.0f / (fabsf(v) < 1e-12f ? tiny : v);
-}
 
 __global__ void __launch_bounds__(256)
 scan_kernel(const float* __restrict__ o_t, const float* __restrict__ d_t,
@@ -285,13 +401,14 @@ pair_kernel(const int* __restrict__ cid_s, const int* __restrict__ pos_s,
             const int* __restrict__ runs, int n_sc, const float* __restrict__ o_t,
             const float* __restrict__ d_t, const float* __restrict__ tn,
             const float* __restrict__ tx, const int* __restrict__ ex, int nl,
-            const int* __restrict__ pack, int n_c, int k, float* __restrict__ t_out,
+            const int* __restrict__ edges, int n_c, int k, float* __restrict__ t_out,
             int32_t* __restrict__ tri_out, float* __restrict__ u_out,
             float* __restrict__ v_out, uint8_t* __restrict__ occ_out) {
   extern __shared__ int smem[];
   __shared__ int s_cid[kBlockRays];
   __shared__ int s_next;
-  const Tris s = carve(smem, kScK * k);
+  const int n_stage = kScK * k;
+  const Tris s = carve(smem, n_stage);
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * kBlockRays + threadIdx.x;
   const int cid = cid_s[lane];
   const int pos = pos_s[lane];
@@ -309,7 +426,7 @@ pair_kernel(const int* __restrict__ cid_s, const int* __restrict__ pos_s,
     const int cur = s_cid[start];
     int n_slots = 0;
     for (int q = 0; q < kScK && cur * kScK + q < n_c; ++q, n_slots += k)
-      stage(s, pack, cur * kScK + q, k, n_slots);
+      stage(smem, n_stage, edges, cur * kScK + q, k, n_slots);
     const int t = threadIdx.x;
     if (cid == cur && (t == kBlockRays - 1 || s_cid[t + 1] != cur)) s_next = t + 1;
     __syncthreads();
@@ -334,7 +451,7 @@ pair_kernel(const int* __restrict__ cid_s, const int* __restrict__ pos_s,
   }
 }
 
-size_t tri_smem(int slots) { return static_cast<size_t>(slots) * 10 * sizeof(int); }
+size_t tri_smem(int slots) { return static_cast<size_t>(slots) * kEdgeRows * sizeof(int); }
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
@@ -349,13 +466,15 @@ int set_smem(Kernel kernel, size_t bytes) {
 template <bool kClosest>
 int launch_binned(const int* order, const float* ents, const int* count, int nb, int n_c,
                   const float* o_t, const float* d_t, const float* tn, const float* tx,
-                  const int* ex, const int* pack, int k, float* t, int32_t* tri, float* u,
-                  float* v, uint8_t* occ, void* stream) {
+                  const int* ex, const int* edges, const float* box, int k, float* t,
+                  int32_t* tri, float* u, float* v, uint8_t* occ, void* stream) {
   if (nb == 0) return 0;
-  const size_t bytes = tri_smem(k);
+  constexpr int kCta = kClosest ? kBlockRays : kAnyHitCta;
+  const size_t bytes = 2 * tri_smem(k);   // two buffers
   if (int err = set_smem(binned_kernel<kClosest>, bytes)) return err;
-  binned_kernel<kClosest><<<nb, kBlockRays, bytes, static_cast<cudaStream_t>(stream)>>>(
-      order, ents, count, n_c, o_t, d_t, tn, tx, ex, pack, k, t, tri, u, v, occ,
+  binned_kernel<kClosest><<<nb * (kBlockRays / kCta), kCta, bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      order, ents, count, n_c, o_t, d_t, tn, tx, ex, edges, box, k, t, tri, u, v, occ,
       nb * kBlockRays);
   return static_cast<int>(cudaGetLastError());
 }
@@ -363,14 +482,14 @@ int launch_binned(const int* order, const float* ents, const int* count, int nb,
 template <bool kClosest>
 int launch_pairs(const int* cid_s, const int* pos_s, const int* runs, int n_p, int n_sc,
                  const float* o_t, const float* d_t, const float* tn, const float* tx,
-                 const int* ex, int nl, const int* pack, int n_c, int k, float* t,
+                 const int* ex, int nl, const int* edges, int n_c, int k, float* t,
                  int32_t* tri, float* u, float* v, uint8_t* occ, void* stream) {
   if (n_p == 0) return 0;
   const size_t bytes = tri_smem(kScK * k);
   if (int err = set_smem(pair_kernel<kClosest>, bytes)) return err;
   pair_kernel<kClosest><<<n_p / kBlockRays, kBlockRays, bytes,
                           static_cast<cudaStream_t>(stream)>>>(
-      cid_s, pos_s, runs, n_sc, o_t, d_t, tn, tx, ex, nl, pack, n_c, k, t, tri, u, v, occ);
+      cid_s, pos_s, runs, n_sc, o_t, d_t, tn, tx, ex, nl, edges, n_c, k, t, tri, u, v, occ);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,18 +499,18 @@ extern "C" {
 
 int sunray_binned_closest(const int* order, const float* ents, const int* count, int nb,
                           int n_c, const float* o_t, const float* d_t, const float* tn,
-                          const float* tx, const int* ex, const int* pack, int k, float* t,
-                          int32_t* tri, float* u, float* v, void* stream) {
-  return launch_binned<true>(order, ents, count, nb, n_c, o_t, d_t, tn, tx, ex, pack, k, t,
-                             tri, u, v, nullptr, stream);
+                          const float* tx, const int* ex, const int* edges, const float* box,
+                          int k, float* t, int32_t* tri, float* u, float* v, void* stream) {
+  return launch_binned<true>(order, ents, count, nb, n_c, o_t, d_t, tn, tx, ex, edges, box, k,
+                             t, tri, u, v, nullptr, stream);
 }
 
 int sunray_binned_occluded(const int* order, const float* ents, const int* count, int nb,
                            int n_c, const float* o_t, const float* d_t, const float* tn,
-                           const float* tx, const int* ex, const int* pack, int k,
-                           uint8_t* occ, void* stream) {
-  return launch_binned<false>(order, ents, count, nb, n_c, o_t, d_t, tn, tx, ex, pack, k,
-                              nullptr, nullptr, nullptr, nullptr, occ, stream);
+                           const float* tx, const int* ex, const int* edges,
+                           const float* box, int k, uint8_t* occ, void* stream) {
+  return launch_binned<false>(order, ents, count, nb, n_c, o_t, d_t, tn, tx, ex, edges, box,
+                              k, nullptr, nullptr, nullptr, nullptr, occ, stream);
 }
 
 int sunray_cluster_scan(const float* o_t, const float* d_t, const float* tn,
@@ -406,17 +525,17 @@ int sunray_cluster_scan(const float* o_t, const float* d_t, const float* tn,
 
 int sunray_pair_closest(const int* cid_s, const int* pos_s, const int* runs, int n_p,
                         int n_sc, const float* o_t, const float* d_t, const float* tn,
-                        const float* tx, const int* ex, int nl, const int* pack, int n_c,
+                        const float* tx, const int* ex, int nl, const int* edges, int n_c,
                         int k, float* t, int32_t* tri, float* u, float* v, void* stream) {
-  return launch_pairs<true>(cid_s, pos_s, runs, n_p, n_sc, o_t, d_t, tn, tx, ex, nl, pack,
+  return launch_pairs<true>(cid_s, pos_s, runs, n_p, n_sc, o_t, d_t, tn, tx, ex, nl, edges,
                             n_c, k, t, tri, u, v, nullptr, stream);
 }
 
 int sunray_pair_occluded(const int* cid_s, const int* pos_s, const int* runs, int n_p,
                          int n_sc, const float* o_t, const float* d_t, const float* tn,
-                         const float* tx, const int* ex, int nl, const int* pack, int n_c,
+                         const float* tx, const int* ex, int nl, const int* edges, int n_c,
                          int k, uint8_t* occ, void* stream) {
-  return launch_pairs<false>(cid_s, pos_s, runs, n_p, n_sc, o_t, d_t, tn, tx, ex, nl, pack,
+  return launch_pairs<false>(cid_s, pos_s, runs, n_p, n_sc, o_t, d_t, tn, tx, ex, nl, edges,
                              n_c, k, nullptr, nullptr, nullptr, nullptr, occ, stream);
 }
 

@@ -46,16 +46,31 @@ class ClusterSet(NamedTuple):
         the cluster assignment is load-time topology.
     tri_pack: (C, 16, K) int32: rows 0-8 the float32 bits of v0, v1, v2,
         row 9 the triangle id, rows 10-15 zero.
-    aabb_lo/aabb_hi: (C, 3) float32 cluster bounds."""
+    aabb_lo/aabb_hi: (C, 3) float32 cluster bounds.
+    edges: (C, 10, K) int32, the pack as K10 and K12 stage it
+        (cuda_binned.edge_pack).
+    walk_box: (C, 6) float32, the padded boxes of K10's per-warp cull
+        (cuda_binned.walk_boxes).
+    Make one with cluster_set(), which derives the last two."""
 
     tri_ids: torch.Tensor
     tri_pack: torch.Tensor
     aabb_lo: torch.Tensor
     aabb_hi: torch.Tensor
+    edges: torch.Tensor
+    walk_box: torch.Tensor
 
     @property
     def num_clusters(self) -> int:
         return self.tri_pack.shape[0]
+
+
+def cluster_set(tri_ids, tri_pack, aabb_lo, aabb_hi) -> ClusterSet:
+    """A ClusterSet with the kernels' edge pack and walk boxes derived from
+    its pack and bounds."""
+    return ClusterSet(tri_ids, tri_pack, aabb_lo, aabb_hi,
+                      cuda_binned.edge_pack(tri_pack),
+                      cuda_binned.walk_boxes(aabb_lo, aabb_hi))
 
 
 def _morton3(x: np.ndarray) -> np.ndarray:
@@ -87,7 +102,7 @@ def build_cluster_set(tris, k: int = CLUSTER_K) -> ClusterSet:
     c = max(1, -(-t // k))
     ids = np.concatenate([order, np.full(c * k - t, -1, np.int64)])
     ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
-    return ClusterSet(ids, *_pack_clusters(*tris, ids, c, k))
+    return cluster_set(ids, *_pack_clusters(*tris, ids, c, k))
 
 
 def _pack_clusters(v0, v1, v2, ids, c, k):
@@ -117,7 +132,7 @@ def refit_cluster_set(cs: ClusterSet, tris) -> ClusterSet:
     """Pack and AABBs from the current world triangles, keeping the
     load-time cluster assignment."""
     c, _, k = cs.tri_pack.shape
-    return ClusterSet(cs.tri_ids, *_pack_clusters(*tris, cs.tri_ids, c, k))
+    return cluster_set(cs.tri_ids, *_pack_clusters(*tris, cs.tri_ids, c, k))
 
 
 # -- the block path ------------------------------------------------------------
@@ -261,7 +276,7 @@ def trace_closest_binned(cs: ClusterSet, orig, d, tmin=T_MIN, tmax=T_MAX,
     hit, entry = _interval_cull(o_t, d_t, tn, tx, cs.aabb_lo, cs.aabb_hi, nb)
     order, ents, count = _work_list(hit, entry)
     t, tri, u, v = cuda_binned.binned_round(order, ents, count, o_t, d_t, tn,
-                                            tx, ex, cs.tri_pack)
+                                            tx, ex, cs)
     found = tri[:n] >= 0
     return Hit(t=t[:n], tri=tri[:n].clamp(min=0), u=u[:n], v=v[:n], hit=found)
 
@@ -278,7 +293,7 @@ def trace_occluded_binned(cs: ClusterSet, orig, d, tmax, tmin=T_MIN,
     hit, entry = _interval_cull(o_t, d_t, tn, tx, cs.aabb_lo, cs.aabb_hi, nb)
     order, ents, count = _work_list(hit, entry)
     occ = cuda_binned.binned_round(order, ents, count, o_t, d_t, tn, tx, ex,
-                                   cs.tri_pack, closest=False)
+                                   cs, closest=False)
     return occ[:n]
 
 
@@ -333,7 +348,7 @@ def trace_closest_pairs(cs: ClusterSet, orig, d, tmin=T_MIN,
     cid_s, pos_s, runs, n_sc, overflow = _pair_stream_prep(cs, o_t, d_t, tn, tx)
     nl = nb * BLOCK_RAYS
     t_p, tri_p, u_p, v_p = cuda_binned.pair_round(
-        cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs.tri_pack, n_sc)
+        cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc)
     # Reduce over the slots: the first slot of least t (binned_trace.py:985-998).
     t_l, tri_l = t_p.reshape(L_SLOTS, nl), tri_p.reshape(L_SLOTS, nl)
     hit_l = tri_l >= 0
@@ -364,7 +379,7 @@ def trace_occluded_pairs(cs: ClusterSet, orig, d, tmax, tmin=T_MIN,
     o_t, d_t, tn, tx, ex, n, nb = _prep(orig, d, tmin, tmax, exclude)
     cid_s, pos_s, runs, n_sc, overflow = _pair_stream_prep(cs, o_t, d_t, tn, tx)
     occ_p = cuda_binned.pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex,
-                                   cs.tri_pack, n_sc, closest=False)
+                                   cs, n_sc, closest=False)
     occ = occ_p.reshape(L_SLOTS, nb * BLOCK_RAYS).any(dim=0)
     fb = trace_occluded_binned(cs, o_t.T, d_t.T,
                                torch.where(overflow, tx, -torch.inf), tmin,

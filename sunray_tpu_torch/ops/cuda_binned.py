@@ -11,7 +11,11 @@ tensors; there is no other path.
       rays in blocks of BLOCK_RAYS lanes; block b walks its culled
       clusters order[b, :count[b]] near to far, skipping a cluster once
       every lane's best t is below the cluster's entry bound (any-hit:
-      once every lane is occluded).
+      once every lane is occluded). In the kernel a warp tests a cluster
+      only where a lane's ray can meet its padded box before the lane's
+      running result (lane_box_test); binned_round_warp is that walk in
+      plain PyTorch, with the count of tests it runs. The outputs are
+      binned_round_plain's either way.
   K11 cluster_scan  (_cluster_scan, _cluster_scan_kernel): each ray lane
       against every supercluster AABB: the first L_SLOTS hit ids in
       ascending order and the exact hit count.
@@ -21,9 +25,12 @@ tensors; there is no other path.
       supercluster and writes its result at its unsorted pair position.
 
 Layouts: rays are (3, NL) planes (o_t, d_t) and (NL,) planes (tn, tx, ex)
-with NL a multiple of BLOCK_RAYS; the cluster pack is (C, 16, K) int32,
-rows 0-8 the float32 bits of v0, v1, v2 and row 9 the triangle id (-1 for
-padding), so ids are never float bit patterns in a float operation.
+with NL a multiple of BLOCK_RAYS. K10 and K12 take the ClusterSet `cs`
+(ops/binned_trace.py): the plain versions read its tri_pack, (C, 16, K)
+int32, rows 0-8 the float32 bits of v0, v1, v2 and row 9 the triangle id
+(-1 for padding), so ids are never float bit patterns in a float
+operation; the kernels read its edges (edge_pack) and K10 its walk_box
+(walk_boxes), both made once per build or refit.
 
 Tile arithmetic (binned_trace.py:249-289, as XLA's CPU backend compiles it
 in interpret mode, pinned against the JAX package): cross products
@@ -42,11 +49,15 @@ from sunray_tpu_torch.ops import cuda_build
 from sunray_tpu_torch.ops.fp import fma
 
 BLOCK_RAYS = 512      # ray lanes per block (binned_trace.py:50)
+WARP = 32
+BOX_PAD = 1e-4        # K10's lane box test: faces out by BOX_PAD (1 + |box| + |o|)
+BOX_SLACK = 1e-4      # ... and K11's slack in t
 L_SLOTS = 8           # recorded superclusters per ray (binned_trace.py:665)
 SC_K = 4              # clusters per supercluster (binned_trace.py:666)
 DET_EPS = 1e-9
 PACK_ROWS = 16
 ID_ROW = 9
+EDGE_ROWS = 10        # edge_pack rows (csrc/binned.cu kEdgeRows)
 
 
 def _plain_elems(device):
@@ -116,14 +127,16 @@ def _closest_out(best_t, best_tri, best_u, best_v):
 
 # -- K10 ----------------------------------------------------------------------
 
-def binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex, pack,
+def binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex, cs,
                        closest=True):
     """K10's function. order/ents: (NB, C) per-block cluster ids and entry
-    bounds, near to far, the first count[b] of row b live. Returns
+    bounds, near to far, the first count[b] of row b live; cs: the
+    ClusterSet, its tri_pack the triangles. Returns
     (t, tri, u, v) per lane (t = inf, tri = -1, u = v = 0 on a miss), or
     occ (bool): lanes with tmax = -inf start resolved (t = -inf, occluded;
     binned_trace.py:302-309, :346-347) and an any-hit lane reads occluded
     only in a block that has work."""
+    pack = cs.tri_pack
     nb, k = count.shape[0], pack.shape[2]
     dev = o_t.device
     dead = tx == -torch.inf
@@ -161,6 +174,102 @@ def binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex, pack,
     return occ & (count > 0).repeat_interleave(BLOCK_RAYS)
 
 
+def edge_pack(pack):
+    """The kernels' staging layout of a (C, 16, K) pack: (C, 10, K) int32,
+    rows v0 (3), e1 = v1 - v0 (3), e2 = v2 - v0 (3) as float32 bits and the
+    triangle id; each edge word one IEEE subtraction, as tile_hits makes
+    it."""
+    f = pack[:, :9].view(torch.float32)
+    v0 = f[:, 0:3]
+    rows = torch.cat([v0, f[:, 3:6] - v0, f[:, 6:9] - v0], dim=1)
+    return torch.cat([rows.view(torch.int32), pack[:, ID_ROW:ID_ROW + 1]],
+                     dim=1).contiguous()
+
+
+def walk_boxes(aabb_lo, aabb_hi):
+    """(C, 6) float32 [lo3, hi3]: each cluster's AABB with every face moved
+    out by BOX_PAD (1 + |box|), |box| the largest coordinate magnitude of
+    the box; lane_box_test adds BOX_PAD |o| for the ray. Moller-Trumbore
+    accepts points a few ulps of those magnitudes outside a triangle, and
+    on a flat box (an axis-aligned wall) a ray nearly parallel to it turns
+    that into a long stretch of t: K11's slack in t alone drops such a hit
+    at the box's edge (tests/test_torch_binned_cull.py)."""
+    m = torch.maximum(aabb_lo.abs(), aabb_hi.abs()).amax(dim=1, keepdim=True)
+    pad = BOX_PAD * (1.0 + m)
+    return torch.cat([aabb_lo - pad, aabb_hi + pad], dim=1).contiguous()
+
+
+def lane_box_test(o, d, tmin, upper, box):
+    """K10's lane test (csrc/binned.cu enters): whether each ray (o, d:
+    (..., 3)) can meet the box (..., 6), every face moved out by
+    BOX_PAD |o| (max norm), at a t in [tmin, upper]: K11's slab test and
+    slack (broadcasting)."""
+    inv = _inv(d)
+    po = BOX_PAD * o.abs().amax(dim=-1, keepdim=True)
+    t1, t2 = (box[..., :3] - po - o) * inv, (box[..., 3:] + po - o) * inv
+    tnc = torch.minimum(t1, t2).amax(dim=-1)
+    tfc = torch.maximum(t1, t2).amin(dim=-1)
+    return ((tnc <= tfc + BOX_SLACK) & (tfc >= tmin - BOX_SLACK)
+            & (tnc <= upper + BOX_SLACK))
+
+
+def binned_round_warp(order, ents, count, o_t, d_t, tn, tx, ex, cs,
+                      closest=True):
+    """K10's walk as csrc/binned.cu makes it: binned_round_plain's, in
+    which a warp of WARP lanes runs a cluster's tests only if one of its
+    lanes passes lane_box_test on cs.walk_box up to its running result
+    (min(tmax, best t); any-hit: tmax while not occluded). Returns
+    (binned_round_plain's outputs, the (lane, cluster) tests run: WARP per
+    warp and cluster)."""
+    pack, box = cs.tri_pack, cs.walk_box
+    nb, k = count.shape[0], pack.shape[2]
+    dev = o_t.device
+    o, d = o_t.T, d_t.T
+    dead = tx == -torch.inf
+    best_t = torch.where(dead, -torch.inf, torch.inf)
+    best_tri = torch.full_like(ex, -1)
+    best_u = torch.zeros_like(tn)
+    best_v = torch.zeros_like(tn)
+    occ = dead.clone()
+    lanes_of = (torch.arange(nb, device=dev)[:, None] * BLOCK_RAYS
+                + torch.arange(BLOCK_RAYS, device=dev)[None, :])
+    step = max(1, _plain_elems(dev) // (BLOCK_RAYS * k))
+    tests = 0
+    for j in range(int(count.max()) if nb else 0):
+        blocks = torch.nonzero(count > j)[:, 0]
+        for s in range(0, blocks.shape[0], step):
+            b = blocks[s:s + step]
+            lanes = lanes_of[b]                                # (B, RB)
+            if closest:
+                run = ~(best_t[lanes] < ents[b, j][:, None]).all(dim=1)
+            else:
+                run = ~occ[lanes].all(dim=1)
+            b, lanes = b[run], lanes[run]
+            upper = (torch.minimum(tx[lanes], best_t[lanes]) if closest
+                     else torch.where(occ[lanes], -torch.inf, tx[lanes]))
+            c = order[b, j].long()
+            need = lane_box_test(o[lanes], d[lanes], tn[lanes], upper,
+                                 box[c][:, None])
+            warps = need.reshape(-1, BLOCK_RAYS // WARP, WARP).any(dim=-1)
+            lanes = lanes.reshape(-1, BLOCK_RAYS // WARP, WARP)[warps]  # (W, 32)
+            c = c[:, None].expand_as(warps)[warps]
+            tests += lanes.numel()
+            r_o, r_d, rn, rx, re = _rays(o_t, d_t, tn, tx, ex, lanes[..., None])
+            hits = tile_hits(r_o, r_d, rn, rx, re, pack[c])
+            if not closest:
+                occ[lanes] |= hits[3].any(dim=-1)
+                continue
+            tile_t, tile_tri, tile_u, tile_v = _first_min(*hits)
+            better = tile_t < best_t[lanes]
+            best_t[lanes] = torch.where(better, tile_t, best_t[lanes])
+            best_tri[lanes] = torch.where(better, tile_tri, best_tri[lanes])
+            best_u[lanes] = torch.where(better, tile_u, best_u[lanes])
+            best_v[lanes] = torch.where(better, tile_v, best_v[lanes])
+    if closest:
+        return _closest_out(best_t, best_tri, best_u, best_v), tests
+    return occ & (count > 0).repeat_interleave(BLOCK_RAYS), tests
+
+
 def _check_rays(name, o_t, d_t, tn, tx):
     """The float32 ray planes (3, NL) x 2 and (NL,) x 2; returns (device,
     NL)."""
@@ -175,28 +284,34 @@ def _check_rays(name, o_t, d_t, tn, tx):
     return dev, nl
 
 
-def _check_trace_inputs(name, o_t, d_t, tn, tx, ex, pack):
-    """The ray planes, the int32 exclude plane and the (C, 16, K) int32
-    pack; returns (device, NL, C, K)."""
+def _check_trace_inputs(name, o_t, d_t, tn, tx, ex, cs):
+    """The ray planes, the int32 exclude plane and the ClusterSet's
+    (C, 10, K) int32 edge pack and (C, 6) float32 walk boxes; returns
+    (device, NL, C, K)."""
     dev, nl = _check_rays(name, o_t, d_t, tn, tx)
-    cuda_build.require_cuda(name, o_t, ex, pack)
+    edges, box = cs.edges, cs.walk_box
+    cuda_build.require_cuda(name, o_t, ex, edges, box)
     cuda_build.require_dtype(name, ex, torch.int32)
-    cuda_build.require_dtype(name, pack, torch.int32)
+    cuda_build.require_dtype(name, edges, torch.int32)
+    cuda_build.require_dtype(name, box, torch.float32)
     if ex.shape != (nl,):
         raise cuda_build.KernelError(f"{name}: exclude must be ({nl},)")
-    if pack.dim() != 3 or pack.shape[1] != PACK_ROWS:
-        raise cuda_build.KernelError(f"{name}: pack must be (C, 16, K), got "
-                                     f"{tuple(pack.shape)}")
-    return dev, nl, pack.shape[0], pack.shape[2]
+    c = edges.shape[0]
+    if (edges.dim() != 3 or edges.shape[1] != EDGE_ROWS or box.shape != (c, 6)
+            or not edges.is_contiguous() or not box.is_contiguous()):
+        raise cuda_build.KernelError(
+            f"{name}: edges must be (C, {EDGE_ROWS}, K) and boxes (C, 6), "
+            f"contiguous, got {tuple(edges.shape)} and {tuple(box.shape)}")
+    return dev, nl, c, edges.shape[2]
 
 
-def binned_round(order, ents, count, o_t, d_t, tn, tx, ex, pack, closest=True):
+def binned_round(order, ents, count, o_t, d_t, tn, tx, ex, cs, closest=True):
     """K10 (see binned_round_plain)."""
-    if cuda_build.on_cpu(order, ents, count, o_t, d_t, tn, tx, ex, pack):
+    if cuda_build.on_cpu(order, ents, count, o_t, d_t, tn, tx, ex, cs.tri_pack):
         return binned_round_plain(order, ents, count, o_t, d_t, tn, tx, ex,
-                                  pack, closest)
+                                  cs, closest)
     dev, nl, c, k = _check_trace_inputs("binned_round", o_t, d_t, tn, tx, ex,
-                                        pack)
+                                        cs)
     nb = nl // BLOCK_RAYS
     cuda_build.require_cuda("binned_round", o_t, order, ents, count)
     for x, dt in ((order, torch.int32), (ents, torch.float32),
@@ -207,23 +322,20 @@ def binned_round(order, ents, count, o_t, d_t, tn, tx, ex, pack, closest=True):
                                      f"({nb}, {c}) and ({nb},)")
     lib = cuda_build.library()
     stream = cuda_build.stream_ptr()
+    args = (order.data_ptr(), ents.data_ptr(), count.data_ptr(), nb, c,
+            o_t.data_ptr(), d_t.data_ptr(), tn.data_ptr(), tx.data_ptr(),
+            ex.data_ptr(), cs.edges.data_ptr(), cs.walk_box.data_ptr(), k)
     if closest:
         t = torch.empty((nl,), dtype=torch.float32, device=dev)
         tri = torch.empty((nl,), dtype=torch.int32, device=dev)
         u = torch.empty_like(t)
         v = torch.empty_like(t)
-        err = lib.sunray_binned_closest(
-            order.data_ptr(), ents.data_ptr(), count.data_ptr(), nb, c,
-            o_t.data_ptr(), d_t.data_ptr(), tn.data_ptr(), tx.data_ptr(),
-            ex.data_ptr(), pack.data_ptr(), k, t.data_ptr(), tri.data_ptr(),
-            u.data_ptr(), v.data_ptr(), stream)
+        err = lib.sunray_binned_closest(*args, t.data_ptr(), tri.data_ptr(),
+                                        u.data_ptr(), v.data_ptr(), stream)
         out = (t, tri, u, v)
     else:
         occ = torch.empty((nl,), dtype=torch.bool, device=dev)
-        err = lib.sunray_binned_occluded(
-            order.data_ptr(), ents.data_ptr(), count.data_ptr(), nb, c,
-            o_t.data_ptr(), d_t.data_ptr(), tn.data_ptr(), tx.data_ptr(),
-            ex.data_ptr(), pack.data_ptr(), k, occ.data_ptr(), stream)
+        err = lib.sunray_binned_occluded(*args, occ.data_ptr(), stream)
         out = occ
     cuda_build.check_launch("binned_round", err)
     cuda_build.launches["binned_round"] += 1
@@ -291,15 +403,17 @@ def cluster_scan(o_t, d_t, tn, tx, sc_box):
 
 # -- K12 ----------------------------------------------------------------------
 
-def pair_round_plain(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack, n_sc,
+def pair_round_plain(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc,
                      closest=True):
     """K12's function. cid_s: (NP,) supercluster id per pair lane sorted
     ascending (n_sc = no pair); pos_s: (NP,) its pair position l * NL +
     ray; runs: (NP / BLOCK_RAYS,) live runs per block (the kernel's loop
-    count; unused here). Every pair lane uses the first ray's tmin
-    (binned_trace.py:954). Returns, indexed by pair position, (t, tri, u,
-    v) with the misses' convention, or occ (bool)."""
+    count; unused here); cs: the ClusterSet, its tri_pack the triangles.
+    Every pair lane uses the first ray's tmin (binned_trace.py:954).
+    Returns, indexed by pair position, (t, tri, u, v) with the misses'
+    convention, or occ (bool)."""
     del runs
+    pack = cs.tri_pack
     n_p, nl = cid_s.shape[0], tn.shape[0]
     c, k = pack.shape[0], pack.shape[2]
     dev = tn.device
@@ -331,14 +445,14 @@ def pair_round_plain(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack, n_sc,
     return (t, tri, u, v) if closest else occ
 
 
-def pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack, n_sc,
+def pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc,
                closest=True):
     """K12 (see pair_round_plain)."""
-    if cuda_build.on_cpu(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack):
+    if cuda_build.on_cpu(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs.tri_pack):
         return pair_round_plain(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex,
-                                pack, n_sc, closest)
+                                cs, n_sc, closest)
     dev, nl, c, k = _check_trace_inputs("pair_round", o_t, d_t, tn, tx, ex,
-                                        pack)
+                                        cs)
     cuda_build.require_cuda("pair_round", o_t, cid_s, pos_s, runs)
     for x in (cid_s, pos_s, runs):
         cuda_build.require_dtype("pair_round", x, torch.int32)
@@ -357,7 +471,7 @@ def pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack, n_sc,
         err = lib.sunray_pair_closest(
             cid_s.data_ptr(), pos_s.data_ptr(), runs.data_ptr(), n_p, n_sc,
             o_t.data_ptr(), d_t.data_ptr(), tn.data_ptr(), tx.data_ptr(),
-            ex.data_ptr(), nl, pack.data_ptr(), c, k, t.data_ptr(),
+            ex.data_ptr(), nl, cs.edges.data_ptr(), c, k, t.data_ptr(),
             tri.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
         out = (t, tri, u, v)
     else:
@@ -365,7 +479,7 @@ def pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, pack, n_sc,
         err = lib.sunray_pair_occluded(
             cid_s.data_ptr(), pos_s.data_ptr(), runs.data_ptr(), n_p, n_sc,
             o_t.data_ptr(), d_t.data_ptr(), tn.data_ptr(), tx.data_ptr(),
-            ex.data_ptr(), nl, pack.data_ptr(), c, k, occ.data_ptr(), stream)
+            ex.data_ptr(), nl, cs.edges.data_ptr(), c, k, occ.data_ptr(), stream)
         out = occ
     cuda_build.check_launch("pair_round", err)
     cuda_build.launches["pair_round"] += 1

@@ -129,7 +129,7 @@ def _declare(lib):
                                       + [p] * 9 + [p])
     lib.sunray_gi_spatial.argtypes = ([p] + [p] * 5 + [p] * 7 + [i, p]
                                       + [p] * 4 + [i, f] + [p] * 6 + [p])
-    binned = [p, p, p, i, i, p, p, p, p, p, p, i]
+    binned = [p, p, p, i, i, p, p, p, p, p, p, p, i]
     lib.sunray_binned_closest.argtypes = binned + [p, p, p, p, p]
     lib.sunray_binned_occluded.argtypes = binned + [p, p]
     lib.sunray_cluster_scan.argtypes = [p, p, p, p, i, p, i, p, p, p]

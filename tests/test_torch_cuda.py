@@ -279,13 +279,108 @@ def test_binned_round_kernel_matches_plain(kind, cuda_device):
     hit, entry = binned_trace._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo,
                                              cs.aabb_hi, nb)
     order, ents, count = binned_trace._work_list(hit, entry)
-    args = (order, ents, count, o_t, d_t, tn, tx, ex, cs.tri_pack)
+    args = (order, ents, count, o_t, d_t, tn, tx, ex, cs)
     cuda_build.launches.clear()
     _check_closest(cuda_binned.binned_round(*args),
                    cuda_binned.binned_round_plain(*args))
     _check_occ(cuda_binned.binned_round(*args, closest=False),
                cuda_binned.binned_round_plain(*args, closest=False))
     assert cuda_build.launches["binned_round"] == 2
+
+
+def _big_small_args(dev, kind):
+    """K10's inputs on the small big-mesh scene (subdiv 3; cluster_k 32,
+    8 for "fallback"), as trace_*_binned(reorder=True) makes them, from
+    320x240 camera rays: "camera" the rays themselves; "fallback" bounce
+    rays off the visible surfaces, those that cross more than L_SLOTS
+    superclusters kept and the others masked to tmax = -inf (dead blocks);
+    "visibility" bounce rays on short segments with exclude ids; "dead"
+    half the rays masked and 123 padding lanes; "grazing" rays from near
+    the box's walls nearly parallel to them, and "corners" rays aimed at
+    cluster box corners and the box's corners (the per-warp cull's hardest
+    cases, tests/test_torch_binned_cull.py)."""
+    from sunray_tpu_torch.ops.brdf import normalize
+    from sunray_tpu_torch.scene.types import MaterialTable, build_scene
+
+    args = big_scene_args(3)
+    scene = build_scene(**dict(args, device=dev, materials=MaterialTable.build(
+        args["materials"], dev)))
+    tris = tuple(x.contiguous() for x in scene.world_triangle_vertices())
+    cs = binned_trace.build_cluster_set(tris, k=8 if kind == "fallback" else 32)
+    mats = camera_matrices(Camera(**CAMERA), 320, 240, device=dev)
+    o, d = (x.reshape(-1, 3).contiguous() for x in generate_rays(mats, 320, 240))
+    m = o.shape[0] - (123 if kind == "dead" else 0)
+    o, d = o[:m], d[:m]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tmax = torch.full((m,), intersect.T_MAX, device=dev)
+    ex = None
+    if kind in ("grazing", "corners"):
+        u = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+        axis = torch.randint(0, 3, (m,), generator=gen, device=dev)
+        lanes = torch.arange(m, device=dev)
+        if kind == "grazing":
+            o = u(m, 3) * 2.0
+            o[lanes, axis] = (u(m) < 0.5) * 2.0 + (u(m) - 0.5) * 0.1
+            d = torch.randn((m, 3), generator=gen, device=dev)
+            d[lanes, axis] *= torch.tensor([1e-2, 1e-4, 1e-6], device=dev)[
+                torch.randint(0, 3, (m,), generator=gen, device=dev)]
+        else:
+            c = torch.randint(0, cs.num_clusters, (m,), generator=gen, device=dev)
+            pick = u(m, 3) < 0.5
+            target = torch.where(pick, cs.aabb_lo[c], cs.aabb_hi[c])
+            target[: m // 4] = pick[: m // 4] * 2.0
+            o = u(m, 3) * 3.0 - 0.5
+            d = target - o
+        d = normalize(d).contiguous()
+        o = o.contiguous()
+    elif kind != "camera":
+        hit = cuda_trace.trace_closest(tris, o, d)
+        p = o + d * torch.where(hit.hit, hit.t, 1.0)[:, None]
+        d = normalize(torch.randn((m, 3), generator=gen, device=dev)).contiguous()
+        o = (p + d * 1e-3).contiguous()
+        ex = torch.randint(-1, tris[0].shape[0], (m,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    if kind == "visibility":
+        tmax = torch.rand((m,), generator=gen, device=dev) * 2.0 + 0.05
+    elif kind == "fallback":
+        o_t, d_t, tn, tx, _, _, _ = binned_trace._prep(o, d, intersect.T_MIN, tmax,
+                                                       None)
+        _, cnt = binned_trace._cluster_scan(cs, o_t, d_t, tn, tx)
+        tmax = torch.where(cnt[:m] > cuda_binned.L_SLOTS, tmax, -torch.inf)
+    elif kind == "dead":
+        tmax[torch.rand((m,), generator=gen, device=dev) < 0.5] = -torch.inf
+    o, d, tmax, ex, _ = binned_trace._reorder_rays(cs, o, d, tmax, ex)
+    o_t, d_t, tn, tx, ex, _, nb = binned_trace._prep(o, d, intersect.T_MIN, tmax, ex)
+    hit, entry = binned_trace._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo,
+                                             cs.aabb_hi, nb)
+    return (*binned_trace._work_list(hit, entry), o_t, d_t, tn, tx, ex, cs)
+
+
+@pytest.mark.parametrize("kind", ["camera", "fallback", "visibility", "dead",
+                                  "grazing", "corners"])
+def test_binned_round_kernel_bit_equal(kind, cuda_device):
+    """K10 (the per-warp cull, the staged walk) against binned_round_plain
+    on every lane, closest and any-hit, and against the plain model of its
+    walk; one launch a call."""
+    args = _big_small_args(cuda_device, kind)
+    count, tx = args[2], args[6]
+    if kind == "fallback":
+        assert (count == 0).any() and (tx > -torch.inf).any()
+    for closest in (True, False):
+        cuda_build.launches.clear()
+        got = cuda_binned.binned_round(*args, closest=closest)
+        want = cuda_binned.binned_round_plain(*args, closest=closest)
+        model, _ = cuda_binned.binned_round_warp(*args, closest=closest)
+        torch.cuda.synchronize()
+        assert cuda_build.launches["binned_round"] == 1
+        if closest:
+            assert (want[1] >= 0).any()
+            for a, b, c in zip(got, want, model):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+                assert torch.equal(c.view(torch.int32), b.view(torch.int32))
+        else:
+            assert want.any()
+            assert torch.equal(got, want) and torch.equal(model, want)
 
 
 @pytest.mark.parametrize("k", [128, 32])
@@ -301,7 +396,7 @@ def test_scan_and_pair_kernels_match_plain(k, cuda_device):
         assert (want[1] > cuda_binned.L_SLOTS).any()     # the overflow case
     cid_s, pos_s, runs, n_sc, _ = binned_trace._pair_stream_prep(
         cs, o_t, d_t, tn, tx)
-    args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs.tri_pack, n_sc)
+    args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc)
     _check_closest(cuda_binned.pair_round(*args),
                    cuda_binned.pair_round_plain(*args))
     _check_occ(cuda_binned.pair_round(*args, closest=False),
@@ -406,6 +501,46 @@ def test_history_gather_kernel_matches_plain(cuda_device):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     with pytest.raises(cuda_build.KernelError):
         cuda_history.history_gather(fields, idx.int())
+
+
+def _history_fields(rng, p, widths, dev):
+    """Fields of the given widths, float32 and int32 in turn, of random
+    bits with quiet-NaN payloads and denormals in every fourth word."""
+    fields = []
+    for c, w in enumerate(widths):
+        bits = rng.integers(-2**31, 2**31, size=(p, w) if w > 1 else (p,),
+                            dtype=np.int64).astype(np.int32)
+        flat = bits.reshape(-1)
+        flat[::4] = (0x7FC00000 | rng.integers(1, 1 << 22, flat[::4].shape)
+                     ).astype(np.int32)
+        flat[1::4] = rng.integers(1, 1 << 23, flat[1::4].shape).astype(np.int32)
+        x = torch.from_numpy(bits).to(dev)
+        fields.append(x.view(torch.float32) if c % 2 == 0 else x)
+    return fields
+
+
+@pytest.mark.parametrize("widths", [(1,), (3,), (1, 2, 3, 4) * 4, (3, 7, 1, 4)],
+                         ids=["one_field", "width3", "sixteen_fields", "wide"])
+def test_history_gather_bit_exact(widths, cuda_device):
+    """K13 on mixed float32 / int32 fields of widths 1-4 (7: the generic
+    path), NaN payloads and denormal bit patterns, with indices below 0
+    and at or above P, and M != P (neither a whole number of tiles)."""
+    rng = np.random.default_rng(len(widths))
+    p, m = 70_001, 123_457
+    fields = _history_fields(rng, p, widths, cuda_device)
+    idx_np = rng.integers(-5, p + 5, size=m)
+    idx_np[:4] = [-1, p, p + 1000, -(2**40)]
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    cuda_build.launches.clear()
+    got = cuda_history.history_gather(fields, idx)
+    want = cuda_history.history_gather_plain(fields, idx)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["history_gather"] == 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(cuda_build.KernelError):
+        cuda_history.history_gather(fields * (17 // len(fields) + 1), idx)
 
 
 def test_window_select_card_matches_cpu(cuda_device):
