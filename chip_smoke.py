@@ -35,6 +35,8 @@ Phases, in order; any failure raises and exits non-zero with no result:
      4 frames, ReSTIR 8 frames and ReSTIR with the kernel switches 4
      frames, on the card and on the CPU; PSNR > 40 dB between them and,
      for NEE and ReSTIR, against tests/goldens/cornell_{nee,restir}.npy;
+     then the ReSTIR config with denoise_kernel "auto" (K7 once per pass)
+     and "jnp" (no K7 launch), the two within PSNR > 40 dB;
   5. the main path: render_frame at 1920x1080 with the default config
      (lighting="restir"), Cornell camera (1,1,3.4) -> (1,1,0), fov 45; 5
      warm-up and 20 timed frames. The launch counters are zeroed just
@@ -53,18 +55,23 @@ Phases, in order; any failure raises and exits non-zero with no result:
        exclude ids (K11, K12 any-hit, K10 any-hit on the fallback); rays
        agreeing on >= 99.99%, t/u/v within 1e-5, K11 bit-equal, K10 and
        the plain model of its walk (binned_round_warp) bit-equal on every
-       live lane; the overflow share; K10 timed on each of its three
+       live lane, K12 and its walk model (pair_round_warp) on every live
+       pair lane; the overflow share; K10 timed on each of its three
        launches, with its bound and its cluster tests: needed, run by the
-       warp rule (the model's count) and the old per-block items;
+       warp rule (the model's count) and the old per-block items; K11
+       timed on the GI bounce beside its non-FMA floor; K12 timed on both
+       launches (GI bounce closest, GI-tap visibility any-hit), each with
+       its needed cluster tests, the rule's and the unculled kernel's,
+       and on the same launch with every lane dead;
        the small big-mesh config (subdiv 3, cluster_k 32, 48x32, 3
        frames) on the card and on the CPU, PSNR > 40 dB; the 1080p
        big-mesh frame with the default config, 5 warm-up and 20 timed
        frames, counters zeroed before: K3-K8 and K10-K12 must launch,
        rays per frame as bench.py counts them, ldr finite with mean in
        (0.05, 0.95), synced stage times and one profiled frame's device
-       time by kernel, and K10's by launch; then one 480x270 frame, binned
-       against tracer="brute" (K1/K2 over all 81,956 triangles), PSNR > 40
-       dB.
+       time by kernel, and K10's and K12's by launch; then one 480x270
+       frame, binned against tracer="brute" (K1/K2 over all 81,956
+       triangles), PSNR > 40 dB.
   7. the kernel-switches slice (cornell_restir_switches_1080p): the 1080p
      Cornell ReSTIR frame with taa_kernel="pallas",
      history_select_kernel="auto", history_joint_gather=True and
@@ -863,18 +870,25 @@ def needed_block_tests(cs, o_t, d_t, tn, tx, t_hit, step=1 << 14):
     return total
 
 
-def needed_pair_tests(cs, cid_s, pos_s, n_sc, o_t, d_t, tn, tx, t_pair,
-                      step=1 << 20):
-    """Cluster tests the pair lanes need: for each live lane, the clusters
-    of its supercluster whose box its ray enters between the first ray's
-    tmin (as K12 reads it) and the lane's closest hit (its tmax on a
-    miss). t_pair: K12's closest t per pair position."""
+def needed_pair_tests(cs, pair_args, t_pair=None, occ=None, step=1 << 20):
+    """Cluster tests the pair lanes of one K12 launch need, whatever the
+    walk: for each live lane, the clusters of its supercluster whose box
+    its ray enters between the first ray's tmin (as K12 reads it) and its
+    closest hit (t_pair, K12's closest t per pair position; its tmax on a
+    miss); any-hit (occ, K12's result per pair position): one for each
+    occluded lane (its occluder's cluster), and for each other lane the
+    clusters whose box its segment [tmin, tmax] enters."""
     from sunray_tpu_torch.ops.cuda_binned import SC_K
 
+    cid_s, pos_s, _, o_t, d_t, tn, tx, _, _, n_sc = pair_args
     c, nl = cs.num_clusters, tn.shape[0]
     live = torch.nonzero(cid_s < n_sc)[:, 0]
-    sub = torch.arange(SC_K, device=cid_s.device)
     total = 0
+    if occ is not None:
+        hit = occ[pos_s[live].long()]
+        total += int(hit.sum())
+        live = live[~hit]
+    sub = torch.arange(SC_K, device=cid_s.device)
     for s in range(0, live.shape[0], step):
         lane = live[s:s + step]
         pos = pos_s[lane].long()
@@ -882,9 +896,9 @@ def needed_pair_tests(cs, cid_s, pos_s, n_sc, o_t, d_t, tn, tx, t_pair,
         cl = cid_s[lane].long()[:, None] * SC_K + sub[None, :]
         ok = cl < c
         cl = cl.clamp(max=c - 1)
-        upper = torch.minimum(tx[ray], t_pair[pos])[:, None]
+        upper = tx[ray] if t_pair is None else torch.minimum(tx[ray], t_pair[pos])
         hit = box_entered(o_t[:, ray].T[:, None], d_t[:, ray].T[:, None], tn[0],
-                          upper, cs.aabb_lo[cl], cs.aabb_hi[cl])
+                          upper[:, None], cs.aabb_lo[cl], cs.aabb_hi[cl])
         total += int((hit & ok).sum())
     return total
 
@@ -989,20 +1003,82 @@ def pair_stream_checks(cs, label, orig, d, tmax, exclude, closest):
                                                               tx)
     live = int((cid_s < n_sc).sum())
     log(f"  K12 pair_round {label}: {cid_s.numel()} pair lanes, {live} live, "
-        f"{int(runs.sum())} work items")
+        f"{int(runs.sum())} work items, {int((runs > 1).sum())} blocks with "
+        "more than one supercluster")
     args = (cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc)
-    compare = compare_hits if closest else compare_occ
-    live_pos = torch.zeros_like(cid_s, dtype=torch.bool)
-    live_pos[pos_s[cid_s < n_sc].long()] = True
-    k12 = compare("K12", cb.pair_round(*args, closest=closest),
-                  cb.pair_round_plain(*args, closest=closest),
-                  f"{label}, live pair lanes", live=live_pos)
+    k12 = compare_k12(args, closest, label)
 
     # The overflow rays through the block path, the others masked out.
     fb = block_args(cs, o_t.T, d_t.T, torch.where(overflow, tx, -torch.inf), ex)
     k10 = compare_k10(fb, closest, f"{label}, overflow fallback",
                       live=fb[6] > -torch.inf)
     return k10, k12, exact, over, (o_t, d_t, tn, tx, box), args, fb
+
+
+def compare_k12(args, closest, label):
+    """K12 against its plain version on one launch's inputs: every live pair
+    position bit-equal, and so is the plain model of the kernel's walk
+    (pair_round_warp). Returns (agreement, error, the model's count of the
+    cluster tests the rule runs)."""
+    from sunray_tpu_torch.ops import cuda_binned as cb
+
+    cid_s, pos_s, n_sc = args[0], args[1], args[9]
+    live = torch.zeros_like(cid_s, dtype=torch.bool)
+    live[pos_s[cid_s < n_sc].long()] = True
+    k = cb.pair_round(*args, closest=closest)
+    p = cb.pair_round_plain(*args, closest=closest)
+    model, rule = cb.pair_round_warp(*args, closest=closest)
+    torch.cuda.synchronize()
+    if closest:
+        frac, err = compare_hits("K12", k, p, f"{label}, live pair lanes", live)
+    else:
+        frac, err = compare_occ("K12", k, p, f"{label}, live pair lanes", live), 0.0
+    for name, out in (("kernel", k), ("walk model", model)):
+        same = (all(torch.equal(a[live].view(torch.int32), b[live].view(torch.int32))
+                    for a, b in zip(out, p)) if closest
+                else torch.equal(out[live], p[live]))
+        check(same, f"K12 {label}: the {name} is not bit-equal to plain")
+    log(f"    K12 {label}: kernel and walk model bit-equal to plain on every "
+        "live pair lane")
+    return frac, err, rule
+
+
+def k12_launch(cs, label, args, closest, rule, plain_reps=REPS):
+    """K12 timed on one launch's inputs, with its bound (the cluster tests
+    its pair lanes need) and its counts: needed tests, tests the warp rule
+    runs (`rule`, from pair_round_warp) and the SC_K a live lane that an
+    unculled kernel runs; and the same launch with every lane dead
+    (no pair), the cost of the dead tail's blocks."""
+    from sunray_tpu_torch.ops import cuda_binned as cb
+
+    cid_s, pos_s, runs, o_t = args[:4]
+    n_sc, k_tris = args[9], cs.tri_pack.shape[2]
+    out = cb.pair_round(*args, closest=closest)
+    needed = (needed_pair_tests(cs, args, t_pair=out[0]) if closest
+              else needed_pair_tests(cs, args, occ=out))
+    live_sc = cid_s[cid_s < n_sc].long()
+    old = sum(int((live_sc * cb.SC_K + q < cs.num_clusters).sum())
+              for q in range(cb.SC_K))
+    dead = (torch.full_like(cid_s, n_sc), pos_s, torch.zeros_like(runs),
+            *args[3:])
+    out_bytes = cid_s.numel() * (16 if closest else 1)
+    r = dict(
+        ms=device_ms(lambda: cb.pair_round(*args, closest=closest)),
+        dead_ms=device_ms(lambda: cb.pair_round(*dead, closest=closest)),
+        plain_ms=time_ms(lambda: cb.pair_round_plain(*args, closest=closest),
+                         reps=plain_reps),
+        bound=bound(nbytes(cid_s, pos_s, runs) + o_t.shape[1] * 36
+                    + cs.num_clusters * 10 * k_tris * 4 + out_bytes,
+                    needed * k_tris * TEST_OPS),
+        needed_tests=needed, rule_tests=rule, old_tests=old)
+    log(f"  K12 {label}: {live_sc.numel()} live pair lanes of {cid_s.numel()}; "
+        f"cluster tests needed {needed}, run by the warp rule {rule} "
+        f"({rule / max(needed, 1):.2f}x needed), unculled {old} "
+        f"({old / max(needed, 1):.2f}x); kernel {r['ms']:.4f} ms, dead lanes "
+        f"alone {r['dead_ms']:.4f} ms ({r['dead_ms'] / r['ms']:.1%}), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it)")
+    return r
 
 
 def phase_binned_kernels(dev):
@@ -1012,8 +1088,6 @@ def phase_binned_kernels(dev):
     log("phase 6: K10-K12 against their plain versions (1080p big-mesh "
         "frame 2's rays)")
     cs, (co, cd), (go, gd), (vo, vd, vmax, vex) = capture_binned_rays(dev)
-    k_tris = cs.tri_pack.shape[2]
-    pack_bytes = cs.num_clusters * 10 * k_tris * 4
     results = {}
 
     # K10: the camera rays through the block path.
@@ -1031,7 +1105,7 @@ def phase_binned_kernels(dev):
     f10_b, f12_b, _, over, scan_in, pair_args, fb_b = pair_stream_checks(
         cs, "GI bounce", go, gd, T_MAX, None, closest=True)
     seg = torch.as_tensor(vmax, dtype=torch.float32, device=dev) - 1e-3
-    f10_v, f12_v, _, over_v, _, _, fb_v = pair_stream_checks(
+    f10_v, f12_v, _, over_v, _, pair_args_v, fb_v = pair_stream_checks(
         cs, "GI-tap visibility", vo, vd, seg, vex, closest=False)
     fb_close = k10_launch(cs, "GI bounce overflow fallback (closest)", fb_b,
                           True, f10_b[2], plain_reps=3)
@@ -1045,25 +1119,30 @@ def phase_binned_kernels(dev):
         fallback_closest_ms=fb_close["ms"], fallback_anyhit_ms=fb_any["ms"],
         fallback_closest_bound_ms=fb_close["bound"][0],
         fallback_anyhit_bound_ms=fb_any["bound"][0])
-    lanes = scan_in[0].shape[1]
+    lanes, n_box = scan_in[0].shape[1], scan_in[4].shape[0]
     results["cluster_scan"] = dict(
         max_abs_err=0.0, overflow_share=over,
         ms=device_ms(lambda: cb.cluster_scan(*scan_in)),
         plain_ms=time_ms(lambda: cb.cluster_scan_plain(*scan_in)),
         bound=bound(lanes * (32 + 36) + nbytes(scan_in[4]),
-                    lanes * scan_in[4].shape[0] * SLAB_OPS))
-    cid_s, pos_s, _, o_p, d_p, tn_p, tx_p = pair_args[:7]
-    t_pair = cb.pair_round(*pair_args)[0]
-    p_tests = needed_pair_tests(cs, cid_s, pos_s, pair_args[9], o_p, d_p, tn_p,
-                                tx_p, t_pair)
-    log(f"  K12 GI bounce: {p_tests} cluster tests needed; overflow share "
-        f"GI bounce {over:.6f}, GI-tap visibility {over_v:.6f}")
+                    lanes * n_box * SLAB_OPS),
+        # None of the slab test's operations is a fused multiply-add, so the
+        # card issues them at half the rate that counts an FMA as two.
+        nonfma_floor_ms=lanes * n_box * SLAB_OPS / (FP32_OPS_S / 2) * 1e3)
+    log(f"  K11 GI bounce: non-FMA floor "
+        f"{results['cluster_scan']['nonfma_floor_ms']:.4f} ms")
+    k12_close = k12_launch(cs, "GI bounce (closest)", pair_args, True,
+                           f12_b[2])
+    k12_any = k12_launch(cs, "GI-tap visibility (any-hit)", pair_args_v, False,
+                         f12_v[2], plain_reps=3)
+    log(f"  overflow share GI bounce {over:.6f}, GI-tap visibility {over_v:.6f}")
     results["pair_round"] = dict(
-        agree=min(f12_b[0], f12_v), max_abs_err=f12_b[1],
-        ms=device_ms(lambda: cb.pair_round(*pair_args)),
-        plain_ms=time_ms(lambda: cb.pair_round_plain(*pair_args)),
-        bound=bound(nbytes(*pair_args[:3]) + lanes * 36 + pack_bytes
-                    + cid_s.numel() * 16, p_tests * k_tris * TEST_OPS))
+        k12_close, agree=min(f12_b[0], f12_v[0]), max_abs_err=f12_b[1],
+        anyhit_ms=k12_any["ms"], anyhit_bound_ms=k12_any["bound"][0],
+        anyhit_plain_ms=k12_any["plain_ms"], anyhit_dead_ms=k12_any["dead_ms"],
+        anyhit_needed_tests=k12_any["needed_tests"],
+        anyhit_rule_tests=k12_any["rule_tests"],
+        anyhit_old_tests=k12_any["old_tests"])
     for name, r in results.items():
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -1172,7 +1251,33 @@ def phase_golden(dev):
     log(f"  PSNR card vs CPU {p_cc:.2f} dB")
     check(p_cc > PSNR_MIN, f"switches: card vs CPU PSNR {p_cc:.2f} dB")
     out["switches"] = (p_cc, None)
+    denoise_switch(dev)
     return out
+
+
+def denoise_switch(dev, frames=2):
+    """The golden ReSTIR config with denoise_kernel "auto" and "jnp" on the
+    card: "auto" launches K7 once per pass, "jnp" never (the plain passes),
+    and the two agree (K7 is within 1e-5 of plain)."""
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build
+
+    log(f"phase 4: denoise_kernel 'auto' and 'jnp', golden restir config, "
+        f"{frames} frames on the card")
+    ldr = {}
+    for kernel in ("auto", "jnp"):
+        cfg = RenderConfig(**dict(GOLDEN_KW, lighting="restir",
+                                  denoise_kernel=kernel))
+        cuda_build.launches.clear()
+        ldr[kernel] = render(cfg, dev, frames).cpu().numpy()
+        k7 = cuda_build.launches["atrous_pass"]
+        want = 0 if kernel == "jnp" else cfg.denoise_passes * frames
+        log(f"  denoise_kernel {kernel!r}: K7 launched {k7} times")
+        check(k7 == want, f"denoise_kernel {kernel!r}: K7 launched {k7} "
+              f"times, expected {want}")
+    p = psnr(ldr["auto"], ldr["jnp"])
+    log(f"  PSNR 'auto' vs 'jnp' {p:.2f} dB")
+    check(p > PSNR_MIN, f"denoise_kernel auto vs jnp PSNR {p:.2f} dB")
 
 
 def rays_expected(cfg, aux):
@@ -1329,14 +1434,15 @@ def profile_frame(scene, cfg, state, mats, accel, rows=12):
         f"{max(0.0, 1.0 - total / 1e3 / wall_ms):.1%}, profiler on)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:rows]:
         log(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:70]}")
-    walk = sorted((e for e in prof.events() if "binned_kernel" in e.name
-                   and "CUDA" in str(getattr(e, "device_type", ""))),
-                  key=lambda e: e.time_range.start)
-    log("  K10 by launch, device ms, in frame order: " + ", ".join(
-        f"{'closest' if '<true>' in e.name else 'any-hit'} "
-        f"{e.time_range.elapsed_us() / 1e3:.3f}" for e in walk)
-        + f"; {len(walk)} launches, "
-        f"{sum(e.time_range.elapsed_us() for e in walk) / 1e3:.3f} ms")
+    for kid, kernel in (("K10", "binned_kernel"), ("K12", "pair_kernel")):
+        walk = sorted((e for e in prof.events() if kernel in e.name
+                       and "CUDA" in str(getattr(e, "device_type", ""))),
+                      key=lambda e: e.time_range.start)
+        log(f"  {kid} by launch, device ms, in frame order: " + ", ".join(
+            f"{'closest' if '<true>' in e.name else 'any-hit'} "
+            f"{e.time_range.elapsed_us() / 1e3:.3f}" for e in walk)
+            + f"; {len(walk)} launches, "
+            f"{sum(e.time_range.elapsed_us() for e in walk) / 1e3:.3f} ms")
 
 
 def stage_breakdown(scene, cfg, state, mats, frame_s, accel=None, frames=3):
@@ -1472,8 +1578,11 @@ def main():
                  "bound_by": r["bound"][1],
                  "library_ms": r.get("library_ms")}
         for key in ("agree", "overflow_share", "needed_tests", "rule_tests",
-                    "block_items", "fallback_closest_ms", "fallback_anyhit_ms",
-                    "fallback_closest_bound_ms", "fallback_anyhit_bound_ms",
+                    "block_items", "old_tests", "dead_ms", "fallback_closest_ms",
+                    "fallback_anyhit_ms", "fallback_closest_bound_ms",
+                    "fallback_anyhit_bound_ms", "anyhit_ms", "anyhit_bound_ms",
+                    "anyhit_plain_ms", "anyhit_dead_ms", "anyhit_needed_tests",
+                    "anyhit_rule_tests", "anyhit_old_tests", "nonfma_floor_ms",
                     "taa_corners_ms"):
             if key in r:
                 entry[key] = r[key]

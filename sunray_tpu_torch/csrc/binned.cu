@@ -58,15 +58,47 @@
 //        cluster that some lane may still need (vote and box test on the
 //        best t before that test, so never one it needs skipped) is in
 //        flight. Blocks with nothing listed exit before any copy.
-//   K11: one thread per ray lane; the supercluster boxes are staged in
-//        shared memory in tiles of 256 (161 at full size: one tile); each
-//        thread records its first 8 hits in ascending id and counts all.
-//   K12: one CTA of 512 threads per block of 512 pair lanes sorted by
-//        supercluster. The block walks its runs of equal supercluster id
-//        (runs[b] of them, from _pair_work), copies the run's SC_K
-//        clusters from the edge pack (20 KB at K = 128), and the lanes of that run test all
-//        SC_K * K triangles. Each lane writes its result at its pair
-//        position (the unsort is this scatter).
+//   K11: four rays a thread (256 threads, 1,024 rays a CTA); the
+//        supercluster boxes are staged in shared memory in tiles of 256
+//        (161 at full size: one tile), each box as two 16-byte words, so
+//        that one box costs a warp two broadcast loads that feed four slab
+//        tests (one ray a thread read six 4-byte loads a test). The four
+//        tests are straight-line code and the rare hits (~3 of 161 boxes
+//        a ray) are recorded after them, in the ray's 8 slots held in
+//        registers (118 registers, no spills, under -Xptxas -v). Boxes in
+//        __constant__ memory were the other way out of the loads; they
+//        would need a copy to the symbol before every launch and tiling
+//        above 64 KB, for loads that are also warp-uniform. Fewer loads
+//        did not move K11: on an H100 SXM at 700 W, 0.488 ms against 0.490
+//        for one ray a thread on 2M GI rays x 161 boxes; two rays a thread
+//        0.477, but 1.320 against 1.294 ms on 6.2M visibility rays. The
+//        suspect is the issue of the slab test's ~27 operations, none of
+//        which may fuse (its bits must stay the TPU kernel's): ten are
+//        min/max and three compares, which may issue at half the add
+//        rate; not measured (PERF.md §6).
+//   K12: pair lanes sorted by supercluster, 512 a block, one CTA of 128
+//        threads a quarter block; a CTA holds the runs of one or a few
+//        superclusters. Each lane visits the SC_K clusters of its own
+//        supercluster in order under K10's per-warp cull: before cluster
+//        q, every lane of the run tests its ray against q's padded box up
+//        to its running result (any-hit: tmax while not occluded), and a
+//        warp none of whose lanes of that run needs q skips the K tests.
+//        The argument that this changes no output is K10's, held for the
+//        pair kernel's rounding of t by tests/test_torch_pair_cull.py. A
+//        CTA-wide vote decides whether to stage q at all, and the
+//        clusters it needs come from the edge pack by cp.async into two
+//        buffers, the next one in flight while the current one is
+//        tested, as in K10. The tests read each row's four consecutive
+//        slots with one 16-byte load (K a multiple of 4), a quarter of
+//        the shared-memory loads, at 80 registers; CTAs of 128 keep six
+//        CTAs an SM at that count and leave a barrier fewer warps to wait
+//        for (the first design: all SC_K * K triangles for every live
+//        lane, staged by a synchronous loop, 4x the tests the rays need). A
+//        lane's run comes from a warp ballot and a prefix over the CTA's
+//        warps. A block with no pair (the dead tail after the sort) exits
+//        at once: the wrapper fills the outputs with misses and the kernel
+//        writes the live pair positions only (the unsort is this scatter).
+//        Shared memory: 10 KB of buffers at K = 128 and 528 bytes.
 //
 // Numerics follow binned_trace.py:249-289 as XLA's CPU backend compiles
 // it in interpret mode (pinned in ops/cuda_binned.py): cross products
@@ -111,15 +143,6 @@ __device__ __forceinline__ Tris carve(int* smem, int n) {
   return s;
 }
 
-// Copy cluster c of the edge pack into slots [base, base + k) of a
-// carve(smem, n) layout.
-__device__ __forceinline__ void stage(int* smem, int n, const int* __restrict__ edges, int c,
-                                      int k, int base) {
-  const int* p = edges + static_cast<int64_t>(c) * kEdgeRows * k;
-  for (int j = threadIdx.x; j < k; j += blockDim.x)
-    for (int row = 0; row < kEdgeRows; ++row) smem[row * n + base + j] = p[row * k + j];
-}
-
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tmin, tmax;
   int ex;
@@ -142,21 +165,21 @@ __device__ __forceinline__ Ray load_ray(int i, int nl, const float* __restrict__
   return r;
 }
 
-// Moller-Trumbore of ray r against staged slot j (binned_trace.py:249-289).
+// Moller-Trumbore of ray r against one triangle (binned_trace.py:249-289).
 template <bool kPairT>
-__device__ __forceinline__ bool hit_slot(const Tris& s, int j, const Ray& r, float& t,
-                                         float& u, float& v) {
-  const float e1x = s.e1[0][j], e1y = s.e1[1][j], e1z = s.e1[2][j];
-  const float e2x = s.e2[0][j], e2y = s.e2[1][j], e2z = s.e2[2][j];
+__device__ __forceinline__ bool hit_tri(float v0x, float v0y, float v0z, float e1x,
+                                        float e1y, float e1z, float e2x, float e2y,
+                                        float e2z, int id, const Ray& r, float& t,
+                                        float& u, float& v) {
   const float px = fmaf(r.dy, e2z, -(r.dz * e2y));
   const float py = fmaf(r.dz, e2x, -(r.dx * e2z));
   const float pz = fmaf(r.dx, e2y, -(r.dy * e2x));
   const float det = fmaf(e1z, pz, fmaf(e1x, px, e1y * py));
   const bool det_ok = fabsf(det) > kDetEps;
   const float inv_det = det_ok ? 1.0f / det : 0.0f;
-  const float tvx = r.ox - s.v0[0][j];
-  const float tvy = r.oy - s.v0[1][j];
-  const float tvz = r.oz - s.v0[2][j];
+  const float tvx = r.ox - v0x;
+  const float tvy = r.oy - v0y;
+  const float tvz = r.oz - v0z;
   u = fmaf(tvz, pz, fmaf(tvx, px, tvy * py)) * inv_det;
   const float qx = fmaf(tvy, e1z, -(tvz * e1y));
   const float qy = fmaf(tvz, e1x, -(tvx * e1z));
@@ -164,9 +187,56 @@ __device__ __forceinline__ bool hit_slot(const Tris& s, int j, const Ray& r, flo
   v = fmaf(r.dz, qz, fmaf(r.dy, qy, r.dx * qx)) * inv_det;
   t = kPairT ? fmaf(e2z, qz, fmaf(e2x, qx, e2y * qy)) * inv_det
              : fmaf(e2z, qz, fmaf(e2y, qy, e2x * qx)) * inv_det;
-  const int id = s.id[j];
   return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= r.tmin &&
          t <= r.tmax && id >= 0 && id != r.ex;
+}
+
+// ... against staged slot j.
+template <bool kPairT>
+__device__ __forceinline__ bool hit_slot(const Tris& s, int j, const Ray& r, float& t,
+                                         float& u, float& v) {
+  return hit_tri<kPairT>(s.v0[0][j], s.v0[1][j], s.v0[2][j], s.e1[0][j], s.e1[1][j],
+                         s.e1[2][j], s.e2[0][j], s.e2[1][j], s.e2[2][j], s.id[j], r, t,
+                         u, v);
+}
+
+// K12's slots [0, n) in order, four a step: each row's four words in one
+// 16-byte shared load (n a multiple of 4, rows 16-byte aligned). Closest:
+// into a running closest hit; any-hit: until one hits (occ).
+template <bool kClosest>
+__device__ __forceinline__ void pair_slots4(const Tris& s, int n, const Ray& r,
+                                            float& best_t, int& best_tri, float& best_u,
+                                            float& best_v, bool& occ) {
+  for (int j = 0; j < n; j += 4) {
+    const float4 v0x = *reinterpret_cast<const float4*>(s.v0[0] + j);
+    const float4 v0y = *reinterpret_cast<const float4*>(s.v0[1] + j);
+    const float4 v0z = *reinterpret_cast<const float4*>(s.v0[2] + j);
+    const float4 e1x = *reinterpret_cast<const float4*>(s.e1[0] + j);
+    const float4 e1y = *reinterpret_cast<const float4*>(s.e1[1] + j);
+    const float4 e1z = *reinterpret_cast<const float4*>(s.e1[2] + j);
+    const float4 e2x = *reinterpret_cast<const float4*>(s.e2[0] + j);
+    const float4 e2y = *reinterpret_cast<const float4*>(s.e2[1] + j);
+    const float4 e2z = *reinterpret_cast<const float4*>(s.e2[2] + j);
+    const int4 id = *reinterpret_cast<const int4*>(s.id + j);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float t, u, v;
+      const bool h = hit_tri<true>((&v0x.x)[q], (&v0y.x)[q], (&v0z.x)[q], (&e1x.x)[q],
+                                   (&e1y.x)[q], (&e1z.x)[q], (&e2x.x)[q], (&e2y.x)[q],
+                                   (&e2z.x)[q], (&id.x)[q], r, t, u, v);
+      if (kClosest) {
+        if (h && t < best_t) {
+          best_t = t;
+          best_tri = (&id.x)[q];
+          best_u = u;
+          best_v = v;
+        }
+      } else if (h) {
+        occ = true;
+        return;
+      }
+    }
+  }
 }
 
 // Slots [0, n) in order into a running closest hit.
@@ -342,104 +412,183 @@ binned_kernel(const int* __restrict__ order, const float* __restrict__ ents,
 
 // ---- K11 --------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
+constexpr int kScanThreads = 256;
+constexpr int kScanRays = 4;     // K11 rays a thread: each box load feeds 4 slab tests
+
+__global__ void __launch_bounds__(kScanThreads)
 scan_kernel(const float* __restrict__ o_t, const float* __restrict__ d_t,
             const float* __restrict__ tn, const float* __restrict__ tx, int nl,
             const float* __restrict__ box, int n_sc, int32_t* __restrict__ slots,
             int32_t* __restrict__ cnt) {
-  __shared__ float sb[6][kScTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < nl;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, ix = 1.0f, iy = 1.0f, iz = 1.0f;
-  float tmin = 0.0f, tmax = -INFINITY;
-  if (live) {
-    ox = o_t[i];
-    oy = o_t[nl + i];
-    oz = o_t[2 * nl + i];
-    ix = inv_dir(d_t[i]);
-    iy = inv_dir(d_t[nl + i]);
-    iz = inv_dir(d_t[2 * nl + i]);
-    tmin = tn[i];
-    tmax = tx[i];
-  }
-  int slot[kSlots];
+  // A tile of boxes, each as two 16-byte words {lo x, lo y, lo z, hi x},
+  // {hi y, hi z, -, -}: one warp-uniform (broadcast) load apiece.
+  __shared__ float4 sb[kScTile][2];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kScanThreads * kScanRays +
+                        threadIdx.x;
+  float ox[kScanRays], oy[kScanRays], oz[kScanRays];
+  float ix[kScanRays], iy[kScanRays], iz[kScanRays], lo_t[kScanRays], hi_t[kScanRays];
+  int slot[kScanRays][kSlots], c_hit[kScanRays];
 #pragma unroll
-  for (int l = 0; l < kSlots; ++l) slot[l] = -1;
-  int c_hit = 0;
+  for (int r = 0; r < kScanRays; ++r) {
+    const int64_t i = first + r * kScanThreads;
+    const bool live = i < nl;
+    ox[r] = live ? o_t[i] : 0.0f;
+    oy[r] = live ? o_t[nl + i] : 0.0f;
+    oz[r] = live ? o_t[2 * nl + i] : 0.0f;
+    ix[r] = inv_dir(live ? d_t[i] : 1.0f);
+    iy[r] = inv_dir(live ? d_t[nl + i] : 1.0f);
+    iz[r] = inv_dir(live ? d_t[2 * nl + i] : 1.0f);
+    lo_t[r] = (live ? tn[i] : 0.0f) - 1e-4f;
+    hi_t[r] = (live ? tx[i] : -INFINITY) + 1e-4f;
+    c_hit[r] = 0;
+#pragma unroll
+    for (int l = 0; l < kSlots; ++l) slot[r][l] = -1;
+  }
   for (int base = 0; base < n_sc; base += kScTile) {
     const int m = min(kScTile, n_sc - base);
     __syncthreads();
-    for (int j = threadIdx.x; j < m; j += blockDim.x)
-      for (int a = 0; a < 6; ++a) sb[a][j] = box[(base + j) * 6 + a];
+    for (int j = threadIdx.x; j < m; j += kScanThreads) {
+      const float* b = box + static_cast<int64_t>(base + j) * 6;
+      sb[j][0] = make_float4(b[0], b[1], b[2], b[3]);
+      sb[j][1] = make_float4(b[4], b[5], 0.0f, 0.0f);
+    }
     __syncthreads();
-    if (!live) continue;
     for (int j = 0; j < m; ++j) {
-      const float t1x = (sb[0][j] - ox) * ix, t2x = (sb[3][j] - ox) * ix;
-      const float t1y = (sb[1][j] - oy) * iy, t2y = (sb[4][j] - oy) * iy;
-      const float t1z = (sb[2][j] - oz) * iz, t2z = (sb[5][j] - oz) * iz;
-      const float tnc = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      const float tfc = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      if (tnc <= tfc + 1e-4f && tfc >= tmin - 1e-4f && tnc <= tmax + 1e-4f) {
+      const float4 p = sb[j][0], q = sb[j][1];
+      // The rays' tests in straight-line code, the rare hits after them.
+      bool hit[kScanRays];
+      bool any = false;
 #pragma unroll
-        for (int l = 0; l < kSlots; ++l)
-          if (l == c_hit) slot[l] = base + j;
-        ++c_hit;
+      for (int r = 0; r < kScanRays; ++r) {
+        const float t1x = (p.x - ox[r]) * ix[r], t2x = (p.w - ox[r]) * ix[r];
+        const float t1y = (p.y - oy[r]) * iy[r], t2y = (q.x - oy[r]) * iy[r];
+        const float t1z = (p.z - oz[r]) * iz[r], t2z = (q.y - oz[r]) * iz[r];
+        const float tnc = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        const float tfc = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        hit[r] = tnc <= tfc + 1e-4f && tfc >= lo_t[r] && tnc <= hi_t[r];
+        any |= hit[r];
+      }
+      if (any) {
+#pragma unroll
+        for (int r = 0; r < kScanRays; ++r) {
+#pragma unroll
+          for (int l = 0; l < kSlots; ++l)
+            if (hit[r] && l == c_hit[r]) slot[r][l] = base + j;
+          c_hit[r] += hit[r];
+        }
       }
     }
   }
-  if (!live) return;
 #pragma unroll
-  for (int l = 0; l < kSlots; ++l) slots[static_cast<int64_t>(l) * nl + i] = slot[l];
-  cnt[i] = c_hit;
+  for (int r = 0; r < kScanRays; ++r) {
+    const int64_t i = first + r * kScanThreads;
+    if (i >= nl) continue;
+#pragma unroll
+    for (int l = 0; l < kSlots; ++l) slots[static_cast<int64_t>(l) * nl + i] = slot[r][l];
+    cnt[i] = c_hit[r];
+  }
 }
 
 // ---- K12 --------------------------------------------------------------------
 
+constexpr int kPairCta = 128;   // K12 pair lanes a CTA (a quarter of a block)
+
 template <bool kClosest>
-__global__ void __launch_bounds__(kBlockRays)
+__global__ void __launch_bounds__(kPairCta)
 pair_kernel(const int* __restrict__ cid_s, const int* __restrict__ pos_s,
             const int* __restrict__ runs, int n_sc, const float* __restrict__ o_t,
             const float* __restrict__ d_t, const float* __restrict__ tn,
             const float* __restrict__ tx, const int* __restrict__ ex, int nl,
-            const int* __restrict__ edges, int n_c, int k, float* __restrict__ t_out,
-            int32_t* __restrict__ tri_out, float* __restrict__ u_out,
-            float* __restrict__ v_out, uint8_t* __restrict__ occ_out) {
-  extern __shared__ int smem[];
-  __shared__ int s_cid[kBlockRays];
-  __shared__ int s_next;
-  const int n_stage = kScK * k;
-  const Tris s = carve(smem, n_stage);
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kBlockRays + threadIdx.x;
+            const int* __restrict__ edges, const float* __restrict__ box, int n_c, int k,
+            float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+            float* __restrict__ u_out, float* __restrict__ v_out,
+            uint8_t* __restrict__ occ_out) {
+  extern __shared__ __align__(16) int pair_smem[];   // two staged clusters
+  __shared__ int s_run_cid[kPairCta];
+  __shared__ int s_starts[kPairCta / 32];
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kPairCta + threadIdx.x;
+  // A block with no run holds no pair, and neither does any after it (the
+  // dead id sorts last): the wrapper's misses stand at its positions.
+  if (runs[blockIdx.x / (kBlockRays / kPairCta)] == 0) return;
   const int cid = cid_s[lane];
-  const int pos = pos_s[lane];
-  s_cid[threadIdx.x] = cid;
-  Ray r = {};
-  if (cid < n_sc) r = load_ray(pos % nl, nl, o_t, d_t, tn[0], tx, ex);
+  const bool live = cid < n_sc;
+  const int pos = live ? pos_s[lane] : 0;
   float best_t = INFINITY, best_u = 0.0f, best_v = 0.0f;
   int best_tri = -1;
   bool occ = false;
-  const int n_runs = runs[blockIdx.x];
-  int start = 0;
+  // The lane's run: lanes are sorted by supercluster id, so a run starts
+  // where the id changes; its index is the count of starts up to it.
+  const bool start = live && (threadIdx.x == 0 || cid_s[lane - 1] != cid);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const unsigned ball = __ballot_sync(0xffffffffu, start);
+  if (l == 0) s_starts[w] = __popc(ball);
   __syncthreads();
-  // Live runs come first: the dead sentinel n_sc sorts after every id.
-  for (int run = 0; run < n_runs; ++run) {
-    const int cur = s_cid[start];
-    int n_slots = 0;
-    for (int q = 0; q < kScK && cur * kScK + q < n_c; ++q, n_slots += k)
-      stage(smem, n_stage, edges, cur * kScK + q, k, n_slots);
-    const int t = threadIdx.x;
-    if (cid == cur && (t == kBlockRays - 1 || s_cid[t + 1] != cur)) s_next = t + 1;
-    __syncthreads();
-    if (cid == cur) {
-      if (kClosest) {
-        closest_slots<true>(s, n_slots, r, best_t, best_tri, best_u, best_v);
-      } else {
-        occ = any_slot<true>(s, n_slots, r);
+  int my_run = __popc(ball & ((2u << l) - 1u)) - 1, n_runs = 0;
+  for (int q = 0; q < kPairCta / 32; ++q) {
+    my_run += q < w ? s_starts[q] : 0;
+    n_runs += s_starts[q];
+  }
+  if (!live) my_run = -1;
+  if (start) s_run_cid[my_run] = cid;
+  __syncthreads();
+
+  Ray r = {};
+  float ix = 1.0f, iy = 1.0f, iz = 1.0f, po = 0.0f;
+  if (live) {
+    r = load_ray(pos % nl, nl, o_t, d_t, tn[0], tx, ex);
+    ix = inv_dir(r.dx);
+    iy = inv_dir(r.dy);
+    iz = inv_dir(r.dz);
+    po = kBoxPad * fmaxf(fmaxf(fabsf(r.ox), fabsf(r.oy)), fabsf(r.oz));
+  }
+  // Item j is cluster j % kScK of run j / kScK's supercluster.
+  const int n_items = n_runs * kScK;
+  auto cluster = [&](int j) { return s_run_cid[j / kScK] * kScK + j % kScK; };
+  // The lane's box test on item j, bounded by its running result.
+  auto needs = [&](int j, float bt, bool oc) {
+    if (my_run != j / kScK) return false;
+    const float upper = kClosest ? fminf(r.tmax, bt) : (oc ? -INFINITY : r.tmax);
+    return enters(box + 6 * static_cast<int64_t>(cluster(j)), r, ix, iy, iz, po, upper);
+  };
+  // The item after j that some lane of the CTA may need, or n_items.
+  // Every item looked at costs a barrier, so once this returns a j <
+  // n_items every thread is past the tests that came before the call.
+  auto next = [&](int j, float bt, bool oc) {
+    for (++j; j < n_items; ++j)
+      if (cluster(j) < n_c && __syncthreads_or(needs(j, bt, oc))) return j;
+    return n_items;
+  };
+
+  const int slots = kEdgeRows * k;
+  int cur = next(-1, best_t, occ);
+  int buf = 0;
+  if (cur < n_items) stage_async(pair_smem, edges, cluster(cur), k);
+  cp_async_commit();
+  while (cur < n_items) {
+    // Barriers inside next() free the other buffer before its copy starts.
+    const int nxt = next(cur, best_t, occ);
+    if (nxt < n_items) stage_async(pair_smem + (buf ^ 1) * slots, edges, cluster(nxt), k);
+    cp_async_commit();
+    cp_async_wait<1>();   // this thread's copies of item `cur` landed
+    __syncthreads();      // ... and every thread's
+    // The warp's vote again on the current results (next() voted before
+    // the last item's tests).
+    if (__any_sync(0xffffffffu, needs(cur, best_t, occ)) && my_run == cur / kScK) {
+      const Tris s = carve(pair_smem + buf * slots, k);
+      if ((k & 3) == 0) {
+        if (kClosest || !occ)
+          pair_slots4<kClosest>(s, k, r, best_t, best_tri, best_u, best_v, occ);
+      } else if (kClosest) {
+        closest_slots<true>(s, k, r, best_t, best_tri, best_u, best_v);
+      } else if (!occ) {
+        occ = any_slot<true>(s, k, r);
       }
     }
-    start = s_next;
-    __syncthreads();   // the next run's staging and s_next wait for this one
+    cur = nxt;
+    buf ^= 1;
   }
+  cp_async_wait<0>();
+  if (!live) return;
   if (kClosest) {
     const bool hit = best_tri >= 0;
     t_out[pos] = hit ? best_t : INFINITY;
@@ -482,14 +631,15 @@ int launch_binned(const int* order, const float* ents, const int* count, int nb,
 template <bool kClosest>
 int launch_pairs(const int* cid_s, const int* pos_s, const int* runs, int n_p, int n_sc,
                  const float* o_t, const float* d_t, const float* tn, const float* tx,
-                 const int* ex, int nl, const int* edges, int n_c, int k, float* t,
-                 int32_t* tri, float* u, float* v, uint8_t* occ, void* stream) {
+                 const int* ex, int nl, const int* edges, const float* box, int n_c, int k,
+                 float* t, int32_t* tri, float* u, float* v, uint8_t* occ, void* stream) {
   if (n_p == 0) return 0;
-  const size_t bytes = tri_smem(kScK * k);
+  const size_t bytes = 2 * tri_smem(k);   // two buffers
   if (int err = set_smem(pair_kernel<kClosest>, bytes)) return err;
-  pair_kernel<kClosest><<<n_p / kBlockRays, kBlockRays, bytes,
+  pair_kernel<kClosest><<<n_p / kPairCta, kPairCta, bytes,
                           static_cast<cudaStream_t>(stream)>>>(
-      cid_s, pos_s, runs, n_sc, o_t, d_t, tn, tx, ex, nl, edges, n_c, k, t, tri, u, v, occ);
+      cid_s, pos_s, runs, n_sc, o_t, d_t, tn, tx, ex, nl, edges, box, n_c, k, t, tri, u, v,
+      occ);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,7 +667,9 @@ int sunray_cluster_scan(const float* o_t, const float* d_t, const float* tn,
                         const float* tx, int nl, const float* box, int n_sc,
                         int32_t* slots, int32_t* cnt, void* stream) {
   if (nl > 0) {
-    scan_kernel<<<(nl + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+    constexpr int kRaysPerBlock = kScanThreads * kScanRays;
+    scan_kernel<<<(nl + kRaysPerBlock - 1) / kRaysPerBlock, kScanThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
         o_t, d_t, tn, tx, nl, box, n_sc, slots, cnt);
   }
   return static_cast<int>(cudaGetLastError());
@@ -525,18 +677,19 @@ int sunray_cluster_scan(const float* o_t, const float* d_t, const float* tn,
 
 int sunray_pair_closest(const int* cid_s, const int* pos_s, const int* runs, int n_p,
                         int n_sc, const float* o_t, const float* d_t, const float* tn,
-                        const float* tx, const int* ex, int nl, const int* edges, int n_c,
-                        int k, float* t, int32_t* tri, float* u, float* v, void* stream) {
+                        const float* tx, const int* ex, int nl, const int* edges,
+                        const float* box, int n_c, int k, float* t, int32_t* tri, float* u,
+                        float* v, void* stream) {
   return launch_pairs<true>(cid_s, pos_s, runs, n_p, n_sc, o_t, d_t, tn, tx, ex, nl, edges,
-                            n_c, k, t, tri, u, v, nullptr, stream);
+                            box, n_c, k, t, tri, u, v, nullptr, stream);
 }
 
 int sunray_pair_occluded(const int* cid_s, const int* pos_s, const int* runs, int n_p,
                          int n_sc, const float* o_t, const float* d_t, const float* tn,
-                         const float* tx, const int* ex, int nl, const int* edges, int n_c,
-                         int k, uint8_t* occ, void* stream) {
+                         const float* tx, const int* ex, int nl, const int* edges,
+                         const float* box, int n_c, int k, uint8_t* occ, void* stream) {
   return launch_pairs<false>(cid_s, pos_s, runs, n_p, n_sc, o_t, d_t, tn, tx, ex, nl, edges,
-                             n_c, k, nullptr, nullptr, nullptr, nullptr, occ, stream);
+                             box, n_c, k, nullptr, nullptr, nullptr, nullptr, occ, stream);
 }
 
 }  // extern "C"

@@ -49,8 +49,8 @@ class ClusterSet(NamedTuple):
     aabb_lo/aabb_hi: (C, 3) float32 cluster bounds.
     edges: (C, 10, K) int32, the pack as K10 and K12 stage it
         (cuda_binned.edge_pack).
-    walk_box: (C, 6) float32, the padded boxes of K10's per-warp cull
-        (cuda_binned.walk_boxes).
+    walk_box: (C, 6) float32, the padded boxes of K10's and K12's
+        per-warp culls (cuda_binned.walk_boxes).
     Make one with cluster_set(), which derives the last two."""
 
     tri_ids: torch.Tensor

@@ -23,13 +23,17 @@ tensors; there is no other path.
       _anyhit_pair_kernel): (ray, supercluster) pair lanes sorted by
       supercluster id; each live lane tests the SC_K clusters of its own
       supercluster and writes its result at its unsorted pair position.
+      In the kernel the lanes of one run within a warp test a cluster only
+      where one of their rays can meet its padded box before the lane's
+      running result, K10's rule; pair_round_warp is that walk in plain
+      PyTorch, with the count of tests it runs.
 
 Layouts: rays are (3, NL) planes (o_t, d_t) and (NL,) planes (tn, tx, ex)
 with NL a multiple of BLOCK_RAYS. K10 and K12 take the ClusterSet `cs`
 (ops/binned_trace.py): the plain versions read its tri_pack, (C, 16, K)
 int32, rows 0-8 the float32 bits of v0, v1, v2 and row 9 the triangle id
 (-1 for padding), so ids are never float bit patterns in a float
-operation; the kernels read its edges (edge_pack) and K10 its walk_box
+operation; the kernels read its edges (edge_pack) and walk_box
 (walk_boxes), both made once per build or refit.
 
 Tile arithmetic (binned_trace.py:249-289, as XLA's CPU backend compiles it
@@ -50,7 +54,7 @@ from sunray_tpu_torch.ops.fp import fma
 
 BLOCK_RAYS = 512      # ray lanes per block (binned_trace.py:50)
 WARP = 32
-BOX_PAD = 1e-4        # K10's lane box test: faces out by BOX_PAD (1 + |box| + |o|)
+BOX_PAD = 1e-4        # K10/K12 lane box test: faces out by BOX_PAD (1 + |box| + |o|)
 BOX_SLACK = 1e-4      # ... and K11's slack in t
 L_SLOTS = 8           # recorded superclusters per ray (binned_trace.py:665)
 SC_K = 4              # clusters per supercluster (binned_trace.py:666)
@@ -200,8 +204,8 @@ def walk_boxes(aabb_lo, aabb_hi):
 
 
 def lane_box_test(o, d, tmin, upper, box):
-    """K10's lane test (csrc/binned.cu enters): whether each ray (o, d:
-    (..., 3)) can meet the box (..., 6), every face moved out by
+    """K10's and K12's lane test (csrc/binned.cu enters): whether each ray
+    (o, d: (..., 3)) can meet the box (..., 6), every face moved out by
     BOX_PAD |o| (max norm), at a t in [tmin, upper]: K11's slab test and
     slack (broadcasting)."""
     inv = _inv(d)
@@ -445,6 +449,75 @@ def pair_round_plain(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc,
     return (t, tri, u, v) if closest else occ
 
 
+def pair_round_warp(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc,
+                    closest=True):
+    """K12's walk as csrc/binned.cu makes it: each live lane visits the
+    SC_K clusters of its supercluster in order, and the lanes of one run
+    within one warp (sorted lanes i // WARP, equal cid) run a cluster's
+    tests only if one of them passes lane_box_test on cs.walk_box up to its
+    running result (min(tmax, best t); any-hit: tmax while not occluded).
+    Returns (pair_round_plain's outputs, the (lane, cluster) tests run:
+    the run's lanes of each warp that tests a cluster)."""
+    del runs
+    pack, box = cs.tri_pack, cs.walk_box
+    n_p, nl = cid_s.shape[0], tn.shape[0]
+    c, k = pack.shape[0], pack.shape[2]
+    dev = tn.device
+    live = torch.nonzero(cid_s < n_sc)[:, 0]
+    pos = pos_s[live].long()
+    cid = cid_s[live].long()
+    ray = pos % nl
+    o, d = o_t.T[ray], d_t.T[ray]
+    rx, re, tmin = tx[ray], ex[ray], tn[0]
+    # Lanes are sorted by cid, so each (warp, cid) group is one run of lanes.
+    _, group = torch.unique_consecutive((live // WARP) * (n_sc + 1) + cid,
+                                        return_inverse=True)
+    m = live.shape[0]
+    best_t = torch.full((m,), torch.inf, device=dev)
+    best_tri = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((m,), device=dev)
+    best_v = torch.zeros((m,), device=dev)
+    occ = torch.zeros((m,), dtype=torch.bool, device=dev)
+    step = max(1, _plain_elems(dev) // k)
+    tests = 0
+    for q in range(SC_K):
+        cl = cid * SC_K + q
+        upper = (torch.minimum(rx, best_t) if closest
+                 else torch.where(occ, -torch.inf, rx))
+        need = (cl < c) & lane_box_test(o, d, tmin, upper,
+                                        box[cl.clamp(max=c - 1)])
+        votes = torch.zeros(int(group.max()) + 1 if m else 0, dtype=torch.int32,
+                            device=dev).index_add_(0, group, need.int())
+        run = torch.nonzero(votes[group] > 0)[:, 0]
+        tests += run.numel()
+        for s in range(0, run.shape[0], step):
+            lane = run[s:s + step]
+            r_o = tuple(o[lane, a, None, None] for a in range(3))
+            r_d = tuple(d[lane, a, None, None] for a in range(3))
+            hits = tile_hits(r_o, r_d, tmin, rx[lane, None, None],
+                             re[lane, None, None], pack[cl[lane]], pair=True)
+            if not closest:
+                occ[lane] |= hits[3][:, 0].any(dim=-1)
+                continue
+            tile_t, tile_tri, tile_u, tile_v = _first_min(*(x[:, 0] for x in hits))
+            better = tile_t < best_t[lane]
+            best_t[lane] = torch.where(better, tile_t, best_t[lane])
+            best_tri[lane] = torch.where(better, tile_tri, best_tri[lane])
+            best_u[lane] = torch.where(better, tile_u, best_u[lane])
+            best_v[lane] = torch.where(better, tile_v, best_v[lane])
+    if not closest:
+        out = torch.zeros((n_p,), dtype=torch.bool, device=dev)
+        out[pos] = occ
+        return out, tests
+    t = torch.full((n_p,), torch.inf, device=dev)
+    tri = torch.full((n_p,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros((n_p,), device=dev)
+    v = torch.zeros((n_p,), device=dev)
+    t[pos], tri[pos], u[pos], v[pos] = _closest_out(best_t, best_tri, best_u,
+                                                     best_v)
+    return (t, tri, u, v), tests
+
+
 def pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc,
                closest=True):
     """K12 (see pair_round_plain)."""
@@ -463,23 +536,25 @@ def pair_round(cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc,
                                      f"with NP a multiple of {BLOCK_RAYS}")
     lib = cuda_build.library()
     stream = cuda_build.stream_ptr()
+    # The kernel writes live pair positions only: the rest read as misses.
     if closest:
-        t = torch.empty((n_p,), dtype=torch.float32, device=dev)
-        tri = torch.empty((n_p,), dtype=torch.int32, device=dev)
-        u = torch.empty_like(t)
-        v = torch.empty_like(t)
+        t = torch.full((n_p,), torch.inf, device=dev)
+        tri = torch.full((n_p,), -1, dtype=torch.int32, device=dev)
+        u = torch.zeros((n_p,), device=dev)
+        v = torch.zeros((n_p,), device=dev)
         err = lib.sunray_pair_closest(
             cid_s.data_ptr(), pos_s.data_ptr(), runs.data_ptr(), n_p, n_sc,
             o_t.data_ptr(), d_t.data_ptr(), tn.data_ptr(), tx.data_ptr(),
-            ex.data_ptr(), nl, cs.edges.data_ptr(), c, k, t.data_ptr(),
-            tri.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
+            ex.data_ptr(), nl, cs.edges.data_ptr(), cs.walk_box.data_ptr(), c, k,
+            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
         out = (t, tri, u, v)
     else:
-        occ = torch.empty((n_p,), dtype=torch.bool, device=dev)
+        occ = torch.zeros((n_p,), dtype=torch.bool, device=dev)
         err = lib.sunray_pair_occluded(
             cid_s.data_ptr(), pos_s.data_ptr(), runs.data_ptr(), n_p, n_sc,
             o_t.data_ptr(), d_t.data_ptr(), tn.data_ptr(), tx.data_ptr(),
-            ex.data_ptr(), nl, cs.edges.data_ptr(), c, k, occ.data_ptr(), stream)
+            ex.data_ptr(), nl, cs.edges.data_ptr(), cs.walk_box.data_ptr(), c, k,
+            occ.data_ptr(), stream)
         out = occ
     cuda_build.check_launch("pair_round", err)
     cuda_build.launches["pair_round"] += 1

@@ -133,7 +133,7 @@ def _declare(lib):
     lib.sunray_binned_closest.argtypes = binned + [p, p, p, p, p]
     lib.sunray_binned_occluded.argtypes = binned + [p, p]
     lib.sunray_cluster_scan.argtypes = [p, p, p, p, i, p, i, p, p, p]
-    pairs = [p, p, p, i, i, p, p, p, p, p, i, p, i, i]
+    pairs = [p, p, p, i, i, p, p, p, p, p, i, p, p, i, i]
     lib.sunray_pair_closest.argtypes = pairs + [p, p, p, p, p]
     lib.sunray_pair_occluded.argtypes = pairs + [p, p]
     lib.sunray_trace_occluded_woop.argtypes = [p, p, p, f, p, f, p, p, p, i, i,

@@ -105,13 +105,22 @@ def atrous_denoise_plain(color, depth, normal, roughness, diffuse,
     return color
 
 
-def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int):
+DENOISE_KERNELS = ("auto", "pallas", "jnp")   # RenderConfig.denoise_kernel
+
+
+def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int,
+                   kernel: str = "auto"):
     """`passes` a-trous passes at step widths 1, 2, 4, ... (src/lib.rs:42).
 
-    CPU tensors take the plain passes; CUDA tensors launch K7 once per pass,
-    the color ping-ponging between two buffers."""
+    kernel: "jnp" takes the plain passes; "auto" and "pallas" (the JAX
+    switch's names) launch K7 once per pass on CUDA tensors, the color
+    ping-ponging between two buffers, and take the plain passes on CPU
+    tensors."""
+    if kernel not in DENOISE_KERNELS:
+        raise ValueError(f"denoise kernel {kernel!r} is not one of "
+                         f"{DENOISE_KERNELS}")
     guides = (color, depth, normal, roughness, diffuse)
-    if cuda_build.on_cpu(*guides):
+    if kernel == "jnp" or cuda_build.on_cpu(*guides):
         return atrous_denoise_plain(color, depth, normal, roughness, diffuse,
                                     passes)
     name = "atrous_pass"

@@ -130,7 +130,9 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
         with record_function("denoise"):
             den = atrous_denoise(accum, depth, normal,
                                  gbuf.roughness.reshape(h, w).contiguous(),
-                                 diffuse, cfg.denoise_passes)
+                                 diffuse, cfg.denoise_passes,
+                                 kernel=("jnp" if cfg.differentiable
+                                         else cfg.denoise_kernel))
     with record_function("postprocess"):
         ldr = tonemap(den, cfg.exposure, cfg.tonemap, cfg.gamma)
 

@@ -1,16 +1,14 @@
-"""PyTorch port, the binned tracer (K10-K12 and the PyTorch around them)
-against sunray_tpu/ops/binned_trace.py, its Pallas kernels in interpret
-mode, on the same numpy inputs.
+"""PyTorch port, the binned tracer's PyTorch around its kernels against
+sunray_tpu/ops/binned_trace.py, its Pallas kernels in interpret mode, on
+the same numpy inputs.
 
 Held exactly: the cluster build (tri_ids, pack bits, AABBs), the interval
 cull (mask and entry bounds, bit for bit), the coherence keys, the cluster
-scan (slots and counts) and the pair work items. Traces, on the block path
-(with and without the coherence reorder) and the pair stream (with the
-overflow fallback): hit / occluded equal, t/u/v within 1e-6 relative
-(1e-7 absolute), tri equal on >= 99.9% of hits (the bar of
-tests/test_binned_trace.py:41-49; on these inputs they agree on every
-ray). The CUDA kernels are held to the plain versions in
-tests/test_torch_cuda.py.
+scan (slots and counts) and the pair work items; the overflow fallback's
+trace as tests/test_torch_binned_trace.py holds traces. The traces of
+the block path and the pair stream are in tests/test_torch_binned_trace.py
+and tests/test_torch_binned_pairs.py; the CUDA kernels are held to the
+plain versions in tests/test_torch_cuda.py.
 """
 
 import jax
@@ -22,60 +20,8 @@ import torch
 from sunray_tpu.ops import binned_trace as jbt
 from sunray_tpu_torch import convert
 from sunray_tpu_torch.ops import binned_trace as pbt
-from torch_big_scene import icosphere
+from torch_binned_cases import SCENES, check_hits, jax_pair, random_tris, rays
 from torch_parity import n, t
-
-TRI_AGREE = 0.999
-RTOL, ATOL = 1e-6, 1e-7
-
-
-def _random_tris(count, seed, spread=1.0, size=0.3):
-    rng = np.random.default_rng(seed)
-    v0 = (rng.normal(size=(count, 3)) * spread).astype(np.float32)
-    return (v0, v0 + (rng.normal(size=(count, 3)) * size).astype(np.float32),
-            v0 + (rng.normal(size=(count, 3)) * size).astype(np.float32))
-
-
-def _sphere_tris(subdiv=3):
-    verts, faces = icosphere(subdiv)
-    return tuple(np.ascontiguousarray(verts[faces[:, c]]) for c in range(3))
-
-
-def _rays(kind, count, seed):
-    """(orig, d, tmax, exclude) numpy rays: "random" over the scene,
-    "center" from near its middle (rays that cross many superclusters,
-    the overflow case), "camera" a common-origin fan, "away" rays that hit
-    nothing."""
-    rng = np.random.default_rng(seed)
-    if kind == "camera":
-        o = np.broadcast_to(np.float32([0.0, 0.0, 4.0]), (count, 3)).copy()
-        d = np.concatenate([rng.uniform(-0.4, 0.4, (count, 2)),
-                            np.full((count, 1), -1.0)], axis=1)
-    else:
-        scale = {"random": 2.0, "center": 0.1, "away": 1.0}[kind]
-        o = rng.normal(size=(count, 3)) * scale
-        d = rng.normal(size=(count, 3))
-        if kind == "away":
-            o = o + np.float32([0.0, 0.0, 50.0])
-            d[:, 2] = np.abs(d[:, 2])
-    d = d / np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = np.abs(rng.normal(size=count)) * 4.0 + 0.5
-    ex = rng.integers(-1, 2000, size=count)
-    return (o.astype(np.float32), d.astype(np.float32),
-            tmax.astype(np.float32), ex.astype(np.int32))
-
-
-def _pair(tris, k):
-    """The JAX ClusterSet and the port's, each built by its own package."""
-    jcs = jbt.build_cluster_set(tuple(jnp.asarray(v) for v in tris), k=k)
-    return jcs, pbt.build_cluster_set(tuple(t(v) for v in tris), k=k)
-
-
-SCENES = {
-    "random": lambda: _pair(_random_tris(2000, 0), 128),
-    "random_k32": lambda: _pair(_random_tris(2000, 0), 32),
-    "sphere": lambda: _pair(_sphere_tris(3), 64),
-}
 
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
@@ -99,8 +45,8 @@ def test_build_cluster_set_matches_jax(scene):
 
 def test_refit_matches_jax():
     """The load-time assignment kept, geometry moved (refit_cluster_set)."""
-    tris = _random_tris(700, 3)
-    jcs, pcs = _pair(tris, 64)
+    tris = random_tris(700, 3)
+    jcs, pcs = jax_pair(tris, 64)
     moved = tuple((v * 1.5 + np.float32(0.25)).astype(np.float32) for v in tris)
     j = jbt.refit_cluster_set(jcs, tuple(jnp.asarray(v) for v in moved))
     p = pbt.refit_cluster_set(pcs, tuple(t(v) for v in moved))
@@ -119,7 +65,7 @@ def _preps(o, d, tmax, ex):
 @pytest.mark.parametrize("kind", ["random", "camera", "center"])
 def test_interval_cull_and_work_list_match_jax(scene, kind):
     _, (jcs, pcs) = scene
-    o, d, tmax, ex = _rays(kind, 1500, 7)
+    o, d, tmax, ex = rays(kind, 1500, 7)
     (jo, jd, jtn, jtx, jex, _, nb), (po, pd, ptn, ptx, pex, _, _) = _preps(
         o, d, tmax, ex)
     for a, b in ((jo, po), (jd, pd), (jtn, ptn), (jtx, ptx), (jex, pex)):
@@ -144,7 +90,7 @@ def test_interval_cull_and_work_list_match_jax(scene, kind):
 
 
 def test_coherence_keys_match_jax():
-    o, d, _, _ = _rays("random", 4096, 11)
+    o, d, _, _ = rays("random", 4096, 11)
     lo, hi = np.float32([-3.0, -2.5, -4.0]), np.float32([3.5, 2.0, 3.0])
     want = np.asarray(jbt._coherence_keys(jnp.asarray(o), jnp.asarray(d),
                                           jnp.asarray(lo), jnp.asarray(hi)))
@@ -155,7 +101,7 @@ def test_coherence_keys_match_jax():
 @pytest.mark.parametrize("kind", ["random", "center", "away"])
 def test_cluster_scan_and_pair_work_match_jax(scene, kind):
     _, (jcs, pcs) = scene
-    o, d, tmax, ex = _rays(kind, 1500, 13)
+    o, d, tmax, ex = rays(kind, 1500, 13)
     (jo, jd, jtn, jtx, jex, _, nb), (po, pd, ptn, ptx, _, _, _) = _preps(
         o, d, tmax, ex)
     jslots, jcnt = jbt._cluster_scan(jcs, jo, jd, jtn, jtx, nb)
@@ -170,73 +116,18 @@ def test_cluster_scan_and_pair_work_match_jax(scene, kind):
     np.testing.assert_array_equal(n(overflow), np.asarray(jprep[11]))
 
 
-def _check_hits(got, want):
-    w_hit = np.asarray(want.hit)
-    np.testing.assert_array_equal(n(got.hit), w_hit)
-    for g, w in ((got.t, want.t), (got.u, want.u), (got.v, want.v)):
-        np.testing.assert_allclose(n(g)[w_hit], np.asarray(w)[w_hit],
-                                   rtol=RTOL, atol=ATOL)
-    assert np.isinf(n(got.t)[~w_hit]).all()
-    if w_hit.any():
-        agree = (n(got.tri)[w_hit] == np.asarray(want.tri)[w_hit]).mean()
-        assert agree >= TRI_AGREE, agree
-
-
-PATHS = ["block", "block_reorder", "pairs"]
-
-
-@pytest.mark.parametrize("path", PATHS)
-@pytest.mark.parametrize("kind", ["random", "camera", "center", "away"])
-def test_closest_matches_jax(scene, kind, path):
-    name, (jcs, pcs) = scene
-    o, d, tmax, ex = _rays(kind, 1100, 17)
-    if path == "pairs":
-        want = jbt.trace_closest_pairs(jcs, jnp.asarray(o), jnp.asarray(d),
-                                       tmax=jnp.asarray(tmax))
-        got = pbt.trace_closest_pairs(pcs, t(o), t(d), tmax=t(tmax))
-    else:
-        reorder = path == "block_reorder"
-        want = jbt.trace_closest_binned(jcs, jnp.asarray(o), jnp.asarray(d),
-                                        tmax=jnp.asarray(tmax),
-                                        exclude=jnp.asarray(ex),
-                                        reorder=reorder)
-        got = pbt.trace_closest_binned(pcs, t(o), t(d), tmax=t(tmax),
-                                       exclude=t(ex), reorder=reorder)
-    _check_hits(got, want)
-    assert (kind == "away") == (not n(got.hit).any())
-
-
-@pytest.mark.parametrize("path", PATHS)
-@pytest.mark.parametrize("kind", ["random", "center"])
-def test_occluded_matches_jax(scene, kind, path):
-    _, (jcs, pcs) = scene
-    o, d, tmax, ex = _rays(kind, 1100, 19)
-    args = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax))
-    if path == "pairs":
-        want = jbt.trace_occluded_pairs(jcs, *args, exclude=jnp.asarray(ex))
-        got = pbt.trace_occluded_pairs(pcs, t(o), t(d), t(tmax), exclude=t(ex))
-    else:
-        reorder = path == "block_reorder"
-        want = jbt.trace_occluded_binned(jcs, *args, exclude=jnp.asarray(ex),
-                                         reorder=reorder)
-        got = pbt.trace_occluded_binned(pcs, t(o), t(d), t(tmax),
-                                        exclude=t(ex), reorder=reorder)
-    np.testing.assert_array_equal(n(got), np.asarray(want))
-    assert 0.0 < n(got).mean() < 1.0
-
-
 def test_overflow_fallback_runs():
     """Centre rays at cluster_k = 32 cross more than L_SLOTS superclusters:
     the pair stream hands them to the block path, and the result is still
     the JAX package's."""
     jcs, pcs = SCENES["random_k32"]()
-    o, d, tmax, _ = _rays("center", 1100, 23)
+    o, d, tmax, _ = rays("center", 1100, 23)
     po, pd, ptn, ptx, _, _, _ = pbt._prep(t(o), t(d), 1e-3, t(tmax), None)
     _, cnt = pbt._cluster_scan(pcs, po, pd, ptn, ptx)
     assert (cnt > pbt.L_SLOTS).float().mean() > 0.05
     want = jbt.trace_closest_pairs(jcs, jnp.asarray(o), jnp.asarray(d),
                                    tmax=jnp.asarray(tmax))
-    _check_hits(pbt.trace_closest_pairs(pcs, t(o), t(d), tmax=t(tmax)), want)
+    check_hits(pbt.trace_closest_pairs(pcs, t(o), t(d), tmax=t(tmax)), want)
 
 
 def test_entry_points_default_to_the_card():

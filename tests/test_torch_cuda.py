@@ -19,7 +19,8 @@ from sunray_tpu_torch.ops import binned_trace, cuda_binned, cuda_restir, interse
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 from sunray_tpu_torch.scene import cornell_box
 from torch_big_scene import big_scene_args, icosphere
-from torch_parity import CAMERA, GOLDEN_KW, cuda_device, n, psnr  # noqa: F401
+from torch_parity import (CAMERA, GOLDEN_KW, cuda_device, n, psnr,  # noqa: F401
+                          tie_cluster_set)
 
 pytestmark = pytest.mark.gpu
 
@@ -288,10 +289,10 @@ def test_binned_round_kernel_matches_plain(kind, cuda_device):
     assert cuda_build.launches["binned_round"] == 2
 
 
-def _big_small_args(dev, kind):
-    """K10's inputs on the small big-mesh scene (subdiv 3; cluster_k 32,
-    8 for "fallback"), as trace_*_binned(reorder=True) makes them, from
-    320x240 camera rays: "camera" the rays themselves; "fallback" bounce
+def _big_small_rays(dev, kind, k=None):
+    """(ClusterSet, o, d, tmax, exclude) on the small big-mesh scene
+    (subdiv 3; cluster_k 32, 8 for "fallback", or k), from 320x240 camera
+    rays: "camera" the rays themselves; "fallback" bounce
     rays off the visible surfaces, those that cross more than L_SLOTS
     superclusters kept and the others masked to tmax = -inf (dead blocks);
     "visibility" bounce rays on short segments with exclude ids; "dead"
@@ -306,7 +307,8 @@ def _big_small_args(dev, kind):
     scene = build_scene(**dict(args, device=dev, materials=MaterialTable.build(
         args["materials"], dev)))
     tris = tuple(x.contiguous() for x in scene.world_triangle_vertices())
-    cs = binned_trace.build_cluster_set(tris, k=8 if kind == "fallback" else 32)
+    cs = binned_trace.build_cluster_set(
+        tris, k=k or (8 if kind == "fallback" else 32))
     mats = camera_matrices(Camera(**CAMERA), 320, 240, device=dev)
     o, d = (x.reshape(-1, 3).contiguous() for x in generate_rays(mats, 320, 240))
     m = o.shape[0] - (123 if kind == "dead" else 0)
@@ -349,6 +351,13 @@ def _big_small_args(dev, kind):
         tmax = torch.where(cnt[:m] > cuda_binned.L_SLOTS, tmax, -torch.inf)
     elif kind == "dead":
         tmax[torch.rand((m,), generator=gen, device=dev) < 0.5] = -torch.inf
+    return cs, o, d, tmax, ex
+
+
+def _big_small_args(dev, kind):
+    """K10's inputs for _big_small_rays(dev, kind), as
+    trace_*_binned(reorder=True) makes them."""
+    cs, o, d, tmax, ex = _big_small_rays(dev, kind)
     o, d, tmax, ex, _ = binned_trace._reorder_rays(cs, o, d, tmax, ex)
     o_t, d_t, tn, tx, ex, _, nb = binned_trace._prep(o, d, intersect.T_MIN, tmax, ex)
     hit, entry = binned_trace._interval_cull(o_t, d_t, tn, tx, cs.aabb_lo,
@@ -383,8 +392,10 @@ def test_binned_round_kernel_bit_equal(kind, cuda_device):
             assert torch.equal(got, want) and torch.equal(model, want)
 
 
-@pytest.mark.parametrize("k", [128, 32])
+@pytest.mark.parametrize("k", [128, 32, 30])
 def test_scan_and_pair_kernels_match_plain(k, cuda_device):
+    """K11 and K12 against their plain versions; k = 30 takes K12's
+    one-slot-a-load path and 4-byte copies (k not a multiple of 4)."""
     cs, o, d, tmax, ex = _binned_case(cuda_device, "center", k)
     o_t, d_t, tn, tx, ex, _, _ = binned_trace._prep(o, d, 1e-3, tmax, ex)
     box = binned_trace.supercluster_boxes(cs)
@@ -401,6 +412,95 @@ def test_scan_and_pair_kernels_match_plain(k, cuda_device):
                    cuda_binned.pair_round_plain(*args))
     _check_occ(cuda_binned.pair_round(*args, closest=False),
                cuda_binned.pair_round_plain(*args, closest=False))
+
+
+def _pair_args(dev, kind):
+    """K12's inputs, as trace_*_pairs makes them, on the small big-mesh
+    scene at cluster_k 8 (so that blocks of 512 pair lanes hold several
+    superclusters' runs): _big_small_rays's "camera", "visibility",
+    "grazing" and "corners" rays; "ties" the camera rays on a ClusterSet
+    whose second cluster of each supercluster repeats the first's
+    triangles under other ids (exact ties across clusters); "dead" a launch
+    in which no lane holds a pair."""
+    cs, o, d, tmax, ex = _big_small_rays(dev, "camera" if kind in ("ties", "dead")
+                                         else kind, k=8)
+    if kind == "ties":
+        cs = tie_cluster_set(cs)
+    o_t, d_t, tn, tx, ex, _, _ = binned_trace._prep(o, d, intersect.T_MIN, tmax, ex)
+    cid_s, pos_s, runs, n_sc, _ = binned_trace._pair_stream_prep(cs, o_t, d_t, tn,
+                                                                 tx)
+    if kind == "dead":
+        cid_s = torch.full_like(cid_s, n_sc)
+        runs = torch.zeros_like(runs)
+    return cid_s, pos_s, runs, o_t, d_t, tn, tx, ex, cs, n_sc
+
+
+@pytest.mark.parametrize("kind", ["camera", "visibility", "grazing", "corners",
+                                  "ties", "dead"])
+def test_pair_round_kernel_bit_equal(kind, cuda_device):
+    """K12 (the per-warp cull, the staged walk) against pair_round_plain at
+    every pair position, closest and any-hit, and against the plain model
+    of its walk; one launch a call."""
+    args = _pair_args(cuda_device, kind)
+    cid_s, runs, n_sc = args[0], args[2], args[9]
+    if kind == "dead":
+        assert not (cid_s < n_sc).any()
+    else:
+        assert (runs > 1).any()          # CTAs that straddle superclusters
+    for closest in (True, False):
+        cuda_build.launches.clear()
+        got = cuda_binned.pair_round(*args, closest=closest)
+        want = cuda_binned.pair_round_plain(*args, closest=closest)
+        model, _ = cuda_binned.pair_round_warp(*args, closest=closest)
+        torch.cuda.synchronize()
+        assert cuda_build.launches["pair_round"] == 1
+        if closest:
+            assert (want[1] >= 0).any() == (kind != "dead")
+            for a, b, c in zip(got, want, model):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+                assert torch.equal(c.view(torch.int32), b.view(torch.int32))
+        else:
+            assert want.any() == (kind != "dead")
+            assert torch.equal(got, want) and torch.equal(model, want)
+
+
+@pytest.mark.parametrize("case", ["tiles", "one", "axis", "overflow"])
+def test_cluster_scan_kernel_bit_exact(case, cuda_device):
+    """K11 against cluster_scan_plain, slots and counts bit for bit: 600
+    boxes (three shared-memory tiles of 256, the last one partial), one
+    box, rays parallel to the axes (zero direction components), and rays
+    inside most of 40 nested boxes (counts above L_SLOTS); 1,536 lanes, not
+    a whole number of the kernel's 1,024-ray blocks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=cuda_device)  # noqa: E731
+    nl = 3 * cuda_binned.BLOCK_RAYS
+    s = {"tiles": 600, "one": 1, "axis": 200, "overflow": 40}[case]
+    lo = u(s, 3) * 4.0 - 2.0
+    box = torch.cat([lo, lo + u(s, 3)], dim=1)
+    if case == "overflow":
+        r = torch.linspace(0.2, 2.0, s, device=cuda_device)[:, None]
+        box = torch.cat([-r.expand(s, 3), r.expand(s, 3)], dim=1)
+    o = u(nl, 3) * 6.0 - 3.0
+    d = torch.randn((nl, 3), generator=gen, device=cuda_device)
+    if case == "axis":
+        axis = torch.randint(0, 3, (nl,), generator=gen, device=cuda_device)
+        d = torch.nn.functional.one_hot(axis, 3).float() * torch.sign(
+            torch.randn((nl, 1), generator=gen, device=cuda_device))
+    elif case == "overflow":
+        o = o * 0.05
+    d = d / d.norm(dim=1, keepdim=True)
+    tn = torch.full((nl,), 1e-3, device=cuda_device)
+    tx = u(nl) * 8.0
+    args = (o.T.contiguous(), d.T.contiguous(), tn, tx, box.contiguous())
+    cuda_build.launches.clear()
+    got = cuda_binned.cluster_scan(*args)
+    want = cuda_binned.cluster_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["cluster_scan"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (want[1] > 0).any()
+    if case == "overflow":
+        assert (want[1] > cuda_binned.L_SLOTS).any()
 
 
 @pytest.mark.parametrize("path", ["block", "pairs"])

@@ -124,3 +124,30 @@ def test_uncovered_configs_raise(name, frames):
     with pytest.raises(NotImplementedError):
         render_frame(scene, cfg, RenderState.create(cfg, device="cpu"), frames["mats"])
 
+
+
+@pytest.mark.parametrize("kernel", ["auto", "pallas", "jnp", "unknown"])
+def test_denoise_kernel_reaches_atrous_denoise(kernel, frames, monkeypatch):
+    """render_frame hands cfg.denoise_kernel to atrous_denoise, as the JAX
+    frame does (sunray_tpu/render/pipeline.py:135); an unknown name
+    raises. On the CPU every known name takes the plain passes, so the
+    frame is the one the default config renders."""
+    from sunray_tpu_torch.render import pipeline
+
+    seen, original = [], pipeline.atrous_denoise
+
+    def recording(*args, kernel="auto"):
+        seen.append(kernel)
+        return original(*args, kernel=kernel)
+
+    monkeypatch.setattr(pipeline, "atrous_denoise", recording)
+    cfg = dataclasses.replace(frames["cfg"], denoise_kernel=kernel)
+    state = RenderState.create(cfg, device="cpu")
+    if kernel == "unknown":
+        with pytest.raises(ValueError):
+            render_frame(frames["scene"], cfg, state, frames["mats"])
+        assert seen == ["unknown"]
+        return
+    _, ldr, _ = render_frame(frames["scene"], cfg, state, frames["mats"])
+    assert seen == [kernel]
+    assert torch.equal(ldr, torch.from_numpy(frames["port"][0][0]))

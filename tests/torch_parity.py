@@ -2,6 +2,12 @@
 
 Inputs are made with numpy from a seed and handed to the JAX function and
 to its counterpart in sunray_tpu_torch as numpy arrays.
+
+Importing this module pins PyTorch to one intra-op and one inter-op thread.
+The suite runs in several worker processes on one host (pytest-xdist), and
+each worker's default pool of one thread per core, spinning while it
+waits, slowed the binned tracer's plain walks by 10-100x there. The
+results do not depend on the thread count.
 """
 
 import dataclasses
@@ -9,6 +15,9 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+
+torch.set_num_threads(1)
+torch.set_num_interop_threads(1)
 
 GOLDEN_KW = dict(width=96, height=64, bounces=4, virtual_bounces=3,
                  ris_candidates=8, di_spatial_samples=3, gi_spatial_samples=2,
@@ -46,3 +55,23 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+def tie_cluster_set(cs):
+    """The ClusterSet cs (sunray_tpu_torch.ops.binned_trace) with the second
+    cluster of each supercluster replaced by a copy of the first under ids
+    shifted past every triangle id: every hit in a first cluster has an
+    exact tie (the same t, u and v) in the second."""
+    from sunray_tpu_torch.ops import binned_trace
+    from sunray_tpu_torch.ops.cuda_binned import ID_ROW, SC_K
+
+    c, _, k = cs.tri_pack.shape
+    first = torch.arange(0, c - 1, SC_K, device=cs.tri_pack.device)
+    ids = cs.tri_ids.reshape(c, k).clone()
+    pack, lo, hi = cs.tri_pack.clone(), cs.aabb_lo.clone(), cs.aabb_hi.clone()
+    ids[first + 1] = torch.where(ids[first] >= 0,
+                                 ids[first] + int(cs.tri_ids.max()) + 1, -1)
+    pack[first + 1] = pack[first]
+    pack[first + 1, ID_ROW] = ids[first + 1]
+    lo[first + 1], hi[first + 1] = lo[first], hi[first]
+    return binned_trace.cluster_set(ids.reshape(-1), pack, lo, hi)
