@@ -6,7 +6,11 @@
 Phases, in order; any failure raises and exits non-zero with no result:
   1. require a CUDA device; print the card's name and power limit
      (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
-  2. build the kernels from csrc/ (nvcc, sm_90a);
+  2. build the kernels from csrc/ (nvcc, sm_90a); count the SASS
+     instructions of K14's triangle loop and of K7's tap path and staging
+     loop (cuobjdump -sass, tools/sass.py) for their
+     instruction-issue floors (four warp instructions an SM a cycle at
+     the card's top SM clock);
   3. hold every kernel of the main path to its plain PyTorch version on
      the card at the main path's shapes, and time both (CUDA events,
      median of 10 runs):
@@ -14,7 +18,9 @@ Phases, in order; any failure raises and exits non-zero with no result:
                     65,536 random rays x 4,096 random tris;
        K8 gather:   72x6 and 36x4 tables, 3 x 2,073,600 indices with
                     out-of-range ones;
-       K7 a-trous:  1080x1920, 4 passes;
+       K7 a-trous:  1080x1920, 4 passes, on synthetic guides and on the
+                    guides the live 1080p ReSTIR frame passes to
+                    atrous_denoise (frame 2), each with its bypass share;
        K3-K6 ReSTIR: the inputs each wrapper got in frame 2 of a 1080p
                     default ReSTIR render (live history; K3 with K=16 on
                     the box's 2 lights, K5 with 5 taps, K6 with 3), plus
@@ -30,7 +36,8 @@ Phases, in order; any failure raises and exits non-zero with no result:
                     corners (bit-equal; its time, index_select's on the
                     packed (P, 29) table and the corners' in one run), K14
                     on every shadow query with its
-                    exclude ids (>= 99.99% of rays, differing lanes printed);
+                    exclude ids (>= 99.99% of rays, differing lanes printed)
+                    and its tests run against the tests needed;
   4. render the golden configs (tests/test_golden.py:36-40, 96x64): NEE
      4 frames, ReSTIR 8 frames and ReSTIR with the kernel switches 4
      frames, on the card and on the CPU; PSNR > 40 dB between them and,
@@ -89,7 +96,9 @@ and its bound (the larger of bytes over 3.35 TB/s
 and operations over 67 TFLOP/s fp32, from this run's inputs; a trace
 counts the ray-triangle tests its rays need, e.g. K10 and K12 the
 clusters whose box a ray enters before its closest hit, K2 and K14 the
-tests up to each ray's first occluder). The last is
+tests up to each ray's first occluder, K7 24 taps of each pixel the
+bypass does not copy); K7 and K14 also carry floor_ms, their
+instruction-issue floor. The last is
 {"ok": true, "device": {...}}.
 """
 
@@ -134,6 +143,10 @@ TAA_ATOL = 1e-6
 # One Woop test in csrc/trace.cu's woop_hit, an fmaf counted as two: 33 for
 # the six dot products, 22 for the epilogue's products, compares, selects.
 WOOP_OPS = 55
+# One a-trous tap in csrc/atrous.cu, fp32 operations (a division, sqrtf and
+# expf counted as one each): the neighbour's diffuse difference and norm,
+# luma ratio, normal dot, power, weight, and the four sums.
+ATROUS_TAP_OPS = 40
 
 
 def check(cond, msg):
@@ -211,6 +224,96 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
 
 
+def sass_counts(lib_path):
+    """Count the inner loops' instructions in the built kernels' SASS
+    (cuobjdump -sass) and read the card's SM count and top SM clock, for
+    the instruction-issue floors. Returns {} where a count fails (the
+    floors then print as not measured)."""
+    from sunray_tpu_torch.ops import cuda_build
+    from tools import sass
+
+    try:
+        cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                                 "cuobjdump")
+        funcs = sass.functions(sass.disassemble(lib_path, cuobjdump))
+        woop, _ = sass.loop_iteration(sass.find(funcs, "occluded_woop_kernel"),
+                                      "LDS")
+        atrous = sass.find(funcs, "atrous_kernel")
+        taps, _ = sass.straight_after(atrous, "BAR.SYNC", "MUFU.EX2", 24)
+        stage, _ = sass.loop_iteration(atrous, "STS")
+        clock = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.split()[0])
+    except (OSError, ValueError, KeyError, subprocess.SubprocessError) as e:
+        log(f"  SASS counts: not measured ({type(e).__name__}: {e})")
+        return {}
+    out = dict(woop_loop=woop, atrous_taps=taps, atrous_stage=stage,
+               clock_mhz=clock,
+               n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"  SASS: K14 {woop} instructions a triangle iteration; K7 {taps} "
+        f"from the staging barrier through 24 taps, {stage} a staging "
+        f"iteration; {out['n_sm']} SMs at up to {clock:.0f} MHz")
+    return out
+
+
+def woop_issue_floor(counts, rule_tests, rays):
+    """K14's instruction-issue floor, ms: its triangle-loop iterations
+    (rule_tests / (32 x rays) a warp) at the loop's SASS count (counts:
+    sass_counts'; None where it has no count)."""
+    from tools import sass
+
+    if "woop_loop" not in counts:
+        return None
+    return sass.issue_floor_ms(counts["woop_loop"] * rule_tests / (32 * rays),
+                               counts["n_sm"], counts["clock_mhz"])
+
+
+def atrous_warps(guides, tile, passes=4):
+    """Per pass, the mean over steps 1, 2, 4, ...: K7's warps that run the
+    taps (a warp is 32 lattice pixels of a tile row; it runs them if one
+    of its pixels is not bypassed) and the staging iterations its blocks'
+    warps run."""
+    from sunray_tpu_torch.ops.cuda_image import ATROUS_HALO
+
+    _, depth, _, rough, _ = guides
+    h, w = depth.shape
+    work = ~((depth >= 10000.0) | (rough < 0.1))
+    tx, ty = tile
+    threads = tx * ty
+    staged = (tx + 2 * ATROUS_HALO) * (ty + 2 * ATROUS_HALO)
+    per_block = sum(1 for it in range(-(-staged // threads))
+                    for wi in range(threads // 32)
+                    if wi * 32 + it * threads < staged)
+    y = torch.arange(h, device=depth.device)[:, None]
+    x = torch.arange(w, device=depth.device)[None, :]
+    taps = stage = 0
+    for i in range(passes):
+        s = 1 << i
+        rows, cols = -(-h // s) + 1, -(-(-(-w // s)) // tx) + 1
+        key = (((y % s) * s + x % s) * rows + y // s) * cols + (x // s) // tx
+        taps += torch.unique(key[work]).numel()
+        blocks = sum(-(-(-(-(w - ax) // s)) // tx) * -(-(-(-(h - ay) // s)) // ty)
+                     for ax in range(min(s, w)) for ay in range(min(s, h)))
+        stage += blocks * per_block
+    return taps / passes, stage / passes
+
+
+def atrous_issue_floor(counts, guides):
+    """K7's instruction-issue floor a pass, ms: the tap path's SASS count
+    for each warp that runs it, the staging iteration's for each staging
+    iteration (counts: sass_counts'; None where it has no count)."""
+    from sunray_tpu_torch.ops.cuda_image import ATROUS_TILE
+    from tools import sass
+
+    if "atrous_taps" not in counts:
+        return None
+    taps, stage = atrous_warps(guides, ATROUS_TILE)
+    return sass.issue_floor_ms(
+        counts["atrous_taps"] * taps + counts["atrous_stage"] * stage,
+        counts["n_sm"], counts["clock_mhz"])
+
+
 def psnr(a, b):
     mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
     return math.inf if mse == 0 else 10.0 * math.log10(1.0 / mse)
@@ -270,7 +373,8 @@ def occluded_tests(tris, o, d, tmax, exclude, step=1 << 16):
     return total
 
 
-def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
+def phase_kernels(dev, counts, width=1920, height=1080,
+                  n_random=(65536, 4096)):
     from sunray_tpu_torch.camera import Camera, camera_matrices, generate_rays
     from sunray_tpu_torch.ops import cuda_gather, cuda_image, cuda_trace, intersect
     from sunray_tpu_torch.ops.brdf import normalize
@@ -370,32 +474,111 @@ def phase_kernels(dev, width=1920, height=1080, n_random=(65536, 4096)):
             bound=bound(nbytes(table, idx) + idx.numel() * table.shape[1] * 4, 0),
         )
 
-    # K7: 1080p guides shaped like a G-buffer (sky band, smooth patches).
-    h, w = height, width
-    color = (rand(h, w, 3) * 2.0).contiguous()
-    depth = (1.0 + 3.0 * rand(h, w)).contiguous()
-    depth[: h // 27] = 100000.0
-    normal = normalize(randn(h, w, 3) * 0.1
-                       + torch.tensor([0.0, 0.0, 1.0], device=dev)).contiguous()
-    rough = rand(h, w).contiguous()
-    diffuse = rand(h, w, 3).contiguous()
-    args = (color, depth, normal, rough, diffuse, 4)
-    k = cuda_image.atrous_denoise(*args)
-    p = cuda_image.atrous_denoise_plain(*args)
-    err = (k - p).abs().max().item()
-    log(f"  K7 atrous: {h}x{w}, 4 passes, max abs err {err:.3g}")
-    check(err <= ATROUS_ATOL, f"K7 error {err} > {ATROUS_ATOL}")
-    results["atrous_pass"] = dict(
-        max_abs_err=err,
-        ms=device_ms(lambda: cuda_image.atrous_denoise(*args)) / 4.0,
-        plain_ms=time_ms(lambda: cuda_image.atrous_denoise_plain(*args)) / 4.0,
-        # per pass: 5 guide planes read, color written; 25 taps of ~40 ops
-        bound=bound(nbytes(*args[:5]) + nbytes(color), h * w * 25 * 40),
-    )
+    # K7: 1080p guides shaped like a G-buffer (sky band, smooth patches),
+    # and the guides the live 1080p ReSTIR frame passes to atrous_denoise.
+    results["atrous_pass"] = atrous_row(
+        counts, synthetic_guides(gen, height, width),
+        capture_denoise_inputs(dev, width, height))
     for name, r in results.items():
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
             + (" (per pass)" if name == "atrous_pass" else ""))
     return results
+
+
+def synthetic_guides(gen, h, w):
+    """(color, depth, normal, roughness, diffuse) at h x w from `gen`: a
+    sky band (depth 1e5), random roughness (~10% below the 0.1 bypass)."""
+    from sunray_tpu_torch.ops.brdf import normalize
+
+    dev = gen.device
+    color = (torch.rand((h, w, 3), generator=gen, device=dev) * 2.0).contiguous()
+    depth = (1.0 + 3.0 * torch.rand((h, w), generator=gen, device=dev)).contiguous()
+    depth[: h // 27] = 100000.0
+    normal = normalize(torch.randn((h, w, 3), generator=gen, device=dev) * 0.1
+                       + torch.tensor([0.0, 0.0, 1.0], device=dev)).contiguous()
+    rough = torch.rand((h, w), generator=gen, device=dev).contiguous()
+    diffuse = torch.rand((h, w, 3), generator=gen, device=dev).contiguous()
+    return color, depth, normal, rough, diffuse
+
+
+def capture_denoise_inputs(dev, width=1920, height=1080, frame=2):
+    """The (color, depth, normal, roughness, diffuse) that render_frame
+    passes to atrous_denoise in frame `frame` of the 1080p default ReSTIR
+    render."""
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.render import pipeline
+    from sunray_tpu_torch.scene import cornell_box
+
+    cfg = RenderConfig(width=width, height=height)
+    scene = cornell_box(device=dev)
+    mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
+    state = pipeline.RenderState.create(cfg, dev)
+    for _ in range(frame):
+        state, _, _ = pipeline.render_frame(scene, cfg, state, mats)
+    saved, calls = pipeline.atrous_denoise, []
+
+    def call(*args, **kwargs):
+        calls.append(tuple(a.clone() for a in args[:5]))
+        return saved(*args, **kwargs)
+
+    pipeline.atrous_denoise = call
+    try:
+        pipeline.render_frame(scene, cfg, state, mats)
+    finally:
+        pipeline.atrous_denoise = saved
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f"frame {frame}: {len(calls)} atrous_denoise calls")
+    return calls[0]
+
+
+def bypass_share(guides):
+    """Share of pixels the a-trous pass copies (depth >= 1e4, roughness
+    < 0.1)."""
+    _, depth, _, rough, _ = guides
+    return ((depth >= 10000.0) | (rough < 0.1)).float().mean().item()
+
+
+def atrous_row(counts, synthetic, live, passes=4):
+    """K7 against the plain passes on synthetic and live-frame guides, each
+    within ATROUS_ATOL; times a pass (device_ms of the `passes`-pass call
+    over `passes`) and its bound: the five guide planes read and the color
+    written, 24 taps of ATROUS_TAP_OPS for each pixel the bypass does not
+    copy. The row's numbers are the synthetic guides'; live_* beside."""
+    from sunray_tpu_torch.ops import cuda_image
+
+    row = {}
+    for label, guides in (("synthetic", synthetic), ("live", live)):
+        args = (*guides, passes)
+        k = cuda_image.atrous_denoise(*args)
+        p = cuda_image.atrous_denoise_plain(*args)
+        err = (k - p).abs().max().item()
+        share = bypass_share(guides)
+        h, w = guides[0].shape[:2]
+        log(f"  K7 atrous {label} guides: {h}x{w}, {passes} passes, bypass "
+            f"share {share:.4f}, max abs err {err:.3g}, bit-equal "
+            f"{torch.equal(k, p)}")
+        check(err <= ATROUS_ATOL, f"K7 {label}: error {err} > {ATROUS_ATOL}")
+        work = round(h * w * (1.0 - share))
+        r = dict(
+            max_abs_err=err, bypass_share=share,
+            ms=device_ms(lambda: cuda_image.atrous_denoise(*args)) / passes,
+            plain_ms=time_ms(lambda: cuda_image.atrous_denoise_plain(*args))
+            / passes,
+            bound=bound(nbytes(*guides) + nbytes(guides[0]),
+                        work * 24 * ATROUS_TAP_OPS),
+            floor_ms=atrous_issue_floor(counts, guides))
+        log(f"  K7 {label}: kernel {r['ms']:.4f} ms a pass, plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} ({r['bound'][1]}), "
+            f"issue floor {r['floor_ms']} ms")
+        if label == "synthetic":
+            row = r
+        else:
+            row.update({f"live_{key}": val for key, val in r.items()
+                        if key != "bound"})
+            row["live_bound_ms"] = r["bound"][0]
+    row["max_abs_err"] = max(row["max_abs_err"], row["live_max_abs_err"])
+    return row
 
 
 # -- phase 3, K3-K6: the ReSTIR kernels on a live frame's inputs ---------------
@@ -627,27 +810,39 @@ def capture_switch_inputs(dev, width=1920, height=1080, frame=3):
     return calls
 
 
-def woop_tests(woop, o, d, tmax, exclude, step=1 << 16):
-    """Woop tests an any-hit trace needs: each ray up to and with its
-    first occluder in triangle order, else all of them."""
+def woop_first(woop, o, d, tmax, exclude, step=1 << 16):
+    """(N,) Woop tests each ray of an any-hit trace needs: up to and with
+    its first occluder in triangle order, else all of them."""
     from sunray_tpu_torch.ops import intersect
 
     n_tris = woop[0].shape[1]
     ids = torch.arange(n_tris, device=o.device)
-    total = 0
+    out = []
     for s in range(0, o.shape[0], step):
         sl = slice(s, s + step)
         valid = intersect.woop_hits(woop, o[sl], d[sl], intersect.T_MIN,
                                     tmax[sl, None])
         if exclude is not None:
             valid &= ids[None, :] != exclude[sl, None]
-        first = torch.where(valid.any(dim=1), valid.int().argmax(dim=1) + 1,
-                            n_tris)
-        total += int(first.sum())
-    return total
+        out.append(torch.where(valid.any(dim=1), valid.int().argmax(dim=1) + 1,
+                               n_tris))
+    return torch.cat(out)
 
 
-def phase_switch_kernels(dev):
+def woop_rule_tests(first, rays, threads=128):
+    """Tests K14 runs for rays needing `first` tests each: thread t of block
+    b traces rays b * threads * rays + t + j * threads (j < rays) and tests
+    all of them against each triangle until every one is decided; a warp
+    issues each triangle's tests until its last thread is done."""
+    per = threads * rays
+    nb = -(-first.shape[0] // per)
+    f = torch.zeros(nb * per, dtype=first.dtype, device=first.device)
+    f[:first.shape[0]] = first
+    iters = f.reshape(nb, rays, threads // 32, 32).amax(dim=(1, 3))
+    return int(iters.sum()) * 32 * rays
+
+
+def phase_switch_kernels(dev, counts):
     from sunray_tpu_torch.ops import cuda_history, cuda_image, cuda_trace, intersect
 
     log("phase 3: K9, K13, K14 against their plain versions (1080p switches "
@@ -729,6 +924,8 @@ def phase_switch_kernels(dev):
             worst = (woop, o, d, tmax, tmin, exclude)
     woop, o, d, tmax, tmin, exclude = worst
     check(tmin == intersect.T_MIN, "shadow query with a non-default tmin")
+    first = woop_first(woop, o, d, tmax, exclude)
+    rule = woop_rule_tests(first, cuda_trace.WOOP_RAYS, cuda_trace.WOOP_THREADS)
     results["trace_occluded_woop"] = dict(
         agree=min(agree), max_abs_err=err,
         ms=device_ms(lambda: cuda_trace.trace_occluded_woop(
@@ -736,7 +933,13 @@ def phase_switch_kernels(dev):
         plain_ms=time_ms(lambda: intersect.trace_occluded_woop(
             woop, o, d, tmax, tmin, exclude=exclude)),
         bound=bound(o.shape[0] * 33 + nbytes(*woop),
-                    woop_tests(woop, o, d, tmax, exclude) * WOOP_OPS))
+                    int(first.sum()) * WOOP_OPS),
+        needed_tests=int(first.sum()), rule_tests=rule,
+        floor_ms=woop_issue_floor(counts, rule, cuda_trace.WOOP_RAYS))
+    r = results["trace_occluded_woop"]
+    log(f"  K14 tests: needed {r['needed_tests']}, run {rule} as "
+        f"woop_rule_tests models the kernel ({rule / r['needed_tests']:.4f}x) "
+        f"at {cuda_trace.WOOP_RAYS} rays a thread; issue floor {r['floor_ms']} ms")
     log(f"  K14 timed on the {o.shape[0]}-ray query")
     for name, r in results.items():
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -1549,10 +1752,11 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    counts = sass_counts(path)
 
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev, counts)
     kernels.update(phase_restir_kernels(dev))
-    kernels.update(phase_switch_kernels(dev))
+    kernels.update(phase_switch_kernels(dev, counts))
     phase_golden(dev)
     # Each kernel's launches are read on its own slice's main path.
     launches = phase_main(dev, "restir", CORNELL_KERNELS, n_warm=5, n_timed=20)
@@ -1583,7 +1787,9 @@ def main():
                     "fallback_anyhit_bound_ms", "anyhit_ms", "anyhit_bound_ms",
                     "anyhit_plain_ms", "anyhit_dead_ms", "anyhit_needed_tests",
                     "anyhit_rule_tests", "anyhit_old_tests", "nonfma_floor_ms",
-                    "taa_corners_ms"):
+                    "taa_corners_ms", "floor_ms", "bypass_share", "live_ms",
+                    "live_plain_ms", "live_max_abs_err", "live_bypass_share",
+                    "live_bound_ms", "live_floor_ms"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

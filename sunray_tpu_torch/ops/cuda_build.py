@@ -111,45 +111,75 @@ def build() -> tuple[Path, str]:
     return out, "".join(report)
 
 
-def _declare(lib):
+def _signatures():
+    """Argument types of every C entry point, by name. Each returns an int:
+    a CUDA error code, 0 for none."""
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.sunray_trace_closest.argtypes = [p, p, p, f, p, f, p, p, p, i, i,
-                                         p, p, p, p, p, p]
-    lib.sunray_trace_occluded.argtypes = [p, p, p, f, p, f, p, p, p, p, i, i,
-                                          p, p]
-    lib.sunray_gather_rows.argtypes = [p, p, i, i, i64, i64, p, p]
-    lib.sunray_atrous_pass.argtypes = [p, p, p, p, p, i, i, i, p, p]
-    lib.sunray_ris_audition.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i,
-                                        p, p, p, p, p, p, p, p]
-    lib.sunray_di_temporal.argtypes = ([p, i, p] + [p] * 6 + [p] * 7
-                                       + [i64, p, p] + [p] * 7 + [i, f, f]
-                                       + [p] * 7 + [p])
-    lib.sunray_di_spatial.argtypes = ([p, i, p] + [p] * 5 + [p] * 4 + [p] * 6
-                                      + [i, i, ctypes.POINTER(i), i, f, f, f]
-                                      + [p] * 9 + [p])
-    lib.sunray_gi_spatial.argtypes = ([p] + [p] * 5 + [p] * 7 + [i, p]
-                                      + [p] * 4 + [i, f] + [p] * 6 + [p])
     binned = [p, p, p, i, i, p, p, p, p, p, p, p, i]
-    lib.sunray_binned_closest.argtypes = binned + [p, p, p, p, p]
-    lib.sunray_binned_occluded.argtypes = binned + [p, p]
-    lib.sunray_cluster_scan.argtypes = [p, p, p, p, i, p, i, p, p, p]
     pairs = [p, p, p, i, i, p, p, p, p, p, i, p, p, i, i]
-    lib.sunray_pair_closest.argtypes = pairs + [p, p, p, p, p]
-    lib.sunray_pair_occluded.argtypes = pairs + [p, p]
-    lib.sunray_trace_occluded_woop.argtypes = [p, p, p, f, p, f, p, p, p, i, i,
-                                               p, p]
-    lib.sunray_taa_clamp_blend.argtypes = [p, p, p, i, i, f, p, p]
-    lib.sunray_history_gather.argtypes = [p, p, p, i, p, i64, i64, p]
-    for fn in (lib.sunray_trace_closest, lib.sunray_trace_occluded,
-               lib.sunray_gather_rows, lib.sunray_atrous_pass,
-               lib.sunray_ris_audition, lib.sunray_di_temporal,
-               lib.sunray_di_spatial, lib.sunray_gi_spatial,
-               lib.sunray_binned_closest, lib.sunray_binned_occluded,
-               lib.sunray_cluster_scan, lib.sunray_pair_closest,
-               lib.sunray_pair_occluded, lib.sunray_trace_occluded_woop,
-               lib.sunray_taa_clamp_blend, lib.sunray_history_gather):
+    return {
+        "sunray_trace_closest": [p, p, p, f, p, f, p, p, p, i, i,
+                                 p, p, p, p, p, p],
+        "sunray_trace_occluded": [p, p, p, f, p, f, p, p, p, p, i, i, p, p],
+        "sunray_gather_rows": [p, p, i, i, i64, i64, p, p],
+        "sunray_atrous_pass": [p, p, p, p, p, i, i, i, p, p],
+        "sunray_ris_audition": [p, i, p, p, p, p, p, p, p, p, i, i,
+                                p, p, p, p, p, p, p, p],
+        "sunray_di_temporal": ([p, i, p] + [p] * 6 + [p] * 7
+                               + [i64, p, p] + [p] * 7 + [i, f, f]
+                               + [p] * 7 + [p]),
+        "sunray_di_spatial": ([p, i, p] + [p] * 5 + [p] * 4 + [p] * 6
+                              + [i, i, ctypes.POINTER(i), i, f, f, f]
+                              + [p] * 9 + [p]),
+        "sunray_gi_spatial": ([p] + [p] * 5 + [p] * 7 + [i, p]
+                              + [p] * 4 + [i, f] + [p] * 6 + [p]),
+        "sunray_binned_closest": binned + [p, p, p, p, p],
+        "sunray_binned_occluded": binned + [p, p],
+        "sunray_cluster_scan": [p, p, p, p, i, p, i, p, p, p],
+        "sunray_pair_closest": pairs + [p, p, p, p, p],
+        "sunray_pair_occluded": pairs + [p, p],
+        "sunray_trace_occluded_woop": [p, p, p, f, p, f, p, p, p, i, i, p, p],
+        "sunray_taa_clamp_blend": [p, p, p, i, i, f, p, p],
+        "sunray_history_gather": [p, p, p, i, p, i64, i64, p],
+        "sunray_woop_launch_shape": [ctypes.POINTER(i)],
+        "sunray_atrous_tile_shape": [ctypes.POINTER(i)],
+    }
+
+
+def declare(lib, names=None):
+    """Set the argument and result types of the C entry points `names` (all
+    of them by default) on a loaded library; returns the library. A
+    library built from one source declares that source's entry points."""
+    table = _signatures()
+    for name in table if names is None else names:
+        fn = getattr(lib, name)
+        fn.argtypes = table[name]
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_shape(lib, name: str, n: int) -> tuple[int, ...]:
+    """The n ints that the library's shape query `name` reports (its
+    kernel's compile-time launch shape)."""
+    out = (ctypes.c_int * n)()
+    check_launch(name, getattr(lib, name)(out))
+    return tuple(out)
+
+
+def _check_launch_shapes(lib) -> None:
+    """The host's copies of the kernels' launch shapes, which the CPU models
+    of the kernels and chip_smoke.py's counts read, must be the library's."""
+    from sunray_tpu_torch.ops import cuda_image, cuda_trace
+
+    for name, want in (
+            ("sunray_woop_launch_shape",
+             (cuda_trace.WOOP_RAYS, cuda_trace.WOOP_THREADS)),
+            ("sunray_atrous_tile_shape",
+             (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO))):
+        got = launch_shape(lib, name, len(want))
+        if got != want:
+            raise KernelError(f"{name}: the library launches {got}, the host "
+                              f"code models {want}")
 
 
 def library():
@@ -158,7 +188,9 @@ def library():
     with _lib_lock:
         if _lib is None:
             path, _ = build()
-            _lib = _declare(ctypes.CDLL(str(path)))
+            lib = declare(ctypes.CDLL(str(path)))
+            _check_launch_shapes(lib)
+            _lib = lib
     return _lib
 
 

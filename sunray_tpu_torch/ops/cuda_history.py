@@ -49,22 +49,30 @@ def history_gather(fields, idx):
         raise cuda_build.KernelError(f"{name}: idx must be (M,)")
     if cuda_build.on_cpu(*fields, idx):
         return history_gather_plain(fields, idx)
-    dev = cuda_build.require_cuda(name, *fields, idx)
+    cuda_build.require_cuda(name, *fields, idx)
     cuda_build.require_dtype(name, idx, torch.int64)
     if p == 0:
         raise cuda_build.KernelError(f"{name}: empty fields")
-    m = idx.shape[0]
-    outs = [torch.empty((m, *f.shape[1:]), dtype=f.dtype, device=dev)
+    return _launch_gather(fields, idx)
+
+
+def _launch_gather(fields, idx, lib=None):
+    """K13 once on checked arguments, from `lib` (default: the port's
+    library, whose launches are counted)."""
+    m, k = idx.shape[0], len(fields)
+    outs = [torch.empty((m, *f.shape[1:]), dtype=f.dtype, device=idx.device)
             for f in fields]
-    k = len(fields)
     srcs = (ctypes.c_void_p * k)(*(f.data_ptr() for f in fields))
     dsts = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
     widths = (ctypes.c_int * k)(*(1 if f.dim() == 1 else f.shape[1]
                                   for f in fields))
-    err = cuda_build.library().sunray_history_gather(
-        srcs, dsts, widths, k, idx.data_ptr(), m, p, cuda_build.stream_ptr())
-    cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    kernels = cuda_build.library() if lib is None else lib
+    err = kernels.sunray_history_gather(
+        srcs, dsts, widths, k, idx.data_ptr(), m, fields[0].shape[0],
+        cuda_build.stream_ptr())
+    cuda_build.check_launch("history_gather", err)
+    if lib is None:
+        cuda_build.launches["history_gather"] += 1
     return outs
 
 

@@ -106,6 +106,56 @@ def atrous_denoise_plain(color, depth, normal, roughness, diffuse,
 
 
 DENOISE_KERNELS = ("auto", "pallas", "jnp")   # RenderConfig.denoise_kernel
+# K7's block: a (ATROUS_TILE[1], ATROUS_TILE[0]) tile of one sub-lattice
+# of the pass (pixels with equal x mod step and y mod step) and a halo of
+# ATROUS_HALO lattice pixels, staged once in shared memory (csrc/atrous.cu
+# kTileX, kTileY, kHalo, checked against the library's
+# sunray_atrous_tile_shape when it loads; tests/test_torch_atrous_tiles.py
+# models it).
+ATROUS_TILE = (32, 8)
+ATROUS_HALO = 2
+
+
+def _check_guides(name, guides):
+    dev = cuda_build.require_cuda(name, *guides)
+    h, w = guides[0].shape[:2]
+    for t, shape in zip(guides, ((h, w, 3), (h, w), (h, w, 3), (h, w),
+                                 (h, w, 3))):
+        cuda_build.require_dtype(name, t, torch.float32)
+        if tuple(t.shape) != shape:
+            raise cuda_build.KernelError(f"{name}: expected {shape}, got "
+                                         f"{tuple(t.shape)}")
+    return dev, h, w
+
+
+def _launch_pass(src, depth, normal, roughness, diffuse, step, dst, lib=None):
+    """K7 once from `lib` (default: the port's library, whose launches are
+    counted): dst = one pass of src at `step` (all checked by the caller;
+    each tensor held by the caller until the launch returns)."""
+    h, w = src.shape[:2]
+    kernels = cuda_build.library() if lib is None else lib
+    err = kernels.sunray_atrous_pass(
+        src.data_ptr(), depth.data_ptr(), normal.data_ptr(),
+        roughness.data_ptr(), diffuse.data_ptr(), h, w, step,
+        dst.data_ptr(), cuda_build.stream_ptr(),
+    )
+    cuda_build.check_launch("atrous_pass", err)
+    if lib is None:
+        cuda_build.launches["atrous_pass"] += 1
+
+
+def atrous_pass(color, depth, normal, roughness, diffuse, step_width: int):
+    """One a-trous pass at any step width: K7 on CUDA tensors, the plain
+    pass on CPU tensors."""
+    guides = (color, depth, normal, roughness, diffuse)
+    if cuda_build.on_cpu(*guides):
+        return atrous_denoise_pass(*guides, step_width)
+    dev, h, w = _check_guides("atrous_pass", guides)
+    if step_width <= 0:
+        raise cuda_build.KernelError(f"atrous_pass: step {step_width} <= 0")
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    _launch_pass(color, depth, normal, roughness, diffuse, step_width, out)
+    return out
 
 
 def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int,
@@ -123,30 +173,15 @@ def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int,
     if kernel == "jnp" or cuda_build.on_cpu(*guides):
         return atrous_denoise_plain(color, depth, normal, roughness, diffuse,
                                     passes)
-    name = "atrous_pass"
-    dev = cuda_build.require_cuda(name, *guides)
-    h, w = color.shape[:2]
-    for t, shape in ((color, (h, w, 3)), (depth, (h, w)), (normal, (h, w, 3)),
-                     (roughness, (h, w)), (diffuse, (h, w, 3))):
-        cuda_build.require_dtype(name, t, torch.float32)
-        if tuple(t.shape) != shape:
-            raise cuda_build.KernelError(f"{name}: expected {shape}, got "
-                                         f"{tuple(t.shape)}")
+    dev, h, w = _check_guides("atrous_pass", guides)
     if passes <= 0:
         return color
-    lib = cuda_build.library()
     bufs = [torch.empty((h, w, 3), dtype=torch.float32, device=dev)
             for _ in range(min(passes, 2))]
     src = color
     for i in range(passes):
         dst = bufs[i % 2]
-        err = lib.sunray_atrous_pass(
-            src.data_ptr(), depth.data_ptr(), normal.data_ptr(),
-            roughness.data_ptr(), diffuse.data_ptr(), h, w, 1 << i,
-            dst.data_ptr(), cuda_build.stream_ptr(),
-        )
-        cuda_build.check_launch(name, err)
-        cuda_build.launches[name] += 1
+        _launch_pass(src, depth, normal, roughness, diffuse, 1 << i, dst)
         src = dst
     return src
 

@@ -21,6 +21,12 @@ from sunray_tpu_torch.ops import cuda_build, intersect
 from sunray_tpu_torch.ops.intersect import T_MAX, T_MIN, Hit
 
 rays: collections.Counter = collections.Counter()
+# K14's launch shape (csrc/trace.cu kWoopRays, kWoopThreads; checked
+# against the library's sunray_woop_launch_shape when it loads): each
+# thread of a block of WOOP_THREADS traces WOOP_RAYS rays, block b thread
+# t the rays b * WOOP_THREADS * WOOP_RAYS + t + j * WOOP_THREADS.
+WOOP_RAYS = 8
+WOOP_THREADS = 128
 
 
 def _bound(name, x, n, device):
@@ -111,7 +117,9 @@ def trace_occluded(tris, orig, d, tmax, tmin=T_MIN, exclude=None):
 def trace_occluded_woop(woop, orig, d, tmax, tmin=T_MIN, exclude=None):
     """K14: any hit in [tmin, tmax] through the Woop transforms woop = (a
     (6, T, 8), eps (T, 1)) of ops/intersect.woop_matrices, skipping
-    triangle exclude[i] (int32, -1 = none). Returns (N,) bool."""
+    triangle exclude[i] (int32, -1 = none). Returns (N,) bool. The kernel
+    packs each triangle's 22 coefficients into six 16-byte records in
+    shared memory itself; the table is passed as it is."""
     a, eps = woop
     name = "trace_occluded_woop"
     if cuda_build.on_cpu(a, eps, orig, d, tmin, tmax, exclude):
@@ -135,13 +143,21 @@ def trace_occluded_woop(woop, orig, d, tmax, tmin=T_MIN, exclude=None):
         cuda_build.require_dtype(name, exclude, torch.int32)
         if exclude.shape != (n,):
             raise cuda_build.KernelError(f"{name}: exclude must be (N,)")
-    lib = cuda_build.library()
-    occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = lib.sunray_trace_occluded_woop(
+    return _launch_woop(a, eps, orig, d, tn, tn_s, tx, tx_s, exclude)
+
+
+def _launch_woop(a, eps, orig, d, tn, tn_s, tx, tx_s, exclude, lib=None):
+    """K14 once on checked arguments (tn, tx: per-ray bounds or None with
+    the scalars tn_s, tx_s), from `lib` (default: the port's library, whose
+    launches are counted)."""
+    occ = torch.empty((orig.shape[0],), dtype=torch.bool, device=orig.device)
+    kernels = cuda_build.library() if lib is None else lib
+    err = kernels.sunray_trace_occluded_woop(
         orig.data_ptr(), d.data_ptr(), _ptr(tn), tn_s, _ptr(tx), tx_s,
-        _ptr(exclude), a.data_ptr(), eps.data_ptr(), n, n_tris, occ.data_ptr(),
-        cuda_build.stream_ptr(),
+        _ptr(exclude), a.data_ptr(), eps.data_ptr(), orig.shape[0], a.shape[1],
+        occ.data_ptr(), cuda_build.stream_ptr(),
     )
-    cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    cuda_build.check_launch("trace_occluded_woop", err)
+    if lib is None:
+        cuda_build.launches["trace_occluded_woop"] += 1
     return occ

@@ -96,6 +96,83 @@ def test_atrous_kernel_matches_plain(passes, cuda_device):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+def _atrous_guides(h, w, seed, dev, bypass="mixed"):
+    """Guides with a sky band, ~10% rough-bypass pixels and albedo zeros;
+    bypass="all": every pixel bypassed (depth >= 1e4 or roughness < 0.1)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.uniform(size=s).astype(np.float32)  # noqa: E731
+    color, depth, rough, diffuse = 2.0 * f(h, w, 3), 1.0 + 3.0 * f(h, w), f(h, w), f(h, w, 3)
+    depth[: max(1, h // 9)] = 100000.0
+    diffuse[::7, ::5] = 0.0
+    if bypass == "all":
+        depth[h // 2:] = 100000.0
+        rough[: h // 2] = 0.05
+    normal = rng.normal(size=(h, w, 3)).astype(np.float32) * 0.1
+    normal[..., 2] += 1.0
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (color, depth, normal, rough, diffuse))
+
+
+@pytest.mark.parametrize("size", [(37, 53), (27, 48), (270, 480)])
+def test_atrous_kernel_steps_match_plain(size, cuda_device):
+    """K7's lattice tiles at every step 1-8 (ragged at the image's right
+    and bottom edges), one pass each, and the four-pass denoise."""
+    args = _atrous_guides(*size, seed=size[0], dev=cuda_device)
+    for step in range(1, 9):
+        got = cuda_image.atrous_pass(*args, step)
+        want = cuda_image.atrous_denoise_pass(*args, step)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-5, step
+        sky = args[1] >= 10000.0
+        assert torch.equal(got[sky], args[0][sky])
+    got = cuda_image.atrous_denoise(*args, 4)
+    want = cuda_image.atrous_denoise_plain(*args, 4)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_atrous_kernel_all_bypass(cuda_device):
+    args = _atrous_guides(45, 70, seed=3, dev=cuda_device, bypass="all")
+    got = cuda_image.atrous_denoise(*args, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, args[0])
+
+
+def _woop_rays(n, n_tris, seed, dev):
+    """n rays against n_tris random triangles (every 17th degenerate),
+    tmax per ray and exclude ids."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.normal(size=(n_tris, 3)).astype(np.float32)
+    tris = [v0, (v0 + rng.normal(size=(n_tris, 3)) * 0.6).astype(np.float32),
+            (v0 + rng.normal(size=(n_tris, 3)) * 0.6).astype(np.float32)]
+    tris[2][::17] = tris[0][::17]
+    o = (rng.normal(size=(n, 3)) * 2).astype(np.float32)
+    dn = rng.normal(size=(n, 3))
+    d = (dn / np.linalg.norm(dn, axis=-1, keepdims=True)).astype(np.float32)
+    tmax = rng.uniform(0.1, 6.0, size=n).astype(np.float32)
+    ex = rng.integers(-1, n_tris, size=n).astype(np.int32)
+    to = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return tuple(to(x) for x in tris), to(o), to(d), to(tmax), to(ex)
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+@pytest.mark.parametrize("n_tris", [1, 129, 300])
+def test_woop_kernel_ragged_bit_equal(n_tris, extra, cuda_device):
+    """K14 at rays-a-block +- 1 rays (a ragged last block) and triangle
+    counts off the 128-triangle chunk, with and without exclude ids."""
+    n = cuda_trace.WOOP_RAYS * cuda_trace.WOOP_THREADS * 3 + extra
+    tris, o, d, tmax, ex = _woop_rays(n, n_tris, n_tris + extra, cuda_device)
+    woop = intersect.woop_matrices(tris)
+    for exclude in (None, ex):
+        got = cuda_trace.trace_occluded_woop(woop, o, d, tmax, exclude=exclude)
+        want = intersect.trace_occluded_woop(woop, o, d, tmax, exclude=exclude)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        if n_tris > 1:
+            assert 0.0 < want.float().mean().item() < 1.0
+
+
 def test_kernel_rejects_bad_input(cuda_device):
     tris, o, d, _, _ = _trace_case("cornell", cuda_device)
     with pytest.raises(cuda_build.KernelError):

@@ -1,0 +1,121 @@
+"""The SASS instruction counter behind chip_smoke.py's issue floors
+(tools/sass.py), held to hand-written listings in
+cuobjdump -sass's format: labelled and absolute branch targets, a loop
+with an exit branch inside, a straight stretch whose shortest path skips a
+slow-path call and a bypass exit."""
+
+import pytest
+
+import torch_parity  # noqa: F401  (one torch thread, as every port test)
+from tools import sass
+
+HEADER = """
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,7]
+
+	code for sm_90a
+"""
+
+LOOP = HEADER + """
+		Function : _ZN12_GLOBAL__N_120occluded_woop_kernelEPKfS1_S1_fS1_fPKiS1_S1_iiPh
+	.headerflags	@"EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+                                                                         /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;                    /* 0x0000000000007919 */
+.L_x_0:
+        /*0020*/                   LDG.E R3, desc[UR4][R4.64] ;
+        /*0030*/                   STS.128 [R2], R8 ;
+        /*0040*/              @P1 BRA `(.L_x_0) ;
+        /*0050*/                   BAR.RED.OR.DEFER_BLOCKING 0x0, P2 ;
+.L_x_1:
+        /*0058*/              @P4 BRA `(.L_x_4) ;
+        /*0060*/                   LDS.128 R4, [R2] ;
+        /*0070*/                   FFMA R8, R4, R9, R10 ;
+.L_x_4:
+        /*0080*/                   FSETP.GT.AND P0, PT, R8, R11, PT ;
+        /*0090*/              @P0 BRA `(.L_x_2) ;
+        /*00a0*/                   FMUL R8, R8, R8 ;
+        /*00b0*/                   NOP ;
+        /*00c0*/                   BRA.U !UP0, `(.L_x_1) ;
+.L_x_2:
+        /*00d0*/                   STG.E.U8 desc[UR4][R6.64], R8 ;
+        /*00e0*/                   EXIT ;
+.L_x_3:
+        /*00f0*/                   BRA `(.L_x_3);
+        /*0100*/                   NOP;
+"""
+
+STRAIGHT = HEADER + """
+		Function : _ZN12_GLOBAL__N_113atrous_kernelEPKfS1_S1_S1_S1_iiiiPf
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/              @P0 EXIT ;
+        /*0030*/              @P1 BRA 0x100 ;
+        /*0040*/                   MUFU.EX2 R4, R4 ;
+        /*0050*/                   FCHK P2, R5, R6 ;
+        /*0060*/             @!P2 BRA 0x090 ;
+        /*0070*/                   MOV R12, 0x90 ;
+        /*0080*/                   CALL.REL.NOINC 0x140 ;
+        /*0090*/                   MUFU.EX2 R7, R7 ;
+        /*00a0*/                   FADD R8, R8, R7 ;
+        /*00b0*/                   STG.E desc[UR4][R2.64], R8 ;
+        /*00c0*/                   EXIT ;
+        /*00d0*/                   NOP ;
+        /*0100*/                   STG.E desc[UR4][R2.64], R9 ;
+        /*0110*/                   EXIT ;
+        /*0120*/                   BRA 0x120;
+        /*0140*/                   MUFU.RCP R13, R6 ;
+        /*0150*/                   RET.REL.NODEC R12 0x0 ;
+"""
+
+
+def test_functions_parse_labels_and_addresses():
+    funcs = sass.functions(LOOP + STRAIGHT)
+    assert len(funcs) == 2
+    woop = sass.find(funcs, "occluded_woop_kernel")
+    assert [i.op for i in woop[:2]] == ["LDC", "S2R"]
+    back = [i for i in woop if i.text.startswith("BRA.U")][0]
+    assert back.target == 0x58 and back.pred == ""
+    atrous = sass.find(funcs, "atrous_kernel")
+    assert atrous[3].pred == "@P1" and atrous[3].target == 0x100
+    with pytest.raises(KeyError):
+        sass.find(funcs, "kernel")
+
+
+def test_loop_iteration_counts_the_innermost_loop_with_the_op():
+    code = sass.find(sass.functions(LOOP), "woop")
+    count, path = sass.loop_iteration(code, "LDS")
+    # @P4 BRA (not around the load), LDS, FFMA, FSETP, @P0 BRA (falls
+    # through), FMUL, NOP (free), BRA.U.
+    assert count == 7
+    assert [i.op for i in path] == ["BRA", "LDS.128", "FFMA", "FSETP.GT.AND",
+                                    "BRA", "FMUL", "NOP", "BRA.U"]
+    assert sass.loop_iteration(code, "STS")[0] == 3
+    with pytest.raises(ValueError):
+        sass.loop_iteration(code, "MUFU")
+
+
+def test_straight_after_takes_the_short_path_through_the_counted_ops():
+    code = sass.find(sass.functions(STRAIGHT), "atrous")
+    count, path = sass.straight_after(code, "BAR.SYNC", "MUFU.EX2", 2)
+    # BAR, @P0 EXIT, @P1 BRA (not to the bypass), EX2, FCHK, @!P2 BRA over
+    # the call, EX2, FADD, STG, EXIT.
+    assert count == 10
+    assert "CALL.REL.NOINC" not in [i.op for i in path]
+    # With the branch over the call gone, no path is left but the call's.
+    no_skip = [c for c in code if c.addr != 0x60]
+    with pytest.raises(ValueError):
+        sass.straight_after(no_skip, "BAR.SYNC", "MUFU.EX2", 2)
+    assert sass.straight_after(code, None, "MUFU.EX2", 2)[0] == 11
+    # The bypass path passes no EX2: BAR, @P0 EXIT, @P1 BRA, STG, EXIT.
+    assert sass.straight_after(code, "BAR.SYNC", "MUFU.EX2", 0)[0] == 5
+    with pytest.raises(ValueError):
+        sass.straight_after(code, "BAR.SYNC", "MUFU.EX2", 3)
+
+
+def test_issue_floor():
+    # 4 warp instructions an SM a cycle: 132 SMs at 1980 MHz issue
+    # 1,045,440 a microsecond.
+    assert sass.issue_floor_ms(1_045_440_000, 132, 1980.0) == pytest.approx(1.0)

@@ -28,28 +28,22 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from tools import before_after  # noqa: E402
 
 
-def build(src: Path, name: str):
-    """(library, whether its K12 takes walk boxes)."""
-    from sunray_tpu_torch.ops import cuda_build
-
-    out_dir = REPO / "build" / "pair_stream_before_after"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / f"{name}.so"
-    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-shared",
-                    "-o", str(out), str(src)], check=True, capture_output=True,
-                   text=True, timeout=600)
+def declare(lib, src: Path):
+    """(library, whether its K12 takes walk boxes), its K11 and K12 entry
+    points declared as the source declares them."""
     decl = re.search(r"int sunray_pair_closest\(([^)]*)\)", src.read_text())
     boxes = "const float* box" in decl.group(1)
-    lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sunray_cluster_scan.argtypes = [p, p, p, p, i, p, i, p, p, p]
     pairs = [p, p, p, i, i, p, p, p, p, p, i, p] + ([p] if boxes else []) + [i, i]
@@ -128,22 +122,20 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("pair_stream_before_after: no CUDA device")
-    sys.path.insert(0, str(REPO))
     import chip_smoke
     from sunray_tpu_torch.ops import binned_trace as bt
     from sunray_tpu_torch.ops import cuda_binned as cb
     from sunray_tpu_torch.ops.intersect import T_MAX, T_MIN
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    card = before_after.card()
     dev = torch.device("cuda", 0)
-    libs = {src.stem: build(src, src.stem) for src in args.before}
-    chip_smoke.check("after" not in libs and len(libs) == len(args.before),
+    srcs = {src.stem: src for src in args.before}
+    chip_smoke.check("after" not in srcs and len(srcs) == len(args.before),
                      "--before sources need distinct stems other than 'after'")
-    libs["after"] = build(REPO / "sunray_tpu_torch" / "csrc" / "binned.cu",
-                          "after")
+    srcs["after"] = REPO / "sunray_tpu_torch" / "csrc" / "binned.cu"
+    libs = {name: declare(lib, srcs[name]) for name, (lib, _) in
+            before_after.build(srcs, REPO / "build" / "pair_stream_before_after"
+                               ).items()}
     cs, _, (go, gd), (vo, vd, vmax, vex) = chip_smoke.capture_binned_rays(dev)
     seg = torch.as_tensor(vmax, dtype=torch.float32, device=dev) - 1e-3
     box = bt.supercluster_boxes(cs)
@@ -163,7 +155,7 @@ def main():
               f"{cid_s.numel()} pair lanes, {int((cid_s < n_sc).sum())} live",
               flush=True)
 
-    out = {"card": smi.splitlines()[0]}
+    out = {"card": card}
     for name, (lib, boxes) in libs.items():
         for label, (scan_in, pair_args, _, _, closest) in launches.items():
             got = scan(lib, *scan_in)
@@ -181,27 +173,23 @@ def main():
                              f"{label}: K11 differs from its plain version")
             chip_smoke.check(differ == 0 or name != "after",
                              f"{label}: K12 differs from its plain version")
-    others = [name for name in libs if name != "after"]
-    turns = others + ["after", "after"] + others[::-1]
-    for turn, name in enumerate(turns):
+
+    def timers(name):
         lib, boxes = libs[name]
+        fns = {}
         for label, (scan_in, pair_args, dead, live, closest) in launches.items():
-            key = f"{name}{turns[:turn].count(name)}_{label}"
-            times = {
-                "k11": chip_smoke.device_ms(lambda: scan(lib, *scan_in)),
-                "k12": chip_smoke.device_ms(
-                    lambda: pairs(lib, boxes, pair_args, closest)),
-                "k12_dead": chip_smoke.device_ms(
-                    lambda: pairs(lib, boxes, dead, closest)),
-                "k12_live_blocks": chip_smoke.device_ms(
-                    lambda: pairs(lib, boxes, live, closest))}
-            for k, v in times.items():
-                out[f"{key}_{k}_ms"] = v
-            print(f"{key}: K11 {times['k11']:.4f} ms, K12 "
-                  f"{'closest' if closest else 'any-hit'} {times['k12']:.4f} ms, "
-                  f"K12 dead lanes alone {times['k12_dead']:.4f} ms, K12 on the "
-                  f"blocks with a pair alone {times['k12_live_blocks']:.4f} ms",
-                  flush=True)
+            fns.update({
+                f"{label}_k11": ((lambda s=scan_in: scan(lib, *s)), 1),
+                f"{label}_k12": ((lambda a=pair_args, c=closest:
+                                  pairs(lib, boxes, a, c)), 1),
+                f"{label}_k12_dead": ((lambda a=dead, c=closest:
+                                       pairs(lib, boxes, a, c)), 1),
+                f"{label}_k12_live_blocks": ((lambda a=live, c=closest:
+                                              pairs(lib, boxes, a, c)), 1)})
+        return fns
+
+    before_after.time_in_turns([name for name in libs if name != "after"],
+                               "after", timers, out, events=False)
     print(json.dumps(out), flush=True)
 
 
