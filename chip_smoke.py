@@ -7,15 +7,23 @@ Phases, in order; any failure raises and exits non-zero with no result:
   1. require a CUDA device; print the card's name and power limit
      (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
   2. build the kernels from csrc/ (nvcc, sm_90a); count the SASS
-     instructions of K14's triangle loop and of K7's tap path and staging
-     loop (cuobjdump -sass, tools/sass.py) for their
+     instructions of K14's triangle loop, K7's tap path and staging loop,
+     K3's candidate loop (a candidate) and K2's triangle loop (a
+     ray-triangle test) (cuobjdump -sass, tools/sass.py) for their
      instruction-issue floors (four warp instructions an SM a cycle at
      the card's top SM clock);
   3. hold every kernel of the main path to its plain PyTorch version on
      the card at the main path's shapes, and time both (CUDA events,
      median of 10 runs):
        K1/K2 trace: 2,073,600 Cornell camera and bounce rays x 36 tris,
-                    65,536 random rays x 4,096 random tris;
+                    65,536 random rays x 4,096 random tris; K2 (0 rays
+                    differing) on 2,073,600 synthetic shadow rays, its
+                    row's shape, and on the frames' own queries: the three
+                    of frame 2 of the 1080p ReSTIR frame (4,147,200,
+                    6,220,800 and 4,147,200 rays with their exclude ids)
+                    and the first bounce round of frame 2 of the 1080p NEE
+                    frame, each timed beside its bound, the tests its warp
+                    rule runs and its issue floor;
        K8 gather:   72x6 and 36x4 tables, 3 x 2,073,600 indices with
                     out-of-range ones;
        K7 a-trous:  1080x1920, 4 passes, on synthetic guides and on the
@@ -25,9 +33,9 @@ Phases, in order; any failure raises and exits non-zero with no result:
                     default ReSTIR render (live history; K3 with K=16 on
                     the box's 2 lights, K5 with 5 taps, K6 with 3), plus
                     K3 on 65,536 seeded lanes and a random 600-light
-                    table. Seeds bit-equal, M exact, winners agreeing on
-                    > 99.5% of lanes, the rest to test_restir_math.py's
-                    tolerances;
+                    table (timed too). Seeds bit-equal, M exact, winners
+                    agreeing on > 99.5% of lanes, the rest to
+                    test_restir_math.py's tolerances; K3's issue floor;
        K9, K13, K14 (the kernel switches): the inputs each wrapper got in
                     frame 3 of the 1080p switches frame (phase 7; the first
                     frame whose TAA reads history): K9 on its
@@ -51,7 +59,8 @@ Phases, in order; any failure raises and exits non-zero with no result:
      the rays per frame (the trace wrappers' batch sizes) must equal
      bench.py:7-13's count. Prints frame ms, Mray/s, peak device memory
      and the synced stage ms. Then the 1080p NEE frame, 2 warm-up and 5
-     timed frames, with its own launch check of K1, K2, K7 and K8.
+     timed frames, with its own launch check of K1, K2, K7 and K8; K2's
+     launches must be 7 times the calls captured in one NEE frame.
   6. the big-mesh slice (tests/torch_big_scene.py: the Cornell box with a
      mirror icosphere of 81,920 triangles, 81,956 in all, traced through a
      binned ClusterSet of 641 clusters, 161 superclusters):
@@ -97,8 +106,9 @@ and operations over 67 TFLOP/s fp32, from this run's inputs; a trace
 counts the ray-triangle tests its rays need, e.g. K10 and K12 the
 clusters whose box a ray enters before its closest hit, K2 and K14 the
 tests up to each ray's first occluder, K7 24 taps of each pixel the
-bypass does not copy); K7 and K14 also carry floor_ms, their
-instruction-issue floor. The last is
+bypass does not copy); K2, K3, K7 and K14 also carry floor_ms, their
+instruction-issue floor, and K2 its live queries (live, one entry each,
+their sum a ReSTIR frame and the NEE frame's launches). The last is
 {"ok": true, "device": {...}}.
 """
 
@@ -251,22 +261,72 @@ def sass_counts(lib_path):
     out = dict(woop_loop=woop, atrous_taps=taps, atrous_stage=stage,
                clock_mhz=clock,
                n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
+    out.update(k3_k2_counts(funcs))
     log(f"  SASS: K14 {woop} instructions a triangle iteration; K7 {taps} "
         f"from the staging barrier through 24 taps, {stage} a staging "
         f"iteration; {out['n_sm']} SMs at up to {clock:.0f} MHz")
     return out
 
 
-def woop_issue_floor(counts, rule_tests, rays):
-    """K14's instruction-issue floor, ms: its triangle-loop iterations
-    (rule_tests / (32 x rays) a warp) at the loop's SASS count (counts:
-    sass_counts'; None where it has no count)."""
+# The multiplier of each PCG draw's output permutation (rnd, 277803737):
+# one IMAD a draw, four draws a RIS candidate.
+PCG_WORD_MUL = "0x108ef2d9"
+# (key, kernel, the loop's body op, marker, markers a unit, the
+# instructions an iteration passes, unit): K3's candidate loop
+# (shared-memory table) through its target function's roots and
+# reciprocals (MUFU), and K2's triangle loop, one IEEE reciprocal
+# (MUFU.RCP) a ray-triangle test; each counted a unit of its work.
+LOOP_UNITS = (
+    ("k3_candidate", "ris_audition_kernelILb1E", "LDS",
+     lambda ins: PCG_WORD_MUL in ins.text, 4,
+     lambda ins: ins.op.startswith("MUFU"), "candidate"),
+    ("k2_test", "15occluded_kernel", "LDS",
+     lambda ins: ins.op.startswith("MUFU.RCP"), 1, lambda ins: False,
+     "ray-triangle test"),
+)
+
+
+def k3_k2_counts(funcs, keys=None):
+    """{key: SASS instructions a unit} of K3's candidate loop and K2's
+    triangle loop (the LOOP_UNITS `keys`, default all) in `funcs`
+    (sass.functions of a build), and {key}_units, the units an iteration;
+    a count that fails is left out and printed as not measured."""
     from tools import sass
 
-    if "woop_loop" not in counts:
+    out = {}
+    for key, kernel, body, marker, per, through, unit in LOOP_UNITS:
+        if keys is not None and key not in keys:
+            continue
+        found = {name: code for name, code in funcs.items() if kernel in name}
+        for name, code in found.items():
+            try:
+                count, units, _ = sass.loop_per_unit(code, body, marker, per,
+                                                     through)
+            except ValueError as e:
+                log(f"  SASS {key} ({name}): not measured ({e})")
+                continue
+            # {key}_r{units}: each instantiation's count (K2 has one for its
+            # wide launches and one for one ray a thread); {key}: the widest.
+            out[f"{key}_r{units:g}"] = count
+            if units >= out.get(f"{key}_units", 0):
+                out[key], out[f"{key}_units"] = count, units
+            log(f"  SASS: {kernel} {count:.2f} instructions a {unit}, "
+                f"{units:g} {unit}s an iteration of its loop")
+        if not found:
+            log(f"  SASS {key}: not measured (no function holds {kernel!r})")
+    return out
+
+
+def issue_floor(counts, key, units):
+    """Instruction-issue floor, ms: counts[key] SASS instructions for each
+    of `units` warp units of work (counts: sass_counts'; None where it has
+    no count)."""
+    from tools import sass
+
+    if key not in counts:
         return None
-    return sass.issue_floor_ms(counts["woop_loop"] * rule_tests / (32 * rays),
-                               counts["n_sm"], counts["clock_mhz"])
+    return sass.issue_floor_ms(counts[key] * units, counts["n_sm"],
+                               counts["clock_mhz"])
 
 
 def atrous_warps(guides, tile, passes=4):
@@ -346,37 +406,74 @@ def compare_occluded(tris, o, d, tmax, exclude, label):
     k = cuda_trace.trace_occluded(tris, o, d, tmax, exclude=exclude)
     p = intersect.trace_occluded_brute(tris, o, d, tmax, exclude=exclude)
     torch.cuda.synchronize()
-    frac = (k == p).float().mean().item()
-    err = (k.float() - p.float()).abs().max().item()
+    differ = int((k != p).sum())
     log(f"  K2 occluded {label}: {o.shape[0]} rays x {tris[0].shape[0]} tris, "
-        f"agree {frac:.7f}, occluded rate {p.float().mean().item():.4f}")
-    check(frac >= TRACE_AGREE, f"K2 {label}: agreement {frac} < {TRACE_AGREE}")
-    return frac, err
+        f"exclude {'no' if exclude is None else 'yes'}, differ on {differ}, "
+        f"occluded rate {p.float().mean().item():.4f}")
+    check(differ == 0, f"K2 {label}: {differ} rays differ from plain")
 
 
-def occluded_tests(tris, o, d, tmax, exclude, step=1 << 16):
-    """Ray-triangle tests an any-hit trace needs: each ray up to and with
-    its first occluder in triangle order, else all of them."""
-    from sunray_tpu_torch.ops import intersect
+def occluded_timing(counts, tris, o, d, tmax, exclude, label):
+    """K2 timed on one query, beside its plain version, its bound (the tests
+    up to each ray's first occluder), the tests its warp rule runs at the
+    launch shape (warp_rule_tests) and its instruction-issue floor."""
+    from sunray_tpu_torch.ops import cuda_trace, intersect
 
-    n_tris = tris[0].shape[0]
+    first = occluded_first(tris, o, d, tmax, exclude)
+    needed = int(first.sum())
+    rays = cuda_trace.occ_rays(o.shape[0])
+    rule = warp_rule_tests(first, rays, cuda_trace.OCC_THREADS)
+    r = dict(
+        rays=o.shape[0],
+        ms=device_ms(lambda: cuda_trace.trace_occluded(tris, o, d, tmax,
+                                                       exclude=exclude)),
+        plain_ms=time_ms(lambda: intersect.trace_occluded_brute(
+            tris, o, d, tmax, exclude=exclude)),
+        bound=bound(o.shape[0] * 33 + nbytes(*tris), needed * TEST_OPS),
+        needed_tests=needed, rule_tests=rule,
+        floor_ms=issue_floor(counts, f"k2_test_r{rays}", rule / 32))
+    log(f"  K2 {label}: {o.shape[0]} rays; tests needed {needed}, run {rule} "
+        f"({rule / max(needed, 1):.4f}x) at {rays} rays a thread; kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+        f"{r['bound'][0]:.4f} ({r['bound'][1]}), issue floor {r['floor_ms']} ms")
+    return r
+
+
+def first_occluders(hits, n_tris, o, d, tmax, exclude, step=1 << 16):
+    """(N,) tests each ray of an any-hit trace needs: up to and with its
+    first occluder in triangle order, else all n_tris of them. hits(o, d,
+    tmax) gives a slice of rays' (B, n_tris) hit masks."""
     ids = torch.arange(n_tris, device=o.device)
-    total = 0
+    out = []
     for s in range(0, o.shape[0], step):
         sl = slice(s, s + step)
-        _, _, _, valid = intersect.moller_trumbore(
-            o[sl], d[sl], *tris, intersect.T_MIN, tmax[sl, None])
-        valid &= ids[None, :] != exclude[sl, None]
-        first = torch.where(valid.any(dim=1), valid.int().argmax(dim=1) + 1,
-                            n_tris)
-        total += int(first.sum())
-    return total
+        valid = hits(o[sl], d[sl], tmax[sl, None])
+        if exclude is not None:
+            valid &= ids[None, :] != exclude[sl, None]
+        out.append(torch.where(valid.any(dim=1), valid.int().argmax(dim=1) + 1,
+                               n_tris))
+    return torch.cat(out)
 
 
-def phase_kernels(dev, counts, width=1920, height=1080,
-                  n_random=(65536, 4096)):
+def occluded_first(tris, o, d, tmax, exclude):
+    """first_occluders of a Moller-Trumbore any-hit trace (K2)."""
+    from sunray_tpu_torch.ops import intersect
+
+    return first_occluders(
+        lambda o, d, tx: intersect.moller_trumbore(o, d, *tris, intersect.T_MIN,
+                                                   tx)[3],
+        tris[0].shape[0], o, d, tmax, exclude)
+
+
+def trace_sets(dev, width=1920, height=1080, n_random=(65536, 4096)):
+    """K1's and K2's synthetic inputs, from a generator seeded 0: the
+    Cornell box's triangles and camera rays; bounce rays from the camera
+    rays' hits, in uniform random directions; shadow rays from the hits to
+    random points on the light, its triangle excluded, each ending 1e-3
+    short; random rays against random triangles (brute_force_max_tris =
+    4096), with random tmax and exclude ids for the any-hit trace."""
     from sunray_tpu_torch.camera import Camera, camera_matrices, generate_rays
-    from sunray_tpu_torch.ops import cuda_gather, cuda_image, cuda_trace, intersect
+    from sunray_tpu_torch.ops import intersect
     from sunray_tpu_torch.ops.brdf import normalize
     from sunray_tpu_torch.render import restir
     from sunray_tpu_torch.scene import cornell_box
@@ -389,7 +486,6 @@ def phase_kernels(dev, counts, width=1920, height=1080,
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    results = {}
     scene = cornell_box(device=dev)
     tris = tuple(t.contiguous() for t in scene.world_triangle_vertices())
     mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
@@ -397,14 +493,9 @@ def phase_kernels(dev, counts, width=1920, height=1080,
     o = o.reshape(-1, 3).contiguous()
     d = d.reshape(-1, 3).contiguous()
     n = o.shape[0]
-
-    log("phase 3: kernels against their plain versions")
-    f_cam, e_cam, hit = compare_closest(tris, o, d, "camera")
-    # Bounce rays: from the camera hits, uniform random directions.
+    hit = intersect.trace_closest_brute(tris, o, d)
     pos = (o + d * torch.where(hit.hit, hit.t, 1.0)[:, None]).contiguous()
     bd = normalize(randn(n, 3)).contiguous()
-    f_b, e_b, _ = compare_closest(tris, pos + bd * 1e-3, bd, "bounce")
-    # Shadow rays to random points on the light, excluding its triangle.
     lights = restir.Lights(scene)
     lidx = torch.randint(0, lights.num, (n,), generator=gen, device=dev)
     lpos, _, _, _ = lights.sample_point(lidx, rand(n), rand(n))
@@ -412,40 +503,53 @@ def phase_kernels(dev, counts, width=1920, height=1080,
     dist = sv.norm(dim=-1)
     sdir = (sv / dist[:, None]).contiguous()
     ex = lights.world_tri[lidx].contiguous()
-    f_s, e_s = compare_occluded(tris, pos, sdir, (dist - 1e-3).contiguous(), ex,
-                                "shadow")
-    # Random rays against random triangles (brute_force_max_tris = 4096).
     nr, nt = n_random
     v0 = randn(nt, 3)
     rtris = (v0.contiguous(), (v0 + randn(nt, 3) * 0.3).contiguous(),
              (v0 + randn(nt, 3) * 0.3).contiguous())
     ro = (randn(nr, 3) * 3.0).contiguous()
     rd = normalize(randn(nr, 3)).contiguous()
-    f_r, e_r, _ = compare_closest(rtris, ro, rd, "random")
     rex = torch.randint(-1, nt, (nr,), generator=gen, device=dev,
                         dtype=torch.int32)
     rtmax = (rand(nr) * 6.0).contiguous()
-    f_ro, e_ro = compare_occluded(rtris, ro, rd, rtmax, rex, "random")
+    return dict(tris=tris, camera=(o, d), bounce=(pos + bd * 1e-3, bd),
+                shadow=(pos, sdir, (dist - 1e-3).contiguous(), ex),
+                random_tris=rtris, random=(ro, rd),
+                random_occ=(ro, rd, rtmax, rex), gen=gen)
 
-    n_tris = tris[0].shape[0]
-    smax = (dist - 1e-3).contiguous()
+
+def phase_kernels(dev, counts, width=1920, height=1080):
+    from sunray_tpu_torch.ops import cuda_gather, cuda_trace, intersect
+    from sunray_tpu_torch.scene import cornell_box
+
+    results = {}
+    sets = trace_sets(dev, width, height)
+    gen = sets["gen"]
+    scene_tris, rtris = sets["tris"], sets["random_tris"]
+    o, d = sets["camera"]
+    n, n_tris = o.shape[0], scene_tris[0].shape[0]
+
+    log("phase 3: kernels against their plain versions")
+    f_cam, e_cam, _ = compare_closest(scene_tris, o, d, "camera")
+    f_b, e_b, _ = compare_closest(scene_tris, *sets["bounce"], "bounce")
+    compare_occluded(scene_tris, *sets["shadow"], "shadow")
+    f_r, e_r, _ = compare_closest(rtris, *sets["random"], "random")
+    compare_occluded(rtris, *sets["random_occ"], "random")
+
     results["trace_closest"] = dict(
         agree=min(f_cam, f_b, f_r), max_abs_err=max(e_cam, e_b, e_r),
-        ms=device_ms(lambda: cuda_trace.trace_closest(tris, o, d)),
-        plain_ms=time_ms(lambda: intersect.trace_closest_brute(tris, o, d)),
-        bound=bound(n * 41 + nbytes(*tris), n * n_tris * TEST_OPS),
+        ms=device_ms(lambda: cuda_trace.trace_closest(scene_tris, o, d)),
+        plain_ms=time_ms(lambda: intersect.trace_closest_brute(scene_tris, o, d)),
+        bound=bound(n * 41 + nbytes(*scene_tris), n * n_tris * TEST_OPS),
     )
+    # K2's row: the synthetic shadow set (PR 1-7's shape); the frames' own
+    # queries join it in phase_occluded_live.
     results["trace_occluded"] = dict(
-        agree=min(f_s, f_ro), max_abs_err=max(e_s, e_ro),
-        ms=device_ms(lambda: cuda_trace.trace_occluded(
-            tris, pos, sdir, smax, exclude=ex)),
-        plain_ms=time_ms(lambda: intersect.trace_occluded_brute(
-            tris, pos, sdir, smax, exclude=ex)),
-        bound=bound(n * 33 + nbytes(*tris),
-                    occluded_tests(tris, pos, sdir, smax, ex) * TEST_OPS),
-    )
+        occluded_timing(counts, scene_tris, *sets["shadow"], "synthetic shadow"),
+        agree=1.0, max_abs_err=0.0)
 
     # K8: the shade pass's two fetches, with out-of-range indices.
+    scene = cornell_box(device=dev)
     vgeo = torch.cat([scene.positions, scene.normals], dim=1).contiguous()
     tpack = torch.cat([scene.tri_vidx, scene.tri_inst[:, None]], dim=1).contiguous()
     check(tuple(vgeo.shape) == (72, 6) and tuple(tpack.shape) == (36, 4),
@@ -607,49 +711,67 @@ RESTIR_CHECKS = {
 }
 
 
-def capture_restir_inputs(dev, width=1920, height=1080, frame=2):
-    """The arguments each K3-K6 wrapper got in frame `frame` of a default
-    ReSTIR render at width x height."""
-    import contextlib
+def capture_calls(dev, wrappers, frame, width=1920, height=1080, **cfg_kw):
+    """Every call, (args, kwargs), of the wrappers `wrappers` ({name: module
+    under sunray_tpu_torch.ops}) in frame `frame` (the frames before it run
+    unrecorded) of the width x height Cornell render with
+    RenderConfig(**cfg_kw)."""
+    import importlib
 
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.config import RenderConfig
-    from sunray_tpu_torch.ops import cuda_restir
     from sunray_tpu_torch.render.pipeline import RenderState, render_frame
     from sunray_tpu_torch.scene import cornell_box
 
-    cfg = RenderConfig(width=width, height=height)
+    cfg = RenderConfig(width=width, height=height, **cfg_kw)
     scene = cornell_box(device=dev)
     mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
     state = RenderState.create(cfg, dev)
     for _ in range(frame):
         state, _, _ = render_frame(scene, cfg, state, mats)
-    captured = {}
+    mods = {name: importlib.import_module(f"sunray_tpu_torch.ops.{mod}")
+            for name, mod in wrappers.items()}
+    saved = {name: getattr(mods[name], name) for name in wrappers}
+    calls = {name: [] for name in wrappers}
 
-    @contextlib.contextmanager
-    def recording():
-        saved = {name: getattr(cuda_restir, name) for name in RESTIR_WRAPPERS}
+    def wrap(name):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return saved[name](*args, **kwargs)
+        return call
 
-        def wrap(name):
-            def call(*args):
-                captured.setdefault(name, args)
-                return saved[name](*args)
-            return call
-
-        for name in RESTIR_WRAPPERS:
-            setattr(cuda_restir, name, wrap(name))
-        try:
-            yield
-        finally:
-            for name, fn in saved.items():
-                setattr(cuda_restir, name, fn)
-
-    with recording():
+    try:
+        for name in wrappers:
+            setattr(mods[name], name, wrap(name))
         render_frame(scene, cfg, state, mats)
+    finally:
+        for name, fn in saved.items():
+            setattr(mods[name], name, fn)
     torch.cuda.synchronize()
-    check(set(captured) == set(RESTIR_WRAPPERS),
-          f"frame {frame} called only {sorted(captured)}")
-    return captured
+    return calls
+
+
+# The default ReSTIR frame's three K2 queries, in the order the frame makes
+# them: pass 1's DI visibility with the GI sample's NEE ray (2P rays,
+# render/gbuffer.py), pass 2's GI-tap visibility (3P) and its DI winner
+# shadow ray with the GI final visibility ray (2P, render/pathtrace.py).
+RESTIR_OCCLUDED = ("DI visibility + GI NEE", "GI-tap visibility",
+                   "DI winner + GI final")
+
+
+def capture_restir_inputs(dev, width=1920, height=1080, frame=2):
+    """The arguments each K3-K6 wrapper got in frame `frame` of a default
+    ReSTIR render at width x height, and every K2 call of that frame,
+    (args, kwargs), in order."""
+    wrappers = dict.fromkeys(RESTIR_WRAPPERS, "cuda_restir")
+    calls = capture_calls(dev, dict(wrappers, trace_occluded="cuda_trace"),
+                          frame, width, height)
+    check(all(calls[name] for name in RESTIR_WRAPPERS),
+          f"frame {frame} called only {[k for k, v in calls.items() if v]}")
+    check(len(calls["trace_occluded"]) == len(RESTIR_OCCLUDED),
+          f"frame {frame}: {len(calls['trace_occluded'])} K2 calls")
+    return ({name: calls[name][0][0] for name in RESTIR_WRAPPERS},
+            calls["trace_occluded"])
 
 
 def compare_restir(name, args, label):
@@ -708,19 +830,13 @@ def restir_lane_ops(name, args):
     return 200 + 150 * args[2]["ok"].shape[0]
 
 
-def phase_restir_kernels(dev, n_random=65536, n_lights=600):
+def random_audition_args(dev, n_lights, lanes=65536, seed=1):
+    """K3's arguments on a random table of n_lights lights and `lanes`
+    random surfaces (K = 16, ~80% of lanes enabled), from a generator
+    seeded `seed`."""
     from sunray_tpu_torch.ops import cuda_restir
 
-    log("phase 3: K3-K6 against their plain versions")
-    captured = capture_restir_inputs(dev)
-    results = {}
-    for name, args in captured.items():
-        agree, err = compare_restir(name, args, "1080p frame 2")
-        results[name] = dict(agree=agree, max_abs_err=err, args=args)
-
-    # K3 on a random table of many lights (shared-memory table) and
-    # random surfaces.
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rand(*shape, lo=0.0, hi=1.0):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
@@ -734,16 +850,50 @@ def phase_restir_kernels(dev, n_random=65536, n_lights=600):
         v0, (v0 + rand(n_lights, 3, lo=-0.3, hi=0.3)).contiguous(),
         (v0 + rand(n_lights, 3, lo=-0.3, hi=0.3)).contiguous(),
         rand(n_lights, 3, lo=0.0, hi=20.0))
-    seed = torch.randint(0, 2**32, (n_random,), generator=gen, device=dev,
-                         dtype=torch.int64)
-    args = (table, seed, rand(n_random, 3, lo=0.0, hi=2.0), unit(n_random),
-            unit(n_random), rand(n_random, 3), rand(n_random, lo=0.05),
-            rand(n_random), 16, rand(n_random) > 0.2)
-    agree, err = compare_restir("ris_audition", args,
-                                f"{n_random} lanes x {n_lights} lights")
+    seeds = torch.randint(0, 2**32, (lanes,), generator=gen, device=dev,
+                          dtype=torch.int64)
+    return (table, seeds, rand(lanes, 3, lo=0.0, hi=2.0), unit(lanes),
+            unit(lanes), rand(lanes, 3), rand(lanes, lo=0.05), rand(lanes), 16,
+            rand(lanes) > 0.2)
+
+
+def audition_warps(args):
+    """Warps of K3's launch that hold an enabled lane: the warps that run
+    the candidates (a warp of disabled lanes only draws)."""
+    enable = args[9]
+    n = enable.shape[0]
+    pad = torch.zeros(-(-n // 32) * 32, dtype=torch.bool, device=enable.device)
+    pad[:n] = enable
+    return int(pad.reshape(-1, 32).any(dim=1).sum())
+
+
+def phase_restir_kernels(dev, counts, n_lights=600):
+    """K3-K6 against their plain versions on frame 2's inputs, K3 also on a
+    random table of n_lights lights; returns (rows, frame 2's K2 calls)."""
+    from sunray_tpu_torch.ops import cuda_restir
+
+    log("phase 3: K3-K6 against their plain versions")
+    captured, occluded = capture_restir_inputs(dev)
+    results = {}
+    for name, args in captured.items():
+        agree, err = compare_restir(name, args, "1080p frame 2")
+        results[name] = dict(agree=agree, max_abs_err=err, args=args)
+
+    # K3 on a random table of many lights (shared-memory table) and
+    # random surfaces.
+    lights_args = random_audition_args(dev, n_lights)
+    agree, err = compare_restir("ris_audition", lights_args,
+                                f"{lights_args[1].shape[0]} lanes x {n_lights} "
+                                "lights")
     r = results["ris_audition"]
     r["agree"] = min(r["agree"], agree)
     r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["lights600_ms"] = device_ms(lambda: cuda_restir.ris_audition(*lights_args))
+    warps = audition_warps(r["args"])
+    r["floor_ms"] = issue_floor(counts, "k3_candidate", warps * r["args"][8])
+    log(f"  K3 frame 2: {warps} warps with an enabled lane x "
+        f"{r['args'][8]} candidates; issue floor {r['floor_ms']} ms; "
+        f"{n_lights}-light table {r['lights600_ms']:.4f} ms")
 
     for name, r in results.items():
         args = r.pop("args")
@@ -755,8 +905,47 @@ def phase_restir_kernels(dev, n_random=65536, n_lights=600):
         r["plain_ms"] = time_ms(
             lambda: getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args))
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms")
-    return results
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    return results, occluded
+
+
+def phase_occluded_live(dev, counts, restir_calls, row, width=1920,
+                        height=1080, frame=2):
+    """K2 on the frames' own queries: the three of frame 2 of the default
+    1080p ReSTIR frame (restir_calls, from capture_restir_inputs) and the
+    first bounce round's of frame 2 of the 1080p NEE frame; each bit-equal
+    to plain on every lane and timed as occluded_timing times it. Adds
+    them to K2's row as live_* entries."""
+    from sunray_tpu_torch.ops.intersect import T_MIN
+
+    log("phase 3: K2 on the frames' own shadow queries")
+    nee = capture_calls(dev, {"trace_occluded": "cuda_trace"}, frame, width,
+                        height, lighting="nee")["trace_occluded"]
+    check(nee, f"NEE frame {frame} made no K2 call")
+    log(f"  NEE frame {frame}: {len(nee)} K2 calls of "
+        f"{sorted({a[1].shape[0] for a, _ in nee})} rays")
+    queries = [*zip(RESTIR_OCCLUDED, restir_calls),
+               ("NEE bounce round 0", nee[0])]
+    live = []
+    for label, (args, kwargs) in queries:
+        tris, o, d, tmax, tmin = args
+        check(tmin == T_MIN and set(kwargs) == {"exclude"},
+              f"K2 {label}: unexpected arguments")
+        ex = kwargs["exclude"]
+        compare_occluded(tris, o, d, tmax, ex, label)
+        r = occluded_timing(counts, tris, o, d, tmax, ex, label)
+        live.append(dict(query=label, rays=r["rays"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                         needed_tests=r["needed_tests"],
+                         rule_tests=r["rule_tests"], floor_ms=r["floor_ms"]))
+    row["live"] = live
+    row["live_restir_frame_ms"] = sum(q["ms"] for q in live[:3])
+    row["live_restir_frame_bound_ms"] = sum(q["bound_ms"] for q in live[:3])
+    row["nee_calls_per_frame"] = len(nee)
+    log(f"  K2 a ReSTIR frame (3 queries): kernel "
+        f"{row['live_restir_frame_ms']:.4f} ms, bound "
+        f"{row['live_restir_frame_bound_ms']:.4f} ms")
 
 
 # -- phase 3, K9, K13, K14: the kernel switches on a live frame's inputs ------
@@ -772,68 +961,28 @@ def capture_switch_inputs(dev, width=1920, height=1080, frame=3):
     """Every call of the K9, K13 and K14 wrappers, (args, kwargs), in frame
     `frame` of the 1080p Cornell ReSTIR render with the kernel switches
     (frame 3: TAA reads history from frame_count 3 on)."""
-    import importlib
-
-    from sunray_tpu_torch.camera import Camera, camera_matrices
-    from sunray_tpu_torch.config import RenderConfig
-    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
-    from sunray_tpu_torch.scene import cornell_box
-
-    cfg = RenderConfig(width=width, height=height, **SWITCHES)
-    scene = cornell_box(device=dev)
-    mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
-    state = RenderState.create(cfg, dev)
-    for _ in range(frame):
-        state, _, _ = render_frame(scene, cfg, state, mats)
-    mods = {name: importlib.import_module(f"sunray_tpu_torch.ops.{mod}")
-            for name, mod in SWITCH_WRAPPERS.items()}
-    saved = {name: getattr(mods[name], name) for name in SWITCH_WRAPPERS}
-    calls = {name: [] for name in SWITCH_WRAPPERS}
-
-    def wrap(name):
-        def call(*args, **kwargs):
-            calls[name].append((args, kwargs))
-            return saved[name](*args, **kwargs)
-        return call
-
-    try:
-        for name in SWITCH_WRAPPERS:
-            setattr(mods[name], name, wrap(name))
-        render_frame(scene, cfg, state, mats)
-    finally:
-        for name, fn in saved.items():
-            setattr(mods[name], name, fn)
-    torch.cuda.synchronize()
+    calls = capture_calls(dev, SWITCH_WRAPPERS, frame, width, height,
+                          **SWITCHES)
     check(len(calls["taa_clamp_blend"]) == 1 and len(calls["history_gather"]) == 2
           and calls["trace_occluded_woop"],
           f"frame {frame}: wrapper calls {({k: len(v) for k, v in calls.items()})}")
     return calls
 
 
-def woop_first(woop, o, d, tmax, exclude, step=1 << 16):
-    """(N,) Woop tests each ray of an any-hit trace needs: up to and with
-    its first occluder in triangle order, else all of them."""
+def woop_first(woop, o, d, tmax, exclude):
+    """first_occluders of a Woop any-hit trace (K14)."""
     from sunray_tpu_torch.ops import intersect
 
-    n_tris = woop[0].shape[1]
-    ids = torch.arange(n_tris, device=o.device)
-    out = []
-    for s in range(0, o.shape[0], step):
-        sl = slice(s, s + step)
-        valid = intersect.woop_hits(woop, o[sl], d[sl], intersect.T_MIN,
-                                    tmax[sl, None])
-        if exclude is not None:
-            valid &= ids[None, :] != exclude[sl, None]
-        out.append(torch.where(valid.any(dim=1), valid.int().argmax(dim=1) + 1,
-                               n_tris))
-    return torch.cat(out)
+    return first_occluders(
+        lambda o, d, tx: intersect.woop_hits(woop, o, d, intersect.T_MIN, tx),
+        woop[0].shape[1], o, d, tmax, exclude)
 
 
-def woop_rule_tests(first, rays, threads=128):
-    """Tests K14 runs for rays needing `first` tests each: thread t of block
-    b traces rays b * threads * rays + t + j * threads (j < rays) and tests
-    all of them against each triangle until every one is decided; a warp
-    issues each triangle's tests until its last thread is done."""
+def warp_rule_tests(first, rays, threads=128):
+    """Tests K14 or K2 runs for rays needing `first` tests each: thread t of
+    block b traces rays b * threads * rays + t + j * threads (j < rays) and
+    tests all of them against each triangle until every one is decided; a
+    warp issues each triangle's tests until its last thread is done."""
     per = threads * rays
     nb = -(-first.shape[0] // per)
     f = torch.zeros(nb * per, dtype=first.dtype, device=first.device)
@@ -925,7 +1074,7 @@ def phase_switch_kernels(dev, counts):
     woop, o, d, tmax, tmin, exclude = worst
     check(tmin == intersect.T_MIN, "shadow query with a non-default tmin")
     first = woop_first(woop, o, d, tmax, exclude)
-    rule = woop_rule_tests(first, cuda_trace.WOOP_RAYS, cuda_trace.WOOP_THREADS)
+    rule = warp_rule_tests(first, cuda_trace.WOOP_RAYS, cuda_trace.WOOP_THREADS)
     results["trace_occluded_woop"] = dict(
         agree=min(agree), max_abs_err=err,
         ms=device_ms(lambda: cuda_trace.trace_occluded_woop(
@@ -935,10 +1084,12 @@ def phase_switch_kernels(dev, counts):
         bound=bound(o.shape[0] * 33 + nbytes(*woop),
                     int(first.sum()) * WOOP_OPS),
         needed_tests=int(first.sum()), rule_tests=rule,
-        floor_ms=woop_issue_floor(counts, rule, cuda_trace.WOOP_RAYS))
+        # a triangle-loop iteration tests WOOP_RAYS rays a thread
+        floor_ms=issue_floor(counts, "woop_loop",
+                             rule / (32 * cuda_trace.WOOP_RAYS)))
     r = results["trace_occluded_woop"]
     log(f"  K14 tests: needed {r['needed_tests']}, run {rule} as "
-        f"woop_rule_tests models the kernel ({rule / r['needed_tests']:.4f}x) "
+        f"warp_rule_tests models the kernel ({rule / r['needed_tests']:.4f}x) "
         f"at {cuda_trace.WOOP_RAYS} rays a thread; issue floor {r['floor_ms']} ms")
     log(f"  K14 timed on the {o.shape[0]}-ray query")
     for name, r in results.items():
@@ -1755,12 +1906,21 @@ def main():
     counts = sass_counts(path)
 
     kernels = phase_kernels(dev, counts)
-    kernels.update(phase_restir_kernels(dev))
+    restir_rows, occluded = phase_restir_kernels(dev, counts)
+    kernels.update(restir_rows)
+    phase_occluded_live(dev, counts, occluded, kernels["trace_occluded"])
     kernels.update(phase_switch_kernels(dev, counts))
     phase_golden(dev)
     # Each kernel's launches are read on its own slice's main path.
     launches = phase_main(dev, "restir", CORNELL_KERNELS, n_warm=5, n_timed=20)
-    phase_main(dev, "nee", NEE_KERNELS, n_warm=2, n_timed=5)
+    nee = phase_main(dev, "nee", NEE_KERNELS, n_warm=2, n_timed=5)
+    k2 = kernels["trace_occluded"]
+    k2["nee_launches"] = nee["trace_occluded"]
+    check(k2["nee_launches"] == 7 * k2["nee_calls_per_frame"],
+          f"NEE frame: K2 launched {k2['nee_launches']} times in 7 frames, "
+          f"{k2['nee_calls_per_frame']} calls a frame captured")
+    log(f"  K2 launches: {launches['trace_occluded']} over 25 ReSTIR frames, "
+        f"{k2['nee_launches']} over 7 NEE frames")
     slice_launches = phase_main(dev, "restir", SLICE_KERNELS, n_warm=5,
                                 n_timed=20, switches=SWITCHES,
                                 absent=("trace_occluded",))
@@ -1781,7 +1941,10 @@ def main():
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1],
                  "library_ms": r.get("library_ms")}
-        for key in ("agree", "overflow_share", "needed_tests", "rule_tests",
+        for key in ("agree", "rays", "live", "live_restir_frame_ms",
+                    "live_restir_frame_bound_ms", "nee_calls_per_frame",
+                    "nee_launches", "lights600_ms",
+                    "overflow_share", "needed_tests", "rule_tests",
                     "block_items", "old_tests", "dead_ms", "fallback_closest_ms",
                     "fallback_anyhit_ms", "fallback_closest_bound_ms",
                     "fallback_anyhit_bound_ms", "anyhit_ms", "anyhit_bound_ms",

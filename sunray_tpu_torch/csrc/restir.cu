@@ -15,11 +15,11 @@
 // ~16 x 150 operations a pixel, ~5 GFLOP, ~75 us at the fp32 peak).
 // Design: one thread per pixel over plain (P,) and (P, 3) arrays, every
 // intermediate in registers; no (K, P) or (T, P) plane is ever written.
-// K3 stages the light table (48 bytes a light) in shared memory when it
-// fits and otherwise reads it through __ldg; K4 reads the history
-// reservoir at the reprojected pixel and K5 each neighbour at its shared
-// offset in place; K3-K5 read light emission from the table. Light and
-// triangle ids stay int32 throughout.
+// K3 reads each light as a 64-byte record computed once a light, from
+// shared memory when the table fits and otherwise through __ldg; K4 reads
+// the history reservoir at the reprojected pixel and K5 each neighbour at
+// its shared offset in place; K3-K5 read light emission from the table.
+// Light and triangle ids stay int32 throughout.
 //
 // Numerics follow the plain PyTorch versions (ops/cuda_restir.py, which
 // follow the JAX package's jnp paths) operation for operation. The
@@ -103,12 +103,42 @@ __device__ __forceinline__ Surface load_surface(const float* pos, const float* n
           __ldg(metal + i)};
 }
 
+// The terms of eval_light that depend on the surface alone, for a surface
+// that meets many light samples (K3's candidates): the same operations,
+// computed once.
+struct ShadeTerms {
+  float ndv, a2, a2m1, one_m, root_v;
+  V3 f0, one_f0, diff;   // fmaf(al, metal, 0.04 (1 - metal)), 1 - f0, al (1 - metal)
+};
+
+template <bool planar>
+__device__ __forceinline__ ShadeTerms shade_terms(const Surface& s) {
+  ShadeTerms t;
+  t.ndv = fmaxf(planar ? sum3(s.n, s.v) : dot3(s.n, s.v), 0.001f);
+  const float a = s.rough * s.rough;
+  t.a2 = a * a;
+  t.a2m1 = t.a2 - 1.0f;
+  t.one_m = 1.0f - t.a2;
+  t.root_v = sqrtf(fmaf(t.ndv * t.ndv, t.one_m, t.a2));
+  const float base = 0.04f * (1.0f - s.metal);
+  float f0[3], diff[3];
+  for (int c = 0; c < 3; ++c) {
+    f0[c] = fmaf(comp(s.al, c), s.metal, base);
+    diff[c] = comp(s.al, c) * (1.0f - s.metal);
+  }
+  t.f0 = {f0[0], f0[1], f0[2]};
+  t.one_f0 = {1.0f - f0[0], 1.0f - f0[1], 1.0f - f0[2]};
+  t.diff = {diff[0], diff[1], diff[2]};
+  return t;
+}
+
 // GGX D*V*F + Lambert of a light sample, unshadowed (rt_utils.slang:203-234).
 // planar = true rounds as brdf.eval_p_hat_planar (written-out dot products),
 // false as brdf.eval_unshadowed_light (jnp.sum reductions). Returns f_y
 // (rgb); p_hat is its max channel.
 template <bool planar>
-__device__ __forceinline__ V3 eval_light(const Surface& s, V3 em, V3 lpos, V3 lnrm) {
+__device__ __forceinline__ V3 eval_light(const Surface& s, const ShadeTerms& t, V3 em,
+                                         V3 lpos, V3 lnrm) {
   V3 l = sub(lpos, s.pos);
   const float dist =
       fmaxf(planar ? safe_sqrt(sum3(l, l)) : vec_norm(l), 1e-4f);
@@ -122,28 +152,25 @@ __device__ __forceinline__ V3 eval_light(const Surface& s, V3 em, V3 lpos, V3 ln
   h = divs(h, h_n);
   const float ndh = fmaxf(planar ? sum3(s.n, h) : dot3(s.n, h), 0.0f);
   const float vdh = fmaxf(planar ? sum3(s.v, h) : dot3(s.v, h), 0.0f);
-  const float ndv = fmaxf(planar ? sum3(s.n, s.v) : dot3(s.n, s.v), 0.001f);
-  const float a = s.rough * s.rough;
-  const float a2 = a * a;
-  const float denom = fmaf(ndh * ndh, a2 - 1.0f, 1.0f);
-  const float d_term = a2 / (denom * kPi * denom);
-  const float one_m = 1.0f - a2;
-  const float ggx_l = ndv * sqrtf(fmaf(ndl * ndl, one_m, a2));
-  const float root_v = sqrtf(fmaf(ndv * ndv, one_m, a2));
-  const float v_term = 0.5f / fmaxf(fmaf(ndl, root_v, ggx_l), 1e-4f);
+  const float denom = fmaf(ndh * ndh, t.a2m1, 1.0f);
+  const float d_term = t.a2 / (denom * kPi * denom);
+  const float ggx_l = t.ndv * sqrtf(fmaf(ndl * ndl, t.one_m, t.a2));
+  const float v_term = 0.5f / fmaxf(fmaf(ndl, t.root_v, ggx_l), 1e-4f);
   const float dv = d_term * v_term;
   const float fres5 = pow5(1.0f - vdh);
   const float geometry = ndl * cos_light / fmaxf(dist * dist, 1e-4f);
-  const float base = 0.04f * (1.0f - s.metal);
   float out[3];
   for (int c = 0; c < 3; ++c) {
-    const float al = comp(s.al, c);
-    const float f0 = fmaf(al, s.metal, base);
-    const float f = fmaf(1.0f - f0, fres5, f0);
-    const float shade = fmaf(dv, f, al * (1.0f - s.metal) * (1.0f - f) * kInvPi);
+    const float f = fmaf(comp(t.one_f0, c), fres5, comp(t.f0, c));
+    const float shade = fmaf(dv, f, comp(t.diff, c) * (1.0f - f) * kInvPi);
     out[c] = lit ? comp(em, c) * shade * geometry : 0.0f;
   }
   return {out[0], out[1], out[2]};
+}
+
+template <bool planar>
+__device__ __forceinline__ V3 eval_light(const Surface& s, V3 em, V3 lpos, V3 lnrm) {
+  return eval_light<planar>(s, shade_terms<planar>(s), em, lpos, lnrm);
 }
 
 __device__ __forceinline__ float max3(V3 v) { return fmaxf(fmaxf(v.x, v.y), v.z); }
@@ -187,12 +214,55 @@ __device__ __forceinline__ V3 emission(const float* __restrict__ em, int idx, in
 }
 
 // ---- K3 --------------------------------------------------------------------
+//
+// What holds it back: per candidate the light sample, the target function
+// (eval_light<true>: 9 IEEE divisions and 4 roots, each a short sequence
+// with a guarded slow-path call) and the take. PR 2's kernel also read
+// the candidate's light as 12 scalar loads, recomputed the light's cross
+// product, its norm, its unit normal (three divisions) and its area for
+// every candidate, recomputed the surface's own shading terms (a root
+// among them) for every candidate, and took the winner under a branch.
+//
+// Design: one small launch computes each light's 64-byte record once
+// (light_records_kernel, the operations and order of ris_audition_plain,
+// so the values are the bits each candidate computed before):
+//   q[0] = (v0, em.x)  q[1] = (v1, em.y)  q[2] = (v2, em.z)
+//   q[3] = (unit normal cr / max(|cr|, 1e-12), max(L * 0.5 * |cr|, 1e-4))
+// and the audition reads a candidate's light as four 16-byte loads: from
+// shared memory when the table fits in 48 KB (kRisSmemLights lights),
+// else through the read-only cache. One thread per pixel computes its
+// surface's shading terms once (shade_terms), then draws and evaluates the
+// candidates one at a time in the stream order (u_pick, u1, u2, u_keep),
+// the take by selects. A lane that is disabled only draws: its weights
+// are 0 whatever the target function is. Drawing and evaluating 2 or 4
+// candidates before their takes, for the scheduler to overlap, cost more
+// registers than it won (79 and 110 against 64: fewer warps an SM; 5% and
+// 27% slower on the 1080p frame's inputs).
+constexpr int kRisSmemLights = 768;  // 48 KB of 64-byte records; reported by
+                                     // sunray_ris_launch_shape
 
-// Light table packed (L, 12): v0, v1, v2, emission; staged in shared
-// memory (kSmem) or read through the read-only cache.
+__global__ void __launch_bounds__(128)
+light_records_kernel(const float* __restrict__ tab, int n_lights,
+                     float4* __restrict__ rec) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_lights) return;
+  const float* t = tab + 12 * j;
+  const V3 v0 = {t[0], t[1], t[2]}, v1 = {t[3], t[4], t[5]}, v2 = {t[6], t[7], t[8]};
+  const V3 e1 = sub(v1, v0), e2 = sub(v2, v0);
+  const V3 cr = {fmaf(e1.y, e2.z, -(e1.z * e2.y)), fmaf(e1.z, e2.x, -(e1.x * e2.z)),
+                 fmaf(e1.x, e2.y, -(e1.y * e2.x))};
+  const float cr_n = safe_sqrt(sum3(cr, cr));
+  const float area = 0.5f * cr_n;
+  const V3 ln = divs(cr, fmaxf(cr_n, 1e-12f));
+  rec[4 * j + 0] = make_float4(v0.x, v0.y, v0.z, t[9]);
+  rec[4 * j + 1] = make_float4(v1.x, v1.y, v1.z, t[10]);
+  rec[4 * j + 2] = make_float4(v2.x, v2.y, v2.z, t[11]);
+  rec[4 * j + 3] = make_float4(ln.x, ln.y, ln.z, fmaxf((float)n_lights * area, 1e-4f));
+}
+
 template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
-ris_audition_kernel(const float* __restrict__ g_tab, int n_lights,
+ris_audition_kernel(const float4* __restrict__ g_rec, int n_lights,
                     const long long* __restrict__ seed_in, const float* __restrict__ pos,
                     const float* __restrict__ nrm, const float* __restrict__ view,
                     const float* __restrict__ alb, const float* __restrict__ rough,
@@ -201,15 +271,15 @@ ris_audition_kernel(const float* __restrict__ g_tab, int n_lights,
                     float* __restrict__ o_nrm, float* __restrict__ o_wsum,
                     float* __restrict__ o_m, int32_t* __restrict__ o_idx,
                     float* __restrict__ o_w) {
-  extern __shared__ float s_tab[];
+  extern __shared__ float4 s_rec[];
   if (kSmem) {
-    for (int j = threadIdx.x; j < 12 * n_lights; j += blockDim.x) s_tab[j] = g_tab[j];
+    for (int j = threadIdx.x; j < 4 * n_lights; j += blockDim.x) s_rec[j] = g_rec[j];
     __syncthreads();
   }
-  auto tab = [&](int j) { return kSmem ? s_tab[j] : __ldg(g_tab + j); };
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Surface s = load_surface(pos, nrm, view, alb, rough, metal, i);
+  const ShadeTerms terms = shade_terms<true>(s);
   const bool enable = enable_in[i] != 0;
   uint32_t seed = (uint32_t)seed_in[i];
 
@@ -223,33 +293,27 @@ ris_audition_kernel(const float* __restrict__ g_tab, int n_lights,
     const float u2 = rnd(seed);
     const float u_keep = rnd(seed);
     const int idx = min((int)(u_pick * lf), n_lights - 1);
-    const int b = 12 * idx;
-    const V3 v0 = {tab(b), tab(b + 1), tab(b + 2)};
-    const V3 v1 = {tab(b + 3), tab(b + 4), tab(b + 5)};
-    const V3 v2 = {tab(b + 6), tab(b + 7), tab(b + 8)};
-    const V3 em = {tab(b + 9), tab(b + 10), tab(b + 11)};
-    const V3 e1 = sub(v1, v0), e2 = sub(v2, v0);
-    const V3 cr = {fmaf(e1.y, e2.z, -(e1.z * e2.y)), fmaf(e1.z, e2.x, -(e1.x * e2.z)),
-                   fmaf(e1.x, e2.y, -(e1.y * e2.x))};
-    const float cr_n = safe_sqrt(sum3(cr, cr));
-    const float area = 0.5f * cr_n;
-    const V3 ln = divs(cr, fmaxf(cr_n, 1e-12f));
+    float4 q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = kSmem ? s_rec[4 * idx + j] : __ldg(g_rec + 4 * idx + j);
     const float sqr1 = sqrtf(u1);
     const float bu = 1.0f - sqr1;
     const float bv = u2 * sqr1;
     const float bw = 1.0f - bu - bv;
-    const V3 lp = {fmaf(v2.x, bw, fmaf(v0.x, bu, v1.x * bv)),
-                   fmaf(v2.y, bw, fmaf(v0.y, bu, v1.y * bv)),
-                   fmaf(v2.z, bw, fmaf(v0.z, bu, v1.z * bv))};
-    const float p_hat = max3(eval_light<true>(s, em, lp, ln));
-    const float wi = enable ? p_hat * fmaxf(lf * area, 1e-4f) : 0.0f;
+    const V3 lp = {fmaf(q[2].x, bw, fmaf(q[0].x, bu, q[1].x * bv)),
+                   fmaf(q[2].y, bw, fmaf(q[0].y, bu, q[1].y * bv)),
+                   fmaf(q[2].z, bw, fmaf(q[0].z, bu, q[1].z * bv))};
+    const V3 ln = {q[3].x, q[3].y, q[3].z};
+    const V3 em = {q[0].w, q[1].w, q[2].w};
+    const float wi =
+        enable ? max3(eval_light<true>(s, terms, em, lp, ln)) * q[3].w : 0.0f;
     w_sum = w_sum + wi;
-    if (enable && u_keep < wi / fmaxf(w_sum, 1e-4f)) {
-      r_idx = idx;
-      r_pos = lp;
-      r_nrm = ln;
-      r_em = em;
-    }
+    const bool take = enable & (u_keep < wi / fmaxf(w_sum, 1e-4f));
+    r_idx = take ? idx : r_idx;
+    r_pos = sel(take, lp, r_pos);
+    r_nrm = sel(take, ln, r_nrm);
+    r_em = sel(take, em, r_em);
   }
   const float m = enable ? (float)k : 0.0f;
   // W for the winner (ray_gen_ris.slang:225-231), its emission kept in
@@ -494,26 +558,37 @@ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 extern "C" {
 
-int sunray_ris_audition(const float* tab, int n_lights, const long long* seed,
-                        const float* pos, const float* nrm, const float* view,
-                        const float* alb, const float* rough, const float* metal,
-                        const uint8_t* enable, int n, int k, long long* seed_out,
-                        float* o_pos, float* o_nrm, float* o_wsum, float* o_m,
-                        int32_t* o_idx, float* o_w, void* stream) {
+int sunray_ris_audition(const float* tab, int n_lights, float* rec,
+                        const long long* seed, const float* pos, const float* nrm,
+                        const float* view, const float* alb, const float* rough,
+                        const float* metal, const uint8_t* enable, int n, int k,
+                        long long* seed_out, float* o_pos, float* o_nrm, float* o_wsum,
+                        float* o_m, int32_t* o_idx, float* o_w, void* stream) {
   if (n > 0) {
-    const size_t bytes = sizeof(float) * 12 * (size_t)n_lights;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (bytes <= 48 * 1024) {
-      ris_audition_kernel<true><<<blocks_for(n), kThreads, bytes, s>>>(
-          tab, n_lights, seed, pos, nrm, view, alb, rough, metal, enable, n, k, seed_out,
-          o_pos, o_nrm, o_wsum, o_m, o_idx, o_w);
+    const float4* r = reinterpret_cast<const float4*>(rec);
+    light_records_kernel<<<(n_lights + 127) / 128, 128, 0, s>>>(
+        tab, n_lights, reinterpret_cast<float4*>(rec));
+    if (n_lights <= kRisSmemLights) {
+      ris_audition_kernel<true><<<blocks_for(n), kThreads, sizeof(float4) * 4 * n_lights,
+                                  s>>>(r, n_lights, seed, pos, nrm, view, alb, rough,
+                                       metal, enable, n, k, seed_out, o_pos, o_nrm,
+                                       o_wsum, o_m, o_idx, o_w);
     } else {
       ris_audition_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-          tab, n_lights, seed, pos, nrm, view, alb, rough, metal, enable, n, k, seed_out,
+          r, n_lights, seed, pos, nrm, view, alb, rough, metal, enable, n, k, seed_out,
           o_pos, o_nrm, o_wsum, o_m, o_idx, o_w);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3's launch shape, {kRisSmemLights}: the host's copy
+// (ops/cuda_restir.RIS_SMEM_LIGHTS) is checked against it when the library
+// loads.
+int sunray_ris_launch_shape(int* out) {
+  out[0] = kRisSmemLights;
+  return 0;
 }
 
 int sunray_di_temporal(const float* em, int n_lights, const long long* seed,

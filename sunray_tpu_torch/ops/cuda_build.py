@@ -123,7 +123,7 @@ def _signatures():
         "sunray_trace_occluded": [p, p, p, f, p, f, p, p, p, p, i, i, p, p],
         "sunray_gather_rows": [p, p, i, i, i64, i64, p, p],
         "sunray_atrous_pass": [p, p, p, p, p, i, i, i, p, p],
-        "sunray_ris_audition": [p, i, p, p, p, p, p, p, p, p, i, i,
+        "sunray_ris_audition": [p, i, p, p, p, p, p, p, p, p, p, i, i,
                                 p, p, p, p, p, p, p, p],
         "sunray_di_temporal": ([p, i, p] + [p] * 6 + [p] * 7
                                + [i64, p, p] + [p] * 7 + [i, f, f]
@@ -142,6 +142,8 @@ def _signatures():
         "sunray_taa_clamp_blend": [p, p, p, i, i, f, p, p],
         "sunray_history_gather": [p, p, p, i, p, i64, i64, p],
         "sunray_woop_launch_shape": [ctypes.POINTER(i)],
+        "sunray_occluded_launch_shape": [ctypes.POINTER(i)],
+        "sunray_ris_launch_shape": [ctypes.POINTER(i)],
         "sunray_atrous_tile_shape": [ctypes.POINTER(i)],
     }
 
@@ -169,11 +171,15 @@ def launch_shape(lib, name: str, n: int) -> tuple[int, ...]:
 def _check_launch_shapes(lib) -> None:
     """The host's copies of the kernels' launch shapes, which the CPU models
     of the kernels and chip_smoke.py's counts read, must be the library's."""
-    from sunray_tpu_torch.ops import cuda_image, cuda_trace
+    from sunray_tpu_torch.ops import cuda_image, cuda_restir, cuda_trace
 
     for name, want in (
             ("sunray_woop_launch_shape",
              (cuda_trace.WOOP_RAYS, cuda_trace.WOOP_THREADS)),
+            ("sunray_occluded_launch_shape",
+             (cuda_trace.OCC_RAYS, cuda_trace.OCC_THREADS,
+              cuda_trace.OCC_WIDE_MIN)),
+            ("sunray_ris_launch_shape", (cuda_restir.RIS_SMEM_LIGHTS,)),
             ("sunray_atrous_tile_shape",
              (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO))):
         got = launch_shape(lib, name, len(want))

@@ -44,6 +44,11 @@ from sunray_tpu_torch.ops.brdf import (
 )
 
 MAX_TAPS = 8  # the kernels' per-launch tap bound (defaults: 5 DI, 3 GI)
+# K3's table paths (csrc/restir.cu kRisSmemLights; checked against the
+# library's sunray_ris_launch_shape when it loads): the records of up to
+# RIS_SMEM_LIGHTS lights (64 bytes each) sit in shared memory, a larger
+# table is read through the read-only cache.
+RIS_SMEM_LIGHTS = 768
 
 
 class LightTable(NamedTuple):
@@ -442,27 +447,40 @@ def ris_audition(table: LightTable, seed, hit_pos, hit_normal, v_view, albedo,
                                   enable)
     name = "ris_audition"
     p = hit_pos.shape[0]
-    dev = cuda_build.require_cuda(name, *table, *args)
+    cuda_build.require_cuda(name, *table, *args)
     _f32(name, hit_pos, hit_normal, v_view, albedo, roughness, metallic)
     _vec3(name, hit_pos, hit_normal, v_view, albedo)
     _check_lanes(name, p, seed=_seed_arg(name, seed), hit_normal=hit_normal,
                  v_view=v_view, albedo=albedo, roughness=roughness,
                  metallic=metallic, enable=enable)
     _check_table(name, table)
+    return _launch_audition(table, seed, hit_pos, hit_normal, v_view, albedo,
+                            roughness, metallic, candidates, enable)
+
+
+def _launch_audition(table: LightTable, seed, hit_pos, hit_normal, v_view,
+                     albedo, roughness, metallic, candidates, enable, lib=None):
+    """K3 once on checked arguments, from `lib` (default: the port's
+    library, whose launches are counted). The entry point computes each
+    light's 64-byte record into `rec` (one small launch), then auditions."""
+    p, dev = hit_pos.shape[0], hit_pos.device
     # (L, 12) rows v0, v1, v2, emission: 48 bytes a light.
     tab = torch.cat(tuple(table), dim=1).contiguous()
+    rec = torch.empty((table.num, 16), dtype=torch.float32, device=dev)
     en = _mask(enable)
     seed_out = torch.empty_like(seed)
     outs = _out(p, dev, *_RES_OUT)
-    err = cuda_build.library().sunray_ris_audition(
-        tab.data_ptr(), table.num, seed.data_ptr(), hit_pos.data_ptr(),
-        hit_normal.data_ptr(), v_view.data_ptr(), albedo.data_ptr(),
-        roughness.data_ptr(), metallic.data_ptr(), en.data_ptr(), p,
-        candidates, seed_out.data_ptr(), *(o.data_ptr() for o in outs),
-        cuda_build.stream_ptr(),
+    kernels = cuda_build.library() if lib is None else lib
+    err = kernels.sunray_ris_audition(
+        tab.data_ptr(), table.num, rec.data_ptr(), seed.data_ptr(),
+        hit_pos.data_ptr(), hit_normal.data_ptr(), v_view.data_ptr(),
+        albedo.data_ptr(), roughness.data_ptr(), metallic.data_ptr(),
+        en.data_ptr(), p, candidates, seed_out.data_ptr(),
+        *(o.data_ptr() for o in outs), cuda_build.stream_ptr(),
     )
-    cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    cuda_build.check_launch("ris_audition", err)
+    if lib is None:
+        cuda_build.launches["ris_audition"] += 1
     return seed_out, _res_dict(*outs)
 
 

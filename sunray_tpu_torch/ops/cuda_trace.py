@@ -27,6 +27,17 @@ rays: collections.Counter = collections.Counter()
 # t the rays b * WOOP_THREADS * WOOP_RAYS + t + j * WOOP_THREADS.
 WOOP_RAYS = 8
 WOOP_THREADS = 128
+# K2's launch shape, the same rule (csrc/trace.cu kOccRays, kOccThreads,
+# kOccWideMin; checked against sunray_occluded_launch_shape) for launches
+# of OCC_WIDE_MIN rays or more; a smaller launch traces one ray a thread.
+OCC_RAYS = 4
+OCC_THREADS = 128
+OCC_WIDE_MIN = 1 << 19
+
+
+def occ_rays(n: int, shape=(OCC_RAYS, OCC_THREADS, OCC_WIDE_MIN)) -> int:
+    """Rays a thread of K2's launch over n rays, at launch shape `shape`."""
+    return shape[0] if n >= shape[2] else 1
 
 
 def _bound(name, x, n, device):
@@ -94,7 +105,7 @@ def trace_occluded(tris, orig, d, tmax, tmin=T_MIN, exclude=None):
         return intersect.trace_occluded_brute(tris, orig, d, tmax, tmin,
                                               exclude=exclude)
     dev = _check("trace_occluded", tris, orig, d)
-    n, n_tris = orig.shape[0], tris[0].shape[0]
+    n = orig.shape[0]
     tn, tn_s = _bound("trace_occluded", tmin, n, dev)
     tx, tx_s = _bound("trace_occluded", tmax, n, dev)
     if exclude is not None:
@@ -102,15 +113,24 @@ def trace_occluded(tris, orig, d, tmax, tmin=T_MIN, exclude=None):
         cuda_build.require_dtype("trace_occluded", exclude, torch.int32)
         if exclude.shape != (n,):
             raise cuda_build.KernelError("trace_occluded: exclude must be (N,)")
-    lib = cuda_build.library()
-    occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = lib.sunray_trace_occluded(
+    return _launch_occluded(tris, orig, d, tn, tn_s, tx, tx_s, exclude)
+
+
+def _launch_occluded(tris, orig, d, tn, tn_s, tx, tx_s, exclude, lib=None):
+    """K2 once on checked arguments (tn, tx: per-ray bounds or None with
+    the scalars tn_s, tx_s), from `lib` (default: the port's library, whose
+    launches are counted)."""
+    occ = torch.empty((orig.shape[0],), dtype=torch.bool, device=orig.device)
+    kernels = cuda_build.library() if lib is None else lib
+    err = kernels.sunray_trace_occluded(
         orig.data_ptr(), d.data_ptr(), _ptr(tn), tn_s, _ptr(tx), tx_s,
         _ptr(exclude), tris[0].data_ptr(), tris[1].data_ptr(),
-        tris[2].data_ptr(), n, n_tris, occ.data_ptr(), cuda_build.stream_ptr(),
+        tris[2].data_ptr(), orig.shape[0], tris[0].shape[0], occ.data_ptr(),
+        cuda_build.stream_ptr(),
     )
     cuda_build.check_launch("trace_occluded", err)
-    cuda_build.launches["trace_occluded"] += 1
+    if lib is None:
+        cuda_build.launches["trace_occluded"] += 1
     return occ
 
 

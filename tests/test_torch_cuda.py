@@ -173,6 +173,28 @@ def test_woop_kernel_ragged_bit_equal(n_tris, extra, cuda_device):
             assert 0.0 < want.float().mean().item() < 1.0
 
 
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("n_tris", [1, 36, 129, 300])
+def test_occluded_kernel_ragged_bit_equal(n_tris, wide, extra, cuda_device):
+    """K2 at rays-a-block +- 1 rays (a ragged last block), on the wide
+    launch (OCC_RAYS rays a thread) and the narrow one (one ray a thread),
+    at triangle counts off the 128-triangle chunk, with and without exclude
+    ids, with per-ray and scalar bounds."""
+    n = (cuda_trace.OCC_WIDE_MIN + cuda_trace.OCC_RAYS * cuda_trace.OCC_THREADS
+         if wide else cuda_trace.OCC_THREADS * 5) + extra
+    tris, o, d, tmax, ex = _woop_rays(n, n_tris, 50 + n_tris + extra, cuda_device)
+    for exclude in (None, ex):
+        for bound in (tmax, 2.5):
+            got = cuda_trace.trace_occluded(tris, o, d, bound, exclude=exclude)
+            want = intersect.trace_occluded_brute(tris, o, d, bound,
+                                                  exclude=exclude)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            if n_tris > 1:
+                assert 0.0 < want.float().mean().item() < 1.0
+
+
 def test_kernel_rejects_bad_input(cuda_device):
     tris, o, d, _, _ = _trace_case("cornell", cuda_device)
     with pytest.raises(cuda_build.KernelError):
@@ -273,10 +295,12 @@ def test_restir_kernels_match_plain(name, cuda_device):
     _check_restir(name, captured[name])
 
 
-@pytest.mark.parametrize("n_lights", [2, 600, 1500])
+@pytest.mark.parametrize("n_lights", [1, 2, 600, cuda_restir.RIS_SMEM_LIGHTS,
+                                      cuda_restir.RIS_SMEM_LIGHTS + 1, 1500])
 def test_ris_audition_kernel_light_tables(n_lights, cuda_device):
-    """K3 with the light table in shared memory (2, 600 lights) and read
-    from global memory (1,500 lights: 72 KB)."""
+    """K3 with the light records in shared memory (up to RIS_SMEM_LIGHTS
+    lights, 48 KB) and read through the read-only cache (one light more,
+    and 1,500 lights)."""
     rng = np.random.default_rng(n_lights)
     p = 20_000
 

@@ -1,12 +1,14 @@
 """The host side of the kernel launches, on the CPU with stand-in libraries.
 
-K14's and K7's launch shapes: the host's copies (cuda_trace.WOOP_RAYS,
-WOOP_THREADS; cuda_image.ATROUS_TILE, ATROUS_HALO), which the CPU models
-of the kernels and chip_smoke.py's counts read, equal the constants of
-csrc/trace.cu and csrc/atrous.cu, and cuda_build refuses a library whose
+K14's, K2's, K3's and K7's launch shapes: the host's copies
+(cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS, OCC_THREADS, OCC_WIDE_MIN;
+cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
+ATROUS_HALO), which the CPU models of the kernels, the tests' table sizes
+and chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
+csrc/restir.cu and csrc/atrous.cu, and cuda_build refuses a library whose
 shape queries report another shape. The launch helpers that the
-before/after tools call with another build's library (K13, K14, K7)
-count a launch of the port's own library and no other."""
+before/after tools call with another build's library (K13, K14, K2, K3,
+K7) count a launch of the port's own library and no other."""
 
 import re
 
@@ -14,12 +16,18 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one torch thread, as every port test)
-from sunray_tpu_torch.ops import cuda_build, cuda_history, cuda_image, cuda_trace
+from sunray_tpu_torch.ops import (cuda_build, cuda_history, cuda_image,
+                                  cuda_restir, cuda_trace)
 
 SHAPES = {
     "sunray_woop_launch_shape": (
         "trace.cu", ("kWoopRays", "kWoopThreads"),
         (cuda_trace.WOOP_RAYS, cuda_trace.WOOP_THREADS)),
+    "sunray_occluded_launch_shape": (
+        "trace.cu", ("kOccRays", "kOccThreads", "kOccWideMin"),
+        (cuda_trace.OCC_RAYS, cuda_trace.OCC_THREADS, cuda_trace.OCC_WIDE_MIN)),
+    "sunray_ris_launch_shape": (
+        "restir.cu", ("kRisSmemLights",), (cuda_restir.RIS_SMEM_LIGHTS,)),
     "sunray_atrous_tile_shape": (
         "atrous.cu", ("kTileX", "kTileY", "kHalo"),
         (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO)),
@@ -90,10 +98,19 @@ def _launch(name):
             img, plane, img, plane, img, 1, torch.empty_like(img), lib=lib),
         "history_gather": lambda lib: cuda_history._launch_gather(
             [plane.reshape(-1)], torch.zeros((3,), dtype=torch.int64), lib=lib),
+        "trace_occluded": lambda lib: cuda_trace._launch_occluded(
+            (rays, rays, rays), rays, rays, None, 1e-4, None, 1.0, None,
+            lib=lib),
+        "ris_audition": lambda lib: cuda_restir._launch_audition(
+            cuda_restir.LightTable(*(torch.zeros((2, 3)),) * 4),
+            torch.zeros((5,), dtype=torch.int64), rays, rays, rays, rays,
+            torch.zeros((5,)), torch.zeros((5,)), 16,
+            torch.ones((5,), dtype=torch.bool), lib=lib),
     }[name]
 
 
 @pytest.mark.parametrize("name", ["atrous_pass", "history_gather",
+                                  "ris_audition", "trace_occluded",
                                   "trace_occluded_woop"])
 def test_launch_helpers_count_the_ports_library_only(name, monkeypatch):
     own = _FakeKernels()

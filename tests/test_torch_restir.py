@@ -36,9 +36,8 @@ from sunray_tpu_torch.ops import rng as prng
 from sunray_tpu_torch.render import pathtrace as ppt
 from sunray_tpu_torch.render import restir as pr
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
-from torch_parity import CAMERA, GOLDEN_KW, n, t, to_numpy
-
-WINNER_AGREE = 0.995
+from torch_parity import CAMERA, GOLDEN_KW, WINNER_AGREE, n, t, to_numpy
+from torch_parity import check_reservoir as _check_reservoir
 
 
 def _bits(x):
@@ -78,30 +77,6 @@ def _surfaces(p, seed):
         seed=rng.integers(0, 2**32, p, dtype=np.uint32),
         enable=rng.random(p) > 0.2,
     )
-
-
-def _check_reservoir(ps, pres, js, jres, idx="light_idx",
-                     pos_keys=("light_pos",), w_key="W", m_rtol=0.0):
-    """The take-flip scheme of test_restir_math.py:199-216."""
-    np.testing.assert_array_equal(_u32(n(ps)), np.asarray(js))
-    if m_rtol:
-        np.testing.assert_allclose(n(pres["M"]), np.asarray(jres["M"]),
-                                   rtol=m_rtol)
-    else:
-        np.testing.assert_array_equal(n(pres["M"]), np.asarray(jres["M"]))
-    same = n(pres[idx]) == np.asarray(jres[idx])
-    assert same.mean() > WINNER_AGREE, f"winner agreement {same.mean()}"
-    np.testing.assert_allclose(n(pres["w_sum"]), np.asarray(jres["w_sum"]),
-                               rtol=5e-4, atol=1e-6)
-    for key in pos_keys:
-        np.testing.assert_allclose(n(pres[key])[same],
-                                   np.asarray(jres[key])[same],
-                                   rtol=1e-5, atol=1e-6, err_msg=key)
-    if w_key:
-        np.testing.assert_allclose(n(pres[w_key])[same],
-                                   np.asarray(jres[w_key])[same],
-                                   rtol=3e-4, atol=1e-5, err_msg=w_key)
-    return same.mean()
 
 
 # -- RNG and target functions: bit-exact ----------------------------------

@@ -2,7 +2,8 @@
 (tools/sass.py), held to hand-written listings in
 cuobjdump -sass's format: labelled and absolute branch targets, a loop
 with an exit branch inside, a straight stretch whose shortest path skips a
-slow-path call and a bypass exit."""
+slow-path call and a bypass exit, and a loop doing two units of work an
+iteration beside its one-unit remainder loop."""
 
 import pytest
 
@@ -113,6 +114,61 @@ def test_straight_after_takes_the_short_path_through_the_counted_ops():
     assert sass.straight_after(code, "BAR.SYNC", "MUFU.EX2", 0)[0] == 5
     with pytest.raises(ValueError):
         sass.straight_after(code, "BAR.SYNC", "MUFU.EX2", 3)
+
+
+UNROLLED = HEADER + """
+		Function : _ZN12_GLOBAL__N_119ris_audition_kernelILb1EEEvPKfiPKxS2_
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_0:
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0018*/              @P3 BRA `(.L_x_5) ;
+        /*0020*/                   IMAD R5, R5, 0x108ef2d9, RZ ;
+.L_x_5:
+        /*0030*/                   FMUL R6, R4, R5 ;
+        /*0040*/                   LDS.128 R8, [R2+0x40] ;
+        /*0050*/                   IMAD R9, R9, 0x108ef2d9, RZ ;
+        /*0060*/                   FMUL R10, R8, R9 ;
+        /*0070*/                   FSETP.GT.AND P0, PT, R6, R10, PT ;
+        /*0080*/              @P1 BRA `(.L_x_0) ;
+.L_x_1:
+        /*0090*/                   LDS.128 R4, [R2] ;
+        /*00a0*/                   IMAD R5, R5, 0x108ef2d9, RZ ;
+        /*00b0*/                   FMUL R6, R4, R5 ;
+        /*00c0*/              @P2 BRA `(.L_x_1) ;
+        /*00d0*/                   EXIT ;
+.L_x_2:
+        /*00e0*/                   BRA `(.L_x_2);
+"""
+
+
+def test_loop_per_unit_takes_the_loop_doing_the_most_units():
+    # A loop written (or unrolled) to do two units an iteration, and its
+    # one-unit remainder loop: the count is the two-unit loop's, a unit,
+    # along the path through every marked instruction (not around the
+    # first one by the @P3 branch).
+    code = sass.find(sass.functions(UNROLLED), "ris_audition_kernelILb1E")
+
+    def marker(ins):
+        return "0x108ef2d9" in ins.text
+
+    count, units, path = sass.loop_per_unit(code, "LDS", marker)
+    assert (count, units) == (4.5, 2.0)
+    assert [i.op for i in path] == ["LDS.128", "BRA", "IMAD", "FMUL",
+                                    "LDS.128", "IMAD", "FMUL", "FSETP.GT.AND",
+                                    "BRA"]
+    # Two markers a unit: the two-unit loop does one.
+    assert sass.loop_per_unit(code, "LDS", marker, per=2)[:2] == (9.0, 1.0)
+    # The smallest loop holding the op is the remainder loop; loop_iteration
+    # alone takes the branch around the marked instruction.
+    assert sass.loop_iteration(code, "LDS")[0] == 4
+    assert [i.op for i in sass._iteration(code, 1, 9, "LDS")[1]] == [
+        "LDS.128", "BRA", "FMUL", "LDS.128", "IMAD", "FMUL", "FSETP.GT.AND",
+        "BRA"]
+    # Passing every FMUL as well changes nothing here: they are all on it.
+    assert sass.loop_per_unit(code, "LDS", marker, through=lambda ins:
+                              ins.op == "FMUL")[:2] == (4.5, 2.0)
+    with pytest.raises(ValueError):
+        sass.loop_per_unit(code, "LDS", lambda ins: ins.op == "MUFU.RCP")
 
 
 def test_issue_floor():

@@ -23,6 +23,7 @@ GOLDEN_KW = dict(width=96, height=64, bounces=4, virtual_bounces=3,
                  ris_candidates=8, di_spatial_samples=3, gi_spatial_samples=2,
                  denoise_passes=2, lighting="nee")          # test_golden.py:36-40
 CAMERA = dict(position=(1.0, 1.0, 3.4), target=(1.0, 1.0, 0.0), fov_y=45.0)
+WINNER_AGREE = 0.995                             # test_restir_math.py:209
 
 
 def to_numpy(obj):
@@ -75,3 +76,32 @@ def tie_cluster_set(cs):
     pack[first + 1, ID_ROW] = ids[first + 1]
     lo[first + 1], hi[first + 1] = lo[first], hi[first]
     return binned_trace.cluster_set(ids.reshape(-1), pack, lo, hi)
+
+
+def check_reservoir(ps, pres, js, jres, idx="light_idx",
+                    pos_keys=("light_pos",), w_key="W", m_rtol=0.0):
+    """A port reservoir (seed ps, fields pres) against a JAX one (js, jres)
+    by the take-flip scheme of tests/test_restir_math.py:199-216: seeds
+    bit-equal, M exact (or within m_rtol), the winner equal on more than
+    WINNER_AGREE of lanes, w_sum within rtol 5e-4, positions within 1e-5
+    and W within 3e-4 on the lanes whose winner agrees. Returns the
+    winner agreement."""
+    np.testing.assert_array_equal(n(ps).astype(np.uint32), np.asarray(js))
+    if m_rtol:
+        np.testing.assert_allclose(n(pres["M"]), np.asarray(jres["M"]),
+                                   rtol=m_rtol)
+    else:
+        np.testing.assert_array_equal(n(pres["M"]), np.asarray(jres["M"]))
+    same = n(pres[idx]) == np.asarray(jres[idx])
+    assert same.mean() > WINNER_AGREE, f"winner agreement {same.mean()}"
+    np.testing.assert_allclose(n(pres["w_sum"]), np.asarray(jres["w_sum"]),
+                               rtol=5e-4, atol=1e-6)
+    for key in pos_keys:
+        np.testing.assert_allclose(n(pres[key])[same],
+                                   np.asarray(jres[key])[same],
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+    if w_key:
+        np.testing.assert_allclose(n(pres[w_key])[same],
+                                   np.asarray(jres[w_key])[same],
+                                   rtol=3e-4, atol=1e-5, err_msg=w_key)
+    return same.mean()

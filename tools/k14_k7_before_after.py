@@ -20,7 +20,7 @@ to the plain intersect.trace_occluded_woop, and every K7 build bit-equal
 to the others and within chip_smoke.ATROUS_ATOL of the plain passes. The
 builds are timed in turns (before, after, after, before) as chip_smoke.py
 times kernels (device_ms) and by CUDA events around one call (time_ms);
-beside each, K14's tests run as chip_smoke.woop_rule_tests models them at
+beside each, K14's tests run as chip_smoke.warp_rule_tests models them at
 the build's launch shape, and the instruction-issue floors from the
 build's SASS. The last line is one JSON object of those numbers.
 """
@@ -152,11 +152,11 @@ def main():
             shape = (cuda_build.launch_shape(lib, "sunray_woop_launch_shape", 2)
                      if hasattr(lib, "sunray_woop_launch_shape")
                      else ONE_RAY_SHAPE)
-            rule = chip_smoke.woop_rule_tests(first, *shape)
+            rule = chip_smoke.warp_rule_tests(first, *shape)
             out[f"{name}_launch_shape"] = shape
             out[f"{name}_rule_tests"] = rule
-            out[f"{name}_floor_ms"] = chip_smoke.woop_issue_floor(counts, rule,
-                                                                  shape[0])
+            out[f"{name}_floor_ms"] = chip_smoke.issue_floor(
+                counts, "woop_loop", rule / (32 * shape[0]))
             out[f"{name}_sass_loop"] = counts.get("woop_loop")
             print(f"{name}: bit-equal to plain; {shape[0]} rays a thread, "
                   f"{shape[1]} threads a block; tests run (model) {rule} "

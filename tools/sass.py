@@ -171,13 +171,9 @@ def shortest_path(code, start, done, counted=lambda ins: False, need=0):
     raise ValueError("no path to the goal")
 
 
-def loop_iteration(code, body_op: str) -> tuple[int, list[Instr]]:
-    """Instructions of one iteration of the innermost loop holding an
-    instruction whose opcode starts with body_op: the shortest path from
-    the loop's head to its backward branch that passes every such
-    instruction of the loop (a branch around the work, e.g. for an
-    excluded triangle, is not an iteration's cost). Returns (count,
-    path)."""
+def _loops(code, body_op: str) -> list[tuple[int, int, int]]:
+    """(span, head, backward branch) of every loop holding an instruction
+    whose opcode starts with body_op."""
     loops = []
     idx = {c.addr: k for k, c in enumerate(code)}
     for i, ins in enumerate(code):
@@ -188,14 +184,57 @@ def loop_iteration(code, body_op: str) -> tuple[int, list[Instr]]:
                 loops.append((i - head, head, i))
     if not loops:
         raise ValueError(f"no loop holds {body_op}")
-    _, head, back = min(loops)
+    return loops
 
+
+def _iteration(code, head, back, body_op, marker=lambda ins: False):
+    """The shortest path from a loop's head to its backward branch that
+    passes every instruction of the loop whose opcode starts with body_op
+    or for which marker(instr) holds: (count, path)."""
     def counted(ins):
-        return ins.op.startswith(body_op)
+        return ins.op.startswith(body_op) or marker(ins)
 
     need = sum(map(counted, code[head:back + 1]))
     cost, path = shortest_path(code, head, lambda k: k == back, counted, need)
     return cost, [code[k] for k in path]
+
+
+def loop_iteration(code, body_op: str) -> tuple[int, list[Instr]]:
+    """Instructions of one iteration of the innermost loop holding an
+    instruction whose opcode starts with body_op: the shortest path from
+    the loop's head to its backward branch that passes every such
+    instruction of the loop (a branch around the work, e.g. for an
+    excluded triangle, is not an iteration's cost). Returns (count,
+    path)."""
+    _, head, back = min(_loops(code, body_op))
+    return _iteration(code, head, back, body_op)
+
+
+def loop_per_unit(code, body_op: str, marker, per: int = 1,
+                  through=lambda ins: False):
+    """Instructions a unit of a loop's work, where a unit is `per`
+    instructions for which marker(instr) holds (one IEEE reciprocal a
+    ray-triangle test; four draws a RIS candidate), so that a loop the
+    compiler unrolled, or one written to do several units an iteration,
+    counts what one unit costs. An iteration is loop_iteration's path that
+    also passes every instruction of the loop that is marked or for which
+    through(instr) holds (a branch around the work, e.g. around the
+    reciprocal of a degenerate triangle's determinant or around a disabled
+    lane's target function, is not an iteration's cost). Of the loops
+    holding body_op, the one whose iteration does the most units; of
+    those, the cheapest a unit. Returns (instructions a unit, units an
+    iteration, path)."""
+    best = None
+    for _, head, back in _loops(code, body_op):
+        cost, path = _iteration(code, head, back, body_op,
+                                lambda ins: marker(ins) or through(ins))
+        units = sum(1 for ins in path if marker(ins)) / per
+        if units and (best is None or (units, -cost / units)
+                      > (best[1], -best[0])):
+            best = (cost / units, units, path)
+    if best is None:
+        raise ValueError("no loop iteration passes a marked instruction")
+    return best
 
 
 def straight_after(code, after_op: str | None, counted_op: str, need: int):
