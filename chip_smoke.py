@@ -6,24 +6,32 @@
 Phases, in order; any failure raises and exits non-zero with no result:
   1. require a CUDA device; print the card's name and power limit
      (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
-  2. build the kernels from csrc/ (nvcc, sm_90a); count the SASS
+  2. build the kernels from csrc/ (nvcc, sm_90a); print K1's and K5's
+     registers (-Xptxas=-v) and the warps they leave an SM; count the SASS
      instructions of K14's triangle loop, K7's tap path and staging loop,
-     K3's candidate loop (a candidate) and K2's triangle loop (a
-     ray-triangle test) (cuobjdump -sass, tools/sass.py) for their
-     instruction-issue floors (four warp instructions an SM a cycle at
-     the card's top SM clock);
+     K3's candidate loop (a candidate), K2's and K1's triangle loops (a
+     ray-triangle test) and K5's tap loop (a used tap) and the work around
+     it (cuobjdump -sass, tools/sass.py) for their instruction-issue
+     floors (four warp instructions an SM a cycle at the card's top SM
+     clock);
   3. hold every kernel of the main path to its plain PyTorch version on
      the card at the main path's shapes, and time both (CUDA events,
      median of 10 runs):
        K1/K2 trace: 2,073,600 Cornell camera and bounce rays x 36 tris,
-                    65,536 random rays x 4,096 random tris; K2 (0 rays
+                    65,536 random rays x 4,096 random tris (K1 bit-equal
+                    on t, tri, u, v and hit; K1 timed on the camera set,
+                    its row's shape, and the random set); K2 (0 rays
                     differing) on 2,073,600 synthetic shadow rays, its
                     row's shape, and on the frames' own queries: the three
                     of frame 2 of the 1080p ReSTIR frame (4,147,200,
                     6,220,800 and 4,147,200 rays with their exclude ids)
                     and the first bounce round of frame 2 of the 1080p NEE
                     frame, each timed beside its bound, the tests its warp
-                    rule runs and its issue floor;
+                    rule runs and its issue floor; K1 (bit-equal) on the
+                    frames' own closest-hit queries: the two of frame 2 of
+                    the ReSTIR frame (camera, GI initial sample) and every
+                    call of frame 2 of the NEE frame (10 of 2,073,600
+                    rays), each timed beside its bound and issue floor;
        K8 gather:   72x6 and 36x4 tables, 3 x 2,073,600 indices with
                     out-of-range ones;
        K7 a-trous:  1080x1920, 4 passes, on synthetic guides and on the
@@ -33,9 +41,13 @@ Phases, in order; any failure raises and exits non-zero with no result:
                     default ReSTIR render (live history; K3 with K=16 on
                     the box's 2 lights, K5 with 5 taps, K6 with 3), plus
                     K3 on 65,536 seeded lanes and a random 600-light
-                    table (timed too). Seeds bit-equal, M exact, winners
-                    agreeing on > 99.5% of lanes, the rest to
-                    test_restir_math.py's tolerances; K3's issue floor;
+                    table (timed too), and K5 on frames 3-5's inputs too
+                    (each timed; the shared taps move every frame). Seeds
+                    bit-equal, M exact, winners agreeing on > 99.5% of
+                    lanes, the rest to test_restir_math.py's tolerances;
+                    K5's lanes differing from plain in any bit, each
+                    tap's use, the warps whose lanes all keep the centre's
+                    sample; K3's and K5's issue floors;
        K9, K13, K14 (the kernel switches): the inputs each wrapper got in
                     frame 3 of the 1080p switches frame (phase 7; the first
                     frame whose TAA reads history): K9 on its
@@ -60,7 +72,8 @@ Phases, in order; any failure raises and exits non-zero with no result:
      bench.py:7-13's count. Prints frame ms, Mray/s, peak device memory
      and the synced stage ms. Then the 1080p NEE frame, 2 warm-up and 5
      timed frames, with its own launch check of K1, K2, K7 and K8; K2's
-     launches must be 7 times the calls captured in one NEE frame.
+     and K1's launches must be 7 times the calls captured in one NEE
+     frame, K1's over the ReSTIR frames 25 times its two.
   6. the big-mesh slice (tests/torch_big_scene.py: the Cornell box with a
      mirror icosphere of 81,920 triangles, 81,956 in all, traced through a
      binned ClusterSet of 641 clusters, 161 superclusters):
@@ -106,10 +119,11 @@ and operations over 67 TFLOP/s fp32, from this run's inputs; a trace
 counts the ray-triangle tests its rays need, e.g. K10 and K12 the
 clusters whose box a ray enters before its closest hit, K2 and K14 the
 tests up to each ray's first occluder, K7 24 taps of each pixel the
-bypass does not copy); K2, K3, K7 and K14 also carry floor_ms, their
-instruction-issue floor, and K2 its live queries (live, one entry each,
-their sum a ReSTIR frame and the NEE frame's launches). The last is
-{"ok": true, "device": {...}}.
+bypass does not copy); K1, K2, K3, K5, K7 and K14 also carry floor_ms,
+their instruction-issue floor, K1 and K2 their live queries (live, one
+entry each, their sum a ReSTIR frame and the NEE frame's launches), K1
+and K5 their registers, K5 its frames 2-5. The line before it gives the
+script's wall time. The last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -261,7 +275,8 @@ def sass_counts(lib_path):
     out = dict(woop_loop=woop, atrous_taps=taps, atrous_stage=stage,
                clock_mhz=clock,
                n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
-    out.update(k3_k2_counts(funcs))
+    out.update(loop_unit_counts(funcs))
+    out.update(di_spatial_counts(funcs))
     log(f"  SASS: K14 {woop} instructions a triangle iteration; K7 {taps} "
         f"from the staging barrier through 24 taps, {stage} a staging "
         f"iteration; {out['n_sm']} SMs at up to {clock:.0f} MHz")
@@ -269,13 +284,14 @@ def sass_counts(lib_path):
 
 
 # The multiplier of each PCG draw's output permutation (rnd, 277803737):
-# one IMAD a draw, four draws a RIS candidate.
+# one IMAD a draw, four draws a RIS candidate, one a DI spatial tap.
 PCG_WORD_MUL = "0x108ef2d9"
 # (key, kernel, the loop's body op, marker, markers a unit, the
 # instructions an iteration passes, unit): K3's candidate loop
 # (shared-memory table) through its target function's roots and
-# reciprocals (MUFU), and K2's triangle loop, one IEEE reciprocal
-# (MUFU.RCP) a ray-triangle test; each counted a unit of its work.
+# reciprocals (MUFU), and K2's and K1's triangle loops, one IEEE
+# reciprocal (MUFU.RCP) a ray-triangle test; each counted a unit of its
+# work.
 LOOP_UNITS = (
     ("k3_candidate", "ris_audition_kernelILb1E", "LDS",
      lambda ins: PCG_WORD_MUL in ins.text, 4,
@@ -283,14 +299,17 @@ LOOP_UNITS = (
     ("k2_test", "15occluded_kernel", "LDS",
      lambda ins: ins.op.startswith("MUFU.RCP"), 1, lambda ins: False,
      "ray-triangle test"),
+    ("k1_test", "14closest_kernel", "LDS",
+     lambda ins: ins.op.startswith("MUFU.RCP"), 1, lambda ins: False,
+     "ray-triangle test"),
 )
 
 
-def k3_k2_counts(funcs, keys=None):
-    """{key: SASS instructions a unit} of K3's candidate loop and K2's
-    triangle loop (the LOOP_UNITS `keys`, default all) in `funcs`
-    (sass.functions of a build), and {key}_units, the units an iteration;
-    a count that fails is left out and printed as not measured."""
+def loop_unit_counts(funcs, keys=None):
+    """{key: SASS instructions a unit} of the LOOP_UNITS loops (`keys`,
+    default all) in `funcs` (sass.functions of a build), and {key}_units,
+    the units an iteration; a count that fails is left out and printed as
+    not measured."""
     from tools import sass
 
     out = {}
@@ -305,8 +324,9 @@ def k3_k2_counts(funcs, keys=None):
             except ValueError as e:
                 log(f"  SASS {key} ({name}): not measured ({e})")
                 continue
-            # {key}_r{units}: each instantiation's count (K2 has one for its
-            # wide launches and one for one ray a thread); {key}: the widest.
+            # {key}_r{units}: each instantiation's count (K2 and K1 have one
+            # for their wide launches and one for one ray a thread); {key}:
+            # the widest.
             out[f"{key}_r{units:g}"] = count
             if units >= out.get(f"{key}_units", 0):
                 out[key], out[f"{key}_units"] = count, units
@@ -315,6 +335,31 @@ def k3_k2_counts(funcs, keys=None):
         if not found:
             log(f"  SASS {key}: not measured (no function holds {kernel!r})")
     return out
+
+
+def di_spatial_counts(funcs):
+    """K5's SASS counts: {"k5_tap": a used tap's iteration of the tap loop
+    (one PCG draw, through every MUFU of its target function),
+    "k5_fixed": the path from entry to exit around the loop through every
+    MUFU outside it (the centre merge, the resolve)}; {} where a count
+    fails."""
+    from tools import sass
+
+    try:
+        code = sass.find(funcs, "17di_spatial_kernel")
+        tap, units, path = sass.loop_per_unit(
+            code, "LDG", lambda ins: PCG_WORD_MUL in ins.text, 1,
+            lambda ins: ins.op.startswith("MUFU"))
+        index = {ins.addr: k for k, ins in enumerate(code)}
+        fixed, _ = sass.around_loop(code, index[path[0].addr],
+                                    index[path[-1].addr],
+                                    lambda ins: ins.op.startswith("MUFU"))
+    except (KeyError, ValueError) as e:
+        log(f"  SASS K5: not measured ({e})")
+        return {}
+    log(f"  SASS: di_spatial_kernel {tap:.2f} instructions a used tap "
+        f"({units:g} taps an iteration), {fixed} around the tap loop")
+    return {"k5_tap": tap, "k5_fixed": fixed}
 
 
 def issue_floor(counts, key, units):
@@ -381,23 +426,79 @@ def psnr(a, b):
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def compare_closest(tris, o, d, label):
+def lanes_differing(xs, ys):
+    """Lanes where two sequences of outputs, each (P, ...) (a Hit's t, tri,
+    u, v, hit; a seed and a reservoir's fields), differ in any bit of any
+    field."""
+    lanes = torch.zeros(xs[0].shape[0], dtype=torch.bool, device=xs[0].device)
+    for x, y in zip(xs, ys, strict=True):
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        lanes |= (x != y).reshape(x.shape[0], -1).any(-1)
+    return int(lanes.sum())
+
+
+def compare_closest(tris, o, d, label, tmin=None, tmax=None):
+    """K1 against trace_closest_brute on one query (default bounds where
+    tmin/tmax are None): bit-equal on t, tri, u, v and hit."""
     from sunray_tpu_torch.ops import cuda_trace, intersect
 
-    k = cuda_trace.trace_closest(tris, o, d)
-    p = intersect.trace_closest_brute(tris, o, d)
+    bounds = (intersect.T_MIN if tmin is None else tmin,
+              intersect.T_MAX if tmax is None else tmax)
+    k = cuda_trace.trace_closest(tris, o, d, *bounds)
+    p = intersect.trace_closest_brute(tris, o, d, *bounds)
     torch.cuda.synchronize()
+    differ = lanes_differing(k, p)
     agree = (k.tri == p.tri) & (k.hit == p.hit)
     frac = agree.float().mean().item()
     both = agree & p.hit
     err = max((a[both] - b[both]).abs().max().item() if both.any() else 0.0
               for a, b in ((k.t, p.t), (k.u, p.u), (k.v, p.v)))
     log(f"  K1 closest {label}: {o.shape[0]} rays x {tris[0].shape[0]} tris, "
-        f"tri/hit agree {frac:.7f}, max |t,u,v| err {err:.3g}, "
-        f"hit rate {p.hit.float().mean().item():.4f}")
-    check(frac >= TRACE_AGREE, f"K1 {label}: agreement {frac} < {TRACE_AGREE}")
-    check(err <= UVT_ATOL, f"K1 {label}: t/u/v error {err} > {UVT_ATOL}")
+        f"differ in any bit on {differ}, tri/hit agree {frac:.7f}, max "
+        f"|t,u,v| err {err:.3g}, hit rate {p.hit.float().mean().item():.4f}")
+    check(differ == 0, f"K1 {label}: {differ} rays differ from plain")
     return frac, err, k
+
+
+def closest_floor(counts, n, n_tris, shape=None):
+    """K1's instruction-issue floor on n rays x n_tris triangles, ms: its
+    triangle loop's SASS a ray-triangle test for each warp-test its launch
+    runs (every ray tests every triangle; a thread's rays at the launch
+    shape `shape`, default cuda_trace.CLOSEST_SHAPE); None without a
+    count."""
+    from sunray_tpu_torch.ops import cuda_trace
+
+    shape = shape or cuda_trace.CLOSEST_SHAPE
+    rays = cuda_trace.rays_a_thread(n, shape)
+    threads = shape[1]
+    warp_tests = -(-n // (threads * rays)) * (threads // 32) * rays * n_tris
+    key = f"k1_test_r{rays}"
+    return issue_floor(counts, key if key in counts else "k1_test", warp_tests)
+
+
+def closest_timing(counts, tris, o, d, tmin, tmax, label):
+    """K1 timed on one query, beside its plain version, its bound (every ray
+    tests every triangle: rays x triangles x TEST_OPS operations, against
+    the rays, bounds and triangles read once and 17 bytes a ray written)
+    and its issue floor."""
+    from sunray_tpu_torch.ops import cuda_trace, intersect
+
+    n, n_tris = o.shape[0], tris[0].shape[0]
+    r = dict(
+        rays=n,
+        ms=device_ms(lambda: cuda_trace.trace_closest(tris, o, d, tmin, tmax)),
+        plain_ms=time_ms(lambda: intersect.trace_closest_brute(tris, o, d, tmin,
+                                                               tmax)),
+        bound=bound(nbytes(o, d, tmin, tmax, *tris) + 17 * n,
+                    n * n_tris * TEST_OPS),
+        floor_ms=closest_floor(counts, n, n_tris))
+    log(f"  K1 {label}: {n} rays x {n_tris} tris at "
+        f"{cuda_trace.rays_a_thread(n, cuda_trace.CLOSEST_SHAPE)} rays a "
+        f"thread; kernel {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} "
+        f"({r['bound'][1]}), issue floor {r['floor_ms']} ms")
+    return r
 
 
 def compare_occluded(tris, o, d, tmax, exclude, label):
@@ -421,7 +522,7 @@ def occluded_timing(counts, tris, o, d, tmax, exclude, label):
 
     first = occluded_first(tris, o, d, tmax, exclude)
     needed = int(first.sum())
-    rays = cuda_trace.occ_rays(o.shape[0])
+    rays = cuda_trace.rays_a_thread(o.shape[0], cuda_trace.OCC_SHAPE)
     rule = warp_rule_tests(first, rays, cuda_trace.OCC_THREADS)
     r = dict(
         rays=o.shape[0],
@@ -519,7 +620,7 @@ def trace_sets(dev, width=1920, height=1080, n_random=(65536, 4096)):
 
 
 def phase_kernels(dev, counts, width=1920, height=1080):
-    from sunray_tpu_torch.ops import cuda_gather, cuda_trace, intersect
+    from sunray_tpu_torch.ops import cuda_gather, intersect
     from sunray_tpu_torch.scene import cornell_box
 
     results = {}
@@ -527,7 +628,7 @@ def phase_kernels(dev, counts, width=1920, height=1080):
     gen = sets["gen"]
     scene_tris, rtris = sets["tris"], sets["random_tris"]
     o, d = sets["camera"]
-    n, n_tris = o.shape[0], scene_tris[0].shape[0]
+    n = o.shape[0]
 
     log("phase 3: kernels against their plain versions")
     f_cam, e_cam, _ = compare_closest(scene_tris, o, d, "camera")
@@ -536,14 +637,17 @@ def phase_kernels(dev, counts, width=1920, height=1080):
     f_r, e_r, _ = compare_closest(rtris, *sets["random"], "random")
     compare_occluded(rtris, *sets["random_occ"], "random")
 
+    # K1's row: the synthetic camera set; the frames' own queries join it
+    # in phase_trace_live.
     results["trace_closest"] = dict(
-        agree=min(f_cam, f_b, f_r), max_abs_err=max(e_cam, e_b, e_r),
-        ms=device_ms(lambda: cuda_trace.trace_closest(scene_tris, o, d)),
-        plain_ms=time_ms(lambda: intersect.trace_closest_brute(scene_tris, o, d)),
-        bound=bound(n * 41 + nbytes(*scene_tris), n * n_tris * TEST_OPS),
-    )
+        closest_timing(counts, scene_tris, o, d, intersect.T_MIN,
+                       intersect.T_MAX, "camera set"),
+        agree=min(f_cam, f_b, f_r), max_abs_err=max(e_cam, e_b, e_r))
+    random_k1 = closest_timing(counts, rtris, *sets["random"], intersect.T_MIN,
+                               intersect.T_MAX, "random set")
+    results["trace_closest"]["random_ms"] = random_k1["ms"]
     # K2's row: the synthetic shadow set (PR 1-7's shape); the frames' own
-    # queries join it in phase_occluded_live.
+    # queries join it in phase_trace_live.
     results["trace_occluded"] = dict(
         occluded_timing(counts, scene_tris, *sets["shadow"], "synthetic shadow"),
         agree=1.0, max_abs_err=0.0)
@@ -711,11 +815,12 @@ RESTIR_CHECKS = {
 }
 
 
-def capture_calls(dev, wrappers, frame, width=1920, height=1080, **cfg_kw):
+def capture_frames(dev, wrappers, frame, count, width=1920, height=1080,
+                   **cfg_kw):
     """Every call, (args, kwargs), of the wrappers `wrappers` ({name: module
-    under sunray_tpu_torch.ops}) in frame `frame` (the frames before it run
-    unrecorded) of the width x height Cornell render with
-    RenderConfig(**cfg_kw)."""
+    under sunray_tpu_torch.ops}) in frames frame, ..., frame + count - 1
+    (the frames before them run unrecorded) of the width x height Cornell
+    render with RenderConfig(**cfg_kw): one {name: [calls]} a frame."""
     import importlib
 
     from sunray_tpu_torch.camera import Camera, camera_matrices
@@ -732,23 +837,30 @@ def capture_calls(dev, wrappers, frame, width=1920, height=1080, **cfg_kw):
     mods = {name: importlib.import_module(f"sunray_tpu_torch.ops.{mod}")
             for name, mod in wrappers.items()}
     saved = {name: getattr(mods[name], name) for name in wrappers}
-    calls = {name: [] for name in wrappers}
+    frames = []
 
     def wrap(name):
         def call(*args, **kwargs):
-            calls[name].append((args, kwargs))
+            frames[-1][name].append((args, kwargs))
             return saved[name](*args, **kwargs)
         return call
 
     try:
         for name in wrappers:
             setattr(mods[name], name, wrap(name))
-        render_frame(scene, cfg, state, mats)
+        for _ in range(count):
+            frames.append({name: [] for name in wrappers})
+            state, _, _ = render_frame(scene, cfg, state, mats)
     finally:
         for name, fn in saved.items():
             setattr(mods[name], name, fn)
     torch.cuda.synchronize()
-    return calls
+    return frames
+
+
+def capture_calls(dev, wrappers, frame, width=1920, height=1080, **cfg_kw):
+    """capture_frames of frame `frame` alone: {name: [(args, kwargs)]}."""
+    return capture_frames(dev, wrappers, frame, 1, width, height, **cfg_kw)[0]
 
 
 # The default ReSTIR frame's three K2 queries, in the order the frame makes
@@ -759,19 +871,38 @@ RESTIR_OCCLUDED = ("DI visibility + GI NEE", "GI-tap visibility",
                    "DI winner + GI final")
 
 
-def capture_restir_inputs(dev, width=1920, height=1080, frame=2):
-    """The arguments each K3-K6 wrapper got in frame `frame` of a default
-    ReSTIR render at width x height, and every K2 call of that frame,
-    (args, kwargs), in order."""
+# ... and its two K1 queries: pass 1's camera rays and the GI initial
+# sample (render/gbuffer.py).
+RESTIR_CLOSEST = ("camera", "GI initial sample")
+# Frames whose K5 inputs are timed: the shared tap offsets change every
+# frame, and with them the rows a tap reads.
+K5_FRAMES = 4
+
+
+def capture_restir_inputs(dev, width=1920, height=1080, frame=2,
+                          frames=K5_FRAMES):
+    """What the kernels got in frames frame, ..., frame + frames - 1 of a
+    default ReSTIR render at width x height: a dict of "args", the
+    arguments of each K3-K6 wrapper in frame `frame`; "occluded" and
+    "closest", every K2 and K1 call of that frame, (args, kwargs), in
+    order; "di_spatial", K5's arguments in each recorded frame."""
     wrappers = dict.fromkeys(RESTIR_WRAPPERS, "cuda_restir")
-    calls = capture_calls(dev, dict(wrappers, trace_occluded="cuda_trace"),
-                          frame, width, height)
+    recorded = capture_frames(dev, dict(wrappers, trace_occluded="cuda_trace",
+                                        trace_closest="cuda_trace"),
+                              frame, frames, width, height)
+    calls = recorded[0]
     check(all(calls[name] for name in RESTIR_WRAPPERS),
           f"frame {frame} called only {[k for k, v in calls.items() if v]}")
     check(len(calls["trace_occluded"]) == len(RESTIR_OCCLUDED),
           f"frame {frame}: {len(calls['trace_occluded'])} K2 calls")
-    return ({name: calls[name][0][0] for name in RESTIR_WRAPPERS},
-            calls["trace_occluded"])
+    check(len(calls["trace_closest"]) == len(RESTIR_CLOSEST),
+          f"frame {frame}: {len(calls['trace_closest'])} K1 calls")
+    check(all(len(c["di_spatial"]) == 1 for c in recorded),
+          f"K5 calls a frame: {[len(c['di_spatial']) for c in recorded]}")
+    return dict(args={name: calls[name][0][0] for name in RESTIR_WRAPPERS},
+                occluded=calls["trace_occluded"],
+                closest=calls["trace_closest"],
+                di_spatial=[c["di_spatial"][0][0] for c in recorded])
 
 
 def compare_restir(name, args, label):
@@ -857,25 +988,88 @@ def random_audition_args(dev, n_lights, lanes=65536, seed=1):
             rand(lanes) > 0.2)
 
 
-def audition_warps(args):
-    """Warps of K3's launch that hold an enabled lane: the warps that run
-    the candidates (a warp of disabled lanes only draws)."""
-    enable = args[9]
-    n = enable.shape[0]
-    pad = torch.zeros(-(-n // 32) * 32, dtype=torch.bool, device=enable.device)
-    pad[:n] = enable
-    return int(pad.reshape(-1, 32).any(dim=1).sum())
+def di_spatial_use(args):
+    """(T, P) bool: the lanes for which K5 evaluates tap t, whose neighbour
+    is on the image, passes the normal and depth test and holds a usable
+    reservoir (csrc/restir.cu di_spatial_kernel's `use`)."""
+    from sunray_tpu_torch.ops import cuda_restir
+
+    (table, _, center, taps, pending, gnormal, gdepth, cur, _, normal, *_,
+     width, height, clamps) = args
+    out = []
+    for dx, dy in taps:
+        ok, _ = cuda_restir.neighbour_ok(dx, dy, width, height, normal, cur,
+                                         gnormal, gdepth)
+        w = cuda_restir.shift_flat(center["W"], dx, dy, height, width)
+        idx = cuda_restir.shift_flat(center["light_idx"], dx, dy, height, width)
+        out.append(pending & ok & (torch.clamp(w, max=clamps[0]) > 0.0)
+                   & (idx < table.num))
+    return torch.stack(out) if out else torch.zeros((0, pending.shape[0]),
+                                                    dtype=torch.bool,
+                                                    device=pending.device)
+
+
+def warps_any(mask):
+    """Warps of a one-lane-a-thread launch over mask's last axis that hold a
+    lane where mask is true, summed over its leading axes."""
+    n = mask.shape[-1]
+    pad = torch.zeros((*mask.shape[:-1], -(-n // 32) * 32), dtype=torch.bool,
+                      device=mask.device)
+    pad[..., :n] = mask
+    return int(pad.reshape(*mask.shape[:-1], -1, 32).any(dim=-1).sum())
+
+
+def di_spatial_floor(counts, args):
+    """K5's instruction-issue floor, ms: the path through the centre merge and
+    the resolve (every MUFU outside the tap loop) on every warp, and a used
+    tap's iteration (a PCG draw, the neighbour test and the target function)
+    on each warp that uses the tap (di_spatial_use); None without a count."""
+    from tools import sass
+
+    if "k5_fixed" not in counts:
+        return None
+    n = args[4].shape[0]
+    warps = -(-n // 32)
+    return sass.issue_floor_ms(
+        counts["k5_fixed"] * warps
+        + counts["k5_tap"] * warps_any(di_spatial_use(args)),
+        counts["n_sm"], counts["clock_mhz"])
+
+
+def centre_kept_warps(args, out):
+    """Share of K5's warps whose every lane ends with the centre's own
+    sample (light id, position and normal bit-equal to the centre's, which
+    the centre merge took): warps where the resolve's target function
+    equals the centre's."""
+    center = args[2]
+    n_l = args[0].num
+    same = ((out["light_idx"] == torch.clamp(center["light_idx"], max=n_l - 1))
+            & (out["light_pos"].view(torch.int32)
+               == center["light_pos"].view(torch.int32)).all(-1)
+            & (out["light_normal"].view(torch.int32)
+               == center["light_normal"].view(torch.int32)).all(-1)
+            & (out["w_sum"] > 0.0))
+    n = same.shape[0]
+    return 1.0 - warps_any(~same) / -(-n // 32), same.float().mean().item()
+
+
+def reservoir_fields(result):
+    """A K3-K6 result (seed', {field: tensor}) as one sequence: the seed,
+    then the fields in name order."""
+    seed, out = result
+    return [seed, *(out[k] for k in sorted(out))]
 
 
 def phase_restir_kernels(dev, counts, n_lights=600):
     """K3-K6 against their plain versions on frame 2's inputs, K3 also on a
-    random table of n_lights lights; returns (rows, frame 2's K2 calls)."""
+    random table of n_lights lights, K5 also on frames 3-5's; returns (rows,
+    capture_restir_inputs' record)."""
     from sunray_tpu_torch.ops import cuda_restir
 
     log("phase 3: K3-K6 against their plain versions")
-    captured, occluded = capture_restir_inputs(dev)
+    cap = capture_restir_inputs(dev)
     results = {}
-    for name, args in captured.items():
+    for name, args in cap["args"].items():
         agree, err = compare_restir(name, args, "1080p frame 2")
         results[name] = dict(agree=agree, max_abs_err=err, args=args)
 
@@ -889,11 +1083,42 @@ def phase_restir_kernels(dev, counts, n_lights=600):
     r["agree"] = min(r["agree"], agree)
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["lights600_ms"] = device_ms(lambda: cuda_restir.ris_audition(*lights_args))
-    warps = audition_warps(r["args"])
+    # the warps that run the candidates (a warp of disabled lanes only
+    # draws)
+    warps = warps_any(r["args"][9])
     r["floor_ms"] = issue_floor(counts, "k3_candidate", warps * r["args"][8])
     log(f"  K3 frame 2: {warps} warps with an enabled lane x "
         f"{r['args'][8]} candidates; issue floor {r['floor_ms']} ms; "
         f"{n_lights}-light table {r['lights600_ms']:.4f} ms")
+
+    # K5 on frames 2-5: bit-equality with plain, the taps' use, the share
+    # of warps that keep the centre's sample, its floor and time.
+    r = results["di_spatial"]
+    r["frames"] = []
+    for f, args in enumerate(cap["di_spatial"], start=2):
+        if f > 2:
+            agree, err = compare_restir("di_spatial", args, f"1080p frame {f}")
+            r["agree"] = min(r["agree"], agree)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        k = cuda_restir.di_spatial(*args)
+        differ = lanes_differing(reservoir_fields(k),
+                                 reservoir_fields(cuda_restir.di_spatial_plain(*args)))
+        use = di_spatial_use(args)
+        kept, kept_lanes = centre_kept_warps(args, k[1])
+        q = dict(frame=f, taps=[list(t) for t in args[3]],
+                 ms=device_ms(lambda: cuda_restir.di_spatial(*args)),
+                 floor_ms=di_spatial_floor(counts, args),
+                 lanes_differing=differ,
+                 tap_use=[round(u.float().mean().item(), 6) for u in use],
+                 centre_kept_warps=kept)
+        r["frames"].append(q)
+        log(f"  K5 frame {f}: taps {args[3]}; lanes differing from plain in "
+            f"any bit {differ}; tap use {q['tap_use']}; lanes keeping the "
+            f"centre's sample {kept_lanes:.4f}, warps {kept:.4f}; kernel "
+            f"{q['ms']:.4f} ms, issue floor {q['floor_ms']} ms")
+    times = [q["ms"] for q in r["frames"]]
+    r["frames_ms_spread"] = [min(times), max(times)]
+    r["floor_ms"] = r["frames"][0]["floor_ms"]
 
     for name, r in results.items():
         args = r.pop("args")
@@ -907,26 +1132,34 @@ def phase_restir_kernels(dev, counts, n_lights=600):
         log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]})")
-    return results, occluded
+    return results, cap
 
 
-def phase_occluded_live(dev, counts, restir_calls, row, width=1920,
-                        height=1080, frame=2):
-    """K2 on the frames' own queries: the three of frame 2 of the default
-    1080p ReSTIR frame (restir_calls, from capture_restir_inputs) and the
-    first bounce round's of frame 2 of the 1080p NEE frame; each bit-equal
-    to plain on every lane and timed as occluded_timing times it. Adds
-    them to K2's row as live_* entries."""
+def phase_trace_live(dev, counts, cap, rows, width=1920, height=1080,
+                     frame=2):
+    """K2 and K1 on the frames' own queries: frame 2 of the default 1080p
+    ReSTIR frame's (cap, from capture_restir_inputs: three K2 and two K1
+    queries) and frame 2 of the 1080p NEE frame's (K2 its first bounce
+    round, K1 every call); each bit-equal to plain on every lane and timed
+    as occluded_timing and closest_timing time them. Adds them to K2's and
+    K1's rows (rows["trace_occluded"], rows["trace_closest"]) as live_*
+    entries."""
     from sunray_tpu_torch.ops.intersect import T_MIN
 
-    log("phase 3: K2 on the frames' own shadow queries")
-    nee = capture_calls(dev, {"trace_occluded": "cuda_trace"}, frame, width,
-                        height, lighting="nee")["trace_occluded"]
-    check(nee, f"NEE frame {frame} made no K2 call")
-    log(f"  NEE frame {frame}: {len(nee)} K2 calls of "
-        f"{sorted({a[1].shape[0] for a, _ in nee})} rays")
-    queries = [*zip(RESTIR_OCCLUDED, restir_calls),
-               ("NEE bounce round 0", nee[0])]
+    log("phase 3: K2 and K1 on the frames' own queries")
+    nee = capture_calls(dev, dict(trace_occluded="cuda_trace",
+                                  trace_closest="cuda_trace"), frame, width,
+                        height, lighting="nee")
+    check(nee["trace_occluded"] and nee["trace_closest"],
+          f"NEE frame {frame} made {len(nee['trace_occluded'])} K2 and "
+          f"{len(nee['trace_closest'])} K1 calls")
+    for kid, name in (("K2", "trace_occluded"), ("K1", "trace_closest")):
+        log(f"  NEE frame {frame}: {len(nee[name])} {kid} calls of "
+            f"{sorted({a[1].shape[0] for a, _ in nee[name]})} rays")
+
+    row = rows["trace_occluded"]
+    queries = [*zip(RESTIR_OCCLUDED, cap["occluded"]),
+               ("NEE bounce round 0", nee["trace_occluded"][0])]
     live = []
     for label, (args, kwargs) in queries:
         tris, o, d, tmax, tmin = args
@@ -942,10 +1175,36 @@ def phase_occluded_live(dev, counts, restir_calls, row, width=1920,
     row["live"] = live
     row["live_restir_frame_ms"] = sum(q["ms"] for q in live[:3])
     row["live_restir_frame_bound_ms"] = sum(q["bound_ms"] for q in live[:3])
-    row["nee_calls_per_frame"] = len(nee)
+    row["nee_calls_per_frame"] = len(nee["trace_occluded"])
     log(f"  K2 a ReSTIR frame (3 queries): kernel "
         f"{row['live_restir_frame_ms']:.4f} ms, bound "
         f"{row['live_restir_frame_bound_ms']:.4f} ms")
+
+    row = rows["trace_closest"]
+    queries = [*((f"ReSTIR {label}", c)
+                 for label, c in zip(RESTIR_CLOSEST, cap["closest"])),
+               *((f"NEE call {i}", c) for i, c in enumerate(nee["trace_closest"]))]
+    live = []
+    for label, (args, kwargs) in queries:
+        check(len(args) == 5 and not kwargs, f"K1 {label}: unexpected arguments")
+        tris, o, d, tmin, tmax = args
+        compare_closest(tris, o, d, label, tmin, tmax)
+        r = closest_timing(counts, tris, o, d, tmin, tmax, label)
+        live.append(dict(query=label, rays=r["rays"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                         floor_ms=r["floor_ms"]))
+    row["live"] = live
+    n_restir = len(RESTIR_CLOSEST)
+    row["live_restir_frame_ms"] = sum(q["ms"] for q in live[:n_restir])
+    row["live_restir_frame_bound_ms"] = sum(q["bound_ms"]
+                                            for q in live[:n_restir])
+    row["live_nee_frame_ms"] = sum(q["ms"] for q in live[n_restir:])
+    row["nee_calls_per_frame"] = len(nee["trace_closest"])
+    log(f"  K1 a ReSTIR frame ({n_restir} queries): kernel "
+        f"{row['live_restir_frame_ms']:.4f} ms, bound "
+        f"{row['live_restir_frame_bound_ms']:.4f} ms; an NEE frame "
+        f"({row['nee_calls_per_frame']} queries): kernel "
+        f"{row['live_nee_frame_ms']:.4f} ms")
 
 
 # -- phase 3, K9, K13, K14: the kernel switches on a live frame's inputs ------
@@ -1880,7 +2139,48 @@ SLICE_KERNELS = SWITCH_KERNELS + tuple(k for k in CORNELL_KERNELS
 BIG_KERNELS = BINNED_KERNELS + tuple(k for k in CORNELL_KERNELS
                                      if k not in ("trace_closest",
                                                   "trace_occluded"))
+def ptxas_registers(report):
+    """{kernel: registers} from nvcc's -Xptxas=-v report, each kernel named
+    as in its mangled name without its source's anonymous namespace
+    (_GLOBAL__N__<hash>_<n>_<file>_cu_<hash>), template arguments kept
+    (e.g. ...14closest_kernelILi4EEEvPKf...: closest_kernelILi4EE)."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '_ZN\d+_GLOBAL__N__\w+?_cu_"
+                      r"[0-9a-f]{8}(\d+)(\w+)'", line)
+        if m:
+            size, rest = int(m.group(1)), m.group(2)
+            name, tail = rest[:size], rest[size:]
+            if tail.startswith("I") and "EE" in tail:
+                name += tail[:tail.index("EE") + 2]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
+def resident_warps(registers, threads):
+    """Warps an H100 SM holds of a kernel using `registers` registers a
+    thread in blocks of `threads`: 64K registers an SM, allocated 256 a
+    warp at a time; at most 64 warps and 32 blocks an SM."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = threads // 32
+    blocks = min(65536 // (per_warp * warps), 32, 64 // warps)
+    return blocks * warps
+
+
+def kernel_registers(regs, kernel, threads):
+    """{instantiation: (registers, resident warps an SM)} of `kernel`."""
+    return {name: (n, resident_warps(n, threads)) for name, n in regs.items()
+            if name.startswith(kernel)}
+
+
 def main():
+    t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device available")
     sys.path.insert(0, REPO)
     from sunray_tpu_torch.ops import cuda_build
@@ -1903,12 +2203,21 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    regs = ptxas_registers(report)
+    from sunray_tpu_torch.ops import cuda_trace
+    k1_regs = kernel_registers(regs, "closest_kernel", cuda_trace.CLOSEST_THREADS)
+    k5_regs = kernel_registers(regs, "di_spatial_kernel",
+                               128)  # csrc/restir.cu kSpatialThreads
+    log(f"  registers, resident warps an SM: K1 {k1_regs}, K5 {k5_regs}")
     counts = sass_counts(path)
 
     kernels = phase_kernels(dev, counts)
-    restir_rows, occluded = phase_restir_kernels(dev, counts)
+    restir_rows, cap = phase_restir_kernels(dev, counts)
     kernels.update(restir_rows)
-    phase_occluded_live(dev, counts, occluded, kernels["trace_occluded"])
+    phase_trace_live(dev, counts, cap, kernels)
+    del cap  # the captured inputs stay out of the frames' peak memory
+    kernels["trace_closest"]["registers"] = k1_regs
+    kernels["di_spatial"]["registers"] = k5_regs
     kernels.update(phase_switch_kernels(dev, counts))
     phase_golden(dev)
     # Each kernel's launches are read on its own slice's main path.
@@ -1921,6 +2230,16 @@ def main():
           f"{k2['nee_calls_per_frame']} calls a frame captured")
     log(f"  K2 launches: {launches['trace_occluded']} over 25 ReSTIR frames, "
         f"{k2['nee_launches']} over 7 NEE frames")
+    k1 = kernels["trace_closest"]
+    k1["nee_launches"] = nee["trace_closest"]
+    check(launches["trace_closest"] == 25 * len(RESTIR_CLOSEST),
+          f"ReSTIR frame: K1 launched {launches['trace_closest']} times in 25 "
+          f"frames, {len(RESTIR_CLOSEST)} calls a frame captured")
+    check(k1["nee_launches"] == 7 * k1["nee_calls_per_frame"],
+          f"NEE frame: K1 launched {k1['nee_launches']} times in 7 frames, "
+          f"{k1['nee_calls_per_frame']} calls a frame captured")
+    log(f"  K1 launches: {launches['trace_closest']} over 25 ReSTIR frames, "
+        f"{k1['nee_launches']} over 7 NEE frames")
     slice_launches = phase_main(dev, "restir", SLICE_KERNELS, n_warm=5,
                                 n_timed=20, switches=SWITCHES,
                                 absent=("trace_occluded",))
@@ -1952,10 +2271,13 @@ def main():
                     "anyhit_rule_tests", "anyhit_old_tests", "nonfma_floor_ms",
                     "taa_corners_ms", "floor_ms", "bypass_share", "live_ms",
                     "live_plain_ms", "live_max_abs_err", "live_bypass_share",
-                    "live_bound_ms", "live_floor_ms"):
+                    "live_bound_ms", "live_floor_ms", "random_ms",
+                    "live_nee_frame_ms", "registers", "frames",
+                    "frames_ms_spread"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)
+    log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -392,6 +392,27 @@ __global__ void __launch_bounds__(kThreads) di_temporal_kernel(DiTemporalArgs a)
 }
 
 // ---- K5 --------------------------------------------------------------------
+//
+// What holds it back: latency. The first kernel (blocks of 256, each
+// tap's loads behind its tests) issued 684 SASS instructions around its
+// tap loop and 324 a used tap, at 79 registers (24 warps an SM); that
+// issue floor is 47% of its time and its bytes bound 42%, and each tap
+// waits on loads of a neighbour up to 30 px away.
+//
+// Design: one thread per pixel, on blocks of 128 capped at 64 registers
+// (32 warps an SM): 0.82x the first kernel's time, though the cap
+// spills 20 bytes and the count is 327 SASS a used tap and 696 around. The shading terms of each flavour
+// are computed once a lane (the compiler had already hoisted them out of
+// the tap loop: the SASS count did not move), and a tap's five
+// neighbour-test loads are issued together (the first kernel's
+// short-circuit put the depth load behind the normal test). Measured and dropped: the winner's
+// f_y by a select where the centre won and no tap took (bit-equal there,
+// but 0.0-0.4% of warps have all their lanes keep the centre, and the
+// kept f_y cost 9 registers), and the next tap's loads issued before the
+// current tap's target function (88 registers, or spills under a cap:
+// slower at every budget). The operations and their order are the first
+// kernel's, so every output keeps its bits. The draws keep the stream order: the
+// centre's first, then one a tap in tap order, a skipped tap's included.
 
 struct DiSpatialArgs {
   const float* em;
@@ -413,11 +434,48 @@ struct DiSpatialArgs {
   uint8_t* o_has;
 };
 
-__global__ void __launch_bounds__(kThreads) di_spatial_kernel(DiSpatialArgs a) {
+// What a tap's neighbour test reads: the neighbour's index, whether it is
+// on the image, its G-buffer normal and depth and its reservoir's W, M
+// and light id (not read off the image).
+struct TapHead {
+  bool inside;
+  long long j;
+  V3 gn;
+  float gd, w, m;
+  int idx;
+};
+
+// Blocks of 128, at least 8 an SM: at most 64 registers (20 bytes
+// spilled), 32 warps an SM.
+constexpr int kSpatialThreads = 128;
+constexpr int kSpatialMinBlocks = 8;
+
+__device__ __forceinline__ TapHead tap_head(const DiSpatialArgs& a, int x, int y,
+                                            int t) {
+  TapHead h = {};
+  const int nx = x + a.taps[2 * t], ny = y + a.taps[2 * t + 1];
+  h.inside = nx >= 0 && ny >= 0 && nx < a.width && ny < a.height;
+  if (!h.inside) return h;
+  h.j = (long long)ny * a.width + nx;
+  h.gn = ld3(a.gnormal, h.j);
+  h.gd = __ldg(a.gdepth + h.j);
+  h.w = __ldg(a.c_w + h.j);
+  h.m = __ldg(a.c_m + h.j);
+  h.idx = __ldg(a.c_idx + h.j);
+  return h;
+}
+
+__global__ void __launch_bounds__(kSpatialThreads, kSpatialMinBlocks)
+di_spatial_kernel(DiSpatialArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = a.width * a.height;
   if (i >= n) return;
   const Surface s = load_surface(a.pos, a.nrm, a.view, a.alb, a.rough, a.metal, i);
+  // The shading terms of each flavour, once: the centre and the winner
+  // round as eval_unshadowed_light (planar = false), the taps as
+  // eval_p_hat_planar (true).
+  const ShadeTerms t_full = shade_terms<false>(s);
+  const ShadeTerms t_tap = shade_terms<true>(s);
   const bool pending = a.pending[i] != 0;
   uint32_t seed = (uint32_t)a.seed[i];
 
@@ -428,7 +486,7 @@ __global__ void __launch_bounds__(kThreads) di_spatial_kernel(DiSpatialArgs a) {
   const int c_idx = min(c_raw, a.n_lights - 1);
   const V3 c_pos = ld3(a.c_pos, i), c_nrm = ld3(a.c_nrm, i);
   const V3 c_em = emission(a.em, c_idx, a.n_lights);
-  const float p_hat_c = max3(eval_light<false>(s, c_em, c_pos, c_nrm));
+  const float p_hat_c = max3(eval_light<false>(s, t_full, c_em, c_pos, c_nrm));
   const float u_m = rnd(seed);
   float w_sum = 0.0f, m_acc = 0.0f;
   const bool c_take = merge(w_sum, m_acc, c_m, p_hat_c * c_w * c_m, u_m, c_ok);
@@ -440,22 +498,20 @@ __global__ void __launch_bounds__(kThreads) di_spatial_kernel(DiSpatialArgs a) {
   // Shared-offset taps, each neighbour read in place (pathtrace.py:583-599).
   const int x = i % a.width, y = i / a.width;
   const float cur = __ldg(a.cur_depth + i);
+#pragma unroll 1
   for (int t = 0; t < a.n_taps; ++t) {
+    const TapHead h = tap_head(a, x, y, t);
     const float u = rnd(seed);
-    const int nx = x + a.taps[2 * t], ny = y + a.taps[2 * t + 1];
-    if (nx < 0 || ny < 0 || nx >= a.width || ny >= a.height) continue;
-    const long long j = (long long)ny * a.width + nx;
-    const bool ok = dot3(s.n, ld3(a.gnormal, j)) >= 0.9f &&
-                    fabsf(cur - __ldg(a.gdepth + j)) <= 0.1f * cur;
-    const float w_cl = fminf(__ldg(a.c_w + j), a.w_clamp);
-    const float m_cl = fminf(__ldg(a.c_m + j), a.m_clamp);
-    const int idx_raw = __ldg(a.c_idx + j);
-    const bool use = pending && ok && w_cl > 0.0f && idx_raw < a.n_lights;
+    if (!h.inside) continue;
+    const bool ok = dot3(s.n, h.gn) >= 0.9f && fabsf(cur - h.gd) <= 0.1f * cur;
+    const float w_cl = fminf(h.w, a.w_clamp);
+    const float m_cl = fminf(h.m, a.m_clamp);
+    const bool use = pending && ok && w_cl > 0.0f && h.idx < a.n_lights;
     if (!use) continue;  // merge() with enable false leaves every value
-    const int idx = min(idx_raw, a.n_lights - 1);
-    const V3 lp = ld3(a.c_pos, j), ln = ld3(a.c_nrm, j);
+    const int idx = min(h.idx, a.n_lights - 1);
+    const V3 lp = ld3(a.c_pos, h.j), ln = ld3(a.c_nrm, h.j);
     const V3 em = emission(a.em, idx, a.n_lights);
-    const float p_hat = max3(eval_light<true>(s, em, lp, ln));
+    const float p_hat = max3(eval_light<true>(s, t_tap, em, lp, ln));
     if (merge(w_sum, m_acc, m_cl, p_hat * w_cl * m_cl, u, true)) {
       r_idx = idx;
       r_pos = lp;
@@ -465,7 +521,7 @@ __global__ void __launch_bounds__(kThreads) di_spatial_kernel(DiSpatialArgs a) {
   }
 
   // Resolve, clamp and the winner's f_y (ray_gen_final.slang:203-222).
-  const V3 f_y = eval_light<false>(s, r_em, r_pos, r_nrm);
+  const V3 f_y = eval_light<false>(s, t_full, r_em, r_pos, r_nrm);
   const float w_spatial = fminf(w_sum / fmaxf(m_acc * max3(f_y), 1e-3f), a.ws_clamp);
   a.seed_out[i] = (long long)seed;
   st3(a.o_pos, i, r_pos);
@@ -662,7 +718,8 @@ int sunray_di_spatial(const float* em, int n_lights, const long long* seed,
     a.o_wspatial = o_wspatial;
     a.o_fy = o_fy;
     a.o_has = o_has;
-    di_spatial_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    di_spatial_kernel<<<(n + kSpatialThreads - 1) / kSpatialThreads, kSpatialThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -139,10 +139,12 @@ def _signatures():
         "sunray_pair_closest": pairs + [p, p, p, p, p],
         "sunray_pair_occluded": pairs + [p, p],
         "sunray_trace_occluded_woop": [p, p, p, f, p, f, p, p, p, i, i, p, p],
+        "sunray_inv_det": [p, p, i64, p],
         "sunray_taa_clamp_blend": [p, p, p, i, i, f, p, p],
         "sunray_history_gather": [p, p, p, i, p, i64, i64, p],
         "sunray_woop_launch_shape": [ctypes.POINTER(i)],
         "sunray_occluded_launch_shape": [ctypes.POINTER(i)],
+        "sunray_closest_launch_shape": [ctypes.POINTER(i)],
         "sunray_ris_launch_shape": [ctypes.POINTER(i)],
         "sunray_atrous_tile_shape": [ctypes.POINTER(i)],
     }
@@ -179,6 +181,9 @@ def _check_launch_shapes(lib) -> None:
             ("sunray_occluded_launch_shape",
              (cuda_trace.OCC_RAYS, cuda_trace.OCC_THREADS,
               cuda_trace.OCC_WIDE_MIN)),
+            ("sunray_closest_launch_shape",
+             (cuda_trace.CLOSEST_RAYS, cuda_trace.CLOSEST_THREADS,
+              cuda_trace.CLOSEST_WIDE_MIN)),
             ("sunray_ris_launch_shape", (cuda_restir.RIS_SMEM_LIGHTS,)),
             ("sunray_atrous_tile_shape",
              (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO))):

@@ -564,7 +564,7 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
     p = hit_pos.shape[0]
     if p != width * height:
         raise cuda_build.KernelError(f"{name}: {p} lanes for {width}x{height}")
-    dev = cuda_build.require_cuda(name, *table, *lanes)
+    cuda_build.require_cuda(name, *table, *lanes)
     _f32(name, gnormal, gdepth, current_depth, hit_pos, hit_normal, v_view,
          albedo, roughness, metallic,
          *(center[k] for k in c_keys if k != "light_idx"))
@@ -573,12 +573,28 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
                  gnormal=gnormal, gdepth=gdepth, current_depth=current_depth,
                  **{f"center.{k}": center[k] for k in c_keys})
     _check_table(name, table)
+    return _launch_di_spatial(table, seed, center, taps, pending, gnormal,
+                              gdepth, current_depth, hit_pos, hit_normal,
+                              v_view, albedo, roughness, metallic, width,
+                              height, clamps)
+
+
+def _launch_di_spatial(table: LightTable, seed, center, taps, pending, gnormal,
+                       gdepth, current_depth, hit_pos, hit_normal, v_view,
+                       albedo, roughness, metallic, width, height, clamps,
+                       lib=None):
+    """K5 once on checked arguments, from `lib` (default: the port's
+    library, whose launches are counted)."""
+    name = "di_spatial"
+    c_keys = ("light_pos", "light_normal", "W", "M", "light_idx")
+    p, dev = hit_pos.shape[0], hit_pos.device
     w_clamp, m_clamp, w_spatial_clamp = clamps
     pending8 = _mask(pending)
     seed_out = torch.empty_like(seed)
     outs = _out(p, dev, *_RES_OUT[:5], ((), torch.float32),
                 ((3,), torch.float32), ((), torch.bool))
-    err = cuda_build.library().sunray_di_spatial(
+    kernels = cuda_build.library() if lib is None else lib
+    err = kernels.sunray_di_spatial(
         table.emission.data_ptr(), table.num, seed.data_ptr(),
         *(center[k].data_ptr() for k in c_keys), pending8.data_ptr(),
         gnormal.data_ptr(), gdepth.data_ptr(), current_depth.data_ptr(),
@@ -590,7 +606,8 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
         *(o.data_ptr() for o in outs), cuda_build.stream_ptr(),
     )
     cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    if lib is None:
+        cuda_build.launches[name] += 1
     light_pos, light_normal, w_sum, m, light_idx, w_spatial, f_y_w, has = outs
     return seed_out, dict(light_pos=light_pos, light_normal=light_normal,
                           w_sum=w_sum, M=m, light_idx=light_idx,

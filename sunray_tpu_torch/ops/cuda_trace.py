@@ -33,10 +33,20 @@ WOOP_THREADS = 128
 OCC_RAYS = 4
 OCC_THREADS = 128
 OCC_WIDE_MIN = 1 << 19
+OCC_SHAPE = (OCC_RAYS, OCC_THREADS, OCC_WIDE_MIN)
+# K1's launch shape, the same rule (csrc/trace.cu kCloseRays,
+# kCloseThreads, kCloseWideMin; checked against
+# sunray_closest_launch_shape).
+CLOSEST_RAYS = 2
+CLOSEST_THREADS = 128
+CLOSEST_WIDE_MIN = 1 << 19
+CLOSEST_SHAPE = (CLOSEST_RAYS, CLOSEST_THREADS, CLOSEST_WIDE_MIN)
 
 
-def occ_rays(n: int, shape=(OCC_RAYS, OCC_THREADS, OCC_WIDE_MIN)) -> int:
-    """Rays a thread of K2's launch over n rays, at launch shape `shape`."""
+def rays_a_thread(n: int, shape) -> int:
+    """Rays a thread of a K2 or K1 launch over n rays at launch shape
+    `shape` (rays, threads, wide_min): `rays` from wide_min rays on, else
+    1."""
     return shape[0] if n >= shape[2] else 1
 
 
@@ -78,23 +88,32 @@ def trace_closest(tris, orig, d, tmin=T_MIN, tmax=T_MAX) -> Hit:
     if cuda_build.on_cpu(*tris, orig, d, tmin, tmax):
         return intersect.trace_closest_brute(tris, orig, d, tmin, tmax)
     dev = _check("trace_closest", tris, orig, d)
-    n, n_tris = orig.shape[0], tris[0].shape[0]
+    n = orig.shape[0]
     tn, tn_s = _bound("trace_closest", tmin, n, dev)
     tx, tx_s = _bound("trace_closest", tmax, n, dev)
-    lib = cuda_build.library()
+    return _launch_closest(tris, orig, d, tn, tn_s, tx, tx_s)
+
+
+def _launch_closest(tris, orig, d, tn, tn_s, tx, tx_s, lib=None):
+    """K1 once on checked arguments (tn, tx: per-ray bounds or None with
+    the scalars tn_s, tx_s), from `lib` (default: the port's library, whose
+    launches are counted)."""
+    n, dev = orig.shape[0], orig.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
     hit = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = lib.sunray_trace_closest(
+    kernels = cuda_build.library() if lib is None else lib
+    err = kernels.sunray_trace_closest(
         orig.data_ptr(), d.data_ptr(), _ptr(tn), tn_s, _ptr(tx), tx_s,
         tris[0].data_ptr(), tris[1].data_ptr(), tris[2].data_ptr(),
-        n, n_tris, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        hit.data_ptr(), cuda_build.stream_ptr(),
+        n, tris[0].shape[0], t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), hit.data_ptr(), cuda_build.stream_ptr(),
     )
     cuda_build.check_launch("trace_closest", err)
-    cuda_build.launches["trace_closest"] += 1
+    if lib is None:
+        cuda_build.launches["trace_closest"] += 1
     return Hit(t, tri, u, v, hit)
 
 

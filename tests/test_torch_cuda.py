@@ -19,6 +19,8 @@ from sunray_tpu_torch.ops import binned_trace, cuda_binned, cuda_restir, interse
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 from sunray_tpu_torch.scene import cornell_box
 from torch_big_scene import big_scene_args, icosphere
+from torch_di_spatial_cases import FIELDS as DI_FIELDS
+from torch_di_spatial_cases import di_spatial_args
 from torch_parity import (CAMERA, GOLDEN_KW, cuda_device, n, psnr,  # noqa: F401
                           tie_cluster_set)
 
@@ -193,6 +195,109 @@ def test_occluded_kernel_ragged_bit_equal(n_tris, wide, extra, cuda_device):
             assert torch.equal(got, want)
             if n_tris > 1:
                 assert 0.0 < want.float().mean().item() < 1.0
+
+
+def _closest_case(n, n_tris, seed, dev):
+    """_woop_rays's rays and triangles, the last fifth of the triangles
+    exact copies of the first (hits tied at equal t: the lower id wins),
+    with per-ray tmin."""
+    tris, o, d, tmax, _ = _woop_rays(n, n_tris, seed, dev)
+    dup = n_tris // 5
+    tris = tuple(torch.cat([x[:n_tris - dup], x[:dup]]).contiguous() for x in tris)
+    rng = np.random.default_rng(seed)
+    tmin = torch.from_numpy(rng.uniform(1e-4, 0.3, n).astype(np.float32)).to(dev)
+    return tris, o, d, tmin, tmax
+
+
+def _same_bits(got, want):
+    for a, b in zip(got, want):
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("n_tris", [1, 36, 129, 300])
+def test_closest_kernel_ragged_bit_equal(n_tris, wide, extra, cuda_device):
+    """K1 at rays-a-block +- 1 rays (a ragged last block), on the wide
+    launch (CLOSEST_RAYS rays a thread) and the narrow one (one ray a
+    thread), at triangle counts off the 128-triangle chunk, with
+    degenerate triangles and exact duplicates, per-ray and scalar bounds;
+    every field bit-equal to plain."""
+    n = (cuda_trace.CLOSEST_WIDE_MIN
+         + cuda_trace.CLOSEST_RAYS * cuda_trace.CLOSEST_THREADS
+         if wide else cuda_trace.CLOSEST_THREADS * 5) + extra
+    tris, o, d, tmin, tmax = _closest_case(n, n_tris, 70 + n_tris + extra,
+                                           cuda_device)
+    for bounds in ((tmin, tmax), (intersect.T_MIN, 2.5)):
+        got = cuda_trace.trace_closest(tris, o, d, *bounds)
+        want = intersect.trace_closest_brute(tris, o, d, *bounds)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+        if n_tris > 1:
+            assert 0.0 < want.hit.float().mean().item() < 1.0
+        if n_tris >= 5:
+            assert (want.tri < n_tris - n_tris // 5).all()
+
+
+def _inv_det(x):
+    """K1's and K2's reciprocal of each determinant (csrc/trace.cu
+    inv_det, through sunray_inv_det) and IEEE 1 / x, each 0 where |x| <=
+    1e-9 or x is NaN."""
+    out = torch.empty_like(x)
+    err = cuda_build.library().sunray_inv_det(x.data_ptr(), out.data_ptr(),
+                                              x.numel(), cuda_build.stream_ptr())
+    cuda_build.check_launch("sunray_inv_det", err)
+    return out, torch.where(x.abs() > 1e-9, 1.0 / x, torch.zeros_like(x))
+
+
+def test_branch_free_reciprocal_is_ieee_on_every_input(cuda_device):
+    """The reciprocal without the IEEE one's slow-path branch gives its
+    bits on all 2^32 float32 inputs (denormals, +-1e-9, huge, inf, NaN, +-0
+    among them) and on 2^26 random determinants spread over the whole
+    float32 range."""
+    step = 1 << 28
+    for start in range(0, 1 << 32, step):
+        bits = torch.arange(start, start + step, dtype=torch.int64,
+                            device=cuda_device)
+        x = (bits - (bits >= 1 << 31).long() * (1 << 32)).to(torch.int32)
+        got, want = _inv_det(x.view(torch.float32))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), start
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(1 << 26, generator=gen, device=cuda_device) * torch.exp(
+        torch.randn(1 << 26, generator=gen, device=cuda_device) * 20.0)
+    got, want = _inv_det(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_closest_launch_shape_is_the_hosts(cuda_device):
+    """The library's K1 and K2 launch shapes are the host's copies (the
+    load-time check, read once more here)."""
+    lib = cuda_build.library()
+    assert cuda_build.launch_shape(lib, "sunray_closest_launch_shape", 3) == (
+        cuda_trace.CLOSEST_RAYS, cuda_trace.CLOSEST_THREADS,
+        cuda_trace.CLOSEST_WIDE_MIN)
+    assert cuda_build.launch_shape(lib, "sunray_occluded_launch_shape", 3) == (
+        cuda_trace.OCC_RAYS, cuda_trace.OCC_THREADS, cuda_trace.OCC_WIDE_MIN)
+
+
+@pytest.mark.parametrize("n_taps", range(1, cuda_restir.MAX_TAPS + 1))
+def test_di_spatial_kernel_bit_equal(n_taps, cuda_device):
+    """K5 on seeded 333x187 frames (a ragged last block) with 1-8 shared
+    taps, off every image edge and near: seeds and every output bit-equal
+    to plain."""
+    rng = np.random.default_rng(n_taps)
+    taps = [tuple(int(v) for v in rng.integers(-40, 41, 2)) for _ in range(n_taps)]
+    args = di_spatial_args(taps, 90 + n_taps, 333, 187, cuda_device)
+    seed_k, got = cuda_restir.di_spatial(*args)
+    seed_p, want = cuda_restir.di_spatial_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(seed_k, seed_p)
+    assert _same_bits([got[k] for k in DI_FIELDS], [want[k] for k in DI_FIELDS])
+    assert 0.0 < want["has"].float().mean().item() < 1.0
 
 
 def test_kernel_rejects_bad_input(cuda_device):

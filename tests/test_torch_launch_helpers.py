@@ -1,14 +1,15 @@
 """The host side of the kernel launches, on the CPU with stand-in libraries.
 
-K14's, K2's, K3's and K7's launch shapes: the host's copies
-(cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS, OCC_THREADS, OCC_WIDE_MIN;
+K14's, K2's, K1's, K3's and K7's launch shapes: the host's copies
+(cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS, OCC_THREADS, OCC_WIDE_MIN,
+CLOSEST_RAYS, CLOSEST_THREADS, CLOSEST_WIDE_MIN;
 cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
 ATROUS_HALO), which the CPU models of the kernels, the tests' table sizes
 and chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
 csrc/restir.cu and csrc/atrous.cu, and cuda_build refuses a library whose
 shape queries report another shape. The launch helpers that the
-before/after tools call with another build's library (K13, K14, K2, K3,
-K7) count a launch of the port's own library and no other."""
+before/after tools call with another build's library (K13, K14, K2, K1,
+K3, K5, K7) count a launch of the port's own library and no other."""
 
 import re
 
@@ -26,6 +27,10 @@ SHAPES = {
     "sunray_occluded_launch_shape": (
         "trace.cu", ("kOccRays", "kOccThreads", "kOccWideMin"),
         (cuda_trace.OCC_RAYS, cuda_trace.OCC_THREADS, cuda_trace.OCC_WIDE_MIN)),
+    "sunray_closest_launch_shape": (
+        "trace.cu", ("kCloseRays", "kCloseThreads", "kCloseWideMin"),
+        (cuda_trace.CLOSEST_RAYS, cuda_trace.CLOSEST_THREADS,
+         cuda_trace.CLOSEST_WIDE_MIN)),
     "sunray_ris_launch_shape": (
         "restir.cu", ("kRisSmemLights",), (cuda_restir.RIS_SMEM_LIGHTS,)),
     "sunray_atrous_tile_shape": (
@@ -98,6 +103,19 @@ def _launch(name):
             img, plane, img, plane, img, 1, torch.empty_like(img), lib=lib),
         "history_gather": lambda lib: cuda_history._launch_gather(
             [plane.reshape(-1)], torch.zeros((3,), dtype=torch.int64), lib=lib),
+        "trace_closest": lambda lib: cuda_trace._launch_closest(
+            (rays, rays, rays), rays, rays, None, 1e-4, None, 1e30, lib=lib),
+        "di_spatial": lambda lib: cuda_restir._launch_di_spatial(
+            cuda_restir.LightTable(*(torch.zeros((2, 3)),) * 4),
+            torch.zeros((6,), dtype=torch.int64),
+            dict(light_pos=torch.zeros((6, 3)), light_normal=torch.zeros((6, 3)),
+                 W=torch.zeros((6,)), M=torch.zeros((6,)),
+                 light_idx=torch.zeros((6,), dtype=torch.int32)),
+            [(1, 0)], torch.ones((6,), dtype=torch.bool), torch.zeros((6, 3)),
+            torch.zeros((6,)), torch.zeros((6,)), torch.zeros((6, 3)),
+            torch.zeros((6, 3)), torch.zeros((6, 3)), torch.zeros((6, 3)),
+            torch.zeros((6,)), torch.zeros((6,)), 3, 2, (1.0, 2.0, 3.0),
+            lib=lib),
         "trace_occluded": lambda lib: cuda_trace._launch_occluded(
             (rays, rays, rays), rays, rays, None, 1e-4, None, 1.0, None,
             lib=lib),
@@ -109,8 +127,9 @@ def _launch(name):
     }[name]
 
 
-@pytest.mark.parametrize("name", ["atrous_pass", "history_gather",
-                                  "ris_audition", "trace_occluded",
+@pytest.mark.parametrize("name", ["atrous_pass", "di_spatial",
+                                  "history_gather", "ris_audition",
+                                  "trace_closest", "trace_occluded",
                                   "trace_occluded_woop"])
 def test_launch_helpers_count_the_ports_library_only(name, monkeypatch):
     own = _FakeKernels()

@@ -151,8 +151,9 @@ def test_walk_matches_plain_and_jax(n_tris, n_rays, use_exclude):
 def test_walk_with_one_ray_a_thread_is_k1s_rule():
     """R = 1, the narrow launch's rule and PR 7's kernel's: each warp runs
     until its last lane is decided; the same answer."""
-    assert cuda_trace.occ_rays(cuda_trace.OCC_WIDE_MIN) == RAYS
-    assert cuda_trace.occ_rays(cuda_trace.OCC_WIDE_MIN - 1) == 1
+    shape = cuda_trace.OCC_SHAPE
+    assert cuda_trace.rays_a_thread(cuda_trace.OCC_WIDE_MIN, shape) == RAYS
+    assert cuda_trace.rays_a_thread(cuda_trace.OCC_WIDE_MIN - 1, shape) == 1
     tris, o, d, tmax, ex = _case(36, 1000, 7)
     tt = tuple(t(x) for x in tris)
     got8, tests8 = walk(occ_records(tt), t(o), t(d), t(tmax), t(ex))

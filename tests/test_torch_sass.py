@@ -2,8 +2,9 @@
 (tools/sass.py), held to hand-written listings in
 cuobjdump -sass's format: labelled and absolute branch targets, a loop
 with an exit branch inside, a straight stretch whose shortest path skips a
-slow-path call and a bypass exit, and a loop doing two units of work an
-iteration beside its one-unit remainder loop."""
+slow-path call and a bypass exit, a loop doing two units of work an
+iteration beside its one-unit remainder loop, and the work around a tap
+loop that may run no iteration."""
 
 import pytest
 
@@ -169,6 +170,91 @@ def test_loop_per_unit_takes_the_loop_doing_the_most_units():
                               ins.op == "FMUL")[:2] == (4.5, 2.0)
     with pytest.raises(ValueError):
         sass.loop_per_unit(code, "LDS", lambda ins: ins.op == "MUFU.RCP")
+
+
+TAPS = HEADER + """
+		Function : _ZN12_GLOBAL__N_117di_spatial_kernelENS_13DiSpatialArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/              @P0 EXIT ;
+        /*0020*/                   MUFU.RSQ R4, R4 ;
+        /*0030*/              @P1 BRA `(.L_x_2) ;
+.L_x_0:
+        /*0040*/                   IMAD R5, R5, 0x108ef2d9, RZ ;
+        /*0050*/              @P2 BRA `(.L_x_1) ;
+        /*0060*/                   LDG.E R6, desc[UR4][R2.64] ;
+        /*0070*/                   MUFU.RCP R7, R6 ;
+        /*0080*/                   FMUL R8, R7, R6 ;
+.L_x_1:
+        /*0090*/              @P3 BRA `(.L_x_0) ;
+.L_x_2:
+        /*00a0*/              @P4 BRA `(.L_x_3) ;
+        /*00b0*/                   MUFU.RCP R9, R8 ;
+        /*00c0*/                   FCHK P5, R9, R8 ;
+        /*00d0*/             @!P5 BRA `(.L_x_3) ;
+        /*00e0*/                   CALL.REL.NOINC 0x120 ;
+.L_x_3:
+        /*00f0*/                   STG.E desc[UR4][R2.64], R9 ;
+        /*0100*/                   EXIT ;
+        /*0110*/                   BRA 0x110;
+        /*0120*/                   MUFU.RCP R13, R6 ;
+        /*0130*/                   RET.REL.NODEC R12 0x0 ;
+"""
+
+
+def test_around_loop_takes_the_work_outside_a_tap_loop():
+    # A tap loop that may run no iteration (@P1 BRA over it), a draw a tap
+    # and a target function that a skipped tap leaves out, then a resolve
+    # that a lane may skip (@P4 BRA) and whose division has a slow-path
+    # CALL: the MUFU of the slow path is not one that a path reaches.
+    code = sass.find(sass.functions(TAPS), "di_spatial_kernel")
+    tap, units, path = sass.loop_per_unit(
+        code, "LDG", lambda ins: "0x108ef2d9" in ins.text, 1,
+        lambda ins: ins.op.startswith("MUFU"))
+    assert (tap, units) == (6.0, 1.0)
+    assert (path[0].addr, path[-1].addr) == (0x40, 0x90)
+
+    def mufu(ins):
+        return ins.op.startswith("MUFU")
+
+    count, around = sass.around_loop(code, 4, 9, mufu)
+    # S2R, @P0 EXIT, RSQ, @P1 BRA, @P4 BRA, RCP, FCHK, @!P5 BRA, STG, EXIT.
+    assert count == 10
+    assert [i.addr for i in around] == [0x0, 0x10, 0x20, 0x30, 0xa0, 0xb0,
+                                        0xc0, 0xd0, 0xf0, 0x100]
+    # Passing nothing: around the resolve too.
+    assert sass.around_loop(code, 4, 9)[0] == 7
+    # chip_smoke.py's K5 counts are these two.
+    import chip_smoke
+    assert chip_smoke.di_spatial_counts(sass.functions(TAPS)) == {
+        "k5_tap": 6.0, "k5_fixed": 10}
+
+
+PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__a1fa5254_8_trace_cu_c8aeb13f14closest_kernelILi4EEEvPKfS2_S2_fS2_fS2_S2_S2_iiPfPiS3_S3_Ph' for 'sm_90a'
+ptxas info    : Function properties for _ZN40_GLOBAL__N__a1fa5254_8_trace_cu_c8aeb13f14closest_kernelILi4EEEvPKfS2_S2_fS2_fS2_S2_S2_iiPfPiS3_S3_Ph
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 6144 bytes smem, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__55cd0da2_9_restir_cu_ca1cee9717di_spatial_kernelENS_13DiSpatialArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__55cd0da2_9_restir_cu_ca1cee9717di_spatial_kernelENS_13DiSpatialArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 79 registers, used 0 barriers, 720 bytes cmem[0]
+"""
+
+
+def test_ptxas_registers_and_resident_warps():
+    # chip_smoke.py's register report: nvcc names an anonymous namespace
+    # after its source, and the kernel's own name follows its length.
+    import chip_smoke
+    regs = chip_smoke.ptxas_registers(PTXAS)
+    assert regs == {"closest_kernelILi4EE": 64, "di_spatial_kernel": 79}
+    # 64K registers an SM, 256 a warp at a time, at most 64 warps and 32
+    # blocks: 79 registers on blocks of 256 leave 3 blocks, 24 warps.
+    assert chip_smoke.resident_warps(79, 256) == 24
+    assert chip_smoke.resident_warps(64, 256) == 32
+    assert chip_smoke.resident_warps(64, 128) == 32
+    assert chip_smoke.resident_warps(24, 128) == 64
+    assert chip_smoke.kernel_registers(regs, "closest_kernel", 128) == {
+        "closest_kernelILi4EE": (64, 32)}
 
 
 def test_issue_floor():

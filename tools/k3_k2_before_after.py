@@ -108,14 +108,8 @@ def counts_of(so, key, card):
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     funcs = sass.functions(sass.disassemble(so, cuobjdump))
-    out = chip_smoke.k3_k2_counts(funcs, keys=(key,))
+    out = chip_smoke.loop_unit_counts(funcs, keys=(key,))
     return dict(out, clock_mhz=card["clock_mhz"], n_sm=card["n_sm"]) if card else {}
-
-
-def same_bits(a, b):
-    return all(torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
-                           y.view(torch.int32) if y.is_floating_point() else y)
-               for x, y in zip(a, b))
 
 
 def main():
@@ -145,7 +139,8 @@ def main():
     cuda_build.library()                  # paths' helpers and SASS clock
     card_counts = chip_smoke.sass_counts(path)
 
-    k3_in, restir_k2 = chip_smoke.capture_restir_inputs(dev)
+    cap = chip_smoke.capture_restir_inputs(dev, frames=1)
+    k3_in, restir_k2 = cap["args"], cap["occluded"]
     k3_inputs = {"live": k3_in["ris_audition"],
                  "lights600": chip_smoke.random_audition_args(dev, 600),
                  "lights1500": chip_smoke.random_audition_args(dev, 1500)}
@@ -177,14 +172,14 @@ def main():
             agree = (got["light_idx"] == want["light_idx"]).float().mean().item()
             chip_smoke.check(agree > chip_smoke.WINNER_AGREE,
                              f"{name} {label}: winners agree on {agree}")
-            fields = (seed_k, *(got[k] for k in sorted(got)))
+            fields = chip_smoke.reservoir_fields((seed_k, got))
             if label in ref:
-                chip_smoke.check(same_bits(fields, ref[label]),
+                chip_smoke.check(chip_smoke.lanes_differing(fields, ref[label]) == 0,
                                  f"{name} {label}: not bit-equal to "
                                  f"restir_{tags[0]}")
             else:
                 ref[label] = fields
-            warps = chip_smoke.audition_warps(a)
+            warps = chip_smoke.warps_any(a[9])
             out[f"{name}_{label}_agree"] = agree
             out[f"{name}_{label}_floor_ms"] = chip_smoke.issue_floor(
                 counts, "k3_candidate", warps * a[8])
@@ -213,7 +208,7 @@ def main():
             differ = int((got != want).sum())
             chip_smoke.check(differ == 0, f"{name} {label}: K2 differs from "
                              f"plain on {differ} rays")
-            rays = cuda_trace.occ_rays(q[1].shape[0], shape)
+            rays = cuda_trace.rays_a_thread(q[1].shape[0], shape)
             rule = chip_smoke.warp_rule_tests(firsts[label], rays, shape[1])
             out[f"{name}_{label}_rule_tests"] = rule
             out[f"{name}_{label}_floor_ms"] = chip_smoke.issue_floor(

@@ -136,13 +136,15 @@ def _successors(code):
     return out
 
 
-def shortest_path(code, start, done, counted=lambda ins: False, need=0):
+def shortest_path(code, start, done, counted=lambda ins: False, need=0,
+                  succ=None):
     """Fewest instructions (NOPs free) from code[start] to an instruction
     for which done(index) holds, passing exactly `need` instructions for
     which counted() is true, and no branch to a lower address than start
-    (a loop is counted one iteration at a time). Returns (instructions,
-    path indices) or raises ValueError."""
-    succ = _successors(code)
+    (a loop is counted one iteration at a time). succ: each instruction's
+    successors (default _successors(code)). Returns (instructions, path
+    indices) or raises ValueError."""
+    succ = _successors(code) if succ is None else succ
     heap = [(0, start, 0)]
     dist = {(start, 0): 0}
     parent = {(start, 0): None}
@@ -251,6 +253,46 @@ def straight_after(code, after_op: str | None, counted_op: str, need: int):
         code, start,
         lambda k: code[k].op.startswith("EXIT") and not code[k].pred,
         counted=lambda ins: ins.op.startswith(counted_op), need=need)
+    return cost, [code[k] for k in path]
+
+
+def around_loop(code, head, back, through=lambda ins: False):
+    """Instructions from the function's start to an unpredicated EXIT along
+    the shortest path that takes the loop code[head:back + 1] as no
+    iteration (a branch into the loop goes on after its backward branch)
+    and passes every instruction for which through(instr) holds that lies
+    on such a path from the start to an exit (no CALL is followed, so a
+    slow path's instructions are not among them): the work around a loop,
+    e.g. a tap loop's centre merge, its preheader and the resolve, for a
+    loop whose iterations loop_per_unit counts. Returns (count, path)."""
+    def exits(k):
+        return code[k].op.startswith("EXIT") and not code[k].pred
+
+    succ = [[back + 1 if head <= j <= back else j for j in nxt]
+            for nxt in _successors(code)]
+    succ = [[j for j in nxt if j < len(code)] for nxt in succ]
+    for k in range(head, back + 1):
+        succ[k] = []
+    reach, todo = {0}, [0]
+    while todo:
+        for j in succ[todo.pop()]:
+            if j not in reach:
+                reach.add(j)
+                todo.append(j)
+    back_to = {k: [] for k in range(len(code))}
+    for i, nxt in enumerate(succ):
+        for j in nxt:
+            back_to[j].append(i)
+    coreach = {k for k in reach if exits(k)}
+    todo = list(coreach)
+    while todo:
+        for i in back_to[todo.pop()]:
+            if i in reach and i not in coreach:
+                coreach.add(i)
+                todo.append(i)
+    need = sum(1 for k in coreach if through(code[k]))
+    cost, path = shortest_path(code, 0, exits, counted=through, need=need,
+                               succ=succ)
     return cost, [code[k] for k in path]
 
 
