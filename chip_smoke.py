@@ -32,8 +32,10 @@ Phases, in order; any failure raises and exits non-zero with no result:
                     the ReSTIR frame (camera, GI initial sample) and every
                     call of frame 2 of the NEE frame (10 of 2,073,600
                     rays), each timed beside its bound and issue floor;
-       K8 gather:   72x6 and 36x4 tables, 3 x 2,073,600 indices with
-                    out-of-range ones;
+       K8 gather:   the shade pass's three fetches: the 72x6 vertex
+                    table at 3 x 2,073,600 indices, the 36x4 triangle
+                    pack and the 4x12 material table at 2,073,600, with
+                    out-of-range indices (each timed);
        K7 a-trous:  1080x1920, 4 passes, on synthetic guides and on the
                     guides the live 1080p ReSTIR frame passes to
                     atrous_denoise (frame 2), each with its bypass share;
@@ -110,6 +112,25 @@ Phases, in order; any failure raises and exits non-zero with no result:
      synced stage times; then 3 frames with history_select_kernel="auto"
      and 3 with "off" from a fresh state: ldr bit-equal (K13 only moves
      words).
+  8. the differentiable slice (cornell_restir_fwdbwd_720p, the step that
+     bench.py:128-190 times): the differentiable ReSTIR frame at the
+     golden size on the card and on the CPU, 3 steps with the state
+     threaded (losses within 1e-5 relative, gradients w.r.t. base_color
+     and positions within rtol 1e-4 and a floor of 1e-5 of the largest
+     entry, the positions gradient nonzero on the card); one 1280x720
+     step (mean(ldr), gradients w.r.t. base_color and positions) with the
+     counters zeroed before: K1, K2, K8 and K8's backward must launch,
+     K3-K7, K9 and K13 must not (a differentiable frame runs their plain
+     versions, as JAX's gates do); K8's backward against its plain
+     version (index_add_) on that step's cotangents (vertex corners and
+     material rows) and on 3 x 2,073,600 synthetic indices (over each
+     row's sum of |ct|: within 1e-5 of the plain version's float64 sums
+     and 1e-4 of its float32 ones; two runs bit-equal), timed on the
+     step's first corner call beside index_add_ and its bound; the 720p step
+     timed (3 warm-up, 10 timed, synced): ms, rays a step by
+     bench.py:179-183's count and Mray/s, loss, gradient norms, peak
+     memory, synced forward stages and backward; one 480x270 step with
+     the stage checkpoints on and off (peak memory, time).
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -171,6 +192,20 @@ WOOP_OPS = 55
 # expf counted as one each): the neighbour's diffuse difference and norm,
 # luma ratio, normal dot, power, weight, and the four sums.
 ATROUS_TAP_OPS = 40
+# Phase 8, the differentiable slice (cornell_restir_fwdbwd_720p).
+DIFF_SIZE = (1280, 720)
+DIFF_OFF_SIZE = (480, 270)          # the step with the checkpoints off
+DIFF_STEPS = 3                      # card vs CPU, threaded state
+DIFF_LOSS_RTOL = 1e-5
+DIFF_GRAD_RTOL, DIFF_GRAD_FLOOR = 1e-4, 1e-5   # floor: of the largest |g|
+# K8's backward, errors over each table row's sum of |ct|: against the
+# plain version's float64 sums, below the first-order bound of the
+# kernel's float32 sums (~600 adds on a row's longest chain at 720p: a
+# group of 32 lanes, ~41 a warp, 4 warps, ~528 blocks; 3.6e-5); and
+# against its float32 sums (index_add_'s float atomics in one running
+# sum a row, 1.7e-5 off the float64 sums on the 720p step's cotangents).
+K8_BWD_TOL = 1e-5
+K8_BWD_PLAIN_TOL = 1e-4
 
 
 def check(cond, msg):
@@ -621,6 +656,7 @@ def trace_sets(dev, width=1920, height=1080, n_random=(65536, 4096)):
 
 def phase_kernels(dev, counts, width=1920, height=1080):
     from sunray_tpu_torch.ops import cuda_gather, intersect
+    from sunray_tpu_torch.render.shade import material_table
     from sunray_tpu_torch.scene import cornell_box
 
     results = {}
@@ -652,35 +688,53 @@ def phase_kernels(dev, counts, width=1920, height=1080):
         occluded_timing(counts, scene_tris, *sets["shadow"], "synthetic shadow"),
         agree=1.0, max_abs_err=0.0)
 
-    # K8: the shade pass's two fetches, with out-of-range indices.
+    # K8: the shade pass's three fetches (render/shade.py), with
+    # out-of-range indices: corners, triangle pack, material rows.
     scene = cornell_box(device=dev)
     vgeo = torch.cat([scene.positions, scene.normals], dim=1).contiguous()
     tpack = torch.cat([scene.tri_vidx, scene.tri_inst[:, None]], dim=1).contiguous()
-    check(tuple(vgeo.shape) == (72, 6) and tuple(tpack.shape) == (36, 4),
-          f"unexpected table shapes {tuple(vgeo.shape)} {tuple(tpack.shape)}")
-    vidx = torch.randint(-8, 80, (3, n), generator=gen, device=dev,
-                         dtype=torch.int32)
-    tidx = torch.randint(-8, 44, (1, n), generator=gen, device=dev,
-                         dtype=torch.int32)
+    mtab = material_table(scene.materials)
+    check(tuple(vgeo.shape) == (72, 6) and tuple(tpack.shape) == (36, 4)
+          and tuple(mtab.shape) == (4, 12) and mtab.dtype == torch.float32,
+          f"unexpected table shapes {tuple(vgeo.shape)} {tuple(tpack.shape)} "
+          f"{tuple(mtab.shape)}")
+    fetches = []
+    for table, g in ((vgeo, 3), (tpack, 1), (mtab, 1)):
+        k = table.shape[0]
+        fetches.append((table, torch.randint(-8, k + 8, (g, n), generator=gen,
+                                             device=dev, dtype=torch.int32)))
     exact = True
-    for table, idx in ((vgeo, vidx), (tpack, tidx)):
+    for table, idx in fetches:
         k = cuda_gather.gather_rows(table, idx)
         p = cuda_gather.gather_rows_plain(table, idx)
         exact &= bool(torch.equal(k, p))
-    log(f"  K8 gather_rows: 72x6 @ 3x{n} and 36x4 @ 1x{n}, bit-exact {exact}")
+    log(f"  K8 gather_rows: 72x6 @ 3x{n}, 36x4 int32 and 4x12 float32 @ "
+        f"1x{n}, bit-exact {exact}")
     check(exact, "K8 gather_rows differs from its plain version")
-    # K8b: the 72x6 vertex table at 3 index vectors; K8a: the 36x4
-    # triangle table at one.
-    for name, table, idx in (("gather_rows_multi", vgeo, vidx),
-                             ("gather_rows", tpack, tidx)):
+
+    def gather_timing(table, idx):
         idx_c = idx.clamp(0, table.shape[0] - 1).long()
-        results[name] = dict(
+        return dict(
             max_abs_err=0.0,
             ms=device_ms(lambda: cuda_gather.gather_rows(table, idx)),
             plain_ms=time_ms(lambda: cuda_gather.gather_rows_plain(table, idx)),
             library_ms=device_ms(lambda: table[idx_c]),
             bound=bound(nbytes(table, idx) + idx.numel() * table.shape[1] * 4, 0),
         )
+
+    # K8b: the vertex table at 3 index vectors; K8a: the triangle pack at
+    # one, and beside it the material table (the other half of K8a's
+    # launches).
+    results["gather_rows_multi"] = gather_timing(*fetches[0])
+    results["gather_rows"] = gather_timing(*fetches[1])
+    m = gather_timing(*fetches[2])
+    results["gather_rows"].update(
+        materials_ms=m["ms"], materials_plain_ms=m["plain_ms"],
+        materials_library_ms=m["library_ms"],
+        materials_bound_ms=m["bound"][0])
+    log(f"  time gather_rows, material rows 4x12 @ 1x{n}: kernel "
+        f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, library "
+        f"{m['library_ms']:.4f} ms, bound {m['bound'][0]:.4f} ms")
 
     # K7: 1080p guides shaped like a G-buffer (sky band, smooth patches),
     # and the guides the live 1080p ReSTIR frame passes to atrous_denoise.
@@ -2125,11 +2179,21 @@ KERNELS = {
                        "sunray_tpu/ops/pallas_window.py:139"),
     "trace_occluded_woop": ("sunray_tpu_torch/csrc/trace.cu",
                             "sunray_tpu/ops/pallas_trace.py:329"),
+    "gather_rows_bwd": ("sunray_tpu_torch/csrc/gather.cu",
+                        "sunray_tpu/ops/pallas_gather.py:178"),
 }
 BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
 SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
+# The differentiable slice's own kernel: K8's backward.
+DIFF_ONLY = ("gather_rows_bwd",)
 CORNELL_KERNELS = tuple(k for k in KERNELS
-                        if k not in BINNED_KERNELS + SWITCH_KERNELS)
+                        if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY)
+# A differentiable frame: the tracer and K8 forward and backward; the plain
+# versions of K3-K7, K9 and K13 (JAX's gates).
+DIFF_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
+                "gather_rows_multi", "gather_rows_bwd")
+DIFF_ABSENT = ("ris_audition", "di_temporal", "di_spatial", "gi_spatial",
+               "atrous_pass", "taa_clamp_blend", "history_gather")
 NEE_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
                "gather_rows_multi", "atrous_pass")
 # The switches frame: K14 takes every occlusion query, so K2 stays idle.
@@ -2139,6 +2203,318 @@ SLICE_KERNELS = SWITCH_KERNELS + tuple(k for k in CORNELL_KERNELS
 BIG_KERNELS = BINNED_KERNELS + tuple(k for k in CORNELL_KERNELS
                                      if k not in ("trace_closest",
                                                   "trace_occluded"))
+# -- phase 8: the differentiable slice ----------------------------------------
+
+def diff_setup(dev, width, height, **kw):
+    """The differentiable Cornell frame of bench.py:128-190: config, scene
+    with base_color and positions as leaves that require grad, matrices."""
+    import dataclasses
+
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.scene import cornell_box
+
+    cfg = RenderConfig(width=width, height=height, differentiable=True, **kw)
+    scene = cornell_box(device=dev)
+    leaves = (scene.materials.base_color.clone().requires_grad_(),
+              scene.positions.clone().requires_grad_())
+    scene = dataclasses.replace(
+        scene, positions=leaves[1],
+        materials=dataclasses.replace(scene.materials, base_color=leaves[0]))
+    mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
+    return cfg, scene, leaves, mats
+
+
+def diff_step(cfg, scene, leaves, mats, state):
+    """One training step's render: mean(ldr) and its gradients w.r.t.
+    base_color and positions; the next state. Returns (state, loss, (g_base_color, g_positions), aux)."""
+    from sunray_tpu_torch.render.pipeline import render_frame
+
+    state, ldr, aux = render_frame(scene, cfg, state, mats)
+    loss = ldr.mean()
+    grads = torch.autograd.grad(loss, leaves)
+    return state, loss.detach(), grads, aux
+
+
+def diff_run(dev, steps, width, height, **kw):
+    """[(loss, grads)] of `steps` steps from a fresh state."""
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    cfg, scene, leaves, mats = diff_setup(dev, width, height, **kw)
+    state = RenderState.create(cfg, dev)
+    out = []
+    for _ in range(steps):
+        state, loss, grads, _ = diff_step(cfg, scene, leaves, mats, state)
+        out.append((loss.cpu(), [g.cpu() for g in grads]))
+    return out
+
+
+def grads_close(got, want):
+    """Elementwise within DIFF_GRAD_RTOL, with a floor of DIFF_GRAD_FLOOR
+    of the largest |want|; returns (ok, largest difference over that
+    largest |want|)."""
+    atol = DIFF_GRAD_FLOOR * float(want.abs().max())
+    ok = bool(torch.allclose(got, want, rtol=DIFF_GRAD_RTOL, atol=atol))
+    return ok, float((got - want).abs().max() / want.abs().max())
+
+
+def diff_card_vs_cpu(dev):
+    """The differentiable ReSTIR frame at the golden size, DIFF_STEPS steps
+    with the state threaded, on the card and on the CPU."""
+    kw = {k: v for k, v in GOLDEN_KW.items() if k not in ("width", "height",
+                                                         "lighting")}
+    size = (GOLDEN_KW["width"], GOLDEN_KW["height"])
+    log(f"phase 8: differentiable ReSTIR frame {size[0]}x{size[1]}, "
+        f"{DIFF_STEPS} steps, card vs CPU")
+    card = diff_run(dev, DIFF_STEPS, *size, **kw)
+    cpu = diff_run("cpu", DIFF_STEPS, *size, **kw)
+    for i, ((lg, gg), (lc, gc)) in enumerate(zip(card, cpu)):
+        rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        checks = [grads_close(a, b) for a, b in zip(gg, gc)]
+        log(f"  step {i}: loss card {float(lg):.7f} CPU {float(lc):.7f} "
+            f"(rel {rel:.2e}); gradient max diff / max |g|: base_color "
+            f"{checks[0][1]:.2e}, positions {checks[1][1]:.2e}; |positions "
+            f"grad| on the card {float(gg[1].norm()):.6f}")
+        check(rel <= DIFF_LOSS_RTOL, f"step {i}: card vs CPU loss rel {rel}")
+        for name, (ok, _) in zip(("base_color", "positions"), checks):
+            check(ok, f"step {i}: {name} gradient card vs CPU")
+        check(float(gg[1].abs().max()) > 0.0,
+              f"step {i}: zero positions gradient on the card")
+
+
+def capture_bwd_calls(fn):
+    """fn() with cuda_gather.gather_rows_bwd recording its arguments:
+    returns (fn's result, [(ct, idx, k), ...])."""
+    from sunray_tpu_torch.ops import cuda_gather
+
+    calls, inner = [], cuda_gather.gather_rows_bwd
+
+    def recording(ct, idx, k):
+        calls.append((ct.clone(), idx.clone(), k))
+        return inner(ct, idx, k)
+
+    cuda_gather.gather_rows_bwd = recording
+    try:
+        return fn(), calls
+    finally:
+        cuda_gather.gather_rows_bwd = inner
+
+
+def k8_bwd_row(calls, gen, dev):
+    """K8's backward against its plain version on the 720p step's own
+    cotangents and on 3 x 2,073,600 synthetic indices with out-of-range
+    ones (errors over each table row's sum of |ct|; two runs bit-equal);
+    timed on the step's first call beside index_add_ alone and its bound
+    (ct and idx read once, the table written once)."""
+    from sunray_tpu_torch.ops import cuda_gather
+
+    n = 1920 * 1080
+    synth = (torch.randn((3, 6, n), generator=gen, device=dev),
+             torch.randint(-8, 80, (3, n), generator=gen, device=dev,
+                           dtype=torch.int32), 72)
+    worst, worst_plain, worst_abs, exact = 0.0, 0.0, 0.0, True
+    for label, (ct, idx, k) in ([(f"step call {i}", c)
+                                 for i, c in enumerate(calls)]
+                                + [("synthetic", synth)]):
+        got = cuda_gather.gather_rows_bwd(ct, idx, k)
+        again = cuda_gather.gather_rows_bwd(ct, idx, k)
+        want = cuda_gather.gather_rows_bwd_plain(ct, idx, k)
+        exact64 = cuda_gather.gather_rows_bwd_plain(ct.double(), idx, k)
+        scale = cuda_gather.gather_rows_bwd_plain(ct.abs().double(), idx,
+                                                  k).clamp(min=1e-30)
+        torch.cuda.synchronize()
+        err = float(((got - exact64).abs() / scale).max())
+        err_plain = float(((got - want).abs() / scale).max())
+        plain_own = float(((want - exact64).abs() / scale).max())
+        abs_err = float((got - want).abs().max())
+        same = bool(torch.equal(got, again))
+        log(f"  K8 backward, {label}: {tuple(idx.shape)} indices into "
+            f"{k} x {ct.shape[1]}; over each row's sum |ct|: against the "
+            f"float64 sums {err:.2e}, against plain (float32) "
+            f"{err_plain:.2e}, plain against float64 {plain_own:.2e}; max "
+            f"abs err against plain {abs_err:.3e}; two runs bit-equal {same}")
+        worst, exact = max(worst, err), exact and same
+        worst_plain = max(worst_plain, err_plain)
+        worst_abs = max(worst_abs, abs_err)
+    check(worst <= K8_BWD_TOL, f"K8 backward error {worst} > {K8_BWD_TOL} "
+          "against the float64 sums")
+    check(worst_plain <= K8_BWD_PLAIN_TOL, f"K8 backward error {worst_plain}"
+          f" > {K8_BWD_PLAIN_TOL} against plain")
+    check(exact, "K8 backward: two runs differ")
+    # The row: the step's first corner call (3 x 921,600 into 72 x 6), the
+    # TPU kernel's multi-index backward; its material fetches beside it.
+    ct, idx, k = next(call for call in calls if call[1].shape[0] == 3)
+    materials = next(call for call in calls if call[1].shape[0] == 1)
+    c = ct.shape[1]
+    rows = ct.permute(0, 2, 1).reshape(-1, c).contiguous()
+    cidx = idx.long().clamp(0, k - 1).reshape(-1)
+    dtab = torch.zeros((k, c), dtype=torch.float32, device=dev)
+    row = dict(
+        max_abs_err=worst_abs, err_over_row_abs_sum=worst,
+        err_over_row_abs_sum_vs_plain=worst_plain, bit_equal_runs=exact,
+        ms=device_ms(lambda: cuda_gather.gather_rows_bwd(ct, idx, k)),
+        plain_ms=time_ms(lambda: cuda_gather.gather_rows_bwd_plain(ct, idx,
+                                                                   k)),
+        library_ms=device_ms(lambda: dtab.zero_().index_add_(0, cidx, rows)),
+        bound=bound(nbytes(ct, idx) + k * c * 4, 0),
+        shape=[list(idx.shape), k, c],
+        synthetic_ms=device_ms(lambda: cuda_gather.gather_rows_bwd(*synth)),
+        materials_ms=device_ms(lambda: cuda_gather.gather_rows_bwd(
+            *materials)),
+        materials_bound_ms=bound(nbytes(*materials[:2])
+                                 + materials[2] * materials[0].shape[1] * 4,
+                                 0)[0])
+    log(f"  K8 backward at {tuple(idx.shape)}: kernel {row['ms']:.4f} ms, "
+        f"index_add_ {row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+        f"ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]}); "
+        f"3 x {n}: {row['synthetic_ms']:.4f} ms; material rows "
+        f"{tuple(materials[1].shape)} into {materials[2]} x "
+        f"{materials[0].shape[1]}: {row['materials_ms']:.4f} ms, bound "
+        f"{row['materials_bound_ms']:.4f} ms")
+    return row
+
+
+def diff_stage_breakdown(cfg, scene, leaves, mats, state, steps=2):
+    """Synced host ms of each forward stage of the differentiable step,
+    and of its backward."""
+    import collections
+    import contextlib
+
+    from sunray_tpu_torch.render import pipeline
+
+    totals = collections.Counter()
+
+    @contextlib.contextmanager
+    def timed(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        totals[name] += time.perf_counter() - t0
+
+    profiler_range = pipeline.record_function
+    pipeline.record_function = timed
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, ldr, _ = pipeline.render_frame(scene, cfg, state, mats)
+            loss = ldr.mean()
+            torch.cuda.synchronize()
+            totals["forward"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            totals["backward"] += time.perf_counter() - t0
+    finally:
+        pipeline.record_function = profiler_range
+    log("  step stages, synced, ms/step: " + ", ".join(
+        f"{k} {v / steps * 1e3:.3f}" for k, v in totals.items()))
+    return {k: v / steps * 1e3 for k, v in totals.items()}
+
+
+def diff_checkpoints_off(dev):
+    """One step at DIFF_OFF_SIZE with the stage checkpoints on and off
+    (ops/loops.checkpoint made a plain call): peak memory and step time
+    of each, and the gradients' largest difference."""
+    from sunray_tpu_torch.ops import loops
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    out = {}
+    inner = loops.checkpoint
+    for mode in ("on", "off"):
+        if mode == "off":
+            loops.checkpoint = lambda fn, *args, **kw: fn(*args)
+        try:
+            cfg, scene, leaves, mats = diff_setup(dev, *DIFF_OFF_SIZE)
+            state = RenderState.create(cfg, dev)
+            state, _, _, _ = diff_step(cfg, scene, leaves, mats, state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            _, loss, grads, _ = diff_step(cfg, scene, leaves, mats, state)
+            torch.cuda.synchronize()
+            out[mode] = ((time.perf_counter() - t0) * 1e3,
+                         (torch.cuda.max_memory_allocated() - base) / 1e9,
+                         [g.cpu() for g in grads])
+        finally:
+            loops.checkpoint = inner
+    diff = max(float((a - b).abs().max()) for a, b in zip(out["on"][2],
+                                                          out["off"][2]))
+    log(f"  {DIFF_OFF_SIZE[0]}x{DIFF_OFF_SIZE[1]} step, checkpoints on: "
+        f"{out['on'][0]:.1f} ms, peak {out['on'][1]:.3f} GB above the "
+        f"state; off: {out['off'][0]:.1f} ms, peak {out['off'][1]:.3f} GB; "
+        f"gradients differ by at most {diff:.3e}")
+    return {k: v[:2] for k, v in out.items()}
+
+
+def phase_diff(dev, gen):
+    """Phase 8, the differentiable slice (cornell_restir_fwdbwd_720p): card
+    vs CPU, the launch check of one 720p step (whose K8-backward calls are
+    captured), K8's backward against its plain version, the timed 720p
+    step (bench.py:128-190's loop: 3 warm-up and 10 timed steps, synced),
+    and the step with the checkpoints off. Returns (K8 backward's row,
+    launches of the launch-check step)."""
+    from sunray_tpu_torch.ops import cuda_build, cuda_trace
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    diff_card_vs_cpu(dev)
+    w, h = DIFF_SIZE
+    log(f"phase 8: {w}x{h} differentiable ReSTIR step (default config, "
+        f"gradients w.r.t. base_color and positions)")
+    cfg, scene, leaves, mats = diff_setup(dev, w, h)
+    state = RenderState.create(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    (state, loss, grads, aux), calls = capture_bwd_calls(
+        lambda: diff_step(cfg, scene, leaves, mats, state))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launches)
+    log(f"  launches in one step: {launches}")
+    for name in DIFF_KERNELS:
+        check(launches.get(name, 0) > 0, f"differentiable step: {name} "
+              "never launched")
+    for name in DIFF_ABSENT:
+        check(launches.get(name, 0) == 0, f"differentiable step: {name} "
+              "launched")
+    row = k8_bwd_row(calls, gen, dev)
+    del calls
+    for _ in range(2):
+        state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
+    torch.cuda.synchronize()
+    cuda_trace.rays.clear()
+    n_timed = 10
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # bench.py:179-183: the rays of one forward frame.
+    rays = w * h * (aux["ris_rounds"] + 3 + max(aux["final_rounds"] - 1, 0)
+                    + 2 + cfg.gi_spatial_samples)
+    traced = sum(cuda_trace.rays.values()) / n_timed
+    g_norms = [float(g.norm()) for g in grads]
+    log(f"  step {step_s * 1e3:.3f} ms (mean of {n_timed} after 3 warm-up); "
+        f"rays a step {rays} (bench.py's count; traced with the backward's "
+        f"recompute: {traced:.0f}), {rays / step_s / 1e6:.2f} Mray/s "
+        f"(fwd+bwd); walk rounds ris {aux['ris_rounds']} final "
+        f"{aux['final_rounds']}; loss {float(loss):.6f}; |grad base_color| "
+        f"{g_norms[0]:.6f}, |grad positions| {g_norms[1]:.6f}; peak memory "
+        f"{peak_gb:.3f} GB")
+    check(math.isfinite(float(loss)) and all(map(math.isfinite, g_norms)),
+          "non-finite loss or gradient")
+    check(g_norms[1] > 0.0, "zero positions gradient at 720p")
+    stages = diff_stage_breakdown(cfg, scene, leaves, mats, state)
+    off = diff_checkpoints_off(dev)
+    row.update(step_ms=step_s * 1e3, step_peak_gb=peak_gb,
+               step_mrays=rays / step_s / 1e6, step_stages_ms=stages,
+               checkpoints_off_480x270=off)
+    return row, launches
+
+
 def ptxas_registers(report):
     """{kernel: registers} from nvcc's -Xptxas=-v report, each kernel named
     as in its mangled name without its source's anonymous namespace
@@ -2250,6 +2626,12 @@ def main():
                               big=True)
     launches.update({k: big_launches[k] for k in BINNED_KERNELS})
     phase_big_vs_brute(dev)
+    # Phase 8 last: its 720p step's peak memory starts from the other
+    # phases' tensors released.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    kernels["gather_rows_bwd"], diff_launches = phase_diff(dev, gen)
+    launches.update({k: diff_launches[k] for k in DIFF_ONLY})
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -2273,7 +2655,12 @@ def main():
                     "live_plain_ms", "live_max_abs_err", "live_bypass_share",
                     "live_bound_ms", "live_floor_ms", "random_ms",
                     "live_nee_frame_ms", "registers", "frames",
-                    "frames_ms_spread"):
+                    "frames_ms_spread", "bit_equal_runs", "shape",
+                    "err_over_row_abs_sum", "err_over_row_abs_sum_vs_plain",
+                    "materials_ms", "materials_bound_ms",
+                    "materials_plain_ms", "materials_library_ms",
+                    "synthetic_ms", "step_ms", "step_peak_gb", "step_mrays",
+                    "step_stages_ms", "checkpoints_off_480x270"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

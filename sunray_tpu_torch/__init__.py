@@ -7,19 +7,23 @@ Pallas TPU kernel on the ported path is a hand-written CUDA kernel under
 `csrc/`, built with nvcc at first use and bound with ctypes
 (`ops/cuda_build.py`).
 
-Ported so far: the forward frame with `lighting="restir"` (the default,
-shared spatial taps), "nee" or "brdf", with a trivial texture atlas, on
-the brute-force tracer (scenes up to `brute_force_max_tris`) or on the
+Ported so far: the frame with `lighting="restir"` (the default, shared
+spatial taps), "nee" or "brdf", with a trivial texture atlas, on the
+brute-force tracer (scenes up to `brute_force_max_tris`) or on the
 binned tracer with a ClusterSet accel (`render_frame(..., accel=
-ops.binned_trace.build_cluster_set(...))`, any size). Everything else
-raises NotImplementedError (render/pipeline.py, render/trace.py).
+ops.binned_trace.build_cluster_set(...))`, any size); forward, or
+differentiable (`differentiable=True`: autograd through the frame to the
+scene's tensors, e.g. materials and vertex positions, without the
+shadow-boundary term). Everything else raises NotImplementedError
+(render/pipeline.py, render/trace.py).
 
 Entry points build on the card (`device="cuda"`) unless the caller names
 another device; without a card such a call raises.
 
 Kernels:
   - K1/K2 brute closest / occlusion trace -> ops/cuda_trace.py, csrc/trace.cu
-  - K8 small-table row gather            -> ops/cuda_gather.py, csrc/gather.cu
+  - K8 small-table row gather and its backward
+                                         -> ops/cuda_gather.py, csrc/gather.cu
   - K7 a-trous denoise pass              -> ops/cuda_image.py, csrc/atrous.cu
   - K3-K6 ReSTIR audition, temporal and spatial reuse
                                          -> ops/cuda_restir.py, csrc/restir.cu

@@ -29,9 +29,17 @@ _F32 = torch.float32
 class Camera:
     """Position/target/fov camera (camera.rs:3-8). Angles in degrees."""
 
-    position: Tuple[float, float, float] = (0.0, 0.0, 1.0)
+    position: Tuple[float, float, float] = (0.0, 0.0, 1.0)  # or a (3,) tensor
     target: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     fov_y: float = 45.0
+
+
+def _point(p, device):
+    """A camera point as a float32 (3,) tensor on `device`; a tensor stays
+    in its graph."""
+    if torch.is_tensor(p):
+        return p.to(device=device, dtype=_F32)
+    return torch.tensor(p, dtype=_F32, device=device)
 
 
 def _norm(v):
@@ -80,9 +88,11 @@ def perspective_gl(aspect, fov_y_rad, znear, zfar):
 
 def camera_matrices(camera: Camera, width: int, height: int, device="cuda"):
     """-> dict with view_inverse, proj_inverse, view_proj (camera.rs:33-63),
-    each a (4, 4) float32 tensor on `device`."""
-    eye = torch.tensor(camera.position, dtype=_F32, device=device)
-    target = torch.tensor(camera.target, dtype=_F32, device=device)
+    each a (4, 4) float32 tensor on `device`. A tensor position or target
+    keeps its graph, so the matrices are differentiable in it (as JAX's
+    Camera is)."""
+    eye = _point(camera.position, device)
+    target = _point(camera.target, device)
     up = torch.tensor((0.0, 1.0, 0.0), dtype=_F32, device=device)
 
     view = look_at_rh(eye, target, up)

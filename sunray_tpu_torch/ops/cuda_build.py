@@ -122,6 +122,8 @@ def _signatures():
                                  p, p, p, p, p, p],
         "sunray_trace_occluded": [p, p, p, f, p, f, p, p, p, p, i, i, p, p],
         "sunray_gather_rows": [p, p, i, i, i64, i64, p, p],
+        "sunray_gather_rows_bwd": [p, p, i, i, i64, i64, i64, i64, p, p, p],
+        "sunray_gather_rows_bwd_shape": [i64, i, i, ctypes.POINTER(i64)],
         "sunray_atrous_pass": [p, p, p, p, p, i, i, i, p, p],
         "sunray_ris_audition": [p, i, p, p, p, p, p, p, p, p, p, i, i,
                                 p, p, p, p, p, p, p, p],

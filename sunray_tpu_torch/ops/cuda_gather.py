@@ -13,15 +13,25 @@ copied word for word, bit-exact.
 The launch counts keep the two TPU kernels apart: "gather_rows" for one
 index vector (G = 1, onehot_gather_cols, K8a), "gather_rows_multi" for
 several (onehot_gather_cols_multi, K8b).
+
+A float32 table that requires grad gathers through an autograd Function
+whose backward is the custom_vjp of the TPU kernels
+(pallas_gather.py:111-119, 178-190), a segment-sum of the cotangent
+rows: gather_rows_bwd, a hand kernel on the card ("gather_rows_bwd" in
+the launch counts), index_add_ on the CPU. An int32 table has no
+gradient.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from sunray_tpu_torch.ops import cuda_build
 
 _DTYPES = (torch.float32, torch.int32)
+MAX_ROWS = 512   # csrc/gather.cu kMaxRows: the backward's table bound
 
 
 def gather_rows_plain(table, idx):
@@ -31,8 +41,87 @@ def gather_rows_plain(table, idx):
     return rows.permute(0, 2, 1).contiguous()
 
 
+def gather_rows_bwd_plain(ct, idx, k):
+    """The plain backward: (G, C, N) cotangent, (G, N) idx -> (K, C)
+    gradient of the table, index_add_ of the (G * N, C) cotangent rows at
+    the clamped indices."""
+    c = ct.shape[1]
+    rows = ct.permute(0, 2, 1).reshape(-1, c)
+    dtab = torch.zeros((k, c), dtype=ct.dtype, device=ct.device)
+    return dtab.index_add_(0, idx.long().clamp(0, k - 1).reshape(-1), rows)
+
+
+def gather_rows_bwd(ct, idx, k):
+    """The table's gradient (K, C) from the cotangent ct (G, C, N) of
+    gather_rows(table (K, C), idx (G, N)): gather_rows_bwd_plain on CPU
+    tensors, the kernel on CUDA tensors (K <= MAX_ROWS). Deterministic:
+    two runs give the same bits."""
+    if ct.dim() != 3 or idx.dim() != 2 or tuple(idx.shape) != (ct.shape[0],
+                                                               ct.shape[2]):
+        raise cuda_build.KernelError(
+            f"gather_rows_bwd: expected (G, C, N) and (G, N), got "
+            f"{tuple(ct.shape)} and {tuple(idx.shape)}")
+    if cuda_build.on_cpu(ct, idx):
+        return gather_rows_bwd_plain(ct, idx, k)
+    name = "gather_rows_bwd"
+    cuda_build.require_cuda(name, ct, idx)
+    cuda_build.require_dtype(name, ct, torch.float32)
+    cuda_build.require_dtype(name, idx, torch.int32)
+    if not 1 <= k <= MAX_ROWS:
+        raise cuda_build.KernelError(f"{name}: {k} rows, the kernel takes "
+                                     f"1 to {MAX_ROWS}")
+    return _launch_bwd(ct, idx, k)
+
+
+def _launch_bwd(ct, idx, k, lib=None):
+    """gather_rows_bwd once on checked arguments, from `lib` (default: the
+    port's library, whose launches are counted)."""
+    name = "gather_rows_bwd"
+    g, c, n = ct.shape
+    kernels = cuda_build.library() if lib is None else lib
+    shape = (ctypes.c_int64 * 3)()
+    cuda_build.check_launch(name, kernels.sunray_gather_rows_bwd_shape(
+        g * n, k, c, shape))
+    blocks, chunk, _ = shape
+    partial = torch.empty((max(blocks, 1), k, c), dtype=torch.float32,
+                          device=ct.device)
+    dtab = torch.empty((k, c), dtype=torch.float32, device=ct.device)
+    err = kernels.sunray_gather_rows_bwd(
+        ct.data_ptr(), idx.data_ptr(), k, c, g, n, blocks, chunk,
+        partial.data_ptr(), dtab.data_ptr(), cuda_build.stream_ptr())
+    cuda_build.check_launch(name, err)
+    if lib is None:
+        cuda_build.launches[name] += 1
+    return dtab
+
+
+class _GatherRows(torch.autograd.Function):
+    """gather_rows with the segment-sum backward; saves only idx."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return _gather(table, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, = ctx.saved_tensors
+        return gather_rows_bwd(ct.contiguous(), idx, ctx.rows), None
+
+
 def gather_rows(table, idx):
-    """Rows of `table` (K, C) at clamped indices `idx` (G, N), as (G, C, N)."""
+    """Rows of `table` (K, C) at clamped indices `idx` (G, N), as (G, C, N).
+    Differentiable in a float32 table (gather_rows_bwd)."""
+    if table.requires_grad and torch.is_grad_enabled():
+        if table.dtype != torch.float32:
+            raise cuda_build.KernelError(
+                f"gather_rows: a {table.dtype} table has no gradient")
+        return _GatherRows.apply(table, idx)
+    return _gather(table, idx)
+
+
+def _gather(table, idx):
     if table.dim() != 2 or idx.dim() != 2:
         raise cuda_build.KernelError(
             f"gather_rows: expected (K, C) and (G, N), got "

@@ -7,6 +7,13 @@ plain PyTorch versions port the jnp passes of
 sunray_tpu/render/postprocess.py (atrous_denoise_pass, :307-375, and
 taa_clamp_blend, :204-232), which the JAX tests hold equal to the Pallas
 kernels. All images are (H, W, C) float32.
+
+Both kernels are differentiable as the TPU kernels' custom_vjps make
+them (pallas_image.py:257-280, 389-411): an autograd Function whose
+forward is the kernel and whose backward is the vector-Jacobian product
+of the plain version, recomputed from the saved inputs. The differentiable
+frame itself takes the plain passes, as the JAX frame does
+(render/pipeline.py).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 from sunray_tpu_torch.ops import cuda_build
 from sunray_tpu_torch.ops.brdf import vec_norm
 from sunray_tpu_torch.ops.fp import fma
+from sunray_tpu_torch.ops.loops import checkpointed
 
 LUMA = (0.2126, 0.7152, 0.0722)
 ATROUS_KERNEL = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
@@ -99,9 +107,14 @@ def atrous_denoise_pass(color, depth, normal, roughness, diffuse,
 
 def atrous_denoise_plain(color, depth, normal, roughness, diffuse,
                          passes: int):
+    """`passes` plain passes. Under autograd each pass is recomputed in the
+    backward pass (ops/loops.checkpointed): a pass's 24 taps would
+    otherwise keep ~3 KB a pixel for the backward."""
+    guides = (color, depth, normal, roughness, diffuse)
+    remat = any(g.requires_grad for g in guides)
     for i in range(passes):
-        color = atrous_denoise_pass(color, depth, normal, roughness, diffuse,
-                                    1 << i)
+        color = checkpointed(atrous_denoise_pass, color, depth, normal,
+                             roughness, diffuse, 1 << i, enabled=remat)
     return color
 
 
@@ -158,6 +171,52 @@ def atrous_pass(color, depth, normal, roughness, diffuse, step_width: int):
     return out
 
 
+def _plain_vjp(plain, inputs, ct):
+    """The gradients of plain(*inputs) along ct for the inputs that need
+    one (None for the others), recomputed with autograd on."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(x.dtype.is_floating_point)
+              for x in inputs]
+        out = plain(*xs)
+        want = [x for x in xs if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, want, ct, allow_unused=True))
+    return tuple(next(grads) if x.requires_grad else None for x in xs)
+
+
+class _Atrous(torch.autograd.Function):
+    """K7's passes forward, the plain passes' VJP backward."""
+
+    @staticmethod
+    def forward(ctx, color, depth, normal, roughness, diffuse, passes):
+        ctx.passes = passes
+        ctx.save_for_backward(color, depth, normal, roughness, diffuse)
+        return _atrous_kernel(color, depth, normal, roughness, diffuse,
+                              passes)
+
+    @staticmethod
+    def backward(ctx, ct):
+        grads = _plain_vjp(
+            lambda *g: atrous_denoise_plain(*g, ctx.passes),
+            ctx.saved_tensors, ct)
+        return (*grads, None)
+
+
+def _atrous_kernel(color, depth, normal, roughness, diffuse, passes):
+    """`passes` K7 launches, the color ping-ponging between two buffers."""
+    dev, h, w = _check_guides("atrous_pass", (color, depth, normal,
+                                              roughness, diffuse))
+    if passes <= 0:
+        return color
+    bufs = [torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+            for _ in range(min(passes, 2))]
+    src = color
+    for i in range(passes):
+        dst = bufs[i % 2]
+        _launch_pass(src, depth, normal, roughness, diffuse, 1 << i, dst)
+        src = dst
+    return src
+
+
 def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int,
                    kernel: str = "auto"):
     """`passes` a-trous passes at step widths 1, 2, 4, ... (src/lib.rs:42).
@@ -173,17 +232,9 @@ def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int,
     if kernel == "jnp" or cuda_build.on_cpu(*guides):
         return atrous_denoise_plain(color, depth, normal, roughness, diffuse,
                                     passes)
-    dev, h, w = _check_guides("atrous_pass", guides)
-    if passes <= 0:
-        return color
-    bufs = [torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-            for _ in range(min(passes, 2))]
-    src = color
-    for i in range(passes):
-        dst = bufs[i % 2]
-        _launch_pass(src, depth, normal, roughness, diffuse, 1 << i, dst)
-        src = dst
-    return src
+    if torch.is_grad_enabled() and any(g.requires_grad for g in guides):
+        return _Atrous.apply(*guides, passes)
+    return _atrous_kernel(*guides, passes)
 
 
 def taa_clamp_blend_plain(raw, hist, use_history, accumulation_factor):
@@ -209,11 +260,35 @@ def taa_clamp_blend_plain(raw, hist, use_history, accumulation_factor):
 
 def taa_clamp_blend(raw, hist, use_history, accumulation_factor):
     """K9: taa_clamp_blend_plain in one launch. raw, hist: (H, W, 3)
-    float32; use_history: (H, W) bool. Forward only: the TPU kernel's
-    backward is the jnp path, and differentiable frames never take it."""
+    float32; use_history: (H, W) bool. Differentiable in raw and hist
+    (the plain version's VJP, _TaaClampBlend)."""
     if cuda_build.on_cpu(raw, hist, use_history):
         return taa_clamp_blend_plain(raw, hist, use_history,
                                      accumulation_factor)
+    if torch.is_grad_enabled() and (raw.requires_grad or hist.requires_grad):
+        return _TaaClampBlend.apply(raw, hist, use_history,
+                                    accumulation_factor)
+    return _taa_kernel(raw, hist, use_history, accumulation_factor)
+
+
+class _TaaClampBlend(torch.autograd.Function):
+    """K9 forward, the plain clamp and blend's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, raw, hist, use_history, accumulation_factor):
+        ctx.factor = accumulation_factor
+        ctx.save_for_backward(raw, hist, use_history)
+        return _taa_kernel(raw, hist, use_history, accumulation_factor)
+
+    @staticmethod
+    def backward(ctx, ct):
+        grads = _plain_vjp(
+            lambda r, h, u: taa_clamp_blend_plain(r, h, u, ctx.factor),
+            ctx.saved_tensors, ct)
+        return (*grads[:2], None, None)
+
+
+def _taa_kernel(raw, hist, use_history, accumulation_factor):
     name = "taa_clamp_blend"
     dev = cuda_build.require_cuda(name, raw, hist, use_history)
     h, w = raw.shape[:2]

@@ -21,6 +21,8 @@ Two more roundings differ from the reference unless they are written out:
   float32 sqrt is not on every value (it moved the last bit of 0.7% of
   the 1080p camera-ray norms). The float64 root of a float32 value,
   rounded to float32, is the correctly rounded float32 root.
+- clip(): jnp.clip's gradient at its bounds (half), where torch.clamp
+  passes all of it.
 - pow5(): JAX lowers x ** 5 (lax.integer_pow) to x * ((x*x) * (x*x));
   torch's x ** 5 calls pow, which agrees on about half of all values.
   The CUDA kernels multiply in the same order.
@@ -38,18 +40,59 @@ def _f64(x):
     return torch.tensor(x, dtype=torch.float32).item()
 
 
-def fma(a, b, c):
-    """float32 a * b + c with the product unrounded. Scalars act as the
-    float32 constants the reference would hold."""
+def _fma_value(a, b, c):
     return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
 
 
-def sqrt(x):
-    """Correctly rounded float32 square root of x >= 0 (torch.sqrt on a
-    card is IEEE). On the CPU, torch's root is within an ulp; one exact
-    correction step settles it: the midpoint between two neighbouring
-    float32 values and its square are exact in float64, so comparing that
-    square with x picks the nearer neighbour."""
+def _records(*xs) -> bool:
+    """True when autograd records an op on these arguments."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(x) and x.requires_grad for x in xs)
+
+
+class _Fma(torch.autograd.Function):
+    """fma's gradient in float32: grad_a = g * b, grad_b = g * a,
+    grad_c = g. It saves the float32 operands, where autograd through the
+    float64 forward would save their float64 copies. The gradients are
+    those of float32 a * b + c, bit for bit; without broadcasting they
+    are also those of the float64 graph (the float64 product of two
+    float32 values is exact, so rounding it gives the float32 product)."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        # A scalar operand is kept as its float32 value, a tensor saved.
+        ctx.scalars = tuple(None if torch.is_tensor(x) else _f64(x)
+                            for x in (a, b))
+        ctx.save_for_backward(*(x for x in (a, b) if torch.is_tensor(x)))
+        ctx.shapes = tuple(x.shape if torch.is_tensor(x) else None
+                           for x in (a, b, c))
+        return _fma_value(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = iter(ctx.saved_tensors)
+        a, b = (next(saved) if x is None else x for x in ctx.scalars)
+        ga = gb = gc = None
+        if ctx.needs_input_grad[0]:
+            ga = (g * b).sum_to_size(ctx.shapes[0])
+        if ctx.needs_input_grad[1]:
+            gb = (g * a).sum_to_size(ctx.shapes[1])
+        if ctx.needs_input_grad[2]:
+            gc = g.sum_to_size(ctx.shapes[2])
+        return ga, gb, gc
+
+
+def fma(a, b, c):
+    """float32 a * b + c with the product unrounded. Scalars act as the
+    float32 constants the reference would hold. Under autograd the
+    gradient is computed in float32 (_Fma); a forward frame takes the
+    plain float64 expression."""
+    if _records(a, b, c):
+        return _Fma.apply(a, b, c)
+    return _fma_value(a, b, c)
+
+
+def _sqrt_value(x):
     if x.is_cuda:
         return torch.sqrt(x)
     d = x.double()
@@ -62,10 +105,53 @@ def sqrt(x):
                        torch.where(mid_dn * mid_dn > d, dn, r))
 
 
+class _Sqrt(torch.autograd.Function):
+    """sqrt's gradient as JAX writes it, g * (0.5 / sqrt(x)), from the
+    saved float32 root: the CPU correction's float64 copies are not
+    kept."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = _sqrt_value(x)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        return g * (0.5 / out)
+
+
+def sqrt(x):
+    """Correctly rounded float32 square root of x >= 0 (torch.sqrt on a
+    card is IEEE). On the CPU, torch's root is within an ulp; one exact
+    correction step settles it: the midpoint between two neighbouring
+    float32 values and its square are exact in float64, so comparing that
+    square with x picks the nearer neighbour."""
+    if _records(x):
+        return _Sqrt.apply(x)
+    return _sqrt_value(x)
+
+
 def pow5(x):
     """x ** 5 multiplied in lax.integer_pow's order."""
     x2 = x * x
     return x * (x2 * x2)
+
+
+def clip(x, lo=None, hi=None):
+    """jnp.clip(x, lo, hi) with JAX's gradient at a bound: torch.clamp
+    passes the whole gradient to x where x equals a bound, jnp.clip (like
+    jnp.maximum / jnp.minimum) half of it. Used where a tie with the bound
+    is reachable on a differentiable value, e.g. a metallic of exactly 0.
+    The values are torch.clamp's."""
+    # Bounds made on x's device (new_full), not copied from the host: a
+    # blocking copy would wait for the card's queue.
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
 
 
 def dot3(x0, y0, x1, y1, x2, y2):

@@ -6,7 +6,8 @@ sample; port of sunray_tpu/render/gbuffer.py.
            over full ray batches with an active mask: the peeled first
            round always runs, then rounds continue while
            i < virtual_bounces and any lane is active
-           (ops/loops.bounded_loop's forward semantics);
+           (ops/loops.bounded_loop; on a differentiable frame each
+           looped round is recomputed in the backward pass);
   phase 2: RIS audition (K3), DI temporal reuse (K4) and the winner's
            visibility ray (ray_gen_ris.slang:174-302);
   phase 3: the GI initial sample, one cosine bounce with NEE at its hit,
@@ -41,8 +42,9 @@ from sunray_tpu_torch.ops.brdf import (
     refract,
     vec_norm,
 )
-from sunray_tpu_torch.ops.fp import fma, pow5
+from sunray_tpu_torch.ops.fp import clip, fma, pow5
 from sunray_tpu_torch.ops.intersect import Hit
+from sunray_tpu_torch.ops.loops import bounded_loop
 from sunray_tpu_torch.render import restir
 from sunray_tpu_torch.render.shade import shade_hits
 from sunray_tpu_torch.render.trace import trace_closest, trace_occluded
@@ -156,7 +158,7 @@ def primary_walk(scene, cfg, tracer, origins, dirs, seed):
         miss = c["active"] & ~surf.valid
 
         roughness = torch.clamp(surf.roughness, min=0.01)
-        metallic = torch.clamp(surf.metallic, 0.0, 1.0)
+        metallic = clip(surf.metallic, 0.0, 1.0)
         vd = c["virtual_distance"] + torch.where(live, surf.dist, 0.0)
 
         transmissive = live & (surf.transmission > 0.5)
@@ -191,11 +193,12 @@ def primary_walk(scene, cfg, tracer, origins, dirs, seed):
             first_t=t0 if first else c["first_t"],
         )
 
-    if cfg.virtual_bounces > 0:
-        c = body(c, first=True)
-    while c["i"] < cfg.virtual_bounces and bool(c["active"].any()):
-        c = body(c, first=False)
-    return c
+    # peel: the camera round always runs (gbuffer.py:197-200).
+    return bounded_loop(
+        lambda c: c["i"] < cfg.virtual_bounces and bool(c["active"].any()),
+        lambda c: body(c, first=True), c, cfg.differentiable,
+        peel=min(1, cfg.virtual_bounces),
+        loop_body=lambda c: body(c, first=False))
 
 
 def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
@@ -271,8 +274,11 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
 
     # --- Phase 2: RIS + temporal + visibility (DI) ---
     enable_di = found & (hitd.roughness > 0.2)
+    # A differentiable frame keeps JAX's jnp audition (gbuffer.py:295):
+    # K3 routes no gradient.
     seed, r_di = restir.ris_audition(lights, seed, pos, normal, *attrs,
-                                     cfg.ris_candidates, enable_di)
+                                     cfg.ris_candidates, enable_di,
+                                     kernel=not cfg.differentiable)
     if cfg.history_joint_gather:
         # One shared reprojection and one gather for the DI and GI
         # histories (gbuffer.py:305-313); the GI merge reuses pre_gi.

@@ -42,7 +42,8 @@ from sunray_tpu_torch.ops.brdf import (
     vec_norm,
 )
 from sunray_tpu_torch.ops.cuda_restir import neighbour_ok, shift_flat
-from sunray_tpu_torch.ops.fp import dot3, fma, pow5, sqrt
+from sunray_tpu_torch.ops.fp import clip, dot3, fma, pow5, sqrt
+from sunray_tpu_torch.ops.loops import bounded_loop, checkpointed
 from sunray_tpu_torch.render.gbuffer import (
     _sel3,
     reuse_hit,
@@ -127,7 +128,7 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
                           face_forward=cfg.face_forward_normals)
         live = c["active"] & surf.valid
         roughness = torch.clamp(surf.roughness, min=0.01)
-        metallic = torch.clamp(surf.metallic, 0.0, 1.0)
+        metallic = clip(surf.metallic, 0.0, 1.0)
 
         # Emission pickup unless the previous bounce already did NEE
         # (ray_gen_final.slang:99-104).
@@ -265,16 +266,21 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             f_throughput=_sel3(trigger, throughput, c["f_throughput"]),
         )
 
-    if cfg.bounces > 0:
-        c = body(c, reuse=first_hit)
-    while c["i"] < cfg.bounces and bool(c["active"].any()):
-        c = body(c, coherent=False)     # pathtrace.py:361
+    # peel: the first round always runs, on pass 1's hit (pathtrace.py:
+    # 355-362); the looped rounds trace incoherent batches.
+    c = bounded_loop(
+        lambda c: c["i"] < cfg.bounces and bool(c["active"].any()),
+        lambda c: body(c, reuse=first_hit), c, cfg.differentiable,
+        peel=min(1, cfg.bounces),
+        loop_body=lambda c: body(c, coherent=False))
     radiance = c["radiance"]
     if use_restir:
-        radiance = radiance + _spatial_reuse(
-            cfg, tracer, lights, mats, gbuf, r_di, r_gi, c["seed"], c,
-            origins[0], frame_count,
-        )
+        # Phase B's activations are recomputed in the backward pass of a
+        # differentiable frame (ops/loops.checkpointed).
+        radiance = radiance + checkpointed(
+            _spatial_reuse, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
+            c["seed"], c, origins[0], frame_count,
+            enabled=cfg.differentiable)
     # total_radiance = min(radiance, 10) (ray_gen_final.slang:430-431).
     return torch.clamp(radiance, max=cfg.radiance_clamp), c["i"]
 
@@ -309,10 +315,15 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
     throughput = c["f_throughput"]
     current_depth = vec_norm(pos - cam_origin)
 
+    # A differentiable frame keeps JAX's jnp merges (use_di_kernel,
+    # pathtrace.py:722-725): K5 and K6 route no gradient.
+    plain = cfg.differentiable
     # ---- DI spatial (ray_gen_final.slang:139-222), K5 ----
     di_taps = _shared_taps(frame_count, cfg.di_spatial_samples,
                            cfg.di_spatial_radius, 0x51A7D1)
-    seed, di = cuda_restir.di_spatial(
+    di_spatial = (cuda_restir.di_spatial_plain if plain
+                  else cuda_restir.di_spatial)
+    seed, di = di_spatial(
         lights.table, seed,
         {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
                                        "M", "light_idx")},
@@ -333,7 +344,9 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
                            cfg.gi_spatial_radius, 0x6E5B2F)
     taps = _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
                         normal, current_depth, cam_origin)
-    seed, gi = cuda_restir.gi_spatial(
+    gi_spatial = (cuda_restir.gi_spatial_plain if plain
+                  else cuda_restir.gi_spatial)
+    seed, gi = gi_spatial(
         seed,
         {k: getattr(r_gi, k) for k in ("sample_pos", "sample_radiance",
                                        "sample_tri", "w_sum", "M")},

@@ -10,8 +10,13 @@ Covered: lighting "restir" (the default: shared spatial taps, f32
 shading; the joint DI+GI history gather), "nee" and "brdf"; the
 brute-force tracer (Moller-Trumbore or Woop occlusion) or the binned
 tracer with a ClusterSet accel (scenes above the brute-force limit), a
-trivial texture atlas, one sample per pixel, forward only; TAA on the
-plain path or K9, history reads plain or through K13. check_supported()
+trivial texture atlas, one sample per pixel; TAA on the plain path or K9,
+history reads plain or through K13. A differentiable frame
+(cfg.differentiable) runs what the JAX frame runs then: the tracer and
+K8 (forward and backward), and the plain versions of K3-K7, K9 and K13,
+with its stages' activations recomputed in the backward pass
+(ops/loops.py); the shadow-boundary term (cfg.shadow_boundary_grads) is
+not ported. check_supported()
 raises NotImplementedError for every other configuration instead of
 rendering something else. The stages run under torch.profiler ranges
 named as the JAX package's named scopes (ris_pass, final_pass, taa,
@@ -25,6 +30,7 @@ import dataclasses
 import torch
 from torch.profiler import record_function
 
+from sunray_tpu_torch.ops.cuda_gather import MAX_ROWS
 from sunray_tpu_torch.render import restir
 from sunray_tpu_torch.render.gbuffer import ris_pass
 from sunray_tpu_torch.render.pathtrace import final_pass
@@ -61,18 +67,34 @@ class RenderState:
         )
 
 
+    def detach(self) -> "RenderState":
+        """This state without the graph of the frame that made it
+        (render_frame cuts a differentiable frame's input state so)."""
+        def cut(x):
+            if torch.is_tensor(x):
+                return x.detach()
+            return type(x)(**{f.name: cut(getattr(x, f.name))
+                              for f in dataclasses.fields(x)})
+        return cut(self)
+
+
 def check_supported(scene, cfg) -> None:
     """Raise NotImplementedError for a configuration this port does not
     cover (the tracer checks live in render/trace.make_tracer)."""
     restir = cfg.lighting == "restir" and scene.num_lights > 0
+    # K8's backward kernel takes tables of up to MAX_ROWS rows: a larger
+    # vertex or material table would fail only in the backward pass.
+    table_rows = max(scene.positions.shape[0],
+                     scene.materials.base_color.shape[0])
     unsupported = {
         f"lighting={cfg.lighting!r}": cfg.lighting not in ("restir", "nee",
                                                            "brdf"),
         "textured atlases": not scene.textures.trivial,
         "edge_antialias": cfg.edge_antialias,
         "samples > 1": cfg.samples != 1,
-        "differentiable frames": cfg.differentiable,
         "shadow_boundary_grads": cfg.shadow_boundary_grads,
+        f"differentiable frames above {MAX_ROWS} vertices or materials":
+            cfg.differentiable and table_rows > MAX_ROWS,
         "history_gather_force=True": cfg.history_gather_force is True,
         f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
         f"spatial_taps={cfg.spatial_taps!r}": (restir
@@ -95,6 +117,10 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
     does, renderer.py:114-117), refit inside (render/trace.make_tracer).
     Returns (new_state, ldr (H, W, 3) in [0, 1], aux)."""
     check_supported(scene, cfg)
+    if cfg.differentiable:
+        # Gradients stop at the input state, as a JAX step's do when the
+        # state comes in as an argument of value_and_grad.
+        state = state.detach()
     w, h = cfg.width, cfg.height
     frame_count = state.frame_count
 
@@ -123,7 +149,10 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
         with record_function("taa"):
             accum = temporal_accumulate(
                 raw_img, motion_img, state.accum, frame_count,
-                cfg.accumulation_factor, kernel=cfg.taa_kernel,
+                cfg.accumulation_factor,
+                # A differentiable frame takes the plain clamp and blend
+                # (JAX pipeline.py:120), as it takes the plain denoise.
+                kernel="jnp" if cfg.differentiable else cfg.taa_kernel,
                 history_select_kernel=restir.history_kernel_ok(cfg))
     den = accum
     if cfg.denoise_passes > 0:

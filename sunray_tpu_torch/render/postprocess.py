@@ -8,7 +8,8 @@ corners are fetched in one K13 launch (ops/cuda_history.py); kernel
 "pallas" (or "auto" on the card) runs the clamp and blend as K9
 (ops/cuda_image.taa_clamp_blend), else its plain version. The denoise
 dispatches to K7. All images are (H, W, C) float32. The history fetch and
-blend round their multiply-adds as the reference does (ops/fp.py).
+blend round their multiply-adds as the reference does (ops/fp.py), and
+the tonemap's clips pass JAX's gradient at their bounds (fp.clip).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from sunray_tpu_torch.camera import pixel_centers
 from sunray_tpu_torch.ops import cuda_history, cuda_image
-from sunray_tpu_torch.ops.fp import fma
+from sunray_tpu_torch.ops.fp import clip, fma
 from sunray_tpu_torch.ops.cuda_image import (
     LUMA,
     atrous_denoise,
@@ -93,16 +94,16 @@ def temporal_accumulate(raw, motion, history, frame_count,
 
 def aces_film(x):
     """ACES fitted (Narkowicz) — postprocess.slang:14-18."""
-    x = torch.clamp(x, 0.0, 100.0)
+    x = clip(x, 0.0, 100.0)
     a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
-    return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+    return clip((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
 
 
 def srgb_encode(x):
     """Exact sRGB OETF."""
-    x = torch.clamp(x, 0.0, 1.0)
+    x = clip(x, 0.0, 1.0)
     lo = x * 12.92
-    hi = 1.055 * torch.clamp(x, min=1e-8) ** (1.0 / 2.4) - 0.055
+    hi = 1.055 * clip(x, 1e-8) ** (1.0 / 2.4) - 0.055
     return torch.where(x <= 0.0031308, lo, hi)
 
 
@@ -115,7 +116,7 @@ def tonemap(color, exposure=1.0, mode="aces", gamma=2.2):
     if mode in ("aces", "aces_srgb"):
         color = aces_film(color)
     else:
-        color = torch.clamp(color, 0.0, 1.0)
+        color = clip(color, 0.0, 1.0)
     if mode == "aces_srgb":
         return srgb_encode(color)
-    return torch.clamp(color, min=1e-8) ** (1.0 / gamma)
+    return clip(color, 1e-8) ** (1.0 / gamma)

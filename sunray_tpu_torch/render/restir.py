@@ -31,6 +31,7 @@ from sunray_tpu_torch.ops.brdf import (
 )
 from sunray_tpu_torch.ops.cuda_restir import one_minus_smoothstep, smoothstep
 from sunray_tpu_torch.ops.fp import fma, sqrt
+from sunray_tpu_torch.ops.loops import checkpointed
 
 
 def _zeros(p, device, *shape):
@@ -118,6 +119,12 @@ class Lights:
         return pos, nrm, em, area
 
 
+def _fields(res) -> dict:
+    """The reservoir's fields by name, the tensors themselves
+    (dataclasses.asdict deep-copies, which a tensor in a graph refuses)."""
+    return {f.name: getattr(res, f.name) for f in dataclasses.fields(res)}
+
+
 def _where_fields(res, mask, other):
     """Per-field where(mask, res, other) over two reservoirs."""
     out = {}
@@ -135,13 +142,18 @@ def sky_emptied(res, found):
 
 
 def ris_audition(lights: Lights, seed, hit_pos, hit_normal, v_view, albedo,
-                 roughness, metallic, candidates: int, enable):
-    """RIS candidate audition (ray_gen_ris.slang:189-231) through K3.
-    Returns (seed, ReservoirDI) with W resolved."""
-    seed, f = cuda_restir.ris_audition(
-        lights.table, seed, hit_pos, hit_normal, v_view, albedo, roughness,
-        metallic, candidates, enable,
-    )
+                 roughness, metallic, candidates: int, enable, kernel=True):
+    """RIS candidate audition (ray_gen_ris.slang:189-231) through K3, or
+    through its plain version with kernel=False (a differentiable frame,
+    gbuffer.py:295). Returns (seed, ReservoirDI) with W resolved."""
+    args = (lights.table, seed, hit_pos, hit_normal, v_view, albedo,
+            roughness, metallic, candidates, enable)
+    if kernel:
+        seed, f = cuda_restir.ris_audition(*args)
+    else:
+        # The K candidates' (K, P) planes are recomputed in the backward
+        # pass rather than kept (ops/loops.checkpointed).
+        seed, f = checkpointed(cuda_restir.ris_audition_plain, *args)
     p = hit_pos.shape[0]
     z = torch.zeros((p,), dtype=torch.float32, device=hit_pos.device)
     return seed, ReservoirDI(hit_normal=torch.zeros_like(hit_pos), depth=z,
@@ -216,8 +228,12 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
     else:
         seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count,
                                  enable, width, height)
-    seed, f = cuda_restir.di_temporal(
-        lights.table, seed, dataclasses.asdict(r), dataclasses.asdict(history),
+    # A differentiable frame keeps JAX's jnp merge (restir.py:596): K4
+    # routes no gradient.
+    merge_temporal = (cuda_restir.di_temporal_plain if cfg.differentiable
+                      else cuda_restir.di_temporal)
+    seed, f = merge_temporal(
+        lights.table, seed, _fields(r), _fields(history),
         pi, ok, hit_pos, hit_normal, v_view, albedo, roughness, metallic,
         virtual_distance, cfg.di_temporal_m_clamp, cfg.di_temporal_w_clamp,
     )

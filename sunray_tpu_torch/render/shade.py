@@ -6,8 +6,8 @@ transform and the metallic-roughness material terms (closest_hit.slang:
 12-91). A textureless scene has no normal map, so the TBN block is the
 identity and the uv columns are dead; both are skipped, as XLA drops them
 (shade.py:139-142). K8 (ops/cuda_gather.py) serves the two fetches it
-serves on the TPU: the (T, 4) triangle pack and the three vertex corners
-from the (V, 6) geometry columns. Multiply-adds round as the reference's
+serves on the TPU, the (T, 4) triangle pack and the three vertex corners
+from the (V, 6) geometry columns, and the material row of each lane. Multiply-adds round as the reference's
 do on the CPU (ops/fp.py).
 """
 
@@ -120,10 +120,11 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
     n_obj = [interp(3 + i) for i in range(3)]
 
     mats = scene.materials
+    mrow = _material_rows(mats, prim)
     tex = mats.tex_index[prim]                                  # (N, 5)
     base_color = sample_texture(scene.textures, tex[:, TEX_BASE_COLOR],
-                                mats.base_color[prim])
-    emissive_factor = mats.emissive_factor[prim]                # (N, 4)
+                                mrow["base_color"])
+    emissive_factor = mrow["emissive_factor"]                   # (N, 4)
     emissive_sample = sample_texture(
         scene.textures, tex[:, TEX_EMISSIVE],
         torch.cat([emissive_factor[:, :3],
@@ -144,19 +145,48 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
         ),
         eps=1e-12,
     )
-    return _finish_surface(scene, orig, d, hit, t_att, prim, tex, base_color,
+    return _finish_surface(scene, orig, d, hit, t_att, mrow, tex, base_color,
                            emission, world_normal, world_normal, face_forward)
 
 
-def _finish_surface(scene, orig, d, hit, t_att, prim, tex, base_color,
+# The float columns of the material table, fetched together by K8.
+_MATERIAL_COLUMNS = (("base_color", 4), ("emissive_factor", 4),
+                     ("roughness", 1), ("metallic", 1), ("transmission", 1),
+                     ("ior", 1))
+
+
+def material_table(mats):
+    """The (M, 12) float table of _MATERIAL_COLUMNS, one row a material."""
+    return torch.cat([getattr(mats, name).reshape(mats.base_color.shape[0],
+                                                  -1)
+                      for name, _ in _MATERIAL_COLUMNS], dim=1).contiguous()
+
+
+def _material_rows(mats, prim):
+    """Each lane's material row, {column: (N,) or (N, w)}, in one K8 fetch
+    from material_table (the JAX package gathers each column,
+    shade.py:234-241, 333-370). Its backward is K8's segment-sum kernel,
+    where plain indexing's backward sorts the lanes' indices (~110 ms a
+    shade call at 720p on the card)."""
+    rows = gather_rows(material_table(mats), prim.to(torch.int32)[None])[0]
+    out, c = {}, 0
+    for name, width in _MATERIAL_COLUMNS:
+        # Row-major (N, w) copies: the layout of what the frame derives
+        # from them follows theirs, and the kernels take contiguous rows.
+        out[name] = (rows[c] if width == 1
+                     else rows[c:c + width].T.contiguous())
+        c += width
+    return out
+
+
+def _finish_surface(scene, orig, d, hit, t_att, mrow, tex, base_color,
                     emission, world_normal, final_normal, face_forward):
     """Shared shade_hits tail: metallic-roughness terms, hit position, the
-    face-forward flip, and Surface assembly."""
-    mats = scene.materials
+    face-forward flip, and Surface assembly. mrow: _material_rows."""
     mr = sample_texture(scene.textures, tex[:, TEX_METALLIC_ROUGHNESS],
                         torch.ones_like(base_color))
-    roughness = mats.roughness[prim] * mr[:, 1]   # G channel
-    metallic = mats.metallic[prim] * mr[:, 2]     # B channel
+    roughness = mrow["roughness"] * mr[:, 1]   # G channel
+    metallic = mrow["metallic"] * mr[:, 2]     # B channel
 
     dist = torch.where(hit.hit, t_att, -1.0)
     pos = fma(d, dist[:, None], orig)
@@ -176,7 +206,7 @@ def _finish_surface(scene, orig, d, hit, t_att, prim, tex, base_color,
         emission=emission,
         roughness=roughness,
         metallic=metallic,
-        transmission=mats.transmission[prim],
-        ior=mats.ior[prim],
+        transmission=mrow["transmission"],
+        ior=mrow["ior"],
         valid=hit.hit,
     )

@@ -50,7 +50,12 @@ def make_tracer(scene, cfg, accel=None) -> TracerCtx:
         raise NotImplementedError(f"trace_impl={cfg.trace_impl!r} is not ported")
     if cfg.alpha_mask_tracing or scene.has_alpha_mask:
         raise NotImplementedError("alpha-cutout tracing is not ported")
-    tris = tuple(t.contiguous() for t in scene.world_triangle_vertices())
+    # The tracer is a discrete oracle: gradients reach the frame through
+    # the hit recompute in render/shade.py, never through traversal, so
+    # the triangles and rays handed to the kernels are detached (JAX's
+    # stop_gradient, render/trace.py:63-71, 213-217, 267).
+    tris = tuple(t.detach().contiguous()
+                 for t in scene.world_triangle_vertices())
     if accel is not None:
         if not isinstance(accel, binned_trace.ClusterSet):
             raise NotImplementedError(f"accel {type(accel).__name__} is not "
@@ -76,7 +81,7 @@ def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
     pair stream, else the block path with the coherence reorder
     (trace.py:169-186). The brute tracer ignores the hint."""
     cuda_trace.rays["closest"] += orig.shape[0]
-    orig, d = orig.contiguous(), d.contiguous()
+    orig, d = orig.detach().contiguous(), d.detach().contiguous()
     if ctx.binned is None:
         return cuda_trace.trace_closest(ctx.tris, orig, d, tmin, tmax)
     if not coherent:
@@ -95,9 +100,10 @@ def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
     target triangle (trace.py:270, :347). coherent: as in trace_closest
     (trace.py:308-319)."""
     cuda_trace.rays["occluded"] += orig.shape[0]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=orig.device)
+    tmax = torch.as_tensor(tmax, dtype=torch.float32,
+                           device=orig.device).detach()
     degenerate = tmax - tmin <= intersect.T_MIN
-    orig, d = orig.contiguous(), d.contiguous()
+    orig, d = orig.detach().contiguous(), d.detach().contiguous()
     seg = (tmax - 1e-3).contiguous()
     exclude = None if exclude is None else exclude.contiguous()
     if ctx.woop is not None:

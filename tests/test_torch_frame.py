@@ -22,6 +22,7 @@ from sunray_tpu.render.pipeline import render_frame as jrender_frame
 from sunray_tpu.scene import cornell_box as jcornell_box
 from sunray_tpu_torch import convert
 from sunray_tpu_torch.config import RenderConfig
+from sunray_tpu_torch.ops import cuda_gather
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 from sunray_tpu_torch.scene.types import TextureAtlas
 from torch_parity import CAMERA, GOLDEN_KW, n, psnr, to_numpy
@@ -108,7 +109,11 @@ UNCOVERED = {
     "bvh": dict(tracer="bvh"),
     "edge_antialias": dict(edge_antialias=True),
     "samples": dict(samples=2),
-    "differentiable": dict(differentiable=True),
+    # Differentiable frames are ported; their shadow-boundary term is not.
+    "differentiable": dict(differentiable=True, shadow_boundary_grads=True),
+    # K8's backward kernel takes up to MAX_ROWS table rows: refused before
+    # the forward pass, not at the backward (scene below).
+    "differentiable_big_table": dict(differentiable=True),
 }
 
 
@@ -121,6 +126,14 @@ def test_uncovered_configs_raise(name, frames):
         atlas = TextureAtlas.empty(device="cpu")
         atlas.data = torch.ones((2, 4, 4, 4))
         scene = dataclasses.replace(scene, textures=atlas)
+    if name == "differentiable_big_table":
+        rows = cuda_gather.MAX_ROWS + 1
+        pad = rows - scene.positions.shape[0]
+        scene = dataclasses.replace(
+            scene, positions=torch.cat([scene.positions,
+                                        scene.positions[:1].expand(pad, 3)]),
+            normals=torch.cat([scene.normals,
+                               scene.normals[:1].expand(pad, 3)]))
     with pytest.raises(NotImplementedError):
         render_frame(scene, cfg, RenderState.create(cfg, device="cpu"), frames["mats"])
 

@@ -1,0 +1,189 @@
+"""PyTorch port on the card, the differentiable slice: K8's backward kernel
+(gather_rows_bwd) against its plain version (index_add_), deterministic;
+the K7 and K9 autograd Functions (kernel forward, plain VJP backward);
+and the differentiable ReSTIR frame on the card against the CPU. Skipped
+where there is no CUDA device; imports no JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_grads_cuda.py -q
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from sunray_tpu_torch.camera import Camera, camera_matrices
+from sunray_tpu_torch.config import RenderConfig
+from sunray_tpu_torch.ops import cuda_build, cuda_gather, cuda_image
+from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+from sunray_tpu_torch.scene import cornell_box
+from torch_parity import CAMERA, GOLDEN_KW, cuda_device, n  # noqa: F401
+
+pytestmark = pytest.mark.gpu
+
+# The plain K3-K7, K9 and K13: a differentiable frame launches none of them.
+FORWARD_ONLY = ("ris_audition", "di_temporal", "di_spatial", "gi_spatial",
+                "atrous_pass", "taa_clamp_blend", "history_gather")
+
+
+def _bwd_case(k, c, g, nidx, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(-5, k + 5, size=(g, nidx))
+                           .astype(np.int32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal((g, c, nidx))
+                          .astype(np.float32)).to(dev)
+    return ct, idx
+
+
+@pytest.mark.parametrize("k,c,g", [(72, 6, 3), (36, 4, 1), (300, 11, 2),
+                                   (512, 6, 3)])
+def test_gather_backward_kernel_matches_plain(k, c, g, cuda_device):
+    """Within 1e-6 of each row's sum of |ct| of index_add_ (another order
+    of the same float32 sums); two runs bit-equal."""
+    ct, idx = _bwd_case(k, c, g, 200_003, cuda_device, seed=k)
+    cuda_build.launches.clear()
+    got = cuda_gather.gather_rows_bwd(ct, idx, k)
+    again = cuda_gather.gather_rows_bwd(ct, idx, k)
+    want = cuda_gather.gather_rows_bwd_plain(ct, idx, k)
+    scale = cuda_gather.gather_rows_bwd_plain(ct.abs(), idx, k)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["gather_rows_bwd"] == 2
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 1e-6 * scale).all())
+
+
+def test_gather_backward_kernel_edges(cuda_device):
+    """No index at all gives zeros; more rows than the kernel takes, or a
+    wrong dtype, raises."""
+    ct, idx = _bwd_case(72, 6, 3, 0, cuda_device)
+    assert not cuda_gather.gather_rows_bwd(ct, idx, 72).any()
+    ct, idx = _bwd_case(600, 6, 1, 1000, cuda_device)
+    with pytest.raises(cuda_build.KernelError):
+        cuda_gather.gather_rows_bwd(ct, idx, cuda_gather.MAX_ROWS + 1)
+    with pytest.raises(cuda_build.KernelError):
+        cuda_gather.gather_rows_bwd(ct, idx.long(), 72)
+
+
+def test_gather_function_runs_both_kernels(cuda_device):
+    """A table that requires grad: K8 forward, gather_rows_bwd backward,
+    the gradient the plain version's."""
+    ct, idx = _bwd_case(72, 6, 3, 50_001, cuda_device, seed=3)
+    table = torch.randn((72, 6), device=cuda_device, requires_grad=True)
+    cuda_build.launches.clear()
+    out = cuda_gather.gather_rows(table, idx)
+    grad, = torch.autograd.grad(out, table, ct)
+    assert cuda_build.launches["gather_rows_multi"] == 1
+    assert cuda_build.launches["gather_rows_bwd"] == 1
+    want = cuda_gather.gather_rows_bwd_plain(ct, idx, 72)
+    scale = cuda_gather.gather_rows_bwd_plain(ct.abs(), idx, 72)
+    assert bool(((grad - want).abs() <= 1e-6 * scale).all())
+
+
+def _guides(dev, h=96, w=128, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    color = torch.rand((h, w, 3), generator=g) * 2.0
+    depth = 1.0 + 3.0 * torch.rand((h, w), generator=g)
+    depth[: h // 8] = 100000.0
+    normal = torch.nn.functional.normalize(
+        torch.tensor([0.0, 0.3, 1.0]) + 0.05 * torch.randn((h, w, 3),
+                                                           generator=g),
+        dim=-1)
+    rough = torch.rand((h, w), generator=g)
+    diffuse = torch.rand((h, w, 3), generator=g)
+    return [x.contiguous().to(dev) for x in (color, depth, normal, rough,
+                                             diffuse)]
+
+
+def _vjp(fn, inputs, ct):
+    xs = [x.detach().clone().requires_grad_(x.dtype.is_floating_point)
+          for x in inputs]
+    out = fn(*xs)
+    want = [x for x in xs if x.requires_grad]
+    return out, torch.autograd.grad(out, want, ct, allow_unused=True)
+
+
+def _close(got, want, floor):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None or not g.any()
+            continue
+        atol = floor * float(w.abs().max())
+        assert torch.allclose(g, w, rtol=1e-4, atol=atol)
+
+
+def test_atrous_function_on_card(cuda_device):
+    """K7 forward (one launch a pass) within 1e-5 of the plain passes; the
+    backward is the plain passes' VJP, within rtol 1e-4 and a floor of
+    1e-3 of the largest entry (the diffuse gradient is a cancellation,
+    test_torch_grads_vjp.py)."""
+    guides = _guides(cuda_device)
+    ct = torch.randn_like(guides[0])
+    cuda_build.launches.clear()
+    out, got = _vjp(lambda *g: cuda_image.atrous_denoise(*g, 3), guides, ct)
+    assert cuda_build.launches["atrous_pass"] == 3
+    want_out, want = _vjp(lambda *g: cuda_image.atrous_denoise_plain(*g, 3),
+                          guides, ct)
+    assert torch.allclose(out, want_out, atol=1e-5)
+    _close(got, want, floor=1e-3)
+
+
+def test_taa_function_on_card(cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    raw = (torch.rand((96, 128, 3), generator=g) * 3.0).to(cuda_device)
+    hist = (torch.rand((96, 128, 3), generator=g) * 3.0).to(cuda_device)
+    use = (torch.rand((96, 128), generator=g) > 0.3).to(cuda_device)
+    ct = torch.randn_like(raw)
+    cuda_build.launches.clear()
+    out, got = _vjp(lambda r, h: cuda_image.taa_clamp_blend(r, h, use, 0.14),
+                    (raw, hist), ct)
+    assert cuda_build.launches["taa_clamp_blend"] == 1
+    want_out, want = _vjp(
+        lambda r, h: cuda_image.taa_clamp_blend_plain(r, h, use, 0.14),
+        (raw, hist), ct)
+    assert torch.allclose(out, want_out, atol=1e-6)
+    _close(got, want, floor=1e-6)
+
+
+def diff_steps(dev, steps, **kw):
+    """`steps` differentiable frames at the golden size with the state
+    threaded through: [(loss, grad base_color, grad positions)]."""
+    cfg = RenderConfig(**dict(GOLDEN_KW, lighting="restir",
+                              differentiable=True, **kw))
+    scene = cornell_box(device=dev)
+    bc = scene.materials.base_color.clone().requires_grad_()
+    pos = scene.positions.clone().requires_grad_()
+    scene = dataclasses.replace(
+        scene, positions=pos,
+        materials=dataclasses.replace(scene.materials, base_color=bc))
+    mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height,
+                           device=dev)
+    state = RenderState.create(cfg, dev)
+    out = []
+    for _ in range(steps):
+        state, ldr, _ = render_frame(scene, cfg, state, mats)
+        loss = ldr.mean()
+        gb, gp = torch.autograd.grad(loss, (bc, pos))
+        out.append((n(loss), n(gb), n(gp)))
+    return out
+
+
+def test_differentiable_frame_card_matches_cpu(cuda_device):
+    """Three differentiable ReSTIR frames at the golden size: losses within
+    1e-5 relative, gradients within rtol 1e-4 and a floor of 1e-5 of the
+    largest entry, the positions gradient nonzero on the card (the corner
+    gather's backward kernel ran); the forward-only kernels never launch."""
+    cpu = diff_steps("cpu", 3)
+    cuda_build.launches.clear()
+    card = diff_steps(cuda_device, 3)
+    for name in ("trace_closest", "trace_occluded", "gather_rows",
+                 "gather_rows_multi", "gather_rows_bwd"):
+        assert cuda_build.launches[name] > 0, name
+    for name in FORWARD_ONLY:
+        assert cuda_build.launches[name] == 0, name
+    for (lc, bc_c, pc), (lg, bc_g, pg) in zip(cpu, card):
+        np.testing.assert_allclose(lg, lc, rtol=1e-5)
+        for got, want in ((bc_g, bc_c), (pg, pc)):
+            np.testing.assert_allclose(
+                got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+        assert np.abs(pg).max() > 0.0
