@@ -131,6 +131,24 @@ Phases, in order; any failure raises and exits non-zero with no result:
      bench.py:179-183's count and Mray/s, loss, gradient norms, peak
      memory, synced forward stages and backward; one 480x270 step with
      the stage checkpoints on and off (peak memory, time).
+  9. the visibility gradients (the same step with both terms:
+     edge_antialias=True, shadow_boundary_grads=True with its top-8
+     candidates): the differentiable ReSTIR frame with both terms and the
+     NEE frame with the dense term and edge antialiasing at the golden
+     size, card vs CPU (3 steps, phase 8's bars); the 720p loss with edge
+     antialiasing bit-equal with the shadow-boundary term on and off, the
+     positions gradient apart; one 720p step with the counters zeroed
+     before: K1, K2, K8, K8's backward and B1 (boundary_candidates) must
+     launch, K3-K7, K9 and K13 must not; B1 against its plain version on
+     that step's own calls (its first-rough hits) and on 921,600 random
+     points, 0 (light, pixel) lanes differing, timed beside its plain
+     version and its bound (the operations its code runs on these
+     inputs); the timed 720p step with both terms (3 warm-up, 10 timed,
+     synced): ms, rays and Mray/s by bench.py's count, peak memory (limit
+     40 GB), every gradient entry finite, synced stages; AD against
+     central differences on tests/test_grads.py's two occluder-translation
+     cases (NEE dense, 12 frames, eps 2e-2, rtol 0.20; ReSTIR K=8, 16
+     frames, eps 1e-2, rtol 0.25; 64x48).
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -198,6 +216,32 @@ DIFF_OFF_SIZE = (480, 270)          # the step with the checkpoints off
 DIFF_STEPS = 3                      # card vs CPU, threaded state
 DIFF_LOSS_RTOL = 1e-5
 DIFF_GRAD_RTOL, DIFF_GRAD_FLOOR = 1e-4, 1e-5   # floor: of the largest |g|
+# Phase 9, the visibility gradients (cornell_restir_fwdbwd_720p with both
+# terms): the step of phase 8 with edge antialiasing and the
+# shadow-boundary term on its top-8 candidates (tests/test_grads.py:360).
+VIS_KW = dict(shadow_boundary_grads=True, shadow_boundary_candidates=8,
+              edge_antialias=True)
+VIS_PEAK_GB = 40.0                  # half the card (PERF.md section 2)
+# B1's fp32 operations (csrc/boundary.cu; an fmaf counted as two, a
+# compare, division or sqrtf as one): the two face-side tests of every
+# (pixel, light, edge), one projection test of an endpoint or the
+# midpoint, the score's norm and division, the per-pixel cnum.
+B1_SIDE_OPS = 18
+B1_PROJECT_OPS = 26
+B1_SCORE_OPS = 11
+B1_CNUM_OPS = 8
+# AD against central differences on the card: tests/test_grads.py's
+# occluder-translation cases on the floating-box scene, at their sizes,
+# frame counts, steps and tolerances.
+FD_CAMERA = dict(position=(1.0, 1.7, 3.3), target=(1.0, 0.2, 0.7),
+                 fov_y=45.0)
+FD_SIZE = (64, 48)
+FD_CASES = {
+    "nee": (dict(lighting="nee"), 12, 2e-2, 0.20),
+    "restir": (dict(lighting="restir", ris_candidates=8,
+                    di_spatial_samples=2, gi_spatial_samples=1,
+                    shadow_boundary_candidates=8), 16, 1e-2, 0.25),
+}
 # K8's backward, errors over each table row's sum of |ct|: against the
 # plain version's float64 sums, below the first-order bound of the
 # kernel's float32 sums (~600 adds on a row's longest chain at 720p: a
@@ -2181,19 +2225,27 @@ KERNELS = {
                             "sunray_tpu/ops/pallas_trace.py:329"),
     "gather_rows_bwd": ("sunray_tpu_torch/csrc/gather.cu",
                         "sunray_tpu/ops/pallas_gather.py:178"),
+    # B1 replaces a jnp stage (no pallas_call): the candidate extraction
+    # loop and _candidate_score of the shadow-boundary term.
+    "boundary_candidates": ("sunray_tpu_torch/csrc/boundary.cu",
+                            "sunray_tpu/render/boundary.py:205"),
 }
 BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
 SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
 # The differentiable slice's own kernel: K8's backward.
 DIFF_ONLY = ("gather_rows_bwd",)
+# The visibility gradients' own kernel: B1.
+VIS_ONLY = ("boundary_candidates",)
 CORNELL_KERNELS = tuple(k for k in KERNELS
-                        if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY)
+                        if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY
+                        + VIS_ONLY)
 # A differentiable frame: the tracer and K8 forward and backward; the plain
 # versions of K3-K7, K9 and K13 (JAX's gates).
 DIFF_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
                 "gather_rows_multi", "gather_rows_bwd")
 DIFF_ABSENT = ("ris_audition", "di_temporal", "di_spatial", "gi_spatial",
                "atrous_pass", "taa_clamp_blend", "history_gather")
+VIS_KERNELS = DIFF_KERNELS + VIS_ONLY
 NEE_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
                "gather_rows_multi", "atrous_pass")
 # The switches frame: K14 takes every occlusion query, so K2 stays idle.
@@ -2212,10 +2264,12 @@ def diff_setup(dev, width, height, **kw):
 
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.render import boundary
     from sunray_tpu_torch.scene import cornell_box
 
     cfg = RenderConfig(width=width, height=height, differentiable=True, **kw)
-    scene = cornell_box(device=dev)
+    # The edge topology is read only with shadow_boundary_grads on.
+    scene = boundary.with_edge_topology(cornell_box(device=dev))
     leaves = (scene.materials.base_color.clone().requires_grad_(),
               scene.positions.clone().requires_grad_())
     scene = dataclasses.replace(
@@ -2258,14 +2312,16 @@ def grads_close(got, want):
     return ok, float((got - want).abs().max() / want.abs().max())
 
 
-def diff_card_vs_cpu(dev):
-    """The differentiable ReSTIR frame at the golden size, DIFF_STEPS steps
-    with the state threaded, on the card and on the CPU."""
+def diff_card_vs_cpu(dev, phase=8, **extra):
+    """The differentiable frame (ReSTIR unless `extra` says otherwise) at
+    the golden size, DIFF_STEPS steps with the state threaded, on the card
+    and on the CPU."""
     kw = {k: v for k, v in GOLDEN_KW.items() if k not in ("width", "height",
                                                          "lighting")}
+    kw.update(extra)
     size = (GOLDEN_KW["width"], GOLDEN_KW["height"])
-    log(f"phase 8: differentiable ReSTIR frame {size[0]}x{size[1]}, "
-        f"{DIFF_STEPS} steps, card vs CPU")
+    log(f"phase {phase}: differentiable frame {size[0]}x{size[1]} "
+        f"{extra or '(ReSTIR)'}, {DIFF_STEPS} steps, card vs CPU")
     card = diff_run(dev, DIFF_STEPS, *size, **kw)
     cpu = diff_run("cpu", DIFF_STEPS, *size, **kw)
     for i, ((lg, gg), (lc, gc)) in enumerate(zip(card, cpu)):
@@ -2515,6 +2571,298 @@ def phase_diff(dev, gen):
     return row, launches
 
 
+# -- phase 9: the visibility gradients ------------------------------------------
+
+def capture_b1_calls(fn):
+    """fn() with cuda_boundary.boundary_candidates recording its arguments:
+    returns (fn's result, [(xs, nee_mask, edges, lights, k), ...])."""
+    from sunray_tpu_torch.ops import cuda_boundary
+
+    calls, inner = [], cuda_boundary.boundary_candidates
+
+    def recording(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return inner(*args)
+
+    cuda_boundary.boundary_candidates = recording
+    try:
+        return fn(), calls
+    finally:
+        cuda_boundary.boundary_candidates = inner
+
+
+def b1_lanes_differing(got, want):
+    """(light, pixel) lanes where B1's outputs differ from the plain
+    version's in any rank of any array."""
+    lanes = (got[1] != want[1])
+    for a, b in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        lanes = lanes | (a != b).any(dim=1)
+    return int(lanes.sum())
+
+
+def b1_needed_ops(xs, mask, edges, lights, step=1 << 16):
+    """B1's fp32 operations on these inputs as its code decides them: both
+    face-side tests of every (pixel, light, edge) and cnum of every
+    (pixel, light); for a silhouette edge of a pixel in the mask, the
+    projection tests in order (endpoint a, b, midpoint) up to the first
+    that passes, each up to where it fails (heading: 10 operations,
+    beyond the point: 14, the box: 26); the score of an edge that
+    passes."""
+    from sunray_tpu_torch.ops import cuda_boundary as cb
+    from sunray_tpu_torch.ops import fp
+
+    p, e_n, l_n = xs.shape[0], edges.shape[0], lights.shape[0]
+    total = l_n * p * (e_n * B1_SIDE_OPS + B1_CNUM_OPS)
+    for light in lights:
+        p0, nl, lo, hi = (light[i:i + 3] for i in (0, 3, 6, 9))
+        for s in range(0, p, step):
+            x = xs[s:s + step]
+            sil, _ = cb.silhouette(x, edges)
+            todo = sil & mask[s:s + step, None]
+            cnum = fp.dot(p0 - x, nl)[:, None]
+            for pt in (edges[:, 0:3], edges[:, 3:6], edges[:, 6:9]):
+                d = pt - x[:, None, :]
+                denom = fp.dot(d, nl)
+                heading = denom * cnum > 0.0
+                t_hit = cnum / torch.where(denom.abs() > cb.DENOM_EPS, denom,
+                                           cb.DENOM_EPS)
+                beyond = heading & (t_hit > cb.BEYOND)
+                y = fp.fma(t_hit[..., None], d, x[:, None, :])
+                ok = beyond & ((y > lo) & (y < hi)).all(dim=-1)
+                ops = torch.where(beyond, B1_PROJECT_OPS,
+                                  torch.where(heading, 14, 10))
+                total += int((ops * todo).sum())
+                total += int((ok & todo).sum()) * B1_SCORE_OPS
+                todo = todo & ~ok
+    return total
+
+
+def b1_row(calls, gen, dev):
+    """B1 against its plain version on the 720p step's own calls and on
+    921,600 random points (0 lanes differing), timed on the step's first
+    call beside its plain version and its bound."""
+    from sunray_tpu_torch.ops import cuda_boundary
+
+    xs0, mask0, edges, lights, k = calls[0]
+    n = xs0.shape[0]
+    rand = (torch.rand((n, 3), generator=gen, device=dev) * 2.2 - 0.1,
+            torch.rand((n,), generator=gen, device=dev) > 0.1,
+            edges, lights, k)
+    worst = 0
+    for label, args in ([(f"step call {i}", c) for i, c in enumerate(calls)]
+                        + [("random", rand)]):
+        got = cuda_boundary.boundary_candidates(*args)
+        want = cuda_boundary.boundary_candidates_plain(*args)
+        torch.cuda.synchronize()
+        bad = b1_lanes_differing(got, want)
+        worst = max(worst, bad)
+        log(f"  B1, {label}: {args[0].shape[0]} pixels x {args[3].shape[0]} "
+            f"lights x {args[2].shape[0]} edges, K={args[4]}, "
+            f"{int(args[1].sum())} pixels in the mask, live candidates a "
+            f"pixel max {int(got[1].max())}, mean "
+            f"{float(got[1].float().mean()):.3f}; (light, pixel) lanes "
+            f"differing from plain {bad}")
+    check(worst == 0, f"B1: {worst} lanes differ from the plain version")
+    args = calls[0]
+    l_n = lights.shape[0]
+    out_bytes = l_n * n * (4 + k * (4 + 1 + 1))
+    ops = b1_needed_ops(*args[:4])
+    row = dict(
+        max_abs_err=0.0, lanes_differing=worst,
+        ms=device_ms(lambda: cuda_boundary.boundary_candidates(*args)),
+        plain_ms=time_ms(lambda: cuda_boundary.boundary_candidates_plain(
+            *args), reps=3),
+        library_ms=None,
+        bound=bound(nbytes(*args[:4]) + out_bytes, ops),
+        needed_ops=ops, shape=[n, l_n, edges.shape[0], k],
+        random_ms=device_ms(lambda: cuda_boundary.boundary_candidates(
+            *rand)))
+    log(f"  B1 at {n} pixels x {l_n} lights x {edges.shape[0]} edges, "
+        f"K={k}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]}; {ops} "
+        f"operations); random set {row['random_ms']:.4f} ms")
+    return row
+
+
+def vis_zero_forward(dev):
+    """The 720p step with edge antialiasing, the shadow-boundary term on
+    and off from a fresh state: the loss bit-equal (the term is zero in the
+    forward pass), the positions gradient apart."""
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    out = {}
+    for on in (False, True):
+        kw = dict(VIS_KW, shadow_boundary_grads=on)
+        cfg, scene, leaves, mats = diff_setup(dev, *DIFF_SIZE, **kw)
+        _, loss, grads, _ = diff_step(cfg, scene, leaves, mats,
+                                      RenderState.create(cfg, dev))
+        out[on] = (loss.cpu(), grads[1].cpu())
+    moved = float((out[True][1] - out[False][1]).abs().max())
+    log(f"  zero forward at {DIFF_SIZE[0]}x{DIFF_SIZE[1]}: loss with the "
+        f"term {float(out[True][0]):.9f}, without {float(out[False][0]):.9f}"
+        f" (bit-equal {bool(torch.equal(out[True][0], out[False][0]))}); "
+        f"the term moves the positions gradient by {moved:.6f} (largest "
+        f"|g| without {float(out[False][1].abs().max()):.6f})")
+    check(torch.equal(out[True][0], out[False][0]),
+          "the shadow-boundary term changed the 720p loss")
+    check(moved > 0.0, "the shadow-boundary term left the positions "
+          "gradient unchanged")
+
+
+def floating_box_scene(dev):
+    """The floating-box scene of tests/test_grads.py:238-255, with its
+    edge topology, and the ids of the box's 24 vertices."""
+    from sunray_tpu_torch.render import boundary
+    from sunray_tpu_torch.scene.procedural import _MeshBuilder
+
+    b = _MeshBuilder()
+    white = b.add_material(base_color=(0.73, 0.73, 0.73, 1.0), roughness=1.0)
+    light = b.add_material(base_color=(1.0, 1.0, 1.0, 1.0),
+                           emissive_factor=(1.0, 1.0, 1.0, 15.0),
+                           roughness=1.0)
+    s = 2.0
+    b.add_quad((0, 0, 0), (0, 0, s), (s, 0, s), (s, 0, 0), white)
+    b.add_quad((0, 0, 0), (s, 0, 0), (s, s, 0), (0, s, 0), white)
+    b.add_quad((0, s, 0), (s, s, 0), (s, s, s), (0, s, s), white)
+    ly = s - 0.01
+    b.add_quad((0.95, ly, 0.65), (1.55, ly, 0.65), (1.55, ly, 1.35),
+               (0.95, ly, 1.35), light)
+    b.add_box((0.9, 1.2, 1.0), (0.5, 0.25, 0.5), white)
+    scene = boundary.with_edge_topology(b.build(device=dev))
+    pos = scene.positions
+    return scene, (pos[:, 1] > 1.0) & (pos[:, 1] < 1.4)
+
+
+def vis_ad_vs_fd(dev):
+    """tests/test_grads.py's two occluder-translation cases on the card:
+    AD of the frame-averaged raw radiance over the floor pixels eroded by
+    3, against central differences, under an x shift of the box."""
+    import dataclasses
+
+    from scipy import ndimage
+
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+
+    w, h = FD_SIZE
+    scene, box = floating_box_scene(dev)
+    check(int(box.sum()) == 24, "floating box: 24 box vertices expected")
+    shift = torch.zeros_like(scene.positions)
+    shift[box, 0] = 1.0
+    mats = camera_matrices(Camera(**FD_CAMERA), w, h, device=dev)
+    out = {}
+    for name, (kw, frames, eps, rtol) in FD_CASES.items():
+        cfg = RenderConfig(width=w, height=h, bounces=2, virtual_bounces=2,
+                           denoise_passes=0, enable_taa=False,
+                           differentiable=True, tonemap="none",
+                           shadow_boundary_grads=True, **kw)
+
+        def render_k(dx):
+            sc = dataclasses.replace(scene,
+                                     positions=scene.positions + dx * shift)
+            state, acc, aux = RenderState.create(cfg, dev), 0.0, None
+            for _ in range(frames):
+                state, _, aux = render_frame(sc, cfg, state, mats)
+                acc = acc + aux["raw"]
+            return acc / frames, aux
+
+        with torch.no_grad():
+            _, aux0 = render_k(torch.zeros((), device=dev))
+        floor = (aux0["normal"][..., 1] > 0.9).cpu().numpy()
+        eroded = ndimage.binary_erosion(floor, iterations=3)
+        mask = torch.from_numpy(eroded[..., None].astype(np.float32)).to(dev)
+
+        def loss(dx):
+            img, _ = render_k(dx)
+            return (img * mask).sum() / mask.sum()
+
+        dx = torch.zeros((), device=dev, requires_grad=True)
+        g_ad = float(torch.autograd.grad(loss(dx), dx)[0])
+        with torch.no_grad():
+            fd = (float(loss(torch.tensor(eps, device=dev)))
+                  - float(loss(torch.tensor(-eps, device=dev)))) / (2 * eps)
+        ratio = g_ad / fd
+        log(f"  AD vs FD, {name} ({frames} frames, {w}x{h}, eps {eps}, "
+            f"{int(eroded.sum())} floor pixels): AD {g_ad:.6f}, FD {fd:.6f}, "
+            f"ratio {ratio:.4f} (rtol {rtol})")
+        check(abs(fd) > 0.3, f"{name}: shadow FD signal too small: {fd}")
+        check(abs(g_ad - fd) <= rtol * abs(fd),
+              f"{name}: AD {g_ad} vs FD {fd} outside rtol {rtol}")
+        out[name] = dict(ad=g_ad, fd=fd)
+    return out
+
+
+def phase_visibility(dev, gen):
+    """Phase 9, the visibility gradients: card vs CPU with both terms, the
+    zero forward at 720p, the launch check of one 720p step with both terms
+    (B1's calls captured), B1 against its plain version, the timed 720p
+    step (bench.py:128-190's loop: 3 warm-up and 10 timed steps, synced)
+    with its peak memory, and AD against FD. Returns (B1's row with the
+    step's numbers, launches of the launch-check step)."""
+    from sunray_tpu_torch.ops import cuda_build, cuda_trace
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    diff_card_vs_cpu(dev, phase=9, **VIS_KW)
+    diff_card_vs_cpu(dev, phase=9, lighting="nee", shadow_boundary_grads=True,
+                     edge_antialias=True)
+    w, h = DIFF_SIZE
+    log(f"phase 9: {w}x{h} differentiable ReSTIR step with both visibility "
+        f"terms ({VIS_KW})")
+    vis_zero_forward(dev)
+    cfg, scene, leaves, mats = diff_setup(dev, w, h, **VIS_KW)
+    state = RenderState.create(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    (state, loss, grads, aux), calls = capture_b1_calls(
+        lambda: diff_step(cfg, scene, leaves, mats, state))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launches)
+    log(f"  launches in one step: {launches}")
+    for name in VIS_KERNELS:
+        check(launches.get(name, 0) > 0, f"step with both terms: {name} "
+              "never launched")
+    for name in DIFF_ABSENT:
+        check(launches.get(name, 0) == 0, f"step with both terms: {name} "
+              "launched")
+    row = b1_row(calls, gen, dev)
+    del calls
+    for _ in range(2):
+        state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
+    torch.cuda.synchronize()
+    cuda_trace.rays.clear()
+    n_timed = 10
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rays = w * h * (aux["ris_rounds"] + 3 + max(aux["final_rounds"] - 1, 0)
+                    + 2 + cfg.gi_spatial_samples)
+    traced = sum(cuda_trace.rays.values()) / n_timed
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    g_norms = [float(g.norm()) for g in grads]
+    log(f"  step with both terms {step_s * 1e3:.3f} ms (mean of {n_timed} "
+        f"after 3 warm-up); rays a step {rays} (bench.py's count; traced "
+        f"with the backward's recompute: {traced:.0f}), "
+        f"{rays / step_s / 1e6:.2f} Mray/s (fwd+bwd); loss "
+        f"{float(loss):.6f}; |grad base_color| {g_norms[0]:.6f}, |grad "
+        f"positions| {g_norms[1]:.6f}; every gradient entry finite {finite}; "
+        f"peak memory {peak_gb:.3f} GB (limit {VIS_PEAK_GB})")
+    check(finite and math.isfinite(float(loss)), "non-finite loss or "
+          "gradient entry with both terms")
+    check(peak_gb <= VIS_PEAK_GB, f"peak memory {peak_gb} GB > {VIS_PEAK_GB}")
+    stages = diff_stage_breakdown(cfg, scene, leaves, mats, state)
+    fd = vis_ad_vs_fd(dev)
+    row.update(step_ms=step_s * 1e3, step_peak_gb=peak_gb,
+               step_mrays=rays / step_s / 1e6, step_stages_ms=stages,
+               step_launches=launches, ad_vs_fd=fd)
+    return row, launches
+
+
 def ptxas_registers(report):
     """{kernel: registers} from nvcc's -Xptxas=-v report, each kernel named
     as in its mangled name without its source's anonymous namespace
@@ -2632,6 +2980,8 @@ def main():
     gen.manual_seed(8)
     kernels["gather_rows_bwd"], diff_launches = phase_diff(dev, gen)
     launches.update({k: diff_launches[k] for k in DIFF_ONLY})
+    kernels["boundary_candidates"], vis_launches = phase_visibility(dev, gen)
+    launches.update({k: vis_launches[k] for k in VIS_ONLY})
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -2660,7 +3010,9 @@ def main():
                     "materials_ms", "materials_bound_ms",
                     "materials_plain_ms", "materials_library_ms",
                     "synthetic_ms", "step_ms", "step_peak_gb", "step_mrays",
-                    "step_stages_ms", "checkpoints_off_480x270"):
+                    "step_stages_ms", "checkpoints_off_480x270",
+                    "lanes_differing", "needed_ops", "step_launches",
+                    "ad_vs_fd"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

@@ -38,7 +38,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sunray_tpu_torch"
 SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu", "binned.cu",
-           "taa.cu", "history.cu")
+           "taa.cu", "history.cu", "boundary.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -144,6 +144,8 @@ def _signatures():
         "sunray_inv_det": [p, p, i64, p],
         "sunray_taa_clamp_blend": [p, p, p, i, i, f, p, p],
         "sunray_history_gather": [p, p, p, i, p, i64, i64, p],
+        "sunray_boundary_candidates": [p, p, p, i, p, i, i64, i, p, p, p, p,
+                                       p],
         "sunray_woop_launch_shape": [ctypes.POINTER(i)],
         "sunray_occluded_launch_shape": [ctypes.POINTER(i)],
         "sunray_closest_launch_shape": [ctypes.POINTER(i)],

@@ -44,6 +44,7 @@ from sunray_tpu_torch.ops.brdf import (
 from sunray_tpu_torch.ops.cuda_restir import neighbour_ok, shift_flat
 from sunray_tpu_torch.ops.fp import clip, dot3, fma, pow5, sqrt
 from sunray_tpu_torch.ops.loops import bounded_loop, checkpointed
+from sunray_tpu_torch.render import boundary
 from sunray_tpu_torch.render.gbuffer import (
     _sel3,
     reuse_hit,
@@ -117,7 +118,7 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         f_view=z3, f_throughput=z3,
     )
 
-    def body(c, reuse=None, coherent=True):
+    def body(c, reuse=None, coherent=True, first=False):
         i = c["i"]
         if reuse is not None:
             hit = reuse_hit(*reuse)
@@ -191,6 +192,13 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             contrib = torch.clamp(contrib, max=cfg.nee_contrib_clamp)
             radiance = radiance + torch.where(vis[:, None], contrib, 0.0)
             prev_did_nee = cand
+            if first and cfg.shadow_boundary_grads and cfg.differentiable:
+                # Visibility boundary gradients (render/boundary.py): zero
+                # in the forward pass, the silhouette-edge boundary
+                # integral of this NEE estimator in the backward pass.
+                radiance = radiance + _boundary_term(
+                    cfg, scene, lights, surf.pos, surf.normal, surf.albedo,
+                    nee_lane) * throughput.detach()
 
         # BRDF bounce (ray_gen_final.slang:385-427) for surface lanes that
         # did not trigger ReSTIR.
@@ -270,7 +278,7 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     # 355-362); the looped rounds trace incoherent batches.
     c = bounded_loop(
         lambda c: c["i"] < cfg.bounces and bool(c["active"].any()),
-        lambda c: body(c, reuse=first_hit), c, cfg.differentiable,
+        lambda c: body(c, reuse=first_hit, first=True), c, cfg.differentiable,
         peel=min(1, cfg.bounces),
         loop_body=lambda c: body(c, coherent=False))
     radiance = c["radiance"]
@@ -281,8 +289,28 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             _spatial_reuse, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             c["seed"], c, origins[0], frame_count,
             enabled=cfg.differentiable)
+        if cfg.shadow_boundary_grads and cfg.differentiable:
+            # The ReSTIR DI estimator estimates the same NEE area integral:
+            # the term at the frozen first-rough hits, with the path
+            # throughput (the diffuse integrand, pathtrace.py:371-388).
+            radiance = radiance + _boundary_term(
+                cfg, scene, lights, c["f_pos"], c["f_normal"], c["f_albedo"],
+                c["pending"]) * c["f_throughput"].detach()
     # total_radiance = min(radiance, 10) (ray_gen_final.slang:430-431).
     return torch.clamp(radiance, max=cfg.radiance_clamp), c["i"]
+
+
+def _boundary_term(cfg, scene, lights, pos, normal, albedo, nee_mask):
+    """boundary.nee_boundary_term at these NEE lanes, its activations
+    recomputed in the backward pass (ops/loops.checkpointed)."""
+    if scene.edge_tri is None:
+        raise ValueError(
+            "cfg.shadow_boundary_grads needs scene edge topology — build "
+            "the scene through boundary.with_edge_topology(scene)")
+    return checkpointed(
+        boundary.nee_boundary_term, scene, lights,
+        scene.world_triangle_vertices(), pos, normal, albedo, nee_mask,
+        4, cfg.shadow_boundary_candidates, enabled=cfg.differentiable)
 
 
 def _shared_taps(frame_count, count, radius, salt):

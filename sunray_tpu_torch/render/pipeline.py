@@ -15,8 +15,10 @@ history reads plain or through K13. A differentiable frame
 (cfg.differentiable) runs what the JAX frame runs then: the tracer and
 K8 (forward and backward), and the plain versions of K3-K7, K9 and K13,
 with its stages' activations recomputed in the backward pass
-(ops/loops.py); the shadow-boundary term (cfg.shadow_boundary_grads) is
-not ported. check_supported()
+(ops/loops.py), and the two visibility terms: the shadow-boundary
+gradients (cfg.shadow_boundary_grads, render/boundary.py, dense or with
+B1's top-K candidates) and primary edge antialiasing (cfg.edge_antialias,
+render/antialias.py). check_supported()
 raises NotImplementedError for every other configuration instead of
 rendering something else. The stages run under torch.profiler ranges
 named as the JAX package's named scopes (ris_pass, final_pass, taa,
@@ -32,6 +34,7 @@ from torch.profiler import record_function
 
 from sunray_tpu_torch.ops.cuda_gather import MAX_ROWS
 from sunray_tpu_torch.render import restir
+from sunray_tpu_torch.render.antialias import primary_edge_aa
 from sunray_tpu_torch.render.gbuffer import ris_pass
 from sunray_tpu_torch.render.pathtrace import final_pass
 from sunray_tpu_torch.render.postprocess import (
@@ -86,14 +89,19 @@ def check_supported(scene, cfg) -> None:
     # vertex or material table would fail only in the backward pass.
     table_rows = max(scene.positions.shape[0],
                      scene.materials.base_color.shape[0])
+    # The visibility terms gather from tables of triangles (edge
+    # antialiasing) and edges (the boundary term's candidates) through K8.
+    if cfg.edge_antialias:
+        table_rows = max(table_rows, scene.num_tris)
+    if cfg.shadow_boundary_grads and scene.edge_tri is not None:
+        table_rows = max(table_rows, scene.edge_tri.shape[0])
     unsupported = {
         f"lighting={cfg.lighting!r}": cfg.lighting not in ("restir", "nee",
                                                            "brdf"),
         "textured atlases": not scene.textures.trivial,
-        "edge_antialias": cfg.edge_antialias,
         "samples > 1": cfg.samples != 1,
-        "shadow_boundary_grads": cfg.shadow_boundary_grads,
-        f"differentiable frames above {MAX_ROWS} vertices or materials":
+        f"differentiable frames above {MAX_ROWS} vertices, materials, "
+        "triangles (edge_antialias) or edges (shadow_boundary_grads)":
             cfg.differentiable and table_rows > MAX_ROWS,
         "history_gather_force=True": cfg.history_gather_force is True,
         f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
@@ -139,6 +147,9 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
         )
 
     raw_img = raw.reshape(h, w, 3)
+    if cfg.edge_antialias:
+        raw_img = primary_edge_aa(scene, cfg, tracer, mats, raw_img,
+                                  tri=hitd.first_tri, t_hit=hitd.first_t)
     motion_img = gbuf.motion.reshape(h, w, 2)
     depth = gbuf.depth.reshape(h, w)
     normal = gbuf.normal.reshape(h, w, 3)

@@ -107,14 +107,16 @@ UNCOVERED = {
     "perpixel_taps": dict(lighting="restir", spatial_taps="perpixel"),
     "shading_bf16": dict(lighting="restir", shading_dtype="bf16"),
     "bvh": dict(tracer="bvh"),
-    "edge_antialias": dict(edge_antialias=True),
     "samples": dict(samples=2),
-    # Differentiable frames are ported; their shadow-boundary term is not.
-    "differentiable": dict(differentiable=True, shadow_boundary_grads=True),
     # K8's backward kernel takes up to MAX_ROWS table rows: refused before
     # the forward pass, not at the backward (scene below).
     "differentiable_big_table": dict(differentiable=True),
+    # The shadow-boundary term needs the scene's edge topology
+    # (render/boundary.with_edge_topology); the JAX frame asserts it.
+    "boundary_without_topology": dict(differentiable=True,
+                                      shadow_boundary_grads=True),
 }
+RAISES = {"boundary_without_topology": ValueError}
 
 
 @pytest.mark.parametrize("name", sorted(UNCOVERED) + ["textured_atlas"])
@@ -134,7 +136,7 @@ def test_uncovered_configs_raise(name, frames):
                                         scene.positions[:1].expand(pad, 3)]),
             normals=torch.cat([scene.normals,
                                scene.normals[:1].expand(pad, 3)]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RAISES.get(name, NotImplementedError)):
         render_frame(scene, cfg, RenderState.create(cfg, device="cpu"), frames["mats"])
 
 

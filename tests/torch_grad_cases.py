@@ -49,10 +49,24 @@ GRAD_RTOL = 1e-4
 GRAD_ATOL = 1e-6     # times the largest |gradient| of the parameter
 
 
-def jax_value_and_grads(**kw):
-    """(loss, {param: gradient}) of the JAX frame, as numpy."""
-    cfg = JConfig(**dict(GRAD_KW, **kw))
+def jax_scene(topology=False):
+    """The JAX Cornell box, with its edge topology (boundary.py) when
+    `topology`: the shadow-boundary term needs it."""
     scene = jcornell_box()
+    if topology:
+        from sunray_tpu.render import boundary
+
+        scene = boundary.with_edge_topology(scene)
+    return scene
+
+
+def jax_value_and_grads(topology=False, with_positions_value=False, **kw):
+    """(loss, {param: gradient}) of the JAX frame, as numpy; with
+    `with_positions_value`, also the loss as the positions gradient's
+    compile evaluates it (edge antialiasing rounds a few pixels apart
+    there, tests/test_torch_antialias_frame.py)."""
+    cfg = JConfig(**dict(GRAD_KW, **kw))
+    scene = jax_scene(topology)
     mats = jcamera_matrices(JCamera(**CAMERA), W, H)
 
     def loss(base_color, metallic, positions):
@@ -67,9 +81,11 @@ def jax_value_and_grads(**kw):
             scene.positions)
     value, (g_bc, g_m) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1)))(
         *args)
-    g_pos = jax.jit(jax.grad(loss, argnums=2))(*args)
-    return float(value), {k: np.asarray(g) for k, g in zip(
-        PARAMS, (g_bc, g_m, g_pos))}
+    value_pos, g_pos = jax.jit(jax.value_and_grad(loss, argnums=2))(*args)
+    grads = {k: np.asarray(g) for k, g in zip(PARAMS, (g_bc, g_m, g_pos))}
+    if with_positions_value:
+        return float(value), grads, float(value_pos)
+    return float(value), grads
 
 
 def jax_base_color_grad(jit_with_positions, **kw):
@@ -93,10 +109,15 @@ def jax_base_color_grad(jit_with_positions, **kw):
         return np.asarray(jax.grad(loss)(*args))
 
 
-def port_scene(device="cpu", requires_grad=PARAMS):
+def port_scene(device="cpu", requires_grad=PARAMS, topology=False):
     """The JAX Cornell box in the port, with the named parameters as
-    leaves that require grad. Returns (scene, {param: leaf})."""
+    leaves that require grad, and with the port's own edge topology when
+    `topology`. Returns (scene, {param: leaf})."""
     scene = convert.scene_from_numpy(to_numpy(jcornell_box()), device=device)
+    if topology:
+        from sunray_tpu_torch.render import boundary
+
+        scene = boundary.with_edge_topology(scene)
     mats = scene.materials
     leaves = {"base_color": mats.base_color, "metallic": mats.metallic,
               "positions": scene.positions}
@@ -115,10 +136,10 @@ def port_mats(device="cpu"):
                                     jmats.items()}, device=device)
 
 
-def port_value_and_grads(**kw):
+def port_value_and_grads(topology=False, **kw):
     """(loss, {param: gradient}) of the port's frame on the CPU."""
     cfg = RenderConfig(**dict(GRAD_KW, **kw))
-    scene, leaves = port_scene()
+    scene, leaves = port_scene(topology=topology)
     _, ldr, _ = render_frame(scene, cfg, RenderState.create(cfg, "cpu"),
                              port_mats())
     loss = ldr.mean()
