@@ -141,9 +141,13 @@ Phases, in order; any failure raises and exits non-zero with no result:
      before: K1, K2, K8, K8's backward and B1 (boundary_candidates) must
      launch, K3-K7, K9 and K13 must not; B1 against its plain version on
      that step's own calls (its first-rough hits) and on 921,600 random
-     points, 0 (light, pixel) lanes differing, timed beside its plain
-     version and its bound (the operations its code runs on these
-     inputs); the timed 720p step with both terms (3 warm-up, 10 timed,
+     points, and on 65,536 of them at every K of 1..16 with that table
+     and a random table of 600 edges (above one shared-memory tile), 0
+     (light, pixel) lanes differing, timed beside its plain version and its bound (the
+     operations its code runs on these inputs, the side tests once a
+     (pixel, edge)); K8's backward on every call of that step (the
+     visibility terms' three too, each timed beside its bound); the
+     timed 720p step with both terms (3 warm-up, 10 timed,
      synced): ms, rays and Mray/s by bench.py's count, peak memory (limit
      40 GB), every gradient entry finite, synced stages; AD against
      central differences on tests/test_grads.py's two occluder-translation
@@ -223,11 +227,14 @@ VIS_KW = dict(shadow_boundary_grads=True, shadow_boundary_candidates=8,
               edge_antialias=True)
 VIS_PEAK_GB = 40.0                  # half the card (PERF.md section 2)
 # B1's fp32 operations (csrc/boundary.cu; an fmaf counted as two, a
-# compare, division or sqrtf as one): the two face-side tests of every
-# (pixel, light, edge), one projection test of an endpoint or the
-# midpoint, the score's norm and division, the per-pixel cnum.
+# compare, division or sqrtf as one): the two face-side tests of a
+# (pixel, edge); the difference pt - x of an endpoint or the midpoint;
+# one light's projection test of such a point, up to where it fails
+# (heading, beyond the point, the box); the score's norm and division of
+# a (pixel, edge); the cnum of a (pixel, light).
 B1_SIDE_OPS = 18
-B1_PROJECT_OPS = 26
+B1_DIFF_OPS = 3
+B1_HEAD_OPS, B1_BEYOND_OPS, B1_PROJECT_OPS = 7, 11, 23
 B1_SCORE_OPS = 11
 B1_CNUM_OPS = 8
 # AD against central differences on the card: tests/test_grads.py's
@@ -244,8 +251,9 @@ FD_CASES = {
 }
 # K8's backward, errors over each table row's sum of |ct|: against the
 # plain version's float64 sums, below the first-order bound of the
-# kernel's float32 sums (~600 adds on a row's longest chain at 720p: a
-# group of 32 lanes, ~41 a warp, 4 warps, ~528 blocks; 3.6e-5); and
+# kernel's float32 sums (~130 adds on a row's longest chain at 720p: 44
+# indices a lane, 32 lanes, 8 warps, 16 blocks a group, 16 groups;
+# 7.7e-6); and
 # against its float32 sums (index_add_'s float atomics in one running
 # sum a row, 1.7e-5 off the float64 sums on the 720p step's cotangents).
 K8_BWD_TOL = 1e-5
@@ -2356,22 +2364,17 @@ def capture_bwd_calls(fn):
         cuda_gather.gather_rows_bwd = inner
 
 
-def k8_bwd_row(calls, gen, dev):
-    """K8's backward against its plain version on the 720p step's own
-    cotangents and on 3 x 2,073,600 synthetic indices with out-of-range
-    ones (errors over each table row's sum of |ct|; two runs bit-equal);
-    timed on the step's first call beside index_add_ alone and its bound
-    (ct and idx read once, the table written once)."""
+def k8_bwd_hold(labelled):
+    """K8's backward against its plain version on each (label, (ct, idx,
+    k)): errors over each table row's sum of |ct| against the float64
+    sums (at most K8_BWD_TOL) and against plain's float32 sums (at most
+    K8_BWD_PLAIN_TOL), two runs bit-equal. Returns the worst of each
+    (float64, plain, absolute against plain) and whether every call's two
+    runs were bit-equal."""
     from sunray_tpu_torch.ops import cuda_gather
 
-    n = 1920 * 1080
-    synth = (torch.randn((3, 6, n), generator=gen, device=dev),
-             torch.randint(-8, 80, (3, n), generator=gen, device=dev,
-                           dtype=torch.int32), 72)
     worst, worst_plain, worst_abs, exact = 0.0, 0.0, 0.0, True
-    for label, (ct, idx, k) in ([(f"step call {i}", c)
-                                 for i, c in enumerate(calls)]
-                                + [("synthetic", synth)]):
+    for label, (ct, idx, k) in labelled:
         got = cuda_gather.gather_rows_bwd(ct, idx, k)
         again = cuda_gather.gather_rows_bwd(ct, idx, k)
         want = cuda_gather.gather_rows_bwd_plain(ct, idx, k)
@@ -2397,6 +2400,59 @@ def k8_bwd_row(calls, gen, dev):
     check(worst_plain <= K8_BWD_PLAIN_TOL, f"K8 backward error {worst_plain}"
           f" > {K8_BWD_PLAIN_TOL} against plain")
     check(exact, "K8 backward: two runs differ")
+    return worst, worst_plain, worst_abs, exact
+
+
+def bwd_call_kind(call):
+    """Which gather of the 720p step a K8-backward call (ct, idx, k) comes
+    from, by its shape: the vertex corners (3 index vectors into 72 x 6),
+    the material rows (1 into 4 x 12), or else a visibility term's
+    (edge AA's vertices, the boundary term's edge endpoints)."""
+    ct, idx, k = call
+    if (idx.shape[0], k, ct.shape[1]) == (3, 72, 6):
+        return "corners"
+    if (idx.shape[0], k, ct.shape[1]) == (1, 4, 12):
+        return "materials"
+    return "visibility"
+
+
+def k8_bwd_vis_calls(calls):
+    """The 720p step with both terms: K8's backward against its plain
+    version on each of its calls, the visibility terms' own (bwd_call_kind)
+    each timed beside its bound (ct and idx read once, the table written
+    once). Returns [{shape, ms, bound_ms}] of the visibility calls."""
+    from sunray_tpu_torch.ops import cuda_gather
+
+    k8_bwd_hold([(f"step with both terms, call {i} ({bwd_call_kind(c)})", c)
+                 for i, c in enumerate(calls)])
+    out = []
+    for ct, idx, k in (c for c in calls if bwd_call_kind(c) == "visibility"):
+        entry = dict(
+            shape=[list(idx.shape), k, ct.shape[1]],
+            ms=device_ms(lambda: cuda_gather.gather_rows_bwd(ct, idx, k)),
+            bound_ms=bound(nbytes(ct, idx) + k * ct.shape[1] * 4, 0)[0])
+        log(f"  K8 backward, visibility call {tuple(idx.shape)} into {k} x "
+            f"{ct.shape[1]}: {entry['ms']:.4f} ms, bound "
+            f"{entry['bound_ms']:.4f} ms")
+        out.append(entry)
+    return out
+
+
+def k8_bwd_row(calls, gen, dev):
+    """K8's backward against its plain version on the 720p step's own
+    cotangents and on 3 x 2,073,600 synthetic indices with out-of-range
+    ones (errors over each table row's sum of |ct|; two runs bit-equal);
+    timed on the step's first call beside index_add_ alone and its bound
+    (ct and idx read once, the table written once)."""
+    from sunray_tpu_torch.ops import cuda_gather
+
+    n = 1920 * 1080
+    synth = (torch.randn((3, 6, n), generator=gen, device=dev),
+             torch.randint(-8, 80, (3, n), generator=gen, device=dev,
+                           dtype=torch.int32), 72)
+    worst, worst_plain, worst_abs, exact = k8_bwd_hold(
+        [(f"step call {i}", c) for i, c in enumerate(calls)]
+        + [("synthetic", synth)])
     # The row: the step's first corner call (3 x 921,600 into 72 x 6), the
     # TPU kernel's multi-index backward; its material fetches beside it.
     ct, idx, k = next(call for call in calls if call[1].shape[0] == 3)
@@ -2602,46 +2658,76 @@ def b1_lanes_differing(got, want):
 
 
 def b1_needed_ops(xs, mask, edges, lights, step=1 << 16):
-    """B1's fp32 operations on these inputs as its code decides them: both
-    face-side tests of every (pixel, light, edge) and cnum of every
-    (pixel, light); for a silhouette edge of a pixel in the mask, the
-    projection tests in order (endpoint a, b, midpoint) up to the first
-    that passes, each up to where it fails (heading: 10 operations,
-    beyond the point: 14, the box: 26); the score of an edge that
-    passes."""
+    """B1's fp32 operations on these inputs as its code decides them, each
+    piece counted once for all lights where it does not depend on the
+    light: both face-side tests of every (pixel, edge), as the reference
+    computes its silhouette before its light loop
+    (sunray_tpu/render/boundary.py:164-174, the loop :207); cnum of every
+    (pixel, light); for a silhouette edge of a pixel in the mask, each
+    light's projection tests in order (endpoint a, b, midpoint) up to the
+    first that passes, each up to where it fails, with the point's
+    difference pt - x once for the lights that test it; the score once a
+    (pixel, edge) that passes for any light."""
     from sunray_tpu_torch.ops import cuda_boundary as cb
     from sunray_tpu_torch.ops import fp
 
     p, e_n, l_n = xs.shape[0], edges.shape[0], lights.shape[0]
-    total = l_n * p * (e_n * B1_SIDE_OPS + B1_CNUM_OPS)
-    for light in lights:
-        p0, nl, lo, hi = (light[i:i + 3] for i in (0, 3, 6, 9))
-        for s in range(0, p, step):
-            x = xs[s:s + step]
-            sil, _ = cb.silhouette(x, edges)
-            todo = sil & mask[s:s + step, None]
-            cnum = fp.dot(p0 - x, nl)[:, None]
-            for pt in (edges[:, 0:3], edges[:, 3:6], edges[:, 6:9]):
-                d = pt - x[:, None, :]
+    total = p * e_n * B1_SIDE_OPS + l_n * p * B1_CNUM_OPS
+    for s in range(0, p, step):
+        x = xs[s:s + step]
+        sil, _ = cb.silhouette(x, edges)
+        todo = [sil & mask[s:s + step, None] for _ in range(l_n)]
+        cnum = [fp.dot(light[0:3] - x, light[3:6])[:, None]
+                for light in lights]
+        passed = torch.zeros_like(sil)
+        for pt in (edges[:, 0:3], edges[:, 3:6], edges[:, 6:9]):
+            d = pt - x[:, None, :]
+            tested = torch.zeros_like(sil)
+            for li, light in enumerate(lights):
+                nl, lo, hi = light[3:6], light[6:9], light[9:12]
                 denom = fp.dot(d, nl)
-                heading = denom * cnum > 0.0
-                t_hit = cnum / torch.where(denom.abs() > cb.DENOM_EPS, denom,
-                                           cb.DENOM_EPS)
+                heading = denom * cnum[li] > 0.0
+                t_hit = cnum[li] / torch.where(denom.abs() > cb.DENOM_EPS,
+                                               denom, cb.DENOM_EPS)
                 beyond = heading & (t_hit > cb.BEYOND)
                 y = fp.fma(t_hit[..., None], d, x[:, None, :])
                 ok = beyond & ((y > lo) & (y < hi)).all(dim=-1)
                 ops = torch.where(beyond, B1_PROJECT_OPS,
-                                  torch.where(heading, 14, 10))
-                total += int((ops * todo).sum())
-                total += int((ok & todo).sum()) * B1_SCORE_OPS
-                todo = todo & ~ok
+                                  torch.where(heading, B1_BEYOND_OPS,
+                                              B1_HEAD_OPS))
+                total += int((ops * todo[li]).sum())
+                tested |= todo[li]
+                passed |= ok & todo[li]
+                todo[li] = todo[li] & ~ok
+            total += int(tested.sum()) * B1_DIFF_OPS
+        total += int(passed.sum()) * B1_SCORE_OPS
     return total
+
+
+def random_edge_table(gen, dev, e_n):
+    """An (e_n, EDGE_WORDS) edge table of random geometry in and around
+    the Cornell box: endpoints, unit face normals and points, one face in
+    four edges open."""
+    from sunray_tpu_torch.ops import cuda_boundary
+
+    def pts():
+        return torch.rand((e_n, 3), generator=gen, device=dev) * 2.4 - 0.2
+
+    def unit():
+        v = torch.randn((e_n, 3), generator=gen, device=dev)
+        return v / v.norm(dim=1, keepdim=True)
+
+    has2 = torch.rand((e_n,), generator=gen, device=dev) > 0.25
+    return cuda_boundary.edge_table(pts(), pts(), unit(), pts(), unit(),
+                                    pts(), has2)
 
 
 def b1_row(calls, gen, dev):
     """B1 against its plain version on the 720p step's own calls and on
-    921,600 random points (0 lanes differing), timed on the step's first
-    call beside its plain version and its bound."""
+    921,600 random points, on 65,536 of them for every K it is built for
+    (with the step's table and a random one of more edges than a tile), 0
+    lanes differing; timed on the step's first call beside its
+    plain version and its bound."""
     from sunray_tpu_torch.ops import cuda_boundary
 
     xs0, mask0, edges, lights, k = calls[0]
@@ -2663,13 +2749,29 @@ def b1_row(calls, gen, dev):
             f"pixel max {int(got[1].max())}, mean "
             f"{float(got[1].float().mean()):.3f}; (light, pixel) lanes "
             f"differing from plain {bad}")
+    # Every K, on the first 65,536 random points, with the step's table
+    # and with a random one of more edges than a shared-memory tile.
+    few = tuple(a[:65536] for a in rand[:2])
+    wide = random_edge_table(gen, dev, 2 * cuda_boundary.EDGE_TILE + 88)
+    sweep = {}
+    for table in (edges, wide):
+        for kk in range(1, cuda_boundary.MAX_K + 1):
+            got = cuda_boundary.boundary_candidates(*few, table, lights, kk)
+            want = cuda_boundary.boundary_candidates_plain(*few, table,
+                                                           lights, kk)
+            torch.cuda.synchronize()
+            key = f"{table.shape[0]} edges"
+            sweep[key] = max(sweep.get(key, 0), b1_lanes_differing(got, want))
+    log(f"  B1 at K = 1..{cuda_boundary.MAX_K} on 65,536 random points, "
+        f"(light, pixel) lanes differing at worst: {sweep}")
+    worst = max(worst, *sweep.values())
     check(worst == 0, f"B1: {worst} lanes differ from the plain version")
     args = calls[0]
     l_n = lights.shape[0]
     out_bytes = l_n * n * (4 + k * (4 + 1 + 1))
     ops = b1_needed_ops(*args[:4])
     row = dict(
-        max_abs_err=0.0, lanes_differing=worst,
+        max_abs_err=0.0, lanes_differing=worst, k_sweep=sweep,
         ms=device_ms(lambda: cuda_boundary.boundary_candidates(*args)),
         plain_ms=time_ms(lambda: cuda_boundary.boundary_candidates_plain(
             *args), reps=3),
@@ -2679,9 +2781,9 @@ def b1_row(calls, gen, dev):
         random_ms=device_ms(lambda: cuda_boundary.boundary_candidates(
             *rand)))
     log(f"  B1 at {n} pixels x {l_n} lights x {edges.shape[0]} edges, "
-        f"K={k}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]}; {ops} "
-        f"operations); random set {row['random_ms']:.4f} ms")
+        f"K={k}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+        f"({row['bound'][1]}; {ops} operations); random set "
+        f"{row['random_ms']:.4f} ms")
     return row
 
 
@@ -2799,8 +2901,10 @@ def phase_visibility(dev, gen):
     zero forward at 720p, the launch check of one 720p step with both terms
     (B1's calls captured), B1 against its plain version, the timed 720p
     step (bench.py:128-190's loop: 3 warm-up and 10 timed steps, synced)
-    with its peak memory, and AD against FD. Returns (B1's row with the
-    step's numbers, launches of the launch-check step)."""
+    with its peak memory, and AD against FD; K8's backward on the
+    launch-check step's calls. Returns (B1's row with the step's numbers,
+    launches of the launch-check step, the K8-backward visibility calls'
+    times)."""
     from sunray_tpu_torch.ops import cuda_build, cuda_trace
     from sunray_tpu_torch.render.pipeline import RenderState
 
@@ -2816,8 +2920,9 @@ def phase_visibility(dev, gen):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
-    (state, loss, grads, aux), calls = capture_b1_calls(
-        lambda: diff_step(cfg, scene, leaves, mats, state))
+    ((state, loss, grads, aux), calls), bwd_calls = capture_bwd_calls(
+        lambda: capture_b1_calls(
+            lambda: diff_step(cfg, scene, leaves, mats, state)))
     torch.cuda.synchronize()
     launches = dict(cuda_build.launches)
     log(f"  launches in one step: {launches}")
@@ -2827,8 +2932,12 @@ def phase_visibility(dev, gen):
     for name in DIFF_ABSENT:
         check(launches.get(name, 0) == 0, f"step with both terms: {name} "
               "launched")
+    check(launches["gather_rows_bwd"] == len(bwd_calls),
+          f"step with both terms: K8's backward launched "
+          f"{launches['gather_rows_bwd']} times, {len(bwd_calls)} calls")
     row = b1_row(calls, gen, dev)
-    del calls
+    bwd_vis = k8_bwd_vis_calls(bwd_calls)
+    del calls, bwd_calls
     for _ in range(2):
         state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
     torch.cuda.synchronize()
@@ -2860,7 +2969,7 @@ def phase_visibility(dev, gen):
     row.update(step_ms=step_s * 1e3, step_peak_gb=peak_gb,
                step_mrays=rays / step_s / 1e6, step_stages_ms=stages,
                step_launches=launches, ad_vs_fd=fd)
-    return row, launches
+    return row, launches, bwd_vis
 
 
 def ptxas_registers(report):
@@ -2928,7 +3037,7 @@ def main():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     regs = ptxas_registers(report)
-    from sunray_tpu_torch.ops import cuda_trace
+    from sunray_tpu_torch.ops import cuda_boundary, cuda_gather, cuda_trace
     k1_regs = kernel_registers(regs, "closest_kernel", cuda_trace.CLOSEST_THREADS)
     k5_regs = kernel_registers(regs, "di_spatial_kernel",
                                128)  # csrc/restir.cu kSpatialThreads
@@ -2980,8 +3089,18 @@ def main():
     gen.manual_seed(8)
     kernels["gather_rows_bwd"], diff_launches = phase_diff(dev, gen)
     launches.update({k: diff_launches[k] for k in DIFF_ONLY})
-    kernels["boundary_candidates"], vis_launches = phase_visibility(dev, gen)
+    kernels["boundary_candidates"], vis_launches, bwd_vis = phase_visibility(
+        dev, gen)
     launches.update({k: vis_launches[k] for k in VIS_ONLY})
+    # K8's backward: launches of the step without the terms ("launches")
+    # and with them; registers of the widths the step's calls take.
+    kernels["gather_rows_bwd"].update(
+        vis_calls=bwd_vis, vis_step_launches=vis_launches["gather_rows_bwd"],
+        registers={name: v for w in (6, 9, 12) for name, v in
+                   kernel_registers(regs, f"gather_rows_bwd_kernelILi{w}ELi4EE",
+                                    32 * cuda_gather.BWD_MAX_WARPS).items()})
+    kernels["boundary_candidates"]["registers"] = kernel_registers(
+        regs, "boundary_candidates_kernelILi8E", cuda_boundary.THREADS)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -3012,7 +3131,8 @@ def main():
                     "synthetic_ms", "step_ms", "step_peak_gb", "step_mrays",
                     "step_stages_ms", "checkpoints_off_480x270",
                     "lanes_differing", "needed_ops", "step_launches",
-                    "ad_vs_fd"):
+                    "ad_vs_fd", "k_sweep", "vis_calls",
+                    "vis_step_launches"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

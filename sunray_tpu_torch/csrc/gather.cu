@@ -30,16 +30,38 @@
 // few rows (72 on the Cornell box), so float atomics into global memory
 // would serialise on them.
 //
-// Design, deterministic: each warp walks its slice of the indices 32 at a
-// time. The lanes stage their C values in shared memory; the lowest lane
-// of each group of equal rows (__match_any_sync) sums the group in lane
-// order and adds the sum to its warp's own (K, C) table in shared memory,
-// which no other warp writes. A warp whose lanes hold at most
-// kButterflyRows rows (most warps of camera-coherent lanes) sums each row
-// by a butterfly of shuffles instead, in a fixed order too. A block adds its warps' tables in warp
-// order and writes one (K, C) partial; a second launch adds the blocks'
-// partials in block order. The grid depends only on G * N, so every sum
-// is taken in one fixed order and two runs give the same bits.
+// Design, deterministic (no float atomics; the launch shape is a pure
+// function of G * N, K, C and the SM count, ops/cuda_gather.py
+// bwd_launch_shape, so every sum is taken in one fixed order and two runs
+// give the same bits):
+// - Runs in registers. Each warp walks its own contiguous slice of the
+//   indices kBwdStep at a time; a lane takes kBwdVec consecutive indices
+//   of a step with one 16-byte load of idx and one of each ct column
+//   (kBwdVec loads of one word each where N is not a multiple of kBwdVec
+//   or a pointer is not 16-byte aligned: the same indices a lane, so the
+//   same order of sums). A lane sums the values of equal
+//   consecutive rows in registers across steps, and hands its (row, sums)
+//   to the warp's combine only where its row changes, and at the end of
+//   its slice. Camera-coherent corners and material rows change rows at
+//   triangle edges only.
+// - The warp's combine, into its own (K, W) table in shared memory, which
+//   no other warp writes: lanes whose rows no other flushing lane holds
+//   add their sums directly; else the rows' members are summed by a
+//   butterfly of shuffles (at most kButterflyRows rows) or by the lowest
+//   lane of each row in lane order (__match_any_sync groups).
+// - A block adds its warps' tables in warp order into its (K, C) partial.
+//   The last block of each group of group_blocks blocks to finish (a
+//   ticket after __threadfence) adds its group's partials in block order;
+//   the last group to finish adds the groups' sums in group order into
+//   dtab. One launch; the tickets sit in the call's own buffer, after
+//   the partials, zeroed on the stream ahead of the kernel, so no launch
+//   depends on what an earlier one left. A cluster's distributed shared
+//   memory would give the same order, but needs a cluster launch; the
+//   group sums read 1.7 KB a partial from L2.
+// - Tables wider than kBwdMaxCols columns go in passes of kBwdMaxCols.
+//   The block's warps and blocks an SM follow from K and C (shared memory
+//   a warp: (K + 32) W floats), and an instantiation's dynamic
+//   shared-memory limit is raised once for each larger size, a device.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,127 +85,312 @@ gather_rows_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict
   for (int c = 0; c < n_cols; ++c) o[c * n] = __ldg(row + c);
 }
 
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kMaxRows = 512;
-constexpr int kBwdBlocksPerSm = 4;
-constexpr int kButterflyRows = 4;   // a warp with at most this many rows sums by shuffles
+constexpr int kMaxRows = 512;        // ops/cuda_gather.py MAX_ROWS
+constexpr int kBwdMaxCols = 16;      // columns a pass (MAX_COLS)
+constexpr int kBwdMaxWarps = 8;      // warps a block at most (BWD_MAX_WARPS)
+constexpr int kBwdVec = 4;           // indices a lane a step (BWD_VEC)
+constexpr int kBwdStep = 32 * kBwdVec;   // indices a warp a step (BWD_STEP)
+constexpr int kMaxGroups = 64;       // groups of blocks (BWD_MAX_GROUPS)
+constexpr int kButterflyRows = 4;    // rows a combine sums by shuffles at most
 
-__global__ void __launch_bounds__(kBwdThreads)
-gather_rows_bwd_kernel(const float* __restrict__ ct, const int32_t* __restrict__ idx,
-                       int k_rows, int n_cols, int64_t n, int64_t total, int64_t chunk,
-                       float* __restrict__ partial) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int table = k_rows * n_cols;
-  float* mine = smem + warp * table;                     // this warp's (K, C)
-  float* stage = smem + kBwdWarps * table + warp * 32 * n_cols;   // (32, C)
-  for (int i = lane; i < table; i += 32) mine[i] = 0.0f;
-  __syncwarp();
+// sum over q < count of src[q * stride], in order of q, with up to 8
+// loads from L2 in flight (the partials other blocks wrote).
+__device__ __forceinline__ float ordered_sum(const float* src, int64_t stride, int count) {
+  float a = __ldcg(src);
+  for (int q = 1; q < count; q += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = q + u < count ? __ldcg(src + (q + u) * stride) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (q + u < count) a += v[u];
+  }
+  return a;
+}
 
-  const int64_t begin = static_cast<int64_t>(blockIdx.x) * chunk;
-  const int64_t end = begin + chunk < total ? begin + chunk : total;
-  for (int64_t base = begin + warp * 32; base < end; base += kBwdThreads) {
-    const int64_t j = base + lane;
-    const bool live = j < end;
-    int r = -1;
-    if (live) {
-      r = idx[j];
-      r = r < 0 ? 0 : (r >= k_rows ? k_rows - 1 : r);
-      const int64_t g = j / n;
-      const float* src = ct + g * n_cols * n + (j - g * n);
-      for (int c = 0; c < n_cols; ++c) stage[lane * n_cols + c] = src[c * n];
+__device__ __forceinline__ int clamp_row(int r, int k_rows) {
+  return r < 0 ? 0 : (r >= k_rows ? k_rows - 1 : r);
+}
+
+// One combine round of a warp: each lane with `flush` adds its sums acc
+// of row `row` into the warp's (K, W) table `mine`. Called by all lanes.
+template <int W>
+__device__ __forceinline__ void combine(bool flush, int row, const float (&acc)[W], int cols,
+                                        float* mine, float* stage, int lane) {
+  const int key = flush ? row : -1;
+  const unsigned group = __match_any_sync(0xffffffffu, key);
+  const bool leader = flush && (__ffs(group) - 1) == lane;
+  if (__ballot_sync(0xffffffffu, flush && __popc(group) > 1) == 0) {
+    // Every flushing lane holds its own row.
+    if (flush) {
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        if (c < cols) mine[row * W + c] += acc[c];
     }
-    __syncwarp();
-    const unsigned group = __match_any_sync(0xffffffffu, r);
-    const bool leader = live && (__ffs(group) - 1) == lane;
+  } else {
     const unsigned leaders = __ballot_sync(0xffffffffu, leader);
     if (__popc(leaders) <= kButterflyRows) {
-      // A few rows in the warp (camera-coherent lanes): for each, in lane
-      // order of their leaders, a butterfly sum of each column over the
-      // row's members (zeros from the other lanes), lane 0's in its fixed
-      // order. `leaders` is the same on every lane, so every lane takes
-      // the shuffles.
+      // A few rows: for each, in lane order of their leaders, a butterfly
+      // sum of each column over the row's members (zeros from the other
+      // lanes), lane 0's in its fixed order.
       for (unsigned m = leaders; m; m &= m - 1) {
-        const int row = __shfl_sync(0xffffffffu, r, __ffs(m) - 1);
-        for (int c = 0; c < n_cols; ++c) {
-          float acc = (live && r == row) ? stage[lane * n_cols + c] : 0.0f;
-          for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-          if (lane == 0) mine[row * n_cols + c] += acc;
+        const int r = __shfl_sync(0xffffffffu, row, __ffs(m) - 1);
+        const bool member = flush && row == r;
+#pragma unroll
+        for (int c = 0; c < W; ++c) {
+          float a = member ? acc[c] : 0.0f;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+          if (lane == 0 && c < cols) mine[r * W + c] += a;
         }
       }
-    } else if (leader) {
-      for (int c = 0; c < n_cols; ++c) {
-        float acc = 0.0f;
-        for (unsigned m = group; m; m &= m - 1) acc += stage[(__ffs(m) - 1) * n_cols + c];
-        mine[r * n_cols + c] += acc;
+    } else {
+#pragma unroll
+      for (int c = 0; c < W; ++c) stage[lane * W + c] = acc[c];
+      __syncwarp();
+      if (leader) {
+        for (int c = 0; c < cols; ++c) {
+          float a = 0.0f;
+          for (unsigned m = group; m; m &= m - 1) a += stage[(__ffs(m) - 1) * W + c];
+          mine[row * W + c] += a;
+        }
       }
     }
-    __syncwarp();
   }
-  __syncthreads();
-  float* out = partial + static_cast<int64_t>(blockIdx.x) * table;
-  for (int i = threadIdx.x; i < table; i += kBwdThreads) {
-    float acc = smem[i];
-    for (int w = 1; w < kBwdWarps; ++w) acc += smem[w * table + i];
-    out[i] = acc;
+  __syncwarp();
+}
+
+// Rows and values of the kBwdVec indices a lane takes at flat index j,
+// at (g, nn) of the (G, C, N) cotangent: one 16-byte load of idx and one
+// of each column (V = kBwdVec; j < end, and end - j a multiple of
+// kBwdVec), or a word at a time (V = 1; an index may fall in the next g,
+// and indices at or past `end` read nothing).
+template <int W, int V>
+__device__ __forceinline__ void load_step(const float* __restrict__ ct,
+                                          const int32_t* __restrict__ idx, int64_t j,
+                                          int64_t end, int64_t g, int64_t nn, int64_t n,
+                                          int n_cols, int c0, int cols, int (&r)[kBwdVec],
+                                          float (&v)[kBwdVec][W]) {
+  if constexpr (V == kBwdVec) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(idx + j));
+    r[0] = q.x;
+    r[1] = q.y;
+    r[2] = q.z;
+    r[3] = q.w;
+    const float* src = ct + (g * n_cols + c0) * n + nn;
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (c < cols) f = __ldg(reinterpret_cast<const float4*>(src + c * n));
+      v[0][c] = f.x;
+      v[1][c] = f.y;
+      v[2][c] = f.z;
+      v[3][c] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kBwdVec; ++e) {
+      const bool live = j + e < end;
+      int64_t ge = g, ne = nn + e;
+      while (ne >= n) {
+        ne -= n;
+        ++ge;
+      }
+      const float* src = ct + (ge * n_cols + c0) * n + ne;
+      r[e] = live ? __ldg(idx + j + e) : 0;
+#pragma unroll
+      for (int c = 0; c < W; ++c) v[e][c] = live && c < cols ? __ldg(src + c * n) : 0.0f;
+    }
   }
 }
 
-__global__ void gather_rows_bwd_sum(const float* __restrict__ partial, int table, int blocks,
-                                    float* __restrict__ dtab) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= table) return;
-  float acc = 0.0f;
-  for (int b = 0; b < blocks; ++b) acc += partial[static_cast<int64_t>(b) * table + i];
-  dtab[i] = acc;
+template <int W, int V>
+__global__ void __launch_bounds__(32 * kBwdMaxWarps, 2)
+gather_rows_bwd_kernel(const float* __restrict__ ct, const int32_t* __restrict__ idx,
+                       int k_rows, int n_cols, int64_t n, int64_t total, int64_t warp_chunk,
+                       int group_blocks, float* __restrict__ partial,
+                       unsigned* __restrict__ tickets, float* __restrict__ dtab) {
+  extern __shared__ float smem[];
+  __shared__ bool last;
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int table = k_rows * W;
+  float* mine = smem + warp * (table + 32 * W);     // this warp's (K, W)
+  float* stage = mine + table;                       // (32, W)
+  const int k_c = k_rows * n_cols;
+  float* out = partial + static_cast<int64_t>(blockIdx.x) * k_c;
+
+  const int64_t begin = (static_cast<int64_t>(blockIdx.x) * warps + warp) * warp_chunk;
+  const int64_t end = begin + warp_chunk < total ? begin + warp_chunk : total;
+  for (int c0 = 0; c0 < n_cols; c0 += W) {
+    const int cols = n_cols - c0 < W ? n_cols - c0 : W;
+    for (int i = lane; i < table; i += 32) mine[i] = 0.0f;
+    __syncwarp();
+    int cur = -1;                  // the lane's row, -1 before its first index
+    float acc[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+    int64_t j = begin + lane * kBwdVec;
+    int64_t g = j / n;
+    int64_t nn = j - g * n;
+    for (int64_t s = begin; s < end; s += kBwdStep) {
+      int r[kBwdVec];
+      float v[kBwdVec][W];
+      if (V == 1 || j < end) load_step<W, V>(ct, idx, j, end, g, nn, n, n_cols, c0, cols, r, v);
+#pragma unroll
+      for (int e = 0; e < kBwdVec; ++e) {
+        const bool live = V == kBwdVec ? j < end : j + e < end;
+        const int row = live ? clamp_row(r[e], k_rows) : cur;
+        const bool change = live && row != cur;
+        const bool flush = change && cur >= 0;
+        if (__any_sync(0xffffffffu, flush)) combine<W>(flush, cur, acc, cols, mine, stage, lane);
+        if (change) {
+          cur = row;
+#pragma unroll
+          for (int c = 0; c < W; ++c) acc[c] = v[e][c];
+        } else if (live) {
+#pragma unroll
+          for (int c = 0; c < W; ++c) acc[c] += v[e][c];
+        }
+      }
+      j += kBwdStep;
+      nn += kBwdStep;
+      while (nn >= n) {
+        nn -= n;
+        ++g;
+      }
+    }
+    if (__any_sync(0xffffffffu, cur >= 0)) combine<W>(cur >= 0, cur, acc, cols, mine, stage, lane);
+    __syncthreads();
+    // The block's partial: its warps' tables in warp order.
+    for (int i = threadIdx.x; i < k_rows * cols; i += blockDim.x) {
+      const int row = i / cols, c = i - row * cols;
+      float a = smem[row * W + c];
+      for (int w = 1; w < warps; ++w) a += smem[w * (table + 32 * W) + row * W + c];
+      out[row * n_cols + c0 + c] = a;
+    }
+    __syncthreads();
+  }
+
+  // The group's last block adds its group's partials, the last group the
+  // groups' sums, each in a fixed order.
+  const int blocks = gridDim.x;
+  const int groups = (blocks + group_blocks - 1) / group_blocks;
+  const int grp = blockIdx.x / group_blocks;
+  const int first = grp * group_blocks;
+  const int count = blocks - first < group_blocks ? blocks - first : group_blocks;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&tickets[grp], 1u) == static_cast<unsigned>(count - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* gsum = groups == 1 ? dtab : partial + static_cast<int64_t>(blocks + grp) * k_c;
+  for (int i = threadIdx.x; i < k_c; i += blockDim.x)
+    gsum[i] = ordered_sum(partial + static_cast<int64_t>(first) * k_c + i, k_c, count);
+  if (groups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&tickets[groups], 1u) == static_cast<unsigned>(groups - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* sums = partial + static_cast<int64_t>(blocks) * k_c;
+  for (int i = threadIdx.x; i < k_c; i += blockDim.x) dtab[i] = ordered_sum(sums + i, k_c, groups);
+}
+
+// The instantiation for (w, vec), its dynamic shared-memory limit raised
+// once for each larger size it is launched with.
+template <int W, int V>
+cudaError_t launch_bwd(int w, dim3 grid, dim3 block, size_t smem, cudaStream_t s,
+                       const float* ct, const int32_t* idx, int k_rows, int n_cols, int64_t n,
+                       int64_t total, int64_t warp_chunk, int group_blocks, float* partial,
+                       unsigned* tickets, float* dtab) {
+  if constexpr (W > kBwdMaxCols) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (w != W)
+      return launch_bwd<W + 1, V>(w, grid, block, smem, s, ct, idx, k_rows, n_cols, n, total,
+                                  warp_chunk, group_blocks, partial, tickets, dtab);
+    // The largest dynamic shared memory set so far for this instantiation,
+    // a device.
+    static size_t raised[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    if (smem > 48 * 1024 && smem > raised[dev]) {
+      err = cudaFuncSetAttribute(gather_rows_bwd_kernel<W, V>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) {
+        cudaGetLastError();   // not left behind for the next launch to report
+        return err;
+      }
+      raised[dev] = smem;
+    }
+    gather_rows_bwd_kernel<W, V><<<grid, block, smem, s>>>(ct, idx, k_rows, n_cols, n, total,
+                                                           warp_chunk, group_blocks, partial,
+                                                           tickets, dtab);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
 
-// The (blocks, chunk) of gather_rows_bwd for G * N = total indices, and
-// the bytes of its partial sums: the caller allocates them.
-extern "C" int sunray_gather_rows_bwd_shape(int64_t total, int k_rows, int n_cols,
-                                            int64_t* out) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t max_blocks = static_cast<int64_t>(sms) * kBwdBlocksPerSm;
-  int64_t chunk = (total + max_blocks - 1) / max_blocks;
-  chunk = (chunk + kBwdThreads - 1) / kBwdThreads * kBwdThreads;
-  if (chunk < kBwdThreads) chunk = kBwdThreads;
-  out[0] = total > 0 ? (total + chunk - 1) / chunk : 0;
-  out[1] = chunk;
-  out[2] = out[0] * k_rows * n_cols * static_cast<int64_t>(sizeof(float));
+// {kMaxRows, kBwdMaxCols, kBwdMaxWarps, kBwdVec, kMaxGroups}:
+// ops/cuda_gather.py models them (bwd_launch_shape) and cuda_build checks
+// them at load.
+extern "C" int sunray_gather_bwd_launch_shape(int* out) {
+  out[0] = kMaxRows;
+  out[1] = kBwdMaxCols;
+  out[2] = kBwdMaxWarps;
+  out[3] = kBwdVec;
+  out[4] = kMaxGroups;
   return 0;
 }
 
+// gather_rows_bwd with the launch shape of ops/cuda_gather.py
+// bwd_launch_shape: `blocks` blocks of `warps` warps, each warp
+// warp_chunk indices (a multiple of kBwdStep), groups of group_blocks
+// blocks; vec = kBwdVec (N a multiple of it, ct and idx 16-byte aligned)
+// or 1. partial holds (blocks + groups) K x C floats, then groups + 1
+// words for the tickets, which this call zeroes.
 extern "C" int sunray_gather_rows_bwd(const float* ct, const int32_t* idx, int k_rows,
-                                      int n_cols, int64_t n_groups, int64_t n,
-                                      int64_t blocks, int64_t chunk, float* partial,
-                                      float* dtab, void* stream) {
-  if (k_rows < 1 || k_rows > kMaxRows || n_cols < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                      int n_cols, int64_t n_groups, int64_t n, int vec,
+                                      int warps, int64_t blocks, int64_t warp_chunk,
+                                      int group_blocks, float* partial, float* dtab,
+                                      void* stream) {
   const int64_t total = n_groups * n;
-  const int table = k_rows * n_cols;
   auto s = static_cast<cudaStream_t>(stream);
+  if (k_rows < 1 || k_rows > kMaxRows || n_cols < 1 || warps < 1 || warps > kBwdMaxWarps ||
+      blocks < 0 || group_blocks < 1 || (blocks + group_blocks - 1) / group_blocks > kMaxGroups ||
+      warp_chunk % kBwdStep != 0 || blocks * warps * warp_chunk < total ||
+      (vec != 1 && vec != kBwdVec) ||
+      (vec == kBwdVec && (n % kBwdVec != 0 || reinterpret_cast<uintptr_t>(ct) % 16 != 0 ||
+                          reinterpret_cast<uintptr_t>(idx) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) {
-    cudaMemsetAsync(dtab, 0, sizeof(float) * table, s);
+    cudaMemsetAsync(dtab, 0, sizeof(float) * k_rows * n_cols, s);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = sizeof(float) * kBwdWarps * (table + 32 * n_cols);
-  cudaError_t err = cudaFuncSetAttribute(gather_rows_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gather_rows_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, s>>>(
-      ct, idx, k_rows, n_cols, n, total, chunk, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gather_rows_bwd_sum<<<(table + 127) / 128, 128, 0, s>>>(partial, table,
-                                                          static_cast<int>(blocks), dtab);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t groups = (blocks + group_blocks - 1) / group_blocks;
+  unsigned* tickets = reinterpret_cast<unsigned*>(partial + (blocks + groups) * k_rows * n_cols);
+  if (cudaMemsetAsync(tickets, 0, sizeof(unsigned) * (groups + 1), s) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  const int w = n_cols < kBwdMaxCols ? n_cols : kBwdMaxCols;
+  const size_t smem = sizeof(float) * warps * (static_cast<size_t>(k_rows) + 32) * w;
+  const dim3 grid(static_cast<unsigned>(blocks)), block(32 * warps);
+  const cudaError_t err =
+      vec == kBwdVec
+          ? launch_bwd<1, kBwdVec>(w, grid, block, smem, s, ct, idx, k_rows, n_cols, n, total,
+                                   warp_chunk, group_blocks, partial, tickets, dtab)
+          : launch_bwd<1, 1>(w, grid, block, smem, s, ct, idx, k_rows, n_cols, n, total,
+                             warp_chunk, group_blocks, partial, tickets, dtab);
+  return static_cast<int>(err);
 }
 
 extern "C" int sunray_gather_rows(const void* table, const int32_t* idx, int k_rows,

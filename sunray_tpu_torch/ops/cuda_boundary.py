@@ -22,6 +22,11 @@ tensor takes it, a CUDA tensor the kernel.
 edges is the (E, EDGE_WORDS) table of edge_table and lights the
 (L, LIGHT_WORDS) table of light_table: both are built here in PyTorch,
 once a call, so kernel and plain version read the same derived values.
+
+The kernel is instantiated for every K from 1 to MAX_K (kernel_k),
+stages the edge table in shared memory EDGE_TILE edges at a time, covers
+LIGHT_GROUP lights of a pixel in a thread, and reads the lights from
+constant memory, CONST_LIGHTS a launch (launches_for).
 """
 
 from __future__ import annotations
@@ -33,7 +38,15 @@ from sunray_tpu_torch.ops.fp import cross, dot, fma, sqrt
 
 EDGE_WORDS = 24     # csrc/boundary.cu kEdgeWords
 LIGHT_WORDS = 12    # csrc/boundary.cu kLightWords
-MAX_K = 16          # csrc/boundary.cu kMaxK
+# csrc/boundary.cu's launch shape (sunray_boundary_launch_shape; checked
+# when the library loads): threads a block, lights a thread, the largest
+# K, edges a shared-memory tile, lights a launch.
+THREADS = 128
+LIGHT_GROUP = 2
+MAX_K = 16
+EDGE_TILE = 256
+CONST_LIGHTS = 1024
+LAUNCH_SHAPE = (THREADS, LIGHT_GROUP, MAX_K, EDGE_TILE, CONST_LIGHTS)
 PLAIN_CHUNK = 1 << 16   # pixels a step of the plain version (memory)
 
 # float32 constants of the reference's comparisons.
@@ -160,10 +173,22 @@ def boundary_candidates(xs, nee_mask, edges, lights, k):
     for t in (xs, edges, lights):
         cuda_build.require_dtype(name, t, torch.float32)
     cuda_build.require_dtype(name, nee_mask, torch.bool)
-    if k > MAX_K:
-        raise cuda_build.KernelError(f"{name}: k = {k}, the kernel keeps at "
-                                     f"most {MAX_K}")
+    kernel_k(k)
     return _launch(xs, nee_mask, edges, lights, k)
+
+
+def kernel_k(k):
+    """The K of the kernel instantiation that keeps k candidates (each of
+    1..MAX_K has its own); raises for any other k."""
+    if not 1 <= k <= MAX_K:
+        raise cuda_build.KernelError(f"boundary_candidates: k = {k}, the "
+                                     f"kernel is built for 1 to {MAX_K}")
+    return k
+
+
+def launches_for(l_n):
+    """Kernel launches of one call with l_n lights: CONST_LIGHTS a launch."""
+    return -(-l_n // CONST_LIGHTS)
 
 
 def _launch(xs, nee_mask, edges, lights, k, lib=None):
@@ -181,6 +206,6 @@ def _launch(xs, nee_mask, edges, lights, k, lib=None):
         lights.data_ptr(), l_n, p, k, idx.data_ptr(), n_live.data_ptr(),
         sil.data_ptr(), face2.data_ptr(), cuda_build.stream_ptr())
     cuda_build.check_launch("boundary_candidates", err)
-    if lib is None:
-        cuda_build.launches["boundary_candidates"] += 1
+    if lib is None and p > 0:
+        cuda_build.launches["boundary_candidates"] += launches_for(l_n)
     return idx, n_live, sil, face2

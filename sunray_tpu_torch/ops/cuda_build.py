@@ -122,8 +122,9 @@ def _signatures():
                                  p, p, p, p, p, p],
         "sunray_trace_occluded": [p, p, p, f, p, f, p, p, p, p, i, i, p, p],
         "sunray_gather_rows": [p, p, i, i, i64, i64, p, p],
-        "sunray_gather_rows_bwd": [p, p, i, i, i64, i64, i64, i64, p, p, p],
-        "sunray_gather_rows_bwd_shape": [i64, i, i, ctypes.POINTER(i64)],
+        "sunray_gather_rows_bwd": [p, p, i, i, i64, i64, i, i, i64, i64, i,
+                                   p, p, p],
+        "sunray_gather_bwd_launch_shape": [ctypes.POINTER(i)],
         "sunray_atrous_pass": [p, p, p, p, p, i, i, i, p, p],
         "sunray_ris_audition": [p, i, p, p, p, p, p, p, p, p, p, i, i,
                                 p, p, p, p, p, p, p, p],
@@ -151,6 +152,7 @@ def _signatures():
         "sunray_closest_launch_shape": [ctypes.POINTER(i)],
         "sunray_ris_launch_shape": [ctypes.POINTER(i)],
         "sunray_atrous_tile_shape": [ctypes.POINTER(i)],
+        "sunray_boundary_launch_shape": [ctypes.POINTER(i)],
     }
 
 
@@ -177,7 +179,8 @@ def launch_shape(lib, name: str, n: int) -> tuple[int, ...]:
 def _check_launch_shapes(lib) -> None:
     """The host's copies of the kernels' launch shapes, which the CPU models
     of the kernels and chip_smoke.py's counts read, must be the library's."""
-    from sunray_tpu_torch.ops import cuda_image, cuda_restir, cuda_trace
+    from sunray_tpu_torch.ops import (cuda_boundary, cuda_gather, cuda_image,
+                                      cuda_restir, cuda_trace)
 
     for name, want in (
             ("sunray_woop_launch_shape",
@@ -190,7 +193,9 @@ def _check_launch_shapes(lib) -> None:
               cuda_trace.CLOSEST_WIDE_MIN)),
             ("sunray_ris_launch_shape", (cuda_restir.RIS_SMEM_LIGHTS,)),
             ("sunray_atrous_tile_shape",
-             (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO))):
+             (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO)),
+            ("sunray_boundary_launch_shape", cuda_boundary.LAUNCH_SHAPE),
+            ("sunray_gather_bwd_launch_shape", cuda_gather.BWD_LAUNCH_SHAPE)):
         got = launch_shape(lib, name, len(want))
         if got != want:
             raise KernelError(f"{name}: the library launches {got}, the host "

@@ -24,14 +24,29 @@ gradient.
 
 from __future__ import annotations
 
-import ctypes
+import math
 
 import torch
 
 from sunray_tpu_torch.ops import cuda_build
 
 _DTYPES = (torch.float32, torch.int32)
-MAX_ROWS = 512   # csrc/gather.cu kMaxRows: the backward's table bound
+# csrc/gather.cu's backward launch shape (sunray_gather_bwd_launch_shape;
+# checked when the library loads): the most rows, columns a pass, warps a
+# block, indices a lane a step, groups of blocks.
+MAX_ROWS = 512
+MAX_COLS = 16
+BWD_MAX_WARPS = 8
+BWD_VEC = 4
+BWD_MAX_GROUPS = 64
+BWD_LAUNCH_SHAPE = (MAX_ROWS, MAX_COLS, BWD_MAX_WARPS, BWD_VEC,
+                    BWD_MAX_GROUPS)
+BWD_STEP = 32 * BWD_VEC         # indices a warp a step
+BWD_BLOCKS_SM = 2               # blocks an SM at most (__launch_bounds__)
+# An H100's shared memory: a block may take 227 KB, an SM holds 228 KB and
+# keeps 1 KB of it for each resident block.
+SMEM_BLOCK = 227 * 1024
+SMEM_SM = 228 * 1024
 
 
 def gather_rows_plain(table, idx):
@@ -73,22 +88,77 @@ def gather_rows_bwd(ct, idx, k):
     return _launch_bwd(ct, idx, k)
 
 
+def bwd_launch_shape(total, k, c, sms):
+    """gather_rows_bwd's launch for total = G * N indices into a (k, c)
+    table on a card of `sms` SMs: {"warps": warps a block, "blocks",
+    "warp_chunk": indices a warp (a multiple of BWD_STEP), "group_blocks":
+    blocks a group, "groups", "smem": dynamic shared memory a block,
+    bytes}. A pure function of its arguments, so two runs on one card sum
+    in one order. Each warp holds a (k, w) table and a (32, w) staging
+    row, w = min(c, MAX_COLS); the block takes as many warps as shared
+    memory allows up to BWD_MAX_WARPS, an SM up to BWD_BLOCKS_SM blocks,
+    the indices cut in equal slices of whole steps (BWD_STEP indices) over
+    every SM's blocks, and no block left without an index (the last
+    block's last warps may find none)."""
+    if not (1 <= k <= MAX_ROWS and c >= 1 and sms >= 1 and total >= 0):
+        raise cuda_build.KernelError(
+            f"gather_rows_bwd: no launch for {total} indices into {k} x {c} "
+            f"on {sms} SMs")
+    w = min(c, MAX_COLS)
+    warp_bytes = 4 * (k + 32) * w
+    warps = min(BWD_MAX_WARPS, SMEM_BLOCK // warp_bytes)
+    smem = warps * warp_bytes
+    per_sm = max(1, min(BWD_BLOCKS_SM, SMEM_SM // (smem + 1024)))
+    steps = -(-total // BWD_STEP)
+    blocks = min(sms * per_sm, BWD_MAX_GROUPS ** 2, -(-steps // warps))
+    if blocks == 0:
+        return dict(warps=warps, blocks=0, warp_chunk=BWD_STEP,
+                    group_blocks=1, groups=0, smem=smem)
+    warp_chunk = -(-steps // (blocks * warps)) * BWD_STEP
+    blocks = -(-total // (warps * warp_chunk))       # none without an index
+    group_blocks = math.isqrt(blocks - 1) + 1          # ceil(sqrt(blocks))
+    return dict(warps=warps, blocks=blocks, warp_chunk=warp_chunk,
+                group_blocks=group_blocks, groups=-(-blocks // group_blocks),
+                smem=smem)
+
+
+def bwd_vec(ct, idx):
+    """The width of a lane's loads: BWD_VEC (one 16-byte load of idx and
+    of each column a step) where N is a multiple of it and both tensors
+    start on 16 bytes, else 1 (a word at a time). A lane takes BWD_VEC
+    consecutive indices a step either way, so the sums' order does not
+    depend on where the tensors lie."""
+    aligned = ct.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
+    return BWD_VEC if ct.shape[2] % BWD_VEC == 0 and aligned else 1
+
+
+_SMS = {}
+
+
+def _sm_count(dev):
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def _launch_bwd(ct, idx, k, lib=None):
     """gather_rows_bwd once on checked arguments, from `lib` (default: the
     port's library, whose launches are counted)."""
     name = "gather_rows_bwd"
     g, c, n = ct.shape
     kernels = cuda_build.library() if lib is None else lib
-    shape = (ctypes.c_int64 * 3)()
-    cuda_build.check_launch(name, kernels.sunray_gather_rows_bwd_shape(
-        g * n, k, c, shape))
-    blocks, chunk, _ = shape
-    partial = torch.empty((max(blocks, 1), k, c), dtype=torch.float32,
-                          device=ct.device)
+    shape = bwd_launch_shape(g * n, k, c, _sm_count(ct.device))
+    # The blocks' and groups' (k, c) partials, then the groups' tickets and
+    # the last group's (zeroed by the call).
+    partial = torch.empty(((shape["blocks"] + shape["groups"]) * k * c
+                           + shape["groups"] + 1,),
+                          dtype=torch.float32, device=ct.device)
     dtab = torch.empty((k, c), dtype=torch.float32, device=ct.device)
     err = kernels.sunray_gather_rows_bwd(
-        ct.data_ptr(), idx.data_ptr(), k, c, g, n, blocks, chunk,
-        partial.data_ptr(), dtab.data_ptr(), cuda_build.stream_ptr())
+        ct.data_ptr(), idx.data_ptr(), k, c, g, n, bwd_vec(ct, idx),
+        shape["warps"], shape["blocks"], shape["warp_chunk"],
+        shape["group_blocks"], partial.data_ptr(), dtab.data_ptr(),
+        cuda_build.stream_ptr())
     cuda_build.check_launch(name, err)
     if lib is None:
         cuda_build.launches[name] += 1

@@ -1,9 +1,11 @@
 """PyTorch port on the card, the visibility gradients: B1
 (boundary_candidates, csrc/boundary.cu) against its plain version on
 every lane (edge indices, live counts, silhouette flags, side-reference
-faces), and the differentiable frames with both visibility terms on the
-card against the CPU. Skipped where there is no CUDA device; imports no
-JAX:
+faces) for every K it is built for, on tables of more edges than a
+shared-memory tile, with an odd light count and more lights than a
+launch takes; and the differentiable
+frames with both visibility terms on the card against the CPU. Skipped
+where there is no CUDA device; imports no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_boundary_cuda.py -q
 """
@@ -13,6 +15,7 @@ import dataclasses
 import pytest
 import torch
 
+import chip_smoke
 from sunray_tpu_torch.camera import Camera, camera_matrices
 from sunray_tpu_torch.config import RenderConfig
 from sunray_tpu_torch.ops import cuda_boundary, cuda_build
@@ -52,6 +55,74 @@ def test_candidates_match_plain(cuda_device, name, p, k):
         assert torch.equal(a, b), what
     if p >= 1000:       # enough random points for a live candidate
         assert int(got[1].max()) > 0
+
+
+def _random_points(dev, p, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    xs = torch.rand((p, 3), generator=g, device=dev) * 2.2 - 0.1
+    return xs, torch.rand((p,), generator=g, device=dev) > 0.1
+
+
+def _random_edges(dev, e_n, seed):
+    """chip_smoke's random edge table: geometry in and around the box, one
+    edge in four open."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return chip_smoke.random_edge_table(g, dev, e_n)
+
+
+def _assert_plain(got, want):
+    for a, b, what in zip(got, want, ("idx", "n_live", "sil", "face2")):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("k", range(1, cuda_boundary.MAX_K + 1))
+def test_every_k(cuda_device, k):
+    table, lt = _tables(boundary.with_edge_topology(
+        cornell_box(device=cuda_device)))
+    xs, mask = _random_points(cuda_device, 20011, k)
+    cuda_build.launches.clear()
+    got = cuda_boundary.boundary_candidates(xs, mask, table, lt, k)
+    assert cuda_build.launches["boundary_candidates"] == 1
+    want = cuda_boundary.boundary_candidates_plain(xs, mask, table, lt, k)
+    torch.cuda.synchronize()
+    _assert_plain(got, want)
+    assert int(got[1].max()) > 0
+
+
+@pytest.mark.parametrize("e_n,k", [(cuda_boundary.EDGE_TILE + 1, 16),
+                                   (2 * cuda_boundary.EDGE_TILE + 88, 8),
+                                   (2 * cuda_boundary.EDGE_TILE + 88, 1)])
+def test_tables_above_one_tile(cuda_device, e_n, k):
+    _, lt = _tables(boundary.with_edge_topology(
+        cornell_box(device=cuda_device)))
+    table = _random_edges(cuda_device, e_n, e_n + k)
+    xs, mask = _random_points(cuda_device, 30000, k)
+    got = cuda_boundary.boundary_candidates(xs, mask, table, lt, k)
+    want = cuda_boundary.boundary_candidates_plain(xs, mask, table, lt, k)
+    torch.cuda.synchronize()
+    _assert_plain(got, want)
+    assert int(got[1].max()) > 0
+
+
+@pytest.mark.parametrize("l_n", [1, 3, cuda_boundary.CONST_LIGHTS + 3])
+def test_light_groups_and_launches(cuda_device, l_n):
+    """An odd light count (a group of one) and more lights than a launch
+    holds (two launches)."""
+    table, lt = _tables(boundary.with_edge_topology(
+        cornell_box(device=cuda_device)))
+    lights = lt[torch.arange(l_n, device=cuda_device) % lt.shape[0]]
+    lights = lights + 0.01 * torch.arange(l_n, device=cuda_device)[:, None]
+    xs, mask = _random_points(cuda_device, 1003, l_n)
+    cuda_build.launches.clear()
+    got = cuda_boundary.boundary_candidates(xs, mask, table, lights, 8)
+    assert cuda_build.launches["boundary_candidates"] == \
+        cuda_boundary.launches_for(l_n)
+    want = cuda_boundary.boundary_candidates_plain(xs, mask, table, lights, 8)
+    torch.cuda.synchronize()
+    _assert_plain(got, want)
 
 
 def test_candidates_refuse_k_past_the_kernels_bound(cuda_device):

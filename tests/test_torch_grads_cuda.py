@@ -1,5 +1,8 @@
 """PyTorch port on the card, the differentiable slice: K8's backward kernel
-(gather_rows_bwd) against its plain version (index_add_), deterministic;
+(gather_rows_bwd) against its plain version (index_add_), deterministic,
+at 1 and 512 rows, on slices that cross block and group boundaries, N
+not a multiple of a lane's 4 indices (and a cotangent off 16 bytes: one
+index a lane), warps of more than 4 rows, tables wider than a pass;
 the K7 and K9 autograd Functions (kernel forward, plain VJP backward);
 and the differentiable ReSTIR frame on the card against the CPU. Skipped
 where there is no CUDA device; imports no JAX:
@@ -51,6 +54,65 @@ def test_gather_backward_kernel_matches_plain(k, c, g, cuda_device):
     assert cuda_build.launches["gather_rows_bwd"] == 2
     assert torch.equal(got, again)
     assert bool(((got - want).abs() <= 1e-6 * scale).all())
+
+
+def _held(ct, idx, k):
+    """gather_rows_bwd within 1e-6 of each row's sum of |ct| of the
+    float64 sums, and two runs bit-equal."""
+    got = cuda_gather.gather_rows_bwd(ct, idx, k)
+    again = cuda_gather.gather_rows_bwd(ct, idx, k)
+    want = cuda_gather.gather_rows_bwd_plain(ct.double(), idx, k)
+    scale = cuda_gather.gather_rows_bwd_plain(ct.abs().double(), idx, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(((got.double() - want).abs() <= 1e-6 * scale + 1e-30).all())
+    return got
+
+
+@pytest.mark.parametrize("k,c,g,nidx", [
+    (1, 6, 3, 100_000),          # one row: every lane's run the same
+    (512, 6, 3, 200_004),        # the largest table
+    (512, 16, 1, 65_536),        # the largest table a pass holds
+    (40, 20, 2, 30_004),         # two passes of columns
+    (72, 6, 3, 921_600),         # the 720p corners' shape
+    (4, 12, 1, 921_601),         # N not a multiple of 4: one index a lane
+    (72, 9, 1, 1_000),           # one block
+])
+def test_gather_backward_shapes(k, c, g, nidx, cuda_device):
+    ct, idx = _bwd_case(k, c, g, nidx, cuda_device, seed=k + c)
+    shape = cuda_gather.bwd_launch_shape(g * nidx, k, c,
+                                         cuda_gather._sm_count(cuda_device))
+    assert shape["blocks"] * shape["warps"] * shape["warp_chunk"] >= g * nidx
+    assert cuda_gather.bwd_vec(ct, idx) == (4 if nidx % 4 == 0 else 1)
+    _held(ct, idx, k)
+
+
+def test_gather_backward_coherent_runs(cuda_device):
+    """Runs of one row that cross lanes, warps, blocks and groups (camera-
+    coherent indices: a row every 997 indices), with some rows changing
+    inside a lane's 4 indices; and random rows (warps of more than 4
+    rows); each bit-equal across runs, within 1e-6 of the float64 sums."""
+    n = 3 * 640_000
+    ramp = torch.arange(n, device=cuda_device, dtype=torch.int32)
+    idx = (ramp // 997 % 72).reshape(3, -1).contiguous()
+    ct = torch.randn((3, 6, n // 3), device=cuda_device)
+    _held(ct, idx, 72)
+    rand = torch.randint(-3, 75, (3, n // 3), device=cuda_device,
+                         dtype=torch.int32)
+    _held(ct, rand, 72)
+
+
+def test_gather_backward_unaligned_cotangent(cuda_device):
+    """A cotangent 4 bytes off 16: loads a word at a time, the same
+    indices a lane, the same bits."""
+    ct, idx = _bwd_case(72, 6, 3, 50_000, cuda_device, seed=5)
+    off = torch.empty(ct.numel() + 1, device=cuda_device)[1:].view_as(ct)
+    off.copy_(ct)
+    assert cuda_gather.bwd_vec(off, idx) == 1
+    assert cuda_gather.bwd_vec(ct, idx) == 4
+    got = _held(off, idx, 72)
+    want = _held(ct, idx, 72)
+    assert torch.equal(got, want)
 
 
 def test_gather_backward_kernel_edges(cuda_device):

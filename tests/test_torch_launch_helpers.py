@@ -1,15 +1,19 @@
 """The host side of the kernel launches, on the CPU with stand-in libraries.
 
-K14's, K2's, K1's, K3's and K7's launch shapes: the host's copies
-(cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS, OCC_THREADS, OCC_WIDE_MIN,
-CLOSEST_RAYS, CLOSEST_THREADS, CLOSEST_WIDE_MIN;
-cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
-ATROUS_HALO), which the CPU models of the kernels, the tests' table sizes
-and chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
-csrc/restir.cu and csrc/atrous.cu, and cuda_build refuses a library whose
-shape queries report another shape. The launch helpers that the
-before/after tools call with another build's library (K13, K14, K2, K1,
-K3, K5, K7) count a launch of the port's own library and no other."""
+K14's, K2's, K1's, K3's, K7's, B1's and K8's backward's launch shapes:
+the host's copies (cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS,
+OCC_THREADS, OCC_WIDE_MIN, CLOSEST_RAYS, CLOSEST_THREADS,
+CLOSEST_WIDE_MIN; cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
+ATROUS_HALO; cuda_boundary.LAUNCH_SHAPE; cuda_gather.BWD_LAUNCH_SHAPE),
+which the CPU models of the kernels, the tests' table sizes and
+chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
+csrc/restir.cu, csrc/atrous.cu, csrc/boundary.cu and csrc/gather.cu, and
+cuda_build refuses a library whose shape queries report another shape.
+B1's K dispatch (every K of 1..MAX_K, nothing else); K8's backward's
+launch shape as a pure function of (G * N, K,
+C, SMs). The launch helpers that the before/after tools call with
+another build's library (K13, K14, K2, K1, K3, K5, K7, B1, K8's
+backward) count a launch of the port's own library and no other."""
 
 import re
 
@@ -17,8 +21,9 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one torch thread, as every port test)
-from sunray_tpu_torch.ops import (cuda_build, cuda_history, cuda_image,
-                                  cuda_restir, cuda_trace)
+from sunray_tpu_torch.ops import (cuda_boundary, cuda_build, cuda_gather,
+                                  cuda_history, cuda_image, cuda_restir,
+                                  cuda_trace)
 
 SHAPES = {
     "sunray_woop_launch_shape": (
@@ -36,6 +41,14 @@ SHAPES = {
     "sunray_atrous_tile_shape": (
         "atrous.cu", ("kTileX", "kTileY", "kHalo"),
         (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO)),
+    "sunray_boundary_launch_shape": (
+        "boundary.cu", ("kThreads", "kLightGroup", "kMaxK", "kEdgeTile",
+                        "kConstLights"),
+        cuda_boundary.LAUNCH_SHAPE),
+    "sunray_gather_bwd_launch_shape": (
+        "gather.cu", ("kMaxRows", "kBwdMaxCols", "kBwdMaxWarps", "kBwdVec",
+                      "kMaxGroups"),
+        cuda_gather.BWD_LAUNCH_SHAPE),
 }
 
 
@@ -124,10 +137,18 @@ def _launch(name):
             torch.zeros((5,), dtype=torch.int64), rays, rays, rays, rays,
             torch.zeros((5,)), torch.zeros((5,)), 16,
             torch.ones((5,), dtype=torch.bool), lib=lib),
+        "boundary_candidates": lambda lib: cuda_boundary._launch(
+            rays, torch.ones((5,), dtype=torch.bool),
+            torch.zeros((64, cuda_boundary.EDGE_WORDS)),
+            torch.zeros((2, cuda_boundary.LIGHT_WORDS)), 8, lib=lib),
+        "gather_rows_bwd": lambda lib: cuda_gather._launch_bwd(
+            torch.zeros((3, 6, 8)), torch.zeros((3, 8), dtype=torch.int32),
+            72, lib=lib),
     }[name]
 
 
-@pytest.mark.parametrize("name", ["atrous_pass", "di_spatial",
+@pytest.mark.parametrize("name", ["atrous_pass", "boundary_candidates",
+                                  "di_spatial", "gather_rows_bwd",
                                   "history_gather", "ris_audition",
                                   "trace_closest", "trace_occluded",
                                   "trace_occluded_woop"])
@@ -135,6 +156,7 @@ def test_launch_helpers_count_the_ports_library_only(name, monkeypatch):
     own = _FakeKernels()
     monkeypatch.setattr(cuda_build, "library", lambda: own)
     monkeypatch.setattr(cuda_build, "stream_ptr", lambda: 0)
+    monkeypatch.setitem(cuda_gather._SMS, torch.device("cpu"), 132)
     monkeypatch.setattr(cuda_build, "launches", cuda_build.launches.copy())
     cuda_build.launches.clear()
     launch = _launch(name)
@@ -142,3 +164,82 @@ def test_launch_helpers_count_the_ports_library_only(name, monkeypatch):
     assert cuda_build.launches == {name: 1}
     launch(_FakeKernels())          # another build's library
     assert cuda_build.launches == {name: 1}
+
+
+def test_b1_dispatches_every_k_it_is_built_for():
+    for k in range(1, cuda_boundary.MAX_K + 1):
+        assert cuda_boundary.kernel_k(k) == k
+    for k in (0, -1, cuda_boundary.MAX_K + 1):
+        with pytest.raises(cuda_build.KernelError, match="1 to"):
+            cuda_boundary.kernel_k(k)
+    # The source instantiates K = 1.. by recursion up to kMaxK and refuses
+    # any other k before it launches.
+    text = (cuda_build.CSRC_DIR / "boundary.cu").read_text()
+    assert "launch_k<1>(k," in text and "if constexpr (K > kMaxK)" in text
+    assert re.search(r"if \(k < 1 \|\| k > kMaxK", text)
+
+
+@pytest.mark.parametrize("l_n,launches", [(0, 0), (1, 1), (2, 1), (1024, 1),
+                                          (1025, 2), (3000, 3)])
+def test_b1_launches_a_chunk_of_lights_at_a_time(l_n, launches):
+    assert cuda_boundary.launches_for(l_n) == launches
+    assert (launches - 1) * cuda_boundary.CONST_LIGHTS < max(l_n, 1) <= \
+        max(launches, 1) * cuda_boundary.CONST_LIGHTS
+
+
+BWD_CASES = [(3 * 921600, 72, 6), (921600, 4, 12), (921600, 36, 9),
+             (8 * 921600, 64, 6), (3 * 2073600, 72, 6), (200003, 300, 11),
+             (2 * 200003, 512, 6), (5, 1, 1), (0, 72, 6), (1000, 512, 16),
+             (3 * 1000, 600 // 2, 40)]
+
+
+@pytest.mark.parametrize("total,k,c", BWD_CASES)
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_bwd_launch_shape_covers_every_index_in_fixed_slices(total, k, c, sms):
+    shape = cuda_gather.bwd_launch_shape(total, k, c, sms)
+    assert shape == cuda_gather.bwd_launch_shape(total, k, c, sms)
+    w = min(c, cuda_gather.MAX_COLS)
+    assert shape["smem"] == shape["warps"] * 4 * (k + 32) * w
+    assert 1 <= shape["warps"] <= cuda_gather.BWD_MAX_WARPS
+    assert shape["smem"] <= cuda_gather.SMEM_BLOCK
+    assert shape["warp_chunk"] % cuda_gather.BWD_STEP == 0
+    assert shape["warp_chunk"] >= cuda_gather.BWD_STEP
+    slots = shape["blocks"] * shape["warps"] * shape["warp_chunk"]
+    assert slots >= total
+    if total == 0:
+        assert shape["blocks"] == 0
+        return
+    # No block without an index; at most BWD_BLOCKS_SM blocks an SM, each
+    # within the SM's shared memory.
+    assert (shape["blocks"] - 1) * shape["warps"] * shape["warp_chunk"] < total
+    per_sm = -(-shape["blocks"] // sms)
+    assert per_sm <= cuda_gather.BWD_BLOCKS_SM
+    assert min(per_sm, cuda_gather.BWD_BLOCKS_SM) * (shape["smem"] + 1024) \
+        <= cuda_gather.SMEM_SM or per_sm == 1
+    g = shape["group_blocks"]
+    assert shape["groups"] == -(-shape["blocks"] // g)
+    assert shape["groups"] <= cuda_gather.BWD_MAX_GROUPS
+    assert (g - 1) ** 2 < shape["blocks"] <= g * g
+
+
+def test_bwd_launch_shape_of_the_steps_calls():
+    # The 720p step's corner call: slices of 1,408 indices (11 steps) over
+    # 264 blocks of 8 warps (2 an SM) leave 246 blocks with indices, in 16
+    # groups of 16.
+    assert cuda_gather.bwd_launch_shape(3 * 921600, 72, 6, 132) == dict(
+        warps=8, blocks=246, warp_chunk=1408, group_blocks=16, groups=16,
+        smem=19968)
+    # The largest table: 6 warps of (512 + 32) x 16 floats, one block an SM.
+    shape = cuda_gather.bwd_launch_shape(3 * 921600, 512, 16, 132)
+    assert (shape["warps"], shape["blocks"], shape["smem"]) == (6, 129,
+                                                                208896)
+    for bad in ((100, 0, 6), (100, 513, 6), (100, 72, 0), (-1, 72, 6)):
+        with pytest.raises(cuda_build.KernelError):
+            cuda_gather.bwd_launch_shape(*bad, 132)
+
+
+@pytest.mark.parametrize("n,offset,vec", [(8, 0, 4), (6, 0, 1), (8, 1, 1)])
+def test_bwd_vec_needs_whole_aligned_vectors(n, offset, vec):
+    ct = torch.zeros((2 * 3 * n + offset,))[offset:].reshape(2, 3, n)
+    idx = torch.zeros((2, n), dtype=torch.int32)
+    assert cuda_gather.bwd_vec(ct, idx) == vec

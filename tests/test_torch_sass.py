@@ -3,8 +3,9 @@
 cuobjdump -sass's format: labelled and absolute branch targets, a loop
 with an exit branch inside, a straight stretch whose shortest path skips a
 slow-path call and a bypass exit, a loop doing two units of work an
-iteration beside its one-unit remainder loop, and the work around a tap
-loop that may run no iteration."""
+iteration beside its one-unit remainder loop, the work around a tap
+loop that may run no iteration, and an edge loop with a projection loop
+inside it counted through no, one and two divisions."""
 
 import pytest
 
@@ -227,6 +228,72 @@ def test_around_loop_takes_the_work_outside_a_tap_loop():
     import chip_smoke
     assert chip_smoke.di_spatial_counts(sass.functions(TAPS)) == {
         "k5_tap": 6.0, "k5_fixed": 10}
+
+
+NESTED = HEADER + """
+		Function : _ZN12_GLOBAL__N_126boundary_candidates_kernelILi8ELb1EEEvPKfPKhS2_iiilPiS5_PhS6_
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_0:
+        /*0010*/              @P0 BRA `(.L_x_4) ;
+.L_x_1:
+        /*0020*/                   FADD R4, R2, -R3 ;
+        /*0030*/                   FFMA R5, R4, R6, R7 ;
+        /*0040*/                   FSETP.GT.AND P1, PT, R5, RZ, PT ;
+        /*0050*/              @!P1 BRA `(.L_x_3) ;
+        /*0060*/                   FMUL R8, R5, R9 ;
+.L_x_2:
+        /*0070*/                   MUFU.RCP R10, R8 ;
+        /*0080*/                   FFMA R11, R10, R8, R12 ;
+        /*0090*/                   FCHK P2, R11, R8 ;
+        /*00a0*/             @!P2 BRA `(.L_x_5) ;
+        /*00b0*/                   CALL.REL.NOINC `(.L_x_9) ;
+.L_x_5:
+        /*00c0*/              @P3 BRA `(.L_x_2) ;
+        /*00d0*/              @!P4 BRA `(.L_x_3) ;
+        /*00e0*/                   MUFU.RSQ R13, R14 ;
+        /*00f0*/                   MUFU.RCP R15, R13 ;
+        /*0100*/                   FMUL R16, R15, R17 ;
+.L_x_3:
+        /*0110*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*0120*/              @P5 BRA `(.L_x_1) ;
+.L_x_4:
+        /*0130*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0140*/              @P6 BRA `(.L_x_0) ;
+        /*0150*/                   EXIT ;
+.L_x_9:
+        /*0160*/                   MUFU.RCP R13, R6 ;
+        /*0170*/                   RET.REL.NODEC R12 0x0 ;
+"""
+
+
+def test_loop_through_counts_an_outer_loop_through_inner_iterations():
+    # An edge loop (the innermost loop holding the score's MUFU.RSQ) inside
+    # a tile loop, with a projection loop (one division an iteration, its
+    # slow-path CALL not taken) inside it.
+    code = sass.find(sass.functions(NESTED), "boundary_candidates_kernel")
+
+    def rcp(ins):
+        return ins.op.startswith("MUFU.RCP")
+
+    # No division: FADD, FFMA, FSETP, @!P1 BRA to the loop's end, IADD3,
+    # @P5 BRA.
+    count, path = sass.loop_through(code, "MUFU.RSQ", rcp, 0)
+    assert count == 6
+    assert (path[0].addr, path[-1].addr) == (0x20, 0x120)
+    # One division: the projection loop once, no score (@!P4 BRA): FADD,
+    # FFMA, FSETP, BRA, FMUL, RCP, FFMA, FCHK, @!P2 BRA, @P3 BRA, @!P4 BRA,
+    # IADD3, @P5 BRA.
+    count, path = sass.loop_through(code, "MUFU.RSQ", rcp, 1)
+    assert count == 13
+    assert "CALL.REL.NOINC" not in [i.op for i in path]
+    # Two: the projection loop twice (15 + 4 more: RCP, FFMA, FCHK, BRA)
+    # or once and the score (13 + RSQ, RCP, FMUL): the score's is shorter.
+    assert sass.loop_through(code, "MUFU.RSQ", rcp, 2)[0] == 16
+    # The innermost loop holding an RCP is the projection loop: RCP, FFMA,
+    # FCHK, @!P2 BRA, @P3 BRA.
+    assert sass.loop_through(code, "MUFU.RCP", rcp, 1)[0] == 5
+    with pytest.raises(ValueError):
+        sass.loop_through(code, "MUFU.RCP", rcp, 0)
 
 
 PTXAS = """ptxas info    : 0 bytes gmem

@@ -14,6 +14,16 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 
+def tags_of(dirs: list[Path], tool: str) -> list[str]:
+    """The names of the other versions' builds: their directories' names,
+    each its own and none "after" (the current source's)."""
+    tags = [d.name for d in dirs]
+    if len(set(tags)) != len(tags) or "after" in tags:
+        sys.exit(f"{tool}: give each --before directory its own name, not "
+                 "'after'")
+    return tags
+
+
 def card() -> str:
     """The card's name and power limit (nvidia-smi), printed."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -22,6 +32,26 @@ def card() -> str:
     line = smi.splitlines()[0]
     print(line, flush=True)
     return line
+
+
+def sm_clock() -> tuple[int, float]:
+    """(SMs, top SM clock in MHz) of card 0, for issue floors."""
+    import torch
+
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, clock
+
+
+def functions(so: Path) -> dict:
+    """sass.functions of a build's shared library (cuobjdump -sass)."""
+    from sunray_tpu_torch.ops import cuda_build
+    from tools import sass
+
+    cuobjdump = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    return sass.functions(sass.disassemble(so, str(cuobjdump)))
 
 
 def build(specs: dict[str, Path], out_dir: Path) -> dict:

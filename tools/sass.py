@@ -212,6 +212,21 @@ def loop_iteration(code, body_op: str) -> tuple[int, list[Instr]]:
     return _iteration(code, head, back, body_op)
 
 
+def loop_through(code, loop_op: str, marker, need: int):
+    """Instructions of one iteration of the innermost loop holding an
+    instruction whose opcode starts with loop_op, along the shortest path
+    from its head to its backward branch that passes exactly `need`
+    instructions for which marker(instr) holds; a loop inside it may be
+    taken any number of times. E.g. B1's edge loop (the loop of the
+    score's root, MUFU.RSQ) through no division (an edge no lane projects)
+    or through one (MUFU.RCP: one projection), or K8's backward's step
+    loop through no MATCH (no lane hands its sums to the warp). Returns
+    (count, path)."""
+    _, head, back = min(_loops(code, loop_op))
+    cost, path = shortest_path(code, head, lambda k: k == back, marker, need)
+    return cost, [code[k] for k in path]
+
+
 def loop_per_unit(code, body_op: str, marker, per: int = 1,
                   through=lambda ins: False):
     """Instructions a unit of a loop's work, where a unit is `per`
