@@ -153,6 +153,28 @@ Phases, in order; any failure raises and exits non-zero with no result:
      central differences on tests/test_grads.py's two occluder-translation
      cases (NEE dense, 12 frames, eps 2e-2, rtol 0.20; ReSTIR K=8, 16
      frames, eps 1e-2, rtol 0.25; 64x48).
+ 10. a real scene through the Renderer (B2 and B3, csrc/bvh.cu): the
+     seeded glTF of tools/synth_gltf.py (the reflection room, eight
+     1024x1024 PNG textures, a 16-quad alpha-MASK panel grid, a 5,120-
+     triangle icosphere instanced 50 times: 256,068 triangles), written
+     under build/ and loaded with Renderer.load_gltf; each run the 1080p
+     default ReSTIR frame, 5 warm-up and 20 timed frames (synced), the
+     counters zeroed before: (a) tracer="auto" (the two-level tracer, B3
+     must launch, B2, K1 and K2 must not), (b) tracer="bvh" (the host SAH
+     build, B2), then 8 frames of set_instances animation (accel op
+     "update" each) and a spawn ("fast_build"); each prints frame ms,
+     Mray/s by bench.py's count (checked against the tracer's), ldr_mean,
+     the accel op of every frame and the walk's launches a frame; (c) on
+     the frame's own queries (camera and GI-bounce closest hits, the
+     first shadow query with exclude ids walked any-hit), the walk timed
+     beside its bound (from its own per-ray test counters: slab tests x
+     27 + triangle tests x 53 operations, or the rays' bytes) and its
+     plain twin (ops/bvh.walk_plain; all 2,073,600 camera lanes, 65,536
+     lanes spread over the others): tri, hit and the test counts
+     bit-equal on every lane, t/u/v lanes differing counted; (d) the
+     scene at 96x54 for 3 frames on the card and on the CPU port, PSNR >
+     40 dB. `python3 chip_smoke.py --only-real` runs phases 1, 2 and 10
+     alone (its last lines: B2's and B3's rows, then the device line).
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -2129,7 +2151,7 @@ def profile_frame(scene, cfg, state, mats, accel, rows=12):
             "occluded_kernel", "gather_rows_kernel", "atrous_kernel",
             "ris_audition_kernel", "di_temporal_kernel", "di_spatial_kernel",
             "gi_spatial_kernel", "taa_kernel", "history_gather_kernel",
-            "occluded_woop_kernel")
+            "occluded_woop_kernel", "bvh_walk_kernel")
     stages = ("ris_pass", "final_pass", "taa", "denoise", "postprocess")
     groups = {"port kernels": 0.0, "sort": 0.0, "other PyTorch": 0.0}
     kernels = [e for e in events
@@ -2237,6 +2259,10 @@ KERNELS = {
     # loop and _candidate_score of the shadow-boundary term.
     "boundary_candidates": ("sunray_tpu_torch/csrc/boundary.cu",
                             "sunray_tpu/render/boundary.py:205"),
+    # B2 and B3 replace jnp stack walks (lax.while_loop, no pallas_call).
+    "bvh_walk": ("sunray_tpu_torch/csrc/bvh.cu", "sunray_tpu/ops/bvh.py:375"),
+    "bvh2_walk": ("sunray_tpu_torch/csrc/bvh.cu",
+                  "sunray_tpu/ops/bvh2.py:454"),
 }
 BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
 SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
@@ -2244,9 +2270,11 @@ SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
 DIFF_ONLY = ("gather_rows_bwd",)
 # The visibility gradients' own kernel: B1.
 VIS_ONLY = ("boundary_candidates",)
+# The real scene's own kernels (phase 10): B2 and B3.
+REAL_ONLY = ("bvh_walk", "bvh2_walk")
 CORNELL_KERNELS = tuple(k for k in KERNELS
                         if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY
-                        + VIS_ONLY)
+                        + VIS_ONLY + REAL_ONLY)
 # A differentiable frame: the tracer and K8 forward and backward; the plain
 # versions of K3-K7, K9 and K13 (JAX's gates).
 DIFF_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
@@ -3012,6 +3040,324 @@ def kernel_registers(regs, kernel, threads):
             if name.startswith(kernel)}
 
 
+# -- phase 10: a real scene through the Renderer (B2, B3) ---------------------
+
+# The synthetic glTF scene (tools/synth_gltf.py): eight 1024x1024 RGBA
+# textures, the reflection room, a 16-quad MASK panel grid, a 5,120-
+# triangle icosphere instanced 50 times (256,068 triangles, padded to
+# 262,144). With 48 instances (245,828) the padding's 16,316 degenerate
+# triangles belong to instance 0, and the largest instance that
+# _auto_big_mode counts (renderer.py:160-168, in both packages) exceeds
+# bvh2_blas_max_tris: "auto" would take the binned tracer.
+REAL_GLB = dict(seed=10, tex=1024, subdiv=4, spheres=50)
+REAL_WARM, REAL_TIMED = 5, 20   # 25 frames, as the Cornell cells
+REAL_ANIMATE = 8            # set_instances frames (AsState UPDATE refits)
+WALK_LANES = 65536          # lanes of each query held to the plain twin
+REAL_SMALL = dict(width=96, height=54)
+REAL_SMALL_FRAMES = 3
+
+
+def real_scene_path():
+    """Write the phase's GLB under build/ (ignored by git) and return it."""
+    from tools.synth_gltf import write_scene
+
+    path = os.path.join(REPO, "build", "phase10", "scene.glb")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return write_scene(path, **REAL_GLB)
+
+
+def capture_traces(render):
+    """The tracer queries of one call of render(): [(kind, label, tables,
+    (o, d, tmin, tmax), exclude)] in order, kind "closest" or "occluded",
+    from the trace_closest / trace_occluded calls of the G-buffer and final
+    passes (render/gbuffer.py, render/pathtrace.py), with the rays, bounds
+    and exclude ids a walk gets (an occlusion query's tmax less 1e-3)."""
+    import inspect
+
+    from sunray_tpu_torch.ops import bvh
+    from sunray_tpu_torch.render import gbuffer, pathtrace, trace
+
+    calls = []
+    sig = {name: inspect.signature(getattr(trace, name))
+           for name in ("trace_closest", "trace_occluded")}
+    saved = [(m, name, getattr(m, name)) for m in (gbuffer, pathtrace)
+             for name in sig]
+
+    def wrap(mod, name, fn):
+        def call(*args, **kwargs):
+            a = sig[name].bind(*args, **kwargs)
+            a.apply_defaults()
+            calls.append((mod.__name__.rsplit(".", 1)[1], name, a.arguments))
+            return fn(*args, **kwargs)
+        return call
+
+    try:
+        for m, name, fn in saved:
+            setattr(m, name, wrap(m, name, fn))
+        render()
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    out = []
+    for mod, name, a in calls:
+        ctx = a["ctx"]
+        if name == "trace_closest":
+            rays = bvh._rays(a["orig"], a["d"], a["tmin"], a["tmax"])
+            label = ("camera" if mod == "gbuffer" and not out
+                     else "GI bounce" if mod == "gbuffer" and not a["coherent"]
+                     else f"{mod} closest")
+            out.append(("closest", label, ctx.walk, rays, None))
+        else:
+            tmax = torch.as_tensor(a["tmax"], dtype=torch.float32,
+                                   device=a["orig"].device)
+            rays = bvh._rays(a["orig"], a["d"], a["tmin"], tmax - 1e-3)
+            ex = a["exclude"]
+            ex = None if ex is None else ex.reshape(-1).to(torch.int32).contiguous()
+            out.append(("occluded", f"{mod} shadow", ctx.walk, rays, ex))
+    torch.cuda.synchronize()
+    return out
+
+
+def walk_bound(rays, tests, closest, exclude):
+    """(ms, by) of a walk: each ray's inputs read once (o, d, tmin, tmax,
+    exclude) and outputs written once, against the slab and triangle tests
+    the reference's traversal order runs for these rays (the plain twin's
+    counts, which the kernel's counters equal)."""
+    n = rays[0].shape[0]
+    n_bytes = n * (32 + (4 if exclude is not None else 0)
+                   + (17 if closest else 1))
+    box, tri = tests.sum(0).tolist()
+    return bound(n_bytes, box * SLAB_OPS + tri * TEST_OPS)
+
+
+def walk_check(kind, label, tables, rays, exclude, full_plain=False):
+    """B2 or B3 on one captured query: the kernel's time on all its rays
+    and its bound from its own test counters; the kernel against the plain
+    twin (ops/bvh.walk_plain) on WALK_LANES lanes spread over the query
+    (all of them with full_plain): tri and hit bit-equal, t, u, v lanes
+    differing counted with the largest difference, the test counts equal."""
+    from sunray_tpu_torch.ops import bvh, cuda_bvh
+
+    o, d, tn, tx = rays
+    n = o.shape[0]
+    closest = kind == "closest"
+    ex = None if closest else exclude
+    tests = torch.empty((n, 2), dtype=torch.int32, device=o.device)
+    full = cuda_bvh._launch(tables, o, d, tn, tx, ex, not closest, tests=tests)
+    ms = device_ms(lambda: cuda_bvh._launch(tables, o, d, tn, tx, ex,
+                                             not closest))
+    b_ms, b_by = walk_bound(rays, tests.long(), closest, ex)
+    sel = (torch.arange(n, device=o.device) if full_plain or n <= WALK_LANES
+           else torch.linspace(0, n - 1, WALK_LANES, device=o.device).long())
+    sub = tuple(x[sel].contiguous() for x in rays)
+    sub_ex = None if ex is None else ex[sel].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = bvh.walk_plain(tables, *sub, any_hit=not closest, exclude=sub_ex)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kt, ktri, ku, kv, khit = (None if x is None else x[sel] for x in full)
+    check(bool((khit == plain.found).all()),
+          f"{label}: hit differs on {int((khit != plain.found).sum())} lanes")
+    check(bool((tests[sel] == torch.stack([plain.box_tests, plain.tri_tests],
+                                          1).to(torch.int32)).all()),
+          f"{label}: the kernel's test counts differ from the plain twin's")
+    row = dict(label=label, rays=n, lanes=int(sel.numel()), ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               box_tests_a_ray=float(tests[:, 0].float().mean()),
+               tri_tests_a_ray=float(tests[:, 1].float().mean()),
+               exclude=ex is not None, max_abs_err=0.0)
+    if closest:
+        check(bool((ktri == plain.tri).all()),
+              f"{label}: tri differs on {int((ktri != plain.tri).sum())} lanes")
+        pt = torch.where(plain.found, plain.t, torch.inf)
+        diff = {}
+        for name, k, p in (("t", kt, pt), ("u", ku, plain.u), ("v", kv, plain.v)):
+            m = khit & (k.view(torch.int32) != p.view(torch.int32))
+            diff[name] = (int(m.sum()),
+                          float((k[m] - p[m]).abs().max()) if m.any() else 0.0)
+        row["tuv_lanes_differing"] = {k: v[0] for k, v in diff.items()}
+        row["max_abs_err"] = max(v[1] for v in diff.values())
+    log(f"  {label}: {n} rays, {row['box_tests_a_ray']:.1f} box + "
+        f"{row['tri_tests_a_ray']:.1f} triangle tests a ray; kernel "
+        f"{ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%}); plain twin {plain_ms:.1f} ms on {row['lanes']} "
+        f"lanes; tri/hit bit-equal on {row['lanes']} lanes"
+        + (f", t/u/v lanes differing {row['tuv_lanes_differing']} (max "
+           f"{row['max_abs_err']:.3g})" if closest else ""))
+    return row
+
+
+def real_run(dev, path, tracer, walk_name, animate=False, profile=False):
+    """One 1080p default ReSTIR run through Renderer.load_gltf / render:
+    frame ms (REAL_WARM warm-up frames, REAL_TIMED timed, synced), Mray/s
+    by bench.py's count, ldr_mean, the accel op of every frame, the walk
+    kernel's launches a frame, the synced stage times (and with profile
+    one profiled frame's device time by kernel), and the walk's times on
+    the frame's own queries."""
+    from sunray_tpu_torch.camera import Camera
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build, cuda_trace
+    from sunray_tpu_torch.render.renderer import Renderer
+    from tools.synth_gltf import CAMERA as REAL_CAMERA
+
+    cfg = RenderConfig(width=1920, height=1080, tracer=tracer)
+    r = Renderer(cfg, device=dev)
+    t0 = time.perf_counter()
+    instances = r.load_gltf(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cam = Camera(**REAL_CAMERA)
+    log(f"phase 10 ({tracer}): {r.scene.num_tris} triangles (padded), "
+        f"{len(instances)} instances, atlas {tuple(r.scene.textures.data.shape)}"
+        f", alpha cutout {r.config.alpha_mask_tracing}; load_gltf {load_s:.2f} s")
+    ops = []
+    cuda_build.launches.clear()
+    cuda_trace.rays.clear()
+    t0 = time.perf_counter()
+    for _ in range(REAL_WARM):
+        r.render(cam)
+        ops.append(r.last_accel_op)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rays0 = sum(cuda_trace.rays.values())
+    expected = 0
+    t0 = time.perf_counter()
+    for _ in range(REAL_TIMED):
+        ldr = r.render(cam)
+        ops.append(r.last_accel_op)
+        expected += rays_expected(r.config, r.last_aux)
+    torch.cuda.synchronize()
+    frame_s = (time.perf_counter() - t0) / REAL_TIMED
+    frames = REAL_WARM + REAL_TIMED
+    launches = dict(cuda_build.launches)
+    rays = (sum(cuda_trace.rays.values()) - rays0) / REAL_TIMED
+    ldr_np = ldr.cpu().numpy()
+    mean = float(ldr_np.mean())
+    log(f"  warm-up {REAL_WARM} frames {warm_s:.2f} s; frame "
+        f"{frame_s * 1e3:.2f} ms (mean of {REAL_TIMED}, synced); "
+        f"rays/frame {rays:.0f} ({rays / frame_s / 1e6:.2f} Mray/s); "
+        f"ldr_mean {mean:.5f}; accel {type(r._accel).__name__}, ops {ops}")
+    log(f"  launches over {frames} frames: {launches}; {walk_name} "
+        f"{launches.get(walk_name, 0) / frames:.1f} a frame")
+    check(rays * REAL_TIMED == expected,
+          f"rays/frame {rays} != bench.py's count {expected / REAL_TIMED}")
+    check(bool(np.isfinite(ldr_np).all()), "non-finite ldr")
+    check(0.02 < mean < 0.95, f"ldr_mean {mean}")
+    check(launches.get(walk_name, 0) > 0, f"{walk_name} never launched")
+    for other in REAL_ONLY + ("trace_closest", "trace_occluded"):
+        if other != walk_name:
+            check(launches.get(other, 0) == 0, f"{other} launched")
+    from sunray_tpu_torch.camera import camera_matrices
+
+    mats = camera_matrices(cam, cfg.width, cfg.height, device=dev)
+    stage_breakdown(r.scene, r.config, r.state, mats, frame_s, r._accel)
+    if profile:
+        profile_frame(r.scene, r.config, r.state, mats, r._accel)
+    queries = capture_traces(lambda: r.render(cam))
+    pick = [q for q in queries if q[1] == "camera"][:1] + \
+        [q for q in queries if q[1] == "GI bounce"][:1] + \
+        [q for q in queries if q[0] == "occluded" and q[4] is not None][:1]
+    check(len(pick) == 3, f"queries captured: {[q[1] for q in queries]}")
+    rows = [walk_check(*q, full_plain=(q[1] == "camera")) for q in pick]
+    result = dict(frame_ms=frame_s * 1e3, mrays=rays / frame_s / 1e6,
+                  ldr_mean=mean, ops=ops, launches_a_frame=launches[walk_name]
+                  / frames, launches=launches[walk_name], queries=rows)
+    if animate:
+        result["animation_ops"] = real_animate(r, cam, instances)
+    return result
+
+
+def real_animate(r, cam, instances):
+    """REAL_ANIMATE frames of set_instances transform animation (the
+    spheres rise; AsState UPDATE refits), then a spawn (one more sphere;
+    a FAST_BUILD LBVH). Returns the op of each frame."""
+    sphere_key = max((k for k, _ in instances), key=lambda k: sum(
+        1 for kk, _ in instances if kk == k))
+    ops = []
+    for f in range(REAL_ANIMATE):
+        moved = [(k, _lift(t, 0.03 * (f + 1)) if k == sphere_key
+                  else np.asarray(t, np.float32)) for k, t in instances]
+        r.render(cam, instances=moved)
+        ops.append(r.last_accel_op)
+    spawn = moved + [(sphere_key, _lift(moved[-1][1], 0.5))]
+    ldr = r.render(cam, instances=spawn)
+    ops.append(r.last_accel_op)
+    torch.cuda.synchronize()
+    check(ops == ["update"] * REAL_ANIMATE + ["fast_build"],
+          f"accel ops of the animation and spawn: {ops}")
+    check(bool(torch.isfinite(ldr).all()), "non-finite ldr after the spawn")
+    log(f"  set_instances animation then a spawn: accel ops {ops}")
+    return ops
+
+
+def _lift(t, dy):
+    t = np.array(t, np.float32)
+    t[1, 3] += dy
+    return t
+
+
+def real_card_vs_cpu(dev, path):
+    """The same scene at REAL_SMALL for REAL_SMALL_FRAMES frames through
+    the Renderer (tracer "auto": the two-level walk) on the card and on
+    the CPU port: PSNR above PSNR_MIN every frame."""
+    from sunray_tpu_torch.camera import Camera
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.render.renderer import Renderer
+    from tools.synth_gltf import CAMERA as REAL_CAMERA
+
+    cam = Camera(**REAL_CAMERA)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        r = Renderer(RenderConfig(**REAL_SMALL), device=device)
+        r.load_gltf(path)
+        out[device.type] = [r.render(cam).cpu().numpy()
+                            for _ in range(REAL_SMALL_FRAMES)]
+        out[device.type + "_accel"] = type(r._accel).__name__
+    p = [psnr(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    log(f"phase 10: {REAL_SMALL['width']}x{REAL_SMALL['height']} card vs CPU, "
+        f"{REAL_SMALL_FRAMES} frames ({out['cuda_accel']} / "
+        f"{out['cpu_accel']}): PSNR {[round(x, 2) for x in p]} dB")
+    check(out["cuda_accel"] == out["cpu_accel"] == "BlasSet",
+          f"accels {out['cuda_accel']} / {out['cpu_accel']}")
+    check(min(p) > PSNR_MIN, f"card vs CPU PSNR {min(p):.2f} dB")
+    return p
+
+
+def phase_real_scene(dev):
+    """Phase 10: the synthetic glTF scene through the Renderer: (a) tracer
+    "auto" (B3), (b) tracer "bvh" (SAH, then UPDATE refits and a
+    FAST_BUILD; B2), (c) each walk against its plain twin on the frames'
+    own queries, (d) card against CPU. Returns the kernel rows and
+    launches of B2 and B3."""
+    t_phase = time.perf_counter()
+    path = real_scene_path()
+    log(f"phase 10: wrote {os.path.relpath(path, REPO)} "
+        f"({os.path.getsize(path) / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    runs = {"bvh2_walk": real_run(dev, path, "auto", "bvh2_walk",
+                                  profile=True),
+            "bvh_walk": real_run(dev, path, "bvh", "bvh_walk", animate=True)}
+    card_cpu = real_card_vs_cpu(dev, path)
+    rows, launches = {}, {}
+    for name, run in runs.items():
+        cam = run["queries"][0]
+        rows[name] = dict(
+            max_abs_err=max(q["max_abs_err"] for q in run["queries"]),
+            ms=cam["ms"], plain_ms=cam["plain_ms"],
+            bound=(cam["bound_ms"], cam["bound_by"]),
+            shape=f"{cam['rays']} camera rays x {REAL_GLB['spheres']} x "
+                  f"{20 * 4 ** REAL_GLB['subdiv']} + room triangles",
+            queries=run["queries"], frame_ms=run["frame_ms"],
+            frame_mrays=run["mrays"], ldr_mean=run["ldr_mean"],
+            accel_ops=run["ops"] + run.get("animation_ops", []),
+            launches_a_frame=run["launches_a_frame"],
+            card_vs_cpu_psnr=card_cpu if name == "bvh2_walk" else None)
+        launches[name] = run["launches"]
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
 def main():
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device available")
@@ -3042,6 +3388,17 @@ def main():
     k5_regs = kernel_registers(regs, "di_spatial_kernel",
                                128)  # csrc/restir.cu kSpatialThreads
     log(f"  registers, resident warps an SM: K1 {k1_regs}, K5 {k5_regs}")
+    if "--only-real" in sys.argv[1:]:
+        # Phase 10 alone (its kernels' rows only), for work on B2 and B3.
+        rows, launches = phase_real_scene(dev)
+        log(json.dumps({"kernels": [dict(name=k, launches=launches[k], **{
+            key: v for key, v in r.items() if key != "bound"},
+            bound_ms=r["bound"][0], bound_by=r["bound"][1])
+            for k, r in rows.items()]}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     counts = sass_counts(path)
 
     kernels = phase_kernels(dev, counts)
@@ -3101,6 +3458,9 @@ def main():
                                     32 * cuda_gather.BWD_MAX_WARPS).items()})
     kernels["boundary_candidates"]["registers"] = kernel_registers(
         regs, "boundary_candidates_kernelILi8E", cuda_boundary.THREADS)
+    real_rows, real_launches = phase_real_scene(dev)
+    kernels.update(real_rows)
+    launches.update(real_launches)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -3132,7 +3492,9 @@ def main():
                     "step_stages_ms", "checkpoints_off_480x270",
                     "lanes_differing", "needed_ops", "step_launches",
                     "ad_vs_fd", "k_sweep", "vis_calls",
-                    "vis_step_launches"):
+                    "vis_step_launches", "queries", "frame_ms", "frame_mrays",
+                    "ldr_mean", "accel_ops", "launches_a_frame",
+                    "card_vs_cpu_psnr"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

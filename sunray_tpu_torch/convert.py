@@ -1,5 +1,5 @@
-"""Carry scenes, frame state, camera matrices and cluster sets into the port
-from numpy.
+"""Carry scenes, frame state, camera matrices, texture atlases, cluster
+sets, BVHs and BLAS sets into the port from numpy.
 
 Each function takes a dict of numpy arrays keyed by the field names that
 the JAX package's dataclasses use (nested dicts for the nested ones), so
@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from sunray_tpu_torch.ops.binned_trace import ClusterSet, cluster_set
+from sunray_tpu_torch.ops.bvh import Bvh
+from sunray_tpu_torch.ops.bvh2 import BlasSet
 from sunray_tpu_torch.render import restir
 from sunray_tpu_torch.render.pipeline import RenderState
 from sunray_tpu_torch.scene.types import MaterialTable, SceneBuffers, TextureAtlas
@@ -78,3 +80,38 @@ def cluster_set_from_numpy(fields: dict, device="cuda") -> ClusterSet:
         aabb_lo=_t(np.asarray(fields["aabb_lo"], np.float32), device),
         aabb_hi=_t(np.asarray(fields["aabb_hi"], np.float32), device),
     )
+
+
+def atlas_from_numpy(fields: dict, device="cuda") -> TextureAtlas:
+    """TextureAtlas from its fields (data, size, wrap, filt)."""
+    return _build(TextureAtlas, fields, device)
+
+
+def bvh_from_numpy(fields: dict, device="cuda") -> Bvh:
+    """Bvh from the JAX package's fields; num_leaves is a plain int."""
+    f = dict(fields)
+    nl = int(np.asarray(f.pop("num_leaves")))
+    return Bvh(**{k: _t(v, device) for k, v in f.items()}, num_leaves=nl)
+
+
+def blas_set_from_numpy(fields: dict, device="cuda") -> BlasSet:
+    """BlasSet from the JAX package's fields. Its float32 node rows carry
+    the children's ids and instance codes bitcast in columns 0-3 and its
+    leaf rows the triangle ids bitcast in every tenth word; the port
+    keeps them as int32 planes."""
+    k = int(np.asarray(fields["leaf_k"]))
+    node = np.ascontiguousarray(np.asarray(fields["node_pack"], np.float32))
+    leaf = np.ascontiguousarray(np.asarray(fields["leaf_pack"], np.float32))
+    leaf = leaf.reshape(leaf.shape[0], k, 10)
+    return BlasSet(
+        node_ids=_t(np.ascontiguousarray(node[:, :4]).view(np.int32), device),
+        node_box=_t(node[:, 4:], device),
+        leaf_v=_t(leaf[..., :9], device),
+        leaf_ids=_t(np.ascontiguousarray(leaf[..., 9]).view(np.int32), device),
+        prim_root=_t(np.asarray(fields["prim_root"], np.int32), device),
+        prim_root_min=_t(fields["prim_root_min"], device),
+        prim_root_max=_t(fields["prim_root_max"], device),
+        prim_tri_count=_t(np.asarray(fields["prim_tri_count"], np.int32),
+                          device),
+        leaf_k=k, n_leaf_rows=int(np.asarray(fields["n_leaf_rows"])),
+        n_blas_int=int(np.asarray(fields["n_blas_int"])))

@@ -38,7 +38,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sunray_tpu_torch"
 SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu", "binned.cu",
-           "taa.cu", "history.cu", "boundary.cu")
+           "taa.cu", "history.cu", "boundary.cu", "bvh.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -147,12 +147,15 @@ def _signatures():
         "sunray_history_gather": [p, p, p, i, p, i64, i64, p],
         "sunray_boundary_candidates": [p, p, p, i, p, i, i64, i, p, p, p, p,
                                        p],
+        "sunray_bvh_walk": [p, p, i, p, p, i, i, p, p, p, i, i, p, p, p, p,
+                            p, i64, p, p, p, p, p, p, p],
         "sunray_woop_launch_shape": [ctypes.POINTER(i)],
         "sunray_occluded_launch_shape": [ctypes.POINTER(i)],
         "sunray_closest_launch_shape": [ctypes.POINTER(i)],
         "sunray_ris_launch_shape": [ctypes.POINTER(i)],
         "sunray_atrous_tile_shape": [ctypes.POINTER(i)],
         "sunray_boundary_launch_shape": [ctypes.POINTER(i)],
+        "sunray_bvh_launch_shape": [ctypes.POINTER(i)],
     }
 
 
@@ -179,8 +182,8 @@ def launch_shape(lib, name: str, n: int) -> tuple[int, ...]:
 def _check_launch_shapes(lib) -> None:
     """The host's copies of the kernels' launch shapes, which the CPU models
     of the kernels and chip_smoke.py's counts read, must be the library's."""
-    from sunray_tpu_torch.ops import (cuda_boundary, cuda_gather, cuda_image,
-                                      cuda_restir, cuda_trace)
+    from sunray_tpu_torch.ops import (cuda_boundary, cuda_bvh, cuda_gather,
+                                      cuda_image, cuda_restir, cuda_trace)
 
     for name, want in (
             ("sunray_woop_launch_shape",
@@ -195,7 +198,8 @@ def _check_launch_shapes(lib) -> None:
             ("sunray_atrous_tile_shape",
              (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO)),
             ("sunray_boundary_launch_shape", cuda_boundary.LAUNCH_SHAPE),
-            ("sunray_gather_bwd_launch_shape", cuda_gather.BWD_LAUNCH_SHAPE)):
+            ("sunray_gather_bwd_launch_shape", cuda_gather.BWD_LAUNCH_SHAPE),
+            ("sunray_bvh_launch_shape", cuda_bvh.LAUNCH_SHAPE)):
         got = launch_shape(lib, name, len(want))
         if got != want:
             raise KernelError(f"{name}: the library launches {got}, the host "

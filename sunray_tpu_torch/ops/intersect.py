@@ -52,17 +52,25 @@ def moller_trumbore(orig, d, v0, v1, v2, tmin, tmax):
 
     orig, d: (B, 3); v0, v1, v2: (T, 3); tmin/tmax: (B, 1) or scalars.
     Returns (t, u, v, valid), each (B, T)."""
-    e1 = tuple(v1[:, c] - v0[:, c] for c in range(3))
-    e2 = tuple(v2[:, c] - v0[:, c] for c in range(3))
-    o = tuple(orig[:, c:c + 1] for c in range(3))
-    dd = tuple(d[:, c:c + 1] for c in range(3))
+    return mt_components(tuple(orig[:, c:c + 1] for c in range(3)),
+                         tuple(d[:, c:c + 1] for c in range(3)),
+                         *(tuple(x[:, c] for c in range(3))
+                           for x in (v0, v1, v2)), tmin, tmax)
 
+
+def mt_components(o, dd, a, b, c, tmin, tmax):
+    """Moller-Trumbore on tuples of three broadcastable component tensors:
+    ray origin o and direction dd, triangle corners a, b, c. Returns (t,
+    u, v, valid) in their broadcast shape. The one rounding of the test:
+    the brute tracer and the BVH walks' plain twins (ops/bvh.py) call it."""
+    e1 = tuple(b[k] - a[k] for k in range(3))
+    e2 = tuple(c[k] - a[k] for k in range(3))
     p = cross3(dd, e2)
     det = dot3(e1[0], p[0], e1[1], p[1], e1[2], p[2])
     det_ok = det.abs() > DET_EPS
     inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
 
-    tv = tuple(o[c] - v0[:, c] for c in range(3))
+    tv = tuple(o[k] - a[k] for k in range(3))
     u = dot3(tv[0], p[0], tv[1], p[1], tv[2], p[2]) * inv_det
     q = cross3(tv, e1)
     v = dot3(dd[0], q[0], dd[1], q[1], dd[2], q[2]) * inv_det

@@ -8,9 +8,10 @@ CPU on its own.
 
 Covered: lighting "restir" (the default: shared spatial taps, f32
 shading; the joint DI+GI history gather), "nee" and "brdf"; the
-brute-force tracer (Moller-Trumbore or Woop occlusion) or the binned
-tracer with a ClusterSet accel (scenes above the brute-force limit), a
-trivial texture atlas, one sample per pixel; TAA on the plain path or K9,
+brute-force tracer (Moller-Trumbore or Woop occlusion), the binned
+tracer with a ClusterSet accel, the unified and two-level BVH walks (a
+Bvh or BlasSet accel, or an LBVH built in the frame), alpha cutout,
+textured atlases, one sample per pixel; TAA on the plain path or K9,
 history reads plain or through K13. A differentiable frame
 (cfg.differentiable) runs what the JAX frame runs then: the tracer and
 K8 (forward and backward), and the plain versions of K3-K7, K9 and K13,
@@ -98,7 +99,6 @@ def check_supported(scene, cfg) -> None:
     unsupported = {
         f"lighting={cfg.lighting!r}": cfg.lighting not in ("restir", "nee",
                                                            "brdf"),
-        "textured atlases": not scene.textures.trivial,
         "samples > 1": cfg.samples != 1,
         f"differentiable frames above {MAX_ROWS} vertices, materials, "
         "triangles (edge_antialias) or edges (shadow_boundary_grads)":
@@ -120,9 +120,10 @@ def check_supported(scene, cfg) -> None:
 def render_frame(scene, cfg, state: RenderState, mats, accel=None):
     """One frame. mats: camera matrices dict from camera_matrices().
 
-    accel: optional load-time binned_trace.ClusterSet (built from the
-    scene's world triangles with k=cfg.cluster_k, as the JAX Renderer
-    does, renderer.py:114-117), refit inside (render/trace.make_tracer).
+    accel: optional load-time binned_trace.ClusterSet, bvh.Bvh or
+    bvh2.BlasSet (render/renderer.Renderer builds them as the JAX
+    Renderer does, renderer.py:77-266), refit or completed inside
+    (render/trace.make_tracer).
     Returns (new_state, ldr (H, W, 3) in [0, 1], aux)."""
     check_supported(scene, cfg)
     if cfg.differentiable:
@@ -195,3 +196,14 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
         "final_rounds": final_rounds,
     }
     return new_state, ldr, aux
+
+
+def render_frame_with_camera(scene, cfg, state: RenderState, camera,
+                             accel=None):
+    """render_frame with the camera matrices computed inside
+    (pipeline.py:164-167), on the scene's device."""
+    from sunray_tpu_torch.camera import camera_matrices
+
+    mats = camera_matrices(camera, cfg.width, cfg.height,
+                           device=scene.positions.device)
+    return render_frame(scene, cfg, state, mats, accel)

@@ -1,14 +1,17 @@
-"""Surface shading at hit points — port of sunray_tpu/render/shade.py on
-the trivial-atlas path (shade.py:135-137, :273-279).
+"""Surface shading at hit points — port of sunray_tpu/render/shade.py.
 
 Barycentric vertex-attribute interpolation, the inverse-transpose normal
-transform and the metallic-roughness material terms (closest_hit.slang:
-12-91). A textureless scene has no normal map, so the TBN block is the
-identity and the uv columns are dead; both are skipped, as XLA drops them
-(shade.py:139-142). K8 (ops/cuda_gather.py) serves the two fetches it
-serves on the TPU, the (T, 4) triangle pack and the three vertex corners
-from the (V, 6) geometry columns, and the material row of each lane. Multiply-adds round as the reference's
-do on the CPU (ops/fp.py).
+transform, texture sampling (base colour, emissive, metallic-roughness),
+TBN normal mapping with the handedness of vertex 0 (closest_hit.slang:
+12-91). A textureless scene (the static 1x1x1 atlas) has no normal map,
+so its TBN block is the identity and its uv columns are dead; both are
+skipped, as XLA drops them (shade.py:139-142, 273-279), and its corners
+take the (V, 6) position and normal columns. A textured scene's corners
+take the full 20-column vertex pack (position, normal, tangent, five uv
+sets; shade.py:117-175). K8 (ops/cuda_gather.py) serves the fetches it
+serves on the TPU: the (T, 4) triangle pack, the three vertex corners and
+the material row of each lane. Multiply-adds round as the reference's do
+on the CPU (ops/fp.py).
 """
 
 from __future__ import annotations
@@ -17,14 +20,16 @@ from typing import NamedTuple
 
 import torch
 
-from sunray_tpu_torch.ops.brdf import normalize
+from sunray_tpu_torch.ops.brdf import normalize, safe_sqrt, vec_norm
 from sunray_tpu_torch.ops.cuda_gather import gather_rows
-from sunray_tpu_torch.ops.fp import cross, dot, fma
+from sunray_tpu_torch.ops.fp import clip, cross, dot, fma, sum3
 from sunray_tpu_torch.ops.texture import sample_texture
 from sunray_tpu_torch.scene.types import (
+    NULL_TEXTURE,
     TEX_BASE_COLOR,
     TEX_EMISSIVE,
     TEX_METALLIC_ROUGHNESS,
+    TEX_NORMAL,
 )
 
 
@@ -81,8 +86,7 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
 
     face_forward: flip the shading and geometric normal to face the
     incoming ray (cfg.face_forward_normals)."""
-    if not scene.textures.trivial:
-        raise NotImplementedError("shade_hits: textured atlases are not ported")
+    textured = not scene.textures.trivial
     tri = torch.where(hit.hit, hit.tri, 0).to(torch.int32)
     tpack = torch.cat([scene.tri_vidx, scene.tri_inst[:, None]], dim=1)
     tcols = gather_rows(tpack, tri[None])[0]                    # (4, N) int32
@@ -90,8 +94,11 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
     inst = tcols[3].long()
     prim = scene.inst_prim[inst].long()
 
-    vgeo = torch.cat([scene.positions, scene.normals], dim=1)   # (V, 6)
-    corners = gather_rows(vgeo, vidx)                           # (3, 6, N)
+    cols = [scene.positions, scene.normals]
+    if textured:
+        cols += [scene.tangents, scene.uvs.reshape(scene.uvs.shape[0], -1)]
+    vpack = torch.cat(cols, dim=1)                              # (V, 6 | 20)
+    corners = gather_rows(vpack, vidx)                          # (3, C, N)
 
     xf = scene.inst_transform.reshape(-1, 12)[inst]             # (N, 12)
 
@@ -118,15 +125,21 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
                    fma(bw[0], corners[0, o], bw[1] * corners[1, o]))
 
     n_obj = [interp(3 + i) for i in range(3)]
+    if textured:
+        ub, un = 10 + 2 * TEX_BASE_COLOR, 10 + 2 * TEX_NORMAL
+        uv = torch.stack([interp(ub), interp(ub + 1)], dim=-1)
+        normal_uv = torch.stack([interp(un), interp(un + 1)], dim=-1)
+    else:
+        uv = normal_uv = None   # dead: every lookup is a fallback
 
     mats = scene.materials
     mrow = _material_rows(mats, prim)
     tex = mats.tex_index[prim]                                  # (N, 5)
-    base_color = sample_texture(scene.textures, tex[:, TEX_BASE_COLOR],
+    base_color = sample_texture(scene.textures, tex[:, TEX_BASE_COLOR], uv,
                                 mrow["base_color"])
     emissive_factor = mrow["emissive_factor"]                   # (N, 4)
     emissive_sample = sample_texture(
-        scene.textures, tex[:, TEX_EMISSIVE],
+        scene.textures, tex[:, TEX_EMISSIVE], uv,
         torch.cat([emissive_factor[:, :3],
                    torch.ones_like(emissive_factor[:, :1])], dim=-1),
     )
@@ -145,8 +158,44 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
         ),
         eps=1e-12,
     )
-    return _finish_surface(scene, orig, d, hit, t_att, mrow, tex, base_color,
-                           emission, world_normal, world_normal, face_forward)
+    final_normal = world_normal
+    if textured:
+        final_normal = _normal_map(scene, xf, corners, interp, world_normal,
+                                   tex, normal_uv)
+    return _finish_surface(scene, orig, d, hit, t_att, mrow, tex, uv,
+                           base_color, emission, world_normal, final_normal,
+                           face_forward)
+
+
+def _normal_map(scene, xf, corners, interp, world_normal, tex, normal_uv):
+    """The shading normal of a textured scene (shade.py:281-310,
+    closest_hit.slang:56-72): the tangent to world, Gram-Schmidt against
+    the normal, the bitangent by vertex 0's handedness, the normal map's
+    xy with z rebuilt, where the vertex has a tangent and the material a
+    normal texture; the world normal elsewhere."""
+    t_obj = [interp(6 + j) for j in range(3)]
+    handedness = torch.where(corners[0, 9] >= 0.0, 1.0, -1.0)
+    has_tangent = vec_norm(torch.stack(t_obj, dim=-1)) > 0.001
+    do_nm = has_tangent & (tex[:, TEX_NORMAL] != NULL_TEXTURE)
+    wt = normalize(torch.stack(
+        [fma(xf[:, 4 * i + 2], t_obj[2],
+             fma(xf[:, 4 * i + 0], t_obj[0], xf[:, 4 * i + 1] * t_obj[1]))
+         for i in range(3)], dim=-1), eps=1e-12)
+    wt = normalize(fma(-dot(wt, world_normal)[:, None], world_normal, wt),
+                   eps=1e-12)
+    wb = cross(world_normal, wt) * handedness[:, None]
+    fallback = torch.tensor([0.5, 0.5, 1.0, 1.0], dtype=torch.float32,
+                            device=wt.device).expand(wt.shape[0], 4)
+    raw = sample_texture(scene.textures, tex[:, TEX_NORMAL], normal_uv,
+                         fallback)[:, :3]
+    snm = fma(raw, 2.0, -1.0)
+    z = safe_sqrt(clip(1.0 - snm[:, 0] * snm[:, 0] - snm[:, 1] * snm[:, 1],
+                       0.0, 1.0))
+    snm = normalize(torch.stack([snm[:, 0], snm[:, 1], z], dim=-1), eps=1e-12)
+    cols = [(snm[:, k:k + 1], b) for k, b in enumerate((wt, wb, world_normal))]
+    mapped = normalize(sum3([c[0] for c in cols], [c[1] for c in cols]),
+                       eps=1e-12)
+    return torch.where(do_nm[:, None], mapped, world_normal)
 
 
 # The float columns of the material table, fetched together by K8.
@@ -179,11 +228,11 @@ def _material_rows(mats, prim):
     return out
 
 
-def _finish_surface(scene, orig, d, hit, t_att, mrow, tex, base_color,
+def _finish_surface(scene, orig, d, hit, t_att, mrow, tex, uv, base_color,
                     emission, world_normal, final_normal, face_forward):
     """Shared shade_hits tail: metallic-roughness terms, hit position, the
     face-forward flip, and Surface assembly. mrow: _material_rows."""
-    mr = sample_texture(scene.textures, tex[:, TEX_METALLIC_ROUGHNESS],
+    mr = sample_texture(scene.textures, tex[:, TEX_METALLIC_ROUGHNESS], uv,
                         torch.ones_like(base_color))
     roughness = mrow["roughness"] * mr[:, 1]   # G channel
     metallic = mrow["metallic"] * mr[:, 2]     # B channel

@@ -1,19 +1,26 @@
-"""Tracer dispatch — port of the brute-force and binned paths of
-sunray_tpu/render/trace.py.
+"""Tracer dispatch — port of sunray_tpu/render/trace.py.
 
-TracerCtx holds the frame's world triangles and, with a ClusterSet accel,
-the set refit from them. trace_closest/trace_occluded go to the brute
-wrappers (K1/K2, ops/cuda_trace.py) or to the binned tracer
-(ops/binned_trace.py: the block path with K10 for coherent batches, the
-pair stream with K11/K12 for incoherent ones). With trace_impl="woop" and
-no accel, occlusion queries go through the Woop transforms (K14), built
-once per frame. Every wrapper launches its CUDA kernel for tensors on the
-card and runs its plain PyTorch version on the CPU. The BVH, two-level and
-alpha-cutout backends are not ported.
+TracerCtx holds the frame's world triangles and what one backend needs:
+  - brute force: K1 / K2 (ops/cuda_trace.py), or the Woop transforms of
+    K14 for occlusion with trace_impl="woop";
+  - the binned tracer: a load-time ClusterSet refit to this frame
+    (ops/binned_trace.py: K10 on coherent batches, K11 / K12 on the pair
+    stream for incoherent ones);
+  - the unified BVH: a load-time Bvh (host SAH or device LBVH) refit to
+    this frame, or an LBVH built in the frame, walked by B2;
+  - the two-level BVH: a load-time BlasSet and this frame's TLAS, walked
+    by B3 (ops/bvh.py, ops/bvh2.py, ops/cuda_bvh.py).
+Every wrapper launches its CUDA kernel for tensors on the card and runs
+its plain PyTorch version on the CPU.
+
+Alpha cutout (any_hit.slang:11-43), with cfg.alpha_mask_tracing: a closest
+hit on a MASK material whose base-colour alpha is below its cutoff is
+skipped and the ray traced again past it, up to alpha_rounds times; an
+occlusion query walks closest hits until an accepted one, over every
+backend (trace.py:134-166, 218-253, 264-301).
 
 `cuda_trace.rays` counts each query's rays once, here: the full-batch ray
-accounting of bench.py:7-13 is the sum (the binned overflow fallback's
-re-trace is not counted again).
+accounting of bench.py:7-13 is the sum (re-traces are not counted again).
 """
 
 from __future__ import annotations
@@ -22,56 +29,114 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from sunray_tpu_torch.ops import binned_trace, cuda_trace, intersect
+from sunray_tpu_torch.ops import binned_trace, bvh, bvh2, cuda_trace, intersect
+from sunray_tpu_torch.ops.fp import fma
+from sunray_tpu_torch.ops.texture import sample_texture
+from sunray_tpu_torch.scene.types import ALPHA_MASK, TEX_BASE_COLOR
+
+# The brute tracer's triangle limit on the CPU: its plain versions' (rays
+# x triangles) blocks grow with the triangle count (JAX caps the jnp
+# fallback the same way off the TPU, trace.py:113-116).
+CPU_BRUTE_MAX_TRIS = 512
 
 
 class TracerCtx(NamedTuple):
     tris: tuple     # (v0, v1, v2) world-space, each (T, 3), contiguous
     # Binned backend: the load-time ClusterSet refit to this frame's
-    # triangles (render/trace.py:83-92); None = brute force.
+    # triangles (render/trace.py:83-92).
     binned: Optional[binned_trace.ClusterSet] = None
     # trace_impl="woop" on the brute path: (a (6, T, 8), eps (T, 1)) from
-    # intersect.woop_matrices (render/trace.py:120-126); None = Moller-
-    # Trumbore.
+    # intersect.woop_matrices (render/trace.py:120-126).
     woop: Optional[tuple] = None
+    # Unified or two-level BVH: the walk's tables (ops/bvh.WalkTables).
+    walk: Optional[bvh.WalkTables] = None
+    # Alpha cutout: the scene whose MASK materials are tested, or None.
+    alpha_scene: Optional[object] = None
+    alpha_rounds: int = 4
+
+
+def brute_limit(cfg, device) -> int:
+    """Triangles up to which "auto" traces brute force: the config's limit
+    on the card, at most CPU_BRUTE_MAX_TRIS on the CPU."""
+    if torch.device(device).type == "cpu":
+        return min(cfg.brute_force_max_tris, CPU_BRUTE_MAX_TRIS)
+    return cfg.brute_force_max_tris
 
 
 def make_tracer(scene, cfg, accel=None) -> TracerCtx:
-    """Build the per-frame tracer context.
+    """Build the per-frame tracer context (trace.py:51-127).
 
-    accel: a load-time binned_trace.ClusterSet, refit here from the frame's
-    world triangles; the binned tracer then serves every query, whatever
-    cfg.tracer says (as on the TPU). Without one, "auto" resolves to brute
-    force up to cfg.brute_force_max_tris and "binned" to brute force (the
-    JAX make_tracer, trace.py:113-127); anything else raises. The binned
-    tracer ignores trace_impl, as the JAX make_tracer returns before its
-    Woop check (trace.py:79-92)."""
+    accel: a load-time ClusterSet, Bvh or BlasSet; it serves every query,
+    whatever cfg.tracer says. A Bvh's boxes are refit to this frame's
+    triangles (the AS UPDATE path); a BlasSet gets this frame's TLAS.
+    Without one, tracer="bvh" (or "auto" above brute_limit) builds an
+    LBVH in the frame; anything else traces brute force."""
     if cfg.trace_impl not in ("mt", "woop"):
         raise NotImplementedError(f"trace_impl={cfg.trace_impl!r} is not ported")
-    if cfg.alpha_mask_tracing or scene.has_alpha_mask:
-        raise NotImplementedError("alpha-cutout tracing is not ported")
+    if cfg.tracer not in ("auto", "brute", "bvh", "bvh2", "binned"):
+        raise ValueError(f"unknown tracer {cfg.tracer!r}")
     # The tracer is a discrete oracle: gradients reach the frame through
     # the hit recompute in render/shade.py, never through traversal, so
     # the triangles and rays handed to the kernels are detached (JAX's
     # stop_gradient, render/trace.py:63-71, 213-217, 267).
     tris = tuple(t.detach().contiguous()
                  for t in scene.world_triangle_vertices())
+    alpha = scene if cfg.alpha_mask_tracing else None
     if accel is not None:
-        if not isinstance(accel, binned_trace.ClusterSet):
-            raise NotImplementedError(f"accel {type(accel).__name__} is not "
-                                      "ported (ClusterSet only)")
-        return TracerCtx(tris=tris,
-                         binned=binned_trace.refit_cluster_set(accel, tris))
-    if cfg.tracer not in ("auto", "brute", "binned"):
-        raise NotImplementedError(f"tracer={cfg.tracer!r} is not ported")
-    if cfg.tracer == "auto" and scene.num_tris > cfg.brute_force_max_tris:
-        raise NotImplementedError(
-            f"{scene.num_tris} triangles exceed brute_force_max_tris="
-            f"{cfg.brute_force_max_tris} and no ClusterSet accel was given; "
-            "the LBVH backend (ops/bvh.py) is not ported"
-        )
+        if isinstance(accel, binned_trace.ClusterSet):
+            return TracerCtx(tris=tris, alpha_scene=alpha,
+                             binned=binned_trace.refit_cluster_set(accel, tris))
+        if isinstance(accel, bvh2.BlasSet):
+            return TracerCtx(tris=tris, alpha_scene=alpha,
+                             walk=bvh2.build_frame_tlas(accel, scene))
+        if isinstance(accel, bvh.Bvh):
+            return TracerCtx(tris=tris, alpha_scene=alpha,
+                             walk=bvh.pack_tables(bvh.refit_bvh(accel, tris),
+                                                  tris))
+        raise TypeError(f"unknown accel {type(accel).__name__}")
+    if cfg.tracer == "bvh" or (cfg.tracer == "auto" and scene.num_tris
+                               > brute_limit(cfg, tris[0].device)):
+        built = bvh.build_bvh(tris, leaf_size=cfg.bvh_leaf_size)
+        return TracerCtx(tris=tris, alpha_scene=alpha,
+                         walk=bvh.pack_tables(built, tris))
     woop = intersect.woop_matrices(tris) if cfg.trace_impl == "woop" else None
-    return TracerCtx(tris=tris, woop=woop)
+    return TracerCtx(tris=tris, woop=woop, alpha_scene=alpha)
+
+
+def alpha_accepts(scene, tri, u, v):
+    """Any-hit alpha test (trace.py:134-166): True = hit accepted. OPAQUE
+    materials accept; MASK materials sample the base colour's alpha at the
+    interpolated base-colour uv and reject below the cutoff."""
+    tri = tri.long()
+    inst = scene.tri_inst[tri].long()
+    prim = scene.inst_prim[inst].long()
+    mats = scene.materials
+    is_mask = mats.alpha_mode[prim] == ALPHA_MASK
+    vidx = scene.tri_vidx[tri].long()
+    uv_table = scene.uvs[:, TEX_BASE_COLOR, :]
+    w = ((1.0 - u - v)[:, None], u[:, None], v[:, None])
+    c = [uv_table[vidx[:, k]] for k in range(3)]
+    uv = fma(w[2], c[2], fma(w[0], c[0], w[1] * c[1]))
+    color = sample_texture(scene.textures, mats.tex_index[prim, TEX_BASE_COLOR],
+                           uv, mats.base_color[prim])
+    return ~is_mask | (color[:, 3] >= mats.alpha_cutoff[prim])
+
+
+def _raw_closest(ctx: TracerCtx, orig, d, tmin, tmax, coherent=True):
+    if ctx.walk is not None:
+        return bvh.trace_closest_walk(ctx.walk, orig, d, tmin, tmax)
+    if ctx.binned is not None:
+        if not coherent:
+            return binned_trace.trace_closest_pairs(ctx.binned, orig, d, tmin,
+                                                    tmax)
+        return binned_trace.trace_closest_binned(ctx.binned, orig, d, tmin,
+                                                 tmax, reorder=True)
+    return cuda_trace.trace_closest(ctx.tris, orig, d, tmin, tmax)
+
+
+def _accepted(ctx, hit):
+    tri = torch.where(hit.hit, hit.tri, 0)
+    return ~hit.hit | alpha_accepts(ctx.alpha_scene, tri, hit.u, hit.v)
 
 
 def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
@@ -79,15 +144,28 @@ def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
     """Closest hit of (N, 3) rays. coherent=False: the caller knows the
     batch is incoherent (bounce/GI rays); the binned tracer then takes the
     pair stream, else the block path with the coherence reorder
-    (trace.py:169-186). The brute tracer ignores the hint."""
+    (trace.py:169-186). The other tracers ignore the hint."""
     cuda_trace.rays["closest"] += orig.shape[0]
     orig, d = orig.detach().contiguous(), d.detach().contiguous()
-    if ctx.binned is None:
-        return cuda_trace.trace_closest(ctx.tris, orig, d, tmin, tmax)
-    if not coherent:
-        return binned_trace.trace_closest_pairs(ctx.binned, orig, d, tmin, tmax)
-    return binned_trace.trace_closest_binned(ctx.binned, orig, d, tmin, tmax,
-                                             reorder=True)
+    if torch.is_tensor(tmin):
+        tmin = tmin.detach()
+    if torch.is_tensor(tmax):
+        tmax = tmax.detach()
+    hit = _raw_closest(ctx, orig, d, tmin, tmax, coherent)
+    if ctx.alpha_scene is None:
+        return hit
+    # Re-trace past rejected MASK hits (IgnoreHit), up to alpha_rounds
+    # times for every ray of the batch (trace.py:218-253).
+    for _ in range(ctx.alpha_rounds):
+        accepted = _accepted(ctx, hit)
+        if bool(accepted.all()):
+            break
+        new_tmin = torch.where(accepted, torch.as_tensor(
+            tmin, dtype=torch.float32, device=orig.device), hit.t + 1e-4)
+        nxt = _raw_closest(ctx, orig, d, new_tmin.contiguous(), tmax)
+        hit = intersect.Hit(*(torch.where(accepted, a, b)
+                              for a, b in zip(hit, nxt)))
+    return hit
 
 
 def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
@@ -106,7 +184,12 @@ def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
     orig, d = orig.detach().contiguous(), d.detach().contiguous()
     seg = (tmax - 1e-3).contiguous()
     exclude = None if exclude is None else exclude.contiguous()
-    if ctx.woop is not None:
+    if ctx.alpha_scene is not None:
+        occ = _occluded_alpha(ctx, orig, d, seg, tmin, exclude)
+    elif ctx.walk is not None:
+        occ = bvh.trace_occluded_walk(ctx.walk, orig, d, seg, tmin,
+                                      exclude=exclude)
+    elif ctx.woop is not None:
         occ = cuda_trace.trace_occluded_woop(ctx.woop, orig, d, seg, tmin,
                                              exclude=exclude)
     elif ctx.binned is None:
@@ -119,3 +202,30 @@ def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
         occ = binned_trace.trace_occluded_binned(ctx.binned, orig, d, seg, tmin,
                                                  exclude=exclude, reorder=True)
     return occ & ~degenerate
+
+
+def _occluded_alpha(ctx, orig, d, seg, tmin, exclude):
+    """Alpha-aware occlusion (trace.py:264-301): walk closest hits on
+    [tmin, seg], skipping cutouts and the excluded triangle, until an
+    accepted hit or none; at most alpha_rounds + 1 closest queries."""
+    n = orig.shape[0]
+    o2, d2 = orig.reshape(-1, 3), d.reshape(-1, 3)
+    seg = seg.reshape(-1).expand(n).contiguous()
+    cur_tmin = torch.as_tensor(tmin, dtype=torch.float32,
+                               device=orig.device).expand(n).clone()
+    occluded = torch.zeros((n,), dtype=torch.bool, device=orig.device)
+    undecided = torch.ones_like(occluded)
+    ex = None if exclude is None else exclude.reshape(-1)
+    for _ in range(ctx.alpha_rounds + 1):
+        if not bool(undecided.any()):
+            break
+        hit = _raw_closest(ctx, o2, d2, cur_tmin, seg)
+        live = undecided & hit.hit
+        keep = live if ex is None else live & (hit.tri != ex)
+        accepted = keep & alpha_accepts(ctx.alpha_scene,
+                                        torch.where(hit.hit, hit.tri, 0),
+                                        hit.u, hit.v)
+        occluded |= accepted
+        undecided = live & ~accepted
+        cur_tmin = torch.where(undecided, hit.t + 1e-4, cur_tmin).contiguous()
+    return occluded

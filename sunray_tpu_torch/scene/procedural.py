@@ -1,4 +1,5 @@
-"""Procedural scenes — port of the Cornell box of sunray_tpu/scene/procedural.py.
+"""Procedural scenes — port of the Cornell box and the reflection room of
+sunray_tpu/scene/procedural.py.
 
 The same numpy mesh builder, assembled through the port's own build_scene
 onto `device`.
@@ -116,4 +117,40 @@ def cornell_box(light_emission: float = 15.0, device="cuda") -> SceneBuffers:
     # Two boxes
     b.add_box((0.65, 0.6, 0.65), (0.6, 1.2, 0.6), white, rotate_y=np.deg2rad(18.0))
     b.add_box((1.4, 0.3, 1.3), (0.6, 0.6, 0.6), white, rotate_y=np.deg2rad(-17.0))
+    return b.build(device=device)
+
+
+def reflection_room(light_emission: float = 12.0, device="cuda") -> SceneBuffers:
+    """Room with a mirror wall, a glass box and an area light
+    (procedural.py:173-210): the mirror (metallic > 0.9, roughness < 0.1)
+    and transmissive passthrough paths of ray_gen_ris.slang:95-117."""
+    b = _MeshBuilder()
+    white = b.add_material(base_color=(0.7, 0.7, 0.7, 1.0), roughness=0.9)
+    blue = b.add_material(base_color=(0.2, 0.3, 0.7, 1.0), roughness=0.6)
+    mirror = b.add_material(
+        base_color=(0.95, 0.95, 0.95, 1.0), metallic=1.0, roughness=0.02
+    )
+    glass = b.add_material(
+        base_color=(0.95, 0.95, 0.98, 1.0), roughness=0.02, transmission=1.0,
+        ior=1.5,
+    )
+    light = b.add_material(
+        base_color=(1.0, 1.0, 1.0, 1.0),
+        emissive_factor=(1.0, 0.95, 0.9, light_emission),
+    )
+
+    s = 4.0
+    b.add_quad((0, 0, 0), (0, 0, s), (s, 0, s), (s, 0, 0), white)       # floor
+    b.add_quad((0, s, 0), (s, s, 0), (s, s, s), (0, s, s), white)       # ceiling
+    b.add_quad((0, 0, 0), (s, 0, 0), (s, s, 0), (0, s, 0), mirror)      # back = mirror
+    b.add_quad((0, 0, 0), (0, s, 0), (0, s, s), (0, 0, s), blue)        # left
+    b.add_quad((s, 0, 0), (s, 0, s), (s, s, s), (s, s, 0), blue)        # right
+    ly = s - 0.02
+    # Wound so the light normal faces DOWN into the room.
+    b.add_quad(
+        (s * 0.35, ly, s * 0.35), (s * 0.65, ly, s * 0.35),
+        (s * 0.65, ly, s * 0.65), (s * 0.35, ly, s * 0.65), light,
+    )
+    b.add_box((s * 0.3, 0.5, s * 0.55), (1.0, 1.0, 1.0), glass)
+    b.add_box((s * 0.7, 0.4, s * 0.35), (0.8, 0.8, 0.8), white, rotate_y=0.5)
     return b.build(device=device)

@@ -29,6 +29,11 @@ TEX_OCCLUSION = 3
 TEX_EMISSIVE = 4
 NUM_TEX_SLOTS = 5
 
+# Sampler wrap modes
+WRAP_REPEAT = 0
+WRAP_CLAMP = 1
+WRAP_MIRROR = 2
+
 
 def _tensors_to(obj, device):
     """A copy of dataclass `obj` with every tensor field moved to `device`."""
@@ -65,6 +70,34 @@ class TextureAtlas:
     def trivial(self) -> bool:
         """The static 1x1x1 atlas of a textureless scene."""
         return tuple(self.data.shape[:3]) == (1, 1, 1)
+
+    def to(self, device) -> "TextureAtlas":
+        return _tensors_to(self, device)
+
+
+def merge_atlases(a: Optional[TextureAtlas], b: Optional[TextureAtlas]):
+    """Stack two atlases -> (merged, offset): texture i of b becomes
+    texture offset + i, both padded to the common H x W (sizes stay per
+    texture, so sampling is unchanged; types.py:79-105). On a's device."""
+    if a is None:
+        return b, 0
+    if b is None:
+        return a, 0
+    h = max(a.data.shape[1], b.data.shape[1])
+    w = max(a.data.shape[2], b.data.shape[2])
+    dev = a.data.device
+
+    def pad(d):
+        return torch.nn.functional.pad(
+            d.to(dev), (0, 0, 0, w - d.shape[2], 0, h - d.shape[1]))
+
+    merged = TextureAtlas(
+        data=torch.cat([pad(a.data), pad(b.data)]),
+        size=torch.cat([a.size, b.size.to(dev)]),
+        wrap=torch.cat([a.wrap, b.wrap.to(dev)]),
+        filt=torch.cat([a.filt, b.filt.to(dev)]),
+    )
+    return merged, a.data.shape[0]
 
 
 @dataclasses.dataclass
@@ -273,3 +306,9 @@ def identity_transform() -> np.ndarray:
     return np.concatenate(
         [np.eye(3, dtype=np.float32), np.zeros((3, 1), np.float32)], axis=1
     )
+
+
+def translate(x, y, z) -> np.ndarray:
+    t = identity_transform()
+    t[:, 3] = (x, y, z)
+    return t

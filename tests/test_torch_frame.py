@@ -24,7 +24,6 @@ from sunray_tpu_torch import convert
 from sunray_tpu_torch.config import RenderConfig
 from sunray_tpu_torch.ops import cuda_gather
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
-from sunray_tpu_torch.scene.types import TextureAtlas
 from torch_parity import CAMERA, GOLDEN_KW, n, psnr, to_numpy
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "cornell_nee.npy")
@@ -106,7 +105,6 @@ def test_state_from_numpy_continues_jax_frames(frames):
 UNCOVERED = {
     "perpixel_taps": dict(lighting="restir", spatial_taps="perpixel"),
     "shading_bf16": dict(lighting="restir", shading_dtype="bf16"),
-    "bvh": dict(tracer="bvh"),
     "samples": dict(samples=2),
     # K8's backward kernel takes up to MAX_ROWS table rows: refused before
     # the forward pass, not at the backward (scene below).
@@ -119,15 +117,35 @@ UNCOVERED = {
 RAISES = {"boundary_without_topology": ValueError}
 
 
-@pytest.mark.parametrize("name", sorted(UNCOVERED) + ["textured_atlas"])
-def test_uncovered_configs_raise(name, frames):
+def _gltf_with_jpeg(path):
+    """A glTF whose first image is a JPEG (its magic bytes): the port's
+    PNG reader cannot decode it (utils/png.py)."""
+    import base64
+    import json
+
+    from tools.synth_gltf import build_document
+
+    doc, data = build_document(seed=0, tex=4, subdiv=0, spheres=2)
+    doc["images"][0] = {"uri": "data:image/jpeg;base64," + base64.b64encode(
+        b"\xff\xd8\xff\xe0" + bytes(64)).decode()}
+    doc["buffers"] = [{"byteLength": len(data), "uri": (
+        "data:application/octet-stream;base64,"
+        + base64.b64encode(data).decode())}]
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+@pytest.mark.parametrize("name", sorted(UNCOVERED) + ["gltf_jpeg_image"])
+def test_uncovered_configs_raise(name, frames, tmp_path):
+    if name == "gltf_jpeg_image":
+        from sunray_tpu_torch.scene.gltf import load_gltf
+
+        with pytest.raises(NotImplementedError, match="JPEG"):
+            load_gltf(_gltf_with_jpeg(tmp_path / "jpeg.gltf"), device="cpu")
+        return
     cfg = dataclasses.replace(RenderConfig(**GOLDEN_KW),
                               **UNCOVERED.get(name, {}))
     scene = frames["scene"]
-    if name == "textured_atlas":
-        atlas = TextureAtlas.empty(device="cpu")
-        atlas.data = torch.ones((2, 4, 4, 4))
-        scene = dataclasses.replace(scene, textures=atlas)
     if name == "differentiable_big_table":
         rows = cuda_gather.MAX_ROWS + 1
         pad = rows - scene.positions.shape[0]
@@ -138,31 +156,3 @@ def test_uncovered_configs_raise(name, frames):
                                scene.normals[:1].expand(pad, 3)]))
     with pytest.raises(RAISES.get(name, NotImplementedError)):
         render_frame(scene, cfg, RenderState.create(cfg, device="cpu"), frames["mats"])
-
-
-
-@pytest.mark.parametrize("kernel", ["auto", "pallas", "jnp", "unknown"])
-def test_denoise_kernel_reaches_atrous_denoise(kernel, frames, monkeypatch):
-    """render_frame hands cfg.denoise_kernel to atrous_denoise, as the JAX
-    frame does (sunray_tpu/render/pipeline.py:135); an unknown name
-    raises. On the CPU every known name takes the plain passes, so the
-    frame is the one the default config renders."""
-    from sunray_tpu_torch.render import pipeline
-
-    seen, original = [], pipeline.atrous_denoise
-
-    def recording(*args, kernel="auto"):
-        seen.append(kernel)
-        return original(*args, kernel=kernel)
-
-    monkeypatch.setattr(pipeline, "atrous_denoise", recording)
-    cfg = dataclasses.replace(frames["cfg"], denoise_kernel=kernel)
-    state = RenderState.create(cfg, device="cpu")
-    if kernel == "unknown":
-        with pytest.raises(ValueError):
-            render_frame(frames["scene"], cfg, state, frames["mats"])
-        assert seen == ["unknown"]
-        return
-    _, ldr, _ = render_frame(frames["scene"], cfg, state, frames["mats"])
-    assert seen == [kernel]
-    assert torch.equal(ldr, torch.from_numpy(frames["port"][0][0]))

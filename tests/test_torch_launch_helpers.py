@@ -4,10 +4,12 @@ K14's, K2's, K1's, K3's, K7's, B1's and K8's backward's launch shapes:
 the host's copies (cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS,
 OCC_THREADS, OCC_WIDE_MIN, CLOSEST_RAYS, CLOSEST_THREADS,
 CLOSEST_WIDE_MIN; cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
-ATROUS_HALO; cuda_boundary.LAUNCH_SHAPE; cuda_gather.BWD_LAUNCH_SHAPE),
+ATROUS_HALO; cuda_boundary.LAUNCH_SHAPE; cuda_gather.BWD_LAUNCH_SHAPE;
+cuda_bvh.LAUNCH_SHAPE),
 which the CPU models of the kernels, the tests' table sizes and
 chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
-csrc/restir.cu, csrc/atrous.cu, csrc/boundary.cu and csrc/gather.cu, and
+csrc/restir.cu, csrc/atrous.cu, csrc/boundary.cu, csrc/gather.cu and
+csrc/bvh.cu, and
 cuda_build refuses a library whose shape queries report another shape.
 B1's K dispatch (every K of 1..MAX_K, nothing else); K8's backward's
 launch shape as a pure function of (G * N, K,
@@ -21,9 +23,9 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one torch thread, as every port test)
-from sunray_tpu_torch.ops import (cuda_boundary, cuda_build, cuda_gather,
-                                  cuda_history, cuda_image, cuda_restir,
-                                  cuda_trace)
+from sunray_tpu_torch.ops import (cuda_boundary, cuda_build, cuda_bvh,
+                                  cuda_gather, cuda_history, cuda_image,
+                                  cuda_restir, cuda_trace)
 
 SHAPES = {
     "sunray_woop_launch_shape": (
@@ -49,6 +51,8 @@ SHAPES = {
         "gather.cu", ("kMaxRows", "kBwdMaxCols", "kBwdMaxWarps", "kBwdVec",
                       "kMaxGroups"),
         cuda_gather.BWD_LAUNCH_SHAPE),
+    "sunray_bvh_launch_shape": (
+        "bvh.cu", ("kThreads", "kStack"), cuda_bvh.LAUNCH_SHAPE),
 }
 
 

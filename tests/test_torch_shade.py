@@ -21,7 +21,6 @@ from sunray_tpu_torch import convert
 from sunray_tpu_torch.ops import cuda_gather
 from sunray_tpu_torch.ops.intersect import Hit
 from sunray_tpu_torch.render import shade as pshade
-from sunray_tpu_torch.scene.types import TextureAtlas
 from torch_parity import CAMERA, n, t, to_numpy
 
 
@@ -71,9 +70,9 @@ def test_gather_rows_int_table_exact():
     np.testing.assert_array_equal(n(got), want)
 
 
-def _hits(scene, w=64, h=48, seed=0):
+def _hits(scene, w=64, h=48, seed=0, camera=CAMERA):
     """Camera hits plus random bounce hits on the box (JAX brute tracer)."""
-    mats = jcamera_matrices(JCamera(**CAMERA), w, h)
+    mats = jcamera_matrices(JCamera(**camera), w, h)
     o, d = jax.jit(lambda m: jgenerate_rays(m, w, h))(mats)
     o = np.asarray(o).reshape(-1, 3)
     d = np.asarray(d).reshape(-1, 3)
@@ -108,16 +107,34 @@ def test_shade_hits_matches_reference(face_forward):
                 np.testing.assert_allclose(g, w_, atol=1e-5, err_msg=name)
 
 
-def test_shade_hits_textured_atlas_raises():
-    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu")
-    atlas = TextureAtlas.empty(device="cpu")
-    atlas.data = torch.ones((2, 4, 4, 4))
-    pscene.textures = atlas
-    z = torch.zeros(4)
-    hit = Hit(z, torch.zeros(4, dtype=torch.int32), z, z, z.bool())
-    with pytest.raises(NotImplementedError):
-        pshade.shade_hits(pscene, torch.zeros(4, 3), torch.ones(4, 3), hit)
+def test_shade_hits_textured_atlas_raises(tmp_path):
+    """A textured atlas no longer raises (this test held that refusal
+    before the textured path was ported): shade_hits on a textured glTF
+    scene (tools/synth_gltf.py: base colour, emissive, metallic-roughness
+    and normal-map textures, tangents, a second uv set) against the JAX
+    shade_hits (jitted, as the frame compiles it) on the same hits, 1e-5
+    as on the Cornell box."""
+    from sunray_tpu.scene.gltf import load_gltf as jload_gltf
+    from tools.synth_gltf import CAMERA as SCENE_CAMERA
+    from tools.synth_gltf import write_scene
 
+    path = write_scene(str(tmp_path / "scene.glb"), seed=5, tex=16, subdiv=1,
+                       spheres=6)
+    jscene = jload_gltf(path)
+    pscene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
+    assert not pscene.textures.trivial
+    for o, d, hit in _hits(jscene, camera=SCENE_CAMERA):
+        want = jax.jit(jshade.shade_hits)(jscene, jnp.asarray(o),
+                                          jnp.asarray(d), hit)
+        got = pshade.shade_hits(pscene, t(o), t(d),
+                                Hit(*(t(np.asarray(x)) for x in hit)))
+        for name in pshade.Surface._fields:
+            g, w_ = n(getattr(got, name)), np.asarray(getattr(want, name))
+            assert g.shape == w_.shape, name
+            if g.dtype == bool:
+                np.testing.assert_array_equal(g, w_, err_msg=name)
+            else:
+                np.testing.assert_allclose(g, w_, atol=1e-5, err_msg=name)
 
 
 def test_world_triangles_match_reference():
