@@ -26,12 +26,15 @@ import numpy as np
 import torch
 
 from sunray_tpu_torch.native import build_sah_bvh
+from sunray_tpu_torch.ops import intersect
 from sunray_tpu_torch.ops.bvh import (
     WalkTables,
     _range_boxes,
     encode_children,
     karras_topology,
     morton_codes,
+    trace_closest_walk,
+    trace_occluded_walk,
 )
 from sunray_tpu_torch.ops.fp import dot3, fma, sum3
 from sunray_tpu_torch.scene.types import _transform_points
@@ -261,3 +264,17 @@ def build_frame_tlas(blas: BlasSet, scene) -> WalkTables:
     return WalkTables(torch.cat([blas.node_ids, tlas_ids]).contiguous(),
                       torch.cat([blas.node_box, tlas_box]).contiguous(),
                       blas.leaf_v, blas.leaf_ids, root, inst_inv, inst_off)
+
+
+def trace_closest_bvh2(tl: WalkTables, orig, d, tmin=intersect.T_MIN,
+                       tmax=intersect.T_MAX) -> intersect.Hit:
+    """Closest hit through this frame's TLAS (bvh2.py:567-589): B3 on the
+    card, its plain twin on the CPU; tri is a world triangle id."""
+    return trace_closest_walk(tl, orig, d, tmin, tmax)
+
+
+def trace_occluded_bvh2(tl: WalkTables, orig, d, tmax, tmin=intersect.T_MIN,
+                        exclude=None):
+    """Any hit on [tmin, tmax] through this frame's TLAS (bvh2.py:592-623);
+    exclude: (N,) int32 world triangle ids."""
+    return trace_occluded_walk(tl, orig, d, tmax, tmin, exclude)

@@ -1,5 +1,9 @@
-from sunray_tpu_torch.scene.procedural import cornell_box
+from sunray_tpu_torch.scene.procedural import cornell_box, reflection_room
 from sunray_tpu_torch.scene.types import (
+    ALPHA_BLEND,
+    ALPHA_MASK,
+    ALPHA_OPAQUE,
+    NULL_TEXTURE,
     MaterialTable,
     SceneBuffers,
     TextureAtlas,
@@ -8,5 +12,6 @@ from sunray_tpu_torch.scene.types import (
 
 __all__ = [
     "MaterialTable", "SceneBuffers", "TextureAtlas", "build_scene",
-    "cornell_box",
+    "cornell_box", "reflection_room", "ALPHA_OPAQUE", "ALPHA_MASK",
+    "ALPHA_BLEND", "NULL_TEXTURE",
 ]

@@ -15,7 +15,7 @@ from sunray_tpu.ops import bvh2 as jbvh2
 from sunray_tpu.scene import types as jtypes
 from sunray_tpu.scene.manager import pad_scene_capacity as jpad
 from sunray_tpu_torch import convert
-from sunray_tpu_torch.ops import bvh, bvh2, intersect
+from sunray_tpu_torch.ops import bvh2, intersect
 from torch_bvh_cases import ray_families
 from torch_parity import n, t, to_numpy
 
@@ -105,7 +105,7 @@ def test_walk_matches_jax_and_brute(case, family):
     o, d = ray_families(tuple(n(v) for v in wt), n=600, seed=11)[family]
     want = jax.jit(lambda o, d: jbvh2.trace_closest_bvh2(case["jtl"], o, d))(
         jnp.asarray(o), jnp.asarray(d))
-    got = bvh.trace_closest_walk(case["ptl"], t(o), t(d))
+    got = bvh2.trace_closest_bvh2(case["ptl"], t(o), t(d))
     np.testing.assert_array_equal(n(got.hit), np.asarray(want.hit))
     np.testing.assert_array_equal(n(got.tri), np.asarray(want.tri))
     m = np.asarray(want.hit)
@@ -123,6 +123,6 @@ def test_walk_matches_jax_and_brute(case, family):
     occ_want = jax.jit(lambda o, d, tx, e: jbvh2.trace_occluded_bvh2(
         case["jtl"], o, d, tx, exclude=e))(jnp.asarray(o), jnp.asarray(d),
                                            jnp.asarray(tmax), jnp.asarray(ex))
-    occ = bvh.trace_occluded_walk(case["ptl"], t(o), t(d), t(tmax),
-                                  exclude=t(ex))
+    occ = bvh2.trace_occluded_bvh2(case["ptl"], t(o), t(d), t(tmax),
+                                   exclude=t(ex))
     np.testing.assert_array_equal(n(occ), np.asarray(occ_want))
