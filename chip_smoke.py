@@ -173,8 +173,7 @@ Phases, in order; any failure raises and exits non-zero with no result:
      lanes spread over the others): tri, hit and the test counts
      bit-equal on every lane, t/u/v lanes differing counted; (d) the
      scene at 96x54 for 3 frames on the card and on the CPU port, PSNR >
-     40 dB. `python3 chip_smoke.py --only-real` runs phases 1, 2 and 10
-     alone (its last lines: B2's and B3's rows, then the device line).
+     40 dB. `python3 tools/bvh_walk_run.py` runs phase 10 alone.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -3388,17 +3387,6 @@ def main():
     k5_regs = kernel_registers(regs, "di_spatial_kernel",
                                128)  # csrc/restir.cu kSpatialThreads
     log(f"  registers, resident warps an SM: K1 {k1_regs}, K5 {k5_regs}")
-    if "--only-real" in sys.argv[1:]:
-        # Phase 10 alone (its kernels' rows only), for work on B2 and B3.
-        rows, launches = phase_real_scene(dev)
-        log(json.dumps({"kernels": [dict(name=k, launches=launches[k], **{
-            key: v for key, v in r.items() if key != "bound"},
-            bound_ms=r["bound"][0], bound_by=r["bound"][1])
-            for k, r in rows.items()]}))
-        log(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return
     counts = sass_counts(path)
 
     kernels = phase_kernels(dev, counts)

@@ -81,9 +81,8 @@ __device__ __forceinline__ bool box(const float o[3], const float inv[3], const 
 template <bool kAny, bool kTwoLevel>
 __global__ void __launch_bounds__(kThreads)
     bvh_walk_kernel(const int4* __restrict__ node_ids, const float4* __restrict__ node_box,
-                    int n_nodes, const float* __restrict__ leaf_v,
-                    const int* __restrict__ leaf_ids, int nl, int k,
-                    const int* __restrict__ root, const float* __restrict__ inst_inv,
+                    const float* __restrict__ leaf_v, const int* __restrict__ leaf_ids,
+                    int nl, int k, const int* __restrict__ root, const float* __restrict__ inst_inv,
                     const int* __restrict__ inst_off, const float* __restrict__ orig,
                     const float* __restrict__ dir, const float* __restrict__ tmin_a,
                     const float* __restrict__ tmax_a, const int* __restrict__ exclude,
@@ -216,7 +215,6 @@ __global__ void __launch_bounds__(kThreads)
     const int s2 = s1 + (near_h ? 1 : 0);
     sp = s2 < kStack - 1 ? s2 : kStack - 1;
   }
-  (void)n_nodes;
   if (tests != nullptr) {
     tests[2 * r] = box_tests;
     tests[2 * r + 1] = tri_tests;
@@ -231,15 +229,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool kAny, bool kTwoLevel>
-cudaError_t launch(const int4* node_ids, const float4* node_box, int n_nodes,
-                   const float* leaf_v, const int* leaf_ids, int nl, int k, const int* root,
-                   const float* inst_inv, const int* inst_off, const float* o, const float* d,
-                   const float* tmin, const float* tmax, const int* exclude, int64_t n,
-                   float* t, int* tri, float* u, float* v, uint8_t* hit, int* tests,
-                   cudaStream_t s) {
+cudaError_t launch(const int4* node_ids, const float4* node_box, const float* leaf_v,
+                   const int* leaf_ids, int nl, int k, const int* root, const float* inst_inv,
+                   const int* inst_off, const float* o, const float* d, const float* tmin,
+                   const float* tmax, const int* exclude, int64_t n, float* t, int* tri,
+                   float* u, float* v, uint8_t* hit, int* tests, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
   bvh_walk_kernel<kAny, kTwoLevel><<<grid, kThreads, 0, s>>>(
-      node_ids, node_box, n_nodes, leaf_v, leaf_ids, nl, k, root, inst_inv, inst_off, o, d,
+      node_ids, node_box, leaf_v, leaf_ids, nl, k, root, inst_inv, inst_off, o, d,
       tmin, tmax, exclude, n, t, tri, u, v, hit, tests);
   return cudaGetLastError();
 }
@@ -270,17 +267,17 @@ extern "C" int sunray_bvh_walk(const void* node_ids, const void* node_box, int n
   auto nb = static_cast<const float4*>(node_box);
   cudaError_t err;
   if (two_level) {
-    err = any_hit ? launch<true, true>(ni, nb, n_nodes, leaf_v, leaf_ids, nl, k, root, inst_inv,
+    err = any_hit ? launch<true, true>(ni, nb, leaf_v, leaf_ids, nl, k, root, inst_inv,
                                        inst_off, o, d, tmin, tmax, exclude, n, t, tri, u, v,
                                        hit, tests, s)
-                  : launch<false, true>(ni, nb, n_nodes, leaf_v, leaf_ids, nl, k, root,
+                  : launch<false, true>(ni, nb, leaf_v, leaf_ids, nl, k, root,
                                         inst_inv, inst_off, o, d, tmin, tmax, exclude, n, t,
                                         tri, u, v, hit, tests, s);
   } else {
-    err = any_hit ? launch<true, false>(ni, nb, n_nodes, leaf_v, leaf_ids, nl, k, root,
+    err = any_hit ? launch<true, false>(ni, nb, leaf_v, leaf_ids, nl, k, root,
                                         inst_inv, inst_off, o, d, tmin, tmax, exclude, n, t,
                                         tri, u, v, hit, tests, s)
-                  : launch<false, false>(ni, nb, n_nodes, leaf_v, leaf_ids, nl, k, root,
+                  : launch<false, false>(ni, nb, leaf_v, leaf_ids, nl, k, root,
                                          inst_inv, inst_off, o, d, tmin, tmax, exclude, n, t,
                                          tri, u, v, hit, tests, s);
   }

@@ -5,7 +5,9 @@ own copy of the JAX package's), the quality / SLOW_BUILD path of the
 AsState heuristic; the device LBVH (ops/bvh.build_bvh) is the FAST_BUILD
 path. It is compiled with g++ at first use into build/sunray_tpu_torch/
 at the repository root (ignored by git), under a name that carries a
-hash of the source and flags. A failed build raises NativeBuildError:
+hash of the source, the flags and the host's -march=native target, so
+that a build directory copied to another machine is rebuilt there
+rather than loaded with another CPU's instructions. A failed build raises NativeBuildError:
 the port does not switch to the LBVH on its own, since that would change
 what a SLOW_BUILD measures.
 """
@@ -28,15 +30,32 @@ FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
+_target = None
 
 
 class NativeBuildError(RuntimeError):
     """g++ failed to build or load the native library."""
 
 
+def _host_target() -> bytes:
+    """What -march=native means on this host: g++'s resolved target
+    options (architecture and every ISA extension it switches on)."""
+    global _target
+    if _target is None:
+        proc = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                              capture_output=True, timeout=60)
+        if proc.returncode != 0:
+            raise NativeBuildError(f"g++ -Q --help=target exited "
+                                   f"{proc.returncode}:\n"
+                                   f"{proc.stderr.decode(errors='replace')}")
+        _target = proc.stdout
+    return _target
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     h.update(SOURCE.read_bytes())
+    h.update(_host_target())
     return BUILD_DIR / f"libsunray_native_{h.hexdigest()[:16]}.so"
 
 

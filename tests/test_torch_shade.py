@@ -107,13 +107,11 @@ def test_shade_hits_matches_reference(face_forward):
                 np.testing.assert_allclose(g, w_, atol=1e-5, err_msg=name)
 
 
-def test_shade_hits_textured_atlas_raises(tmp_path):
-    """A textured atlas no longer raises (this test held that refusal
-    before the textured path was ported): shade_hits on a textured glTF
-    scene (tools/synth_gltf.py: base colour, emissive, metallic-roughness
-    and normal-map textures, tangents, a second uv set) against the JAX
-    shade_hits (jitted, as the frame compiles it) on the same hits, 1e-5
-    as on the Cornell box."""
+def test_shade_hits_textured_matches_jax(tmp_path):
+    """shade_hits on a textured glTF scene (tools/synth_gltf.py: base
+    colour, emissive, metallic-roughness and normal-map textures,
+    tangents, a second uv set) against the JAX shade_hits (jitted, as the
+    frame compiles it) on the same hits, 1e-5 as on the Cornell box."""
     from sunray_tpu.scene.gltf import load_gltf as jload_gltf
     from tools.synth_gltf import CAMERA as SCENE_CAMERA
     from tools.synth_gltf import write_scene

@@ -168,22 +168,14 @@ def test_render_trace_matches_reference():
 
 
 @pytest.mark.parametrize("kw", [dict(tracer="bvh"), dict(tracer="bvh2"),
-                                dict(tracer="auto", brute_force_max_tris=16),
-                                dict(trace_impl="pallas"), dict(tracer="kd")])
-def test_make_tracer_uncovered_raises(kw):
+                                dict(tracer="auto", brute_force_max_tris=16)])
+def test_make_tracer_matches_jax(kw):
     """make_tracer without an accel builds what JAX's does (trace.py:
     113-127): an LBVH walk for tracer="bvh" and for "auto" above the brute
-    limit, brute force for "bvh2"; their closest hits equal JAX's. Only an
-    unknown trace_impl (NotImplementedError) or tracer (ValueError) still
-    raises: the BVH tracers this test once saw refused are ported."""
-    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu")
-    if "trace_impl" in kw or kw["tracer"] == "kd":
-        with pytest.raises(NotImplementedError if "trace_impl" in kw
-                           else ValueError):
-            ptrace.make_tracer(pscene, pconfig.RenderConfig(**kw))
-        return
+    limit, brute force for "bvh2"; their closest hits equal JAX's."""
     from sunray_tpu.config import RenderConfig as JConfig
 
+    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu")
     jctx = jtrace.make_tracer(jcornell_box(), JConfig(**kw))
     pctx = ptrace.make_tracer(pscene, pconfig.RenderConfig(**kw))
     assert (pctx.walk is not None) == (jctx.bvh is not None)
@@ -194,6 +186,16 @@ def test_make_tracer_uncovered_raises(kw):
     np.testing.assert_array_equal(n(got.tri)[n(got.hit)],
                                   np.asarray(want.tri)[np.asarray(want.hit)])
     np.testing.assert_allclose(n(got.t), np.asarray(want.t), atol=ATOL)
+
+
+@pytest.mark.parametrize("kw,exc", [(dict(trace_impl="pallas"),
+                                     NotImplementedError),
+                                    (dict(tracer="kd"), ValueError)])
+def test_make_tracer_uncovered_raises(kw, exc):
+    """An unknown trace_impl or tracer still raises."""
+    pscene = convert.scene_from_numpy(to_numpy(jcornell_box()), device="cpu")
+    with pytest.raises(exc):
+        ptrace.make_tracer(pscene, pconfig.RenderConfig(**kw))
 
 
 def test_make_tracer_binned_without_accel_is_brute():
