@@ -164,16 +164,25 @@ Phases, in order; any failure raises and exits non-zero with no result:
      build, B2), then 8 frames of set_instances animation (accel op
      "update" each) and a spawn ("fast_build"); each prints frame ms,
      Mray/s by bench.py's count (checked against the tracer's), ldr_mean,
-     the accel op of every frame and the walk's launches a frame; (c) on
-     the frame's own queries (camera and GI-bounce closest hits, the
-     first shadow query with exclude ids walked any-hit), the walk timed
-     beside its bound (from its own per-ray test counters: slab tests x
-     27 + triangle tests x 53 operations, or the rays' bytes) and its
-     plain twin (ops/bvh.walk_plain; all 2,073,600 camera lanes, 65,536
-     lanes spread over the others): tri, hit and the test counts
-     bit-equal on every lane, t/u/v lanes differing counted; (d) the
-     scene at 96x54 for 3 frames on the card and on the CPU port, PSNR >
-     40 dB. `python3 tools/bvh_walk_run.py` runs phase 10 alone.
+     the accel op of every frame and the walk's launches a frame (at
+     most the frame's trace queries: alpha cutout runs inside the walk,
+     one launch a query); (c) on the frame's own queries (camera and
+     GI-bounce closest hits, the first shadow query with exclude ids
+     walked any-hit), the walk without alpha timed beside its bound (from
+     its own per-ray test counters: slab tests x 27 + triangle tests x 53
+     operations, or the rays' bytes) and its issue floor (the SASS of a
+     pop of an internal node and of a triangle test, tools/sass.py, for
+     the pops and tests it counted), and its plain twin
+     (ops/bvh.walk_plain; all 2,073,600 camera lanes, 65,536 lanes spread
+     over the others): tri, hit and the test counts bit-equal on every
+     lane, t/u/v lanes differing counted; (d) every query of one frame
+     as the frame runs it, the fused alpha walk: against the batch rounds
+     over the walk kernel (render/trace.py's closest_alpha_rounds /
+     occluded_alpha_rounds) on every lane, bit-equal, and against its
+     plain twin (ops/bvh.walk_alpha_plain) on 65,536 lanes with the test
+     counts equal; both routes timed; (e) the scene at 96x54 for 3 frames
+     on the card and on the CPU port, PSNR > 40 dB. `python3
+     tools/bvh_walk_run.py` runs phase 10 alone.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -385,6 +394,7 @@ def sass_counts(lib_path):
                n_sm=torch.cuda.get_device_properties(0).multi_processor_count)
     out.update(loop_unit_counts(funcs))
     out.update(di_spatial_counts(funcs))
+    out.update(walk_counts(funcs))
     log(f"  SASS: K14 {woop} instructions a triangle iteration; K7 {taps} "
         f"from the staging barrier through 24 taps, {stage} a staging "
         f"iteration; {out['n_sm']} SMs at up to {clock:.0f} MHz")
@@ -468,6 +478,59 @@ def di_spatial_counts(funcs):
     log(f"  SASS: di_spatial_kernel {tap:.2f} instructions a used tap "
         f"({units:g} taps an iteration), {fixed} around the tap loop")
     return {"k5_tap": tap, "k5_fixed": fixed}
+
+
+# B2's and B3's instantiations (csrc/bvh.cu's bvh_walk_kernel<any hit, two
+# levels, alpha, stack word>) whose inner loops are counted: (key, name).
+WALK_SASS = (("b2", "15bvh_walk_kernelILb0ELb0ELb0EjE"),
+             ("b2_any", "15bvh_walk_kernelILb1ELb0ELb0EjE"),
+             ("b3", "15bvh_walk_kernelILb0ELb1ELb0EjE"),
+             ("b3_any", "15bvh_walk_kernelILb1ELb1ELb0EjE"),
+             ("b2_alpha", "15bvh_walk_kernelILb0ELb0ELb1EjE"),
+             ("b2_alpha_any", "15bvh_walk_kernelILb1ELb0ELb1EjE"),
+             ("b3_alpha", "15bvh_walk_kernelILb0ELb1ELb1EjE"),
+             ("b3_alpha_any", "15bvh_walk_kernelILb1ELb1ELb1EjE"))
+
+
+def walk_counts(funcs, kernels=WALK_SASS):
+    """{key_pop: SASS instructions of a pop of an internal node (the walk
+    loop, the innermost loop holding FMNMX, through both slab tests' FMNMX
+    and around the leaf's and the transform's work), key_tri: a triangle
+    test (the innermost loop holding MUFU.RCP, the test's IEEE reciprocal,
+    divided by the tests an iteration makes)} of each walk instantiation;
+    a count that fails is left out and printed as not measured."""
+    from tools import sass
+
+    out = {}
+    for key, kernel in kernels:
+        try:
+            code = sass.find(funcs, kernel)
+            pop, _ = sass.loop_iteration(code, "FMNMX")
+            tri, path = sass.loop_iteration(code, "MUFU.RCP")
+            units = sum(1 for ins in path if ins.op.startswith("MUFU.RCP"))
+        except (KeyError, ValueError) as e:
+            log(f"  SASS {key}: not measured ({e})")
+            continue
+        out[f"{key}_pop"], out[f"{key}_tri"] = pop, tri / units
+        log(f"  SASS: {kernel} {pop} instructions a pop of an internal node, "
+            f"{tri / units:.2f} a triangle test ({units} an iteration)")
+    return out
+
+
+def walk_floor(counts, key, tests):
+    """A walk's instruction-issue floor, ms, from its per-ray (box tests,
+    triangle tests) counters: a pop of an internal node for every two slab
+    tests and a triangle test for each, 32 lanes a warp instruction; None
+    where the SASS was not counted."""
+    from tools import sass
+
+    if f"{key}_pop" not in counts:
+        return None
+    box, tri = tests.long().sum(0).tolist()
+    warp_instructions = (box / 2 * counts[f"{key}_pop"]
+                         + tri * counts[f"{key}_tri"]) / 32
+    return sass.issue_floor_ms(warp_instructions, counts["n_sm"],
+                               counts["clock_mhz"])
 
 
 def issue_floor(counts, key, units):
@@ -3066,8 +3129,9 @@ def real_scene_path():
 
 
 def capture_traces(render):
-    """The tracer queries of one call of render(): [(kind, label, tables,
-    (o, d, tmin, tmax), exclude)] in order, kind "closest" or "occluded",
+    """The tracer queries of one call of render(): [(kind, label, tracer
+    context, (o, d, tmin, tmax), exclude)] in order, kind "closest" or
+    "occluded",
     from the trace_closest / trace_occluded calls of the G-buffer and final
     passes (render/gbuffer.py, render/pathtrace.py), with the rays, bounds
     and exclude ids a walk gets (an occlusion query's tmax less 1e-3)."""
@@ -3105,14 +3169,14 @@ def capture_traces(render):
             label = ("camera" if mod == "gbuffer" and not out
                      else "GI bounce" if mod == "gbuffer" and not a["coherent"]
                      else f"{mod} closest")
-            out.append(("closest", label, ctx.walk, rays, None))
+            out.append(("closest", label, ctx, rays, None))
         else:
             tmax = torch.as_tensor(a["tmax"], dtype=torch.float32,
                                    device=a["orig"].device)
             rays = bvh._rays(a["orig"], a["d"], a["tmin"], tmax - 1e-3)
             ex = a["exclude"]
             ex = None if ex is None else ex.reshape(-1).to(torch.int32).contiguous()
-            out.append(("occluded", f"{mod} shadow", ctx.walk, rays, ex))
+            out.append(("occluded", f"{mod} shadow", ctx, rays, ex))
     torch.cuda.synchronize()
     return out
 
@@ -3129,14 +3193,28 @@ def walk_bound(rays, tests, closest, exclude):
     return bound(n_bytes, box * SLAB_OPS + tri * TEST_OPS)
 
 
-def walk_check(kind, label, tables, rays, exclude, full_plain=False):
-    """B2 or B3 on one captured query: the kernel's time on all its rays
-    and its bound from its own test counters; the kernel against the plain
-    twin (ops/bvh.walk_plain) on WALK_LANES lanes spread over the query
-    (all of them with full_plain): tri and hit bit-equal, t, u, v lanes
-    differing counted with the largest difference, the test counts equal."""
+def walk_key(tables, closest, alpha=False):
+    """WALK_SASS's key of the walk instantiation a query launches."""
+    return ("b3" if tables.two_level else "b2") + ("_alpha" if alpha else "") \
+        + ("" if closest else "_any")
+
+
+def spread(n, device, full=False):
+    """WALK_LANES lanes spread over n (all of them with full)."""
+    return (torch.arange(n, device=device) if full or n <= WALK_LANES
+            else torch.linspace(0, n - 1, WALK_LANES, device=device).long())
+
+
+def walk_check(kind, label, ctx, rays, exclude, counts, full_plain=False):
+    """B2 or B3 on one captured query, walked without alpha cutout: the
+    kernel's time on all its rays, its bound and its issue floor from its
+    own test counters; the kernel against the plain twin
+    (ops/bvh.walk_plain) on WALK_LANES lanes spread over the query (all of
+    them with full_plain): tri and hit bit-equal, t, u, v lanes differing
+    counted with the largest difference, the test counts equal."""
     from sunray_tpu_torch.ops import bvh, cuda_bvh
 
+    tables = ctx.walk
     o, d, tn, tx = rays
     n = o.shape[0]
     closest = kind == "closest"
@@ -3146,8 +3224,8 @@ def walk_check(kind, label, tables, rays, exclude, full_plain=False):
     ms = device_ms(lambda: cuda_bvh._launch(tables, o, d, tn, tx, ex,
                                              not closest))
     b_ms, b_by = walk_bound(rays, tests.long(), closest, ex)
-    sel = (torch.arange(n, device=o.device) if full_plain or n <= WALK_LANES
-           else torch.linspace(0, n - 1, WALK_LANES, device=o.device).long())
+    floor = walk_floor(counts, walk_key(tables, closest), tests)
+    sel = spread(n, o.device, full_plain)
     sub = tuple(x[sel].contiguous() for x in rays)
     sub_ex = None if ex is None else ex[sel].contiguous()
     torch.cuda.synchronize()
@@ -3162,7 +3240,7 @@ def walk_check(kind, label, tables, rays, exclude, full_plain=False):
                                           1).to(torch.int32)).all()),
           f"{label}: the kernel's test counts differ from the plain twin's")
     row = dict(label=label, rays=n, lanes=int(sel.numel()), ms=ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, floor_ms=floor,
                box_tests_a_ray=float(tests[:, 0].float().mean()),
                tri_tests_a_ray=float(tests[:, 1].float().mean()),
                exclude=ex is not None, max_abs_err=0.0)
@@ -3179,15 +3257,98 @@ def walk_check(kind, label, tables, rays, exclude, full_plain=False):
         row["max_abs_err"] = max(v[1] for v in diff.values())
     log(f"  {label}: {n} rays, {row['box_tests_a_ray']:.1f} box + "
         f"{row['tri_tests_a_ray']:.1f} triangle tests a ray; kernel "
-        f"{ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{b_ms / ms:.1%}); plain twin {plain_ms:.1f} ms on {row['lanes']} "
+        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%}), issue floor "
+        + ("not measured" if floor is None else f"{floor:.4f} ms")
+        + f"; plain twin {plain_ms:.1f} ms on {row['lanes']} "
         f"lanes; tri/hit bit-equal on {row['lanes']} lanes"
         + (f", t/u/v lanes differing {row['tuv_lanes_differing']} (max "
            f"{row['max_abs_err']:.3g})" if closest else ""))
     return row
 
 
-def real_run(dev, path, tracer, walk_name, animate=False, profile=False):
+def hits_differing(a, b):
+    """Lanes where two Hits differ in any bit of t, tri, u, v or hit."""
+    differ = (a.hit != b.hit) | (a.tri != b.tri)
+    for x, y in ((a.t, b.t), (a.u, b.u), (a.v, b.v)):
+        differ |= x.view(torch.int32) != y.view(torch.int32)
+    return int(differ.sum())
+
+
+def alpha_check(kind, label, ctx, rays, exclude, counts):
+    """One query of the frame as the frame runs it: B2 or B3 with alpha
+    cutout inside the walk (one launch) on every ray, against the route
+    it replaced, the batch rounds over the walk kernel
+    (render/trace.closest_alpha_rounds / occluded_alpha_rounds), on every
+    lane (t, tri, u, v and hit, or occlusion, bit-equal), and against the
+    plain twin (ops/bvh.walk_alpha_plain) on WALK_LANES lanes with the
+    test counts equal; both routes timed, the fused walk beside its bound
+    and issue floor from its own counters (the walks a ray makes)."""
+    from sunray_tpu_torch.ops import bvh, cuda_bvh
+    from sunray_tpu_torch.ops.intersect import Hit
+    from sunray_tpu_torch.render import trace
+
+    o, d, tn, tx = rays
+    n = o.shape[0]
+    closest = kind == "closest"
+    rounds = ctx.alpha_rounds
+
+    def fused(tests=None):
+        return cuda_bvh._launch(ctx.walk, o, d, tn, tx, exclude, not closest,
+                                tests=tests, alpha=ctx.alpha, rounds=rounds)
+
+    def batch():
+        if closest:
+            return trace.closest_alpha_rounds(ctx, o, d, tn, tx)
+        return trace.occluded_alpha_rounds(ctx, o, d, tx, tn, exclude)
+
+    tests = torch.empty((n, 2), dtype=torch.int32, device=o.device)
+    full = fused(tests)
+    old = batch()
+    if closest:
+        every = hits_differing(Hit(*full), old)
+    else:
+        every = int((full[4] != old).sum())
+    check(every == 0, f"{label}: the fused alpha walk differs from the batch "
+          f"rounds on {every} lanes")
+    ms = device_ms(fused)
+    rounds_ms = time_ms(batch)
+    b_ms, b_by = walk_bound(rays, tests.long(), closest, exclude)
+    floor = walk_floor(counts, walk_key(ctx.walk, closest, alpha=True), tests)
+    sel = spread(n, o.device)
+    sub = tuple(x[sel].contiguous() for x in rays)
+    sub_ex = None if exclude is None else exclude[sel].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = bvh.walk_alpha_plain(ctx.walk, ctx.alpha, *sub, rounds,
+                                 any_hit=not closest, exclude=sub_ex)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if closest:
+        lanes = hits_differing(Hit(*(x[sel] for x in full)), Hit(*plain[:5]))
+    else:
+        lanes = int((full[4][sel] != plain.found).sum())
+    check(lanes == 0, f"{label}: the fused alpha walk differs from its plain "
+          f"twin on {lanes} lanes")
+    check(bool((tests[sel] == torch.stack([plain.box_tests, plain.tri_tests],
+                                          1).to(torch.int32)).all()),
+          f"{label}: the fused walk's test counts differ from the twin's")
+    row = dict(label=label, kind=kind, rays=n, lanes=int(sel.numel()), ms=ms,
+               rounds_ms=rounds_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, floor_ms=floor, exclude=exclude is not None,
+               box_tests_a_ray=float(tests[:, 0].float().mean()),
+               tri_tests_a_ray=float(tests[:, 1].float().mean()))
+    log(f"  {label} (alpha, {kind}): {n} rays, fused {ms:.4f} ms, batch "
+        f"rounds {rounds_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), floor "
+        + ("not measured" if floor is None else f"{floor:.4f} ms")
+        + f", {row['box_tests_a_ray']:.1f} box + {row['tri_tests_a_ray']:.1f} "
+        f"triangle tests a ray; bit-equal to the rounds on every lane and to "
+        f"the plain twin on {row['lanes']} lanes")
+    return row
+
+
+def real_run(dev, path, tracer, walk_name, counts, animate=False,
+             profile=False):
     """One 1080p default ReSTIR run through Renderer.load_gltf / render:
     frame ms (REAL_WARM warm-up frames, REAL_TIMED timed, synced), Mray/s
     by bench.py's count, ldr_mean, the accel op of every frame, the walk
@@ -3213,6 +3374,7 @@ def real_run(dev, path, tracer, walk_name, animate=False, profile=False):
     ops = []
     cuda_build.launches.clear()
     cuda_trace.rays.clear()
+    cuda_trace.queries.clear()
     t0 = time.perf_counter()
     for _ in range(REAL_WARM):
         r.render(cam)
@@ -3230,6 +3392,7 @@ def real_run(dev, path, tracer, walk_name, animate=False, profile=False):
     frame_s = (time.perf_counter() - t0) / REAL_TIMED
     frames = REAL_WARM + REAL_TIMED
     launches = dict(cuda_build.launches)
+    traced = sum(cuda_trace.queries.values())
     rays = (sum(cuda_trace.rays.values()) - rays0) / REAL_TIMED
     ldr_np = ldr.cpu().numpy()
     mean = float(ldr_np.mean())
@@ -3253,15 +3416,24 @@ def real_run(dev, path, tracer, walk_name, animate=False, profile=False):
     stage_breakdown(r.scene, r.config, r.state, mats, frame_s, r._accel)
     if profile:
         profile_frame(r.scene, r.config, r.state, mats, r._accel)
+    check(launches[walk_name] <= traced,
+          f"{walk_name}: {launches[walk_name]} launches in {frames} frames "
+          f"of {traced} trace queries")
+    log(f"  {traced / frames:.2f} trace queries a frame, {walk_name} "
+        f"{launches[walk_name] / frames:.2f} launches a frame")
     queries = capture_traces(lambda: r.render(cam))
     pick = [q for q in queries if q[1] == "camera"][:1] + \
         [q for q in queries if q[1] == "GI bounce"][:1] + \
         [q for q in queries if q[0] == "occluded" and q[4] is not None][:1]
     check(len(pick) == 3, f"queries captured: {[q[1] for q in queries]}")
-    rows = [walk_check(*q, full_plain=(q[1] == "camera")) for q in pick]
+    rows = [walk_check(*q, counts, full_plain=(q[1] == "camera"))
+            for q in pick]
+    alpha_rows = [alpha_check(*q, counts) for q in queries
+                  if q[3][0].shape[0] > 0]
     result = dict(frame_ms=frame_s * 1e3, mrays=rays / frame_s / 1e6,
                   ldr_mean=mean, ops=ops, launches_a_frame=launches[walk_name]
-                  / frames, launches=launches[walk_name], queries=rows)
+                  / frames, launches=launches[walk_name], queries=rows,
+                  alpha_queries=alpha_rows, queries_a_frame=traced / frames)
     if animate:
         result["animation_ops"] = real_animate(r, cam, instances)
     return result
@@ -3323,20 +3495,22 @@ def real_card_vs_cpu(dev, path):
     return p
 
 
-def phase_real_scene(dev):
+def phase_real_scene(dev, counts):
     """Phase 10: the synthetic glTF scene through the Renderer: (a) tracer
     "auto" (B3), (b) tracer "bvh" (SAH, then UPDATE refits and a
     FAST_BUILD; B2), (c) each walk against its plain twin on the frames'
-    own queries, (d) card against CPU. Returns the kernel rows and
-    launches of B2 and B3."""
+    own queries, (d) each fused alpha query against the batch rounds and
+    its twin, (e) card against CPU. counts: sass_counts' (the walks' issue
+    floors). Returns the kernel rows and launches of B2 and B3."""
     t_phase = time.perf_counter()
     path = real_scene_path()
     log(f"phase 10: wrote {os.path.relpath(path, REPO)} "
         f"({os.path.getsize(path) / 1e6:.1f} MB) in "
         f"{time.perf_counter() - t_phase:.1f} s")
-    runs = {"bvh2_walk": real_run(dev, path, "auto", "bvh2_walk",
+    runs = {"bvh2_walk": real_run(dev, path, "auto", "bvh2_walk", counts,
                                   profile=True),
-            "bvh_walk": real_run(dev, path, "bvh", "bvh_walk", animate=True)}
+            "bvh_walk": real_run(dev, path, "bvh", "bvh_walk", counts,
+                                 animate=True)}
     card_cpu = real_card_vs_cpu(dev, path)
     rows, launches = {}, {}
     for name, run in runs.items():
@@ -3344,7 +3518,9 @@ def phase_real_scene(dev):
         rows[name] = dict(
             max_abs_err=max(q["max_abs_err"] for q in run["queries"]),
             ms=cam["ms"], plain_ms=cam["plain_ms"],
-            bound=(cam["bound_ms"], cam["bound_by"]),
+            bound=(cam["bound_ms"], cam["bound_by"]), floor_ms=cam["floor_ms"],
+            alpha_queries=run["alpha_queries"],
+            queries_a_frame=run["queries_a_frame"],
             shape=f"{cam['rays']} camera rays x {REAL_GLB['spheres']} x "
                   f"{20 * 4 ** REAL_GLB['subdiv']} + room triangles",
             queries=run["queries"], frame_ms=run["frame_ms"],
@@ -3382,7 +3558,8 @@ def main():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     regs = ptxas_registers(report)
-    from sunray_tpu_torch.ops import cuda_boundary, cuda_gather, cuda_trace
+    from sunray_tpu_torch.ops import (cuda_boundary, cuda_bvh, cuda_gather,
+                                      cuda_trace)
     k1_regs = kernel_registers(regs, "closest_kernel", cuda_trace.CLOSEST_THREADS)
     k5_regs = kernel_registers(regs, "di_spatial_kernel",
                                128)  # csrc/restir.cu kSpatialThreads
@@ -3446,7 +3623,10 @@ def main():
                                     32 * cuda_gather.BWD_MAX_WARPS).items()})
     kernels["boundary_candidates"]["registers"] = kernel_registers(
         regs, "boundary_candidates_kernelILi8E", cuda_boundary.THREADS)
-    real_rows, real_launches = phase_real_scene(dev)
+    real_rows, real_launches = phase_real_scene(dev, counts)
+    for name in REAL_ONLY:
+        real_rows[name]["registers"] = kernel_registers(regs, "bvh_walk_kernel",
+                                                        cuda_bvh.THREADS)
     kernels.update(real_rows)
     launches.update(real_launches)
 
@@ -3482,7 +3662,7 @@ def main():
                     "ad_vs_fd", "k_sweep", "vis_calls",
                     "vis_step_launches", "queries", "frame_ms", "frame_mrays",
                     "ldr_mean", "accel_ops", "launches_a_frame",
-                    "card_vs_cpu_psnr"):
+                    "card_vs_cpu_psnr", "alpha_queries", "queries_a_frame"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

@@ -17,11 +17,18 @@ pack_tables:
                                      instance codes (0 here: inherit);
   node_box (max(NL-1, 1), 12) f32    left min, left max, right min, right max;
   leaf_v   (NL, K, 9) f32            each leaf triangle's corners;
-  leaf_ids (NL, K) int32             its triangle id, -1 for padding.
+  leaf_ids (NL, K) int32             its triangle id, -1 for padding;
+  leaf_e   (NL, K, 12) f32           corner a, e1 = b - a, e2 = c - a and
+                                     3 floats of padding: the kernels'
+                                     three aligned float4 a triangle.
 
 Node ids: leaf k is id k, internal row j is id NL + j (the encoding of
 sunray_tpu/ops/bvh2.py, so the unified and the two-level walks share one
 walker). Ids ride int32 planes, never float bit patterns.
+
+Alpha cutout inside the walk (one launch a query on the card):
+walk_alpha_plain, the plain twin of the fused kernel, runs each ray's
+rounds of render/trace.py lane by lane over ops/texture.AlphaTables.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from sunray_tpu_torch.ops import intersect
 from sunray_tpu_torch.ops.fp import dot3
+from sunray_tpu_torch.ops.texture import AlphaTables, alpha_accepts
 
 STACK_DEPTH = 64
 
@@ -57,7 +65,9 @@ class WalkTables(NamedTuple):
     """What a walk reads (module docstring). root: (2,) int32 on the
     tables' device, the root's id and instance code. inst_inv (I+1, 12)
     world->object rows and inst_off (I+1,) world-triangle offsets, by
-    instance code, for the two-level walk; None for the unified one."""
+    instance code, for the two-level walk; None for the unified one.
+    tlas_rows: how many of the last node rows are this frame's TLAS (the
+    kernel stages them in shared memory when they fit)."""
 
     node_ids: torch.Tensor
     node_box: torch.Tensor
@@ -66,6 +76,8 @@ class WalkTables(NamedTuple):
     root: torch.Tensor
     inst_inv: Optional[torch.Tensor] = None
     inst_off: Optional[torch.Tensor] = None
+    leaf_e: Optional[torch.Tensor] = None
+    tlas_rows: int = 0
 
     @property
     def num_leaves(self) -> int:
@@ -261,6 +273,13 @@ def leaf_rows(bvh: Bvh, v0, v1, v2):
     return torch.cat([v0[g], v1[g], v2[g]], dim=2).contiguous(), ids.contiguous()
 
 
+def leaf_edges(leaf_v):
+    """(NL, K, 12) float32 rows (a, b - a, c - a, 0, 0, 0) of leaf_v's
+    corners: the float32 differences the walk's test takes."""
+    a, b, c = leaf_v[..., 0:3], leaf_v[..., 3:6], leaf_v[..., 6:9]
+    return torch.cat([a, b - a, c - a, torch.zeros_like(a)], dim=-1).contiguous()
+
+
 def pack_tables(bvh: Bvh, tris) -> WalkTables:
     """The walk's tables of a unified BVH over world triangles `tris`
     (the rows of bvh.py:321-373's node_pack and leaf_pack)."""
@@ -276,7 +295,8 @@ def pack_tables(bvh: Bvh, tris) -> WalkTables:
         root = 0
     leaf_v, leaf_ids = leaf_rows(bvh, v0, v1, v2)
     return WalkTables(node_ids, node_box, leaf_v, leaf_ids,
-                      torch.tensor([root, 0], dtype=torch.int32, device=dev))
+                      torch.tensor([root, 0], dtype=torch.int32, device=dev),
+                      leaf_e=leaf_edges(leaf_v))
 
 
 # -- the walk's plain twin ----------------------------------------------------
@@ -299,14 +319,15 @@ def to_object(inst_inv, code, o, d):
     return oo, dd
 
 
-def tri_hits(o, d, lv, tmin, tmax):
+def tri_hits(o, d, lv, tmin, tmax, edges=False):
     """Moller-Trumbore of one ray a lane against its leaf's K triangles
     (bvh.py:304-319), rounded as the brute tracer's test
     (intersect.mt_components). o, d: tuples of three (N, 1); lv (N, K,
-    9); tmin, tmax (N, 1). (t, u, v, ok) (N, K)."""
-    return intersect.mt_components(
-        o, d, *(tuple(lv[..., 3 * j + c] for c in range(3)) for j in range(3)),
-        tmin, tmax)
+    9) corners, or with edges (N, K, 12) leaf_edges rows; tmin, tmax (N,
+    1). (t, u, v, ok) (N, K)."""
+    cols = tuple(tuple(lv[..., 3 * j + c] for c in range(3)) for j in range(3))
+    test = intersect.mt_edges if edges else intersect.mt_components
+    return test(o, d, *cols, tmin, tmax)
 
 
 def slab(o, inv_d, lo, hi, tmin, tmax):
@@ -330,7 +351,7 @@ class WalkState(NamedTuple):
 
 
 def walk_plain(tables: WalkTables, o, d, tmin, tmax, any_hit: bool,
-               exclude=None) -> WalkState:
+               exclude=None, edges=False) -> WalkState:
     """The walk of every ray in lock step: the plain twin of B2 (unified)
     and B3 (two-level) in csrc/bvh.cu, with JAX's rules (bvh.py:375-475,
     bvh2.py:454-565):
@@ -348,7 +369,8 @@ def walk_plain(tables: WalkTables, o, d, tmin, tmax, any_hit: bool,
       int32 drops that (world) triangle id.
 
     o, d (N, 3); tmin, tmax (N,). Also counts each ray's box and
-    triangle tests (the work the reference's order needs)."""
+    triangle tests (the work the reference's order needs). edges: read
+    the leaf triangles from leaf_e, as the kernels do (the same bits)."""
     n, dev = o.shape[0], o.device
     nl = tables.num_leaves
     k = tables.leaf_ids.shape[1]
@@ -397,10 +419,10 @@ def walk_plain(tables: WalkTables, o, d, tmin, tmax, any_hit: bool,
             wids = ids + tables.inst_off[code.long()][:, None]
         else:
             wids = ids
+        leaf = (tables.leaf_e if edges else tables.leaf_v)[row]
         t, u, v, ok = tri_hits(tuple(x[:, None] for x in ro),
-                               tuple(x[:, None] for x in rd),
-                               tables.leaf_v[row], tn_lane[:, None],
-                               bt[:, None])
+                               tuple(x[:, None] for x in rd), leaf,
+                               tn_lane[:, None], bt[:, None], edges)
         ok &= (ids >= 0) & is_leaf[:, None]
         if exclude is not None:
             ok &= wids != exclude[lanes, None]
@@ -480,6 +502,83 @@ def trace_occluded_walk(tables: WalkTables, orig, d, tmax,
     if exclude is not None:
         exclude = exclude.reshape(-1).to(torch.int32).contiguous()
     return cuda_bvh.walk_occluded(tables, orig, d, tn, tx, exclude)
+
+
+# -- alpha cutout inside the walk ----------------------------------------------
+
+def walk_alpha_plain(tables: WalkTables, alpha: AlphaTables, o, d, tmin,
+                     tmax, rounds: int, any_hit: bool,
+                     exclude=None) -> WalkState:
+    """The plain twin of the fused alpha walk (csrc/bvh.cu, kAlpha): each
+    ray's rounds of render/trace.py, the rays still undecided walked again
+    together (walk_plain on them alone):
+
+    - closest (any_hit False): walk on [tmin, tmax]; while the hit is
+      rejected (ops/texture.alpha_accepts), walk again from t + 1e-4, at
+      most `rounds` times. t (inf on a miss), tri,
+      u, v, found of the last walk;
+    - occlusion: at most rounds + 1 closest walks on [tmin, tmax]; the
+      first hit that is not exclude's id and is accepted occludes (found);
+      a miss ends the ray; t, tri, u, v are None.
+
+    The test counts are each ray's sums over its walks."""
+    n, dev = o.shape[0], o.device
+    box = torch.zeros((n,), dtype=torch.int64, device=dev)
+    tri_tests = torch.zeros_like(box)
+    t = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v = torch.zeros_like(u)
+    found = torch.zeros((n,), dtype=torch.bool, device=dev)
+    cur = tmin.to(torch.float32).clone()
+    pending = torch.ones_like(found)
+    for i in range(rounds + 1):
+        lanes = pending.nonzero()[:, 0]
+        if lanes.numel() == 0:
+            break
+        s = walk_plain(tables, o[lanes], d[lanes], cur[lanes], tmax[lanes],
+                       any_hit=False)
+        box[lanes] += s.box_tests
+        tri_tests[lanes] += s.tri_tests
+        ok = alpha_accepts(alpha, torch.where(s.found, s.tri, 0), s.u, s.v)
+        if any_hit:
+            keep = s.found if exclude is None else s.found & (s.tri
+                                                              != exclude[lanes])
+            found[lanes] = keep & ok
+            again = s.found & ~(keep & ok)
+        else:
+            t[lanes] = torch.where(s.found, s.t, torch.inf)
+            tri[lanes], u[lanes], v[lanes] = s.tri, s.u, s.v
+            found[lanes] = s.found
+            again = s.found & ~ok & (i < rounds)
+        cur[lanes] = torch.where(again, s.t + 1e-4, cur[lanes])
+        pending[lanes] = again
+    if any_hit:
+        return WalkState(None, None, None, None, found, box, tri_tests)
+    return WalkState(t, tri, u, v, found, box, tri_tests)
+
+
+def trace_closest_walk_alpha(tables: WalkTables, alpha: AlphaTables, orig, d,
+                             tmin, tmax, rounds: int) -> intersect.Hit:
+    """Closest hit with alpha cutout in one fused walk (the kernel on the
+    card, walk_alpha_plain on the CPU)."""
+    from sunray_tpu_torch.ops import cuda_bvh
+
+    return cuda_bvh.walk_closest_alpha(tables, alpha,
+                                       *_rays(orig, d, tmin, tmax), rounds)
+
+
+def trace_occluded_walk_alpha(tables: WalkTables, alpha: AlphaTables, orig, d,
+                              tmax, tmin, rounds: int, exclude=None):
+    """Occlusion with alpha cutout in one fused walk on [tmin, tmax]
+    (bool (N,)); exclude: optional (N,) int32 world triangle id."""
+    from sunray_tpu_torch.ops import cuda_bvh
+
+    orig, d, tn, tx = _rays(orig, d, tmin, tmax)
+    if exclude is not None:
+        exclude = exclude.reshape(-1).to(torch.int32).contiguous()
+    return cuda_bvh.walk_occluded_alpha(tables, alpha, orig, d, tn, tx, rounds,
+                                        exclude)
 
 
 def trace_closest_bvh(bvh: Bvh, tris, orig, d, tmin=intersect.T_MIN,

@@ -21,6 +21,7 @@ parent's, and row 0 of inst_inv is the identity of the TLAS level.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,6 +33,7 @@ from sunray_tpu_torch.ops.bvh import (
     _range_boxes,
     encode_children,
     karras_topology,
+    leaf_edges,
     morton_codes,
     trace_closest_walk,
     trace_occluded_walk,
@@ -55,6 +57,11 @@ class BlasSet:
     leaf_k: int
     n_leaf_rows: int
     n_blas_int: int
+    leaf_e: Optional[torch.Tensor] = None  # (NL, K, 12) ops/bvh.leaf_edges
+
+    def __post_init__(self):
+        if self.leaf_e is None:
+            self.leaf_e = leaf_edges(self.leaf_v)
 
 
 def instance_runs(tri_inst: np.ndarray, num_inst: int):
@@ -237,7 +244,7 @@ def build_frame_tlas(blas: BlasSet, scene) -> WalkTables:
             node_box = torch.zeros((1, 12), dtype=torch.float32, device=dev)
         root = torch.cat([roots[:1], torch.ones_like(roots[:1])])
         return WalkTables(node_ids, node_box, blas.leaf_v, blas.leaf_ids,
-                          root.contiguous(), inst_inv, inst_off)
+                          root.contiguous(), inst_inv, inst_off, blas.leaf_e)
 
     codes = morton_codes(wmin, wmax, 0.5 * (wmin + wmax))
     order = torch.argsort(codes, stable=True)
@@ -263,7 +270,8 @@ def build_frame_tlas(blas: BlasSet, scene) -> WalkTables:
     root = torch.tensor([base, 0], dtype=torch.int32, device=dev)
     return WalkTables(torch.cat([blas.node_ids, tlas_ids]).contiguous(),
                       torch.cat([blas.node_box, tlas_box]).contiguous(),
-                      blas.leaf_v, blas.leaf_ids, root, inst_inv, inst_off)
+                      blas.leaf_v, blas.leaf_ids, root, inst_inv, inst_off,
+                      blas.leaf_e, tlas_rows=n_inst - 1)
 
 
 def trace_closest_bvh2(tl: WalkTables, orig, d, tmin=intersect.T_MIN,

@@ -117,6 +117,8 @@ def _signatures():
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     binned = [p, p, p, i, i, p, p, p, p, p, p, p, i]
     pairs = [p, p, p, i, i, p, p, p, p, p, i, p, p, i, i]
+    bvh = [p, p, i, p, p, i, i, p, p, p, i, i, i]
+    rays = [p, p, p, p, p, i64, p, p, p, p, p, p, p, p]
     return {
         "sunray_trace_closest": [p, p, p, f, p, f, p, p, p, i, i,
                                  p, p, p, p, p, p],
@@ -147,8 +149,8 @@ def _signatures():
         "sunray_history_gather": [p, p, p, i, p, i64, i64, p],
         "sunray_boundary_candidates": [p, p, p, i, p, i, i64, i, p, p, p, p,
                                        p],
-        "sunray_bvh_walk": [p, p, i, p, p, i, i, p, p, p, i, i, p, p, p, p,
-                            p, i64, p, p, p, p, p, p, p],
+        "sunray_bvh_walk": bvh + rays,
+        "sunray_bvh_walk_alpha": bvh + [p] * 10 + [i] * 4 + rays,
         "sunray_woop_launch_shape": [ctypes.POINTER(i)],
         "sunray_occluded_launch_shape": [ctypes.POINTER(i)],
         "sunray_closest_launch_shape": [ctypes.POINTER(i)],

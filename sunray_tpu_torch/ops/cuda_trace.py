@@ -21,6 +21,9 @@ from sunray_tpu_torch.ops import cuda_build, intersect
 from sunray_tpu_torch.ops.intersect import T_MAX, T_MIN, Hit
 
 rays: collections.Counter = collections.Counter()
+# Trace queries by kind, one a call of render/trace.trace_closest /
+# trace_occluded, counted beside `rays`.
+queries: collections.Counter = collections.Counter()
 # K14's launch shape (csrc/trace.cu kWoopRays, kWoopThreads; checked
 # against the library's sunray_woop_launch_shape when it loads): each
 # thread of a block of WOOP_THREADS traces WOOP_RAYS rays, block b thread

@@ -63,8 +63,13 @@ def mt_components(o, dd, a, b, c, tmin, tmax):
     ray origin o and direction dd, triangle corners a, b, c. Returns (t,
     u, v, valid) in their broadcast shape. The one rounding of the test:
     the brute tracer and the BVH walks' plain twins (ops/bvh.py) call it."""
-    e1 = tuple(b[k] - a[k] for k in range(3))
-    e2 = tuple(c[k] - a[k] for k in range(3))
+    return mt_edges(o, dd, a, tuple(b[k] - a[k] for k in range(3)),
+                    tuple(c[k] - a[k] for k in range(3)), tmin, tmax)
+
+
+def mt_edges(o, dd, a, e1, e2, tmin, tmax):
+    """mt_components from corner a and the edges e1 = b - a, e2 = c - a
+    (float32 differences, as B2 and B3 read them from ops/bvh.leaf_edges)."""
     p = cross3(dd, e2)
     det = dot3(e1[0], p[0], e1[1], p[1], e1[2], p[2])
     det_ok = det.abs() > DET_EPS

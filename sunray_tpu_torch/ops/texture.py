@@ -5,18 +5,27 @@ mips), per-texture wrap modes (repeat, clamp, mirror) on each axis, and
 the NULL_TEXTURE fallback (rt_utils.slang:121-133). A textureless scene
 carries the static 1x1x1 atlas, for which every lookup is the fallback or
 the white dummy texel, with no uv work (texture.py:44-46).
+
+The any-hit alpha test of alpha cutout (render/trace.py, the fused BVH
+walk of csrc/bvh.cu) reads a scene's AlphaTables (alpha_tables,
+alpha_accepts).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from sunray_tpu_torch.ops.fp import fma
 from sunray_tpu_torch.scene.types import (
+    ALPHA_MASK,
     NULL_TEXTURE,
+    TEX_BASE_COLOR,
     WRAP_CLAMP,
     WRAP_MIRROR,
     WRAP_REPEAT,
+    TextureAtlas,
 )
 
 
@@ -71,3 +80,55 @@ def sample_texture(atlas, tex_id, uv, fallback):
     nearest = atlas.data[tid, ny, nx]
     out = torch.where((filt == 1)[:, None], bilinear, nearest)
     return torch.where(is_null[:, None], fallback, out)
+
+
+class AlphaTables(NamedTuple):
+    """What the alpha test reads of a scene: tri_mat (T,) int32, the
+    primitive of each triangle whose material is MASK and -1 where it is
+    opaque (an opaque hit reads nothing more); tri_vidx (T, 3) int32; uvs
+    (V, 5, 2) f32; mat_tex (P,) int32 base-colour texture or NULL_TEXTURE;
+    base_color (P, 4) and cutoff (P,) f32; the scene's TextureAtlas."""
+
+    tri_mat: torch.Tensor
+    tri_vidx: torch.Tensor
+    uvs: torch.Tensor
+    mat_tex: torch.Tensor
+    base_color: torch.Tensor
+    cutoff: torch.Tensor
+    atlas: TextureAtlas
+
+    def tensors(self):
+        a = self.atlas
+        return (*self[:6], a.data, a.size, a.wrap, a.filt)
+
+
+def alpha_tables(scene) -> AlphaTables:
+    """The alpha test's tables of `scene` (built once a tracer context)."""
+    mats = scene.materials
+    prim = scene.inst_prim.long()[scene.tri_inst.long()]
+    mask = mats.alpha_mode[prim] == ALPHA_MASK
+    return AlphaTables(
+        torch.where(mask, prim, -1).to(torch.int32).contiguous(),
+        scene.tri_vidx.to(torch.int32).contiguous(),
+        scene.uvs.detach().contiguous(),
+        mats.tex_index[:, TEX_BASE_COLOR].to(torch.int32).contiguous(),
+        mats.base_color.detach().contiguous(),
+        mats.alpha_cutoff.detach().contiguous(), scene.textures)
+
+
+def alpha_accepts(alpha: AlphaTables, tri, u, v):
+    """Any-hit alpha test (trace.py:134-166, any_hit.slang:11-43): True =
+    the hit (tri, u, v) is accepted. OPAQUE materials accept; MASK
+    materials sample the base colour's alpha at the interpolated
+    base-colour uv and reject below the cutoff."""
+    tri = tri.long()
+    prim = alpha.tri_mat[tri].long()
+    p = prim.clamp(min=0)
+    vidx = alpha.tri_vidx[tri].long()
+    uv_table = alpha.uvs[:, TEX_BASE_COLOR, :]
+    w = ((1.0 - u - v)[:, None], u[:, None], v[:, None])
+    c = [uv_table[vidx[:, k]] for k in range(3)]
+    uv = fma(w[2], c[2], fma(w[0], c[0], w[1] * c[1]))
+    color = sample_texture(alpha.atlas, alpha.mat_tex[p], uv,
+                           alpha.base_color[p])
+    return (prim < 0) | (color[:, 3] >= alpha.cutoff[p])

@@ -17,10 +17,16 @@ Alpha cutout (any_hit.slang:11-43), with cfg.alpha_mask_tracing: a closest
 hit on a MASK material whose base-colour alpha is below its cutoff is
 skipped and the ray traced again past it, up to alpha_rounds times; an
 occlusion query walks closest hits until an accepted one, over every
-backend (trace.py:134-166, 218-253, 264-301).
+backend (trace.py:134-166, 218-253, 264-301). The rounds are JAX's
+fixed-shape batches (closest_alpha_rounds, occluded_alpha_rounds); each
+lane's rounds depend on no other lane, so on the card the BVH tracers run
+them inside the walk, a ray's rounds in its thread, in one launch a query
+(ops/bvh.trace_*_walk_alpha over ctx.alpha, the same bits). The CPU, the
+brute and the binned tracers keep the batch rounds.
 
 `cuda_trace.rays` counts each query's rays once, here: the full-batch ray
-accounting of bench.py:7-13 is the sum (re-traces are not counted again).
+accounting of bench.py:7-13 is the sum (re-traces are not counted again);
+`cuda_trace.queries` counts the queries.
 """
 
 from __future__ import annotations
@@ -29,10 +35,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from sunray_tpu_torch.ops import binned_trace, bvh, bvh2, cuda_trace, intersect
-from sunray_tpu_torch.ops.fp import fma
-from sunray_tpu_torch.ops.texture import sample_texture
-from sunray_tpu_torch.scene.types import ALPHA_MASK, TEX_BASE_COLOR
+from sunray_tpu_torch.ops import (
+    binned_trace,
+    bvh,
+    bvh2,
+    cuda_build,
+    cuda_trace,
+    intersect,
+    texture,
+)
 
 # The brute tracer's triangle limit on the CPU: its plain versions' (rays
 # x triangles) blocks grow with the triangle count (JAX caps the jnp
@@ -50,8 +61,9 @@ class TracerCtx(NamedTuple):
     woop: Optional[tuple] = None
     # Unified or two-level BVH: the walk's tables (ops/bvh.WalkTables).
     walk: Optional[bvh.WalkTables] = None
-    # Alpha cutout: the scene whose MASK materials are tested, or None.
-    alpha_scene: Optional[object] = None
+    # Alpha cutout: the tables of the scene's alpha test
+    # (ops/texture.alpha_tables), or None when it is off.
+    alpha: Optional[texture.AlphaTables] = None
     alpha_rounds: int = 4
 
 
@@ -81,45 +93,25 @@ def make_tracer(scene, cfg, accel=None) -> TracerCtx:
     # stop_gradient, render/trace.py:63-71, 213-217, 267).
     tris = tuple(t.detach().contiguous()
                  for t in scene.world_triangle_vertices())
-    alpha = scene if cfg.alpha_mask_tracing else None
+    base = TracerCtx(tris=tris)
+    if cfg.alpha_mask_tracing:
+        base = base._replace(alpha=texture.alpha_tables(scene))
     if accel is not None:
         if isinstance(accel, binned_trace.ClusterSet):
-            return TracerCtx(tris=tris, alpha_scene=alpha,
-                             binned=binned_trace.refit_cluster_set(accel, tris))
+            return base._replace(
+                binned=binned_trace.refit_cluster_set(accel, tris))
         if isinstance(accel, bvh2.BlasSet):
-            return TracerCtx(tris=tris, alpha_scene=alpha,
-                             walk=bvh2.build_frame_tlas(accel, scene))
+            return base._replace(walk=bvh2.build_frame_tlas(accel, scene))
         if isinstance(accel, bvh.Bvh):
-            return TracerCtx(tris=tris, alpha_scene=alpha,
-                             walk=bvh.pack_tables(bvh.refit_bvh(accel, tris),
-                                                  tris))
+            return base._replace(walk=bvh.pack_tables(
+                bvh.refit_bvh(accel, tris), tris))
         raise TypeError(f"unknown accel {type(accel).__name__}")
     if cfg.tracer == "bvh" or (cfg.tracer == "auto" and scene.num_tris
                                > brute_limit(cfg, tris[0].device)):
         built = bvh.build_bvh(tris, leaf_size=cfg.bvh_leaf_size)
-        return TracerCtx(tris=tris, alpha_scene=alpha,
-                         walk=bvh.pack_tables(built, tris))
+        return base._replace(walk=bvh.pack_tables(built, tris))
     woop = intersect.woop_matrices(tris) if cfg.trace_impl == "woop" else None
-    return TracerCtx(tris=tris, woop=woop, alpha_scene=alpha)
-
-
-def alpha_accepts(scene, tri, u, v):
-    """Any-hit alpha test (trace.py:134-166): True = hit accepted. OPAQUE
-    materials accept; MASK materials sample the base colour's alpha at the
-    interpolated base-colour uv and reject below the cutoff."""
-    tri = tri.long()
-    inst = scene.tri_inst[tri].long()
-    prim = scene.inst_prim[inst].long()
-    mats = scene.materials
-    is_mask = mats.alpha_mode[prim] == ALPHA_MASK
-    vidx = scene.tri_vidx[tri].long()
-    uv_table = scene.uvs[:, TEX_BASE_COLOR, :]
-    w = ((1.0 - u - v)[:, None], u[:, None], v[:, None])
-    c = [uv_table[vidx[:, k]] for k in range(3)]
-    uv = fma(w[2], c[2], fma(w[0], c[0], w[1] * c[1]))
-    color = sample_texture(scene.textures, mats.tex_index[prim, TEX_BASE_COLOR],
-                           uv, mats.base_color[prim])
-    return ~is_mask | (color[:, 3] >= mats.alpha_cutoff[prim])
+    return base._replace(woop=woop)
 
 
 def _raw_closest(ctx: TracerCtx, orig, d, tmin, tmax, coherent=True):
@@ -136,7 +128,13 @@ def _raw_closest(ctx: TracerCtx, orig, d, tmin, tmax, coherent=True):
 
 def _accepted(ctx, hit):
     tri = torch.where(hit.hit, hit.tri, 0)
-    return ~hit.hit | alpha_accepts(ctx.alpha_scene, tri, hit.u, hit.v)
+    return ~hit.hit | texture.alpha_accepts(ctx.alpha, tri, hit.u, hit.v)
+
+
+def _fused(ctx: TracerCtx, orig) -> bool:
+    """Alpha cutout inside the walk: BVH tables, alpha, CUDA rays."""
+    return (ctx.walk is not None and ctx.alpha is not None
+            and not cuda_build.on_cpu(orig))
 
 
 def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
@@ -146,16 +144,25 @@ def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
     pair stream, else the block path with the coherence reorder
     (trace.py:169-186). The other tracers ignore the hint."""
     cuda_trace.rays["closest"] += orig.shape[0]
+    cuda_trace.queries["closest"] += 1
     orig, d = orig.detach().contiguous(), d.detach().contiguous()
     if torch.is_tensor(tmin):
         tmin = tmin.detach()
     if torch.is_tensor(tmax):
         tmax = tmax.detach()
+    if _fused(ctx, orig):
+        return bvh.trace_closest_walk_alpha(ctx.walk, ctx.alpha, orig, d, tmin,
+                                            tmax, ctx.alpha_rounds)
+    if ctx.alpha is None:
+        return _raw_closest(ctx, orig, d, tmin, tmax, coherent)
+    return closest_alpha_rounds(ctx, orig, d, tmin, tmax, coherent)
+
+
+def closest_alpha_rounds(ctx: TracerCtx, orig, d, tmin, tmax, coherent=True):
+    """trace_closest's batch rounds: re-trace past rejected MASK hits
+    (IgnoreHit), up to alpha_rounds times for every ray of the batch
+    (trace.py:218-253). orig, d detached and contiguous."""
     hit = _raw_closest(ctx, orig, d, tmin, tmax, coherent)
-    if ctx.alpha_scene is None:
-        return hit
-    # Re-trace past rejected MASK hits (IgnoreHit), up to alpha_rounds
-    # times for every ray of the batch (trace.py:218-253).
     for _ in range(ctx.alpha_rounds):
         accepted = _accepted(ctx, hit)
         if bool(accepted.all()):
@@ -178,14 +185,18 @@ def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
     target triangle (trace.py:270, :347). coherent: as in trace_closest
     (trace.py:308-319)."""
     cuda_trace.rays["occluded"] += orig.shape[0]
+    cuda_trace.queries["occluded"] += 1
     tmax = torch.as_tensor(tmax, dtype=torch.float32,
                            device=orig.device).detach()
     degenerate = tmax - tmin <= intersect.T_MIN
     orig, d = orig.detach().contiguous(), d.detach().contiguous()
     seg = (tmax - 1e-3).contiguous()
     exclude = None if exclude is None else exclude.contiguous()
-    if ctx.alpha_scene is not None:
-        occ = _occluded_alpha(ctx, orig, d, seg, tmin, exclude)
+    if _fused(ctx, orig):
+        occ = bvh.trace_occluded_walk_alpha(ctx.walk, ctx.alpha, orig, d, seg,
+                                            tmin, ctx.alpha_rounds, exclude)
+    elif ctx.alpha is not None:
+        occ = occluded_alpha_rounds(ctx, orig, d, seg, tmin, exclude)
     elif ctx.walk is not None:
         occ = bvh.trace_occluded_walk(ctx.walk, orig, d, seg, tmin,
                                       exclude=exclude)
@@ -204,10 +215,11 @@ def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
     return occ & ~degenerate
 
 
-def _occluded_alpha(ctx, orig, d, seg, tmin, exclude):
-    """Alpha-aware occlusion (trace.py:264-301): walk closest hits on
-    [tmin, seg], skipping cutouts and the excluded triangle, until an
-    accepted hit or none; at most alpha_rounds + 1 closest queries."""
+def occluded_alpha_rounds(ctx, orig, d, seg, tmin, exclude):
+    """Alpha-aware occlusion in batch rounds (trace.py:264-301): walk
+    closest hits on [tmin, seg], skipping cutouts and the excluded
+    triangle, until an accepted hit or none; at most alpha_rounds + 1
+    closest queries."""
     n = orig.shape[0]
     o2, d2 = orig.reshape(-1, 3), d.reshape(-1, 3)
     seg = seg.reshape(-1).expand(n).contiguous()
@@ -222,9 +234,8 @@ def _occluded_alpha(ctx, orig, d, seg, tmin, exclude):
         hit = _raw_closest(ctx, o2, d2, cur_tmin, seg)
         live = undecided & hit.hit
         keep = live if ex is None else live & (hit.tri != ex)
-        accepted = keep & alpha_accepts(ctx.alpha_scene,
-                                        torch.where(hit.hit, hit.tri, 0),
-                                        hit.u, hit.v)
+        accepted = keep & texture.alpha_accepts(
+            ctx.alpha, torch.where(hit.hit, hit.tri, 0), hit.u, hit.v)
         occluded |= accepted
         undecided = live & ~accepted
         cur_tmin = torch.where(undecided, hit.t + 1e-4, cur_tmin).contiguous()

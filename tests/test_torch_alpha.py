@@ -106,7 +106,7 @@ def test_opaque_without_flag():
     pscene = convert.scene_from_numpy(to_numpy(masked_scene()), device="cpu")
     ctx = trace.make_tracer(pscene, RenderConfig(width=8, height=8,
                                                  tracer="brute"))
-    assert ctx.alpha_scene is None
+    assert ctx.alpha is None
     h = trace.trace_closest(ctx, t(np.float32([[-0.5, -0.2, 3.0]])),
                             t(np.float32([[0.0, 0.0, -1.0]])))
     np.testing.assert_allclose(n(h.t), [2.0], rtol=1e-4)

@@ -52,7 +52,8 @@ SHAPES = {
                       "kMaxGroups"),
         cuda_gather.BWD_LAUNCH_SHAPE),
     "sunray_bvh_launch_shape": (
-        "bvh.cu", ("kThreads", "kStack"), cuda_bvh.LAUNCH_SHAPE),
+        "bvh.cu", ("kThreads", "kStack", "kShared", "kTlasSmem"),
+        cuda_bvh.LAUNCH_SHAPE),
 }
 
 

@@ -6,7 +6,9 @@ Renderer on one card, for work on B2 and B3 (csrc/bvh.cu).
 Builds the port's kernels, then runs chip_smoke.phase_real_scene: tracer
 "auto" (B3) and "bvh" (B2: SAH, UPDATE refits, a FAST_BUILD), each walk
 held bit-equal to its plain twin on the frames' own queries and timed
-beside its bound, and the card against the CPU at 96x54. It prints the
+beside its bound and issue floor, every fused alpha query of a frame
+held to the batch rounds and its plain twin, and the card against the
+CPU at 96x54. It prints the
 card's name and power limit, the phase's own log, and as its last line
 one JSON object of B2's and B3's rows and launches. It holds none of the
 other kernels against their plain versions: chip_smoke.py does that.
@@ -36,9 +38,10 @@ def main():
         flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    cuda_build.build()
+    path, _ = cuda_build.build()
     cuda_build.library()
-    rows, launches = chip_smoke.phase_real_scene(dev)
+    rows, launches = chip_smoke.phase_real_scene(dev,
+                                                 chip_smoke.sass_counts(path))
     print(json.dumps({"kernels": [dict(name=k, launches=launches[k], **{
         key: v for key, v in r.items() if key != "bound"},
         bound_ms=r["bound"][0], bound_by=r["bound"][1])
