@@ -183,6 +183,26 @@ Phases, in order; any failure raises and exits non-zero with no result:
      counts equal; both routes timed; (e) the scene at 96x54 for 3 frames
      on the card and on the CPU port, PSNR > 40 dB. `python3
      tools/bvh_walk_run.py` runs phase 10 alone.
+ 11. differentiable real scenes (K8's backward above 512 rows, the runs
+     path): (a) the small synthetic GLB (tests/torch_gltf_grad_cases.py)
+     at 96x64, NEE and ReSTIR through "bvh" and "auto" (the two-level
+     walk on both devices), gradients w.r.t. positions, base_color,
+     inst_transform and the atlas on the card and on the CPU: losses
+     within 1e-5, gradients within 1e-5 of their largest finite entry,
+     NaN masks equal; (b) one 1280x720 step on phase 10's GLB
+     ("auto", default ReSTIR, the four leaves) with the counters zeroed
+     before: B3, K8 and K8's backward (both paths) must launch, K1, K2,
+     B2, K3-K7, K9 and K13 must not; the runs path on that step's own
+     calls above 512 rows (vertex corners, texels) and on one step's
+     with edge antialiasing (the triangle table), against its plain
+     version and the float64 sums (1e-5 of each row's sum of |ct|, NaN
+     where they are NaN), two runs bit-equal, each kind timed beside
+     its bound, index_add_, index_put_(accumulate=True) and its stable
+     sort; (c) the step timed (3 warm-up, 10 timed, synced) with its
+     peak memory (limit 40 GB), launches a step and each gradient's NaN
+     count; (d) one 720p differentiable step of the big mesh (binned)
+     w.r.t. positions and base_color. `python3 tools/real_grads_run.py`
+     runs phase 11 alone.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -2317,6 +2337,11 @@ KERNELS = {
                             "sunray_tpu/ops/pallas_trace.py:329"),
     "gather_rows_bwd": ("sunray_tpu_torch/csrc/gather.cu",
                         "sunray_tpu/ops/pallas_gather.py:178"),
+    # K8's backward above 512 rows: the reference's gathers of such tables
+    # are plain indexing (no pallas_call; ops/linalg.py:27), whose
+    # transpose is a scatter-add.
+    "gather_rows_bwd_runs": ("sunray_tpu_torch/csrc/gather.cu",
+                             "sunray_tpu/ops/linalg.py:27"),
     # B1 replaces a jnp stage (no pallas_call): the candidate extraction
     # loop and _candidate_score of the shadow-boundary term.
     "boundary_candidates": ("sunray_tpu_torch/csrc/boundary.cu",
@@ -2334,9 +2359,12 @@ DIFF_ONLY = ("gather_rows_bwd",)
 VIS_ONLY = ("boundary_candidates",)
 # The real scene's own kernels (phase 10): B2 and B3.
 REAL_ONLY = ("bvh_walk", "bvh2_walk")
+# The differentiable real scenes' own kernel (phase 11): K8's backward
+# above 512 rows.
+RUNS_ONLY = ("gather_rows_bwd_runs",)
 CORNELL_KERNELS = tuple(k for k in KERNELS
                         if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY
-                        + VIS_ONLY + REAL_ONLY)
+                        + VIS_ONLY + REAL_ONLY + RUNS_ONLY)
 # A differentiable frame: the tracer and K8 forward and backward; the plain
 # versions of K3-K7, K9 and K13 (JAX's gates).
 DIFF_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
@@ -2455,15 +2483,23 @@ def capture_bwd_calls(fn):
 
 
 def k8_bwd_hold(labelled):
-    """K8's backward against its plain version on each (label, (ct, idx,
-    k)): errors over each table row's sum of |ct| against the float64
-    sums (at most K8_BWD_TOL) and against plain's float32 sums (at most
-    K8_BWD_PLAIN_TOL), two runs bit-equal. Returns the worst of each
-    (float64, plain, absolute against plain) and whether every call's two
-    runs were bit-equal."""
+    """K8's backward (either path: the shared-memory kernel up to MAX_ROWS
+    rows, the runs path above) against its plain version on each (label,
+    (ct, idx, k)). On the entries where the float64 sums are finite:
+    errors over each table row's sum of |ct| against them (at most
+    K8_BWD_TOL) and against plain's float32 sums (at most
+    K8_BWD_PLAIN_TOL). NaN exactly where the float64 sums are NaN (a NaN
+    cotangent, the reference's, reaches the table); two runs bit-equal as
+    int32 words. One line a label, over its calls. Returns the worst of
+    each (float64, plain, absolute against plain) and whether every call
+    passed the last two checks."""
+    import collections
+
     from sunray_tpu_torch.ops import cuda_gather
 
-    worst, worst_plain, worst_abs, exact = 0.0, 0.0, 0.0, True
+    per = collections.defaultdict(lambda: dict(
+        n=0, err=0.0, err_plain=0.0, plain_own=0.0, abs_err=0.0, same=True,
+        nan=0, shapes=set()))
     for label, (ct, idx, k) in labelled:
         got = cuda_gather.gather_rows_bwd(ct, idx, k)
         again = cuda_gather.gather_rows_bwd(ct, idx, k)
@@ -2472,24 +2508,43 @@ def k8_bwd_hold(labelled):
         scale = cuda_gather.gather_rows_bwd_plain(ct.abs().double(), idx,
                                                   k).clamp(min=1e-30)
         torch.cuda.synchronize()
-        err = float(((got - exact64).abs() / scale).max())
-        err_plain = float(((got - want).abs() / scale).max())
-        plain_own = float(((want - exact64).abs() / scale).max())
-        abs_err = float((got - want).abs().max())
-        same = bool(torch.equal(got, again))
-        log(f"  K8 backward, {label}: {tuple(idx.shape)} indices into "
-            f"{k} x {ct.shape[1]}; over each row's sum |ct|: against the "
-            f"float64 sums {err:.2e}, against plain (float32) "
-            f"{err_plain:.2e}, plain against float64 {plain_own:.2e}; max "
-            f"abs err against plain {abs_err:.3e}; two runs bit-equal {same}")
-        worst, exact = max(worst, err), exact and same
-        worst_plain = max(worst_plain, err_plain)
-        worst_abs = max(worst_abs, abs_err)
+        fin = torch.isfinite(exact64)
+
+        def worst_of(x):
+            return float(x[fin].max()) if bool(fin.any()) else 0.0
+
+        e = per[label]
+        e["n"] += 1
+        e["err"] = max(e["err"], worst_of((got - exact64).abs() / scale))
+        e["err_plain"] = max(e["err_plain"],
+                             worst_of((got - want).abs() / scale))
+        e["plain_own"] = max(e["plain_own"],
+                             worst_of((want - exact64).abs() / scale))
+        e["abs_err"] = max(e["abs_err"], worst_of((got - want).abs()))
+        e["same"] = (e["same"]
+                     and torch.equal(got.view(torch.int32),
+                                     again.view(torch.int32))
+                     and torch.equal(torch.isnan(got), torch.isnan(exact64)))
+        e["nan"] += int((~fin).sum())
+        e["shapes"].add(f"{tuple(idx.shape)} indices into {k} x {ct.shape[1]}")
+    for label, e in per.items():
+        log(f"  K8 backward, {label}: {e['n']} call(s) of "
+            f"{' / '.join(sorted(e['shapes']))}; over each row's sum |ct|: "
+            f"against the float64 sums {e['err']:.2e}, against plain "
+            f"(float32) {e['err_plain']:.2e}, plain against float64 "
+            f"{e['plain_own']:.2e}; max abs err against plain "
+            f"{e['abs_err']:.3e}; NaN entries {e['nan']}, where the float64 "
+            f"sums have them; two runs bit-equal {e['same']}")
+    worst = max(e["err"] for e in per.values())
+    worst_plain = max(e["err_plain"] for e in per.values())
+    worst_abs = max(e["abs_err"] for e in per.values())
+    exact = all(e["same"] for e in per.values())
     check(worst <= K8_BWD_TOL, f"K8 backward error {worst} > {K8_BWD_TOL} "
           "against the float64 sums")
     check(worst_plain <= K8_BWD_PLAIN_TOL, f"K8 backward error {worst_plain}"
           f" > {K8_BWD_PLAIN_TOL} against plain")
-    check(exact, "K8 backward: two runs differ")
+    check(exact, "K8 backward: two runs differ, or NaN where the float64 "
+          "sums are finite")
     return worst, worst_plain, worst_abs, exact
 
 
@@ -3112,7 +3167,8 @@ def kernel_registers(regs, kernel, threads):
 # _auto_big_mode counts (renderer.py:160-168, in both packages) exceeds
 # bvh2_blas_max_tris: "auto" would take the binned tracer.
 REAL_GLB = dict(seed=10, tex=1024, subdiv=4, spheres=50)
-REAL_WARM, REAL_TIMED = 5, 20   # 25 frames, as the Cornell cells
+REAL_WARM, REAL_TIMED = 5, 10   # 15 frames: 10 timed leave the script
+                                # room for phase 11
 REAL_ANIMATE = 8            # set_instances frames (AsState UPDATE refits)
 WALK_LANES = 65536          # lanes of each query held to the plain twin
 REAL_SMALL = dict(width=96, height=54)
@@ -3533,6 +3589,339 @@ def phase_real_scene(dev, counts):
     return rows, launches
 
 
+# -- phase 11: differentiable real scenes (K8's backward above 512 rows) -----
+
+# The CPU tests' GLB (tests/torch_gltf_grad_cases.py): 178 vertex rows,
+# 1,024 triangles, an 8 x 16 x 16 atlas, a glass box, alpha cutout.
+REAL_DIFF_GLB = dict(seed=0, tex=16, subdiv=1, spheres=8)
+# tests/test_grads.py's frame; "auto" takes the two-level tracer on both
+# devices (the CPU's brute limit is 512 triangles, the card's 4,096).
+REAL_DIFF_KW = dict(bounces=2, virtual_bounces=2, denoise_passes=0,
+                    enable_taa=False, tonemap="none", brute_force_max_tris=512)
+REAL_DIFF_CASES = (("nee", "bvh"), ("nee", "auto"), ("restir", "bvh"),
+                   ("restir", "auto"))
+REAL_DIFF_SMALL = (96, 64)
+REAL_DIFF_FLOOR = 1e-5      # card vs CPU: of the largest finite |gradient|
+REAL_DIFF_WARM, REAL_DIFF_TIMED = 3, 10
+REAL_DIFF_PARAMS = ("positions", "base_color", "inst_transform", "textures")
+# A differentiable real-scene step ("auto": B3): the walk, K8 forward and
+# backward, the runs path; the plain K3-K7, K9 and K13; no K1, K2.
+REAL_DIFF_KERNELS = ("bvh2_walk", "gather_rows", "gather_rows_multi",
+                     "gather_rows_bwd", "gather_rows_bwd_runs")
+BIG_DIFF_KERNELS = BINNED_KERNELS + ("gather_rows", "gather_rows_multi",
+                                     "gather_rows_bwd", "gather_rows_bwd_runs")
+
+
+def real_diff_setup(dev, path, width, height, **kw):
+    """The GLB at `path` through Renderer.load_gltf at width x height,
+    differentiable: (config with the scene's alpha flag, scene with the
+    REAL_DIFF_PARAMS as leaves that require grad, leaves, matrices,
+    accel)."""
+    import dataclasses
+
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.render.renderer import Renderer
+    from tools.synth_gltf import CAMERA as REAL_CAMERA
+
+    r = Renderer(RenderConfig(width=width, height=height, differentiable=True,
+                              **kw), device=dev)
+    r.load_gltf(path)
+    sc = r.scene
+    leaves = tuple(x.detach().clone().requires_grad_() for x in
+                   (sc.positions, sc.materials.base_color, sc.inst_transform,
+                    sc.textures.data))
+    scene = dataclasses.replace(
+        sc, positions=leaves[0], inst_transform=leaves[2],
+        materials=dataclasses.replace(sc.materials, base_color=leaves[1]),
+        textures=dataclasses.replace(sc.textures, data=leaves[3]))
+    mats = camera_matrices(Camera(**REAL_CAMERA), width, height, device=dev)
+    return r.config, scene, leaves, mats, r._scene_accel()
+
+
+def real_diff_step(cfg, scene, leaves, mats, state, accel):
+    """One step: mean(ldr) and its gradients w.r.t. the leaves (None
+    where a leaf is unused, as a textureless scene's atlas); the next
+    state."""
+    from sunray_tpu_torch.render.pipeline import render_frame
+
+    state, ldr, aux = render_frame(scene, cfg, state, mats, accel)
+    loss = ldr.mean()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return state, loss.detach(), grads, aux
+
+
+def real_diff_small_path():
+    from tools.synth_gltf import write_scene
+
+    path = os.path.join(REPO, "build", "phase11", "small.glb")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return write_scene(path, **REAL_DIFF_GLB)
+
+
+def real_diff_card_vs_cpu(dev):
+    """The small GLB's differentiable frame at REAL_DIFF_SMALL, NEE and
+    ReSTIR through "bvh" and "auto", on the card and on the CPU: losses
+    within DIFF_LOSS_RTOL, each gradient's NaN mask equal and its finite
+    entries within REAL_DIFF_FLOOR of its largest finite entry."""
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    path = real_diff_small_path()
+    out = {}
+    for lighting, tracer in REAL_DIFF_CASES:
+        res = {}
+        for device in (dev, torch.device("cpu")):
+            cfg, scene, leaves, mats, accel = real_diff_setup(
+                device, path, *REAL_DIFF_SMALL, lighting=lighting,
+                tracer=tracer, **REAL_DIFF_KW)
+            _, loss, grads, _ = real_diff_step(
+                cfg, scene, leaves, mats, RenderState.create(cfg, device),
+                accel)
+            res[device.type] = (float(loss), [g.cpu() for g in grads],
+                                type(accel).__name__)
+        (lg, gg, ag), (lc, gc, ac) = res["cuda"], res["cpu"]
+        rel = abs(lg - lc) / abs(lc)
+        worst, nans, same = {}, {}, True
+        for name, a, b in zip(REAL_DIFF_PARAMS, gg, gc):
+            mask = torch.isnan(b)
+            same &= bool(torch.equal(torch.isnan(a), mask))
+            fin = torch.isfinite(b)
+            top = float(b[fin].abs().max()) if bool(fin.any()) else 0.0
+            diff = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) \
+                else 0.0
+            worst[name] = diff / top if top > 0 else diff
+            nans[name] = int(mask.sum())
+        log(f"phase 11: {REAL_DIFF_SMALL[0]}x{REAL_DIFF_SMALL[1]} {lighting} "
+            f"{tracer} ({ag} / {ac}): loss card {lg:.8f} CPU {lc:.8f} (rel "
+            f"{rel:.2e}); max diff / max finite |g|: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f"; NaN entries (CPU) {nans}; NaN masks equal {same}")
+        check(ag == ac, f"{lighting} {tracer}: accels {ag} / {ac}")
+        check(rel <= DIFF_LOSS_RTOL, f"{lighting} {tracer}: loss rel {rel}")
+        check(same, f"{lighting} {tracer}: NaN masks differ card vs CPU")
+        for name, v in worst.items():
+            check(v <= REAL_DIFF_FLOOR, f"{lighting} {tracer}: {name} "
+                  f"gradient card vs CPU {v:.2e} of its largest entry")
+        out[f"{lighting}_{tracer}"] = dict(loss_rel=rel, grad_rel=worst,
+                                           nan_entries=nans)
+    return out
+
+
+def runs_timing(label, call, dev):
+    """One runs-path call timed beside its plain version, its bound (ct
+    and idx read once, the table written once), index_add_ and
+    index_put_(accumulate=True) on the (G*N, C) rows, and the stable sort
+    of its keys (the permutation torch.sort makes inside the path)."""
+    from sunray_tpu_torch.ops import cuda_gather
+
+    ct, idx, k = call
+    c = ct.shape[1]
+    rows = ct.permute(0, 2, 1).reshape(-1, c).contiguous()
+    cidx = idx.long().clamp(0, k - 1).reshape(-1)
+    keys = cidx.to(torch.int32)
+    dtab = torch.zeros((k, c), dtype=torch.float32, device=dev)
+    out = dict(
+        shape=[list(idx.shape), k, c],
+        ms=device_ms(lambda: cuda_gather.gather_rows_bwd(ct, idx, k)),
+        plain_ms=time_ms(lambda: cuda_gather.gather_rows_bwd_plain(ct, idx,
+                                                                   k)),
+        library_ms=device_ms(lambda: dtab.zero_().index_add_(0, cidx, rows)),
+        index_put_ms=device_ms(lambda: dtab.zero_().index_put_(
+            (cidx,), rows, accumulate=True)),
+        sort_ms=device_ms(lambda: torch.sort(keys, stable=True)),
+        bound=bound(nbytes(ct, idx) + k * c * 4, 0))
+    log(f"  runs path, {label} {tuple(idx.shape)} into {k} x {c}: "
+        f"{out['ms']:.4f} ms (its stable sort alone {out['sort_ms']:.4f}), "
+        f"bound {out['bound'][0]:.4f} ms ({out['bound'][1]}), plain "
+        f"{out['plain_ms']:.4f} ms, index_add_ {out['library_ms']:.4f} ms, "
+        f"index_put_(accumulate=True) {out['index_put_ms']:.4f} ms")
+    return out
+
+
+def bwd_label(call, rows_of):
+    """A K8-backward call's label: its table's name in rows_of (by rows),
+    else its table's shape."""
+    ct, _, k = call
+    return rows_of.get(k, f"{k} x {ct.shape[1]} table")
+
+
+def grad_nans(grads):
+    return {name: (None if g is None else int(torch.isnan(g).sum()))
+            for name, g in zip(REAL_DIFF_PARAMS, grads)}
+
+
+def real_diff_step_run(dev, path):
+    """The 720p differentiable step on the phase-10 GLB ("auto": B3,
+    default ReSTIR, the four leaves): the launch check of one step with
+    its K8-backward calls captured, one step with edge antialiasing for
+    the triangle table's call, K8's backward held on every one of those
+    calls (both paths) and the runs path timed on the calls above
+    MAX_ROWS rows, then REAL_DIFF_WARM warm-up and REAL_DIFF_TIMED
+    timed steps (synced) with the peak memory, each kernel's launches a
+    step and each gradient's NaN count. Returns (the runs path's row,
+    launches of the launch-check step)."""
+    import dataclasses
+
+    from sunray_tpu_torch.ops import cuda_build, cuda_gather
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    w, h = DIFF_SIZE
+    cfg, scene, leaves, mats, accel = real_diff_setup(dev, path, w, h,
+                                                      tracer="auto")
+    log(f"phase 11: {w}x{h} differentiable step on the phase-10 GLB "
+        f"({scene.num_tris} triangles, {scene.positions.shape[0]} vertex "
+        f"rows, atlas {tuple(scene.textures.data.shape)}, "
+        f"{scene.inst_transform.shape[0]} instances, "
+        f"{scene.materials.base_color.shape[0]} materials; accel "
+        f"{type(accel).__name__}), ReSTIR, leaves {REAL_DIFF_PARAMS}")
+    state = RenderState.create(cfg, dev)
+    torch.cuda.synchronize()
+    cuda_build.launches.clear()
+    (state, loss, grads, aux), calls = capture_bwd_calls(
+        lambda: real_diff_step(cfg, scene, leaves, mats, state, accel))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launches)
+    log(f"  launches in one step: {launches}")
+    for name in REAL_DIFF_KERNELS:
+        check(launches.get(name, 0) > 0, f"real-scene step: {name} never "
+              "launched")
+    for name in DIFF_ABSENT + ("trace_closest", "trace_occluded", "bvh_walk"):
+        check(launches.get(name, 0) == 0, f"real-scene step: {name} launched")
+    big = [c for c in calls if c[2] > cuda_gather.MAX_ROWS]
+    check(launches.get("gather_rows_bwd_runs", 0) == len(big)
+          and launches.get("gather_rows_bwd", 0) == len(calls) - len(big),
+          f"K8 backward launches {launches} for calls "
+          f"{[(tuple(c[1].shape), c[2]) for c in calls]}")
+    aa_cfg = dataclasses.replace(cfg, edge_antialias=True)
+    _, aa_calls = capture_bwd_calls(lambda: real_diff_step(
+        aa_cfg, scene, leaves, mats, RenderState.create(cfg, dev), accel))
+    tri_rows = scene.num_tris
+    aa = [c for c in aa_calls if c[2] == tri_rows]
+    check(len(aa) == 1, f"edge AA: calls {[(tuple(c[1].shape), c[2]) for c in aa_calls]}")
+    del aa_calls
+    rows_of = {scene.positions.shape[0]: "corners",
+               int(np.prod(scene.textures.data.shape[:3])): "texels",
+               tri_rows: "edge AA"}
+    labelled = [(bwd_label(c, rows_of), c) for c in calls + aa]
+    worst, worst_plain, worst_abs, exact = k8_bwd_hold(labelled)
+    timed = {}
+    for lab, c in labelled:
+        if c[2] > cuda_gather.MAX_ROWS and lab not in timed:
+            timed[lab] = runs_timing(lab, c, dev)
+    del calls, big, aa, labelled
+    for _ in range(REAL_DIFF_WARM - 1):
+        state, loss, grads, aux = real_diff_step(cfg, scene, leaves, mats,
+                                                 state, accel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    for _ in range(REAL_DIFF_TIMED):
+        state, loss, grads, aux = real_diff_step(cfg, scene, leaves, mats,
+                                                 state, accel)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / REAL_DIFF_TIMED
+    per_step = {k: v / REAL_DIFF_TIMED for k, v in cuda_build.launches.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    nans = grad_nans(grads)
+    log(f"  step {step_s * 1e3:.3f} ms (mean of {REAL_DIFF_TIMED} after "
+        f"{REAL_DIFF_WARM} warm-up, synced); loss {float(loss):.6f}; peak "
+        f"memory {peak_gb:.3f} GB (limit {VIS_PEAK_GB}); NaN entries of each "
+        f"gradient {nans}; launches a step {per_step}")
+    check(math.isfinite(float(loss)), "real-scene step: non-finite loss")
+    check(peak_gb <= VIS_PEAK_GB, f"real-scene step: peak memory {peak_gb} "
+          f"GB > {VIS_PEAK_GB}")
+    check(all(g is not None for g in grads), "real-scene step: a leaf "
+          "without gradient")
+    main = timed["texels"]
+    row = dict(max_abs_err=worst_abs, err_over_row_abs_sum=worst,
+               err_over_row_abs_sum_vs_plain=worst_plain,
+               bit_equal_runs=exact, ms=main["ms"], plain_ms=main["plain_ms"],
+               library_ms=main["library_ms"],
+               index_put_ms=main["index_put_ms"], sort_ms=main["sort_ms"],
+               bound=main["bound"], shape=main["shape"],
+               calls={lab: {k: v for k, v in t.items() if k != "bound"}
+                      | {"bound_ms": t["bound"][0]} for lab, t in timed.items()},
+               step_ms=step_s * 1e3, step_peak_gb=peak_gb,
+               step_launches=per_step, step_nans=nans)
+    return row, launches
+
+
+def big_diff_step(dev):
+    """One 720p differentiable step of the big mesh (BIG_SUBDIV, binned,
+    default ReSTIR) w.r.t. positions and base_color, after one warm-up
+    whose K8-backward calls are held against the plain version
+    (k8_bwd_hold): synced ms, peak memory, the launch check, NaN
+    counts."""
+    import dataclasses
+
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    w, h = DIFF_SIZE
+    cfg = RenderConfig(width=w, height=h, differentiable=True)
+    sc = big_scene(dev)
+    accel = big_accel(sc, cfg)
+    leaves = (sc.positions.clone().requires_grad_(),
+              sc.materials.base_color.clone().requires_grad_())
+    scene = dataclasses.replace(
+        sc, positions=leaves[0],
+        materials=dataclasses.replace(sc.materials, base_color=leaves[1]))
+    mats = camera_matrices(Camera(**CAMERA), w, h, device=dev)
+    state = RenderState.create(cfg, dev)
+    (state, _, _, _), calls = capture_bwd_calls(
+        lambda: real_diff_step(cfg, scene, leaves, mats, state, accel))
+    log(f"phase 11: {w}x{h} differentiable big-mesh step, K8's backward on "
+        "the warm-up step's calls")
+    held = k8_bwd_hold([(bwd_label(c, {sc.positions.shape[0]: "corners"}), c)
+                        for c in calls])
+    del calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    state, loss, grads, _ = real_diff_step(cfg, scene, leaves, mats, state,
+                                           accel)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_build.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    nans = {name: int(torch.isnan(g).sum()) for name, g in
+            zip(("positions", "base_color"), grads)}
+    log(f"phase 11: {w}x{h} differentiable big-mesh step ({sc.num_tris} "
+        f"triangles, {sc.positions.shape[0]} vertex rows, binned): "
+        f"{step_ms:.3f} ms (one step after one warm-up, synced); loss "
+        f"{float(loss):.6f}; peak memory {peak_gb:.3f} GB; NaN entries "
+        f"{nans}; launches {launches}")
+    for name in BIG_DIFF_KERNELS:
+        check(launches.get(name, 0) > 0, f"big-mesh step: {name} never "
+              "launched")
+    for name in DIFF_ABSENT + ("trace_closest", "trace_occluded"):
+        check(launches.get(name, 0) == 0, f"big-mesh step: {name} launched")
+    check(math.isfinite(float(loss)), "big-mesh step: non-finite loss")
+    check(peak_gb <= VIS_PEAK_GB, f"big-mesh step: peak {peak_gb} GB")
+    return dict(step_ms=step_ms, peak_gb=peak_gb, nans=nans,
+                launches=launches, bwd_err_over_row_abs_sum=held[0],
+                bwd_err_over_row_abs_sum_vs_plain=held[1],
+                bwd_bit_equal_runs=held[3])
+
+
+def phase_real_diff(dev):
+    """Phase 11, differentiable real scenes: (a) the small GLB card vs CPU,
+    (b) + (c) the 720p step on the phase-10 GLB with the runs path held
+    and timed on its own calls, (d) the big mesh's 720p step. Returns
+    (the runs path's row, launches of the launch-check step)."""
+    t_phase = time.perf_counter()
+    card_cpu = real_diff_card_vs_cpu(dev)
+    row, launches = real_diff_step_run(dev, real_scene_path())
+    row["card_vs_cpu"] = card_cpu
+    row["big_mesh_step"] = big_diff_step(dev)
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return row, launches
+
+
 def main():
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device available")
@@ -3629,6 +4018,8 @@ def main():
                                                         cuda_bvh.THREADS)
     kernels.update(real_rows)
     launches.update(real_launches)
+    kernels["gather_rows_bwd_runs"], diff_real_launches = phase_real_diff(dev)
+    launches.update({k: diff_real_launches[k] for k in RUNS_ONLY})
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -3662,7 +4053,9 @@ def main():
                     "ad_vs_fd", "k_sweep", "vis_calls",
                     "vis_step_launches", "queries", "frame_ms", "frame_mrays",
                     "ldr_mean", "accel_ops", "launches_a_frame",
-                    "card_vs_cpu_psnr", "alpha_queries", "queries_a_frame"):
+                    "card_vs_cpu_psnr", "alpha_queries", "queries_a_frame",
+                    "index_put_ms", "sort_ms", "calls", "step_nans",
+                    "card_vs_cpu", "big_mesh_step"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)

@@ -61,7 +61,51 @@
 // - Tables wider than kBwdMaxCols columns go in passes of kBwdMaxCols.
 //   The block's warps and blocks an SM follow from K and C (shared memory
 //   a warp: (K + 32) W floats), and an instantiation's dynamic
-//   shared-memory limit is raised once for each larger size, a device.
+//   shared-memory limit is raised once for each larger size, a device,
+//   where that size and the static flag pass the default 48 KB.
+
+// gather_rows_bwd_runs: the same gradient for tables of any size
+// (K > kMaxRows, where a warp's (K, W) table no longer fits in shared
+// memory: a glTF scene's 3,518 vertex rows, 256,068 triangles, an
+// atlas's 8,388,608 texel rows). It replaces no TPU kernel of its own:
+// the JAX package gathers such tables with plain indexing
+// (sunray_tpu/ops/linalg.py:27, render/shade.py:138, ops/texture.py:65,
+// 81), whose transpose is a scatter-add.
+//
+// What bounds it here: memory. It reads ct and idx once and writes the
+// K x C table once: at 720p the texel call (5 x 921,600 indices x 4
+// columns into 8,388,608 rows) moves ~226 MB, 0.07 ms at 3.35 TB/s; the
+// row order, the run bounds (2 K words) and the sort move about as much
+// again.
+//
+// Design, deterministic and without float atomics:
+// - run_keys_kernel clamps the row ids; the caller orders them with a
+//   stable sort (torch.sort(stable=True): a permutation of the indices,
+//   equal rows in index order).
+// - run_bounds_kernel marks each run of equal sorted rows: start[r] and
+//   end[r], written by the run's first and last position alone (rows
+//   with no index keep 0, 0 from a memset).
+// - run_rows_kernel, a thread a row: a run of at most kShortRun indices is
+//   summed by its thread in index order, kRunCols columns a pass, in
+//   float64; an empty row is written as 0; a longer run is cut into
+//   chunks of kRunChunk positions, listed as work items (the list's order
+//   is the atomics', the sums' order is not: each chunk's partial sums
+//   go to the slot its row reserved, chunk by chunk).
+// - run_long_kernel, a block of kRunThreads threads a chunk: thread t sums
+//   positions t, t + kRunThreads, ... of the chunk in float64, the warp
+//   adds its threads by a butterfly of shuffles, thread 0 the warps in
+//   warp order, into the chunk's float64 partial. Consecutive positions
+//   of a run are mostly consecutive pixels (the stable order keeps index
+//   order within a row), so the warp's loads of a column coalesce. The
+//   chunks spread one long run (a floor vertex's 10^5 corners) over the
+//   SMs: with one block a run, such a run took 12 ms of a 720p corner
+//   call on an H100.
+// - run_finish_kernel adds each long run's chunk partials in chunk order.
+// Every row is written once, in float32 from a float64 sum taken in one
+// fixed order: two runs give the same bits, and the sums are
+// within float32's last bit of the exact ones.
+// ct is read through its strides (g, c, n), so a (G, N, C) cotangent
+// viewed as (G, C, N) needs no copy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -322,10 +366,16 @@ cudaError_t launch_bwd(int w, dim3 grid, dim3 block, size_t smem, cudaStream_t s
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-    if (smem > 48 * 1024 && smem > raised[dev]) {
-      err = cudaFuncSetAttribute(gather_rows_bwd_kernel<W, V>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
+    if (smem > raised[dev]) {
+      // The default limit holds the static shared memory (the ticket flag)
+      // and the dynamic together: 48 KB of dynamic memory alone (a 64-row
+      // table of 16 columns a pass, 8 warps) already needs the raise.
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, gather_rows_bwd_kernel<W, V>);
+      if (err == cudaSuccess && smem + attr.sharedSizeBytes > 48 * 1024)
+        err = cudaFuncSetAttribute(gather_rows_bwd_kernel<W, V>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
       if (err != cudaSuccess) {
         cudaGetLastError();   // not left behind for the next launch to report
         return err;
@@ -339,7 +389,205 @@ cudaError_t launch_bwd(int w, dim3 grid, dim3 block, size_t smem, cudaStream_t s
   }
 }
 
+constexpr int kRunThreads = 256;    // threads a block of every runs kernel
+constexpr int kShortRun = 32;       // runs of at most this many: a thread
+constexpr int kRunCols = 16;        // columns a pass
+constexpr int kRunChunk = 2048;     // positions of a long run a block takes
+
+__global__ void __launch_bounds__(kRunThreads)
+run_keys_kernel(const int32_t* __restrict__ idx, int64_t total, int k_rows,
+                int32_t* __restrict__ keys) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j < total) keys[j] = clamp_row(idx[j], k_rows);
+}
+
+__global__ void __launch_bounds__(kRunThreads)
+run_bounds_kernel(const int32_t* __restrict__ srow, int64_t total, int32_t* __restrict__ start,
+                  int32_t* __restrict__ end) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= total) return;
+  const int32_t r = srow[j];
+  if (j == 0 || srow[j - 1] != r) start[r] = static_cast<int32_t>(j);
+  if (j == total - 1 || srow[j + 1] != r) end[r] = static_cast<int32_t>(j + 1);
+}
+
+// The cotangent row of position e of the sorted order (total < 2^31, so
+// the index splits into (g, n) in 32 bits).
+struct RunCt {
+  const float* ct;
+  const int64_t* perm;
+  int64_t sg, sc, sn;
+  int n;
+  __device__ __forceinline__ const float* row(int e) const {
+    const int j = static_cast<int>(perm[e]);
+    const int g = j / n;
+    return ct + g * sg + (j - g * n) * sn;
+  }
+};
+
+// A long run's work item: its row, its chunk (kRunChunk positions) and the
+// slot of its first chunk's partial sums.
+struct RunItem {
+  int row, chunk, base;
+};
+
+__global__ void __launch_bounds__(kRunThreads)
+run_rows_kernel(RunCt in, const int32_t* __restrict__ start, const int32_t* __restrict__ end,
+                int k_rows, int n_cols, RunItem* __restrict__ items,
+                int32_t* __restrict__ n_items, float* __restrict__ dtab) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= k_rows) return;
+  const int lo = start[r], hi = end[r];
+  if (hi - lo > kShortRun) {
+    const int m = (hi - lo + kRunChunk - 1) / kRunChunk;
+    const int base = atomicAdd(n_items, m);
+    for (int q = 0; q < m; ++q) items[base + q] = RunItem{r, q, base};
+    return;
+  }
+  float* out = dtab + static_cast<int64_t>(r) * n_cols;
+  for (int c0 = 0; c0 < n_cols; c0 += kRunCols) {
+    double acc[kRunCols];
+#pragma unroll
+    for (int u = 0; u < kRunCols; ++u) acc[u] = 0.0;
+    for (int e = lo; e < hi; ++e) {
+      const float* src = in.row(e) + c0 * in.sc;
+#pragma unroll
+      for (int u = 0; u < kRunCols; ++u)
+        if (c0 + u < n_cols) acc[u] += static_cast<double>(__ldg(src + u * in.sc));
+    }
+#pragma unroll
+    for (int u = 0; u < kRunCols; ++u)
+      if (c0 + u < n_cols) out[c0 + u] = static_cast<float>(acc[u]);
+  }
+}
+
+// Each listed chunk of a long run: its float64 sums into partial's slot
+// base + chunk.
+__global__ void __launch_bounds__(kRunThreads)
+run_long_kernel(RunCt in, const int32_t* __restrict__ start, const int32_t* __restrict__ end,
+                int n_cols, const RunItem* __restrict__ items,
+                const int32_t* __restrict__ n_items, double* __restrict__ partial) {
+  __shared__ double part[kRunThreads / 32][kRunCols];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int count = *n_items;
+  for (int i = blockIdx.x; i < count; i += gridDim.x) {
+    const RunItem it = items[i];
+    const int lo = start[it.row] + it.chunk * kRunChunk;
+    const int hi = min(end[it.row], lo + kRunChunk);
+    double* out = partial + static_cast<int64_t>(it.base + it.chunk) * n_cols;
+    for (int c0 = 0; c0 < n_cols; c0 += kRunCols) {
+      double acc[kRunCols];
+#pragma unroll
+      for (int u = 0; u < kRunCols; ++u) acc[u] = 0.0;
+      for (int e = lo + threadIdx.x; e < hi; e += kRunThreads) {
+        const float* src = in.row(e) + c0 * in.sc;
+#pragma unroll
+        for (int u = 0; u < kRunCols; ++u)
+          if (c0 + u < n_cols) acc[u] += static_cast<double>(__ldg(src + u * in.sc));
+      }
+#pragma unroll
+      for (int u = 0; u < kRunCols; ++u) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
+        if (lane == 0) part[warp][u] = acc[u];
+      }
+      __syncthreads();
+      if (threadIdx.x < kRunCols && c0 + threadIdx.x < n_cols) {
+        double a = part[0][threadIdx.x];
+        for (int w = 1; w < kRunThreads / 32; ++w) a += part[w][threadIdx.x];
+        out[c0 + threadIdx.x] = a;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Each long run's row: its chunks' sums in chunk order, a thread a
+// (run, column).
+__global__ void __launch_bounds__(kRunThreads)
+run_finish_kernel(const int32_t* __restrict__ start, const int32_t* __restrict__ end,
+                  int n_cols, const RunItem* __restrict__ items,
+                  const int32_t* __restrict__ n_items, const double* __restrict__ partial,
+                  float* __restrict__ dtab) {
+  const int64_t count = static_cast<int64_t>(*n_items) * n_cols;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < count;
+       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const RunItem it = items[t / n_cols];
+    if (it.chunk != 0) continue;
+    const int c = static_cast<int>(t % n_cols);
+    const int m = (end[it.row] - start[it.row] + kRunChunk - 1) / kRunChunk;
+    const double* src = partial + static_cast<int64_t>(it.base) * n_cols + c;
+    double a = src[0];
+    for (int q = 1; q < m; ++q) a += src[static_cast<int64_t>(q) * n_cols];
+    dtab[static_cast<int64_t>(it.row) * n_cols + c] = static_cast<float>(a);
+  }
+}
+
 }  // namespace
+
+// {kRunThreads, kShortRun, kRunCols, kRunChunk}: ops/cuda_gather.py
+// RUN_SHAPE, which the plain model of the runs path
+// (gather_rows_bwd_runs_model) reads.
+extern "C" int sunray_gather_runs_launch_shape(int* out) {
+  out[0] = kRunThreads;
+  out[1] = kShortRun;
+  out[2] = kRunCols;
+  out[3] = kRunChunk;
+  return 0;
+}
+
+// The runs path's first step: keys[j] = clamp(idx[j], 0, K - 1).
+extern "C" int sunray_gather_runs_keys(const int32_t* idx, int64_t total, int k_rows,
+                                       int32_t* keys, void* stream) {
+  if (k_rows < 1 || total < 0 || total > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (total > 0)
+    run_keys_kernel<<<static_cast<unsigned>((total + kRunThreads - 1) / kRunThreads), kRunThreads,
+                      0, static_cast<cudaStream_t>(stream)>>>(idx, total, k_rows, keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The runs path's sums: srow, the keys in a stable sorted order, and perm
+// (int64), the index of each; ct element (g, c, n) at ct + g sg + c sc +
+// n sn (floats). scratch holds 2 K + 3 item_cap + 1 words: start, end,
+// the long runs' work items (item_cap >= 2 total / (kShortRun + 1) + 1)
+// and their count; partial holds item_cap x C doubles. long_blocks blocks
+// take the work items in turns. dtab (K, C) is written in full.
+extern "C" int sunray_gather_rows_bwd_runs(const float* ct, int64_t sg, int64_t sc, int64_t sn,
+                                           int64_t n, int64_t total, const int32_t* srow,
+                                           const int64_t* perm, int k_rows, int n_cols,
+                                           int32_t* scratch, int64_t item_cap, double* partial,
+                                           int long_blocks, float* dtab, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k_rows < 1 || n_cols < 1 || n < 0 || n > INT32_MAX || total < 0 || total > INT32_MAX ||
+      long_blocks < 1 || item_cap < 2 * total / (kShortRun + 1) + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int32_t* start = scratch;
+  int32_t* end = scratch + k_rows;
+  RunItem* items = reinterpret_cast<RunItem*>(end + k_rows);
+  int32_t* n_items = end + k_rows + 3 * item_cap;
+  if (cudaMemsetAsync(start, 0, sizeof(int32_t) * 2 * k_rows, s) != cudaSuccess ||
+      cudaMemsetAsync(n_items, 0, sizeof(int32_t), s) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  if (total > 0) {
+    run_bounds_kernel<<<static_cast<unsigned>((total + kRunThreads - 1) / kRunThreads),
+                        kRunThreads, 0, s>>>(srow, total, start, end);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const RunCt in{ct, perm, sg, sc, sn, static_cast<int>(n)};
+  run_rows_kernel<<<static_cast<unsigned>((k_rows + kRunThreads - 1) / kRunThreads), kRunThreads,
+                    0, s>>>(in, start, end, k_rows, n_cols, items, n_items, dtab);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  run_long_kernel<<<static_cast<unsigned>(long_blocks), kRunThreads, 0, s>>>(
+      in, start, end, n_cols, items, n_items, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  run_finish_kernel<<<static_cast<unsigned>(long_blocks), kRunThreads, 0, s>>>(
+      start, end, n_cols, items, n_items, partial, dtab);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // {kMaxRows, kBwdMaxCols, kBwdMaxWarps, kBwdVec, kMaxGroups}:
 // ops/cuda_gather.py models them (bwd_launch_shape) and cuda_build checks

@@ -106,15 +106,25 @@ def cosine_hemisphere(normal, r1, r2):
     r = fp.sqrt(r2)
     u, v = build_onb(normal)
     d = (
-        u * (torch.cos(phi) * r)[..., None]
-        + v * (torch.sin(phi) * r)[..., None]
+        u * (fp.cos(phi) * r)[..., None]
+        + v * (fp.sin(phi) * r)[..., None]
         + normal * safe_sqrt(1.0 - r2)[..., None]
     )
     return normalize(d)
 
 
-def sample_ggx_vndf(normal, v_world, roughness, r1, r2):
-    """Heitz VNDF half-vector sampling (rt_utils.slang:179-201)."""
+def sample_ggx_vndf(normal, v_world, roughness, r1, r2, differentiable=False,
+                    peeled=False):
+    """Heitz VNDF half-vector sampling (rt_utils.slang:179-201).
+
+    `differentiable`: rounded as XLA's CPU compile of a differentiable
+    frame rounds it: p2's blend with its right product fused, the last
+    root's argument as fma(-p2, p2, 1 - p1 * p1), and 1 - p1 * p1 (shared
+    by both roots) fused inside the bounce loop's body but not in its
+    peeled first round (`peeled`). Where (1 - s) is 1 the last argument is
+    the exact residual of a root, whose sign decides the NaN of
+    jnp.maximum's gradient. Otherwise each product rounded on its own,
+    the rounding that the plain frames' tests hold to the reference."""
     t, b = build_onb(normal)
     vl = torch.stack(
         [dot(v_world, t), dot(v_world, b), dot(v_world, normal)], dim=-1
@@ -138,16 +148,20 @@ def sample_ggx_vndf(normal, v_world, roughness, r1, r2):
 
     rr = fp.sqrt(r1)
     phi = 2.0 * PI_VNDF * r2
-    p1 = rr * torch.cos(phi)
-    p2 = rr * torch.sin(phi)
+    p1 = rr * fp.cos(phi)
+    p2 = rr * fp.sin(phi)
     s = 0.5 * (1.0 + vh[..., 2])
-    p2 = (1.0 - s) * fp.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    if differentiable:
+        r = 1.0 - p1 * p1 if peeled else fp.fma(-p1, p1, 1.0)
+        p2 = fp.fma(s, p2, (1.0 - s) * fp.sqrt(torch.clamp(r, min=0.0)))
+        # jnp.maximum's gradient: where the argument is 0 or below, the
+        # root's inf slope times 1/2 or 0 is NaN in the reference.
+        w = fp.maximum(fp.fma(-p2, p2, r), 0.0)
+    else:
+        p2 = (1.0 - s) * fp.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+        w = torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0)
 
-    nh = (
-        p1[..., None] * t1
-        + p2[..., None] * t2
-        + fp.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))[..., None] * vh
-    )
+    nh = p1[..., None] * t1 + p2[..., None] * t2 + fp.sqrt(w)[..., None] * vh
     hl = normalize(
         torch.stack(
             [a * nh[..., 0], a * nh[..., 1], torch.clamp(nh[..., 2], min=0.0)],

@@ -127,6 +127,10 @@ def _signatures():
         "sunray_gather_rows_bwd": [p, p, i, i, i64, i64, i, i, i64, i64, i,
                                    p, p, p],
         "sunray_gather_bwd_launch_shape": [ctypes.POINTER(i)],
+        "sunray_gather_runs_keys": [p, i64, i, p, p],
+        "sunray_gather_rows_bwd_runs": [p, i64, i64, i64, i64, i64, p, p, i,
+                                        i, p, i64, p, i, p, p],
+        "sunray_gather_runs_launch_shape": [ctypes.POINTER(i)],
         "sunray_atrous_pass": [p, p, p, p, p, i, i, i, p, p],
         "sunray_ris_audition": [p, i, p, p, p, p, p, p, p, p, p, i, i,
                                 p, p, p, p, p, p, p, p],
@@ -201,6 +205,7 @@ def _check_launch_shapes(lib) -> None:
              (*cuda_image.ATROUS_TILE, cuda_image.ATROUS_HALO)),
             ("sunray_boundary_launch_shape", cuda_boundary.LAUNCH_SHAPE),
             ("sunray_gather_bwd_launch_shape", cuda_gather.BWD_LAUNCH_SHAPE),
+            ("sunray_gather_runs_launch_shape", cuda_gather.RUN_SHAPE),
             ("sunray_bvh_launch_shape", cuda_bvh.LAUNCH_SHAPE)):
         got = launch_shape(lib, name, len(want))
         if got != want:

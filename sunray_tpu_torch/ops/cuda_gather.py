@@ -18,8 +18,11 @@ A float32 table that requires grad gathers through an autograd Function
 whose backward is the custom_vjp of the TPU kernels
 (pallas_gather.py:111-119, 178-190), a segment-sum of the cotangent
 rows: gather_rows_bwd, a hand kernel on the card ("gather_rows_bwd" in
-the launch counts), index_add_ on the CPU. An int32 table has no
-gradient.
+the launch counts) for tables of up to MAX_ROWS rows and the runs path
+above (gather_rows_bwd_runs: a stable sort of the row ids, then each
+run of equal rows summed by hand kernels in one fixed order;
+"gather_rows_bwd_runs"), index_add_ on the CPU. An int32 table has no
+gradient. The texel fetches of ops/texture.py take the same backward.
 """
 
 from __future__ import annotations
@@ -41,6 +44,14 @@ BWD_VEC = 4
 BWD_MAX_GROUPS = 64
 BWD_LAUNCH_SHAPE = (MAX_ROWS, MAX_COLS, BWD_MAX_WARPS, BWD_VEC,
                     BWD_MAX_GROUPS)
+# csrc/gather.cu's runs path (sunray_gather_runs_launch_shape): threads a
+# block, the longest run a thread sums alone, columns a pass, positions of
+# a long run a block sums (a chunk).
+RUN_THREADS = 256
+RUN_SHORT = 32
+RUN_COLS = 16
+RUN_CHUNK = 2048
+RUN_SHAPE = (RUN_THREADS, RUN_SHORT, RUN_COLS, RUN_CHUNK)
 BWD_STEP = 32 * BWD_VEC         # indices a warp a step
 BWD_BLOCKS_SM = 2               # blocks an SM at most (__launch_bounds__)
 # An H100's shared memory: a block may take 227 KB, an SM holds 228 KB and
@@ -66,11 +77,65 @@ def gather_rows_bwd_plain(ct, idx, k):
     return dtab.index_add_(0, idx.long().clamp(0, k - 1).reshape(-1), rows)
 
 
+def gather_rows_bwd_runs_model(ct, idx, k):
+    """A plain model of the runs path's order of work (float64 sums, as
+    the kernels take them, rounded to float32 once): the clamped row ids
+    in a stable order, each run of equal rows summed in index order by
+    one thread up to RUN_SHORT indices; a longer run cut into chunks of
+    RUN_CHUNK positions, each summed by RUN_THREADS threads (thread t
+    every RUN_THREADS-th position from t), the threads of a warp added by
+    the shuffle butterfly, the warps in order, and the chunks' sums added
+    in chunk order. Slow (a Python loop over the runs); for tests."""
+    g, c, n = ct.shape
+    vals = ct.permute(0, 2, 1).reshape(-1, c).double()
+    rows = idx.long().clamp(0, k - 1).reshape(-1)
+    srow, perm = torch.sort(rows, stable=True)
+    vals = vals[perm]
+    out = torch.zeros((k, c), dtype=torch.float64)
+    present, counts = torch.unique_consecutive(srow, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    for r, lo, cnt in zip(present.tolist(), starts.tolist(), counts.tolist()):
+        run = vals[lo:lo + cnt]
+        if cnt <= RUN_SHORT:
+            acc = torch.zeros((c,), dtype=torch.float64)
+            for e in range(cnt):
+                acc = acc + run[e]
+            out[r] = acc
+            continue
+        tot = None
+        for q in range(0, cnt, RUN_CHUNK):
+            part = _block_sum(run[q:q + RUN_CHUNK])
+            tot = part if tot is None else tot + part
+        out[r] = tot
+    return out.to(torch.float32)
+
+
+def _block_sum(rows):
+    """The float64 sum of rows (M, C) as a block of RUN_THREADS threads
+    takes it (gather_rows_bwd_runs_model)."""
+    c = rows.shape[1]
+    pad = -rows.shape[0] % RUN_THREADS
+    lanes = torch.cat([rows, rows.new_zeros((pad, c))]).reshape(
+        -1, RUN_THREADS, c)
+    acc = torch.zeros((RUN_THREADS, c), dtype=torch.float64)
+    for step in lanes:
+        acc = acc + step
+    acc = acc.reshape(RUN_THREADS // 32, 32, c)
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    tot = acc[0, 0]
+    for w in range(1, RUN_THREADS // 32):
+        tot = tot + acc[w, 0]
+    return tot
+
+
 def gather_rows_bwd(ct, idx, k):
     """The table's gradient (K, C) from the cotangent ct (G, C, N) of
     gather_rows(table (K, C), idx (G, N)): gather_rows_bwd_plain on CPU
-    tensors, the kernel on CUDA tensors (K <= MAX_ROWS). Deterministic:
-    two runs give the same bits."""
+    tensors; on CUDA tensors the kernel for K <= MAX_ROWS (ct made
+    contiguous) and the runs path above (ct read through its strides).
+    Deterministic: two runs give the same bits."""
     if ct.dim() != 3 or idx.dim() != 2 or tuple(idx.shape) != (ct.shape[0],
                                                                ct.shape[2]):
         raise cuda_build.KernelError(
@@ -78,14 +143,24 @@ def gather_rows_bwd(ct, idx, k):
             f"{tuple(ct.shape)} and {tuple(idx.shape)}")
     if cuda_build.on_cpu(ct, idx):
         return gather_rows_bwd_plain(ct, idx, k)
-    name = "gather_rows_bwd"
-    cuda_build.require_cuda(name, ct, idx)
+    name = "gather_rows_bwd" if k <= MAX_ROWS else "gather_rows_bwd_runs"
+    if k <= MAX_ROWS:
+        ct = ct.contiguous()
+    cuda_build.require_cuda(name, idx)
+    if ct.device != idx.device:
+        raise cuda_build.KernelError(f"{name}: ct on {ct.device}, idx on "
+                                     f"{idx.device}")
     cuda_build.require_dtype(name, ct, torch.float32)
     cuda_build.require_dtype(name, idx, torch.int32)
-    if not 1 <= k <= MAX_ROWS:
-        raise cuda_build.KernelError(f"{name}: {k} rows, the kernel takes "
-                                     f"1 to {MAX_ROWS}")
-    return _launch_bwd(ct, idx, k)
+    if k < 1:
+        raise cuda_build.KernelError(f"{name}: {k} rows")
+    if k <= MAX_ROWS:
+        return _launch_bwd(ct, idx, k)
+    if ct.numel() >= 2 ** 31 or k * ct.shape[1] >= 2 ** 31:
+        raise cuda_build.KernelError(
+            f"{name}: {ct.numel()} cotangents into {k} x {ct.shape[1]}: the "
+            "kernels index in 32 bits")
+    return _launch_bwd_runs(ct, idx, k)
 
 
 def bwd_launch_shape(total, k, c, sms):
@@ -165,6 +240,44 @@ def _launch_bwd(ct, idx, k, lib=None):
     return dtab
 
 
+def run_long_blocks(sms):
+    """Blocks of the runs path's long-run and finishing kernels: 8 an SM,
+    each taking the listed chunks in turns."""
+    return 8 * sms
+
+
+def _launch_bwd_runs(ct, idx, k):
+    """The runs path once on checked arguments, from the port's library
+    (its launches counted): the keys kernel, a stable torch.sort of the
+    keys (the permutation), the sums kernels."""
+    name = "gather_rows_bwd_runs"
+    g, c, n = ct.shape
+    total = g * n
+    kernels = cuda_build.library()
+    stream = cuda_build.stream_ptr()
+    keys = torch.empty((total,), dtype=torch.int32, device=ct.device)
+    cuda_build.check_launch(name, kernels.sunray_gather_runs_keys(
+        idx.data_ptr(), total, k, keys.data_ptr(), stream))
+    srow, perm = torch.sort(keys, stable=True)
+    # Start and end of each row's run, the long runs' chunks (3 words
+    # each; at most 2 total / (RUN_SHORT + 1) + 1) and their count.
+    item_cap = 2 * total // (RUN_SHORT + 1) + 1
+    scratch = torch.empty((2 * k + 3 * item_cap + 1,), dtype=torch.int32,
+                          device=ct.device)
+    partial = torch.empty((item_cap, c), dtype=torch.float64,
+                          device=ct.device)
+    dtab = torch.empty((k, c), dtype=torch.float32, device=ct.device)
+    sg, sc, sn = ct.stride()
+    err = kernels.sunray_gather_rows_bwd_runs(
+        ct.data_ptr(), sg, sc, sn, n, total, srow.data_ptr(),
+        perm.data_ptr(), k, c, scratch.data_ptr(), item_cap,
+        partial.data_ptr(), run_long_blocks(_sm_count(ct.device)),
+        dtab.data_ptr(), stream)
+    cuda_build.check_launch(name, err)
+    cuda_build.launches[name] += 1
+    return dtab
+
+
 class _GatherRows(torch.autograd.Function):
     """gather_rows with the segment-sum backward; saves only idx."""
 
@@ -177,7 +290,22 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         idx, = ctx.saved_tensors
-        return gather_rows_bwd(ct.contiguous(), idx, ctx.rows), None
+        return gather_rows_bwd(ct, idx, ctx.rows), None
+
+
+def take_rows(table, idx):
+    """table[idx] for a float32 (K, C) table and an integer idx of any
+    shape: (*idx.shape, C). Where the table requires grad, through
+    gather_rows (its backward K8's segment sum; the reference gathers
+    tables of at most SELECT_GATHER_MAX_ROWS rows with select chains whose
+    transpose is a masked sum, sunray_tpu/ops/linalg.py:27), because
+    plain indexing's backward on the card walks each row's indices in one
+    thread: a 720p step's 14.7M light-candidate indices into a 2-row
+    light table took 0.84 s a call on an H100; else plain indexing."""
+    if not (table.requires_grad and torch.is_grad_enabled()):
+        return table[idx.long()]
+    rows = gather_rows(table.contiguous(), idx.reshape(1, -1).to(torch.int32))
+    return rows[0].T.reshape(*idx.shape, table.shape[1])
 
 
 def gather_rows(table, idx):

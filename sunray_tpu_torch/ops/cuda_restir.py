@@ -42,6 +42,7 @@ from sunray_tpu_torch.ops.brdf import (
     safe_sqrt,
     vec_norm,
 )
+from sunray_tpu_torch.ops.cuda_gather import take_rows
 
 MAX_TAPS = 8  # the kernels' per-launch tap bound (defaults: 5 DI, 3 GI)
 # K3's table paths (csrc/restir.cu kRisSmemLights; checked against the
@@ -98,7 +99,7 @@ def eval_p_hat(table: LightTable, idx, light_pos, light_normal, pos, normal,
     """Lights.eval_p_hat (restir.py:167-176): (p_hat, f_y) of a stored
     sample, its emission read from the table at idx."""
     f_y = eval_unshadowed_light(pos, normal, view, albedo, rough, metal,
-                                table.emission[idx.long()], light_pos,
+                                take_rows(table.emission, idx), light_pos,
                                 light_normal)
     return luminance_max(f_y), f_y
 
@@ -128,10 +129,10 @@ def ris_audition_plain(table: LightTable, seed, hit_pos, hit_normal, v_view,
     u_pick, u1, u2, u_keep = draws[0::4], draws[1::4], draws[2::4], draws[3::4]
     idx = torch.clamp((u_pick * n_l).to(torch.int32), max=n_l - 1)   # (K, P)
     il = idx.long()
-    v0 = _planes(table.v0[il])
-    v1 = _planes(table.v1[il])
-    v2 = _planes(table.v2[il])
-    em = _planes(table.emission[il])
+    v0 = _planes(take_rows(table.v0, il))
+    v1 = _planes(take_rows(table.v1, il))
+    v2 = _planes(take_rows(table.v2, il))
+    em = _planes(take_rows(table.emission, il))
     e1 = [v1[a] - v0[a] for a in range(3)]
     e2 = [v2[a] - v0[a] for a in range(3)]
     cr = list(fp.cross3(e1, e2))
@@ -286,7 +287,7 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
         p_hat_p, _, _ = eval_p_hat_planar(
             _planes(hit_pos), _planes(hit_normal), _planes(v_view),
             _planes(albedo), roughness, metallic,
-            _planes(table.emission[idx_cl.long()]), _planes(lpos),
+            _planes(take_rows(table.emission, idx_cl)), _planes(lpos),
             _planes(lnrm),
         )
         seed, u_taps = rng_mod.rnd_chain(seed, t_n)

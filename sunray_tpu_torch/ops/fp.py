@@ -23,6 +23,14 @@ Two more roundings differ from the reference unless they are written out:
   rounded to float32, is the correctly rounded float32 root.
 - clip(): jnp.clip's gradient at its bounds (half), where torch.clamp
   passes all of it.
+- maximum(): jnp.maximum's gradient as a product, the cotangent times 1,
+  1/2 or 0, where torch's backward selects: an inf cotangent where the
+  bound wins (a square root's at 0) is NaN in JAX and 0 in torch.
+- cos(), sin(): XLA's CPU calls glibc's cosf / sinf; the float64 value
+  rounded to float32 equals theirs on ~98.7% of [0, 2 pi), torch's
+  vectorised float32 functions on ~95%, and it is the same on the card
+  (torch's float32 functions differ between the CPU and the card, so
+  bounce directions did too).
 - pow5(): JAX lowers x ** 5 (lax.integer_pow) to x * ((x*x) * (x*x));
   torch's x ** 5 calls pow, which agrees on about half of all values.
   The CUDA kernels multiply in the same order.
@@ -133,6 +141,16 @@ def sqrt(x):
     return _sqrt_value(x)
 
 
+def cos(x):
+    """float32 cos(x) through float64 (the module docstring)."""
+    return torch.cos(x.double()).to(torch.float32)
+
+
+def sin(x):
+    """float32 sin(x) through float64 (the module docstring)."""
+    return torch.sin(x.double()).to(torch.float32)
+
+
 def pow5(x):
     """x ** 5 multiplied in lax.integer_pow's order."""
     x2 = x * x
@@ -152,6 +170,34 @@ def clip(x, lo=None, hi=None):
     if hi is not None:
         x = torch.minimum(x, x.new_full((), hi))
     return x
+
+
+class _Maximum(torch.autograd.Function):
+    """max(x, lo) for a scalar lo with lax.max's JVP: g * (1 where x > lo,
+    1/2 where x == lo, 0 where x < lo), a product, so g * 0 is NaN where g
+    is inf or NaN."""
+
+    @staticmethod
+    def forward(ctx, x, lo):
+        ctx.save_for_backward(x)
+        ctx.lo = lo
+        return torch.clamp(x, min=lo)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        w = torch.where(x > ctx.lo, 1.0, torch.where(x == ctx.lo, 0.5, 0.0))
+        return g * w, None
+
+
+def maximum(x, lo):
+    """jnp.maximum(x, lo) for a float lo, with JAX's gradient (_Maximum);
+    the values are torch.clamp's. Used where the reference takes the
+    square root of the result, so that its NaN gradients are the port's
+    too (ops/brdf.sample_ggx_vndf)."""
+    if _records(x):
+        return _Maximum.apply(x, float(lo))
+    return torch.clamp(x, min=lo)
 
 
 def dot3(x0, y0, x1, y1, x2, y2):

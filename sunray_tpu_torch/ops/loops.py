@@ -31,20 +31,59 @@ def checkpointed(fn, *args, enabled=True):
                       preserve_rng_state=False)
 
 
-def bounded_loop(cond, body, init, differentiable: bool, peel: int = 0,
-                 loop_body=None):
-    """Run `body` on the carry while cond(carry) holds. cond returns a
-    Python bool and includes the round bound.
+class _ScanCarry(torch.autograd.Function):
+    """The carry at a boundary of the reference's differentiable scan,
+    unchanged. Its backward hands every float tensor of the carry a
+    cotangent, zeros where nothing downstream reads it: the transpose of
+    jax.lax.scan instantiates the zero cotangents of the carry, so the
+    reference's backward runs each round's body for every carry output,
+    read or not (0 * inf is NaN there, e.g. an unused bounce direction's
+    root at 0, ops/brdf.sample_ggx_vndf)."""
 
-    peel: rounds run unconditionally first, each through `body`; the
-    looped rounds run through `loop_body` (default `body`), e.g. the
-    walks trace their peeled camera round as coherent. Callers keep the
-    body a masked no-op for lanes whose cond already failed.
-    differentiable: the looped rounds run under checkpointed()."""
+    @staticmethod
+    def forward(ctx, *xs):
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return cts
+
+
+def _scan_carry(carry: dict) -> dict:
+    """carry with its float tensors that require grad through _ScanCarry."""
+    keys = [k for k, v in carry.items()
+            if torch.is_tensor(v) and v.requires_grad]
+    if not keys:
+        return carry
+    out = dict(carry)
+    out.update(zip(keys, _ScanCarry.apply(*(carry[k] for k in keys))))
+    return out
+
+
+def bounded_loop(cond, body, init, rounds: int, differentiable: bool,
+                 peel: int = 0, loop_body=None):
+    """Run `body` on the carry (a dict) while cond(carry) holds. cond
+    returns a Python bool and includes the round bound `rounds`.
+
+    peel: rounds run unconditionally first (at most `rounds`), each
+    through `body`; the looped rounds run through `loop_body` (default
+    `body`), e.g. the walks trace their peeled camera round as coherent.
+    Callers keep the body a masked no-op for lanes whose cond already
+    failed.
+    differentiable: the looped rounds run under checkpointed(), and where
+    the reference scans (rounds > peel) the carry passes _ScanCarry at
+    each round's boundary, so that its backward reaches every carry
+    output as the scan's transpose does."""
+    peel = min(peel, rounds)
+    scan = differentiable and rounds > peel and torch.is_grad_enabled()
     carry = init
     for _ in range(peel):
         carry = body(carry)
     loop_body = body if loop_body is None else loop_body
+    if scan:
+        carry = _scan_carry(carry)
     while cond(carry):
         carry = checkpointed(loop_body, carry, enabled=differentiable)
+        if scan:
+            carry = _scan_carry(carry)
     return carry

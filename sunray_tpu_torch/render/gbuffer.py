@@ -196,8 +196,8 @@ def primary_walk(scene, cfg, tracer, origins, dirs, seed):
     # peel: the camera round always runs (gbuffer.py:197-200).
     return bounded_loop(
         lambda c: c["i"] < cfg.virtual_bounces and bool(c["active"].any()),
-        lambda c: body(c, first=True), c, cfg.differentiable,
-        peel=min(1, cfg.virtual_bounces),
+        lambda c: body(c, first=True), c, cfg.virtual_bounces,
+        cfg.differentiable, peel=1,
         loop_body=lambda c: body(c, first=False))
 
 

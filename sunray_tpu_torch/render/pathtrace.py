@@ -216,7 +216,8 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
 
         seed2, u_lobe = rng_mod.rnd(seed2)
         pick_spec = u_lobe < p_spec
-        hvec = sample_ggx_vndf(n, v_view, roughness, r1, r2)
+        hvec = sample_ggx_vndf(n, v_view, roughness, r1, r2,
+                               differentiable=cfg.differentiable, peeled=first)
         d_spec = reflect(-v_view, hvec)
         spec_ok = dot(n, d_spec) > 0.0
         d_diff = cosine_hemisphere(n, r1, r2)
@@ -278,8 +279,8 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     # 355-362); the looped rounds trace incoherent batches.
     c = bounded_loop(
         lambda c: c["i"] < cfg.bounces and bool(c["active"].any()),
-        lambda c: body(c, reuse=first_hit, first=True), c, cfg.differentiable,
-        peel=min(1, cfg.bounces),
+        lambda c: body(c, reuse=first_hit, first=True), c, cfg.bounces,
+        cfg.differentiable, peel=1,
         loop_body=lambda c: body(c, coherent=False))
     radiance = c["radiance"]
     if use_restir:

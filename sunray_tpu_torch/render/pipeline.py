@@ -33,7 +33,6 @@ import dataclasses
 import torch
 from torch.profiler import record_function
 
-from sunray_tpu_torch.ops.cuda_gather import MAX_ROWS
 from sunray_tpu_torch.render import restir
 from sunray_tpu_torch.render.antialias import primary_edge_aa
 from sunray_tpu_torch.render.gbuffer import ris_pass
@@ -86,23 +85,10 @@ def check_supported(scene, cfg) -> None:
     """Raise NotImplementedError for a configuration this port does not
     cover (the tracer checks live in render/trace.make_tracer)."""
     restir = cfg.lighting == "restir" and scene.num_lights > 0
-    # K8's backward kernel takes tables of up to MAX_ROWS rows: a larger
-    # vertex or material table would fail only in the backward pass.
-    table_rows = max(scene.positions.shape[0],
-                     scene.materials.base_color.shape[0])
-    # The visibility terms gather from tables of triangles (edge
-    # antialiasing) and edges (the boundary term's candidates) through K8.
-    if cfg.edge_antialias:
-        table_rows = max(table_rows, scene.num_tris)
-    if cfg.shadow_boundary_grads and scene.edge_tri is not None:
-        table_rows = max(table_rows, scene.edge_tri.shape[0])
     unsupported = {
         f"lighting={cfg.lighting!r}": cfg.lighting not in ("restir", "nee",
                                                            "brdf"),
         "samples > 1": cfg.samples != 1,
-        f"differentiable frames above {MAX_ROWS} vertices, materials, "
-        "triangles (edge_antialias) or edges (shadow_boundary_grads)":
-            cfg.differentiable and table_rows > MAX_ROWS,
         "history_gather_force=True": cfg.history_gather_force is True,
         f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
         f"spatial_taps={cfg.spatial_taps!r}": (restir

@@ -29,6 +29,7 @@ from sunray_tpu_torch.ops.brdf import (
     normalize,
     vec_norm,
 )
+from sunray_tpu_torch.ops.cuda_gather import take_rows
 from sunray_tpu_torch.ops.cuda_restir import one_minus_smoothstep, smoothstep
 from sunray_tpu_torch.ops.fp import fma, sqrt
 from sunray_tpu_torch.ops.loops import checkpointed
@@ -100,8 +101,8 @@ class Lights:
 
     def gather(self, idx):
         """Light triangles by index: (v0, v1, v2, emission), idx (N,)."""
-        idx = idx.long()
-        return self.v0[idx], self.v1[idx], self.v2[idx], self.emission[idx]
+        return tuple(take_rows(x, idx) for x in (self.v0, self.v1, self.v2,
+                                                  self.emission))
 
     def sample_point(self, idx, u1, u2):
         """Area-uniform point on light idx (ray_gen_ris.slang:196-210).

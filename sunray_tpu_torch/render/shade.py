@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from sunray_tpu_torch.ops.brdf import normalize, safe_sqrt, vec_norm
-from sunray_tpu_torch.ops.cuda_gather import gather_rows
+from sunray_tpu_torch.ops.cuda_gather import gather_rows, take_rows
 from sunray_tpu_torch.ops.fp import clip, cross, dot, fma, sum3
 from sunray_tpu_torch.ops.texture import sample_texture
 from sunray_tpu_torch.scene.types import (
@@ -63,6 +63,16 @@ def instance_inverse_rotations(inst_transform):
     return inv.reshape(-1, 9)
 
 
+def _instance_rows(inst_transform, inst):
+    """Each lane's row-major (N, 12) transform and (N, 9) inverse rotation,
+    one take_rows of the (I, 21) table (K8 and its backward where the
+    transform requires grad, as the material rows)."""
+    table = torch.cat([inst_transform.reshape(-1, 12),
+                       instance_inverse_rotations(inst_transform)], dim=1)
+    rows = take_rows(table, inst)
+    return rows[:, :12], rows[:, 12:]
+
+
 def _recompute_hit(orig, d, w0, w1, w2):
     """Moller-Trumbore (t, u, v) for known winning world triangles, one
     (N, 3) tensor per corner."""
@@ -100,7 +110,7 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
     vpack = torch.cat(cols, dim=1)                              # (V, 6 | 20)
     corners = gather_rows(vpack, vidx)                          # (3, C, N)
 
-    xf = scene.inst_transform.reshape(-1, 12)[inst]             # (N, 12)
+    xf, inv_rot = _instance_rows(scene.inst_transform, inst)    # (N, 12), (N, 9)
 
     def to_world(c):
         return torch.stack(
@@ -146,7 +156,6 @@ def shade_hits(scene, orig, d, hit, face_forward=False) -> Surface:
     emission = emissive_sample[:, :3] * emissive_factor[:, 3:4]
 
     # World normal via inverse-transpose (closest_hit.slang:49-50).
-    inv_rot = instance_inverse_rotations(scene.inst_transform)[inst]  # (N, 9)
     world_normal = normalize(
         torch.stack(
             [

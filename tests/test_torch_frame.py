@@ -22,7 +22,6 @@ from sunray_tpu.render.pipeline import render_frame as jrender_frame
 from sunray_tpu.scene import cornell_box as jcornell_box
 from sunray_tpu_torch import convert
 from sunray_tpu_torch.config import RenderConfig
-from sunray_tpu_torch.ops import cuda_gather
 from sunray_tpu_torch.render.pipeline import RenderState, render_frame
 from torch_parity import CAMERA, GOLDEN_KW, n, psnr, to_numpy
 
@@ -106,9 +105,6 @@ UNCOVERED = {
     "perpixel_taps": dict(lighting="restir", spatial_taps="perpixel"),
     "shading_bf16": dict(lighting="restir", shading_dtype="bf16"),
     "samples": dict(samples=2),
-    # K8's backward kernel takes up to MAX_ROWS table rows: refused before
-    # the forward pass, not at the backward (scene below).
-    "differentiable_big_table": dict(differentiable=True),
     # The shadow-boundary term needs the scene's edge topology
     # (render/boundary.with_edge_topology); the JAX frame asserts it.
     "boundary_without_topology": dict(differentiable=True,
@@ -146,14 +142,6 @@ def test_uncovered_configs_raise(name, frames, tmp_path):
     cfg = dataclasses.replace(RenderConfig(**GOLDEN_KW),
                               **UNCOVERED.get(name, {}))
     scene = frames["scene"]
-    if name == "differentiable_big_table":
-        rows = cuda_gather.MAX_ROWS + 1
-        pad = rows - scene.positions.shape[0]
-        scene = dataclasses.replace(
-            scene, positions=torch.cat([scene.positions,
-                                        scene.positions[:1].expand(pad, 3)]),
-            normals=torch.cat([scene.normals,
-                               scene.normals[:1].expand(pad, 3)]))
     with pytest.raises(RAISES.get(name, NotImplementedError)):
         render_frame(scene, cfg, RenderState.create(cfg, device="cpu"), frames["mats"])
 

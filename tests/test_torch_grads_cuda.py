@@ -77,6 +77,8 @@ def _held(ct, idx, k):
     (72, 6, 3, 921_600),         # the 720p corners' shape
     (4, 12, 1, 921_601),         # N not a multiple of 4: one index a lane
     (72, 9, 1, 1_000),           # one block
+    (64, 21, 1, 921_600),        # the real step's instance rows: 48 KB of
+                                 # dynamic shared memory and the static flag
 ])
 def test_gather_backward_shapes(k, c, g, nidx, cuda_device):
     ct, idx = _bwd_case(k, c, g, nidx, cuda_device, seed=k + c)
@@ -116,15 +118,96 @@ def test_gather_backward_unaligned_cotangent(cuda_device):
 
 
 def test_gather_backward_kernel_edges(cuda_device):
-    """No index at all gives zeros; more rows than the kernel takes, or a
-    wrong dtype, raises."""
+    """No index at all gives zeros, in the shared-memory kernel and in the
+    runs path above MAX_ROWS rows (which now takes those tables); a wrong
+    dtype raises in both."""
     ct, idx = _bwd_case(72, 6, 3, 0, cuda_device)
     assert not cuda_gather.gather_rows_bwd(ct, idx, 72).any()
+    big = cuda_gather.MAX_ROWS + 1
+    empty = cuda_gather.gather_rows_bwd(ct, idx, big)
+    assert empty.shape == (big, 6) and not empty.any()
     ct, idx = _bwd_case(600, 6, 1, 1000, cuda_device)
-    with pytest.raises(cuda_build.KernelError):
-        cuda_gather.gather_rows_bwd(ct, idx, cuda_gather.MAX_ROWS + 1)
-    with pytest.raises(cuda_build.KernelError):
-        cuda_gather.gather_rows_bwd(ct, idx.long(), 72)
+    cuda_build.launches.clear()
+    _held(ct, idx, big)
+    assert cuda_build.launches["gather_rows_bwd_runs"] == 2
+    assert cuda_build.launches["gather_rows_bwd"] == 0
+    for k in (72, big):
+        with pytest.raises(cuda_build.KernelError):
+            cuda_gather.gather_rows_bwd(ct, idx.long(), k)
+
+
+def _runs_case(k, c, g, nidx, dup, dev, seed):
+    """Heavy duplicates: four in five indices on six rows (two clamped),
+    runs far above a block's 256 threads; rare: uniform over the rows."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-5, k + 5, size=(g, nidx))
+    if dup == "heavy":
+        hot = np.asarray([-2, 0, 7, k // 2, k - 1, k + 3])
+        idx = np.where(rng.random((g, nidx)) < 0.8,
+                       hot[rng.integers(0, 6, (g, nidx))], idx)
+    ct = rng.standard_normal((g, c, nidx)).astype(np.float32)
+    return (torch.from_numpy(ct).to(dev),
+            torch.from_numpy(idx.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("dup", ["heavy", "rare"])
+@pytest.mark.parametrize("k,c,g,nidx", [
+    (513, 4, 1, 100_003), (3518, 20, 3, 921_600), (70_001, 9, 5, 50_000),
+    (256_068, 9, 1, 921_600), (8_388_608, 4, 5, 921_600)])
+def test_gather_backward_runs_matches_model(k, c, g, nidx, dup, cuda_device):
+    """The runs path (K > MAX_ROWS) bit-equal to its plain model of the
+    kernels' order (gather_rows_bwd_runs_model) on the CPU, within 1e-6
+    of a row's sum of |ct| of the float64 sums, two runs bit-equal; the
+    shapes of the 720p step's corner, edge-AA and texel calls."""
+    ct, idx = _runs_case(k, c, g, nidx, dup, cuda_device, seed=k + c)
+    cuda_build.launches.clear()
+    got = _held(ct, idx, k)
+    assert cuda_build.launches["gather_rows_bwd_runs"] == 2
+    if k * c <= 1 << 22:
+        want = cuda_gather.gather_rows_bwd_runs_model(ct.cpu(), idx.cpu(), k)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_gather_backward_runs_reads_strides(cuda_device):
+    """A (G, N, C) cotangent viewed as (G, C, N) (the texel call's layout)
+    gives the bits of its contiguous copy."""
+    ct, idx = _runs_case(5000, 4, 5, 60_001, "heavy", cuda_device, seed=9)
+    view = ct.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    assert not view.is_contiguous()
+    assert torch.equal(cuda_gather.gather_rows_bwd(view, idx, 5000),
+                       cuda_gather.gather_rows_bwd(ct, idx, 5000))
+
+
+def test_texel_gradient_card_matches_cpu(cuda_device):
+    """sample_texture's gradient w.r.t. a 2 x 64 x 64 atlas (8,192 texel
+    rows): the runs path on the card, index_add_ on the CPU, within 1e-6
+    of the largest entry; the forward bit-equal."""
+    from sunray_tpu_torch.ops import texture
+    from sunray_tpu_torch.scene.types import TextureAtlas
+
+    g = torch.Generator().manual_seed(0)
+    data = torch.rand((2, 64, 64, 4), generator=g)
+    atlas = TextureAtlas(data=data, size=torch.tensor([[64, 64], [40, 24]],
+                                                      dtype=torch.int32),
+                         wrap=torch.tensor([[0, 0], [1, 2]], dtype=torch.int32),
+                         filt=torch.tensor([1, 0], dtype=torch.int32))
+    lanes = 300_000
+    tex = torch.randint(-1, 2, (lanes,), generator=g, dtype=torch.int32)
+    uv = torch.rand((lanes, 2), generator=g) * 3.0 - 1.0
+    fb = torch.rand((lanes, 4), generator=g)
+    w = torch.randn((lanes, 4), generator=g)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        leaf = data.to(dev).requires_grad_()
+        at = dataclasses.replace(atlas.to(dev), data=leaf)
+        cuda_build.launches.clear()
+        val = texture.sample_texture(at, tex.to(dev), uv.to(dev), fb.to(dev))
+        grad, = torch.autograd.grad(val, leaf, w.to(dev))
+        out[str(dev)] = (val.detach().cpu(), grad.cpu())
+    assert cuda_build.launches["gather_rows_bwd_runs"] == 1
+    (vc, gc), (vg, gg) = out.values()
+    assert torch.equal(vc, vg)
+    assert torch.allclose(gg, gc, rtol=0, atol=1e-6 * float(gc.abs().max()))
 
 
 def test_gather_function_runs_both_kernels(cuda_device):

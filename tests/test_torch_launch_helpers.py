@@ -4,8 +4,8 @@ K14's, K2's, K1's, K3's, K7's, B1's and K8's backward's launch shapes:
 the host's copies (cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS,
 OCC_THREADS, OCC_WIDE_MIN, CLOSEST_RAYS, CLOSEST_THREADS,
 CLOSEST_WIDE_MIN; cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
-ATROUS_HALO; cuda_boundary.LAUNCH_SHAPE; cuda_gather.BWD_LAUNCH_SHAPE;
-cuda_bvh.LAUNCH_SHAPE),
+ATROUS_HALO; cuda_boundary.LAUNCH_SHAPE; cuda_gather.BWD_LAUNCH_SHAPE,
+RUN_SHAPE; cuda_bvh.LAUNCH_SHAPE),
 which the CPU models of the kernels, the tests' table sizes and
 chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
 csrc/restir.cu, csrc/atrous.cu, csrc/boundary.cu, csrc/gather.cu and
@@ -15,7 +15,7 @@ B1's K dispatch (every K of 1..MAX_K, nothing else); K8's backward's
 launch shape as a pure function of (G * N, K,
 C, SMs). The launch helpers that the before/after tools call with
 another build's library (K13, K14, K2, K1, K3, K5, K7, B1, K8's
-backward) count a launch of the port's own library and no other."""
+backward and its runs path) count a launch of the port's own library and no other."""
 
 import re
 
@@ -54,6 +54,9 @@ SHAPES = {
     "sunray_bvh_launch_shape": (
         "bvh.cu", ("kThreads", "kStack", "kShared", "kTlasSmem"),
         cuda_bvh.LAUNCH_SHAPE),
+    "sunray_gather_runs_launch_shape": (
+        "gather.cu", ("kRunThreads", "kShortRun", "kRunCols", "kRunChunk"),
+        cuda_gather.RUN_SHAPE),
 }
 
 
@@ -169,6 +172,19 @@ def test_launch_helpers_count_the_ports_library_only(name, monkeypatch):
     assert cuda_build.launches == {name: 1}
     launch(_FakeKernels())          # another build's library
     assert cuda_build.launches == {name: 1}
+
+
+def test_runs_path_counts_each_launch(monkeypatch):
+    monkeypatch.setattr(cuda_build, "library", lambda: _FakeKernels())
+    monkeypatch.setattr(cuda_build, "stream_ptr", lambda: 0)
+    monkeypatch.setitem(cuda_gather._SMS, torch.device("cpu"), 132)
+    monkeypatch.setattr(cuda_build, "launches", cuda_build.launches.copy())
+    cuda_build.launches.clear()
+    for i in (1, 2):
+        cuda_gather._launch_bwd_runs(torch.zeros((3, 4, 8)),
+                                     torch.zeros((3, 8), dtype=torch.int32),
+                                     600)
+        assert cuda_build.launches == {"gather_rows_bwd_runs": i}
 
 
 def test_b1_dispatches_every_k_it_is_built_for():

@@ -27,6 +27,18 @@ build: its registers (-Xptxas=-v) and the SASS of its step loop (the new
 kernel's through no combine, the old one's through one row's
 butterflies) with the issue floors they give. The last line is one JSON
 object of those numbers.
+
+The runs path (tables above 512 rows, gather_rows_bwd_runs) is timed on
+the cotangents of one 1280x720 differentiable step on chip_smoke.py's
+phase-10 GLB (phase 11: "auto", ReSTIR, gradients w.r.t. positions,
+base_color, inst_transform and the atlas): its first vertex-corner call
+(3 x 921,600 indices into 2,698 x 20) and its first texel call (5 x
+921,600 into 8,388,608 x 4), each held against the float64 sums, beside
+its bound, its plain version, index_add_, index_put_(accumulate=True)
+and the stable sort inside it (chip_smoke.runs_timing). Without
+--before the tool runs that part alone:
+
+    python3 tools/k8_bwd_before_after.py
 """
 
 from __future__ import annotations
@@ -165,19 +177,58 @@ def step_sets(dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--before", required=True, type=Path, nargs="+",
-                    help="directories holding other gather.cu")
+    ap.add_argument("--before", type=Path, nargs="*", default=[],
+                    help="directories holding other gather.cu (none: the "
+                         "runs path alone)")
     args = ap.parse_args()
-    tags = before_after.tags_of(args.before, "k8_bwd_before_after")
     if not torch.cuda.is_available():
         sys.exit("k8_bwd_before_after: no CUDA device")
+    card = before_after.card()
+    dev = torch.device("cuda", 0)
+    out = {"card": card}
+    if args.before:
+        before_and_after(args.before, dev, out)
+    out["runs"] = runs_path(dev)
+    print(json.dumps(out), flush=True)
+
+
+def runs_path(dev):
+    """The runs path on the first corner and texel calls of one 720p
+    differentiable step on the phase-10 GLB, held and timed."""
+    import chip_smoke
+    from sunray_tpu_torch.ops import cuda_build, cuda_gather
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    cuda_build.library()
+    cfg, scene, leaves, mats, accel = chip_smoke.real_diff_setup(
+        dev, chip_smoke.real_scene_path(), *chip_smoke.DIFF_SIZE,
+        tracer="auto")
+    _, calls = chip_smoke.capture_bwd_calls(lambda: chip_smoke.real_diff_step(
+        cfg, scene, leaves, mats, RenderState.create(cfg, dev), accel))
+    texel_rows = int(torch.tensor(scene.textures.data.shape[:3]).prod())
+    sets = {"corners": next(c for c in calls
+                            if c[2] == scene.positions.shape[0]),
+            "texels": next(c for c in calls if c[2] == texel_rows)}
+    del calls
+    assert max(c[2] for c in sets.values()) > cuda_gather.MAX_ROWS
+    chip_smoke.k8_bwd_hold(list(sets.items()))
+    out = {}
+    for label, c in sets.items():
+        t = chip_smoke.runs_timing(label, c, dev)
+        bound_ms, bound_by = t.pop("bound")
+        out[label] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def before_and_after(before, dev, out):
+    """The shared-memory kernel of each --before build and the current one
+    on phase 9's step, held and timed in turns (the module docstring)."""
     import chip_smoke
     from sunray_tpu_torch.ops import cuda_gather
 
-    card = before_after.card()
-    dev = torch.device("cuda", 0)
+    tags = before_after.tags_of(before, "k8_bwd_before_after")
     built = before_after.build(
-        {**{tag: d / "gather.cu" for tag, d in zip(tags, args.before)},
+        {**{tag: d / "gather.cu" for tag, d in zip(tags, before)},
          "after": REPO / "sunray_tpu_torch" / "csrc" / "gather.cu"}, OUT)
     libs = {name: load(lib) for name, (lib, _) in built.items()}
     sms, clock = before_after.sm_clock()
@@ -186,7 +237,7 @@ def main():
     shapes = [(kind, tuple(c[1].shape), c[2], c[0].shape[1])
               for kind, c in zip(kinds, calls)]
     print(f"the step's calls: {shapes}", flush=True)
-    out = {"card": card, "step_calls": [list(x) for x in shapes]}
+    out["step_calls"] = [list(x) for x in shapes]
     for name, lib in libs.items():
         legacy = is_legacy(lib)
         out[f"{name}_registers"] = {
@@ -235,7 +286,6 @@ def main():
         out[f"{label}_shape"] = [list(idx.shape), k, ct.shape[1]]
         out[f"{label}_bound_ms"] = chip_smoke.bound(
             chip_smoke.nbytes(ct, idx) + k * ct.shape[1] * 4, 0)[0]
-    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
