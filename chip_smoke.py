@@ -197,8 +197,10 @@ Phases, in order; any failure raises and exits non-zero with no result:
      with edge antialiasing (the triangle table), against its plain
      version and the float64 sums (1e-5 of each row's sum of |ct|, NaN
      where they are NaN), two runs bit-equal, each kind timed beside
-     its bound, index_add_, index_put_(accumulate=True) and its stable
-     sort; (c) the step timed (3 warm-up, 10 timed, synced) with its
+     its bound, index_add_, index_put_(accumulate=True), its own hand
+     radix sort and torch.sort, and broken into its device launches by
+     one torch.profiler session (every launch the port's kernels or a
+     memset: no library sort); (c) the step timed (3 warm-up, 10 timed, synced) with its
      peak memory (limit 40 GB), launches a step and each gradient's NaN
      count; (d) one 720p differentiable step of the big mesh (binned)
      w.r.t. positions and base_color. `python3 tools/real_grads_run.py`
@@ -3710,8 +3712,10 @@ def real_diff_card_vs_cpu(dev):
 def runs_timing(label, call, dev):
     """One runs-path call timed beside its plain version, its bound (ct
     and idx read once, the table written once), index_add_ and
-    index_put_(accumulate=True) on the (G*N, C) rows, and the stable sort
-    of its keys (the permutation torch.sort makes inside the path)."""
+    index_put_(accumulate=True) on the (G*N, C) rows, its own hand sort
+    alone (hand_sort_ms) and torch.sort(stable=True) of the same clamped
+    ids (sort_ms: the library's sort, which the runs path called before
+    its own)."""
     from sunray_tpu_torch.ops import cuda_gather
 
     ct, idx, k = call
@@ -3728,13 +3732,97 @@ def runs_timing(label, call, dev):
         library_ms=device_ms(lambda: dtab.zero_().index_add_(0, cidx, rows)),
         index_put_ms=device_ms(lambda: dtab.zero_().index_put_(
             (cidx,), rows, accumulate=True)),
+        hand_sort_ms=device_ms(lambda: cuda_gather.runs_sort(idx, k)),
         sort_ms=device_ms(lambda: torch.sort(keys, stable=True)),
         bound=bound(nbytes(ct, idx) + k * c * 4, 0))
     log(f"  runs path, {label} {tuple(idx.shape)} into {k} x {c}: "
-        f"{out['ms']:.4f} ms (its stable sort alone {out['sort_ms']:.4f}), "
-        f"bound {out['bound'][0]:.4f} ms ({out['bound'][1]}), plain "
-        f"{out['plain_ms']:.4f} ms, index_add_ {out['library_ms']:.4f} ms, "
-        f"index_put_(accumulate=True) {out['index_put_ms']:.4f} ms")
+        f"{out['ms']:.4f} ms (its hand sort alone {out['hand_sort_ms']:.4f}, "
+        f"torch.sort {out['sort_ms']:.4f}), bound {out['bound'][0]:.4f} ms "
+        f"({out['bound'][1]}), plain {out['plain_ms']:.4f} ms, index_add_ "
+        f"{out['library_ms']:.4f} ms, index_put_(accumulate=True) "
+        f"{out['index_put_ms']:.4f} ms")
+    return out
+
+
+def _launch_name(name):
+    """A profiled launch's name without its namespace and arguments."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0][:60]
+
+
+# The runs path's own device work: its kernels and its memsets.
+RUNS_KERNELS = ("sort_hist_kernel", "sort_pass_kernel", "run_heads_kernel",
+                "run_chunks_kernel")
+
+
+def runs_breakdown(calls, reps=5):
+    """Each runs-path call {label: (ct, idx, k)} `reps` times in one
+    torch.profiler session (a later session on the card may record no
+    device time), its device launches attributed to the call's range by
+    the host time of their launch calls: {label: {device_us, launches: [{name,
+    per_call, us}]}}, or {} where the profiler saw no device time.
+    Checks that every launch is one of RUNS_KERNELS or a memset: no
+    library sort."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sunray_tpu_torch.ops import cuda_gather
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # Outside every range: a later session in a process lost its
+        # first calls' device events (phase 11 after phase 6's).
+        for c in calls.values():
+            cuda_gather.gather_rows_bwd(*c)
+        torch.cuda.synchronize()
+        for label, c in calls.items():
+            with record_function(f"runs {label}"):
+                for _ in range(reps):
+                    cuda_gather.gather_rows_bwd(*c)
+                torch.cuda.synchronize()
+    path = os.path.join(REPO, "build", "phase11", "runs_profile.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"][5:]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("runs ")}
+    # A launch's host time, by its correlation id: a device event is
+    # attributed to the range its launch call lies in.
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = {}
+    for label, (lo, hi) in ranges.items():
+        per = {}
+        for e in events:
+            at = launched.get(e.get("args", {}).get("correlation"), e.get("ts"))
+            if (e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+                    and lo <= at <= hi):
+                n, us = per.get(e["name"], (0, 0.0))
+                per[e["name"]] = (n + 1, us + e["dur"])
+        if not per:
+            continue
+        rows = sorted(((name, n / reps, us / n) for name, (n, us)
+                       in per.items()), key=lambda r: -r[1] * r[2])
+        total = sum(a * b for _, a, b in rows)
+        whole = all(n % reps == 0 for n, _ in per.values())
+        log(f"  runs path, {label}"
+            + ("" if whole else " (the profiler missed launches)")
+            + f": {total:.1f} us of device time a call in "
+            f"{sum(a for _, a, _ in rows):.0f} launches: "
+            + "; ".join(f"{a:g} x {us:.2f} us {_launch_name(name)}"
+                        for name, a, us in rows))
+        for name, _, _ in rows:
+            check(name.startswith("Memset") or any(
+                k in name for k in RUNS_KERNELS),
+                f"runs path {label}: launch {name} is not the port's")
+        out[label] = dict(device_us=total, every_call_seen=whole, launches=[
+            dict(name=_launch_name(name), per_call=a, us=us)
+            for name, a, us in rows])
+    if not out:
+        log("  runs path launch breakdown: not measured (the profiler "
+            "recorded no device time)")
     return out
 
 
@@ -3805,10 +3893,13 @@ def real_diff_step_run(dev, path):
     labelled = [(bwd_label(c, rows_of), c) for c in calls + aa]
     worst, worst_plain, worst_abs, exact = k8_bwd_hold(labelled)
     timed = {}
+    firsts = {}
     for lab, c in labelled:
         if c[2] > cuda_gather.MAX_ROWS and lab not in timed:
             timed[lab] = runs_timing(lab, c, dev)
-    del calls, big, aa, labelled
+            firsts[lab] = c
+    breakdown = runs_breakdown(firsts)
+    del calls, big, aa, labelled, firsts
     for _ in range(REAL_DIFF_WARM - 1):
         state, loss, grads, aux = real_diff_step(cfg, scene, leaves, mats,
                                                  state, accel)
@@ -3839,6 +3930,7 @@ def real_diff_step_run(dev, path):
                bit_equal_runs=exact, ms=main["ms"], plain_ms=main["plain_ms"],
                library_ms=main["library_ms"],
                index_put_ms=main["index_put_ms"], sort_ms=main["sort_ms"],
+               hand_sort_ms=main["hand_sort_ms"], breakdown=breakdown,
                bound=main["bound"], shape=main["shape"],
                calls={lab: {k: v for k, v in t.items() if k != "bound"}
                       | {"bound_ms": t["bound"][0]} for lab, t in timed.items()},
@@ -4054,7 +4146,8 @@ def main():
                     "vis_step_launches", "queries", "frame_ms", "frame_mrays",
                     "ldr_mean", "accel_ops", "launches_a_frame",
                     "card_vs_cpu_psnr", "alpha_queries", "queries_a_frame",
-                    "index_put_ms", "sort_ms", "calls", "step_nans",
+                    "index_put_ms", "sort_ms", "hand_sort_ms", "breakdown",
+                    "calls", "step_nans",
                     "card_vs_cpu", "big_mesh_step"):
             if key in r:
                 entry[key] = r[key]

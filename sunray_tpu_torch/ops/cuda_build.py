@@ -127,9 +127,10 @@ def _signatures():
         "sunray_gather_rows_bwd": [p, p, i, i, i64, i64, i, i, i64, i64, i,
                                    p, p, p],
         "sunray_gather_bwd_launch_shape": [ctypes.POINTER(i)],
-        "sunray_gather_runs_keys": [p, i64, i, p, p],
-        "sunray_gather_rows_bwd_runs": [p, i64, i64, i64, i64, i64, p, p, i,
-                                        i, p, i64, p, i, p, p],
+        "sunray_gather_runs_scratch": [i64, i, i, i64, ctypes.POINTER(i64)],
+        "sunray_gather_runs_sort": [p, i64, i, i, p, p, p, p],
+        "sunray_gather_rows_bwd_runs": [p, i64, i64, i64, i64, i64, p, i, i,
+                                        i, p, i64, p, p, p],
         "sunray_gather_runs_launch_shape": [ctypes.POINTER(i)],
         "sunray_atrous_pass": [p, p, p, p, p, i, i, i, p, p],
         "sunray_ris_audition": [p, i, p, p, p, p, p, p, p, p, p, i, i,

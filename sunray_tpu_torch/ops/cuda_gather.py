@@ -19,14 +19,15 @@ whose backward is the custom_vjp of the TPU kernels
 (pallas_gather.py:111-119, 178-190), a segment-sum of the cotangent
 rows: gather_rows_bwd, a hand kernel on the card ("gather_rows_bwd" in
 the launch counts) for tables of up to MAX_ROWS rows and the runs path
-above (gather_rows_bwd_runs: a stable sort of the row ids, then each
-run of equal rows summed by hand kernels in one fixed order;
+above (gather_rows_bwd_runs: a stable radix sort of the row ids by hand,
+then each run of equal rows summed by hand kernels in one fixed order;
 "gather_rows_bwd_runs"), index_add_ on the CPU. An int32 table has no
 gradient. The texel fetches of ops/texture.py take the same backward.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -45,13 +46,21 @@ BWD_MAX_GROUPS = 64
 BWD_LAUNCH_SHAPE = (MAX_ROWS, MAX_COLS, BWD_MAX_WARPS, BWD_VEC,
                     BWD_MAX_GROUPS)
 # csrc/gather.cu's runs path (sunray_gather_runs_launch_shape): threads a
-# block, the longest run a thread sums alone, columns a pass, positions of
-# a long run a block sums (a chunk).
+# block of its sums (a chunk's order), the longest run summed alone in
+# index order, columns a pass, positions of a long run's chunk; threads a
+# block of its sort, keys a thread of a sort tile, the widest digit, the
+# most passes.
 RUN_THREADS = 256
 RUN_SHORT = 32
-RUN_COLS = 16
+RUN_COLS = 4
 RUN_CHUNK = 2048
-RUN_SHAPE = (RUN_THREADS, RUN_SHORT, RUN_COLS, RUN_CHUNK)
+SORT_THREADS = 256
+SORT_ITEMS = 16
+SORT_DIGIT_BITS = 9
+SORT_MAX_PASSES = 4
+RUN_SHAPE = (RUN_THREADS, RUN_SHORT, RUN_COLS, RUN_CHUNK, SORT_THREADS,
+             SORT_ITEMS, SORT_DIGIT_BITS, SORT_MAX_PASSES)
+SORT_TILE = SORT_THREADS * SORT_ITEMS          # keys a block of a pass
 BWD_STEP = 32 * BWD_VEC         # indices a warp a step
 BWD_BLOCKS_SM = 2               # blocks an SM at most (__launch_bounds__)
 # An H100's shared memory: a block may take 227 KB, an SM holds 228 KB and
@@ -85,7 +94,8 @@ def gather_rows_bwd_runs_model(ct, idx, k):
     RUN_CHUNK positions, each summed by RUN_THREADS threads (thread t
     every RUN_THREADS-th position from t), the threads of a warp added by
     the shuffle butterfly, the warps in order, and the chunks' sums added
-    in chunk order. Slow (a Python loop over the runs); for tests."""
+    in chunk order. For tests: the short runs a position at a time over
+    all of them, the long runs one by one."""
     g, c, n = ct.shape
     vals = ct.permute(0, 2, 1).reshape(-1, c).double()
     rows = idx.long().clamp(0, k - 1).reshape(-1)
@@ -94,20 +104,125 @@ def gather_rows_bwd_runs_model(ct, idx, k):
     out = torch.zeros((k, c), dtype=torch.float64)
     present, counts = torch.unique_consecutive(srow, return_counts=True)
     starts = torch.cumsum(counts, 0) - counts
-    for r, lo, cnt in zip(present.tolist(), starts.tolist(), counts.tolist()):
+    short = counts <= RUN_SHORT
+    lo, cnt = starts[short], counts[short]
+    acc = torch.zeros((lo.numel(), c), dtype=torch.float64)
+    for e in range(RUN_SHORT):
+        live = cnt > e
+        acc[live] = acc[live] + vals[lo[live] + e]
+    out[present[short]] = acc
+    for r, lo, cnt in zip(present[~short].tolist(), starts[~short].tolist(),
+                          counts[~short].tolist()):
         run = vals[lo:lo + cnt]
-        if cnt <= RUN_SHORT:
-            acc = torch.zeros((c,), dtype=torch.float64)
-            for e in range(cnt):
-                acc = acc + run[e]
-            out[r] = acc
-            continue
         tot = None
         for q in range(0, cnt, RUN_CHUNK):
             part = _block_sum(run[q:q + RUN_CHUNK])
             tot = part if tot is None else tot + part
         out[r] = tot
     return out.to(torch.float32)
+
+
+def runs_digit_plan(k):
+    """The runs path's radix digits for row ids below k, least significant
+    first: the ids' own ceil(log2 k) bits (at least 1) in as few passes of
+    at most SORT_DIGIT_BITS bits as cover them, the widths as even as can
+    be (the atlas's 23 bits: 8, 8, 7; 262,144 triangles: 9, 9; 2,698
+    vertices: 6, 6)."""
+    if k < 1 or k > 2 ** 31 - 1:
+        raise cuda_build.KernelError(f"gather_rows_bwd_runs: {k} rows")
+    bits = max(1, (k - 1).bit_length())
+    passes = -(-bits // SORT_DIGIT_BITS)
+    return [bits // passes + (p < bits % passes) for p in range(passes)]
+
+
+def plan_code(plan):
+    """A digit plan as the kernels take it: pass p's width in bits
+    4p..4p+3."""
+    return sum(b << (4 * p) for p, b in enumerate(plan))
+
+
+def runs_sort_model(idx, k):
+    """A plain model of the runs path's radix sort: (sorted clamped ids,
+    their indices), int64, as the kernels compute them pass by pass
+    (runs_digit_plan). A pass splits the keys in tiles of SORT_TILE, a
+    tile in SORT_THREADS // 32 warps of SORT_ITEMS x 32 consecutive keys
+    (item, then lane); a key's slot is its digit's first slot (the
+    exclusive sum of the histogram), plus the digit's count in the tiles
+    before (the look-back), in the warps before in its tile, in the items
+    before in its warp, and in the lanes below of its own item. For
+    tests."""
+    keys = idx.reshape(-1).long().clamp(0, k - 1)
+    pos = torch.arange(keys.numel())
+    shift = 0
+    for bits in runs_digit_plan(k):
+        dest = _sort_pass_slots((keys >> shift) & ((1 << bits) - 1), 1 << bits)
+        keys = torch.empty_like(keys).index_copy_(0, dest, keys)
+        pos = torch.empty_like(pos).index_copy_(0, dest, pos)
+        shift += bits
+    return keys, pos
+
+
+def _sort_pass_slots(digit, radix):
+    """Each key's slot in one pass of runs_sort_model."""
+    total = digit.numel()
+    warps = SORT_THREADS // 32
+    tiles = -(-total // SORT_TILE)
+    # Past the end: a digit of its own (radix), never placed.
+    d = torch.cat([digit, digit.new_full((tiles * SORT_TILE - total,),
+                                         radix)])
+    d = d.reshape(tiles, warps, SORT_ITEMS, 32)
+    lanes = (d[..., :, None] == d[..., None, :]).tril(-1).sum(-1)
+    per_item = torch.zeros((tiles, warps, SORT_ITEMS, radix + 1),
+                           dtype=torch.long).scatter_add_(
+        3, d, torch.ones_like(d))
+    items = torch.cumsum(per_item, 2) - per_item
+    per_warp = per_item.sum(2)
+    warps_before = torch.cumsum(per_warp, 1) - per_warp
+    per_tile = per_warp.sum(1)
+    tiles_before = torch.cumsum(per_tile, 0) - per_tile
+    hist = per_tile.sum(0)[:radix]
+    first = torch.cumsum(hist, 0) - hist
+    t = torch.arange(tiles)[:, None, None, None]
+    w = torch.arange(warps)[None, :, None, None]
+    slot = (first[d.clamp(max=radix - 1)] + tiles_before[t, d]
+            + warps_before[t, w, d] + items.gather(3, d)
+            + lanes)
+    return slot.reshape(-1)[:total]
+
+
+def runs_sort(idx, k):
+    """The runs path's sort alone: (the clamped ids of idx (G, N) in a
+    stable order, the index of each), int32; torch.sort(stable=True) on
+    CPU tensors, the hand radix sort on CUDA tensors (for its tests and
+    its timing; "gather_runs_sort" in the launch counts)."""
+    name = "gather_runs_sort"
+    rows = idx.reshape(-1)
+    if cuda_build.on_cpu(idx):
+        keys, pos = torch.sort(rows.long().clamp(0, k - 1), stable=True)
+        return keys.to(torch.int32), pos.to(torch.int32)
+    cuda_build.require_cuda(name, idx)
+    cuda_build.require_dtype(name, idx, torch.int32)
+    if idx.numel() >= 2 ** 31:
+        raise cuda_build.KernelError(f"{name}: {idx.numel()} indices")
+    kernels = cuda_build.library()
+    plan = plan_code(runs_digit_plan(k))
+    total = rows.numel()
+    scratch = _runs_scratch(kernels, total, plan, k, 0, idx.device)
+    keys = torch.empty((total,), dtype=torch.int32, device=idx.device)
+    pos = torch.empty_like(keys)
+    cuda_build.check_launch(name, kernels.sunray_gather_runs_sort(
+        idx.data_ptr(), total, k, plan, scratch.data_ptr(), keys.data_ptr(),
+        pos.data_ptr(), cuda_build.stream_ptr()))
+    cuda_build.launches[name] += 1
+    return keys, pos
+
+
+def _runs_scratch(lib, total, plan, k, item_cap, dev):
+    """The runs path's int32 scratch, sized by the library."""
+    words = ctypes.c_int64()
+    cuda_build.check_launch("gather_rows_bwd_runs", lib.sunray_gather_runs_scratch(
+        total, plan, k, item_cap, ctypes.byref(words)))
+    return torch.empty((words.value,), dtype=torch.int32, device=dev)
 
 
 def _block_sum(rows):
@@ -240,41 +355,29 @@ def _launch_bwd(ct, idx, k, lib=None):
     return dtab
 
 
-def run_long_blocks(sms):
-    """Blocks of the runs path's long-run and finishing kernels: 8 an SM,
-    each taking the listed chunks in turns."""
-    return 8 * sms
-
-
-def _launch_bwd_runs(ct, idx, k):
-    """The runs path once on checked arguments, from the port's library
-    (its launches counted): the keys kernel, a stable torch.sort of the
-    keys (the permutation), the sums kernels."""
+def _launch_bwd_runs(ct, idx, k, lib=None):
+    """The runs path once on checked arguments, from `lib` (default: the
+    port's library, whose launches are counted): the hand radix sort of
+    the clamped ids (runs_digit_plan), then the sums kernels; one call."""
     name = "gather_rows_bwd_runs"
     g, c, n = ct.shape
     total = g * n
-    kernels = cuda_build.library()
-    stream = cuda_build.stream_ptr()
-    keys = torch.empty((total,), dtype=torch.int32, device=ct.device)
-    cuda_build.check_launch(name, kernels.sunray_gather_runs_keys(
-        idx.data_ptr(), total, k, keys.data_ptr(), stream))
-    srow, perm = torch.sort(keys, stable=True)
-    # Start and end of each row's run, the long runs' chunks (3 words
-    # each; at most 2 total / (RUN_SHORT + 1) + 1) and their count.
+    kernels = cuda_build.library() if lib is None else lib
+    plan = plan_code(runs_digit_plan(k))
+    # The long runs' chunks: at most 2 total / (RUN_SHORT + 1) + 1.
     item_cap = 2 * total // (RUN_SHORT + 1) + 1
-    scratch = torch.empty((2 * k + 3 * item_cap + 1,), dtype=torch.int32,
-                          device=ct.device)
+    scratch = _runs_scratch(kernels, total, plan, k, item_cap, ct.device)
     partial = torch.empty((item_cap, c), dtype=torch.float64,
                           device=ct.device)
     dtab = torch.empty((k, c), dtype=torch.float32, device=ct.device)
     sg, sc, sn = ct.stride()
     err = kernels.sunray_gather_rows_bwd_runs(
-        ct.data_ptr(), sg, sc, sn, n, total, srow.data_ptr(),
-        perm.data_ptr(), k, c, scratch.data_ptr(), item_cap,
-        partial.data_ptr(), run_long_blocks(_sm_count(ct.device)),
-        dtab.data_ptr(), stream)
+        ct.data_ptr(), sg, sc, sn, n, total, idx.data_ptr(), k, c, plan,
+        scratch.data_ptr(), item_cap, partial.data_ptr(), dtab.data_ptr(),
+        cuda_build.stream_ptr())
     cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    if lib is None:
+        cuda_build.launches[name] += 1
     return dtab
 
 

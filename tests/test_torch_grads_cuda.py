@@ -1,6 +1,8 @@
 """PyTorch port on the card, the differentiable slice: K8's backward kernel
 (gather_rows_bwd) against its plain version (index_add_), deterministic,
-at 1 and 512 rows, on slices that cross block and group boundaries, N
+at 1 and 512 rows, and its runs path above 512 rows (the hand radix
+sort's permutation against torch.sort's, the sums bit-equal to their
+plain model at the 720p step's shapes, strided cotangents included), on slices that cross block and group boundaries, N
 not a multiple of a lane's 4 indices (and a cotangent off 16 bytes: one
 index a lane), warps of more than 4 rows, tables wider than a pass;
 the K7 and K9 autograd Functions (kernel forward, plain VJP backward);
@@ -153,29 +155,100 @@ def _runs_case(k, c, g, nidx, dup, dev, seed):
 @pytest.mark.parametrize("dup", ["heavy", "rare"])
 @pytest.mark.parametrize("k,c,g,nidx", [
     (513, 4, 1, 100_003), (3518, 20, 3, 921_600), (70_001, 9, 5, 50_000),
-    (256_068, 9, 1, 921_600), (8_388_608, 4, 5, 921_600)])
+    (256_068, 9, 1, 921_600), (8_388_608, 4, 5, 921_600),
+    (2698, 20, 3, 921_600), (262_144, 9, 1, 921_600)])
 def test_gather_backward_runs_matches_model(k, c, g, nidx, dup, cuda_device):
     """The runs path (K > MAX_ROWS) bit-equal to its plain model of the
     kernels' order (gather_rows_bwd_runs_model) on the CPU, within 1e-6
     of a row's sum of |ct| of the float64 sums, two runs bit-equal; the
-    shapes of the 720p step's corner, edge-AA and texel calls."""
+    shapes of the 720p step's corner (2,698 x 20), edge-AA (262,144 x 9)
+    and texel (8,388,608 x 4) calls."""
     ct, idx = _runs_case(k, c, g, nidx, dup, cuda_device, seed=k + c)
     cuda_build.launches.clear()
     got = _held(ct, idx, k)
     assert cuda_build.launches["gather_rows_bwd_runs"] == 2
-    if k * c <= 1 << 22:
-        want = cuda_gather.gather_rows_bwd_runs_model(ct.cpu(), idx.cpu(), k)
-        assert torch.equal(got.cpu(), want)
+    want = cuda_gather.gather_rows_bwd_runs_model(ct.cpu(), idx.cpu(), k)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def test_gather_backward_runs_reads_strides(cuda_device):
     """A (G, N, C) cotangent viewed as (G, C, N) (the texel call's layout)
-    gives the bits of its contiguous copy."""
+    gives the bits of its contiguous copy and of the model."""
     ct, idx = _runs_case(5000, 4, 5, 60_001, "heavy", cuda_device, seed=9)
     view = ct.permute(0, 2, 1).contiguous().permute(0, 2, 1)
     assert not view.is_contiguous()
-    assert torch.equal(cuda_gather.gather_rows_bwd(view, idx, 5000),
-                       cuda_gather.gather_rows_bwd(ct, idx, 5000))
+    got = cuda_gather.gather_rows_bwd(view, idx, 5000)
+    assert torch.equal(got, cuda_gather.gather_rows_bwd(ct, idx, 5000))
+    want = cuda_gather.gather_rows_bwd_runs_model(ct.cpu(), idx.cpu(), 5000)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k,c,layout", [(2698, 20, "corners"),
+                                        (262_144, 9, "columns"),
+                                        (8_388_608, 4, "rows")])
+def test_gather_backward_runs_strided_step_shapes(k, c, layout, cuda_device):
+    """At the step's three shapes through a strided cotangent: a (G, C, N)
+    slice of a wider one ("corners", "columns": column stride N + 7) or a
+    (G, N, C) one viewed as (G, C, N) ("rows"); bit-equal to the model."""
+    g = 5 if layout == "rows" else (3 if layout == "corners" else 1)
+    ct, idx = _runs_case(k, c, g, 921_600, "heavy", cuda_device, seed=c)
+    if layout == "rows":
+        view = ct.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    else:
+        wide = torch.zeros((g, c, 921_600 + 7), device=cuda_device)
+        wide[:, :, 3:921_603] = ct
+        view = wide[:, :, 3:921_603]
+    assert not view.is_contiguous()
+    got = cuda_gather.gather_rows_bwd(view, idx, k)
+    want = cuda_gather.gather_rows_bwd_runs_model(ct.cpu(), idx.cpu(), k)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _sort_case(k, pattern, g, nidx, dev, seed):
+    """Row ids for the sort: "uniform" over [-5, K + 5) (clamped at both
+    ends), "heavy" four in five on six rows, "equal" one row, "ends" only
+    out-of-range ids, "none" no index."""
+    rng = np.random.default_rng(seed)
+    hi = min(k + 5, 2 ** 31)
+    idx = rng.integers(-5, hi, size=(g, nidx), dtype=np.int64)
+    if pattern == "heavy":
+        hot = np.asarray([-2, 0, 7, k // 2, k - 1, hi - 1])
+        idx = np.where(rng.random((g, nidx)) < 0.8,
+                       hot[rng.integers(0, 6, (g, nidx))], idx)
+    elif pattern == "equal":
+        idx = np.full((g, nidx), k // 3)
+    elif pattern == "ends":
+        idx = np.where(rng.random((g, nidx)) < 0.5, -1, hi - 1)
+    elif pattern == "none":
+        idx = idx[:, :0]
+    return torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "heavy", "equal", "ends",
+                                     "none"])
+@pytest.mark.parametrize("k", [513, 2698, 262_144, 8_388_608, 2 ** 31 - 1])
+def test_runs_sort_is_torch_sort(k, pattern, cuda_device):
+    """The hand radix sort's keys and permutation equal torch.sort
+    (stable=True)'s of the clamped ids, at the texel call's 5 x 921,600
+    indices (one tile and a bit for "none")."""
+    idx = _sort_case(k, pattern, 5, 921_600, cuda_device, seed=k % 997)
+    keys, pos = cuda_gather.runs_sort(idx, k)
+    want_keys, want_pos = torch.sort(idx.reshape(-1).long().clamp(0, k - 1),
+                                     stable=True)
+    assert keys.dtype == pos.dtype == torch.int32
+    assert torch.equal(keys.long(), want_keys)
+    assert torch.equal(pos.long(), want_pos)
+
+
+@pytest.mark.parametrize("nidx", [1, 31, 4096, 4097, 100_003])
+def test_runs_sort_small(nidx, cuda_device):
+    """A partial tile, one tile, one key past it: the permutation of the
+    model and of torch.sort."""
+    idx = _sort_case(2698, "heavy", 1, nidx, cuda_device, seed=nidx)
+    keys, pos = cuda_gather.runs_sort(idx, 2698)
+    want_keys, want_pos = cuda_gather.runs_sort_model(idx.cpu(), 2698)
+    assert torch.equal(keys.cpu().long(), want_keys)
+    assert torch.equal(pos.cpu().long(), want_pos)
 
 
 def test_texel_gradient_card_matches_cpu(cuda_device):

@@ -55,7 +55,9 @@ SHAPES = {
         "bvh.cu", ("kThreads", "kStack", "kShared", "kTlasSmem"),
         cuda_bvh.LAUNCH_SHAPE),
     "sunray_gather_runs_launch_shape": (
-        "gather.cu", ("kRunThreads", "kShortRun", "kRunCols", "kRunChunk"),
+        "gather.cu", ("kRunThreads", "kShortRun", "kRunCols", "kRunChunk",
+                      "kSortThreads", "kSortItems", "kDigitBits",
+                      "kMaxPasses"),
         cuda_gather.RUN_SHAPE),
 }
 
@@ -152,12 +154,15 @@ def _launch(name):
         "gather_rows_bwd": lambda lib: cuda_gather._launch_bwd(
             torch.zeros((3, 6, 8)), torch.zeros((3, 8), dtype=torch.int32),
             72, lib=lib),
+        "gather_rows_bwd_runs": lambda lib: cuda_gather._launch_bwd_runs(
+            torch.zeros((3, 4, 8)), torch.zeros((3, 8), dtype=torch.int32),
+            600, lib=lib),
     }[name]
 
 
 @pytest.mark.parametrize("name", ["atrous_pass", "boundary_candidates",
                                   "di_spatial", "gather_rows_bwd",
-                                  "history_gather", "ris_audition",
+                                  "gather_rows_bwd_runs", "history_gather", "ris_audition",
                                   "trace_closest", "trace_occluded",
                                   "trace_occluded_woop"])
 def test_launch_helpers_count_the_ports_library_only(name, monkeypatch):

@@ -31,14 +31,26 @@ object of those numbers.
 The runs path (tables above 512 rows, gather_rows_bwd_runs) is timed on
 the cotangents of one 1280x720 differentiable step on chip_smoke.py's
 phase-10 GLB (phase 11: "auto", ReSTIR, gradients w.r.t. positions,
-base_color, inst_transform and the atlas): its first vertex-corner call
-(3 x 921,600 indices into 2,698 x 20) and its first texel call (5 x
-921,600 into 8,388,608 x 4), each held against the float64 sums, beside
-its bound, its plain version, index_add_, index_put_(accumulate=True)
-and the stable sort inside it (chip_smoke.runs_timing). Without
---before the tool runs that part alone:
+base_color, inst_transform and the atlas) and of one with edge
+antialiasing: its first vertex-corner call (3 x 921,600 indices into
+2,698 x 20), its first texel call (5 x 921,600 into 8,388,608 x 4) and
+edge AA's triangle call (921,600 into 262,144 x 9), each held against
+the float64 sums, beside its bound, its plain version, index_add_,
+index_put_(accumulate=True), its own hand sort and torch.sort
+(chip_smoke.runs_timing), with what its runs look like (rows, short and
+long runs, the longest). With --before, each DIR's gather.cu that has a
+runs path (the earlier interface, commit e55d5c6's: a keys kernel,
+torch.sort and its sums kernels, launched here as that commit launched
+them; or the current interface) is held
+bit-equal to the current source's on every runs-path call of both steps
+and timed against it in turns on those three calls. Without --before
+the tool runs the runs-path part alone; --profile adds each call's
+launches by one torch.profiler session (chip_smoke.runs_breakdown):
 
-    python3 tools/k8_bwd_before_after.py
+    python3 tools/k8_bwd_before_after.py [--profile]
+    python3 tools/k8_bwd_before_after.py --before build/e55d5c6 --profile
+
+(build/e55d5c6 holding `git show e55d5c6:sunray_tpu_torch/csrc/gather.cu`.)
 """
 
 from __future__ import annotations
@@ -102,9 +114,114 @@ def legacy_launch(lib, ct, idx, k):
     return dtab
 
 
-def launch(lib, ct, idx, k):
+def runs_kind(lib):
+    """A build's runs path: "current" (the hand radix sort,
+    sunray_gather_runs_sort), "sorted" (commit e55d5c6's: a keys kernel,
+    then torch.sort, then the sums kernels) or None (no runs path)."""
+    if hasattr(lib, "sunray_gather_runs_sort"):
+        return "current"
+    if hasattr(lib, "sunray_gather_runs_keys"):
+        return "sorted"
+    return None
+
+
+def declare_runs(lib):
+    """Declare a build's runs-path entry points (runs_kind)."""
+    from sunray_tpu_torch.ops import cuda_build
+
+    kind = runs_kind(lib)
+    if kind == "current":
+        cuda_build.declare(lib, ["sunray_gather_rows_bwd_runs",
+                                 "sunray_gather_runs_scratch",
+                                 "sunray_gather_runs_sort"])
+    elif kind == "sorted":
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.sunray_gather_runs_keys.argtypes = [p, i64, i, p, p]
+        lib.sunray_gather_rows_bwd_runs.argtypes = [
+            p, i64, i64, i64, i64, i64, p, p, i, i, p, i64, p, i, p, p]
+        for fn in (lib.sunray_gather_runs_keys,
+                   lib.sunray_gather_rows_bwd_runs):
+            fn.restype = ctypes.c_int
+    return kind
+
+
+def sorted_runs_launch(lib, ct, idx, k):
+    """The runs path of a build of commit e55d5c6's interface: its keys
+    kernel, torch.sort(stable=True) of the keys, its sums kernels (run
+    bounds over 2 K words, a thread a row, the long runs' chunks, the
+    finish)."""
+    from sunray_tpu_torch.ops import cuda_build, cuda_gather
+
+    g, c, n = ct.shape
+    total = g * n
+    stream = cuda_build.stream_ptr()
+    keys = torch.empty((total,), dtype=torch.int32, device=ct.device)
+    name = "gather_rows_bwd_runs"
+    cuda_build.check_launch(name, lib.sunray_gather_runs_keys(
+        idx.data_ptr(), total, k, keys.data_ptr(), stream))
+    srow, perm = torch.sort(keys, stable=True)
+    item_cap = 2 * total // (cuda_gather.RUN_SHORT + 1) + 1
+    scratch = torch.empty((2 * k + 3 * item_cap + 1,), dtype=torch.int32,
+                          device=ct.device)
+    partial = torch.empty((item_cap, c), dtype=torch.float64,
+                          device=ct.device)
+    dtab = torch.empty((k, c), dtype=torch.float32, device=ct.device)
+    sg, sc, sn = ct.stride()
+    cuda_build.check_launch(name, lib.sunray_gather_rows_bwd_runs(
+        ct.data_ptr(), sg, sc, sn, n, total, srow.data_ptr(), perm.data_ptr(),
+        k, c, scratch.data_ptr(), item_cap, partial.data_ptr(),
+        8 * cuda_gather._sm_count(ct.device), dtab.data_ptr(), stream))
+    return dtab
+
+
+def runs_launch(lib, kind, ct, idx, k):
     from sunray_tpu_torch.ops import cuda_gather
 
+    if kind == "sorted":
+        return sorted_runs_launch(lib, ct, idx, k)
+    return cuda_gather._launch_bwd_runs(ct, idx, k, lib=lib)
+
+
+def runs_before_after(built, sets, step_calls, out):
+    """The runs path of each build that has one against the current
+    source's, on the 720p real-scene steps' runs-path calls: every call
+    bit-equal to the current build's (as int32 words), then the builds
+    timed in turns on the first corner, texel and edge-AA calls."""
+    import chip_smoke
+
+    kinds = {name: declare_runs(lib) for name, (lib, _) in built.items()}
+    names = [name for name, kind in kinds.items() if kind is not None]
+    ref = built["after"][0]
+    differing = {name: 0 for name in names if name != "after"}
+    for ct, idx, k in step_calls:
+        want = runs_launch(ref, "current", ct, idx, k).view(torch.int32)
+        for name in differing:
+            got = runs_launch(built[name][0], kinds[name], ct, idx, k)
+            differing[name] += int(not torch.equal(got.view(torch.int32),
+                                                   want))
+    torch.cuda.synchronize()
+    for name, bad in differing.items():
+        print(f"runs path, {name} against this source: {bad} of "
+              f"{len(step_calls)} calls differ", flush=True)
+        chip_smoke.check(bad == 0, f"runs path: {name} differs on {bad} "
+                         "calls")
+    out["runs_calls_compared"] = len(step_calls)
+    out["runs_calls_differing"] = differing
+    others = [name for name in names if name != "after"]
+    before_after.time_in_turns(
+        others, "after",
+        lambda name: {f"runs {label}": ((lambda c=c: runs_launch(
+            built[name][0], kinds[name], *c)), 1)
+            for label, c in sets.items()}, out)
+
+
+def launch(lib, ct, idx, k):
+    """The shared-memory kernel of a build on (ct, idx, k), ct made
+    contiguous as gather_rows_bwd makes it (a captured cotangent keeps
+    its strides: the boundary term's are not contiguous)."""
+    from sunray_tpu_torch.ops import cuda_gather
+
+    ct = ct.contiguous()
     if is_legacy(lib):
         return legacy_launch(lib, ct, idx, k)
     return cuda_gather._launch_bwd(ct, idx, k, lib=lib)
@@ -180,21 +297,37 @@ def main():
     ap.add_argument("--before", type=Path, nargs="*", default=[],
                     help="directories holding other gather.cu (none: the "
                          "runs path alone)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also break each runs-path call into its device "
+                         "launches (torch.profiler)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k8_bwd_before_after: no CUDA device")
     card = before_after.card()
     dev = torch.device("cuda", 0)
     out = {"card": card}
+    built = {}
     if args.before:
-        before_and_after(args.before, dev, out)
-    out["runs"] = runs_path(dev)
+        built = before_and_after(args.before, dev, out)
+    sets, step_calls = runs_sets(dev)
+    if built:
+        runs_before_after(built, sets, step_calls, out)
+    out["runs"] = runs_path(dev, sets)
+    out["run_stats"] = {label: run_stats(*c) for label, c in sets.items()}
+    if args.profile:
+        import chip_smoke
+
+        out["profile"] = chip_smoke.runs_breakdown(sets)
     print(json.dumps(out), flush=True)
 
 
-def runs_path(dev):
-    """The runs path on the first corner and texel calls of one 720p
-    differentiable step on the phase-10 GLB, held and timed."""
+def runs_sets(dev):
+    """The runs-path calls of one 720p differentiable step on the phase-10
+    GLB, and of one with edge antialiasing: ({"corners", "texels",
+    "edge AA"}: the first call of each kind, [every call above MAX_ROWS
+    rows of both steps])."""
+    import dataclasses
+
     import chip_smoke
     from sunray_tpu_torch.ops import cuda_build, cuda_gather
     from sunray_tpu_torch.render.pipeline import RenderState
@@ -203,14 +336,59 @@ def runs_path(dev):
     cfg, scene, leaves, mats, accel = chip_smoke.real_diff_setup(
         dev, chip_smoke.real_scene_path(), *chip_smoke.DIFF_SIZE,
         tracer="auto")
-    _, calls = chip_smoke.capture_bwd_calls(lambda: chip_smoke.real_diff_step(
-        cfg, scene, leaves, mats, RenderState.create(cfg, dev), accel))
+    aa_cfg = dataclasses.replace(cfg, edge_antialias=True)
+    calls = []
+    for c in (cfg, aa_cfg):
+        _, got = chip_smoke.capture_bwd_calls(
+            lambda c=c: chip_smoke.real_diff_step(
+                c, scene, leaves, mats, RenderState.create(cfg, dev), accel))
+        calls += [x for x in got if x[2] > cuda_gather.MAX_ROWS]
     texel_rows = int(torch.tensor(scene.textures.data.shape[:3]).prod())
-    sets = {"corners": next(c for c in calls
-                            if c[2] == scene.positions.shape[0]),
-            "texels": next(c for c in calls if c[2] == texel_rows)}
-    del calls
-    assert max(c[2] for c in sets.values()) > cuda_gather.MAX_ROWS
+    rows = {"corners": scene.positions.shape[0], "texels": texel_rows,
+            "edge AA": scene.num_tris}
+    sets = {label: next(c for c in calls if c[2] == k)
+            for label, k in rows.items()}
+    return sets, calls
+
+
+def run_stats(ct, idx, k):
+    """What the call's runs look like: its cotangent's strides, the rows
+    present, runs of at most RUN_SHORT and longer, the positions in long
+    runs, the longest run, and the 32-byte sectors a column's load of 32
+    consecutive sorted positions touches."""
+    from sunray_tpu_torch.ops import cuda_gather
+
+    keys = idx.long().clamp(0, k - 1).reshape(-1)
+    counts = torch.bincount(keys, minlength=k)
+    counts = counts[counts > 0]
+    long = counts > cuda_gather.RUN_SHORT
+    # 32-byte sectors one column's load touches for 32 consecutive sorted
+    # positions (a warp's load in a long run; 4 if they were consecutive
+    # words, 32 if all apart).
+    g, c, n = ct.shape
+    _, perm = torch.sort(keys, stable=True)
+    sg, _, sn = ct.stride()
+    word = (perm // n) * sg + (perm % n) * sn
+    word = word[:word.numel() // 32 * 32].reshape(-1, 32).sort(dim=1).values
+    sectors = 1 + ((word[:, 1:] // 8) != (word[:, :-1] // 8)).sum(1)
+    out = dict(shape=[list(idx.shape), k, ct.shape[1]],
+               strides=list(ct.stride()), rows_present=int(counts.numel()),
+               short_runs=int((~long).sum()), long_runs=int(long.sum()),
+               long_positions=int(counts[long].sum()),
+               longest=int(counts.max()) if counts.numel() else 0,
+               sectors_a_32=float(sectors.double().mean())
+               if sectors.numel() else 0.0)
+    print(f"runs of {out['shape']}: {out}", flush=True)
+    return out
+
+
+def runs_path(dev, sets):
+    """The runs path on the step's first corner, texel and edge-AA calls,
+    held and timed."""
+    import chip_smoke
+    from sunray_tpu_torch.ops import cuda_gather
+
+    assert min(c[2] for c in sets.values()) > cuda_gather.MAX_ROWS
     chip_smoke.k8_bwd_hold(list(sets.items()))
     out = {}
     for label, c in sets.items():
@@ -286,6 +464,7 @@ def before_and_after(before, dev, out):
         out[f"{label}_shape"] = [list(idx.shape), k, ct.shape[1]]
         out[f"{label}_bound_ms"] = chip_smoke.bound(
             chip_smoke.nbytes(ct, idx) + k * ct.shape[1] * 4, 0)[0]
+    return built
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ small synthetic GLB's differentiable frames (NEE and ReSTIR, "bvh" and
 "auto") on the card against the CPU, the 720p step on phase 10's GLB
 with the runs path held against its plain version and the float64 sums
 on the step's own cotangents and timed beside its bound, index_add_,
-index_put_(accumulate=True) and its sort, the timed step with its peak
+index_put_(accumulate=True), its own radix sort and torch.sort, and
+broken into its device launches, the timed step with its peak
 memory, and the big mesh's 720p step. It prints the card's name and
 power limit, the phase's own log, and as its last line one JSON object
 of the runs path's row and launches. It holds none of the other kernels
