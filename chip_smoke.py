@@ -127,7 +127,7 @@ Phases, in order; any failure raises and exits non-zero with no result:
      row's sum of |ct|: within 1e-5 of the plain version's float64 sums
      and 1e-4 of its float32 ones; two runs bit-equal), timed on the
      step's first corner call beside index_add_ and its bound; the 720p step
-     timed (3 warm-up, 10 timed, synced): ms, rays a step by
+     timed (3 warm-up, 5 timed, synced): ms, rays a step by
      bench.py:179-183's count and Mray/s, loss, gradient norms, peak
      memory, synced forward stages and backward; one 480x270 step with
      the stage checkpoints on and off (peak memory, time).
@@ -147,7 +147,7 @@ Phases, in order; any failure raises and exits non-zero with no result:
      operations its code runs on these inputs, the side tests once a
      (pixel, edge)); K8's backward on every call of that step (the
      visibility terms' three too, each timed beside its bound); the
-     timed 720p step with both terms (3 warm-up, 10 timed,
+     timed 720p step with both terms (3 warm-up, 5 timed,
      synced): ms, rays and Mray/s by bench.py's count, peak memory (limit
      40 GB), every gradient entry finite, synced stages; AD against
      central differences on tests/test_grads.py's two occluder-translation
@@ -158,10 +158,10 @@ Phases, in order; any failure raises and exits non-zero with no result:
      1024x1024 PNG textures, a 16-quad alpha-MASK panel grid, a 5,120-
      triangle icosphere instanced 50 times: 256,068 triangles), written
      under build/ and loaded with Renderer.load_gltf; each run the 1080p
-     default ReSTIR frame, 5 warm-up and 20 timed frames (synced), the
+     default ReSTIR frame, 3 warm-up and 6 timed frames (synced), the
      counters zeroed before: (a) tracer="auto" (the two-level tracer, B3
      must launch, B2, K1 and K2 must not), (b) tracer="bvh" (the host SAH
-     build, B2), then 8 frames of set_instances animation (accel op
+     build, B2), then 3 frames of set_instances animation (accel op
      "update" each) and a spawn ("fast_build"); each prints frame ms,
      Mray/s by bench.py's count (checked against the tracer's), ldr_mean,
      the accel op of every frame and the walk's launches a frame (at
@@ -180,7 +180,7 @@ Phases, in order; any failure raises and exits non-zero with no result:
      over the walk kernel (render/trace.py's closest_alpha_rounds /
      occluded_alpha_rounds) on every lane, bit-equal, and against its
      plain twin (ops/bvh.walk_alpha_plain) on 65,536 lanes with the test
-     counts equal; both routes timed; (e) the scene at 96x54 for 3 frames
+     counts equal; both routes timed; (e) the scene at 96x54 for 2 frames
      on the card and on the CPU port, PSNR > 40 dB. `python3
      tools/bvh_walk_run.py` runs phase 10 alone.
  11. differentiable real scenes (K8's backward above 512 rows, the runs
@@ -200,11 +200,26 @@ Phases, in order; any failure raises and exits non-zero with no result:
      its bound, index_add_, index_put_(accumulate=True), its own hand
      radix sort and torch.sort, and broken into its device launches by
      one torch.profiler session (every launch the port's kernels or a
-     memset: no library sort); (c) the step timed (3 warm-up, 10 timed, synced) with its
+     memset: no library sort); (c) the step timed (2 warm-up, 4 timed,
+     synced) with its
      peak memory (limit 40 GB), launches a step and each gradient's NaN
      count; (d) one 720p differentiable step of the big mesh (binned)
      w.r.t. positions and base_color. `python3 tools/real_grads_run.py`
      runs phase 11 alone.
+ 12. the configurations, 1080p on the Cornell camera, each with the
+     counters zeroed just before and read just after (2 warm-up, 3 timed
+     frames): ReSTIR with samples=4 (K5 and K6 four launches a frame,
+     K1 two), with per-pixel spatial taps (plain in both packages: K5
+     and K6 idle), with bf16 shading (K3-K6's bf16 instantiations launch,
+     the fp32 ones do not; each held to its plain version on frame 2's
+     own inputs by the take-flip scheme and timed beside the fp32
+     instantiation on the same data widened, its plain version and its
+     bound with the attributes at 2 bytes), and cornell_box_many_lights(17)
+     (578 lights; K3 on its table held to plain and timed); each config
+     at the golden size card vs CPU (PSNR > 40 dB, 3 frames); the four
+     quality cases of tests/test_torch_quality.py (128x72, 4 + 8 frames)
+     against their converged truths under the ledger's bounds.
+     Its summary is the line {"configs": ...} before the wall time.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -270,6 +285,8 @@ ATROUS_TAP_OPS = 40
 DIFF_SIZE = (1280, 720)
 DIFF_OFF_SIZE = (480, 270)          # the step with the checkpoints off
 DIFF_STEPS = 3                      # card vs CPU, threaded state
+DIFF_TIMED = 5                      # timed steps, phases 8-9 (10 before
+                                    # phase 12 joined the script)
 DIFF_LOSS_RTOL = 1e-5
 DIFF_GRAD_RTOL, DIFF_GRAD_FLOOR = 1e-4, 1e-5   # floor: of the largest |g|
 # Phase 9, the visibility gradients (cornell_restir_fwdbwd_720p with both
@@ -456,7 +473,9 @@ def loop_unit_counts(funcs, keys=None):
     for key, kernel, body, marker, per, through, unit in LOOP_UNITS:
         if keys is not None and key not in keys:
             continue
-        found = {name: code for name, code in funcs.items() if kernel in name}
+        # The fp32 instantiations (K3's bf16 one is timed, not counted).
+        found = {name: code for name, code in funcs.items()
+                 if kernel in name and "bfloat16" not in name}
         for name, code in found.items():
             try:
                 count, units, _ = sass.loop_per_unit(code, body, marker, per,
@@ -486,7 +505,8 @@ def di_spatial_counts(funcs):
     from tools import sass
 
     try:
-        code = sass.find(funcs, "17di_spatial_kernel")
+        code = sass.find({name: code for name, code in funcs.items()
+                          if "bfloat16" not in name}, "17di_spatial_kernel")
         tap, units, path = sass.loop_per_unit(
             code, "LDG", lambda ins: PCG_WORD_MUL in ins.text, 1,
             lambda ins: ins.op.startswith("MUFU"))
@@ -1028,11 +1048,12 @@ RESTIR_CHECKS = {
 
 
 def capture_frames(dev, wrappers, frame, count, width=1920, height=1080,
-                   **cfg_kw):
+                   scene=None, **cfg_kw):
     """Every call, (args, kwargs), of the wrappers `wrappers` ({name: module
     under sunray_tpu_torch.ops}) in frames frame, ..., frame + count - 1
-    (the frames before them run unrecorded) of the width x height Cornell
-    render with RenderConfig(**cfg_kw): one {name: [calls]} a frame."""
+    (the frames before them run unrecorded) of the width x height render of
+    `scene` (default: the Cornell box) with RenderConfig(**cfg_kw): one
+    {name: [calls]} a frame."""
     import importlib
 
     from sunray_tpu_torch.camera import Camera, camera_matrices
@@ -1041,7 +1062,7 @@ def capture_frames(dev, wrappers, frame, count, width=1920, height=1080,
     from sunray_tpu_torch.scene import cornell_box
 
     cfg = RenderConfig(width=width, height=height, **cfg_kw)
-    scene = cornell_box(device=dev)
+    scene = cornell_box(device=dev) if scene is None else scene
     mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
     state = RenderState.create(cfg, dev)
     for _ in range(frame):
@@ -1070,9 +1091,11 @@ def capture_frames(dev, wrappers, frame, count, width=1920, height=1080,
     return frames
 
 
-def capture_calls(dev, wrappers, frame, width=1920, height=1080, **cfg_kw):
+def capture_calls(dev, wrappers, frame, width=1920, height=1080, scene=None,
+                  **cfg_kw):
     """capture_frames of frame `frame` alone: {name: [(args, kwargs)]}."""
-    return capture_frames(dev, wrappers, frame, 1, width, height, **cfg_kw)[0]
+    return capture_frames(dev, wrappers, frame, 1, width, height, scene,
+                          **cfg_kw)[0]
 
 
 # The default ReSTIR frame's three K2 queries, in the order the frame makes
@@ -1117,12 +1140,15 @@ def capture_restir_inputs(dev, width=1920, height=1080, frame=2,
                 di_spatial=[c["di_spatial"][0][0] for c in recorded])
 
 
-def compare_restir(name, args, label):
-    """Kernel against plain on the same arguments; returns (agree, err)."""
+def compare_restir(name, args, label, kwargs=None):
+    """Kernel against plain on the same arguments (args, kwargs); returns
+    (agree, err)."""
     from sunray_tpu_torch.ops import cuda_restir
 
-    seed_k, out_k = getattr(cuda_restir, name)(*args)
-    seed_p, out_p = getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args)
+    kwargs = kwargs or {}
+    seed_k, out_k = getattr(cuda_restir, name)(*args, **kwargs)
+    seed_p, out_p = getattr(cuda_restir, RESTIR_WRAPPERS[name])(*args,
+                                                                **kwargs)
     torch.cuda.synchronize()
     win, exact, close = RESTIR_CHECKS[name]
     check(torch.equal(seed_k, seed_p), f"{name} {label}: seeds differ")
@@ -2712,7 +2738,8 @@ def phase_diff(dev, gen):
     """Phase 8, the differentiable slice (cornell_restir_fwdbwd_720p): card
     vs CPU, the launch check of one 720p step (whose K8-backward calls are
     captured), K8's backward against its plain version, the timed 720p
-    step (bench.py:128-190's loop: 3 warm-up and 10 timed steps, synced),
+    step (bench.py:128-190's loop: 3 warm-up and DIFF_TIMED timed steps,
+    synced),
     and the step with the checkpoints off. Returns (K8 backward's row,
     launches of the launch-check step)."""
     from sunray_tpu_torch.ops import cuda_build, cuda_trace
@@ -2744,7 +2771,7 @@ def phase_diff(dev, gen):
         state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
     torch.cuda.synchronize()
     cuda_trace.rays.clear()
-    n_timed = 10
+    n_timed = DIFF_TIMED
     t0 = time.perf_counter()
     for _ in range(n_timed):
         state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
@@ -3047,7 +3074,8 @@ def phase_visibility(dev, gen):
     """Phase 9, the visibility gradients: card vs CPU with both terms, the
     zero forward at 720p, the launch check of one 720p step with both terms
     (B1's calls captured), B1 against its plain version, the timed 720p
-    step (bench.py:128-190's loop: 3 warm-up and 10 timed steps, synced)
+    step (bench.py:128-190's loop: 3 warm-up and DIFF_TIMED timed steps,
+    synced)
     with its peak memory, and AD against FD; K8's backward on the
     launch-check step's calls. Returns (B1's row with the step's numbers,
     launches of the launch-check step, the K8-backward visibility calls'
@@ -3089,7 +3117,7 @@ def phase_visibility(dev, gen):
         state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
     torch.cuda.synchronize()
     cuda_trace.rays.clear()
-    n_timed = 10
+    n_timed = DIFF_TIMED
     t0 = time.perf_counter()
     for _ in range(n_timed):
         state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
@@ -3169,12 +3197,13 @@ def kernel_registers(regs, kernel, threads):
 # _auto_big_mode counts (renderer.py:160-168, in both packages) exceeds
 # bvh2_blas_max_tris: "auto" would take the binned tracer.
 REAL_GLB = dict(seed=10, tex=1024, subdiv=4, spheres=50)
-REAL_WARM, REAL_TIMED = 5, 10   # 15 frames: 10 timed leave the script
-                                # room for phase 11
-REAL_ANIMATE = 8            # set_instances frames (AsState UPDATE refits)
+REAL_WARM, REAL_TIMED = 3, 6    # 5, 10 before phase 12 joined the
+                                # script
+REAL_ANIMATE = 3            # set_instances frames (AsState UPDATE refits;
+                            # 8 before phase 12 joined the script)
 WALK_LANES = 65536          # lanes of each query held to the plain twin
 REAL_SMALL = dict(width=96, height=54)
-REAL_SMALL_FRAMES = 3
+REAL_SMALL_FRAMES = 2       # 3 before phase 12 joined the script
 
 
 def real_scene_path():
@@ -3604,7 +3633,7 @@ REAL_DIFF_CASES = (("nee", "bvh"), ("nee", "auto"), ("restir", "bvh"),
                    ("restir", "auto"))
 REAL_DIFF_SMALL = (96, 64)
 REAL_DIFF_FLOOR = 1e-5      # card vs CPU: of the largest finite |gradient|
-REAL_DIFF_WARM, REAL_DIFF_TIMED = 3, 10
+REAL_DIFF_WARM, REAL_DIFF_TIMED = 2, 4   # 3, 10 before phase 12
 REAL_DIFF_PARAMS = ("positions", "base_color", "inst_transform", "textures")
 # A differentiable real-scene step ("auto": B3): the walk, K8 forward and
 # backward, the runs path; the plain K3-K7, K9 and K13; no K1, K2.
@@ -4014,6 +4043,255 @@ def phase_real_diff(dev):
     return row, launches
 
 
+# -- phase 12: the configurations (samples, per-pixel taps, bf16, many lights)
+
+RESTIR_NAMES = ("ris_audition", "di_temporal", "di_spatial", "gi_spatial")
+# The bf16 instantiations of K3-K6 (csrc/restir.cu, counted under these
+# names by ops/cuda_restir.py).
+BF16_NAMES = tuple(f"{k}_bf16" for k in RESTIR_NAMES)
+CONFIG_KW = {
+    "samples4": dict(samples=4),
+    "perpixel": dict(spatial_taps="perpixel"),
+    "bf16": dict(shading_dtype="bf16"),
+    # Brute force on both devices: "auto" would trace the 612 triangles
+    # with an LBVH on the CPU (its brute limit is 512) and brute force on
+    # the card, and the two tracers break ties apart.
+    "lights578": dict(tracer="brute"),
+}
+MANY_PANELS = 17            # cornell_box_many_lights(17): 578 lights
+CONFIG_WARM, CONFIG_TIMED = 2, 3
+CONFIG_SMALL_FRAMES = 3     # card vs CPU at the golden size
+# K3-K6's attribute planes by wrapper, as (first, last + 1) positional
+# indices: normal, view, albedo, roughness, metallic (K6: normal, albedo,
+# metallic, and its bf16 ones ride the `shade` keyword).
+ATTR_ARGS = {"ris_audition": (3, 8), "di_temporal": (7, 12),
+             "di_spatial": (9, 14), "gi_spatial": (5, 8)}
+
+
+def config_scene(name, device):
+    from sunray_tpu_torch.scene import cornell_box, cornell_box_many_lights
+
+    if name == "lights578":
+        return cornell_box_many_lights(MANY_PANELS, device=device)
+    return cornell_box(device=device)
+
+
+def config_render(name, cfg, device, frames):
+    """ldr after `frames` frames of config `name`'s scene."""
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+
+    scene = config_scene(name, device)
+    mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height,
+                           device=device)
+    state = RenderState.create(cfg, device)
+    ldr = None
+    for _ in range(frames):
+        state, ldr, _ = render_frame(scene, cfg, state, mats)
+    return ldr
+
+
+def config_frame(dev, name, width=1920, height=1080):
+    """Config `name`'s 1080p ReSTIR frame: CONFIG_WARM + CONFIG_TIMED
+    frames with the launch counts zeroed just before and read just after,
+    frame ms over the timed ones, rays a frame. Returns (launches, ms,
+    rays a frame, frames run)."""
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build, cuda_trace
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+
+    cfg = RenderConfig(width=width, height=height, lighting="restir",
+                       **CONFIG_KW[name])
+    scene = config_scene(name, dev)
+    mats = camera_matrices(Camera(**CAMERA), width, height, device=dev)
+    state = RenderState.create(cfg, dev)
+    torch.cuda.synchronize()
+    cuda_build.launches.clear()
+    cuda_trace.rays.clear()
+    for _ in range(CONFIG_WARM):
+        state, ldr, aux = render_frame(scene, cfg, state, mats)
+    torch.cuda.synchronize()
+    rays0 = sum(cuda_trace.rays.values())
+    t0 = time.perf_counter()
+    for _ in range(CONFIG_TIMED):
+        state, ldr, aux = render_frame(scene, cfg, state, mats)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / CONFIG_TIMED * 1e3
+    launches = dict(cuda_build.launches)
+    rays = (sum(cuda_trace.rays.values()) - rays0) / CONFIG_TIMED
+    ldr_np = ldr.cpu().numpy()
+    check(ldr_np.shape == (height, width, 3), f"{name}: ldr {ldr_np.shape}")
+    check(bool(np.isfinite(ldr_np).all()), f"{name}: non-finite ldr")
+    check(0.05 < float(ldr_np.mean()) < 0.95, f"{name}: ldr mean "
+          f"{ldr_np.mean()}")
+    frames = CONFIG_WARM + CONFIG_TIMED
+    log(f"  {name}: {scene.num_lights} lights, frame {ms:.3f} ms (mean of "
+        f"{CONFIG_TIMED} after {CONFIG_WARM}), rays/frame {rays:.0f}, walk "
+        f"rounds final {aux['final_rounds']}; launches over {frames} frames: "
+        f"{launches}")
+    return launches, ms, rays, frames
+
+
+def with_f32_attrs(name, args, kwargs):
+    """K3-K6's bf16 arguments with the attribute planes widened to float32
+    (exactly): the fp32 instantiation's arguments on the same data."""
+    a, b = ATTR_ARGS[name]
+    args = list(args)
+    if name != "gi_spatial":
+        args[a:b] = [x.float().contiguous() for x in args[a:b]]
+    return tuple(args), {}
+
+
+def bf16_rows(dev, launches, frames):
+    """K3-K6's bf16 instantiations on frame 2's own inputs of the 1080p
+    bf16 ReSTIR frame: each against its plain version, timed (device_ms)
+    beside the fp32 instantiation on the same data widened, its plain
+    version, and its bound with the attribute planes at 2 bytes."""
+    from sunray_tpu_torch.ops import cuda_restir
+
+    calls = capture_calls(dev, dict.fromkeys(RESTIR_NAMES, "cuda_restir"), 2,
+                          lighting="restir", shading_dtype="bf16")
+    rows = {}
+    for name in RESTIR_NAMES:
+        check(len(calls[name]) == 1, f"bf16 frame 2: {len(calls[name])} "
+              f"{name} calls")
+        args, kwargs = calls[name][0]
+        attrs = args[ATTR_ARGS[name][0]:ATTR_ARGS[name][1]]
+        if name == "gi_spatial":
+            attrs = kwargs["shade"]
+        check(all(x.dtype == torch.bfloat16 for x in attrs),
+              f"{name}: the bf16 frame's attributes are not bf16")
+        agree, err = compare_restir(name, args, "bf16, 1080p frame 2",
+                                    kwargs)
+        fn = getattr(cuda_restir, name)
+        out = fn(*args, **kwargs)
+        f32_args, f32_kwargs = with_f32_attrs(name, args, kwargs)
+        lanes = (args[0] if name == "gi_spatial" else args[1]).shape[0]
+        r = dict(
+            bf16_agree=agree, bf16_max_abs_err=err,
+            bf16_ms=device_ms(lambda: fn(*args, **kwargs)),
+            bf16_f32_same_data_ms=device_ms(lambda: fn(*f32_args,
+                                                        **f32_kwargs)),
+            bf16_plain_ms=time_ms(lambda: getattr(
+                cuda_restir, RESTIR_WRAPPERS[name])(*args, **kwargs)),
+            bf16_launches_a_frame=launches.get(f"{name}_bf16", 0) / frames)
+        b = bound(nbytes(*flatten(args), *flatten(kwargs))
+                  + nbytes(*flatten(out)), lanes * restir_lane_ops(name, args))
+        r["bf16_bound_ms"], r["bf16_bound_by"] = b
+        log(f"  time {name} bf16: kernel {r['bf16_ms']:.4f} ms (fp32 "
+            f"instantiation on the same data {r['bf16_f32_same_data_ms']:.4f}), "
+            f"plain {r['bf16_plain_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); "
+            f"{r['bf16_launches_a_frame']:g} launches a frame")
+        rows[name] = r
+    return rows
+
+
+def lights578_k3(dev):
+    """K3 on the 578-light table of cornell_box_many_lights(17): frame 2's
+    own audition call of the 1080p frame, against plain, timed."""
+    from sunray_tpu_torch.ops import cuda_restir
+
+    calls = capture_calls(dev, {"ris_audition": "cuda_restir"}, 2,
+                          scene=config_scene("lights578", dev),
+                          lighting="restir")["ris_audition"]
+    check(len(calls) == 1, f"578-light frame 2: {len(calls)} K3 calls")
+    args = calls[0][0]
+    check(args[0].num == 2 * MANY_PANELS ** 2, f"{args[0].num} lights")
+    agree, err = compare_restir("ris_audition", args,
+                                f"{args[0].num}-light table, 1080p frame 2")
+    ms = device_ms(lambda: cuda_restir.ris_audition(*args))
+    log(f"  K3 on the {args[0].num}-light table: {ms:.4f} ms")
+    return dict(lights578_agree=agree, lights578_max_abs_err=err,
+                lights578_ms=ms)
+
+
+def quality_cases(dev):
+    """tests/test_torch_quality.py's cases on the card: each case's mean
+    raw HDR and last LDR against the converged truth, under the ledger's
+    bounds (tests/torch_quality_cases.py)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_quality_cases import CASES, run_case, score
+
+    out = {}
+    for name in sorted(CASES):
+        mean_raw, ldr = run_case(name, dev)
+        check(bool(np.isfinite(mean_raw).all() and np.isfinite(ldr).all()),
+              f"quality {name}: non-finite output")
+        r, p, r_max, p_min = score(name, mean_raw, ldr)
+        log(f"  quality {name}: relMSE {r:.4f} (bound {r_max:.4f}), LDR "
+            f"PSNR {p:.2f} dB (bound {p_min:.2f})")
+        check(r < r_max, f"quality {name}: relMSE {r:.4f} > {r_max:.4f}")
+        check(p > p_min, f"quality {name}: PSNR {p:.2f} < {p_min:.2f}")
+        out[name] = dict(relmse=r, psnr=p)
+    return out
+
+
+def phase_configs(dev, kernels):
+    """Phase 12: the frame configurations (1080p on the Cornell camera):
+    ReSTIR with samples=4, with per-pixel taps, with bf16 shading (K3-K6's
+    bf16 instantiations held to plain on the frame's own inputs and
+    timed), on the 578-light box (K3 on its table); each config's card
+    frame against the CPU at the golden size; the four quality cases
+    against their truths. Adds the bf16 and 578-light numbers to kernels'
+    K3-K6 rows; returns the phase's summary."""
+    from sunray_tpu_torch.config import RenderConfig
+
+    t_phase = time.perf_counter()
+    summary = {}
+    for name in CONFIG_KW:
+        log(f"phase 12: 1920x1080 Cornell frame, {name}")
+        launches, ms, rays, frames = config_frame(dev, name)
+        summary[name] = dict(frame_ms=ms, rays_a_frame=rays,
+                             launches_a_frame={k: v / frames for k, v in
+                                               launches.items()})
+        want = ("trace_closest", "trace_occluded", "gather_rows")
+        if name == "bf16":
+            want += BF16_NAMES
+            for k in RESTIR_NAMES:
+                check(launches.get(k, 0) == 0, f"bf16 frame: fp32 {k} "
+                      f"launched {launches.get(k, 0)} times")
+        elif name == "perpixel":
+            # per-pixel taps run plain in both packages (pathtrace.py:
+            # 722-725): K5 and K6 stay idle.
+            want += ("ris_audition", "di_temporal")
+            for k in ("di_spatial", "gi_spatial"):
+                check(launches.get(k, 0) == 0, f"perpixel frame: {k} launched")
+        else:
+            want += RESTIR_NAMES
+        for k in want:
+            check(launches.get(k, 0) > 0, f"{name} frame: {k} never launched")
+        if name == "samples4":
+            for k in ("di_spatial", "gi_spatial"):
+                check(launches[k] == 4 * frames,
+                      f"samples=4: {k} launched {launches[k]} times in "
+                      f"{frames} frames")
+            check(launches["trace_closest"] == 2 * frames,
+                  f"samples=4: K1 launched {launches['trace_closest']} times")
+        if name == "bf16":
+            for k, r in bf16_rows(dev, launches, frames).items():
+                kernels[k].update(r)
+        if name == "lights578":
+            kernels["ris_audition"].update(lights578_k3(dev))
+
+    for name in CONFIG_KW:
+        log(f"phase 12: {name} golden-size config, {CONFIG_SMALL_FRAMES} "
+            "frames, card vs CPU")
+        cfg = RenderConfig(**dict(GOLDEN_KW, lighting="restir",
+                                  **CONFIG_KW[name]))
+        gpu = config_render(name, cfg, dev, CONFIG_SMALL_FRAMES).cpu().numpy()
+        cpu = config_render(name, cfg, "cpu", CONFIG_SMALL_FRAMES).numpy()
+        p = psnr(gpu, cpu)
+        log(f"  PSNR card vs CPU {p:.2f} dB")
+        check(p > PSNR_MIN, f"{name}: card vs CPU PSNR {p:.2f} dB")
+        summary[name]["card_vs_cpu_psnr"] = p
+    log("phase 12: the quality cases at 128x72 on the card against their "
+        "converged truths")
+    summary["quality"] = quality_cases(dev)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return summary
+
+
 def main():
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device available")
@@ -4112,6 +4390,7 @@ def main():
     launches.update(real_launches)
     kernels["gather_rows_bwd_runs"], diff_real_launches = phase_real_diff(dev)
     launches.update({k: diff_real_launches[k] for k in RUNS_ONLY})
+    configs = phase_configs(dev, kernels)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -4148,10 +4427,15 @@ def main():
                     "card_vs_cpu_psnr", "alpha_queries", "queries_a_frame",
                     "index_put_ms", "sort_ms", "hand_sort_ms", "breakdown",
                     "calls", "step_nans",
-                    "card_vs_cpu", "big_mesh_step"):
+                    "card_vs_cpu", "big_mesh_step", "bf16_agree",
+                    "bf16_max_abs_err", "bf16_ms", "bf16_f32_same_data_ms",
+                    "bf16_plain_ms", "bf16_bound_ms", "bf16_bound_by",
+                    "bf16_launches_a_frame", "lights578_agree",
+                    "lights578_max_abs_err", "lights578_ms"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)
+    log(json.dumps({"configs": configs}))
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

@@ -28,10 +28,24 @@
 // is x * ((x*x) * (x*x)); sqrt and division are IEEE (no fast math). The
 // draws are the jnp PCG draws in uint32, u = (float)result * 2^-32-ish
 // (rng.py:45-51), not the Pallas 31-bit split; seeds come back bit-equal.
+//
+// bf16 shading (cfg.shading_dtype="bf16"): each kernel has a second
+// instantiation that reads the five attribute planes (normal, view, albedo,
+// roughness, metallic) as __nv_bfloat16 and rounds with
+// __float2bfloat16_rn exactly where the plain versions round
+// (ops/brdf.py's bf16 rule: an operation between bf16 operands takes them
+// rounded and computes in fp32; its result is rounded where another bf16
+// operation reads it and read unrounded where an fp32 operation does).
+// K5 also reads the fp32 normal for its neighbour test and K6 the fp32
+// normal, albedo and metallic for its final ray and contribution, as the
+// JAX frame does. The fp32 instantiations are the kernels they were.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,6 +57,11 @@ constexpr float kInvU32Max = 2.3283064365386963e-10f;  // f32(1 / 4294967295)
 // f32(1 / f32(e1 - e0)) of the smoothsteps (restir.py:711-713).
 constexpr float kInvSs0990 = 11.11111068725586f;       // (0.9, 0.99)
 constexpr float kInvSs0520 = 6.666666507720947f;       // (0.05, 0.20)
+// The bf16 path's constants: bf16(0.04), bf16(0.001) and f32(1 / bf16(kPi))
+// (a bf16 x / PI compiles to x * kInvPiBf16).
+constexpr float kBf0p04 = 0.0400390625f;
+constexpr float kBf0p001 = 0.00099945068359375f;
+constexpr float kInvPiBf16 = 0.31840795278549194f;
 
 struct V3 {
   float x, y, z;
@@ -51,6 +70,23 @@ struct V3 {
 __device__ __forceinline__ V3 ld3(const float* __restrict__ p, long long i) {
   return {__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
 }
+// Attribute planes: fp32, or bf16 widened (exactly) to fp32.
+__device__ __forceinline__ float lda(const float* __restrict__ p, long long i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float lda(const __nv_bfloat16* __restrict__ p, long long i) {
+  return __bfloat162float(__ldg(p + i));
+}
+template <typename A>
+__device__ __forceinline__ V3 lda3(const A* __restrict__ p, long long i) {
+  return {lda(p, 3 * i), lda(p, 3 * i + 1), lda(p, 3 * i + 2)};
+}
+// x rounded to bf16 (nearest even), held in fp32 (ops/brdf.rb).
+__device__ __forceinline__ float rb(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <typename A>
+constexpr bool kIsBf16 = !std::is_same<A, float>::value;
 __device__ __forceinline__ void st3(float* __restrict__ p, long long i, V3 v) {
   p[3 * i] = v.x;
   p[3 * i + 1] = v.y;
@@ -95,12 +131,13 @@ struct Surface {
   float rough, metal;
 };
 
-__device__ __forceinline__ Surface load_surface(const float* pos, const float* nrm,
-                                                const float* view, const float* alb,
-                                                const float* rough, const float* metal,
+template <typename A>
+__device__ __forceinline__ Surface load_surface(const float* pos, const A* nrm,
+                                                const A* view, const A* alb,
+                                                const A* rough, const A* metal,
                                                 long long i) {
-  return {ld3(pos, i), ld3(nrm, i), ld3(view, i), ld3(alb, i), __ldg(rough + i),
-          __ldg(metal + i)};
+  return {ld3(pos, i), lda3(nrm, i), lda3(view, i), lda3(alb, i), lda(rough, i),
+          lda(metal, i)};
 }
 
 // The terms of eval_light that depend on the surface alone, for a surface
@@ -111,9 +148,37 @@ struct ShadeTerms {
   V3 f0, one_f0, diff;   // fmaf(al, metal, 0.04 (1 - metal)), 1 - f0, al (1 - metal)
 };
 
-template <bool planar>
+// bf = true: the attributes are bf16 (ops/brdf.py's bf16 forms): NdotV is
+// bf16 (a bf16 chain when planar, the fp32 sum of exact products rounded
+// otherwise), alpha = rb(r * r) and a2 its exact square, a2m1 and one_m
+// from rb(a2), root_v ggx_v's bf16 chain, f0 = rb(0.04 rb(1 - m)) +
+// rb(al m), one_f0 = 1 - rb(f0), diff = al rb(1 - m).
+template <bool planar, bool bf>
 __device__ __forceinline__ ShadeTerms shade_terms(const Surface& s) {
   ShadeTerms t;
+  if constexpr (bf) {
+    const float ndv = planar ? rb(rb(rb(s.n.x * s.v.x) + rb(s.n.y * s.v.y)) +
+                                  rb(s.n.z * s.v.z))
+                             : rb(dot3(s.n, s.v));
+    t.ndv = fmaxf(ndv, kBf0p001);
+    const float a = rb(s.rough * s.rough);
+    t.a2 = a * a;
+    const float a2r = rb(t.a2);
+    t.a2m1 = a2r - 1.0f;
+    t.one_m = 1.0f - a2r;
+    t.root_v = sqrtf(rb(rb(rb(t.ndv * t.ndv) * rb(t.one_m)) + a2r));
+    const float m1 = rb(1.0f - s.metal);
+    const float base = rb(kBf0p04 * m1);
+    float f0[3], diff[3];
+    for (int c = 0; c < 3; ++c) {
+      f0[c] = base + rb(comp(s.al, c) * s.metal);
+      diff[c] = comp(s.al, c) * m1;
+    }
+    t.f0 = {f0[0], f0[1], f0[2]};
+    t.one_f0 = {1.0f - rb(f0[0]), 1.0f - rb(f0[1]), 1.0f - rb(f0[2])};
+    t.diff = {diff[0], diff[1], diff[2]};
+    return t;
+  }
   t.ndv = fmaxf(planar ? sum3(s.n, s.v) : dot3(s.n, s.v), 0.001f);
   const float a = s.rough * s.rough;
   t.a2 = a * a;
@@ -135,8 +200,9 @@ __device__ __forceinline__ ShadeTerms shade_terms(const Surface& s) {
 // GGX D*V*F + Lambert of a light sample, unshadowed (rt_utils.slang:203-234).
 // planar = true rounds as brdf.eval_p_hat_planar (written-out dot products),
 // false as brdf.eval_unshadowed_light (jnp.sum reductions). Returns f_y
-// (rgb); p_hat is its max channel.
-template <bool planar>
+// (rgb); p_hat is its max channel. bf: the terms are shade_terms<planar,
+// true>'s, and the visibility term's sum fuses ggx_l's product.
+template <bool planar, bool bf = false>
 __device__ __forceinline__ V3 eval_light(const Surface& s, const ShadeTerms& t, V3 em,
                                          V3 lpos, V3 lnrm) {
   V3 l = sub(lpos, s.pos);
@@ -154,8 +220,10 @@ __device__ __forceinline__ V3 eval_light(const Surface& s, const ShadeTerms& t, 
   const float vdh = fmaxf(planar ? sum3(s.v, h) : dot3(s.v, h), 0.0f);
   const float denom = fmaf(ndh * ndh, t.a2m1, 1.0f);
   const float d_term = t.a2 / (denom * kPi * denom);
-  const float ggx_l = t.ndv * sqrtf(fmaf(ndl * ndl, t.one_m, t.a2));
-  const float v_term = 0.5f / fmaxf(fmaf(ndl, t.root_v, ggx_l), 1e-4f);
+  const float root_l = sqrtf(fmaf(ndl * ndl, t.one_m, t.a2));
+  const float v_term =
+      bf ? 0.5f / fmaxf(fmaf(t.ndv, root_l, ndl * t.root_v), 1e-4f)
+         : 0.5f / fmaxf(fmaf(ndl, t.root_v, t.ndv * root_l), 1e-4f);
   const float dv = d_term * v_term;
   const float fres5 = pow5(1.0f - vdh);
   const float geometry = ndl * cos_light / fmaxf(dist * dist, 1e-4f);
@@ -168,15 +236,16 @@ __device__ __forceinline__ V3 eval_light(const Surface& s, const ShadeTerms& t, 
   return {out[0], out[1], out[2]};
 }
 
-template <bool planar>
+template <bool planar, bool bf = false>
 __device__ __forceinline__ V3 eval_light(const Surface& s, V3 em, V3 lpos, V3 lnrm) {
-  return eval_light<planar>(s, shade_terms<planar>(s), em, lpos, lnrm);
+  return eval_light<planar, bf>(s, shade_terms<planar, bf>(s), em, lpos, lnrm);
 }
 
 __device__ __forceinline__ float max3(V3 v) { return fmaxf(fmaxf(v.x, v.y), v.z); }
 
-// brdf.gi_target_pdf (planar = false) / gi_target_pdf_planar (true).
-template <bool planar>
+// brdf.gi_target_pdf (planar = false) / gi_target_pdf_planar (true); bf:
+// the diffuse factor rb(al rb(1 - m)) * f32(1 / bf16(PI)).
+template <bool planar, bool bf = false>
 __device__ __forceinline__ float gi_p_hat(const Surface& s, V3 spos, V3 srad) {
   V3 w = sub(spos, s.pos);
   const float d = fmaxf(planar ? safe_sqrt(sum3(w, w)) : vec_norm(w), 1e-4f);
@@ -184,7 +253,8 @@ __device__ __forceinline__ float gi_p_hat(const Surface& s, V3 spos, V3 srad) {
   const float ndl = fmaxf(planar ? sum3(s.n, w) : dot3(s.n, w), 0.0f);
   float p = 0.0f;
   for (int c = 0; c < 3; ++c) {
-    const float fd = comp(s.al, c) * (1.0f - s.metal) * kInvPi;
+    const float fd = bf ? rb(comp(s.al, c) * rb(1.0f - s.metal)) * kInvPiBf16
+                        : comp(s.al, c) * (1.0f - s.metal) * kInvPi;
     const float contrib = comp(srad, c) * fd * ndl;
     p = c == 0 ? contrib : fmaxf(p, contrib);
   }
@@ -260,13 +330,13 @@ light_records_kernel(const float* __restrict__ tab, int n_lights,
   rec[4 * j + 3] = make_float4(ln.x, ln.y, ln.z, fmaxf((float)n_lights * area, 1e-4f));
 }
 
-template <bool kSmem>
+template <bool kSmem, typename A>
 __global__ void __launch_bounds__(kThreads)
 ris_audition_kernel(const float4* __restrict__ g_rec, int n_lights,
                     const long long* __restrict__ seed_in, const float* __restrict__ pos,
-                    const float* __restrict__ nrm, const float* __restrict__ view,
-                    const float* __restrict__ alb, const float* __restrict__ rough,
-                    const float* __restrict__ metal, const uint8_t* __restrict__ enable_in,
+                    const A* __restrict__ nrm, const A* __restrict__ view,
+                    const A* __restrict__ alb, const A* __restrict__ rough,
+                    const A* __restrict__ metal, const uint8_t* __restrict__ enable_in,
                     int n, int k, long long* __restrict__ seed_out, float* __restrict__ o_pos,
                     float* __restrict__ o_nrm, float* __restrict__ o_wsum,
                     float* __restrict__ o_m, int32_t* __restrict__ o_idx,
@@ -278,8 +348,9 @@ ris_audition_kernel(const float4* __restrict__ g_rec, int n_lights,
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  constexpr bool bf = kIsBf16<A>;
   const Surface s = load_surface(pos, nrm, view, alb, rough, metal, i);
-  const ShadeTerms terms = shade_terms<true>(s);
+  const ShadeTerms terms = shade_terms<true, bf>(s);
   const bool enable = enable_in[i] != 0;
   uint32_t seed = (uint32_t)seed_in[i];
 
@@ -307,7 +378,7 @@ ris_audition_kernel(const float4* __restrict__ g_rec, int n_lights,
     const V3 ln = {q[3].x, q[3].y, q[3].z};
     const V3 em = {q[0].w, q[1].w, q[2].w};
     const float wi =
-        enable ? max3(eval_light<true>(s, terms, em, lp, ln)) * q[3].w : 0.0f;
+        enable ? max3(eval_light<true, bf>(s, terms, em, lp, ln)) * q[3].w : 0.0f;
     w_sum = w_sum + wi;
     const bool take = enable & (u_keep < wi / fmaxf(w_sum, 1e-4f));
     r_idx = take ? idx : r_idx;
@@ -318,7 +389,7 @@ ris_audition_kernel(const float4* __restrict__ g_rec, int n_lights,
   const float m = enable ? (float)k : 0.0f;
   // W for the winner (ray_gen_ris.slang:225-231), its emission kept in
   // registers from its take.
-  const float p_hat_w = max3(eval_light<false>(s, r_em, r_pos, r_nrm));
+  const float p_hat_w = max3(eval_light<false, bf>(s, r_em, r_pos, r_nrm));
   const float w = w_sum / fmaxf(m * p_hat_w, 1e-4f);
   seed_out[i] = (long long)seed;
   st3(o_pos, i, r_pos);
@@ -331,6 +402,7 @@ ris_audition_kernel(const float4* __restrict__ g_rec, int n_lights,
 
 // ---- K4 --------------------------------------------------------------------
 
+template <typename A>
 struct DiTemporalArgs {
   const float* em;
   int n_lights;
@@ -344,7 +416,9 @@ struct DiTemporalArgs {
   long long n_hist;
   const long long* pi;
   const uint8_t* ok;
-  const float *pos, *nrm, *view, *alb, *rough, *metal, *vdist;
+  const float* pos;
+  const A *nrm, *view, *alb, *rough, *metal;
+  const float* vdist;
   int n;
   float m_clamp, w_clamp;
   long long* seed_out;
@@ -353,7 +427,9 @@ struct DiTemporalArgs {
   float* o_w;
 };
 
-__global__ void __launch_bounds__(kThreads) di_temporal_kernel(DiTemporalArgs a) {
+template <typename A>
+__global__ void __launch_bounds__(kThreads) di_temporal_kernel(DiTemporalArgs<A> a) {
+  constexpr bool bf = kIsBf16<A>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const Surface s = load_surface(a.pos, a.nrm, a.view, a.alb, a.rough, a.metal, i);
@@ -370,7 +446,7 @@ __global__ void __launch_bounds__(kThreads) di_temporal_kernel(DiTemporalArgs a)
                one_minus_smoothstep(0.05f, kInvSs0520, depth_diff));
   const bool use = a.ok[i] != 0 && h_w > 0.0f;
   const V3 h_em = emission(a.em, h_idx, a.n_lights);
-  const float p_hat_hist = max3(eval_light<false>(s, h_em, h_pos, h_nrm));
+  const float p_hat_hist = max3(eval_light<false, bf>(s, h_em, h_pos, h_nrm));
   const float u_m = rnd(seed);
   float w_sum = __ldg(a.r_wsum + i);
   float m = __ldg(a.r_m + i);
@@ -380,7 +456,7 @@ __global__ void __launch_bounds__(kThreads) di_temporal_kernel(DiTemporalArgs a)
   const V3 lp = take ? h_pos : ld3(a.r_pos, i);
   const V3 ln = take ? h_nrm : ld3(a.r_nrm, i);
   const V3 em = take ? h_em : emission(a.em, r_idx, a.n_lights);
-  const float p_hat_m = max3(eval_light<false>(s, em, lp, ln));
+  const float p_hat_m = max3(eval_light<false, bf>(s, em, lp, ln));
   const float w_new = w_sum / fmaxf(m * p_hat_m, 1e-4f);
   a.seed_out[i] = (long long)seed;
   st3(a.o_pos, i, lp);
@@ -414,6 +490,7 @@ __global__ void __launch_bounds__(kThreads) di_temporal_kernel(DiTemporalArgs a)
 // kernel's, so every output keeps its bits. The draws keep the stream order: the
 // centre's first, then one a tap in tap order, a skipped tap's included.
 
+template <typename A>
 struct DiSpatialArgs {
   const float* em;
   int n_lights;
@@ -422,7 +499,9 @@ struct DiSpatialArgs {
   const int32_t* c_idx;
   const uint8_t* pending;
   const float *gnormal, *gdepth, *cur_depth;
-  const float *pos, *nrm, *view, *alb, *rough, *metal;
+  const float* pos;
+  const A *nrm, *view, *alb, *rough, *metal;
+  const float* tnrm;  // the neighbour test's fp32 normal (bf16 only)
   int width, height;
   int taps[2 * kMaxTaps];
   int n_taps;
@@ -450,7 +529,8 @@ struct TapHead {
 constexpr int kSpatialThreads = 128;
 constexpr int kSpatialMinBlocks = 8;
 
-__device__ __forceinline__ TapHead tap_head(const DiSpatialArgs& a, int x, int y,
+template <typename A>
+__device__ __forceinline__ TapHead tap_head(const DiSpatialArgs<A>& a, int x, int y,
                                             int t) {
   TapHead h = {};
   const int nx = x + a.taps[2 * t], ny = y + a.taps[2 * t + 1];
@@ -465,8 +545,10 @@ __device__ __forceinline__ TapHead tap_head(const DiSpatialArgs& a, int x, int y
   return h;
 }
 
+template <typename A>
 __global__ void __launch_bounds__(kSpatialThreads, kSpatialMinBlocks)
-di_spatial_kernel(DiSpatialArgs a) {
+di_spatial_kernel(DiSpatialArgs<A> a) {
+  constexpr bool bf = kIsBf16<A>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = a.width * a.height;
   if (i >= n) return;
@@ -474,8 +556,8 @@ di_spatial_kernel(DiSpatialArgs a) {
   // The shading terms of each flavour, once: the centre and the winner
   // round as eval_unshadowed_light (planar = false), the taps as
   // eval_p_hat_planar (true).
-  const ShadeTerms t_full = shade_terms<false>(s);
-  const ShadeTerms t_tap = shade_terms<true>(s);
+  const ShadeTerms t_full = shade_terms<false, bf>(s);
+  const ShadeTerms t_tap = shade_terms<true, bf>(s);
   const bool pending = a.pending[i] != 0;
   uint32_t seed = (uint32_t)a.seed[i];
 
@@ -486,7 +568,7 @@ di_spatial_kernel(DiSpatialArgs a) {
   const int c_idx = min(c_raw, a.n_lights - 1);
   const V3 c_pos = ld3(a.c_pos, i), c_nrm = ld3(a.c_nrm, i);
   const V3 c_em = emission(a.em, c_idx, a.n_lights);
-  const float p_hat_c = max3(eval_light<false>(s, t_full, c_em, c_pos, c_nrm));
+  const float p_hat_c = max3(eval_light<false, bf>(s, t_full, c_em, c_pos, c_nrm));
   const float u_m = rnd(seed);
   float w_sum = 0.0f, m_acc = 0.0f;
   const bool c_take = merge(w_sum, m_acc, c_m, p_hat_c * c_w * c_m, u_m, c_ok);
@@ -498,12 +580,14 @@ di_spatial_kernel(DiSpatialArgs a) {
   // Shared-offset taps, each neighbour read in place (pathtrace.py:583-599).
   const int x = i % a.width, y = i / a.width;
   const float cur = __ldg(a.cur_depth + i);
+  V3 test_n = s.n;
+  if constexpr (bf) test_n = ld3(a.tnrm, i);
 #pragma unroll 1
   for (int t = 0; t < a.n_taps; ++t) {
     const TapHead h = tap_head(a, x, y, t);
     const float u = rnd(seed);
     if (!h.inside) continue;
-    const bool ok = dot3(s.n, h.gn) >= 0.9f && fabsf(cur - h.gd) <= 0.1f * cur;
+    const bool ok = dot3(test_n, h.gn) >= 0.9f && fabsf(cur - h.gd) <= 0.1f * cur;
     const float w_cl = fminf(h.w, a.w_clamp);
     const float m_cl = fminf(h.m, a.m_clamp);
     const bool use = pending && ok && w_cl > 0.0f && h.idx < a.n_lights;
@@ -511,7 +595,7 @@ di_spatial_kernel(DiSpatialArgs a) {
     const int idx = min(h.idx, a.n_lights - 1);
     const V3 lp = ld3(a.c_pos, h.j), ln = ld3(a.c_nrm, h.j);
     const V3 em = emission(a.em, idx, a.n_lights);
-    const float p_hat = max3(eval_light<true>(s, t_tap, em, lp, ln));
+    const float p_hat = max3(eval_light<true, bf>(s, t_tap, em, lp, ln));
     if (merge(w_sum, m_acc, m_cl, p_hat * w_cl * m_cl, u, true)) {
       r_idx = idx;
       r_pos = lp;
@@ -521,7 +605,7 @@ di_spatial_kernel(DiSpatialArgs a) {
   }
 
   // Resolve, clamp and the winner's f_y (ray_gen_final.slang:203-222).
-  const V3 f_y = eval_light<false>(s, t_full, r_em, r_pos, r_nrm);
+  const V3 f_y = eval_light<false, bf>(s, t_full, r_em, r_pos, r_nrm);
   const float w_spatial = fminf(w_sum / fmaxf(m_acc * max3(f_y), 1e-3f), a.ws_clamp);
   a.seed_out[i] = (long long)seed;
   st3(a.o_pos, i, r_pos);
@@ -536,6 +620,7 @@ di_spatial_kernel(DiSpatialArgs a) {
 
 // ---- K6 --------------------------------------------------------------------
 
+template <typename A>
 struct GiSpatialArgs {
   const long long* seed;
   const float *c_spos, *c_srad;
@@ -548,6 +633,7 @@ struct GiSpatialArgs {
   int n_taps;
   const uint8_t* pending;
   const float *pos, *nrm, *alb, *metal;
+  const A *snrm, *salb, *smetal;  // the target function's (fp32: nrm, alb, metal)
   int n;
   float w_clamp;
   long long* seed_out;
@@ -557,16 +643,26 @@ struct GiSpatialArgs {
   float* o_contrib;
 };
 
-__global__ void __launch_bounds__(kThreads) gi_spatial_kernel(GiSpatialArgs a) {
+template <typename A>
+__global__ void __launch_bounds__(kThreads) gi_spatial_kernel(GiSpatialArgs<A> a) {
+  constexpr bool bf = kIsBf16<A>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
+  // s: the target function's surface; g: the fp32 one of the final ray and
+  // contribution (the same values without bf16 shading).
   Surface s;
   s.pos = ld3(a.pos, i);
-  s.n = ld3(a.nrm, i);
-  s.al = ld3(a.alb, i);
-  s.metal = __ldg(a.metal + i);
+  s.n = lda3(a.snrm, i);
+  s.al = lda3(a.salb, i);
+  s.metal = lda(a.smetal, i);
   s.v = {0.0f, 0.0f, 0.0f};
   s.rough = 0.0f;
+  Surface g = s;
+  if constexpr (bf) {
+    g.n = ld3(a.nrm, i);
+    g.al = ld3(a.alb, i);
+    g.metal = __ldg(a.metal + i);
+  }
   uint32_t seed = (uint32_t)a.seed[i];
   float w_sum = __ldg(a.c_wsum + i), m_acc = __ldg(a.c_m + i);
   V3 r_pos = ld3(a.c_spos, i), r_rad = ld3(a.c_srad, i);
@@ -577,7 +673,7 @@ __global__ void __launch_bounds__(kThreads) gi_spatial_kernel(GiSpatialArgs a) {
     if (a.t_ok[j] == 0) continue;  // merge() with enable false leaves every value
     const V3 spos = ld3(a.t_spos, j), srad = ld3(a.t_srad, j);
     const float w_t = __ldg(a.t_w + j), m_t = __ldg(a.t_m + j);
-    const float p_hat = gi_p_hat<true>(s, spos, srad);
+    const float p_hat = gi_p_hat<true, bf>(s, spos, srad);
     if (merge(w_sum, m_acc, m_t, p_hat * w_t * m_t * __ldg(a.t_jac + j), u, true)) {
       r_pos = spos;
       r_rad = srad;
@@ -585,7 +681,7 @@ __global__ void __launch_bounds__(kThreads) gi_spatial_kernel(GiSpatialArgs a) {
     }
   }
   // Final resolve (ray_gen_final.slang:305-327).
-  const float p_hat_f = gi_p_hat<false>(s, r_pos, r_rad);
+  const float p_hat_f = gi_p_hat<false, bf>(s, r_pos, r_rad);
   float w_gi = p_hat_f > 1e-3f
                    ? w_sum / (fmaxf(m_acc, 1.0f) * fmaxf(p_hat_f, 1e-9f))
                    : 0.0f;
@@ -593,7 +689,7 @@ __global__ void __launch_bounds__(kThreads) gi_spatial_kernel(GiSpatialArgs a) {
   const V3 gvec = sub(r_pos, s.pos);
   const float gdist = fmaxf(vec_norm(gvec), 1e-4f);
   const V3 gdir = divs(gvec, gdist);
-  const float gndl = fmaxf(dot3(s.n, gdir), 0.0f);
+  const float gndl = fmaxf(dot3(g.n, gdir), 0.0f);
   const bool pending = a.pending[i] != 0;
   a.seed_out[i] = (long long)seed;
   st3(a.o_gdir, i, gdir);
@@ -602,17 +698,159 @@ __global__ void __launch_bounds__(kThreads) gi_spatial_kernel(GiSpatialArgs a) {
   a.o_try[i] = (pending && w_gi > 0.0f && gndl > 0.0f) ? 1 : 0;
   const float scale = gndl * w_gi;
   V3 contrib;
-  contrib.x = r_rad.x * (s.al.x * (1.0f - s.metal) * kInvPi) * scale;
-  contrib.y = r_rad.y * (s.al.y * (1.0f - s.metal) * kInvPi) * scale;
-  contrib.z = r_rad.z * (s.al.z * (1.0f - s.metal) * kInvPi) * scale;
+  contrib.x = r_rad.x * (g.al.x * (1.0f - g.metal) * kInvPi) * scale;
+  contrib.y = r_rad.y * (g.al.y * (1.0f - g.metal) * kInvPi) * scale;
+  contrib.z = r_rad.z * (g.al.z * (1.0f - g.metal) * kInvPi) * scale;
   st3(a.o_contrib, i, contrib);
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+template <typename A>
+int launch_ris_audition(const float* tab, int n_lights, float* rec, const long long* seed,
+                        const float* pos, const void* nrm, const void* view,
+                        const void* alb, const void* rough, const void* metal,
+                        const uint8_t* enable, int n, int k, long long* seed_out,
+                        float* o_pos, float* o_nrm, float* o_wsum, float* o_m,
+                        int32_t* o_idx, float* o_w, void* stream) {
+  if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float4* r = reinterpret_cast<const float4*>(rec);
+    const A *an = static_cast<const A*>(nrm), *av = static_cast<const A*>(view),
+            *aa = static_cast<const A*>(alb), *ar = static_cast<const A*>(rough),
+            *am = static_cast<const A*>(metal);
+    light_records_kernel<<<(n_lights + 127) / 128, 128, 0, s>>>(
+        tab, n_lights, reinterpret_cast<float4*>(rec));
+    if (n_lights <= kRisSmemLights) {
+      ris_audition_kernel<true, A><<<blocks_for(n), kThreads,
+                                     sizeof(float4) * 4 * n_lights, s>>>(
+          r, n_lights, seed, pos, an, av, aa, ar, am, enable, n, k, seed_out, o_pos, o_nrm,
+          o_wsum, o_m, o_idx, o_w);
+    } else {
+      ris_audition_kernel<false, A><<<blocks_for(n), kThreads, 0, s>>>(
+          r, n_lights, seed, pos, an, av, aa, ar, am, enable, n, k, seed_out, o_pos, o_nrm,
+          o_wsum, o_m, o_idx, o_w);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename A>
+int launch_di_temporal(const float* em, int n_lights, const long long* seed,
+                       const float* r_pos, const float* r_nrm, const float* r_wsum,
+                       const float* r_m, const int32_t* r_idx, const float* r_w,
+                       const float* h_pos, const float* h_nrm, const float* h_w,
+                       const float* h_m, const int32_t* h_idx, const float* h_hn,
+                       const float* h_depth, long long n_hist, const long long* pi,
+                       const uint8_t* ok, const float* pos, const void* nrm,
+                       const void* view, const void* alb, const void* rough,
+                       const void* metal, const float* vdist, int n, float m_clamp,
+                       float w_clamp, long long* seed_out, float* o_pos, float* o_nrm,
+                       float* o_wsum, float* o_m, int32_t* o_idx, float* o_w,
+                       void* stream) {
+  if (n > 0) {
+    DiTemporalArgs<A> a = {em,       n_lights, seed,     r_pos,    r_nrm,   r_wsum,
+                           r_m,      r_idx,    r_w,      h_pos,    h_nrm,   h_w,
+                           h_m,      h_idx,    h_hn,     h_depth,  n_hist,  pi,
+                           ok,       pos,      static_cast<const A*>(nrm),
+                           static_cast<const A*>(view), static_cast<const A*>(alb),
+                           static_cast<const A*>(rough), static_cast<const A*>(metal),
+                           vdist,    n,        m_clamp,  w_clamp,  seed_out, o_pos,
+                           o_nrm,    o_wsum,   o_m,      o_idx,    o_w};
+    di_temporal_kernel<A>
+        <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename A>
+int launch_di_spatial(const float* em, int n_lights, const long long* seed,
+                      const float* c_pos, const float* c_nrm, const float* c_w,
+                      const float* c_m, const int32_t* c_idx, const uint8_t* pending,
+                      const float* gnormal, const float* gdepth, const float* cur_depth,
+                      const float* pos, const void* nrm, const void* view, const void* alb,
+                      const void* rough, const void* metal, const float* tnrm, int width,
+                      int height, const int* taps, int n_taps, float w_clamp,
+                      float m_clamp, float ws_clamp, long long* seed_out, float* o_pos,
+                      float* o_nrm, float* o_wsum, float* o_m, int32_t* o_idx,
+                      float* o_wspatial, float* o_fy, uint8_t* o_has, void* stream) {
+  if (n_taps < 0 || n_taps > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = width * height;
+  if (n > 0) {
+    DiSpatialArgs<A> a;
+    a.em = em;
+    a.n_lights = n_lights;
+    a.seed = seed;
+    a.c_pos = c_pos;
+    a.c_nrm = c_nrm;
+    a.c_w = c_w;
+    a.c_m = c_m;
+    a.c_idx = c_idx;
+    a.pending = pending;
+    a.gnormal = gnormal;
+    a.gdepth = gdepth;
+    a.cur_depth = cur_depth;
+    a.pos = pos;
+    a.nrm = static_cast<const A*>(nrm);
+    a.view = static_cast<const A*>(view);
+    a.alb = static_cast<const A*>(alb);
+    a.rough = static_cast<const A*>(rough);
+    a.metal = static_cast<const A*>(metal);
+    a.tnrm = tnrm;
+    a.width = width;
+    a.height = height;
+    for (int t = 0; t < 2 * kMaxTaps; ++t) a.taps[t] = taps[t];
+    a.n_taps = n_taps;
+    a.w_clamp = w_clamp;
+    a.m_clamp = m_clamp;
+    a.ws_clamp = ws_clamp;
+    a.seed_out = seed_out;
+    a.o_pos = o_pos;
+    a.o_nrm = o_nrm;
+    a.o_wsum = o_wsum;
+    a.o_m = o_m;
+    a.o_idx = o_idx;
+    a.o_wspatial = o_wspatial;
+    a.o_fy = o_fy;
+    a.o_has = o_has;
+    di_spatial_kernel<A><<<(n + kSpatialThreads - 1) / kSpatialThreads, kSpatialThreads,
+                           0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename A>
+int launch_gi_spatial(const long long* seed, const float* c_spos, const float* c_srad,
+                      const int32_t* c_stri, const float* c_wsum, const float* c_m,
+                      const float* t_spos, const float* t_srad, const int32_t* t_stri,
+                      const float* t_w, const float* t_m, const float* t_jac,
+                      const uint8_t* t_ok, int n_taps, const uint8_t* pending,
+                      const float* pos, const float* nrm, const float* alb,
+                      const float* metal, const void* snrm, const void* salb,
+                      const void* smetal, int n, float w_clamp, long long* seed_out,
+                      float* o_gdir, float* o_gdist, int32_t* o_stri, uint8_t* o_try,
+                      float* o_contrib, void* stream) {
+  if (n_taps < 0 || n_taps > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    GiSpatialArgs<A> a = {seed,    c_spos, c_srad, c_stri, c_wsum, c_m,   t_spos,
+                          t_srad,  t_stri, t_w,    t_m,    t_jac,  t_ok,  n_taps,
+                          pending, pos,    nrm,    alb,    metal,
+                          static_cast<const A*>(snrm), static_cast<const A*>(salb),
+                          static_cast<const A*>(smetal), n, w_clamp, seed_out,
+                          o_gdir,  o_gdist, o_stri, o_try, o_contrib};
+    gi_spatial_kernel<A>
+        <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+// K3-K6 with fp32 attribute planes; the _bf16 entry points take them as
+// bf16 (K5 also the neighbour test's fp32 normal, K6 the target function's
+// bf16 normal, albedo and metallic beside the fp32 ones).
 
 int sunray_ris_audition(const float* tab, int n_lights, float* rec,
                         const long long* seed, const float* pos, const float* nrm,
@@ -620,23 +858,21 @@ int sunray_ris_audition(const float* tab, int n_lights, float* rec,
                         const float* metal, const uint8_t* enable, int n, int k,
                         long long* seed_out, float* o_pos, float* o_nrm, float* o_wsum,
                         float* o_m, int32_t* o_idx, float* o_w, void* stream) {
-  if (n > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float4* r = reinterpret_cast<const float4*>(rec);
-    light_records_kernel<<<(n_lights + 127) / 128, 128, 0, s>>>(
-        tab, n_lights, reinterpret_cast<float4*>(rec));
-    if (n_lights <= kRisSmemLights) {
-      ris_audition_kernel<true><<<blocks_for(n), kThreads, sizeof(float4) * 4 * n_lights,
-                                  s>>>(r, n_lights, seed, pos, nrm, view, alb, rough,
-                                       metal, enable, n, k, seed_out, o_pos, o_nrm,
-                                       o_wsum, o_m, o_idx, o_w);
-    } else {
-      ris_audition_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-          r, n_lights, seed, pos, nrm, view, alb, rough, metal, enable, n, k, seed_out,
-          o_pos, o_nrm, o_wsum, o_m, o_idx, o_w);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_ris_audition<float>(tab, n_lights, rec, seed, pos, nrm, view, alb, rough,
+                                    metal, enable, n, k, seed_out, o_pos, o_nrm, o_wsum,
+                                    o_m, o_idx, o_w, stream);
+}
+
+int sunray_ris_audition_bf16(const float* tab, int n_lights, float* rec,
+                             const long long* seed, const float* pos, const void* nrm,
+                             const void* view, const void* alb, const void* rough,
+                             const void* metal, const uint8_t* enable, int n, int k,
+                             long long* seed_out, float* o_pos, float* o_nrm,
+                             float* o_wsum, float* o_m, int32_t* o_idx, float* o_w,
+                             void* stream) {
+  return launch_ris_audition<__nv_bfloat16>(tab, n_lights, rec, seed, pos, nrm, view, alb,
+                                            rough, metal, enable, n, k, seed_out, o_pos,
+                                            o_nrm, o_wsum, o_m, o_idx, o_w, stream);
 }
 
 // K3's launch shape, {kRisSmemLights}: the host's copy
@@ -659,15 +895,29 @@ int sunray_di_temporal(const float* em, int n_lights, const long long* seed,
                        float w_clamp, long long* seed_out, float* o_pos, float* o_nrm,
                        float* o_wsum, float* o_m, int32_t* o_idx, float* o_w,
                        void* stream) {
-  if (n > 0) {
-    DiTemporalArgs a = {em,    n_lights, seed,  r_pos, r_nrm,   r_wsum,   r_m,   r_idx,
-                        r_w,   h_pos,    h_nrm, h_w,   h_m,     h_idx,    h_hn,  h_depth,
-                        n_hist, pi,      ok,    pos,   nrm,     view,     alb,   rough,
-                        metal, vdist,    n,     m_clamp, w_clamp, seed_out, o_pos, o_nrm,
-                        o_wsum, o_m,     o_idx, o_w};
-    di_temporal_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_di_temporal<float>(em, n_lights, seed, r_pos, r_nrm, r_wsum, r_m, r_idx,
+                                   r_w, h_pos, h_nrm, h_w, h_m, h_idx, h_hn, h_depth,
+                                   n_hist, pi, ok, pos, nrm, view, alb, rough, metal,
+                                   vdist, n, m_clamp, w_clamp, seed_out, o_pos, o_nrm,
+                                   o_wsum, o_m, o_idx, o_w, stream);
+}
+
+int sunray_di_temporal_bf16(const float* em, int n_lights, const long long* seed,
+                            const float* r_pos, const float* r_nrm, const float* r_wsum,
+                            const float* r_m, const int32_t* r_idx, const float* r_w,
+                            const float* h_pos, const float* h_nrm, const float* h_w,
+                            const float* h_m, const int32_t* h_idx, const float* h_hn,
+                            const float* h_depth, long long n_hist, const long long* pi,
+                            const uint8_t* ok, const float* pos, const void* nrm,
+                            const void* view, const void* alb, const void* rough,
+                            const void* metal, const float* vdist, int n, float m_clamp,
+                            float w_clamp, long long* seed_out, float* o_pos,
+                            float* o_nrm, float* o_wsum, float* o_m, int32_t* o_idx,
+                            float* o_w, void* stream) {
+  return launch_di_temporal<__nv_bfloat16>(
+      em, n_lights, seed, r_pos, r_nrm, r_wsum, r_m, r_idx, r_w, h_pos, h_nrm, h_w, h_m,
+      h_idx, h_hn, h_depth, n_hist, pi, ok, pos, nrm, view, alb, rough, metal, vdist, n,
+      m_clamp, w_clamp, seed_out, o_pos, o_nrm, o_wsum, o_m, o_idx, o_w, stream);
 }
 
 int sunray_di_spatial(const float* em, int n_lights, const long long* seed,
@@ -680,48 +930,29 @@ int sunray_di_spatial(const float* em, int n_lights, const long long* seed,
                       float m_clamp, float ws_clamp, long long* seed_out, float* o_pos,
                       float* o_nrm, float* o_wsum, float* o_m, int32_t* o_idx,
                       float* o_wspatial, float* o_fy, uint8_t* o_has, void* stream) {
-  if (n_taps < 0 || n_taps > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = width * height;
-  if (n > 0) {
-    DiSpatialArgs a;
-    a.em = em;
-    a.n_lights = n_lights;
-    a.seed = seed;
-    a.c_pos = c_pos;
-    a.c_nrm = c_nrm;
-    a.c_w = c_w;
-    a.c_m = c_m;
-    a.c_idx = c_idx;
-    a.pending = pending;
-    a.gnormal = gnormal;
-    a.gdepth = gdepth;
-    a.cur_depth = cur_depth;
-    a.pos = pos;
-    a.nrm = nrm;
-    a.view = view;
-    a.alb = alb;
-    a.rough = rough;
-    a.metal = metal;
-    a.width = width;
-    a.height = height;
-    for (int t = 0; t < 2 * kMaxTaps; ++t) a.taps[t] = taps[t];
-    a.n_taps = n_taps;
-    a.w_clamp = w_clamp;
-    a.m_clamp = m_clamp;
-    a.ws_clamp = ws_clamp;
-    a.seed_out = seed_out;
-    a.o_pos = o_pos;
-    a.o_nrm = o_nrm;
-    a.o_wsum = o_wsum;
-    a.o_m = o_m;
-    a.o_idx = o_idx;
-    a.o_wspatial = o_wspatial;
-    a.o_fy = o_fy;
-    a.o_has = o_has;
-    di_spatial_kernel<<<(n + kSpatialThreads - 1) / kSpatialThreads, kSpatialThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_di_spatial<float>(em, n_lights, seed, c_pos, c_nrm, c_w, c_m, c_idx,
+                                  pending, gnormal, gdepth, cur_depth, pos, nrm, view, alb,
+                                  rough, metal, nrm, width, height, taps, n_taps, w_clamp,
+                                  m_clamp, ws_clamp, seed_out, o_pos, o_nrm, o_wsum, o_m,
+                                  o_idx, o_wspatial, o_fy, o_has, stream);
+}
+
+int sunray_di_spatial_bf16(const float* em, int n_lights, const long long* seed,
+                           const float* c_pos, const float* c_nrm, const float* c_w,
+                           const float* c_m, const int32_t* c_idx, const uint8_t* pending,
+                           const float* gnormal, const float* gdepth,
+                           const float* cur_depth, const float* pos, const void* nrm,
+                           const void* view, const void* alb, const void* rough,
+                           const void* metal, const float* tnrm, int width, int height,
+                           const int* taps, int n_taps, float w_clamp, float m_clamp,
+                           float ws_clamp, long long* seed_out, float* o_pos,
+                           float* o_nrm, float* o_wsum, float* o_m, int32_t* o_idx,
+                           float* o_wspatial, float* o_fy, uint8_t* o_has, void* stream) {
+  return launch_di_spatial<__nv_bfloat16>(
+      em, n_lights, seed, c_pos, c_nrm, c_w, c_m, c_idx, pending, gnormal, gdepth,
+      cur_depth, pos, nrm, view, alb, rough, metal, tnrm, width, height, taps, n_taps,
+      w_clamp, m_clamp, ws_clamp, seed_out, o_pos, o_nrm, o_wsum, o_m, o_idx, o_wspatial,
+      o_fy, o_has, stream);
 }
 
 int sunray_gi_spatial(const long long* seed, const float* c_spos, const float* c_srad,
@@ -733,15 +964,28 @@ int sunray_gi_spatial(const long long* seed, const float* c_spos, const float* c
                       const float* alb, const float* metal, int n, float w_clamp,
                       long long* seed_out, float* o_gdir, float* o_gdist, int32_t* o_stri,
                       uint8_t* o_try, float* o_contrib, void* stream) {
-  if (n_taps < 0 || n_taps > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    GiSpatialArgs a = {seed,    c_spos, c_srad, c_stri, c_wsum,   c_m,    t_spos,
-                       t_srad,  t_stri, t_w,    t_m,    t_jac,    t_ok,   n_taps,
-                       pending, pos,    nrm,    alb,    metal,    n,      w_clamp,
-                       seed_out, o_gdir, o_gdist, o_stri, o_try,  o_contrib};
-    gi_spatial_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_gi_spatial<float>(seed, c_spos, c_srad, c_stri, c_wsum, c_m, t_spos,
+                                  t_srad, t_stri, t_w, t_m, t_jac, t_ok, n_taps, pending,
+                                  pos, nrm, alb, metal, nrm, alb, metal, n, w_clamp,
+                                  seed_out, o_gdir, o_gdist, o_stri, o_try, o_contrib,
+                                  stream);
+}
+
+int sunray_gi_spatial_bf16(const long long* seed, const float* c_spos, const float* c_srad,
+                           const int32_t* c_stri, const float* c_wsum, const float* c_m,
+                           const float* t_spos, const float* t_srad,
+                           const int32_t* t_stri, const float* t_w, const float* t_m,
+                           const float* t_jac, const uint8_t* t_ok, int n_taps,
+                           const uint8_t* pending, const float* pos, const float* nrm,
+                           const float* alb, const float* metal, const void* snrm,
+                           const void* salb, const void* smetal, int n, float w_clamp,
+                           long long* seed_out, float* o_gdir, float* o_gdist,
+                           int32_t* o_stri, uint8_t* o_try, float* o_contrib,
+                           void* stream) {
+  return launch_gi_spatial<__nv_bfloat16>(
+      seed, c_spos, c_srad, c_stri, c_wsum, c_m, t_spos, t_srad, t_stri, t_w, t_m, t_jac,
+      t_ok, n_taps, pending, pos, nrm, alb, metal, snrm, salb, smetal, n, w_clamp,
+      seed_out, o_gdir, o_gdist, o_stri, o_try, o_contrib, stream);
 }
 
 }  // extern "C"

@@ -19,6 +19,19 @@ fma(x2, y2, fma(x0, y0, x1 * y1)) (fp.sum3).
 The planar forms take lists of three component tensors that broadcast
 (surface attributes (P,) against sample planes (K, P)), as the JAX
 planar forms do.
+
+bf16 shading attributes (cfg.shading_dtype="bf16"): each target
+function takes the bfloat16 normal, view, albedo, roughness and metallic
+planes the JAX frame casts (gbuffer.py:280-295, pathtrace.py:494-501)
+and rounds as XLA's CPU backend compiles the jnp code (read off the
+optimized HLO): an operation between two bf16 operands, or a bf16
+operand and a Python scalar (which keeps bf16: 0.04, 0.001 and PI are
+rounded to bf16 first), is computed in float32 from the bf16-rounded
+operands; its result is rounded to bf16 where another bf16 operation
+reads it, and read unrounded where a float32 operation does (the
+convert pair that JAX's promotion inserts is folded away). jnp.sum of
+bf16 products sums the exact products in float32. Positions, distances
+and everything mixed with them stay float32.
 """
 
 from __future__ import annotations
@@ -32,6 +45,29 @@ PI_VNDF = 3.14159265  # sample_ggx_vndf uses the longer constant (rt_utils.slang
 # float32(1 / float32(PI)): XLA turns x / PI into x * INV_PI.
 INV_PI = torch.tensor(1.0, dtype=torch.float32).div(
     torch.tensor(PI, dtype=torch.float32)).item()
+
+
+# bf16 constants of the bf16 shading path (module docstring).
+BF16 = torch.bfloat16
+
+
+def _bf(v: float) -> float:
+    return float(torch.tensor(v, dtype=BF16))
+
+
+BF_0P04, BF_0P001 = _bf(0.04), _bf(0.001)
+# float32(1 / bf16(PI)): a bf16 x / PI compiles to x * INV_PI_BF16.
+INV_PI_BF16 = torch.tensor(1.0, dtype=torch.float32).div(
+    torch.tensor(_bf(PI), dtype=torch.float32)).item()
+
+
+def rb(x):
+    """x rounded to bfloat16 (nearest even), held in float32."""
+    return x.to(BF16).to(torch.float32)
+
+
+def is_bf16(x) -> bool:
+    return torch.is_tensor(x) and x.dtype == BF16
 
 
 def dot(a, b):
@@ -188,7 +224,11 @@ def eval_unshadowed_light(hit_pos, hit_normal, v_view, hit_albedo, roughness,
                           metallic, light_emission, light_pos, light_normal):
     """Unshadowed direct-light contribution (rt_utils.slang:203-234): GGX
     D*V*F specular + Lambert diffuse, times NdotL * cos_light / dist^2.
-    Returns (..., 3) RGB."""
+    Returns (..., 3) RGB. bf16 attributes take the bf16 rounding."""
+    if is_bf16(hit_normal):
+        return _eval_unshadowed_light_bf16(
+            hit_pos, hit_normal, v_view, hit_albedo, roughness, metallic,
+            light_emission, light_pos, light_normal)
     l = light_pos - hit_pos
     dist = torch.clamp(vec_norm(l), min=1e-4)
     l = l / dist[..., None]
@@ -214,6 +254,54 @@ def eval_unshadowed_light(hit_pos, hit_normal, v_view, hit_albedo, roughness,
     return torch.where(lit[..., None], out, 0.0)
 
 
+def _smith_v_bf16(ndv, ndl, a2):
+    """smith_v_ggx with NdotV and alpha^2 bf16 (a2: the unrounded square
+    of the rounded alpha): ggx_v's root is a bf16 chain, ggx_l's float32,
+    and the sum fuses ggx_l's product (the float32 form fuses ggx_v's)."""
+    a2r = rb(a2)
+    root_v = fp.sqrt(rb(rb(rb(ndv * ndv) * rb(1.0 - a2r)) + a2r))
+    root_l = fp.sqrt(fp.fma(ndl * ndl, 1.0 - a2r, a2))
+    return 0.5 / torch.clamp(fp.fma(ndv, root_l, ndl * root_v), min=1e-4)
+
+
+def _d_ggx_bf16(ndh, a2):
+    """GGX D with alpha^2 bf16: a2 - 1 from the rounded a2, the division
+    by the unrounded one."""
+    denom = fp.fma(ndh * ndh, rb(a2) - 1.0, 1.0)
+    return a2 / (denom * PI * denom)
+
+
+def _eval_unshadowed_light_bf16(hit_pos, hit_normal, v_view, hit_albedo,
+                                roughness, metallic, light_emission,
+                                light_pos, light_normal):
+    """eval_unshadowed_light with bf16 shading attributes (module
+    docstring's rounding)."""
+    n, v, al, r, m = (x.float() for x in (hit_normal, v_view, hit_albedo,
+                                          roughness, metallic))
+    l = light_pos - hit_pos
+    dist = torch.clamp(vec_norm(l), min=1e-4)
+    l = l / dist[..., None]
+    ndl = torch.clamp(dot(n, l), min=0.0)
+    cos_light = torch.clamp(dot(light_normal, -l), min=0.0)
+    lit = (ndl > 0.0) & (cos_light > 0.0)
+    h = normalize(v + l, eps=1e-12)
+    ndh = torch.clamp(dot(n, h), min=0.0)
+    vdh = torch.clamp(dot(v, h), min=0.0)
+    ndv = torch.clamp(rb(dot(n, v)), min=BF_0P001)
+
+    a = rb(r * r)
+    a2 = a * a
+    d_term = _d_ggx_bf16(ndh, a2)
+    m1 = rb(1.0 - m)[..., None]
+    f0 = rb(BF_0P04 * m1) + rb(al * m[..., None])
+    f = fp.fma(1.0 - rb(f0), fp.pow5(1.0 - vdh)[..., None], f0)
+    dv = (d_term * _smith_v_bf16(ndv, ndl, a2))[..., None]
+    shade = fp.fma(dv, f, al * m1 * (1.0 - f) * INV_PI)
+    geometry = ndl * cos_light / torch.clamp(dist * dist, min=1e-4)
+    out = light_emission * shade * geometry[..., None]
+    return torch.where(lit[..., None], out, 0.0)
+
+
 def luminance_max(rgb):
     """p_hat = max channel (the ReSTIR target function)."""
     return rgb.amax(dim=-1)
@@ -221,9 +309,15 @@ def luminance_max(rgb):
 
 def gi_target_pdf(shade_pos, shade_normal, albedo, metallic, sample_pos,
                   sample_radiance):
-    """rt_utils.slang:255-263."""
+    """rt_utils.slang:255-263. bf16 attributes take the bf16 rounding."""
     w = sample_pos - shade_pos
     d = torch.clamp(vec_norm(w), min=1e-4)
+    if is_bf16(shade_normal):
+        ndl = torch.clamp(dot(shade_normal.float(), w / d[..., None]),
+                          min=0.0)
+        f_diffuse = rb(albedo.float()
+                       * rb(1.0 - metallic.float())[..., None]) * INV_PI_BF16
+        return (sample_radiance * f_diffuse * ndl[..., None]).amax(dim=-1)
     ndl = torch.clamp(dot(shade_normal, w / d[..., None]), min=0.0)
     f_diffuse = albedo * (1.0 - metallic[..., None]) * INV_PI
     return (sample_radiance * f_diffuse * ndl[..., None]).amax(dim=-1)
@@ -234,7 +328,11 @@ def eval_p_hat_planar(px, nx, vx, al, rough, metal, em, lpos, lnrm):
     px/nx/vx/al and lpos/lnrm/em are lists of three broadcasting component
     planes, rough/metal single planes. Returns (p_hat, lit, [f_r, f_g, f_b]).
     The same formulas as eval_unshadowed_light with the planar roundings
-    (fp.sum3 for the written-out dot products)."""
+    (fp.sum3 for the written-out dot products). bf16 attributes take the
+    bf16 rounding."""
+    if is_bf16(nx[0]):
+        return _eval_p_hat_planar_bf16(px, nx, vx, al, rough, metal, em, lpos,
+                                       lnrm)
     l = [lpos[a] - px[a] for a in range(3)]
     dist = torch.clamp(safe_sqrt(fp.sum3(l, l)), min=1e-4)
     l = [l[a] / dist for a in range(3)]
@@ -271,11 +369,58 @@ def eval_p_hat_planar(px, nx, vx, al, rough, metal, em, lpos, lnrm):
     return p_hat, lit, fc
 
 
+def _eval_p_hat_planar_bf16(px, nx, vx, al, rough, metal, em, lpos, lnrm):
+    """eval_p_hat_planar with bf16 surface attributes: the written-out
+    NdotV is a bf16 chain (each product and sum rounded)."""
+    nx, vx, al = ([x.float() for x in v] for v in (nx, vx, al))
+    rough, metal = rough.float(), metal.float()
+    l = [lpos[a] - px[a] for a in range(3)]
+    dist = torch.clamp(safe_sqrt(fp.sum3(l, l)), min=1e-4)
+    l = [l[a] / dist for a in range(3)]
+    ndl = torch.clamp(fp.sum3(nx, l), min=0.0)
+    cos_light = torch.clamp(-fp.sum3(lnrm, l), min=0.0)
+    lit = (ndl > 0.0) & (cos_light > 0.0)
+    h = [vx[a] + l[a] for a in range(3)]
+    h_n = torch.clamp(safe_sqrt(fp.sum3(h, h)), min=1e-12)
+    h = [h[a] / h_n for a in range(3)]
+    ndh = torch.clamp(fp.sum3(nx, h), min=0.0)
+    vdh = torch.clamp(fp.sum3(vx, h), min=0.0)
+    ndv = torch.clamp(rb(rb(rb(nx[0] * vx[0]) + rb(nx[1] * vx[1]))
+                         + rb(nx[2] * vx[2])), min=BF_0P001)
+    a_r = rb(rough * rough)
+    a2 = a_r * a_r
+    d_term = _d_ggx_bf16(ndh, a2)
+    dv = d_term * _smith_v_bf16(ndv, ndl, a2)
+    fres5 = fp.pow5(1.0 - vdh)
+    geometry = ndl * cos_light / torch.clamp(dist * dist, min=1e-4)
+    m1 = rb(1.0 - metal)
+    base = rb(BF_0P04 * m1)
+    p_hat = None
+    fc = []
+    for c in range(3):
+        f0 = base + rb(al[c] * metal)
+        f = fp.fma(1.0 - rb(f0), fres5, f0)
+        shade = fp.fma(dv, f, al[c] * m1 * (1.0 - f) * INV_PI)
+        out_c = torch.where(lit, em[c] * shade * geometry, 0.0)
+        fc.append(out_c)
+        p_hat = out_c if p_hat is None else torch.maximum(p_hat, out_c)
+    return p_hat, lit, fc
+
+
 def gi_target_pdf_planar(px, nx, al, metal, spos, srad):
-    """Planar form of gi_target_pdf (brdf.py:255-270)."""
+    """Planar form of gi_target_pdf (brdf.py:255-270). bf16 attributes take
+    the bf16 rounding."""
     w = [spos[a] - px[a] for a in range(3)]
     d = torch.clamp(safe_sqrt(fp.sum3(w, w)), min=1e-4)
     w = [w[a] / d for a in range(3)]
+    if is_bf16(nx[0]):
+        ndl = torch.clamp(fp.sum3([x.float() for x in nx], w), min=0.0)
+        m1 = rb(1.0 - metal.float())
+        p_hat = None
+        for c in range(3):
+            contrib = srad[c] * (rb(al[c].float() * m1) * INV_PI_BF16) * ndl
+            p_hat = contrib if p_hat is None else torch.maximum(p_hat, contrib)
+        return p_hat
     ndl = torch.clamp(fp.sum3(nx, w), min=0.0)
     p_hat = None
     for c in range(3):

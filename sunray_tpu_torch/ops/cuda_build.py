@@ -143,6 +143,17 @@ def _signatures():
                               + [p] * 9 + [p]),
         "sunray_gi_spatial": ([p] + [p] * 5 + [p] * 7 + [i, p]
                               + [p] * 4 + [i, f] + [p] * 6 + [p]),
+        "sunray_ris_audition_bf16": [p, i, p, p, p, p, p, p, p, p, p, i, i,
+                                     p, p, p, p, p, p, p, p],
+        "sunray_di_temporal_bf16": ([p, i, p] + [p] * 6 + [p] * 7
+                                    + [i64, p, p] + [p] * 7 + [i, f, f]
+                                    + [p] * 7 + [p]),
+        "sunray_di_spatial_bf16": ([p, i, p] + [p] * 5 + [p] * 4 + [p] * 6
+                                   + [p, i, i, ctypes.POINTER(i), i, f, f, f]
+                                   + [p] * 9 + [p]),
+        "sunray_gi_spatial_bf16": ([p] + [p] * 5 + [p] * 7 + [i, p]
+                                   + [p] * 4 + [p] * 3 + [i, f] + [p] * 6
+                                   + [p]),
         "sunray_binned_closest": binned + [p, p, p, p, p],
         "sunray_binned_occluded": binned + [p, p],
         "sunray_cluster_scan": [p, p, p, p, i, p, i, p, p, p],

@@ -14,6 +14,15 @@ formula for formula and with the reference's roundings (ops/brdf.py,
 ops/fp.py). Each wrapper takes the plain version for CPU tensors and
 launches its kernel for CUDA tensors; there is no other path.
 
+With bf16 shading (cfg.shading_dtype="bf16") the surface attribute
+planes the target functions read (normal, view, albedo, roughness,
+metallic) come as bfloat16: the plain versions round as the JAX jnp
+paths do (ops/brdf.py) and each wrapper launches its kernel's bf16
+instantiation (the C entry points sunray_*_bf16), counted under
+"<name>_bf16". K5 then also takes the float32 normal of its neighbour
+test (test_normal) and K6 the bf16 planes of its target function
+(shade) beside the float32 ones of its final ray and contribution.
+
 Lights ride as a LightTable of (L, 3) float32 tensors. Seeds are int64
 tensors holding uint32 values (ops/rng.py); light and triangle ids are
 int32. What the TPU kernels computed through workarounds is read
@@ -190,7 +199,7 @@ def di_temporal_plain(table: LightTable, seed, r, hist, pi, ok, hit_pos,
     h_w = torch.clamp(hist["W"][pil], max=w_clamp)
     h_idx = torch.clamp(hist["light_idx"][pil], max=table.num - 1)
 
-    ndot = dot(hit_normal, hist["hit_normal"][pil])
+    ndot = dot(hit_normal.float(), hist["hit_normal"][pil])
     depth_diff = (torch.abs(virtual_distance - hist["depth"][pil])
                   / torch.clamp(virtual_distance, min=1e-4))
     conf = (smoothstep(0.9, 0.99, ndot)
@@ -243,19 +252,15 @@ def neighbour_ok(dx, dy, width, height, normal, current_depth, gnormal,
     return ok, nd
 
 
-def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
-                     gdepth, current_depth, hit_pos, hit_normal, v_view,
-                     albedo, roughness, metallic, width, height, clamps):
-    """DI spatial reuse at the frozen hits (pathtrace.py:780-801 with the
-    batched shared taps of :646-720): the centre merge (one draw), the T
-    tap merges (rnd_chain(T)), the resolve with the w_spatial clamp, and
-    the winner's f_y. clamps: (w_clamp, m_clamp, w_spatial_clamp)."""
-    w_clamp, m_clamp, w_spatial_clamp = clamps
+def di_centre_merge(table: LightTable, seed, center, pending, attrs):
+    """The centre merge of DI spatial reuse (pathtrace.py:777-788): the
+    pixel's own pass-1 reservoir into an empty one, one draw. attrs:
+    (hit_pos, normal, view, albedo, roughness, metallic) as the target
+    function takes them. Returns (seed', the merged reservoir's w_sum, M,
+    light_idx, light_pos, light_normal)."""
     n_l = table.num
-    p = hit_pos.shape[0]
-    zero = torch.zeros((p,), dtype=torch.float32, device=hit_pos.device)
-    attrs = (hit_pos, hit_normal, v_view, albedo, roughness, metallic)
-
+    zero = torch.zeros((pending.shape[0],), dtype=torch.float32,
+                       device=pending.device)
     c_ok = pending & (center["W"] > 0.0) & (center["light_idx"] < n_l)
     c_idx = torch.clamp(center["light_idx"], max=n_l - 1)
     p_hat_c, _ = eval_p_hat(table, c_idx, center["light_pos"],
@@ -264,9 +269,46 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
     w_sum, m_acc, take = merge(zero, zero, center["M"],
                                p_hat_c * center["W"] * center["M"], u_m, c_ok)
     t3 = take[:, None]
-    light_idx = torch.where(take, c_idx, 0)
-    light_pos = torch.where(t3, center["light_pos"], 0.0)
-    light_normal = torch.where(t3, center["light_normal"], 0.0)
+    return seed, dict(w_sum=w_sum, M=m_acc,
+                      light_idx=torch.where(take, c_idx, 0),
+                      light_pos=torch.where(t3, center["light_pos"], 0.0),
+                      light_normal=torch.where(t3, center["light_normal"], 0.0))
+
+
+def di_resolve(table: LightTable, r, pending, attrs, w_spatial_clamp):
+    """The resolve of DI spatial reuse (pathtrace.py:789-800): has, the
+    clamped w_spatial and the winner's f_y, beside r's fields."""
+    has = pending & (r["w_sum"] > 0.0)
+    p_hat_w, f_y_w = eval_p_hat(table, r["light_idx"], r["light_pos"],
+                                r["light_normal"], *attrs)
+    w_spatial = torch.clamp(
+        r["w_sum"] / torch.clamp(r["M"] * p_hat_w, min=1e-3),
+        max=w_spatial_clamp)
+    return dict(r, w_spatial=w_spatial, f_y_w=f_y_w, has=has)
+
+
+def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
+                     gdepth, current_depth, hit_pos, hit_normal, v_view,
+                     albedo, roughness, metallic, width, height, clamps,
+                     test_normal=None):
+    """DI spatial reuse at the frozen hits (pathtrace.py:780-801 with the
+    batched shared taps of :646-720): the centre merge (one draw), the T
+    tap merges (rnd_chain(T)), the resolve with the w_spatial clamp, and
+    the winner's f_y. clamps: (w_clamp, m_clamp, w_spatial_clamp).
+    hit_normal ... metallic: the target function's attributes (float32 or,
+    with bf16 shading, bfloat16); test_normal: the float32 normal of the
+    neighbour test (default hit_normal)."""
+    w_clamp, m_clamp, w_spatial_clamp = clamps
+    n_l = table.num
+    p = hit_pos.shape[0]
+    attrs = (hit_pos, hit_normal, v_view, albedo, roughness, metallic)
+    if test_normal is None:
+        test_normal = hit_normal
+
+    seed, r = di_centre_merge(table, seed, center, pending, attrs)
+    w_sum, m_acc = r["w_sum"], r["M"]
+    light_idx, light_pos, light_normal = (r["light_idx"], r["light_pos"],
+                                          r["light_normal"])
 
     t_n = len(taps)
     if t_n:
@@ -275,7 +317,7 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
                              "light_normal")]
                   for dx, dy in taps]
         okp = torch.stack([
-            neighbour_ok(dx, dy, width, height, hit_normal, current_depth,
+            neighbour_ok(dx, dy, width, height, test_normal, current_depth,
                          gnormal, gdepth)[0] for dx, dy in taps])
         idx_raw = torch.stack([f[0] for f in fields])
         w_cl = torch.clamp(torch.stack([f[1] for f in fields]), max=w_clamp)
@@ -306,26 +348,24 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
                                                light_normal[:, a])
                                     for a in range(3)], -1)
 
-    has = pending & (w_sum > 0.0)
-    p_hat_w, f_y_w = eval_p_hat(table, light_idx, light_pos, light_normal,
-                                *attrs)
-    w_spatial = torch.clamp(w_sum / torch.clamp(m_acc * p_hat_w, min=1e-3),
-                            max=w_spatial_clamp)
-    return seed, dict(
-        light_pos=light_pos, light_normal=light_normal, w_sum=w_sum,
-        M=m_acc, light_idx=light_idx, w_spatial=w_spatial, f_y_w=f_y_w,
-        has=has,
-    )
+    return seed, di_resolve(
+        table, dict(light_pos=light_pos, light_normal=light_normal,
+                    w_sum=w_sum, M=m_acc, light_idx=light_idx),
+        pending, attrs, w_spatial_clamp)
 
 
 # -- K6: GI spatial merge -----------------------------------------------------
 
 def gi_spatial_plain(seed, center, taps, pending, hit_pos, hit_normal, albedo,
-                     metallic, w_clamp):
+                     metallic, w_clamp, shade=None):
     """GI spatial merge and final resolve (pathtrace.py:989-1073): taps are
     the prepared neighbours as (T, P[, 3]) planes (sample_pos,
-    sample_radiance, sample_tri, W, M, jac, ok)."""
+    sample_radiance, sample_tri, W, M, jac, ok). hit_normal, albedo,
+    metallic: float32, for the final ray and contribution; shade: the
+    target function's (normal, albedo, metallic) where they differ (bf16
+    shading), else these."""
     p = hit_pos.shape[0]
+    s_nrm, s_alb, s_met = shade or (hit_normal, albedo, metallic)
     w_sum = center["w_sum"]
     m_acc = center["M"]
     t_n = taps["W"].shape[0]
@@ -334,7 +374,7 @@ def gi_spatial_plain(seed, center, taps, pending, hit_pos, hit_normal, albedo,
     slot = torch.full((p,), -1, dtype=torch.int32, device=hit_pos.device)
     if t_n:
         p_hat_p = gi_target_pdf_planar(
-            _planes(hit_pos), _planes(hit_normal), _planes(albedo), metallic,
+            _planes(hit_pos), _planes(s_nrm), _planes(s_alb), s_met,
             _planes(spos), _planes(srad),
         )
         seed, u_taps = rng_mod.rnd_chain(seed, t_n)
@@ -358,8 +398,7 @@ def gi_spatial_plain(seed, center, taps, pending, hit_pos, hit_normal, albedo,
     s_pos = sel("sample_pos")
     s_rad = sel("sample_radiance")
     s_tri = sel("sample_tri")
-    p_hat_f = gi_target_pdf(hit_pos, hit_normal, albedo, metallic, s_pos,
-                            s_rad)
+    p_hat_f = gi_target_pdf(hit_pos, s_nrm, s_alb, s_met, s_pos, s_rad)
     # w_sum / max(M, 1) / max(p_hat, 1e-9), which XLA folds to one division.
     w_gi = torch.where(
         p_hat_f > 1e-3,
@@ -386,6 +425,28 @@ _P = ctypes.c_void_p
 def _f32(name, *tensors):
     for t in tensors:
         cuda_build.require_dtype(name, t, torch.float32)
+
+
+def _attr_planes(name, *tensors) -> bool:
+    """The target function's attribute planes, all float32 or all bfloat16
+    (bf16 shading); returns True for bfloat16."""
+    bf16 = tensors[0].dtype == torch.bfloat16
+    for t in tensors:
+        cuda_build.require_dtype(name, t,
+                                 torch.bfloat16 if bf16 else torch.float32)
+    return bf16
+
+
+def _entry(kernels, name, bf16):
+    """The library's entry point of K3-K6 `name`, its bf16 instantiation
+    with bf16 attribute planes."""
+    return getattr(kernels, f"sunray_{name}_bf16" if bf16 else f"sunray_{name}")
+
+
+def _count(name, bf16):
+    """Count a launch of the port's own library: the bf16 instantiations
+    under their own names."""
+    cuda_build.launches[f"{name}_bf16" if bf16 else name] += 1
 
 
 def _check_lanes(name, p, **tensors):
@@ -449,7 +510,8 @@ def ris_audition(table: LightTable, seed, hit_pos, hit_normal, v_view, albedo,
     name = "ris_audition"
     p = hit_pos.shape[0]
     cuda_build.require_cuda(name, *table, *args)
-    _f32(name, hit_pos, hit_normal, v_view, albedo, roughness, metallic)
+    _f32(name, hit_pos)
+    _attr_planes(name, hit_normal, v_view, albedo, roughness, metallic)
     _vec3(name, hit_pos, hit_normal, v_view, albedo)
     _check_lanes(name, p, seed=_seed_arg(name, seed), hit_normal=hit_normal,
                  v_view=v_view, albedo=albedo, roughness=roughness,
@@ -472,7 +534,8 @@ def _launch_audition(table: LightTable, seed, hit_pos, hit_normal, v_view,
     seed_out = torch.empty_like(seed)
     outs = _out(p, dev, *_RES_OUT)
     kernels = cuda_build.library() if lib is None else lib
-    err = kernels.sunray_ris_audition(
+    bf16 = hit_normal.dtype == torch.bfloat16
+    err = _entry(kernels, "ris_audition", bf16)(
         tab.data_ptr(), table.num, rec.data_ptr(), seed.data_ptr(),
         hit_pos.data_ptr(), hit_normal.data_ptr(), v_view.data_ptr(),
         albedo.data_ptr(), roughness.data_ptr(), metallic.data_ptr(),
@@ -481,7 +544,7 @@ def _launch_audition(table: LightTable, seed, hit_pos, hit_normal, v_view,
     )
     cuda_build.check_launch("ris_audition", err)
     if lib is None:
-        cuda_build.launches["ris_audition"] += 1
+        _count("ris_audition", bf16)
     return seed_out, _res_dict(*outs)
 
 
@@ -505,9 +568,10 @@ def di_temporal(table: LightTable, seed, r, hist, pi, ok, hit_pos, hit_normal,
     p = hit_pos.shape[0]
     dev = cuda_build.require_cuda(name, *table, *lanes,
                                   *(hist[k] for k in h_keys))
-    _f32(name, hit_pos, hit_normal, v_view, albedo, roughness, metallic,
-         virtual_distance, *(r[k] for k in r_keys if k != "light_idx"),
+    _f32(name, hit_pos, virtual_distance,
+         *(r[k] for k in r_keys if k != "light_idx"),
          *(hist[k] for k in h_keys if k != "light_idx"))
+    bf16 = _attr_planes(name, hit_normal, v_view, albedo, roughness, metallic)
     cuda_build.require_dtype(name, r["light_idx"], torch.int32)
     cuda_build.require_dtype(name, hist["light_idx"], torch.int32)
     cuda_build.require_dtype(name, pi, torch.int64)
@@ -520,7 +584,7 @@ def di_temporal(table: LightTable, seed, r, hist, pi, ok, hit_pos, hit_normal,
     ok8 = _mask(ok)
     seed_out = torch.empty_like(seed)
     outs = _out(p, dev, *_RES_OUT)
-    err = cuda_build.library().sunray_di_temporal(
+    err = _entry(cuda_build.library(), "di_temporal", bf16)(
         table.emission.data_ptr(), table.num, seed.data_ptr(),
         *(r[k].data_ptr() for k in r_keys),
         *(hist[k].data_ptr() for k in h_keys), n_hist,
@@ -532,7 +596,7 @@ def di_temporal(table: LightTable, seed, r, hist, pi, ok, hit_pos, hit_normal,
         cuda_build.stream_ptr(),
     )
     cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    _count(name, bf16)
     return seed_out, _res_dict(*outs)
 
 
@@ -546,12 +610,14 @@ def _taps_arg(name, taps):
 
 def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
                current_depth, hit_pos, hit_normal, v_view, albedo, roughness,
-               metallic, width, height, clamps):
+               metallic, width, height, clamps, test_normal=None):
     """K5. center: the pass-1 DI reservoir over the whole frame (light_pos,
     light_normal, W, M, light_idx); taps: list of shared (dx, dy) offsets;
     gnormal/gdepth: the G-buffer guides of the neighbour test. The kernel
-    reads each neighbour in place. Returns (seed', fields) as
-    di_spatial_plain."""
+    reads each neighbour in place. hit_normal ... metallic: the target
+    function's attributes, float32 or bfloat16 (bf16 shading, which also
+    takes the float32 test_normal for the neighbour test). Returns (seed',
+    fields) as di_spatial_plain."""
     c_keys = ("light_pos", "light_normal", "W", "M", "light_idx")
     lanes = (seed, pending, gnormal, gdepth, current_depth, hit_pos,
              hit_normal, v_view, albedo, roughness, metallic,
@@ -560,15 +626,22 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
         return di_spatial_plain(table, seed, center, taps, pending, gnormal,
                                 gdepth, current_depth, hit_pos, hit_normal,
                                 v_view, albedo, roughness, metallic, width,
-                                height, clamps)
+                                height, clamps, test_normal)
     name = "di_spatial"
     p = hit_pos.shape[0]
     if p != width * height:
         raise cuda_build.KernelError(f"{name}: {p} lanes for {width}x{height}")
     cuda_build.require_cuda(name, *table, *lanes)
-    _f32(name, gnormal, gdepth, current_depth, hit_pos, hit_normal, v_view,
-         albedo, roughness, metallic,
+    _f32(name, gnormal, gdepth, current_depth, hit_pos,
          *(center[k] for k in c_keys if k != "light_idx"))
+    if _attr_planes(name, hit_normal, v_view, albedo, roughness, metallic):
+        if test_normal is None:
+            raise cuda_build.KernelError(f"{name}: bf16 attributes need the "
+                                         "float32 test_normal")
+        cuda_build.require_cuda(name, test_normal, hit_pos)
+        _f32(name, test_normal)
+        _vec3(name, test_normal)
+        _check_lanes(name, p, test_normal=test_normal)
     cuda_build.require_dtype(name, center["light_idx"], torch.int32)
     _check_lanes(name, p, seed=_seed_arg(name, seed), pending=pending,
                  gnormal=gnormal, gdepth=gdepth, current_depth=current_depth,
@@ -577,15 +650,16 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
     return _launch_di_spatial(table, seed, center, taps, pending, gnormal,
                               gdepth, current_depth, hit_pos, hit_normal,
                               v_view, albedo, roughness, metallic, width,
-                              height, clamps)
+                              height, clamps, test_normal=test_normal)
 
 
 def _launch_di_spatial(table: LightTable, seed, center, taps, pending, gnormal,
                        gdepth, current_depth, hit_pos, hit_normal, v_view,
                        albedo, roughness, metallic, width, height, clamps,
-                       lib=None):
+                       lib=None, test_normal=None):
     """K5 once on checked arguments, from `lib` (default: the port's
-    library, whose launches are counted)."""
+    library, whose launches are counted); the bf16 instantiation for
+    bf16 attributes, with test_normal."""
     name = "di_spatial"
     c_keys = ("light_pos", "light_normal", "W", "M", "light_idx")
     p, dev = hit_pos.shape[0], hit_pos.device
@@ -595,20 +669,22 @@ def _launch_di_spatial(table: LightTable, seed, center, taps, pending, gnormal,
     outs = _out(p, dev, *_RES_OUT[:5], ((), torch.float32),
                 ((3,), torch.float32), ((), torch.bool))
     kernels = cuda_build.library() if lib is None else lib
-    err = kernels.sunray_di_spatial(
+    bf16 = hit_normal.dtype == torch.bfloat16
+    err = _entry(kernels, name, bf16)(
         table.emission.data_ptr(), table.num, seed.data_ptr(),
         *(center[k].data_ptr() for k in c_keys), pending8.data_ptr(),
         gnormal.data_ptr(), gdepth.data_ptr(), current_depth.data_ptr(),
         hit_pos.data_ptr(), hit_normal.data_ptr(), v_view.data_ptr(),
         albedo.data_ptr(), roughness.data_ptr(), metallic.data_ptr(),
-        width, height, _taps_arg(name, taps), len(taps),
+        *((test_normal.data_ptr(),) if bf16 else ()), width, height,
+        _taps_arg(name, taps), len(taps),
         ctypes.c_float(w_clamp), ctypes.c_float(m_clamp),
         ctypes.c_float(w_spatial_clamp), seed_out.data_ptr(),
         *(o.data_ptr() for o in outs), cuda_build.stream_ptr(),
     )
     cuda_build.check_launch(name, err)
     if lib is None:
-        cuda_build.launches[name] += 1
+        _count(name, bf16)
     light_pos, light_normal, w_sum, m, light_idx, w_spatial, f_y_w, has = outs
     return seed_out, dict(light_pos=light_pos, light_normal=light_normal,
                           w_sum=w_sum, M=m, light_idx=light_idx,
@@ -616,19 +692,23 @@ def _launch_di_spatial(table: LightTable, seed, center, taps, pending, gnormal,
 
 
 def gi_spatial(seed, center, taps, pending, hit_pos, hit_normal, albedo,
-               metallic, w_clamp):
+               metallic, w_clamp, shade=None):
     """K6. center: the pass-1 GI reservoir (sample_pos, sample_radiance,
     sample_tri, w_sum, M); taps: prepared (T, P[, 3]) planes (sample_pos,
-    sample_radiance, sample_tri, W, M, jac, ok). Returns (seed',
-    dict(gdir, gdist, sample_tri, try_gi, contrib_pre))."""
+    sample_radiance, sample_tri, W, M, jac, ok); hit_normal, albedo,
+    metallic: float32; shade: the target function's bfloat16 (normal,
+    albedo, metallic) with bf16 shading (the bf16 instantiation), else
+    None. Returns (seed', dict(gdir, gdist, sample_tri, try_gi,
+    contrib_pre))."""
     c_keys = ("sample_pos", "sample_radiance", "sample_tri", "w_sum", "M")
     t_keys = ("sample_pos", "sample_radiance", "sample_tri", "W", "M", "jac",
               "ok")
     lanes = (seed, pending, hit_pos, hit_normal, albedo, metallic,
-             *(center[k] for k in c_keys), *(taps[k] for k in t_keys))
+             *(center[k] for k in c_keys), *(taps[k] for k in t_keys),
+             *(shade or ()))
     if cuda_build.on_cpu(*lanes):
         return gi_spatial_plain(seed, center, taps, pending, hit_pos,
-                                hit_normal, albedo, metallic, w_clamp)
+                                hit_normal, albedo, metallic, w_clamp, shade)
     name = "gi_spatial"
     p = hit_pos.shape[0]
     t_n = taps["W"].shape[0]
@@ -640,6 +720,12 @@ def gi_spatial(seed, center, taps, pending, hit_pos, hit_normal, albedo,
          *(taps[k] for k in t_keys if k not in ("sample_tri", "ok")))
     cuda_build.require_dtype(name, center["sample_tri"], torch.int32)
     cuda_build.require_dtype(name, taps["sample_tri"], torch.int32)
+    if shade is not None:
+        for t in shade:
+            cuda_build.require_dtype(name, t, torch.bfloat16)
+        _vec3(name, shade[0], shade[1])
+        _check_lanes(name, p, **dict(zip(("shade.normal", "shade.albedo",
+                                          "shade.metallic"), shade)))
     _check_lanes(name, p, seed=_seed_arg(name, seed), pending=pending,
                  **{f"center.{k}": center[k] for k in c_keys})
     for k in t_keys:
@@ -650,17 +736,19 @@ def gi_spatial(seed, center, taps, pending, hit_pos, hit_normal, albedo,
     seed_out = torch.empty_like(seed)
     outs = _out(p, dev, ((3,), torch.float32), ((), torch.float32),
                 ((), torch.int32), ((), torch.bool), ((3,), torch.float32))
-    err = cuda_build.library().sunray_gi_spatial(
+    bf16 = shade is not None
+    err = _entry(cuda_build.library(), name, bf16)(
         seed.data_ptr(),
         *(center[k].data_ptr() for k in c_keys),
         *(taps[k].data_ptr() for k in t_keys if k != "ok"),
         ok8.data_ptr(), t_n, pending8.data_ptr(),
         hit_pos.data_ptr(), hit_normal.data_ptr(), albedo.data_ptr(),
-        metallic.data_ptr(), p, ctypes.c_float(w_clamp), seed_out.data_ptr(),
+        metallic.data_ptr(), *(t.data_ptr() for t in shade or ()), p,
+        ctypes.c_float(w_clamp), seed_out.data_ptr(),
         *(o.data_ptr() for o in outs), cuda_build.stream_ptr(),
     )
     cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    _count(name, bf16)
     gdir, gdist, s_tri, try_gi, contrib_pre = outs
     return seed_out, dict(gdir=gdir, gdist=gdist, sample_tri=s_tri,
                           try_gi=try_gi, contrib_pre=contrib_pre)

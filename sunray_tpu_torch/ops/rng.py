@@ -46,6 +46,12 @@ def init_seed(pixel_idx, frame):
     return pcg_hash(pixel_idx ^ pcg_hash(frame))
 
 
+def salt(frame, stride: int, index: int):
+    """(frame * stride + index) mod 2^32: one of `stride` streams a frame
+    (the final passes of a frame with samples > 1, pathtrace.py:131-136)."""
+    return (_mul32(_u32(frame), stride) + index) & _MASK
+
+
 def rnd(seed):
     """rt_utils.slang:54-59. Returns (new_seed, uniform float32 in [0, 1])."""
     seed = (_mul32(seed, 747796405) + 2891336453) & _MASK

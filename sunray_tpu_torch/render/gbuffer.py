@@ -46,7 +46,7 @@ from sunray_tpu_torch.ops.fp import clip, fma, pow5
 from sunray_tpu_torch.ops.intersect import Hit
 from sunray_tpu_torch.ops.loops import bounded_loop
 from sunray_tpu_torch.render import restir
-from sunray_tpu_torch.render.shade import shade_hits
+from sunray_tpu_torch.render.shade import shade_hits, shading_planes
 from sunray_tpu_torch.render.trace import trace_closest, trace_occluded
 
 SKY_DEPTH = 100000.0  # ray_gen_ris.slang:155 sentinel
@@ -270,13 +270,17 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
     p = w * h
     found = hitd.found
     pos, normal = hitd.pos, hitd.normal
-    attrs = (hitd.v_view, hitd.albedo, hitd.roughness, hitd.metallic)
+    # The target functions read the attributes in cfg.shading_dtype
+    # (gbuffer.py:280-295); rays and the confidence tests take float32.
+    normal_s, view_s, albedo_s, rough_s, metal_s = shading_planes(
+        cfg, normal, hitd.v_view, hitd.albedo, hitd.roughness, hitd.metallic)
+    attrs = (view_s, albedo_s, rough_s, metal_s)
 
     # --- Phase 2: RIS + temporal + visibility (DI) ---
     enable_di = found & (hitd.roughness > 0.2)
     # A differentiable frame keeps JAX's jnp audition (gbuffer.py:295):
     # K3 routes no gradient.
-    seed, r_di = restir.ris_audition(lights, seed, pos, normal, *attrs,
+    seed, r_di = restir.ris_audition(lights, seed, pos, normal_s, *attrs,
                                      cfg.ris_candidates, enable_di,
                                      kernel=not cfg.differentiable)
     if cfg.history_joint_gather:
@@ -290,7 +294,7 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
         pre_di = pre_gi = None
     seed, r_di = restir.di_temporal_reuse(
         lights, cfg, seed, r_di, res_di_hist, hitd.prev_uv, hitd.prev_valid,
-        frame_count, pos, normal, *attrs, hitd.virtual_distance, w, h,
+        frame_count, pos, normal_s, *attrs, hitd.virtual_distance, w, h,
         enable_di, pregathered=pre_di,
     )
     # Visibility reuse (ray_gen_ris.slang:277-302), traced below together
@@ -355,8 +359,8 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
         sample_radiance + torch.where(nee_ok[:, None], nee_contrib, 0.0),
         max=cfg.gi_radiance_clamp)
 
-    p_hat = gi_target_pdf(pos, normal, hitd.albedo, hitd.metallic,
-                          sample_pos, sample_radiance)
+    p_hat = gi_target_pdf(pos, normal_s, albedo_s, metal_s, sample_pos,
+                          sample_radiance)
     pdf = gi_ndl * INV_PI
     w_sum = torch.where(pdf > 0.0, p_hat / torch.clamp(pdf, min=1e-9), 0.0)
     r_gi = restir.ReservoirGI(
@@ -373,7 +377,7 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
     )
     seed, r_gi = restir.gi_temporal_reuse(
         cfg, seed, r_gi, res_gi_hist, hitd.prev_uv, hitd.prev_valid,
-        frame_count, pos, normal, hitd.albedo, hitd.metallic,
+        frame_count, pos, normal_s, albedo_s, metal_s,
         hitd.virtual_distance, w, h, found, pregathered=pre_gi,
     )
     r_gi = dataclasses.replace(

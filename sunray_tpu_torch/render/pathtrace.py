@@ -12,14 +12,19 @@ port of sunray_tpu/render/pathtrace.py.
   phase B: ReSTIR DI spatial reuse (K5) and GI spatial reuse (tap prep
            with one T*P-ray visibility call, then K6) at the frozen hits
            (ray_gen_final.slang:136-327), with shared tap offsets
-           (cfg.spatial_taps="shared"), and one 2P-ray call for the DI
-           winner and the GI final visibility.
+           (cfg.spatial_taps="shared"), or with each pixel's own disc
+           taps in plain PyTorch (any other value: the reference-exact
+           estimator, jnp in JAX too; one visibility call a GI tap),
+           and one 2P-ray call for the DI winner and the GI final
+           visibility. The target functions read the surface
+           attributes in cfg.shading_dtype (render/shade.shading_planes).
 
 RNG stream order per round, for every lane whatever its mask:
 transmissive_bounce's draw, then NEE u_pick, n1, n2 (nee only), then
 ur1, ur2, then u_lobe, then u_rr (pathtrace.py:200-315). Phase B then
 draws the DI centre merge (1), the DI taps (rnd_chain(T_di)) and the GI
-taps (rnd_chain(T_gi)).
+taps (rnd_chain(T_gi)); with per-pixel taps each tap draws its offset
+(2), then its merge (1), DI taps first.
 """
 
 from __future__ import annotations
@@ -30,12 +35,13 @@ import numpy as np
 import torch
 
 from sunray_tpu_torch.camera import generate_rays
-from sunray_tpu_torch.ops import cuda_restir
+from sunray_tpu_torch.ops import cuda_restir, fp
 from sunray_tpu_torch.ops import rng as rng_mod
 from sunray_tpu_torch.ops.brdf import (
     PI,
     cosine_hemisphere,
     dot,
+    gi_target_pdf,
     reflect,
     sample_ggx_vndf,
     smith_g1_ggx,
@@ -50,7 +56,7 @@ from sunray_tpu_torch.render.gbuffer import (
     reuse_hit,
     transmissive_bounce,
 )
-from sunray_tpu_torch.render.shade import shade_hits
+from sunray_tpu_torch.render.shade import shade_hits, shading_planes
 from sunray_tpu_torch.render.trace import trace_closest, trace_occluded
 from sunray_tpu_torch.utils.bluenoise import NOISE_SIZE, _A1, _A2, noise_texture
 
@@ -81,13 +87,16 @@ def _blue_noise_rands(cfg, frame_count, device):
 
 
 def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
-               frame_count, first_hit=None):
+               frame_count, sample_idx=0, first_hit=None):
     """-> (raw HDR color (P, 3), walk rounds). first_hit: pass 1's
-    (first_tri, first_t), reused as round 0's hit."""
+    (first_tri, first_t), reused as round 0's hit. sample_idx: which of
+    cfg.samples final passes this is; with samples > 1 the PCG stream is
+    seeded by frame_count * samples + sample_idx (uint32, wrapping;
+    pathtrace.py:131-136), samples == 1 keeps the frame's own stream. The
+    blue-noise first-bounce pair takes the unsalted frame_count, so every
+    sample sees the same blue noise (pathtrace.py:137)."""
     w, h = cfg.width, cfg.height
     num_lights = lights.num if lights is not None else 0
-    if cfg.samples != 1:
-        raise NotImplementedError("samples > 1 is not ported")
     use_restir = cfg.lighting == "restir" and num_lights > 0
     use_nee = cfg.lighting == "nee" and num_lights > 0
 
@@ -98,7 +107,10 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     dirs = dirs.reshape(p, 3)
 
     pix = torch.arange(p, dtype=torch.int64, device=dev)
-    seed = rng_mod.init_seed(pix, frame_count)
+    fc = frame_count
+    if cfg.samples > 1:
+        fc = rng_mod.salt(frame_count, cfg.samples, sample_idx)
+    seed = rng_mod.init_seed(pix, fc)
     bn_r1, bn_r2 = _blue_noise_rands(cfg, frame_count, dev)
 
     z3 = torch.zeros((p, 3), dtype=torch.float32, device=dev)
@@ -331,11 +343,76 @@ def _shared_taps(frame_count, count, radius, salt):
     return taps
 
 
+def _disc_tap(px, py, seed, radius):
+    """One per-pixel disc tap (pathtrace.py:617-624): two draws, the
+    offset (cos, sin)(2 pi u) * sqrt(u') * radius truncated toward zero.
+    fp.cos / fp.sin: torch's float32 functions differ between the CPU and
+    the card. Returns (seed', nx, ny, dx, dy)."""
+    seed, ua, ur = rng_mod.rnd2(seed)
+    angle = ua * 2.0 * PI
+    r = sqrt(ur) * radius
+    dx = (fp.cos(angle) * r).to(torch.int32)
+    dy = (fp.sin(angle) * r).to(torch.int32)
+    return seed, px + dx, py + dy, dx, dy
+
+
+def _perpixel_neighbour(nx, ny, w, h, fields, gnormal, gdepth, normal,
+                        current_depth):
+    """perpixel_neighbor (pathtrace.py:513-534): the fields at the clamped
+    flat index of (nx, ny) with the neighbour's G-buffer normal and depth;
+    ok: on the image, normal within dot >= 0.9 (against the float32
+    normal) and depth within 10%. Returns (fields', depth, ok)."""
+    inb = (nx >= 0) & (ny >= 0) & (nx < w) & (ny < h)
+    ni = torch.clamp(ny.long() * w + nx.long(), 0, w * h - 1)
+    got = {k: v[ni] for k, v in fields.items()}
+    nd = gdepth[ni]
+    ok = (inb & (dot(normal, gnormal[ni]) >= 0.9)
+          & (torch.abs(current_depth - nd) <= 0.1 * current_depth))
+    return got, nd, ok
+
+
+def _di_spatial_perpixel(cfg, lights, seed, r_di, pending, gbuf,
+                         current_depth, pos, normal, shade):
+    """DI spatial reuse with per-pixel taps, plain PyTorch as in JAX
+    (pathtrace.py:600-652, 777-800): the centre merge, then per tap its
+    offset draws, the fetch, the target function and its merge draw, and
+    the resolve."""
+    w, h = cfg.width, cfg.height
+    table, n_l = lights.table, lights.num
+    attrs = (pos,) + tuple(shade)
+    pix = torch.arange(pos.shape[0], device=pos.device)
+    px, py = pix % w, pix // w
+    center = {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
+                                            "M", "light_idx")}
+    seed, r = cuda_restir.di_centre_merge(table, seed, center, pending, attrs)
+    for _ in range(cfg.di_spatial_samples):
+        seed, nx, ny, _, _ = _disc_tap(px, py, seed, cfg.di_spatial_radius)
+        nr, _, ok = _perpixel_neighbour(nx, ny, w, h, center, gbuf.normal,
+                                        gbuf.depth, normal, current_depth)
+        w_cl = torch.clamp(nr["W"], max=cfg.di_temporal_w_clamp)
+        m_cl = torch.clamp(nr["M"], max=cfg.di_temporal_m_clamp)
+        use = pending & ok & (w_cl > 0.0) & (nr["light_idx"] < n_l)
+        idx = torch.clamp(nr["light_idx"], max=n_l - 1)
+        p_hat, _ = cuda_restir.eval_p_hat(table, idx, nr["light_pos"],
+                                          nr["light_normal"], *attrs)
+        seed, u = rng_mod.rnd(seed)
+        w_sum, m_acc, take = cuda_restir.merge(r["w_sum"], r["M"], m_cl,
+                                               p_hat * w_cl * m_cl, u, use)
+        t3 = take[:, None]
+        r = dict(w_sum=w_sum, M=m_acc,
+                 light_idx=torch.where(take, idx, r["light_idx"]),
+                 light_pos=torch.where(t3, nr["light_pos"], r["light_pos"]),
+                 light_normal=torch.where(t3, nr["light_normal"],
+                                          r["light_normal"]))
+    return seed, cuda_restir.di_resolve(table, r, pending, attrs,
+                                        cfg.di_spatial_w_clamp)
+
+
 def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
                    cam_origin, frame_count):
     """Phase B: ReSTIR DI + GI spatial reuse at the frozen first-rough hits
-    (ray_gen_final.slang:136-327), shared taps. Returns radiance to add,
-    (P, 3)."""
+    (ray_gen_final.slang:136-327), shared or per-pixel taps. Returns
+    radiance to add, (P, 3)."""
     w, h = cfg.width, cfg.height
     p = w * h
     pending = c["pending"]
@@ -343,24 +420,35 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
     rough, metal, v_view = c["f_rough"], c["f_metal"], c["f_view"]
     throughput = c["f_throughput"]
     current_depth = vec_norm(pos - cam_origin)
+    shared = cfg.spatial_taps == "shared"
+    # The target functions read the attributes in cfg.shading_dtype; the
+    # neighbour tests, rays and contributions the float32 ones.
+    shade = shading_planes(cfg, normal, v_view, albedo, rough, metal)
+    bf16 = cfg.shading_dtype == "bf16"
 
     # A differentiable frame keeps JAX's jnp merges (use_di_kernel,
     # pathtrace.py:722-725): K5 and K6 route no gradient.
     plain = cfg.differentiable
     # ---- DI spatial (ray_gen_final.slang:139-222), K5 ----
-    di_taps = _shared_taps(frame_count, cfg.di_spatial_samples,
-                           cfg.di_spatial_radius, 0x51A7D1)
-    di_spatial = (cuda_restir.di_spatial_plain if plain
-                  else cuda_restir.di_spatial)
-    seed, di = di_spatial(
-        lights.table, seed,
-        {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
-                                       "M", "light_idx")},
-        di_taps, pending, gbuf.normal, gbuf.depth, current_depth, pos, normal,
-        v_view, albedo, rough, metal, w, h,
-        (cfg.di_temporal_w_clamp, cfg.di_temporal_m_clamp,
-         cfg.di_spatial_w_clamp),
-    )
+    if shared:
+        di_taps = _shared_taps(frame_count, cfg.di_spatial_samples,
+                               cfg.di_spatial_radius, 0x51A7D1)
+        di_spatial = (cuda_restir.di_spatial_plain if plain
+                      else cuda_restir.di_spatial)
+        seed, di = di_spatial(
+            lights.table, seed,
+            {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
+                                           "M", "light_idx")},
+            di_taps, pending, gbuf.normal, gbuf.depth, current_depth, pos,
+            *shade, w, h,
+            (cfg.di_temporal_w_clamp, cfg.di_temporal_m_clamp,
+             cfg.di_spatial_w_clamp),
+            **({"test_normal": normal} if bf16 else {}),
+        )
+    else:
+        seed, di = _di_spatial_perpixel(cfg, lights, seed, r_di, pending,
+                                        gbuf, current_depth, pos, normal,
+                                        shade)
     # DI winner shadow ray, traced with the GI final visibility ray.
     sdir = di["light_pos"] - pos
     sdist = torch.clamp(vec_norm(sdir), min=1e-4)
@@ -369,18 +457,25 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
     di_exclude = lights.world_tri[di["light_idx"].long()]
 
     # ---- GI spatial (ray_gen_final.slang:224-327): tap prep, K6 ----
-    gi_taps = _shared_taps(frame_count, cfg.gi_spatial_samples,
-                           cfg.gi_spatial_radius, 0x6E5B2F)
-    taps = _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
-                        normal, current_depth, cam_origin)
-    gi_spatial = (cuda_restir.gi_spatial_plain if plain
-                  else cuda_restir.gi_spatial)
-    seed, gi = gi_spatial(
-        seed,
-        {k: getattr(r_gi, k) for k in ("sample_pos", "sample_radiance",
-                                       "sample_tri", "w_sum", "M")},
-        taps, pending, pos, normal, albedo, metal, cfg.gi_spatial_w_clamp,
-    )
+    gi_shade = {"shade": (shade[0], shade[2], shade[4])} if bf16 else {}
+    if shared:
+        gi_taps = _shared_taps(frame_count, cfg.gi_spatial_samples,
+                               cfg.gi_spatial_radius, 0x6E5B2F)
+        taps = _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending,
+                            pos, normal, current_depth, cam_origin)
+        gi_spatial = (cuda_restir.gi_spatial_plain if plain
+                      else cuda_restir.gi_spatial)
+        seed, gi = gi_spatial(
+            seed,
+            {k: getattr(r_gi, k) for k in ("sample_pos", "sample_radiance",
+                                           "sample_tri", "w_sum", "M")},
+            taps, pending, pos, normal, albedo, metal, cfg.gi_spatial_w_clamp,
+            **gi_shade,
+        )
+    else:
+        seed, gi = _gi_spatial_perpixel(cfg, tracer, mats, gbuf, r_gi, seed,
+                                        pending, pos, normal, albedo, metal,
+                                        current_depth, cam_origin, gi_shade)
 
     # One trace for the DI winner shadow ray and the GI final visibility
     # ray, then the adds in the reference's order (DI, then GI;
@@ -399,63 +494,83 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
                                   gi["contrib_pre"] * throughput, 0.0)
 
 
-def _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
-                 normal, current_depth, cam_origin):
-    """Every GI tap but its merge draw (pathtrace.py:833-898): neighbour
-    fetch by whole-image shifts, validity, the neighbour's primary point
-    x1 rebuilt from its depth, the reconnection Jacobian, and one
-    occlusion call for all T taps' visibility rays. Returns the (T, P[, 3])
-    planes K6 takes."""
+_GI_KEYS = ("sample_pos", "sample_radiance", "sample_tri", "W", "M")
+
+
+def _gi_tap_geometry(cfg, mats, nr, n_depth, ok, nx, ny, pending, pos,
+                     normal, cam_origin):
+    """The geometry of one GI tap (pathtrace.py:833-898, every step but
+    the fetch and the visibility trace): the W > 0 test and clamps, the
+    neighbour's primary point x1 rebuilt from its depth, the reconnection
+    Jacobian and the tests on it. nx, ny: a shared tap's offsets (ints)
+    or each pixel's neighbour (int tensors). Returns (nr clamped, ok with
+    pending, jac, (gdir, d_new, sample_tri))."""
     w, h = cfg.width, cfg.height
-    p = w * h
-    dev = pos.device
-    pix = torch.arange(p, device=dev)
+    p = pos.shape[0]
+    pix = torch.arange(p, device=pos.device)
     px, py = pix % w, pix // w
     proj_inverse = mats["proj_inverse"]
     view_inverse = mats["view_inverse"]
-    keys = ("sample_pos", "sample_radiance", "sample_tri", "W", "M")
-    planes = {k: [] for k in keys + ("jac", "ok")}
-    rays = []
     inv_w = torch.tensor(1.0 / w, dtype=torch.float32).item()
     inv_h = torch.tensor(1.0 / h, dtype=torch.float32).item()
+    ok = ok & (nr["W"] > 0.0)
+    nr = dict(nr, W=torch.clamp(nr["W"], max=cfg.gi_temporal_w_clamp),
+              M=torch.clamp(nr["M"], max=cfg.gi_spatial_m_clamp))
+
+    # The neighbour's primary point x1 (ray_gen_final.slang:253-258),
+    # rounded as camera.generate_rays is.
+    ndx = ((px + nx if isinstance(nx, int) else nx).to(torch.float32)
+           + 0.5) * inv_w * 2.0 - 1.0
+    ndy = ((py + ny if isinstance(ny, int) else ny).to(torch.float32)
+           + 0.5) * inv_h * 2.0 - 1.0
+    tgt = [fma(proj_inverse[i, 0], ndx, proj_inverse[i, 1] * ndy)
+           + proj_inverse[i, 2] + proj_inverse[i, 3] for i in range(3)]
+    norm = sqrt(dot3(tgt[0], tgt[0], tgt[1], tgt[1], tgt[2], tgt[2]))
+    tgt = [t / norm for t in tgt]
+    ndir = torch.stack(
+        [fma(view_inverse[i, 2], tgt[2],
+             fma(view_inverse[i, 0], tgt[0], view_inverse[i, 1] * tgt[1]))
+         for i in range(3)], dim=-1)
+    neighbour_x1 = fma(ndir, n_depth[:, None], cam_origin)
+
+    w_new = nr["sample_pos"] - pos
+    w_old = nr["sample_pos"] - neighbour_x1
+    d_new = torch.clamp(vec_norm(w_new), min=1e-4)
+    d_old = torch.clamp(vec_norm(w_old), min=1e-4)
+    n_x2 = nr["sample_normal"]
+    cos_new = torch.clamp(dot(n_x2, -w_new / d_new[:, None]), min=0.0)
+    cos_old = torch.clamp(dot(n_x2, -w_old / d_old[:, None]), min=0.0)
+    ok = ok & (cos_new > 0.0) & (cos_old > 0.0)
+    jac = (cos_new * d_old * d_old) / torch.clamp(
+        cos_old * d_new * d_new, min=1e-4)
+    jac = torch.clamp(jac, 0.0, cfg.gi_jacobian_clamp)
+    gdir = w_new / d_new[:, None]
+    ok = pending & ok & (dot(normal, gdir) > 0.0)
+    return nr, ok, jac, (gdir, d_new, nr["sample_tri"])
+
+
+def _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
+                 normal, current_depth, cam_origin):
+    """Every shared GI tap but its merge draw (pathtrace.py:833-898):
+    neighbour fetch by whole-image shifts, validity, the geometry
+    (_gi_tap_geometry), and one occlusion call for all T taps' visibility
+    rays. Returns the (T, P[, 3]) planes K6 takes."""
+    w, h = cfg.width, cfg.height
+    p = w * h
+    dev = pos.device
+    planes = {k: [] for k in _GI_KEYS + ("jac", "ok")}
+    rays = []
     for dx, dy in gi_taps:
         ok, n_depth = neighbour_ok(dx, dy, w, h, normal, current_depth,
                                    gbuf.normal, gbuf.depth)
         nr = {k: shift_flat(getattr(r_gi, k), dx, dy, h, w)
-              for k in keys + ("sample_normal",)}
-        ok = ok & (not (dx == 0 and dy == 0)) & (nr["W"] > 0.0)
-        nr["W"] = torch.clamp(nr["W"], max=cfg.gi_temporal_w_clamp)
-        nr["M"] = torch.clamp(nr["M"], max=cfg.gi_spatial_m_clamp)
-
-        # The neighbour's primary point x1 (ray_gen_final.slang:253-258),
-        # rounded as camera.generate_rays is.
-        ndx = ((px + dx).to(torch.float32) + 0.5) * inv_w * 2.0 - 1.0
-        ndy = ((py + dy).to(torch.float32) + 0.5) * inv_h * 2.0 - 1.0
-        tgt = [fma(proj_inverse[i, 0], ndx, proj_inverse[i, 1] * ndy)
-               + proj_inverse[i, 2] + proj_inverse[i, 3] for i in range(3)]
-        norm = sqrt(dot3(tgt[0], tgt[0], tgt[1], tgt[1], tgt[2], tgt[2]))
-        tgt = [t / norm for t in tgt]
-        ndir = torch.stack(
-            [fma(view_inverse[i, 2], tgt[2],
-                 fma(view_inverse[i, 0], tgt[0], view_inverse[i, 1] * tgt[1]))
-             for i in range(3)], dim=-1)
-        neighbour_x1 = fma(ndir, n_depth[:, None], cam_origin)
-
-        w_new = nr["sample_pos"] - pos
-        w_old = nr["sample_pos"] - neighbour_x1
-        d_new = torch.clamp(vec_norm(w_new), min=1e-4)
-        d_old = torch.clamp(vec_norm(w_old), min=1e-4)
-        n_x2 = nr["sample_normal"]
-        cos_new = torch.clamp(dot(n_x2, -w_new / d_new[:, None]), min=0.0)
-        cos_old = torch.clamp(dot(n_x2, -w_old / d_old[:, None]), min=0.0)
-        ok = ok & (cos_new > 0.0) & (cos_old > 0.0)
-        jac = (cos_new * d_old * d_old) / torch.clamp(
-            cos_old * d_new * d_new, min=1e-4)
-        jac = torch.clamp(jac, 0.0, cfg.gi_jacobian_clamp)
-        gdir = w_new / d_new[:, None]
-        ok = pending & ok & (dot(normal, gdir) > 0.0)
-        rays.append((gdir, d_new, nr["sample_tri"]))
-        for k in keys:
+              for k in _GI_KEYS + ("sample_normal",)}
+        ok = ok & (not (dx == 0 and dy == 0))
+        nr, ok, jac, ray = _gi_tap_geometry(cfg, mats, nr, n_depth, ok, dx,
+                                            dy, pending, pos, normal,
+                                            cam_origin)
+        rays.append(ray)
+        for k in _GI_KEYS:
             planes[k].append(nr[k])
         planes["jac"].append(jac)
         planes["ok"].append(ok)
@@ -472,7 +587,55 @@ def _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
         return {k: torch.stack(v).contiguous() for k, v in planes.items()}
     empty = {k: torch.zeros((0, p) + tuple(getattr(r_gi, k).shape[1:]),
                             dtype=getattr(r_gi, k).dtype, device=dev)
-             for k in keys}
+             for k in _GI_KEYS}
     empty["jac"] = torch.zeros((0, p), device=dev)
     empty["ok"] = torch.zeros((0, p), dtype=torch.bool, device=dev)
     return empty
+
+
+def _gi_spatial_perpixel(cfg, tracer, mats, gbuf, r_gi, seed, pending, pos,
+                         normal, albedo, metal, current_depth, cam_origin,
+                         gi_shade):
+    """GI spatial reuse with per-pixel taps, plain PyTorch as in JAX
+    (pathtrace.py:902-921, 1048-1075): per tap its offset draws, the
+    fetch, the geometry, one visibility trace, the target function and
+    the merge draw, in that order; then K6's plain resolve."""
+    w, h = cfg.width, cfg.height
+    pix = torch.arange(pos.shape[0], device=pos.device)
+    px, py = pix % w, pix // w
+    s_nrm, s_alb, s_met = gi_shade.get("shade", (normal, albedo, metal))
+    fields = {k: getattr(r_gi, k) for k in _GI_KEYS + ("sample_normal",)}
+    comb = {k: getattr(r_gi, k) for k in ("sample_pos", "sample_radiance",
+                                          "sample_tri", "w_sum", "M")}
+    for _ in range(cfg.gi_spatial_samples):
+        seed, nx, ny, dx, dy = _disc_tap(px, py, seed, cfg.gi_spatial_radius)
+        nr, n_depth, ok = _perpixel_neighbour(nx, ny, w, h, fields,
+                                              gbuf.normal, gbuf.depth, normal,
+                                              current_depth)
+        ok = ok & ~((dx == 0) & (dy == 0))
+        nr, ok, jac, (gdir, gdist, tri) = _gi_tap_geometry(
+            cfg, mats, nr, n_depth, ok, nx, ny, pending, pos, normal,
+            cam_origin)
+        ok = ok & ~trace_occluded(tracer, pos, gdir, gdist, exclude=tri)
+        p_hat = gi_target_pdf(pos, s_nrm, s_alb, s_met, nr["sample_pos"],
+                              nr["sample_radiance"])
+        seed, u = rng_mod.rnd(seed)
+        w_sum, m_acc, take = cuda_restir.merge(
+            comb["w_sum"], comb["M"], nr["M"], p_hat * nr["W"] * nr["M"] * jac,
+            u, ok)
+        t3 = take[:, None]
+        comb = dict(
+            w_sum=w_sum, M=m_acc,
+            sample_tri=torch.where(take, nr["sample_tri"], comb["sample_tri"]),
+            **{k: torch.where(t3, nr[k], comb[k])
+               for k in ("sample_pos", "sample_radiance")})
+    p = pos.shape[0]
+    none = {k: torch.zeros((0, p) + tuple(comb[k].shape[1:]),
+                           dtype=comb[k].dtype, device=pos.device)
+            for k in ("sample_pos", "sample_radiance", "sample_tri")}
+    none.update({k: torch.zeros((0, p), device=pos.device)
+                 for k in ("W", "M", "jac")})
+    none["ok"] = torch.zeros((0, p), dtype=torch.bool, device=pos.device)
+    return cuda_restir.gi_spatial_plain(seed, comb, none, pending, pos,
+                                        normal, albedo, metal,
+                                        cfg.gi_spatial_w_clamp, **gi_shade)

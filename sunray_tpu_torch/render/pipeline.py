@@ -6,13 +6,14 @@ final walk -> temporal accumulation -> denoise xN -> tonemap. Everything
 runs on the device of the scene tensors; the frame never moves to the
 CPU on its own.
 
-Covered: lighting "restir" (the default: shared spatial taps, f32
-shading; the joint DI+GI history gather), "nee" and "brdf"; the
-brute-force tracer (Moller-Trumbore or Woop occlusion), the binned
-tracer with a ClusterSet accel, the unified and two-level BVH walks (a
-Bvh or BlasSet accel, or an LBVH built in the frame), alpha cutout,
-textured atlases, one sample per pixel; TAA on the plain path or K9,
-history reads plain or through K13. A differentiable frame
+Covered: lighting "restir" (shared or per-pixel spatial taps, f32 or
+bf16 shading attributes; the joint DI+GI history gather), "nee" and
+"brdf"; the brute-force tracer (Moller-Trumbore or Woop occlusion), the
+binned tracer with a ClusterSet accel, the unified and two-level BVH
+walks (a Bvh or BlasSet accel, or an LBVH built in the frame), alpha
+cutout, textured atlases, any number of samples per pixel (cfg.samples;
+cfg.dtype is read nowhere, as in the JAX package); TAA on the plain path
+or K9, history reads plain or through K13. A differentiable frame
 (cfg.differentiable) runs what the JAX frame runs then: the tracer and
 K8 (forward and backward), and the plain versions of K3-K7, K9 and K13,
 with its stages' activations recomputed in the backward pass
@@ -20,10 +21,11 @@ with its stages' activations recomputed in the backward pass
 gradients (cfg.shadow_boundary_grads, render/boundary.py, dense or with
 B1's top-K candidates) and primary edge antialiasing (cfg.edge_antialias,
 render/antialias.py). check_supported()
-raises NotImplementedError for every other configuration instead of
-rendering something else. The stages run under torch.profiler ranges
-named as the JAX package's named scopes (ris_pass, final_pass, taa,
-denoise, postprocess).
+raises NotImplementedError for the configurations left out (an unknown
+lighting, history_gather_force, bf16 shading on a differentiable frame)
+instead of rendering something else. The stages run under torch.profiler
+ranges named as the JAX package's named scopes (ris_pass, final_pass,
+taa, denoise, postprocess).
 """
 
 from __future__ import annotations
@@ -84,17 +86,14 @@ class RenderState:
 def check_supported(scene, cfg) -> None:
     """Raise NotImplementedError for a configuration this port does not
     cover (the tracer checks live in render/trace.make_tracer)."""
-    restir = cfg.lighting == "restir" and scene.num_lights > 0
     unsupported = {
         f"lighting={cfg.lighting!r}": cfg.lighting not in ("restir", "nee",
                                                            "brdf"),
-        "samples > 1": cfg.samples != 1,
+        # A TPU workaround of the history gather, not ported (ROADMAP).
         "history_gather_force=True": cfg.history_gather_force is True,
-        f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
-        f"spatial_taps={cfg.spatial_taps!r}": (restir
-                                               and cfg.spatial_taps != "shared"),
-        f"shading_dtype={cfg.shading_dtype!r}": (restir
-                                                 and cfg.shading_dtype != "f32"),
+        # The bf16 target functions have no backward here (ROADMAP Queue 1).
+        "shading_dtype='bf16' with differentiable=True": (
+            cfg.shading_dtype == "bf16" and cfg.differentiable),
     }
     missing = [name for name, hit in unsupported.items() if hit]
     if missing:
@@ -127,11 +126,24 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
             scene, cfg, tracer, lights, mats, state.prev_view_proj,
             state.res_di, state.res_gi, frame_count,
         )
+    # cfg.samples > 1 (pipeline.py:76-92): pass 1 runs once, then `samples`
+    # final passes with salted PCG streams, each on pass 1's primary hit;
+    # their raw colours and walk rounds are summed, the colours averaged.
+    first_hit = (hitd.first_tri, hitd.first_t)
     with record_function("final_pass"):
         raw, final_rounds = final_pass(
             scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi, frame_count,
-            first_hit=(hitd.first_tri, hitd.first_t),
+            first_hit=first_hit,
         )
+        for s in range(1, cfg.samples):
+            raw_s, rounds_s = final_pass(
+                scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
+                frame_count, sample_idx=s, first_hit=first_hit,
+            )
+            raw = raw + raw_s
+            final_rounds = final_rounds + rounds_s
+    if cfg.samples > 1:
+        raw = raw / cfg.samples
 
     raw_img = raw.reshape(h, w, 3)
     if cfg.edge_antialias:

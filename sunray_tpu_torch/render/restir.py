@@ -255,7 +255,7 @@ def gi_temporal_reuse(cfg, seed, r: ReservoirGI, history: ReservoirGI,
         seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count,
                                  enable, width, height)
         h, = _read_histories(cfg, (history,), pi)
-    conf = (smoothstep(0.8, 0.95, dot(hit_normal, h.hit_normal))
+    conf = (smoothstep(0.8, 0.95, dot(hit_normal.float(), h.hit_normal))
             * one_minus_smoothstep(
                 0.05, 0.20,
                 torch.abs(virtual_distance - h.depth)

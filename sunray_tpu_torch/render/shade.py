@@ -268,3 +268,13 @@ def _finish_surface(scene, orig, d, hit, t_att, mrow, tex, uv, base_color,
         ior=mrow["ior"],
         valid=hit.hit,
     )
+
+
+def shading_planes(cfg, normal, v_view, albedo, rough, metal):
+    """The target functions' surface attributes in cfg.shading_dtype
+    (gbuffer.py:280-295, pathtrace.py:494-501): bfloat16 copies with
+    "bf16", else the float32 tensors themselves."""
+    attrs = (normal, v_view, albedo, rough, metal)
+    if cfg.shading_dtype != "bf16":
+        return attrs
+    return tuple(x.to(torch.bfloat16) for x in attrs)

@@ -1,5 +1,5 @@
-"""Procedural scenes — port of the Cornell box and the reflection room of
-sunray_tpu/scene/procedural.py.
+"""Procedural scenes — port of the Cornell box, its many-lights variant and
+the reflection room of sunray_tpu/scene/procedural.py.
 
 The same numpy mesh builder, assembled through the port's own build_scene
 onto `device`.
@@ -117,6 +117,53 @@ def cornell_box(light_emission: float = 15.0, device="cuda") -> SceneBuffers:
     # Two boxes
     b.add_box((0.65, 0.6, 0.65), (0.6, 1.2, 0.6), white, rotate_y=np.deg2rad(18.0))
     b.add_box((1.4, 0.3, 1.3), (0.6, 0.6, 0.6), white, rotate_y=np.deg2rad(-17.0))
+    return b.build(device=device)
+
+
+def cornell_box_many_lights(panels: int = 12, light_emission: float = 15.0,
+                            device="cuda") -> SceneBuffers:
+    """The Cornell box with its area light replaced by a panels x panels
+    grid of small ceiling emitters, 2 * panels^2 light triangles (12 ->
+    288, 17 -> 578): the many-light audition case (procedural.py:122-169).
+    Each panel's emission is scaled by the grid's fill factor, so the
+    total power is the single light's."""
+    b = _MeshBuilder()
+    white = b.add_material(base_color=(0.73, 0.73, 0.73, 1.0), roughness=1.0)
+    red = b.add_material(base_color=(0.65, 0.05, 0.05, 1.0), roughness=1.0)
+    green = b.add_material(base_color=(0.12, 0.45, 0.15, 1.0), roughness=1.0)
+
+    s = 2.0
+    b.add_quad((0, 0, 0), (0, 0, s), (s, 0, s), (s, 0, 0), white)
+    b.add_quad((0, s, 0), (s, s, 0), (s, s, s), (0, s, s), white)
+    b.add_quad((0, 0, 0), (s, 0, 0), (s, s, 0), (0, s, 0), white)
+    b.add_quad((0, 0, 0), (0, s, 0), (0, s, s), (0, 0, s), red)
+    b.add_quad((s, 0, 0), (s, 0, s), (s, s, s), (s, s, 0), green)
+
+    lx0, lx1 = 0.65 * s / 2.0, 1.35 * s / 2.0
+    ly = s - 0.01
+    cell = (lx1 - lx0) / panels
+    fill = 0.6                      # panel side / cell side
+    scale = 1.0 / (fill * fill)     # keep the total power the single light's
+    light = b.add_material(
+        base_color=(1.0, 1.0, 1.0, 1.0),
+        emissive_factor=(1.0, 1.0, 1.0, light_emission * scale),
+        roughness=1.0,
+    )
+    half = 0.5 * fill * cell
+    for i in range(panels):
+        for j in range(panels):
+            cx = lx0 + (i + 0.5) * cell
+            cz = lx0 + (j + 0.5) * cell
+            b.add_quad(
+                (cx - half, ly, cz - half), (cx + half, ly, cz - half),
+                (cx + half, ly, cz + half), (cx - half, ly, cz + half),
+                light,
+            )
+
+    b.add_box((0.65, 0.6, 0.65), (0.6, 1.2, 0.6), white,
+              rotate_y=np.deg2rad(18.0))
+    b.add_box((1.4, 0.3, 1.3), (0.6, 0.6, 0.6), white,
+              rotate_y=np.deg2rad(-17.0))
     return b.build(device=device)
 
 

@@ -2,8 +2,8 @@
 the JAX render_frame at the golden config (tests/test_golden.py:36-40,
 four frames) and against tests/goldens/cornell_nee.npy, PSNR > 40 dB on
 ldr (the bar of test_golden.py:80); the G-buffer within 1e-4; the JAX
-state carried into the port through convert; and uncovered
-configurations raising. The frame on a card is held to the CPU in
+state carried into the port through convert; and the configurations
+left out raising. The frame on a card is held to the CPU in
 tests/test_torch_cuda.py."""
 
 import dataclasses
@@ -102,9 +102,15 @@ def test_state_from_numpy_continues_jax_frames(frames):
 
 
 UNCOVERED = {
-    "perpixel_taps": dict(lighting="restir", spatial_taps="perpixel"),
-    "shading_bf16": dict(lighting="restir", shading_dtype="bf16"),
-    "samples": dict(samples=2),
+    # The configurations check_supported refuses: bf16 shading on a
+    # differentiable frame, the TPU history-gather workaround, and an
+    # unknown lighting mode.
+    "shading_bf16_differentiable": dict(lighting="restir",
+                                        shading_dtype="bf16",
+                                        differentiable=True),
+    "history_gather_force": dict(lighting="restir",
+                                 history_gather_force=True),
+    "unknown_lighting": dict(lighting="path"),
     # The shadow-boundary term needs the scene's edge topology
     # (render/boundary.with_edge_topology); the JAX frame asserts it.
     "boundary_without_topology": dict(differentiable=True,

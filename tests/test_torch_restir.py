@@ -26,7 +26,6 @@ from sunray_tpu.ops import rng as jrng
 from sunray_tpu.ops.pallas_restir import ris_audition_pallas
 from sunray_tpu.render import pathtrace as jpt
 from sunray_tpu.render import restir as jr
-from sunray_tpu.render.trace import make_tracer as jmake_tracer
 from sunray_tpu.scene import cornell_box as jcornell_box
 from sunray_tpu_torch import convert
 from sunray_tpu_torch.config import RenderConfig
@@ -35,8 +34,8 @@ from sunray_tpu_torch.ops import cuda_restir as cr
 from sunray_tpu_torch.ops import rng as prng
 from sunray_tpu_torch.render import pathtrace as ppt
 from sunray_tpu_torch.render import restir as pr
-from sunray_tpu_torch.render.pipeline import RenderState, render_frame
-from torch_parity import CAMERA, GOLDEN_KW, WINNER_AGREE, n, t, to_numpy
+from torch_frame_cases import phase_b_case
+from torch_parity import GOLDEN_KW, WINNER_AGREE, n, t, to_numpy
 from torch_parity import check_reservoir as _check_reservoir
 
 
@@ -452,73 +451,8 @@ def phase_b():
     """Phase B on live inputs: the arguments of the port's _spatial_reuse
     in frame 3 of the golden ReSTIR config, run through the JAX
     _spatial_reuse (its final radiance add intercepted to expose the DI and
-    GI results) and through the port's."""
-    kw = dict(GOLDEN_KW, lighting="restir")
-    jcfg, cfg = JConfig(**kw), RenderConfig(**kw)
-    jscene = jcornell_box()
-    from sunray_tpu.camera import Camera as JCamera
-    from sunray_tpu.camera import camera_matrices as jcm
-    from sunray_tpu.render.gbuffer import GBuffer as JGBuffer
-
-    jmats = jcm(JCamera(**CAMERA), jcfg.width, jcfg.height)
-    scene = convert.scene_from_numpy(to_numpy(jscene), device="cpu")
-    mats = convert.mats_from_numpy({k: np.asarray(v) for k, v in jmats.items()},
-                                   device="cpu")
-    captured = {}
-    orig = ppt._spatial_reuse
-
-    def capture(*args):
-        captured["args"] = args
-        captured["out"] = orig(*args)
-        return captured["out"]
-
-    ppt._spatial_reuse = capture
-    try:
-        state = RenderState.create(cfg, device="cpu")
-        for _ in range(3):
-            state, _, _ = render_frame(scene, cfg, state, mats)
-    finally:
-        ppt._spatial_reuse = orig
-    (_, tracer, lights, _, gbuf, r_di, r_gi, seed, c, cam_origin,
-     fc) = captured["args"]
-
-    def j(x):
-        return jnp.asarray(n(x))
-
-    jl = jr.Lights(jscene)
-    jtr = jmake_tracer(jscene, jcfg)
-    jgbuf = JGBuffer(*(j(x) for x in gbuf))
-    jrdi = jr.ReservoirDI(**{k: j(v) for k, v in vars(r_di).items()})
-    jrgi = jr.ReservoirGI(**{k: j(v) for k, v in vars(r_gi).items()})
-    jc = {k: (j(v) if torch.is_tensor(v) else v) for k, v in c.items()}
-    stash = {}
-    orig_add = jpt._gi_radiance_add
-
-    def fake_add(radiance, tracer, pos, sdir, sdist, di_exclude, has, facing,
-                 f_y_w, w_spatial, throughput, gdir, gdist, gi_tri, try_gi,
-                 contrib_pre, p):
-        stash.update(di_exclude=di_exclude, has=has, f_y_w=f_y_w,
-                     w_spatial=w_spatial, gdir=gdir, gdist=gdist,
-                     sample_tri=gi_tri, try_gi=try_gi,
-                     contrib_pre=contrib_pre)
-        return orig_add(radiance, tracer, pos, sdir, sdist, di_exclude, has,
-                        facing, f_y_w, w_spatial, throughput, gdir, gdist,
-                        gi_tri, try_gi, contrib_pre, p)
-
-    def run(sd, cc):
-        jpt._gi_radiance_add = fake_add
-        try:
-            out = jpt._spatial_reuse(jscene, jcfg, jtr, jl, jmats, jgbuf,
-                                     jrdi, jrgi, sd, cc, j(cam_origin),
-                                     jnp.int32(int(fc)))
-        finally:
-            jpt._gi_radiance_add = orig_add
-        return out, dict(stash)
-
-    jout, jparts = jax.jit(run)(jnp.asarray(_u32(n(seed))), jc)
-    return dict(args=captured["args"], out=captured["out"], jout=jout,
-                jparts={k: np.asarray(v) for k, v in jparts.items()},
-                cfg=cfg)
+    GI results) and through the port's (torch_frame_cases.phase_b_case)."""
+    return phase_b_case(dict(GOLDEN_KW, lighting="restir"))
 
 
 def test_di_spatial_matches_jax(phase_b):
