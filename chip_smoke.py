@@ -220,6 +220,26 @@ Phases, in order; any failure raises and exits non-zero with no result:
      quality cases of tests/test_torch_quality.py (128x72, 4 + 8 frames)
      against their converged truths under the ledger's bounds.
      Its summary is the line {"configs": ...} before the wall time.
+ 13. the tools of a benchmark and the last refusals of the frame: (a)
+     phase 8's 720p step with shading_dtype="bf16" (launch check of one
+     step: K1, K2, K8 and K8's backward launch, K3-K7, K9, K13 and
+     K3-K6's bf16 instantiations do not; 2 warm-up, 3 timed steps, peak
+     memory, beside phase 8's float32 step) and the step at 32x24 card
+     vs CPU (2 steps, phase 8's bars, NaN masks equal); (b) the repo's
+     two JPEGs decoded by utils/jpeg.py (seconds, the pixels' SHA-256
+     against PIL's) and a tools/synth_gltf.py document textured with
+     them through the Renderer, 96x64 card vs CPU (PSNR > 40 dB, 2
+     frames); (c) ops/packing.py card vs CPU on 2M values, bit-equal;
+     (d) the 1080p ReSTIR state after 3 frames saved and loaded
+     (utils/checkpoint.py; seconds, MB), the next frame bit-equal from
+     both; (e) utils/provenance.exec_paths of the default (phase 5),
+     switches (phase 7), differentiable (phase 8), bf16 (phase 12),
+     JPEG glTF and checkpoint frames against their launch counters: a
+     "cuda" stage launched its kernel, a "plain" or "off" one none; (f)
+     utils/profiling.stage_timings of the 1080p frame, one profiled frame
+     summarised (top 10 device rows, idle share) and
+     utils/roofline.roofline_report at phase 5's frame ms. Its summary
+     is the line {"utilities": ...} after {"configs": ...}.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -2139,11 +2159,12 @@ def rays_expected(cfg, aux):
 
 
 def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
-               height=1080, big=False, switches=None, absent=()):
+               height=1080, big=False, switches=None, absent=(), record=None):
     """One slice's main path: the frame at width x height, counters zeroed
     before the warm-up and read after the timed frames. switches: config
     overrides (the kernel-switches slice, phase 7); absent: kernels that
-    must not launch."""
+    must not launch; record: a dict that receives the frame ms and the
+    last frame's walk rounds (phase 13's roofline)."""
     from sunray_tpu_torch.camera import Camera, camera_matrices
     from sunray_tpu_torch.config import RenderConfig
     from sunray_tpu_torch.ops import cuda_build, cuda_trace
@@ -2208,6 +2229,9 @@ def phase_main(dev, lighting, kernels, n_warm, n_timed, width=1920,
         check(launches.get(name, 0) > 0, f"kernel {name} never launched")
     for name in absent:
         check(launches.get(name, 0) == 0, f"kernel {name} launched")
+    if record is not None:
+        record.update(frame_ms=frame_s * 1e3, ris_rounds=aux["ris_rounds"],
+                      final_rounds=aux["final_rounds"])
     stage_breakdown(scene, cfg, state, mats, frame_s, accel)
     if big:
         profile_frame(scene, cfg, state, mats, accel)
@@ -4292,6 +4316,341 @@ def phase_configs(dev, kernels):
     return summary
 
 
+# -- phase 13: the bf16 differentiable step, JPEG, packing, checkpoints,
+# provenance, profiling and the roofline -------------------------------------
+
+BF16_STEP_WARM, BF16_STEP_TIMED = 2, 3  # the first warm-up step is the
+                                        # launch check
+BF16_SMALL, BF16_SMALL_STEPS = (32, 24), 2      # card vs CPU
+JPEGS = ("web_viewer_frame.jpg", "web_viewer_spawned.jpg")
+# SHA-256 of the RGBA pixels PIL 12.1.0 (libjpeg-turbo) decodes from each
+# (tests/test_torch_jpeg.py holds the port's decoder to PIL and to these).
+JPEG_SHA256 = {
+    "web_viewer_frame.jpg":
+        "e94f9e31b4ba42ef3e811a50f8c00f68b0b2e00c58275f6ce8f0733adf6eb4b4",
+    "web_viewer_spawned.jpg":
+        "25936acc50ad4d44c6e983a96e7443335eb20e20e19e9059f6e57669b913dc2f",
+}
+JPEG_GLTF = dict(width=96, height=64)
+JPEG_GLTF_FRAMES = 2
+PACK_N = 2_000_000
+CKPT_FRAMES = 3
+CKPT_SIZE = (1920, 1080)
+PROFILE_TOP = 10
+# exec_paths' stages and the launch counters of their kernels.
+STAGE_COUNTERS = {"ris_audition": "ris_audition",
+                  "di_temporal": "di_temporal", "di_spatial": "di_spatial",
+                  "gi_spatial": "gi_spatial", "denoise": "atrous_pass",
+                  "taa": "taa_clamp_blend", "history": "history_gather"}
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def bf16_step(dev, f32_step_ms):
+    """The 720p differentiable ReSTIR step of phase 8 with bf16 shading:
+    the launch check of one step (K1, K2, K8 and K8's backward launch;
+    K3-K7, K9, K13 and K3-K6's bf16 instantiations do not), then
+    BF16_STEP_TIMED timed steps after BF16_STEP_WARM; then the frame at
+    BF16_SMALL card vs CPU, BF16_SMALL_STEPS steps, phase 8's bars and
+    NaN masks equal."""
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.render.pipeline import RenderState
+
+    w, h = DIFF_SIZE
+    log(f"phase 13: {w}x{h} differentiable ReSTIR step, shading_dtype='bf16'")
+    cfg, scene, leaves, mats = diff_setup(dev, w, h, shading_dtype="bf16")
+    state = RenderState.create(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launches)
+    log(f"  launches in one step: {launches}")
+    for name in ("trace_closest", "trace_occluded", "gather_rows_bwd"):
+        check(launches.get(name, 0) > 0, f"bf16 step: {name} never launched")
+    check(launches.get("gather_rows", 0) + launches.get("gather_rows_multi", 0)
+          > 0, "bf16 step: K8 never launched")
+    for name in DIFF_ABSENT + BF16_NAMES:
+        check(launches.get(name, 0) == 0, f"bf16 step: {name} launched")
+    for _ in range(BF16_STEP_WARM - 1):
+        state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BF16_STEP_TIMED):
+        state, loss, grads, aux = diff_step(cfg, scene, leaves, mats, state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / BF16_STEP_TIMED * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    g_norms = [float(g.norm()) for g in grads]
+    f32 = ("not measured in this run" if f32_step_ms is None
+           else f"{f32_step_ms:.3f} ms")
+    log(f"  step {step_ms:.3f} ms (mean of {BF16_STEP_TIMED} after "
+        f"{BF16_STEP_WARM} warm-up; phase 8's float32 step {f32}); peak "
+        f"memory {peak_gb:.3f} GB; loss {float(loss):.6f}; "
+        f"|grad base_color| {g_norms[0]:.6f}, |grad positions| "
+        f"{g_norms[1]:.6f}")
+    check(math.isfinite(float(loss)) and all(map(math.isfinite, g_norms)),
+          "bf16 step: non-finite loss or gradient")
+    check(g_norms[1] > 0.0, "bf16 step: zero positions gradient")
+
+    kw = {k: v for k, v in GOLDEN_KW.items() if k not in ("width", "height",
+                                                         "lighting")}
+    log(f"phase 13: bf16 differentiable frame {BF16_SMALL[0]}x"
+        f"{BF16_SMALL[1]}, {BF16_SMALL_STEPS} steps, card vs CPU")
+    card = diff_run(dev, BF16_SMALL_STEPS, *BF16_SMALL, shading_dtype="bf16",
+                    **kw)
+    cpu = diff_run("cpu", BF16_SMALL_STEPS, *BF16_SMALL, shading_dtype="bf16",
+                   **kw)
+    worst = 0.0
+    for i, ((lg, gg), (lc, gc)) in enumerate(zip(card, cpu)):
+        rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        check(rel <= DIFF_LOSS_RTOL, f"bf16 step {i}: card vs CPU loss rel "
+              f"{rel}")
+        for name, a, b in zip(("base_color", "positions"), gg, gc):
+            check(torch.equal(torch.isnan(a), torch.isnan(b)),
+                  f"bf16 step {i}: {name} NaN masks differ")
+            ok, d = grads_close(torch.nan_to_num(a), torch.nan_to_num(b))
+            check(ok, f"bf16 step {i}: {name} gradient card vs CPU ({d:.2e})")
+            worst = max(worst, d)
+        log(f"  step {i}: loss card {float(lg):.7f} CPU {float(lc):.7f} "
+            f"(rel {rel:.2e})")
+    log(f"  largest gradient difference over the largest |g|: {worst:.2e}")
+    return dict(step_ms=step_ms, peak_gb=peak_gb, f32_step_ms=f32_step_ms,
+                launches={k: launches.get(k, 0) for k in
+                          ("trace_closest", "trace_occluded", "gather_rows",
+                           "gather_rows_multi", "gather_rows_bwd")},
+                card_vs_cpu_grad=worst), cfg
+
+
+def jpeg_checks(dev):
+    """Decode the repo's JPEGs (seconds, pixels' SHA-256 against PIL's);
+    render a tools/synth_gltf.py document whose images are those JPEGs
+    through the Renderer on the card and on the CPU port at JPEG_GLTF,
+    PSNR above PSNR_MIN each frame. Returns (summary, the card frames'
+    launches, their config, the scene's light count)."""
+    import hashlib
+
+    from sunray_tpu_torch.camera import Camera
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.render.renderer import Renderer
+    from sunray_tpu_torch.utils.jpeg import read_jpeg_rgba
+    from tools.synth_gltf import CAMERA as REAL_CAMERA
+    from tools.synth_gltf import write_jpeg_scene
+
+    out = {}
+    paths = [os.path.join(REPO, "docs", "renders", n) for n in JPEGS]
+    for name, path in zip(JPEGS, paths):
+        t0 = time.perf_counter()
+        img = read_jpeg_rgba(path)
+        dt = time.perf_counter() - t0
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        log(f"phase 13: {name} {img.shape[1]}x{img.shape[0]} decoded in "
+            f"{dt:.3f} s, SHA-256 {digest[:16]}...")
+        check(digest == JPEG_SHA256[name], f"{name}: pixels differ from PIL's")
+        out[f"decode_s_{name}"] = dt
+    gltf = os.path.join(REPO, "build", "phase13", "jpeg.gltf")
+    os.makedirs(os.path.dirname(gltf), exist_ok=True)
+    write_jpeg_scene(gltf, paths)
+    cfg = RenderConfig(**JPEG_GLTF)
+    cam = Camera(**REAL_CAMERA)
+    frames = []
+    for device in (dev, torch.device("cpu")):
+        r = Renderer(cfg, device=device)
+        t0 = time.perf_counter()
+        r.load_gltf(gltf)
+        sync(device)
+        load_s = time.perf_counter() - t0
+        cuda_build.launches.clear()
+        frames.append([r.render(cam).cpu().numpy()
+                       for _ in range(JPEG_GLTF_FRAMES)])
+        if device is dev:
+            launches = dict(cuda_build.launches)
+            n_lights = int(r.scene.num_lights)
+            out["load_gltf_s"] = load_s
+    p = [psnr(a, b) for a, b in zip(*frames)]
+    log(f"phase 13: JPEG-textured glTF {cfg.width}x{cfg.height}, "
+        f"{JPEG_GLTF_FRAMES} frames card vs CPU: PSNR "
+        f"{[round(x, 2) for x in p]} dB; load_gltf on the card "
+        f"{out['load_gltf_s']:.3f} s; launches {launches}")
+    check(min(p) > PSNR_MIN, f"JPEG glTF: card vs CPU PSNR {min(p):.2f} dB")
+    out["card_vs_cpu_psnr"] = p
+    return out, launches, cfg, n_lights
+
+
+def packing_checks(dev):
+    """ops/packing.py on the card against the CPU port, bit-equal, on
+    PACK_N seeded values (and PACK_N seeded words for the unpacks)."""
+    from sunray_tpu_torch.ops import packing
+
+    gen = torch.Generator().manual_seed(13)
+    v = torch.rand((PACK_N, 4), generator=gen) * 4.0 - 2.0
+    v[:8] = torch.tensor([0.0, -0.0, 1.0, -1.0, 0.5 / 32767, 65520.0,
+                          float("inf"), float("nan")])[:, None]
+    n = torch.randn((PACK_N, 3), generator=gen)
+    n = n / n.norm(dim=-1, keepdim=True)
+    words = torch.randint(-2 ** 31, 2 ** 31, (PACK_N,), generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    cases = [("pack_snorm_2x16", v[:, :2]), ("pack_unorm_4x8", v),
+             ("pack_half_2x16", v[:, :2]), ("pack_normal", n),
+             ("unpack_snorm_2x16", words), ("unpack_unorm_4x8", words),
+             ("unpack_half_2x16", words), ("unpack_normal", words)]
+    t0 = time.perf_counter()
+    for name, x in cases:
+        fn = getattr(packing, name)
+        card, cpu = fn(x.to(dev)).cpu(), fn(x)
+        if card.dtype == torch.float32:
+            card, cpu = card.view(torch.int32), cpu.view(torch.int32)
+        check(torch.equal(card, cpu), f"packing: {name} card vs CPU differ on "
+              f"{int((card != cpu).sum())} values")
+    log(f"phase 13: packing, {len(cases)} functions on {PACK_N} values, card "
+        f"bit-equal to the CPU port ({time.perf_counter() - t0:.2f} s)")
+
+
+def checkpoint_checks(dev):
+    """The 1080p default ReSTIR state after CKPT_FRAMES frames saved and
+    loaded (utils/checkpoint.py); the next frame from each bit-equal.
+    Returns (summary, scene, cfg, state, mats, the frames' launches)."""
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+    from sunray_tpu_torch.scene import cornell_box
+    from sunray_tpu_torch.utils import checkpoint
+
+    cfg = RenderConfig(width=CKPT_SIZE[0], height=CKPT_SIZE[1])
+    scene = cornell_box(device=dev)
+    mats = camera_matrices(Camera(**CAMERA), cfg.width, cfg.height,
+                           device=dev)
+    state = RenderState.create(cfg, dev)
+    sync(dev)
+    cuda_build.launches.clear()
+    for _ in range(CKPT_FRAMES):
+        state, _, _ = render_frame(scene, cfg, state, mats)
+    sync(dev)
+    launches = dict(cuda_build.launches)
+    path = os.path.join(REPO, "build", "phase13", "state.npz")
+    t0 = time.perf_counter()
+    checkpoint.save_state(state, path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    loaded = checkpoint.load_state(path, RenderState.create(cfg, dev))
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    s1, ldr1, _ = render_frame(scene, cfg, state, mats)
+    s2, ldr2, _ = render_frame(scene, cfg, loaded, mats)
+    check(torch.equal(ldr1, ldr2), "checkpoint: resumed frame differs")
+    for a, b in zip(checkpoint._leaves(s1), checkpoint._leaves(s2)):
+        check(torch.equal(a, b), "checkpoint: resumed state differs")
+    log(f"phase 13: checkpoint of the {cfg.width}x{cfg.height} ReSTIR state "
+        f"after {CKPT_FRAMES} "
+        f"frames: save {save_s:.3f} s, load {load_s:.3f} s, {mb:.1f} MB; "
+        "the next frame bit-equal from both")
+    os.remove(path)
+    return (dict(save_s=save_s, load_s=load_s, mb=mb), scene, cfg, state,
+            mats, launches)
+
+
+def provenance_check(label, cfg, num_lights, launches, frames=1):
+    """exec_paths(cfg) against the launch counters of the frames it names:
+    a "cuda" stage launched its kernel, a "plain" or "off" one none (a
+    bf16 frame's K3-K6 count under their bf16 names)."""
+    from sunray_tpu_torch.utils.provenance import exec_paths
+
+    paths = exec_paths(cfg, num_lights)
+    bf16 = cfg.shading_dtype == "bf16"
+    for stage, counter in STAGE_COUNTERS.items():
+        if bf16 and counter in RESTIR_NAMES:
+            counter += "_bf16"
+        n = launches.get(counter, 0)
+        if paths[stage] == "cuda":
+            check(n > 0, f"provenance, {label}: {stage} is 'cuda' but "
+                  f"{counter} never launched")
+        else:
+            check(n == 0, f"provenance, {label}: {stage} is "
+                  f"{paths[stage]!r} but {counter} launched {n} times")
+    log(f"  {label}: " + ", ".join(f"{k} {paths[k]}" for k in STAGE_COUNTERS)
+        + f" (launches over {frames} frame(s) agree)")
+    return paths
+
+
+def profiling_checks(scene, cfg, state, mats, phase5):
+    """stage_timings of the 1080p ReSTIR frame; one profiled frame
+    (device_trace) summarised: its top PROFILE_TOP device rows and the
+    device's idle share; roofline_report with phase 5's frame ms."""
+    from sunray_tpu_torch.render.pipeline import render_frame
+    from sunray_tpu_torch.utils import profiling, roofline
+
+    t = profiling.stage_timings(scene, cfg, state, mats, repeats=5)
+    log(f"phase 13: stage_timings, {cfg.width}x{cfg.height} ReSTIR frame, "
+        "ms: " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in t.items()))
+    log_dir = os.path.join(REPO, "build", "phase13", "trace")
+    with profiling.device_trace(log_dir):
+        t0 = time.perf_counter()
+        render_frame(scene, cfg, state, mats)
+        sync(scene.positions.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"phase 13: one profiled frame ({wall_ms:.3f} ms wall, profiler on), "
+        f"top {PROFILE_TOP} device rows:")
+    rows = profiling.summarize_trace(log_dir, top=PROFILE_TOP, steady_frac=1.0)
+    busy = profiling.device_busy(log_dir)
+    log(f"  device busy {busy['busy_ms']:.3f} ms of {busy['span_ms']:.3f} ms "
+        f"from its first to its last event (idle {busy['idle_share']:.1%}); "
+        f"{sum(r['count'] for r in rows)} device events "
+        f"({', '.join(busy['categories'])})")
+    # The rows must be the card's events: a trace whose device events were
+    # lost raises in summarize_trace, and one read as a CPU trace fails
+    # here.
+    check(busy["device"] == "cuda"
+          and set(busy["categories"]) <= set(profiling.DEVICE_CATS)
+          and "kernel" in busy["categories"],
+          f"profile: rows read from {busy['device']} events "
+          f"{busy['categories']}, not the card's kernels")
+    check(rows and busy["busy_ms"] > 0.0, "profile: no device time recorded")
+    rep = roofline.roofline_report(cfg, measured_ms=phase5["frame_ms"],
+                                   ris_rounds=phase5["ris_rounds"],
+                                   final_rounds=phase5["final_rounds"])
+    log(f"phase 13: roofline of the {cfg.width}x{cfg.height} ReSTIR frame at "
+        f"phase 5's {phase5['frame_ms']:.3f} ms: " + json.dumps(rep))
+    return dict(stage_timings_ms={k: v * 1e3 for k, v in t.items()},
+                top_rows=[dict(r, name=r["name"][:80])
+                          for r in rows[:PROFILE_TOP]],
+                busy=busy, roofline=rep)
+
+
+def phase_utilities(dev, f32_step_ms, phase5, frames):
+    """Phase 13. f32_step_ms: phase 8's step (None: not measured); phase5:
+    phase_main's record of the 1080p ReSTIR frame; frames: {label: (cfg,
+    num_lights, launches, frames)} of the earlier phases' frames whose
+    exec_paths it checks."""
+    t_phase = time.perf_counter()
+    summary = {}
+    summary["bf16_step"], bf16_cfg = bf16_step(dev, f32_step_ms)
+    summary["jpeg"], jpeg_launches, jpeg_cfg, jpeg_lights = jpeg_checks(dev)
+    packing_checks(dev)
+    summary["checkpoint"], scene, cfg, state, mats, ckpt_launches = (
+        checkpoint_checks(dev))
+    log("phase 13: exec_paths against the launch counters")
+    frames = dict(frames)
+    frames["glTF (JPEG)"] = (jpeg_cfg, jpeg_lights, jpeg_launches,
+                             JPEG_GLTF_FRAMES)
+    frames["default, checkpoint frames"] = (cfg, scene.num_lights,
+                                            ckpt_launches, CKPT_FRAMES)
+    summary["exec_paths"] = {
+        label: provenance_check(label, *args) for label, args in
+        frames.items()}
+    summary["profile"] = profiling_checks(scene, cfg, state, mats, phase5)
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13: {summary['seconds']:.1f} s")
+    return summary
+
+
 def main():
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device available")
@@ -4335,7 +4694,17 @@ def main():
     kernels.update(phase_switch_kernels(dev, counts))
     phase_golden(dev)
     # Each kernel's launches are read on its own slice's main path.
-    launches = phase_main(dev, "restir", CORNELL_KERNELS, n_warm=5, n_timed=20)
+    phase5 = {}
+    launches = phase_main(dev, "restir", CORNELL_KERNELS, n_warm=5, n_timed=20,
+                          record=phase5)
+    # The frames phase 13 holds exec_paths to: (config, lights, launches,
+    # frames), each read on its own run.
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.scene import cornell_box
+    cornell_lights = cornell_box(device="cpu").num_lights
+    provenance_frames = {"default (phase 5)": (
+        RenderConfig(width=1920, height=1080), cornell_lights,
+        dict(launches), 25)}
     nee = phase_main(dev, "nee", NEE_KERNELS, n_warm=2, n_timed=5)
     k2 = kernels["trace_occluded"]
     k2["nee_launches"] = nee["trace_occluded"]
@@ -4357,6 +4726,9 @@ def main():
     slice_launches = phase_main(dev, "restir", SLICE_KERNELS, n_warm=5,
                                 n_timed=20, switches=SWITCHES,
                                 absent=("trace_occluded",))
+    provenance_frames["switches (phase 7)"] = (
+        RenderConfig(width=1920, height=1080, **SWITCHES), cornell_lights,
+        dict(slice_launches), 25)
     launches.update({k: slice_launches[k] for k in SWITCH_KERNELS})
     kernels.update(phase_binned_kernels(dev))
     phase_big_small(dev)
@@ -4369,6 +4741,10 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     kernels["gather_rows_bwd"], diff_launches = phase_diff(dev, gen)
+    provenance_frames["differentiable (phase 8)"] = (
+        RenderConfig(width=DIFF_SIZE[0], height=DIFF_SIZE[1],
+                     differentiable=True), cornell_lights,
+        dict(diff_launches), 1)
     launches.update({k: diff_launches[k] for k in DIFF_ONLY})
     kernels["boundary_candidates"], vis_launches, bwd_vis = phase_visibility(
         dev, gen)
@@ -4391,6 +4767,12 @@ def main():
     kernels["gather_rows_bwd_runs"], diff_real_launches = phase_real_diff(dev)
     launches.update({k: diff_real_launches[k] for k in RUNS_ONLY})
     configs = phase_configs(dev, kernels)
+    provenance_frames["bf16 (phase 12)"] = (
+        RenderConfig(width=1920, height=1080, **CONFIG_KW["bf16"]),
+        cornell_lights, configs["bf16"]["launches_a_frame"],
+        CONFIG_WARM + CONFIG_TIMED)
+    utilities = phase_utilities(dev, kernels["gather_rows_bwd"]["step_ms"],
+                                phase5, provenance_frames)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -4436,6 +4818,7 @@ def main():
                 entry[key] = r[key]
         out.append(entry)
     log(json.dumps({"configs": configs}))
+    log(json.dumps({"utilities": utilities}))
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

@@ -32,6 +32,20 @@ reads it, and read unrounded where a float32 operation does (the
 convert pair that JAX's promotion inserts is folded away). jnp.sum of
 bf16 products sums the exact products in float32. Positions, distances
 and everything mixed with them stay float32.
+
+A differentiable bf16 frame carries the attributes as bf16_carrier
+tensors (float64 holding bf16 values) and says so with bf16=True, which
+every target function takes (cfg.shading_dtype decides it, as
+render/shade.shading_planes does; a float64 tensor alone is never read
+as bf16). It takes the same forward; the material terms' backwards (_MaterialBf16,
+_PlanarMaterialBf16, _GiDiffuseBf16, _GiDiffusePlanarBf16) round as XLA's
+CPU compile of the JAX VJP does (read off its optimized HLO): a bf16
+cotangent arriving from float32 is rounded (summed over a plane's
+samples first), every product and partial sum of a bf16 transpose is
+rounded, and a result that the reference reads only through a convert to
+float32 is left unrounded. The other bf16 chains (NdotV, the Smith and
+GGX terms) keep autograd's backward through rb, which rounds the
+cotangent at each rounding point.
 """
 
 from __future__ import annotations
@@ -66,8 +80,35 @@ def rb(x):
     return x.to(BF16).to(torch.float32)
 
 
-def is_bf16(x) -> bool:
-    return torch.is_tensor(x) and x.dtype == BF16
+class _Bf16Carrier(torch.autograd.Function):
+    """x rounded to bf16 and held in float64 (bf16_carrier)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(BF16).to(torch.float64)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rb(g.to(torch.float32))
+
+
+def bf16_carrier(x):
+    """The bf16 shading attribute of a differentiable frame: x rounded to
+    bf16, carried in float64. The target functions read it as they read a
+    bf16 tensor when the caller passes bf16=True, and their backwards (the _*Bf16 Functions)
+    return cotangents that the reference leaves unrounded where XLA folds
+    a bf16 result into a float32 consumer; the cotangents of the
+    attribute's consumers are summed exactly here and rounded to bf16
+    once, where the reference sums them in bf16 in its own order (a bf16
+    tensor would round each of them, and each partial sum, in autograd's
+    order)."""
+    return _Bf16Carrier.apply(x)
+
+
+def is_bf16(x, bf16=False) -> bool:
+    """A bf16 shading attribute: the caller says so (bf16=True, which a
+    bf16_carrier needs), or x is a bfloat16 tensor."""
+    return bf16 or (torch.is_tensor(x) and x.dtype == BF16)
 
 
 def dot(a, b):
@@ -221,11 +262,13 @@ def _fresnel_mix(f0, vdh):
 
 
 def eval_unshadowed_light(hit_pos, hit_normal, v_view, hit_albedo, roughness,
-                          metallic, light_emission, light_pos, light_normal):
+                          metallic, light_emission, light_pos, light_normal,
+                          bf16=False):
     """Unshadowed direct-light contribution (rt_utils.slang:203-234): GGX
     D*V*F specular + Lambert diffuse, times NdotL * cos_light / dist^2.
-    Returns (..., 3) RGB. bf16 attributes take the bf16 rounding."""
-    if is_bf16(hit_normal):
+    Returns (..., 3) RGB. bf16 attributes (bfloat16 tensors, or carriers
+    with bf16=True) take the bf16 rounding."""
+    if is_bf16(hit_normal, bf16):
         return _eval_unshadowed_light_bf16(
             hit_pos, hit_normal, v_view, hit_albedo, roughness, metallic,
             light_emission, light_pos, light_normal)
@@ -292,14 +335,99 @@ def _eval_unshadowed_light_bf16(hit_pos, hit_normal, v_view, hit_albedo,
     a = rb(r * r)
     a2 = a * a
     d_term = _d_ggx_bf16(ndh, a2)
-    m1 = rb(1.0 - m)[..., None]
-    f0 = rb(BF_0P04 * m1) + rb(al * m[..., None])
-    f = fp.fma(1.0 - rb(f0), fp.pow5(1.0 - vdh)[..., None], f0)
+    f0, one_m_f0, al_m1 = _MaterialBf16.apply(m, al)
+    f = fp.fma(one_m_f0, fp.pow5(1.0 - vdh)[..., None], f0)
     dv = (d_term * _smith_v_bf16(ndv, ndl, a2))[..., None]
-    shade = fp.fma(dv, f, al * m1 * (1.0 - f) * INV_PI)
+    shade = fp.fma(dv, f, al_m1 * (1.0 - f) * INV_PI)
     geometry = ndl * cos_light / torch.clamp(dist * dist, min=1e-4)
     out = light_emission * shade * geometry[..., None]
     return torch.where(lit[..., None], out, 0.0)
+
+
+class _GiDiffuseBf16(torch.autograd.Function):
+    """gi_target_pdf's bf16 f_diffuse = albedo * (1 - metallic) / PI, with
+    the backward of XLA's CPU compile of the JAX VJP: the cotangent
+    rounded to bf16, divided by PI (a multiply by the float32 reciprocal,
+    rounded), each channel's product with the albedo rounded and summed
+    over the channels with each partial sum rounded; the albedo's
+    cotangent is the unrounded product."""
+
+    @staticmethod
+    def forward(ctx, albedo, metallic):
+        m1 = rb(1.0 - metallic)[..., None]
+        ctx.save_for_backward(albedo, m1)
+        return rb(albedo * m1) * INV_PI_BF16
+
+    @staticmethod
+    def backward(ctx, g):
+        albedo, m1 = ctx.saved_tensors
+        cx = rb(rb(g) * INV_PI_BF16)
+        cy = rb(albedo * cx)
+        s = rb(rb(cy[..., 0] + cy[..., 1]) + cy[..., 2])
+        return cx * m1, -s
+
+
+class _GiDiffusePlanarBf16(torch.autograd.Function):
+    """gi_target_pdf_planar's bf16 f_diffuse planes al[c] * (1 - metal) /
+    PI, with the backward of XLA's CPU compile of the JAX VJP: each
+    channel's cotangent (summed over the samples in float32) rounded,
+    divided by PI and rounded; the albedo's cotangent the rounded product
+    with 1 - metal; the metal's the rounded products with the albedo,
+    negated and summed from the last channel to the first, each partial
+    sum rounded."""
+
+    @staticmethod
+    def forward(ctx, metal, *al):
+        m1 = rb(1.0 - metal)
+        ctx.save_for_backward(m1, *al)
+        return tuple(rb(a * m1) * INV_PI_BF16 for a in al)
+
+    @staticmethod
+    def backward(ctx, *g):
+        m1, *al = ctx.saved_tensors
+        cx = [rb(rb(gc) * INV_PI_BF16) for gc in g]
+        neg = [-rb(a * c) for a, c in zip(al, cx)]
+        g_metal = rb(rb(neg[2] + neg[1]) + neg[0])
+        return (g_metal, *(rb(c * m1) for c in cx))
+
+
+def _sum3_bf16(x):
+    """A bf16 sum over the last axis (size 3) as XLA's CPU reduce runs it:
+    left to right, each partial sum rounded."""
+    return rb(rb(x[..., 0] + x[..., 1]) + x[..., 2])
+
+
+class _MaterialBf16(torch.autograd.Function):
+    """The bf16 material terms of eval_unshadowed_light: f0 = 0.04 (1 - m)
+    + albedo * m, 1 - f0 (from the rounded f0) and albedo * (1 - m), with
+    the backward of XLA's CPU compile of the JAX VJP: each term's
+    cotangent rounded to bf16 (f0's as rb(rb(direct) - rb(through
+    1 - f0))), every product with an attribute rounded, the sums over the
+    channels as _sum3_bf16; the metallic's diffuse and albedo terms summed
+    and rounded before the 0.04 term is added, and the last sums (the
+    metallic's and the albedo's two terms) left unrounded."""
+
+    @staticmethod
+    def forward(ctx, metallic, albedo):
+        m = metallic[..., None]
+        m1 = rb(1.0 - m)
+        f0 = rb(BF_0P04 * m1) + rb(albedo * m)
+        ctx.save_for_backward(m, m1, albedo)
+        return f0, 1.0 - rb(f0), albedo * m1
+
+    @staticmethod
+    def backward(ctx, g_f0, g_omf0, g_alm1):
+        m, m1, albedo = ctx.saved_tensors
+
+        def ct(x):
+            return torch.zeros_like(albedo) if x is None else rb(x)
+
+        f_ct = rb(ct(g_f0) - ct(g_omf0))
+        d_ct = ct(g_alm1)
+        acc = rb(-_sum3_bf16(rb(albedo * d_ct))
+                 + _sum3_bf16(rb(albedo * f_ct)))
+        g_m = acc - rb(_sum3_bf16(f_ct) * BF_0P04)
+        return g_m, rb(d_ct * m1) + rb(f_ct * m)
 
 
 def luminance_max(rgb):
@@ -308,29 +436,30 @@ def luminance_max(rgb):
 
 
 def gi_target_pdf(shade_pos, shade_normal, albedo, metallic, sample_pos,
-                  sample_radiance):
-    """rt_utils.slang:255-263. bf16 attributes take the bf16 rounding."""
+                  sample_radiance, bf16=False):
+    """rt_utils.slang:255-263. bf16 attributes take the bf16 rounding (as
+    eval_unshadowed_light)."""
     w = sample_pos - shade_pos
     d = torch.clamp(vec_norm(w), min=1e-4)
-    if is_bf16(shade_normal):
+    if is_bf16(shade_normal, bf16):
         ndl = torch.clamp(dot(shade_normal.float(), w / d[..., None]),
                           min=0.0)
-        f_diffuse = rb(albedo.float()
-                       * rb(1.0 - metallic.float())[..., None]) * INV_PI_BF16
+        f_diffuse = _GiDiffuseBf16.apply(albedo.float(), metallic.float())
         return (sample_radiance * f_diffuse * ndl[..., None]).amax(dim=-1)
     ndl = torch.clamp(dot(shade_normal, w / d[..., None]), min=0.0)
     f_diffuse = albedo * (1.0 - metallic[..., None]) * INV_PI
     return (sample_radiance * f_diffuse * ndl[..., None]).amax(dim=-1)
 
 
-def eval_p_hat_planar(px, nx, vx, al, rough, metal, em, lpos, lnrm):
+def eval_p_hat_planar(px, nx, vx, al, rough, metal, em, lpos, lnrm,
+                      bf16=False):
     """Planar form of eval_unshadowed_light -> p_hat (brdf.py:197-252):
     px/nx/vx/al and lpos/lnrm/em are lists of three broadcasting component
     planes, rough/metal single planes. Returns (p_hat, lit, [f_r, f_g, f_b]).
     The same formulas as eval_unshadowed_light with the planar roundings
     (fp.sum3 for the written-out dot products). bf16 attributes take the
-    bf16 rounding."""
-    if is_bf16(nx[0]):
+    bf16 rounding (as eval_unshadowed_light)."""
+    if is_bf16(nx[0], bf16):
         return _eval_p_hat_planar_bf16(px, nx, vx, al, rough, metal, em, lpos,
                                        lnrm)
     l = [lpos[a] - px[a] for a in range(3)]
@@ -393,32 +522,70 @@ def _eval_p_hat_planar_bf16(px, nx, vx, al, rough, metal, em, lpos, lnrm):
     dv = d_term * _smith_v_bf16(ndv, ndl, a2)
     fres5 = fp.pow5(1.0 - vdh)
     geometry = ndl * cos_light / torch.clamp(dist * dist, min=1e-4)
-    m1 = rb(1.0 - metal)
-    base = rb(BF_0P04 * m1)
+    mat = _PlanarMaterialBf16.apply(metal, *al)
     p_hat = None
     fc = []
     for c in range(3):
-        f0 = base + rb(al[c] * metal)
-        f = fp.fma(1.0 - rb(f0), fres5, f0)
-        shade = fp.fma(dv, f, al[c] * m1 * (1.0 - f) * INV_PI)
+        f0, one_m_f0, al_m1 = mat[c], mat[3 + c], mat[6 + c]
+        f = fp.fma(one_m_f0, fres5, f0)
+        shade = fp.fma(dv, f, al_m1 * (1.0 - f) * INV_PI)
         out_c = torch.where(lit, em[c] * shade * geometry, 0.0)
         fc.append(out_c)
         p_hat = out_c if p_hat is None else torch.maximum(p_hat, out_c)
     return p_hat, lit, fc
 
 
-def gi_target_pdf_planar(px, nx, al, metal, spos, srad):
+class _PlanarMaterialBf16(torch.autograd.Function):
+    """The bf16 material terms of eval_p_hat_planar: for each channel f0 =
+    0.04 (1 - metal) + al * metal, 1 - f0 (from the rounded f0) and
+    al * (1 - metal), with the backward of XLA's CPU compile of the JAX
+    VJP: each term's cotangent (summed over the samples in float32)
+    rounded to bf16; f0's as rb(rb(direct) - rb(through 1 - f0)); every
+    product with an attribute rounded; the albedo's two terms summed and
+    rounded; the metal's summed from the last channel to the first (the
+    diffuse term, f0's albedo product, f0's 0.04 product), each partial
+    sum rounded."""
+
+    @staticmethod
+    def forward(ctx, metal, *al):
+        m1 = rb(1.0 - metal)
+        base = rb(BF_0P04 * m1)
+        f0 = [base + rb(a * metal) for a in al]
+        ctx.save_for_backward(metal, m1, *al)
+        return (*f0, *(1.0 - rb(x) for x in f0), *(a * m1 for a in al))
+
+    @staticmethod
+    def backward(ctx, *g):
+        metal, m1, *al = ctx.saved_tensors
+
+        def ct(x):
+            return torch.zeros_like(metal) if x is None else rb(x)
+
+        f_ct = [rb(ct(g[c]) - ct(g[3 + c])) for c in range(3)]
+        d_ct = [ct(g[6 + c]) for c in range(3)]
+        g_al = [rb(rb(d_ct[c] * m1) + rb(f_ct[c] * metal)) for c in range(3)]
+        acc = None
+        for c in (2, 1, 0):
+            diffuse = -rb(al[c] * d_ct[c])
+            acc = diffuse if acc is None else rb(acc + diffuse)
+            acc = rb(acc + rb(al[c] * f_ct[c]))
+            acc = rb(acc - rb(f_ct[c] * BF_0P04))
+        return (acc, *g_al)
+
+
+def gi_target_pdf_planar(px, nx, al, metal, spos, srad, bf16=False):
     """Planar form of gi_target_pdf (brdf.py:255-270). bf16 attributes take
-    the bf16 rounding."""
+    the bf16 rounding (as eval_unshadowed_light)."""
     w = [spos[a] - px[a] for a in range(3)]
     d = torch.clamp(safe_sqrt(fp.sum3(w, w)), min=1e-4)
     w = [w[a] / d for a in range(3)]
-    if is_bf16(nx[0]):
+    if is_bf16(nx[0], bf16):
         ndl = torch.clamp(fp.sum3([x.float() for x in nx], w), min=0.0)
-        m1 = rb(1.0 - metal.float())
+        f_diffuse = _GiDiffusePlanarBf16.apply(metal.float(),
+                                               *(x.float() for x in al))
         p_hat = None
         for c in range(3):
-            contrib = srad[c] * (rb(al[c].float() * m1) * INV_PI_BF16) * ndl
+            contrib = srad[c] * f_diffuse[c] * ndl
             p_hat = contrib if p_hat is None else torch.maximum(p_hat, contrib)
         return p_hat
     ndl = torch.clamp(fp.sum3(nx, w), min=0.0)

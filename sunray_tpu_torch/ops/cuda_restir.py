@@ -104,12 +104,14 @@ def one_minus_smoothstep(e0, e1, x):
 
 
 def eval_p_hat(table: LightTable, idx, light_pos, light_normal, pos, normal,
-               view, albedo, rough, metal):
+               view, albedo, rough, metal, bf16=False):
     """Lights.eval_p_hat (restir.py:167-176): (p_hat, f_y) of a stored
-    sample, its emission read from the table at idx."""
+    sample, its emission read from the table at idx. bf16: as the target
+    functions take it (ops/brdf.is_bf16), here and in the plain versions
+    below."""
     f_y = eval_unshadowed_light(pos, normal, view, albedo, rough, metal,
                                 take_rows(table.emission, idx), light_pos,
-                                light_normal)
+                                light_normal, bf16=bf16)
     return luminance_max(f_y), f_y
 
 
@@ -126,7 +128,8 @@ def merge(w_sum, m, new_m, weight, u, enable):
 # -- K3: RIS audition ---------------------------------------------------------
 
 def ris_audition_plain(table: LightTable, seed, hit_pos, hit_normal, v_view,
-                       albedo, roughness, metallic, candidates: int, enable):
+                       albedo, roughness, metallic, candidates: int, enable,
+                       bf16=False):
     """The jnp plane form of restir.ris_audition (restir.py:223-310): K
     candidates drawn uniformly over the light table and area-uniformly on
     the light, the sequential reservoir chain, and W for the winner."""
@@ -157,7 +160,7 @@ def ris_audition_plain(table: LightTable, seed, hit_pos, hit_normal, v_view,
 
     p_hat, _, _ = eval_p_hat_planar(
         _planes(hit_pos), _planes(hit_normal), _planes(v_view),
-        _planes(albedo), roughness, metallic, em, pos, nrm,
+        _planes(albedo), roughness, metallic, em, pos, nrm, bf16=bf16,
     )
     # p_hat / (1 / max(L * area, 1e-4)), which XLA folds to one multiply.
     wi = torch.where(enable[None, :],
@@ -177,7 +180,7 @@ def ris_audition_plain(table: LightTable, seed, hit_pos, hit_normal, v_view,
 
     p_hat_w, _ = eval_p_hat(table, light_idx, light_pos, light_normal,
                             hit_pos, hit_normal, v_view, albedo, roughness,
-                            metallic)
+                            metallic, bf16=bf16)
     w = w_sum / torch.clamp(m * p_hat_w, min=1e-4)
     return seed, dict(
         light_pos=light_pos, light_normal=light_normal, w_sum=w_sum, M=m,
@@ -189,7 +192,7 @@ def ris_audition_plain(table: LightTable, seed, hit_pos, hit_normal, v_view,
 
 def di_temporal_plain(table: LightTable, seed, r, hist, pi, ok, hit_pos,
                       hit_normal, v_view, albedo, roughness, metallic,
-                      virtual_distance, m_clamp, w_clamp):
+                      virtual_distance, m_clamp, w_clamp, bf16=False):
     """restir.di_temporal_reuse after the reprojection (restir.py:629-658):
     the history reservoir read at pi, confidence, one merge draw, W."""
     pil = pi.long()
@@ -208,7 +211,8 @@ def di_temporal_plain(table: LightTable, seed, r, hist, pi, ok, hit_pos,
 
     use = ok & (h_w > 0.0)
     p_hat_hist, _ = eval_p_hat(table, h_idx, h_pos, h_nrm, hit_pos,
-                               hit_normal, v_view, albedo, roughness, metallic)
+                               hit_normal, v_view, albedo, roughness, metallic,
+                               bf16=bf16)
     seed, u_m = rng_mod.rnd(seed)
     w_sum, m, take = merge(r["w_sum"], r["M"], h_m, p_hat_hist * h_w * h_m,
                            u_m, use)
@@ -218,7 +222,7 @@ def di_temporal_plain(table: LightTable, seed, r, hist, pi, ok, hit_pos,
     light_normal = torch.where(t3, h_nrm, r["light_normal"])
     p_hat_m, _ = eval_p_hat(table, light_idx, light_pos, light_normal,
                             hit_pos, hit_normal, v_view, albedo, roughness,
-                            metallic)
+                            metallic, bf16=bf16)
     w_new = w_sum / torch.clamp(m * p_hat_m, min=1e-4)
     return seed, dict(
         light_pos=light_pos, light_normal=light_normal, w_sum=w_sum, M=m,
@@ -252,7 +256,8 @@ def neighbour_ok(dx, dy, width, height, normal, current_depth, gnormal,
     return ok, nd
 
 
-def di_centre_merge(table: LightTable, seed, center, pending, attrs):
+def di_centre_merge(table: LightTable, seed, center, pending, attrs,
+                    bf16=False):
     """The centre merge of DI spatial reuse (pathtrace.py:777-788): the
     pixel's own pass-1 reservoir into an empty one, one draw. attrs:
     (hit_pos, normal, view, albedo, roughness, metallic) as the target
@@ -264,7 +269,7 @@ def di_centre_merge(table: LightTable, seed, center, pending, attrs):
     c_ok = pending & (center["W"] > 0.0) & (center["light_idx"] < n_l)
     c_idx = torch.clamp(center["light_idx"], max=n_l - 1)
     p_hat_c, _ = eval_p_hat(table, c_idx, center["light_pos"],
-                            center["light_normal"], *attrs)
+                            center["light_normal"], *attrs, bf16=bf16)
     seed, u_m = rng_mod.rnd(seed)
     w_sum, m_acc, take = merge(zero, zero, center["M"],
                                p_hat_c * center["W"] * center["M"], u_m, c_ok)
@@ -275,12 +280,13 @@ def di_centre_merge(table: LightTable, seed, center, pending, attrs):
                       light_normal=torch.where(t3, center["light_normal"], 0.0))
 
 
-def di_resolve(table: LightTable, r, pending, attrs, w_spatial_clamp):
+def di_resolve(table: LightTable, r, pending, attrs, w_spatial_clamp,
+               bf16=False):
     """The resolve of DI spatial reuse (pathtrace.py:789-800): has, the
     clamped w_spatial and the winner's f_y, beside r's fields."""
     has = pending & (r["w_sum"] > 0.0)
     p_hat_w, f_y_w = eval_p_hat(table, r["light_idx"], r["light_pos"],
-                                r["light_normal"], *attrs)
+                                r["light_normal"], *attrs, bf16=bf16)
     w_spatial = torch.clamp(
         r["w_sum"] / torch.clamp(r["M"] * p_hat_w, min=1e-3),
         max=w_spatial_clamp)
@@ -290,7 +296,7 @@ def di_resolve(table: LightTable, r, pending, attrs, w_spatial_clamp):
 def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
                      gdepth, current_depth, hit_pos, hit_normal, v_view,
                      albedo, roughness, metallic, width, height, clamps,
-                     test_normal=None):
+                     test_normal=None, bf16=False):
     """DI spatial reuse at the frozen hits (pathtrace.py:780-801 with the
     batched shared taps of :646-720): the centre merge (one draw), the T
     tap merges (rnd_chain(T)), the resolve with the w_spatial clamp, and
@@ -305,7 +311,7 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
     if test_normal is None:
         test_normal = hit_normal
 
-    seed, r = di_centre_merge(table, seed, center, pending, attrs)
+    seed, r = di_centre_merge(table, seed, center, pending, attrs, bf16=bf16)
     w_sum, m_acc = r["w_sum"], r["M"]
     light_idx, light_pos, light_normal = (r["light_idx"], r["light_pos"],
                                           r["light_normal"])
@@ -330,7 +336,7 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
             _planes(hit_pos), _planes(hit_normal), _planes(v_view),
             _planes(albedo), roughness, metallic,
             _planes(take_rows(table.emission, idx_cl)), _planes(lpos),
-            _planes(lnrm),
+            _planes(lnrm), bf16=bf16,
         )
         seed, u_taps = rng_mod.rnd_chain(seed, t_n)
         u_taps = u_taps.T
@@ -351,13 +357,13 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
     return seed, di_resolve(
         table, dict(light_pos=light_pos, light_normal=light_normal,
                     w_sum=w_sum, M=m_acc, light_idx=light_idx),
-        pending, attrs, w_spatial_clamp)
+        pending, attrs, w_spatial_clamp, bf16=bf16)
 
 
 # -- K6: GI spatial merge -----------------------------------------------------
 
 def gi_spatial_plain(seed, center, taps, pending, hit_pos, hit_normal, albedo,
-                     metallic, w_clamp, shade=None):
+                     metallic, w_clamp, shade=None, bf16=False):
     """GI spatial merge and final resolve (pathtrace.py:989-1073): taps are
     the prepared neighbours as (T, P[, 3]) planes (sample_pos,
     sample_radiance, sample_tri, W, M, jac, ok). hit_normal, albedo,
@@ -375,7 +381,7 @@ def gi_spatial_plain(seed, center, taps, pending, hit_pos, hit_normal, albedo,
     if t_n:
         p_hat_p = gi_target_pdf_planar(
             _planes(hit_pos), _planes(s_nrm), _planes(s_alb), s_met,
-            _planes(spos), _planes(srad),
+            _planes(spos), _planes(srad), bf16=bf16,
         )
         seed, u_taps = rng_mod.rnd_chain(seed, t_n)
         u_taps = u_taps.T
@@ -398,7 +404,8 @@ def gi_spatial_plain(seed, center, taps, pending, hit_pos, hit_normal, albedo,
     s_pos = sel("sample_pos")
     s_rad = sel("sample_radiance")
     s_tri = sel("sample_tri")
-    p_hat_f = gi_target_pdf(hit_pos, s_nrm, s_alb, s_met, s_pos, s_rad)
+    p_hat_f = gi_target_pdf(hit_pos, s_nrm, s_alb, s_met, s_pos, s_rad,
+                            bf16=bf16)
     # w_sum / max(M, 1) / max(p_hat, 1e-9), which XLA folds to one division.
     w_gi = torch.where(
         p_hat_f > 1e-3,

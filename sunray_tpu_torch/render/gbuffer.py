@@ -282,7 +282,8 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
     # K3 routes no gradient.
     seed, r_di = restir.ris_audition(lights, seed, pos, normal_s, *attrs,
                                      cfg.ris_candidates, enable_di,
-                                     kernel=not cfg.differentiable)
+                                     kernel=not cfg.differentiable,
+                                     bf16=cfg.shading_dtype == "bf16")
     if cfg.history_joint_gather:
         # One shared reprojection and one gather for the DI and GI
         # histories (gbuffer.py:305-313); the GI merge reuses pre_gi.
@@ -360,7 +361,7 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
         max=cfg.gi_radiance_clamp)
 
     p_hat = gi_target_pdf(pos, normal_s, albedo_s, metal_s, sample_pos,
-                          sample_radiance)
+                          sample_radiance, bf16=cfg.shading_dtype == "bf16")
     pdf = gi_ndl * INV_PI
     w_sum = torch.where(pdf > 0.0, p_hat / torch.clamp(pdf, min=1e-9), 0.0)
     r_gi = restir.ReservoirGI(

@@ -380,11 +380,13 @@ def _di_spatial_perpixel(cfg, lights, seed, r_di, pending, gbuf,
     w, h = cfg.width, cfg.height
     table, n_l = lights.table, lights.num
     attrs = (pos,) + tuple(shade)
+    bf16 = cfg.shading_dtype == "bf16"
     pix = torch.arange(pos.shape[0], device=pos.device)
     px, py = pix % w, pix // w
     center = {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
                                             "M", "light_idx")}
-    seed, r = cuda_restir.di_centre_merge(table, seed, center, pending, attrs)
+    seed, r = cuda_restir.di_centre_merge(table, seed, center, pending, attrs,
+                                          bf16=bf16)
     for _ in range(cfg.di_spatial_samples):
         seed, nx, ny, _, _ = _disc_tap(px, py, seed, cfg.di_spatial_radius)
         nr, _, ok = _perpixel_neighbour(nx, ny, w, h, center, gbuf.normal,
@@ -394,7 +396,8 @@ def _di_spatial_perpixel(cfg, lights, seed, r_di, pending, gbuf,
         use = pending & ok & (w_cl > 0.0) & (nr["light_idx"] < n_l)
         idx = torch.clamp(nr["light_idx"], max=n_l - 1)
         p_hat, _ = cuda_restir.eval_p_hat(table, idx, nr["light_pos"],
-                                          nr["light_normal"], *attrs)
+                                          nr["light_normal"], *attrs,
+                                          bf16=bf16)
         seed, u = rng_mod.rnd(seed)
         w_sum, m_acc, take = cuda_restir.merge(r["w_sum"], r["M"], m_cl,
                                                p_hat * w_cl * m_cl, u, use)
@@ -405,7 +408,7 @@ def _di_spatial_perpixel(cfg, lights, seed, r_di, pending, gbuf,
                  light_normal=torch.where(t3, nr["light_normal"],
                                           r["light_normal"]))
     return seed, cuda_restir.di_resolve(table, r, pending, attrs,
-                                        cfg.di_spatial_w_clamp)
+                                        cfg.di_spatial_w_clamp, bf16=bf16)
 
 
 def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
@@ -433,8 +436,9 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
     if shared:
         di_taps = _shared_taps(frame_count, cfg.di_spatial_samples,
                                cfg.di_spatial_radius, 0x51A7D1)
-        di_spatial = (cuda_restir.di_spatial_plain if plain
-                      else cuda_restir.di_spatial)
+        di_spatial = (
+            functools.partial(cuda_restir.di_spatial_plain, bf16=bf16)
+            if plain else cuda_restir.di_spatial)
         seed, di = di_spatial(
             lights.table, seed,
             {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
@@ -463,8 +467,9 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
                                cfg.gi_spatial_radius, 0x6E5B2F)
         taps = _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending,
                             pos, normal, current_depth, cam_origin)
-        gi_spatial = (cuda_restir.gi_spatial_plain if plain
-                      else cuda_restir.gi_spatial)
+        gi_spatial = (
+            functools.partial(cuda_restir.gi_spatial_plain, bf16=bf16)
+            if plain else cuda_restir.gi_spatial)
         seed, gi = gi_spatial(
             seed,
             {k: getattr(r_gi, k) for k in ("sample_pos", "sample_radiance",
@@ -618,7 +623,8 @@ def _gi_spatial_perpixel(cfg, tracer, mats, gbuf, r_gi, seed, pending, pos,
             cam_origin)
         ok = ok & ~trace_occluded(tracer, pos, gdir, gdist, exclude=tri)
         p_hat = gi_target_pdf(pos, s_nrm, s_alb, s_met, nr["sample_pos"],
-                              nr["sample_radiance"])
+                              nr["sample_radiance"],
+                              bf16=cfg.shading_dtype == "bf16")
         seed, u = rng_mod.rnd(seed)
         w_sum, m_acc, take = cuda_restir.merge(
             comb["w_sum"], comb["M"], nr["M"], p_hat * nr["W"] * nr["M"] * jac,
@@ -638,4 +644,5 @@ def _gi_spatial_perpixel(cfg, tracer, mats, gbuf, r_gi, seed, pending, pos,
     none["ok"] = torch.zeros((0, p), dtype=torch.bool, device=pos.device)
     return cuda_restir.gi_spatial_plain(seed, comb, none, pending, pos,
                                         normal, albedo, metal,
-                                        cfg.gi_spatial_w_clamp, **gi_shade)
+                                        cfg.gi_spatial_w_clamp, **gi_shade,
+                                        bf16=cfg.shading_dtype == "bf16")

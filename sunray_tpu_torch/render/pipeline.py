@@ -20,12 +20,13 @@ with its stages' activations recomputed in the backward pass
 (ops/loops.py), and the two visibility terms: the shadow-boundary
 gradients (cfg.shadow_boundary_grads, render/boundary.py, dense or with
 B1's top-K candidates) and primary edge antialiasing (cfg.edge_antialias,
-render/antialias.py). check_supported()
+render/antialias.py); with bf16 shading, its target functions' backwards
+round as XLA's compile of the JAX VJP (ops/brdf.py). check_supported()
 raises NotImplementedError for the configurations left out (an unknown
-lighting, history_gather_force, bf16 shading on a differentiable frame)
-instead of rendering something else. The stages run under torch.profiler
-ranges named as the JAX package's named scopes (ris_pass, final_pass,
-taa, denoise, postprocess).
+lighting, history_gather_force) instead of rendering something else. The
+stages run under torch.profiler ranges named as the JAX package's named
+scopes (ris_pass, final_pass, taa, denoise, postprocess);
+render_prefix() runs the frame up to a stage, for utils/profiling.
 """
 
 from __future__ import annotations
@@ -91,15 +92,17 @@ def check_supported(scene, cfg) -> None:
                                                            "brdf"),
         # A TPU workaround of the history gather, not ported (ROADMAP).
         "history_gather_force=True": cfg.history_gather_force is True,
-        # The bf16 target functions have no backward here (ROADMAP Queue 1).
-        "shading_dtype='bf16' with differentiable=True": (
-            cfg.shading_dtype == "bf16" and cfg.differentiable),
     }
     missing = [name for name, hit in unsupported.items() if hit]
     if missing:
         raise NotImplementedError(
             "sunray_tpu_torch does not port: " + ", ".join(missing)
         )
+
+
+# render_frame's stages in order (utils/profiling.stage_timings' keys):
+# pass 1, pass 2 with edge antialiasing, and TAA, denoise and tonemap.
+FRAME_STAGES = ("ris_pass", "final_pass", "post_pipeline")
 
 
 def render_frame(scene, cfg, state: RenderState, mats, accel=None):
@@ -110,6 +113,17 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
     Renderer does, renderer.py:77-266), refit or completed inside
     (render/trace.make_tracer).
     Returns (new_state, ldr (H, W, 3) in [0, 1], aux)."""
+    return render_prefix(scene, cfg, state, mats, accel)
+
+
+def render_prefix(scene, cfg, state: RenderState, mats, accel=None,
+                  last: str = "post_pipeline"):
+    """render_frame's stages (FRAME_STAGES) in order, up to and including
+    `last`; the whole frame with the default. Returns render_frame's
+    (new_state, ldr, aux) after the last stage, else None: a prefix is
+    run for its time (utils/profiling.stage_timings)."""
+    if last not in FRAME_STAGES:
+        raise ValueError(f"last={last!r} is not one of {FRAME_STAGES}")
     check_supported(scene, cfg)
     if cfg.differentiable:
         # Gradients stop at the input state, as a JAX step's do when the
@@ -126,6 +140,8 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
             scene, cfg, tracer, lights, mats, state.prev_view_proj,
             state.res_di, state.res_gi, frame_count,
         )
+    if last == "ris_pass":
+        return None
     # cfg.samples > 1 (pipeline.py:76-92): pass 1 runs once, then `samples`
     # final passes with salted PCG streams, each on pass 1's primary hit;
     # their raw colours and walk rounds are summed, the colours averaged.
@@ -149,6 +165,8 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
     if cfg.edge_antialias:
         raw_img = primary_edge_aa(scene, cfg, tracer, mats, raw_img,
                                   tri=hitd.first_tri, t_hit=hitd.first_t)
+    if last == "final_pass":
+        return None
     motion_img = gbuf.motion.reshape(h, w, 2)
     depth = gbuf.depth.reshape(h, w)
     normal = gbuf.normal.reshape(h, w, 3)

@@ -17,6 +17,7 @@ GI histories together (gather_temporal_histories).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -143,10 +144,12 @@ def sky_emptied(res, found):
 
 
 def ris_audition(lights: Lights, seed, hit_pos, hit_normal, v_view, albedo,
-                 roughness, metallic, candidates: int, enable, kernel=True):
+                 roughness, metallic, candidates: int, enable, kernel=True,
+                 bf16=False):
     """RIS candidate audition (ray_gen_ris.slang:189-231) through K3, or
     through its plain version with kernel=False (a differentiable frame,
-    gbuffer.py:295). Returns (seed, ReservoirDI) with W resolved."""
+    gbuffer.py:295; bf16: its attributes are bf16, ops/brdf.is_bf16).
+    Returns (seed, ReservoirDI) with W resolved."""
     args = (lights.table, seed, hit_pos, hit_normal, v_view, albedo,
             roughness, metallic, candidates, enable)
     if kernel:
@@ -154,7 +157,9 @@ def ris_audition(lights: Lights, seed, hit_pos, hit_normal, v_view, albedo,
     else:
         # The K candidates' (K, P) planes are recomputed in the backward
         # pass rather than kept (ops/loops.checkpointed).
-        seed, f = checkpointed(cuda_restir.ris_audition_plain, *args)
+        seed, f = checkpointed(
+            functools.partial(cuda_restir.ris_audition_plain, bf16=bf16),
+            *args)
     p = hit_pos.shape[0]
     z = torch.zeros((p,), dtype=torch.float32, device=hit_pos.device)
     return seed, ReservoirDI(hit_normal=torch.zeros_like(hit_pos), depth=z,
@@ -231,8 +236,10 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
                                  enable, width, height)
     # A differentiable frame keeps JAX's jnp merge (restir.py:596): K4
     # routes no gradient.
-    merge_temporal = (cuda_restir.di_temporal_plain if cfg.differentiable
-                      else cuda_restir.di_temporal)
+    merge_temporal = (
+        functools.partial(cuda_restir.di_temporal_plain,
+                          bf16=cfg.shading_dtype == "bf16")
+        if cfg.differentiable else cuda_restir.di_temporal)
     seed, f = merge_temporal(
         lights.table, seed, _fields(r), _fields(history),
         pi, ok, hit_pos, hit_normal, v_view, albedo, roughness, metallic,
@@ -263,8 +270,9 @@ def gi_temporal_reuse(cfg, seed, r: ReservoirGI, history: ReservoirGI,
     h_m = torch.clamp(h.M, max=cfg.gi_temporal_m_clamp) * conf
     h_w = torch.clamp(h.W, max=cfg.gi_temporal_w_clamp)
     use = ok & (h_w > 0.0) & (h_m > 0.0)
+    bf16 = cfg.shading_dtype == "bf16"
     p_hat_hist = gi_target_pdf(hit_pos, hit_normal, albedo, metallic,
-                               h.sample_pos, h.sample_radiance)
+                               h.sample_pos, h.sample_radiance, bf16=bf16)
     seed, u_m = rng_mod.rnd(seed)
     w_sum, m, take = cuda_restir.merge(r.w_sum, r.M, h_m,
                                        p_hat_hist * h_w * h_m, u_m, use)
@@ -277,7 +285,7 @@ def gi_temporal_reuse(cfg, seed, r: ReservoirGI, history: ReservoirGI,
         sample_tri=torch.where(take, h.sample_tri, r.sample_tri),
     )
     p_hat_m = gi_target_pdf(hit_pos, hit_normal, albedo, metallic,
-                            r.sample_pos, r.sample_radiance)
+                            r.sample_pos, r.sample_radiance, bf16=bf16)
     w_new = torch.where(p_hat_m > 1e-6,
                         r.w_sum / torch.clamp(r.M * p_hat_m, min=1e-9), 0.0)
     return seed, dataclasses.replace(r, W=torch.where(use, w_new, r.W))

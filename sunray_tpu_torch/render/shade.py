@@ -20,7 +20,12 @@ from typing import NamedTuple
 
 import torch
 
-from sunray_tpu_torch.ops.brdf import normalize, safe_sqrt, vec_norm
+from sunray_tpu_torch.ops.brdf import (
+    bf16_carrier,
+    normalize,
+    safe_sqrt,
+    vec_norm,
+)
 from sunray_tpu_torch.ops.cuda_gather import gather_rows, take_rows
 from sunray_tpu_torch.ops.fp import clip, cross, dot, fma, sum3
 from sunray_tpu_torch.ops.texture import sample_texture
@@ -273,8 +278,13 @@ def _finish_surface(scene, orig, d, hit, t_att, mrow, tex, uv, base_color,
 def shading_planes(cfg, normal, v_view, albedo, rough, metal):
     """The target functions' surface attributes in cfg.shading_dtype
     (gbuffer.py:280-295, pathtrace.py:494-501): bfloat16 copies with
-    "bf16", else the float32 tensors themselves."""
+    "bf16" (on a differentiable frame the same values as float64 carriers,
+    ops/brdf.bf16_carrier, which the target functions read as bf16 only
+    with bf16=True from the same cfg.shading_dtype), else the float32
+    tensors themselves."""
     attrs = (normal, v_view, albedo, rough, metal)
     if cfg.shading_dtype != "bf16":
         return attrs
+    if cfg.differentiable:
+        return tuple(bf16_carrier(x) for x in attrs)
     return tuple(x.to(torch.bfloat16) for x in attrs)

@@ -20,10 +20,12 @@ mod.rs + src/scene.rs) on numpy:
   - Emissive triangles: all triangles of primitives whose material has
     emissive strength > 0 or nonzero factor (gltf/mod.rs:270-296), emission
     = factor.rgb * strength (scene.rs:115-135).
-  - Images decoded to RGBA float by the port's own PNG reader
-    (utils/png.read_png_rgba, as PIL's convert("RGBA")); an image it
-    cannot decode (JPEG, 16-bit, interlaced) raises NotImplementedError
-    naming its type. Sampled as LINEAR data (the reference uploads
+  - Images decoded to RGBA float by the port's own PNG and JPEG readers
+    (utils/png.read_png_rgba, utils/jpeg.read_jpeg_rgba, chosen by the
+    image's magic bytes; bit-equal to PIL's convert("RGBA")); an image
+    they cannot decode (16-bit or interlaced PNG, progressive JPEG, other
+    formats) raises NotImplementedError naming its type, a corrupt one
+    ValueError. Sampled as LINEAR data (the reference uploads
     R8G8B8A8_UNORM, not SRGB — scene.rs:203-218 — so no sRGB decode).
 
 Triangles only (gltf/mod.rs:363-372); other primitive modes are skipped
@@ -55,7 +57,8 @@ from sunray_tpu_torch.scene.types import (
     build_scene,
 )
 
-from sunray_tpu_torch.utils.png import read_png_rgba
+from sunray_tpu_torch.utils.jpeg import read_jpeg_rgba
+from sunray_tpu_torch.utils.png import image_kind, read_png_rgba
 
 log = logging.getLogger(__name__)
 
@@ -170,7 +173,9 @@ class GltfDocument:
                 with open(os.path.join(self.base_dir, uri), "rb") as f:
                     raw = f.read()
         try:
-            arr = read_png_rgba(raw)
+            read = (read_jpeg_rgba if image_kind(raw) == "JPEG"
+                    else read_png_rgba)
+            arr = read(raw)
         except NotImplementedError as e:
             raise NotImplementedError(f"glTF image {img_index} "
                                       f"({img.get('mimeType', 'no mimeType')})"

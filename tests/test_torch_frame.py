@@ -102,12 +102,8 @@ def test_state_from_numpy_continues_jax_frames(frames):
 
 
 UNCOVERED = {
-    # The configurations check_supported refuses: bf16 shading on a
-    # differentiable frame, the TPU history-gather workaround, and an
-    # unknown lighting mode.
-    "shading_bf16_differentiable": dict(lighting="restir",
-                                        shading_dtype="bf16",
-                                        differentiable=True),
+    # The configurations check_supported refuses: the TPU history-gather
+    # workaround and an unknown lighting mode.
     "history_gather_force": dict(lighting="restir",
                                  history_gather_force=True),
     "unknown_lighting": dict(lighting="path"),
@@ -120,8 +116,9 @@ RAISES = {"boundary_without_topology": ValueError}
 
 
 def _gltf_with_jpeg(path):
-    """A glTF whose first image is a JPEG (its magic bytes): the port's
-    PNG reader cannot decode it (utils/png.py)."""
+    """A glTF whose first image has a JPEG's magic bytes and no JPEG
+    stream behind them: the port's JPEG reader (utils/jpeg.py) refuses it
+    as corrupt."""
     import base64
     import json
 
@@ -142,7 +139,7 @@ def test_uncovered_configs_raise(name, frames, tmp_path):
     if name == "gltf_jpeg_image":
         from sunray_tpu_torch.scene.gltf import load_gltf
 
-        with pytest.raises(NotImplementedError, match="JPEG"):
+        with pytest.raises(ValueError, match="JPEG"):
             load_gltf(_gltf_with_jpeg(tmp_path / "jpeg.gltf"), device="cpu")
         return
     cfg = dataclasses.replace(RenderConfig(**GOLDEN_KW),

@@ -81,14 +81,17 @@ def test_untextured_gltf(tmp_path):
 
 
 def test_undecodable_image_raises(tmp_path):
+    """A progressive JPEG: PIL decodes it, the port's baseline reader
+    (utils/jpeg.py) names it and refuses."""
     doc, data = build_document(seed=2, tex=8, subdiv=0, spheres=2)
     buf = io.BytesIO()
-    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(buf, format="JPEG")
+    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(
+        buf, format="JPEG", progressive=True)
     doc["images"][3] = {"uri": "data:image/jpeg;base64,"
                         + base64.b64encode(buf.getvalue()).decode()}
     path = _write_gltf(tmp_path / "jpeg.gltf", doc, data)
     jload_gltf(path)                       # PIL decodes it in the reference
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(NotImplementedError, match="progressive JPEG"):
         load_gltf(path, device="cpu")
 
 

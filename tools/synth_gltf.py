@@ -6,7 +6,8 @@ and no network.
 
 write_scene(path, ...) writes it as a GLB (binary chunk; images in buffer
 views), a .gltf with its buffer as a data: URI, or a .gltf with an
-external .bin beside it. The scene:
+external .bin beside it; write_jpeg_scene(path, jpegs) a .gltf whose
+images are the given JPEG files. The scene:
 
   - the shell of scene/procedural.reflection_room: floor, ceiling, mirror
     back wall, two side walls, the area light, a glass box
@@ -386,6 +387,38 @@ def write_scene(path, seed=0, tex=1024, subdiv=4, spheres=50, fmt="glb",
         doc["buffers"][0]["uri"] = name
     else:
         raise ValueError(f"unknown format {fmt!r}")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def write_jpeg_scene(path, jpegs, as_views=False, seed=5, tex=8, subdiv=0,
+                     spheres=2):
+    """Write the scene as a .gltf whose images are the JPEG files `jpegs`
+    in turn (image i is jpegs[i % len(jpegs)]): as data: URIs, or with
+    as_views appended to the buffer as buffer views (mimeType
+    image/jpeg). The buffer is a data: URI."""
+    doc, data = build_document(seed, tex, subdiv, spheres)
+    data = bytearray(data)
+    blobs = []
+    for p in jpegs:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    for i in range(len(doc["images"])):
+        blob = blobs[i % len(blobs)]
+        if as_views:
+            data += b"\0" * (-len(data) % 4)
+            doc["bufferViews"].append({"buffer": 0, "byteOffset": len(data),
+                                       "byteLength": len(blob)})
+            data += blob
+            doc["images"][i] = {"bufferView": len(doc["bufferViews"]) - 1,
+                                "mimeType": "image/jpeg"}
+        else:
+            doc["images"][i] = {"uri": "data:image/jpeg;base64,"
+                                + base64.b64encode(blob).decode()}
+    doc["buffers"] = [{"byteLength": len(data), "uri":
+                       "data:application/octet-stream;base64,"
+                       + base64.b64encode(bytes(data)).decode()}]
     with open(path, "w") as f:
         json.dump(doc, f)
     return path
