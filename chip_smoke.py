@@ -240,6 +240,25 @@ Phases, in order; any failure raises and exits non-zero with no result:
      summarised (top 10 device rows, idle share) and
      utils/roofline.roofline_report at phase 5's frame ms. Its summary
      is the line {"utilities": ...} after {"configs": ...}.
+ 14. the interactive path: (a) R1 (csrc/overlay.cu, the 2D overlay
+     painter) against its plain twin on the card, bit-equal, on the 1080p
+     HUD of hud_overlay (4 lines at scale 2, a 120-sample frame-time plot)
+     and on a seeded stress set of 2,000 triangles over 4 meshes
+     (tests/torch_overlay_cases.py: overlapping and degenerate triangles
+     of both windings, a textured and a clipped mesh), each timed beside
+     its bound; R1's launches read on hud_overlay over 3 rendered 1080p
+     frames; (b) utils/jpeg.write_jpeg on a rendered 1080p frame (ms at
+     q85, read back by utils/jpeg.read_jpeg: PSNR) and the committed
+     progressive JPEG (tests/data/progressive_96x64.jpg) decoded, its
+     pixels' SHA-256 against PIL's; (c) integrations.LiveViewer at
+     1920x1080, Cornell ReSTIR, on 127.0.0.1 port 0: 12 frames with a POST
+     /input between, /frame.jpg decoding to the size, the camera moved,
+     phase 5's kernels launched, frames a second and each frame's render /
+     overlay / u8 copy / encode ms; (d) integrations.web_viewer.
+     ViewerServer at 640x360: SPAWN through POST /input changes the
+     instance count and the frame, PAUSE freezes the camera clock, frames a
+     second. Its summary is the line {"viewers": ...} after
+     {"utilities": ...}. `python3 tools/viewer_run.py` runs phase 14 alone.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -2402,6 +2421,10 @@ KERNELS = {
     "bvh_walk": ("sunray_tpu_torch/csrc/bvh.cu", "sunray_tpu/ops/bvh.py:375"),
     "bvh2_walk": ("sunray_tpu_torch/csrc/bvh.cu",
                   "sunray_tpu/ops/bvh2.py:454"),
+    # R1 replaces a jnp lax.scan (no pallas_call): rasterize_mesh and
+    # paint_meshes of the 2D overlay painter.
+    "paint_meshes": ("sunray_tpu_torch/csrc/overlay.cu",
+                     "sunray_tpu/render/overlay2d.py:79"),
 }
 BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
 SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
@@ -2414,9 +2437,11 @@ REAL_ONLY = ("bvh_walk", "bvh2_walk")
 # The differentiable real scenes' own kernel (phase 11): K8's backward
 # above 512 rows.
 RUNS_ONLY = ("gather_rows_bwd_runs",)
+# The interactive path's own kernel (phase 14): R1, on hud_overlay's path.
+OVERLAY_ONLY = ("paint_meshes",)
 CORNELL_KERNELS = tuple(k for k in KERNELS
                         if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY
-                        + VIS_ONLY + REAL_ONLY + RUNS_ONLY)
+                        + VIS_ONLY + REAL_ONLY + RUNS_ONLY + OVERLAY_ONLY)
 # A differentiable frame: the tracer and K8 forward and backward; the plain
 # versions of K3-K7, K9 and K13 (JAX's gates).
 DIFF_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
@@ -4651,6 +4676,397 @@ def phase_utilities(dev, f32_step_ms, phase5, frames):
     return summary
 
 
+
+# -- phase 14: the interactive path --------------------------------------------
+
+# R1's fp32 operations (csrc/overlay.cu; an fmaf counted as two, a compare
+# as one): the three edge functions of a (pixel, triangle) pair (two
+# differences, a product, an fmaf and the sign's product each) and their
+# three compares; a pixel's clip test, blend (1 - a, three products, three
+# products, three sums) and, for a textured mesh, its bilinear fetch
+# (the texel position, four weights, 4 x 7 for the channels, 4 products).
+R1_EDGE_OPS = 21
+R1_BLEND_OPS = 10
+R1_CLIP_OPS = 4
+R1_TEX_OPS = 44
+R1_SIZE = (1080, 1920)
+R1_STRESS_TRIS = 2000
+R1_HUD_FRAMES = 3
+VIEWER_SIZE = (1920, 1080)
+VIEWER_FRAMES = (6, 6)          # before and after the POST /input
+WEB_SIZE = (640, 360)           # examples/web_viewer.py's default
+WEB_FPS_WINDOW_S = 3.0
+ENCODE_QUALITY = 85
+PROGRESSIVE_JPEG = os.path.join("tests", "data", "progressive_96x64.jpg")
+PROGRESSIVE_SHA256 = (
+    "1c4458e1f301711493fa4722898932ae39c643d1cff790214bb17c552bd66458")
+
+
+def r1_sets(dev):
+    """R1's two inputs on the card: {label: (image, meshes)}: the 1080p HUD
+    of hud_overlay (4 lines at scale 2, a 120-sample plot) and the seeded
+    stress set (tests/torch_overlay_cases.py)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_overlay_cases import (HUD_LINES, frame_times, seeded_image,
+                                     stress_meshes)
+    from sunray_tpu_torch.render import overlay2d
+
+    h, w = R1_SIZE
+    img = torch.from_numpy(seeded_image(h, w, 13)).to(dev)
+    hud = [overlay2d.mesh_to(m, dev) for m in overlay2d.hud_meshes(
+        HUD_LINES, frame_ms=frame_times(120, 14), scale=2.0)]
+    stress = [overlay2d.Mesh2D(
+        xy=torch.from_numpy(m["xy"]).to(dev),
+        uv=torch.from_numpy(m["uv"]).to(dev),
+        rgba=torch.from_numpy(m["rgba"]).to(dev),
+        tris=torch.from_numpy(m["tris"]).to(dev),
+        tex=None if m["tex"] is None else torch.from_numpy(m["tex"]).to(dev),
+        clip=m["clip"]) for m in stress_meshes(h, w, R1_STRESS_TRIS, 11)]
+    return {"hud": (img, hud), "stress": (img, stress)}
+
+
+def r1_needed_ops(meshes, h, w):
+    """R1's operations on this input: the edge tests of every (pixel,
+    triangle) pair whose pixel centre lies in the triangle's bounding box
+    (degenerate triangles none), and each pixel's fetch, clip and blend
+    for every mesh."""
+    pairs = 0
+    per_pixel = 0
+    for m in meshes:
+        v = m.xy[m.tris.long()].double().cpu().numpy()       # (T, 3, 2)
+        area = ((v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1])
+                - (v[:, 2, 0] - v[:, 0, 0]) * (v[:, 1, 1] - v[:, 0, 1]))
+        lo, hi = v.min(axis=1), v.max(axis=1)
+        nx = (np.clip(np.floor(hi[:, 0] - 0.5), -1, w - 1)
+              - np.clip(np.ceil(lo[:, 0] - 0.5), 0, w) + 1).clip(0)
+        ny = (np.clip(np.floor(hi[:, 1] - 0.5), -1, h - 1)
+              - np.clip(np.ceil(lo[:, 1] - 0.5), 0, h) + 1).clip(0)
+        pairs += int((nx * ny)[np.abs(area) > 1e-8].sum())
+        per_pixel += R1_BLEND_OPS + (R1_TEX_OPS if m.tex is not None else 0) \
+            + (R1_CLIP_OPS if m.clip is not None else 0)
+    return pairs * R1_EDGE_OPS + h * w * per_pixel
+
+
+def r1_row(dev):
+    """R1 against its plain twin on the card, bit-equal, on the HUD and the
+    stress set; each timed beside its bound."""
+    from sunray_tpu_torch.ops import cuda_overlay
+    from sunray_tpu_torch.render.overlay2d import paint_meshes_plain
+
+    row = {}
+    for label, (img, meshes) in r1_sets(dev).items():
+        packed = cuda_overlay.pack_meshes(meshes, dev)
+        got = cuda_overlay.paint_meshes(img, meshes)
+        want = paint_meshes_plain(img, meshes)
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((got - want).abs().max())
+        n_tris = int(packed[0].shape[0])
+        check(diff == 0, f"R1 {label}: {diff} words differ from the plain "
+              f"twin (max abs err {err})")
+        ms = device_ms(lambda: cuda_overlay._launch_paint(img, *packed))
+        plain = time_ms(lambda: paint_meshes_plain(img, meshes),
+                        reps=3 if label == "hud" else 1)   # stress: ~2.6 s
+        h, w = img.shape[:2]
+        ops = r1_needed_ops(meshes, h, w)
+        b = bound(2 * nbytes(img) + nbytes(*packed), ops)
+        log(f"phase 14: R1 {label}: {len(meshes)} meshes, {n_tris} triangles, "
+            f"{w}x{h}; bit-equal to plain; kernel {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, bound {b[0]:.4f} ms ({b[1]}; {ops:.3e} ops)")
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=b,
+                     shape=f"{w}x{h}, {len(meshes)} meshes, {n_tris} tris")
+        if label == "hud":
+            row.update(entry, library_ms=None)
+        else:
+            row.update({f"stress_{k}": (v[0] if k == "bound" else v)
+                        for k, v in entry.items()})
+    return row
+
+
+def r1_main_path(dev):
+    """R1 on its path: hud_overlay on R1_HUD_FRAMES rendered 1080p Cornell
+    frames, the counters zeroed just before and read just after."""
+    from sunray_tpu_torch.camera import Camera
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.render.overlay2d import hud_overlay
+    from sunray_tpu_torch.render.renderer import Renderer
+    from sunray_tpu_torch.scene import cornell_box
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_overlay_cases import HUD_LINES, frame_times
+
+    w, h = VIEWER_SIZE
+    r = Renderer(RenderConfig(width=w, height=h), scene=cornell_box(device=dev),
+                 device=dev)
+    cam = Camera(**CAMERA)
+    cuda_build.launches.clear()
+    for i in range(R1_HUD_FRAMES):
+        out = hud_overlay(r.render(cam), HUD_LINES,
+                          frame_ms=frame_times(120, i), scale=2.0)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launches)
+    check(launches.get("paint_meshes", 0) == R1_HUD_FRAMES,
+          f"hud_overlay: R1 launched {launches.get('paint_meshes', 0)} times "
+          f"in {R1_HUD_FRAMES} frames")
+    check(bool(torch.isfinite(out).all()), "hud_overlay: non-finite frame")
+    log(f"phase 14: hud_overlay on {R1_HUD_FRAMES} rendered {w}x{h} frames: "
+        f"launches {launches}")
+    return launches
+
+
+def http_request(port, path, method="GET", body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request(method, path, body=body)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def encoder_checks(u8):
+    """write_jpeg on a rendered 1080p frame (ms, median of 5), read back by
+    utils/jpeg.read_jpeg (PSNR against the u8 frame); the committed
+    progressive JPEG decoded, its pixels' SHA-256 against PIL's."""
+    import hashlib
+
+    from sunray_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
+
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        data = write_jpeg(u8, ENCODE_QUALITY)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    back = read_jpeg(data)
+    decode_s = time.perf_counter() - t0
+    p = psnr(back / 255.0, u8 / 255.0)
+    h, w = u8.shape[:2]
+    log(f"phase 14: write_jpeg {w}x{h} q{ENCODE_QUALITY}: "
+        f"{statistics.median(times):.2f} ms (median of 5), {len(data)} bytes; "
+        f"read back in {decode_s:.2f} s, PSNR {p:.2f} dB against the u8 frame")
+    check(back.shape == u8.shape, f"write_jpeg: decoded {back.shape}")
+    check(p > 30.0, f"write_jpeg: PSNR {p:.2f} dB")
+    t0 = time.perf_counter()
+    px = read_jpeg(os.path.join(REPO, PROGRESSIVE_JPEG))
+    prog_s = time.perf_counter() - t0
+    digest = hashlib.sha256(px.tobytes()).hexdigest()
+    log(f"phase 14: {PROGRESSIVE_JPEG} (progressive) {px.shape[1]}x"
+        f"{px.shape[0]} decoded in {prog_s:.3f} s, SHA-256 {digest[:16]}...")
+    check(digest == PROGRESSIVE_SHA256, "progressive JPEG: pixels differ from "
+          "PIL's")
+    return dict(encode_ms=statistics.median(times), bytes=len(data),
+                psnr_db=p, decode_s=decode_s, progressive_decode_s=prog_s)
+
+
+def live_viewer_check(dev):
+    """LiveViewer at VIEWER_SIZE, Cornell ReSTIR, on 127.0.0.1 port 0: the
+    frames before and after a POST /input; /frame.jpg decodes to the size,
+    the camera moved, the frame's kernels launched (phase 5's counters,
+    zeroed just before the run). Each stage of a frame is timed with a
+    sync after it. Returns (summary, the last frame's u8)."""
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.integrations import viewer as viewer_mod
+    from sunray_tpu_torch.integrations.engine import FlyCameraAdapter
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.render.renderer import Renderer
+    from sunray_tpu_torch.scene import cornell_box
+    from sunray_tpu_torch.utils.jpeg import read_jpeg
+
+    w, h = VIEWER_SIZE
+    r = Renderer(RenderConfig(width=w, height=h, lighting="restir"),
+                 scene=cornell_box(device=dev), device=dev)
+    stages = {}
+    last = {}
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            stages.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+            last[key] = out
+            return out
+        return wrapper
+
+    saved = {k: getattr(viewer_mod, k) for k in ("stats_overlay", "frame_u8",
+                                                 "write_jpeg")}
+    r.render = timed(r.render, "render")
+    for k, key in (("stats_overlay", "overlay"), ("frame_u8", "u8_copy"),
+                   ("write_jpeg", "encode")):
+        setattr(viewer_mod, k, timed(saved[k], key))
+    adapter = FlyCameraAdapter()
+    v = viewer_mod.LiveViewer(r, adapter, host="127.0.0.1", port=0)
+    port = int(v.address.rsplit(":", 1)[1])
+    try:
+        cuda_build.launches.clear()
+        t0 = time.perf_counter()
+        n = v.run(max_frames=VIEWER_FRAMES[0])
+        pos0, yaw0 = adapter.flycam.position.copy(), adapter.flycam.yaw
+        status, _ = http_request(port, "/input", "POST", json.dumps(
+            {"keys": ["w", "d"], "dx": 40.0, "dy": -10.0}).encode())
+        check(status == 200, f"LiveViewer: POST /input gave {status}")
+        n += v.run(max_frames=VIEWER_FRAMES[1])
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.launches)
+        status, jpg = http_request(port, "/frame.jpg")
+        stats = json.loads(http_request(port, "/stats")[1])
+    finally:
+        v.stop()
+        for k, fn in saved.items():
+            setattr(viewer_mod, k, fn)
+    check(status == 200, f"LiveViewer: GET /frame.jpg gave {status}")
+    shape = read_jpeg(jpg).shape
+    check(shape == (h, w, 3), f"LiveViewer: /frame.jpg decodes to {shape}")
+    moved = float(np.abs(adapter.flycam.position - pos0).max())
+    check(moved > 0 and adapter.flycam.yaw != yaw0,
+          "LiveViewer: the camera did not move after POST /input")
+    check(stats["frame"] == n, f"LiveViewer: /stats frame {stats['frame']}")
+    for name in CORNELL_KERNELS:
+        check(launches.get(name, 0) > 0, f"LiveViewer: kernel {name} never "
+              "launched")
+    med = {k: statistics.median(x) for k, x in stages.items()}
+    fps = n / wall
+    log(f"phase 14: LiveViewer {w}x{h} restir, {n} frames in {wall:.2f} s "
+        f"({fps:.2f} frames/s, stages synced); camera moved {moved:.4f}; "
+        f"/frame.jpg {len(jpg)} bytes; launches {launches}")
+    log("  median ms a frame: " + ", ".join(f"{k} {med[k]:.2f}" for k in
+                                             ("render", "overlay", "u8_copy",
+                                              "encode")))
+    log("  ms by frame: " + json.dumps(
+        {k: [round(x, 2) for x in stages[k]] for k in stages}))
+    return (dict(frames=n, fps=fps, stage_ms=med, jpeg_bytes=len(jpg),
+                 camera_moved=moved), last["u8_copy"])
+
+
+def stream_frame(port):
+    """The latest frame of a ViewerServer's /stream, decoded to float."""
+    import http.client
+
+    from sunray_tpu_torch.utils.jpeg import read_jpeg
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/stream")
+    resp = conn.getresponse()
+    head = b""
+    while not head.endswith(b"\r\n\r\n"):
+        head += resp.read(1)
+    n = int(head.split(b"Content-Length: ")[1].split(b"\r\n")[0])
+    data = resp.read(n)
+    conn.close()
+    return read_jpeg(data).astype(np.float64) / 255.0
+
+
+def spawn_window(server, w, h):
+    """The pixel bounding box (x0, y0, x1, y1) of a ViewerServer's last
+    spawned instance, projected through its fly-cam's camera."""
+    from sunray_tpu_torch.camera import camera_matrices
+
+    mesh = server.renderer._manager._meshes[server._spawn_key]
+    t = server._spawned[-1].astype(np.float64)
+    world = mesh.positions.astype(np.float64) @ t[:, :3].T + t[:, 3]
+    vp = camera_matrices(server.adapter.flycam.camera(), w, h,
+                         device="cpu")["view_proj"].double().numpy()
+    clip = np.concatenate([world, np.ones((len(world), 1))], axis=1) @ vp.T
+    px = (clip[:, :2] / clip[:, 3:4] + 1.0) / 2.0 * np.array([w, h])
+    lo = np.clip(np.floor(px.min(axis=0)), 0, [w, h]).astype(int)
+    hi = np.clip(np.ceil(px.max(axis=0)) + 1, 0, [w, h]).astype(int)
+    return int(lo[0]), int(lo[1]), int(hi[0]), int(hi[1])
+
+
+def window_change(a, b, win):
+    """Mean over the window's pixels of the largest channel difference."""
+    x0, y0, x1, y1 = win
+    return float(np.abs(a[y0:y1, x0:x1] - b[y0:y1, x0:x1]).max(axis=-1)
+                 .mean()) if x1 > x0 and y1 > y0 else 0.0
+
+
+def web_viewer_check(dev):
+    """ViewerServer at WEB_SIZE (Cornell ReSTIR, denoise_passes=2, the
+    example's config) on the card: SPAWN through POST /input changes the
+    instance count and the frame; PAUSE freezes the camera clock."""
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.integrations.web_viewer import ViewerServer
+
+    w, h = WEB_SIZE
+    cfg = RenderConfig(width=w, height=h, lighting="restir", denoise_passes=2)
+    s = ViewerServer(cfg, port=0, device=dev)
+    port = s.start()
+
+    def state():
+        return json.loads(http_request(port, "/state")[1])
+
+    def wait(pred, frames=2, timeout=60.0):
+        t0 = time.perf_counter()
+        start = state()["frame"]
+        while time.perf_counter() - t0 < timeout:
+            st = state()
+            if st["frame"] >= start + frames and pred(st):
+                return st
+            time.sleep(0.01)
+        raise RuntimeError("chip_smoke: ViewerServer: timed out")
+
+    def click(x):
+        for kind in ("move", "down", "up"):
+            http_request(port, "/input", "POST", json.dumps(
+                {"type": kind, "x": x, "y": h - 13}).encode())
+
+    try:
+        st = wait(lambda st: True, frames=4)
+        # Frames a second over a window in which this process only polls
+        # /state: decoding the stream here (Python) would hold the
+        # interpreter lock the server's render thread needs.
+        t0, f0 = time.perf_counter(), st["frame"]
+        time.sleep(WEB_FPS_WINDOW_S)
+        st = state()
+        fps = (st["frame"] - f0) / (time.perf_counter() - t0)
+        a = stream_frame(port)
+        wait(lambda st: True, frames=3)
+        b = stream_frame(port)
+        base = st["instances"]
+        click(20)                                             # SPAWN
+        st = wait(lambda st: st["spawned"] == 1, frames=3)
+        c = stream_frame(port)
+        check(st["instances"] == base + 1, f"ViewerServer: {st['instances']} "
+              f"instances after SPAWN, {base} before")
+        win = spawn_window(s, w, h)
+        share, noise = window_change(b, c, win), window_change(a, b, win)
+        check(share > max(0.02, 3 * noise),
+              f"ViewerServer: SPAWN changed its window {win} by {share:.4f} "
+              f"on average (two frames without it: {noise:.4f})")
+        click(120)                                            # PAUSE
+        st = wait(lambda st: st["paused"])
+        cam = st["camera"]
+        http_request(port, "/input", "POST", json.dumps(
+            {"type": "keys", "keys": ["w"], "dx": 20.0, "dy": 0.0}).encode())
+        st = wait(lambda st: True, frames=3)
+        check(st["camera"] == cam, "ViewerServer: the camera moved while "
+              "paused")
+    finally:
+        s.stop()
+        s._render_thread.join(timeout=60)
+    log(f"phase 14: ViewerServer {w}x{h}: SPAWN -> {st['instances']} "
+        f"instances, its window {win} changed by {share:.4f} ({noise:.4f} "
+        f"without it); PAUSE held the camera; {fps:.2f} frames/s (server's own "
+        f"estimate {st['fps']})")
+    return dict(fps=fps, spawn_changed=share, noise_changed=noise)
+
+
+def phase_viewers(dev):
+    """Phase 14. Returns (summary, R1's row, R1's launches on its path)."""
+    t_phase = time.perf_counter()
+    summary = {}
+    row = r1_row(dev)
+    launches = r1_main_path(dev)
+    summary["live_viewer"], u8 = live_viewer_check(dev)
+    summary["encoder"] = encoder_checks(u8)
+    summary["web_viewer"] = web_viewer_check(dev)
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14: {summary['seconds']:.1f} s")
+    return summary, row, launches
+
+
 def main():
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device available")
@@ -4672,6 +5088,12 @@ def main():
     cuda_build.library()
     log(f"phase 2: built {os.path.relpath(path, REPO)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    from sunray_tpu_torch import native
+    t0 = time.perf_counter()
+    native.jpeg_lib()
+    jpeg_so = native.library_path(native.JPEG_SOURCE, "libsunray_jpeg")
+    log(f"phase 2: built {os.path.relpath(jpeg_so, REPO)} (the JPEG "
+        f"encoder, g++) in {time.perf_counter() - t0:.1f} s")
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -4773,6 +5195,8 @@ def main():
         CONFIG_WARM + CONFIG_TIMED)
     utilities = phase_utilities(dev, kernels["gather_rows_bwd"]["step_ms"],
                                 phase5, provenance_frames)
+    viewers, kernels["paint_meshes"], overlay_launches = phase_viewers(dev)
+    launches.update({k: overlay_launches[k] for k in OVERLAY_ONLY})
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -4813,12 +5237,15 @@ def main():
                     "bf16_max_abs_err", "bf16_ms", "bf16_f32_same_data_ms",
                     "bf16_plain_ms", "bf16_bound_ms", "bf16_bound_by",
                     "bf16_launches_a_frame", "lights578_agree",
-                    "lights578_max_abs_err", "lights578_ms"):
+                    "lights578_max_abs_err", "lights578_ms",
+                    "stress_max_abs_err", "stress_ms", "stress_plain_ms",
+                    "stress_bound", "stress_shape"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)
     log(json.dumps({"configs": configs}))
     log(json.dumps({"utilities": utilities}))
+    log(json.dumps({"viewers": viewers}))
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

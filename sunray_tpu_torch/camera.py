@@ -33,6 +33,15 @@ class Camera:
     target: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     fov_y: float = 45.0
 
+    def set_position(self, p) -> "Camera":
+        return dataclasses.replace(self, position=tuple(p))
+
+    def set_target(self, t) -> "Camera":
+        return dataclasses.replace(self, target=tuple(t))
+
+    def set_fov_y(self, f) -> "Camera":
+        return dataclasses.replace(self, fov_y=float(f))
+
 
 def _point(p, device):
     """A camera point as a float32 (3,) tensor on `device`; a tensor stays

@@ -1,15 +1,20 @@
 """Native (C++) runtime components of the port, bound through ctypes.
 
-build_sah_bvh: the binned-SAH BVH builder (sah_builder.cpp, the port's
-own copy of the JAX package's), the quality / SLOW_BUILD path of the
-AsState heuristic; the device LBVH (ops/bvh.build_bvh) is the FAST_BUILD
-path. It is compiled with g++ at first use into build/sunray_tpu_torch/
-at the repository root (ignored by git), under a name that carries a
-hash of the source, the flags and the host's -march=native target, so
-that a build directory copied to another machine is rebuilt there
-rather than loaded with another CPU's instructions. A failed build raises NativeBuildError:
-the port does not switch to the LBVH on its own, since that would change
-what a SLOW_BUILD measures.
+- build_sah_bvh: the binned-SAH BVH builder (sah_builder.cpp, the port's
+  own copy of the JAX package's), the quality / SLOW_BUILD path of the
+  AsState heuristic; the device LBVH (ops/bvh.build_bvh) is the
+  FAST_BUILD path.
+- jpeg_lib: the baseline JPEG encoder (jpeg_encoder.cpp) behind
+  utils/jpeg.write_jpeg; entropy coding is serial, so it runs on the host.
+
+Each source is compiled with g++ at first use into build/sunray_tpu_torch/
+at the repository root (ignored by git), into a temporary file that is
+then renamed, under a name that carries a hash of the source, the flags
+and the host's -march=native target, so that a build directory copied to
+another machine is rebuilt there rather than loaded with another CPU's
+instructions. A failed build raises NativeBuildError: the port does not
+switch to the LBVH on its own, since that would change what a SLOW_BUILD
+measures, and it has no other JPEG encoder.
 """
 
 from __future__ import annotations
@@ -25,11 +30,12 @@ import numpy as np
 import torch
 
 SOURCE = Path(__file__).resolve().parent / "sah_builder.cpp"
+JPEG_SOURCE = SOURCE.parent / "jpeg_encoder.cpp"
 BUILD_DIR = SOURCE.parent.parent.parent / "build" / "sunray_tpu_torch"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 _target = None
 
 
@@ -52,36 +58,62 @@ def _host_target() -> bytes:
     return _target
 
 
-def library_path() -> Path:
+def library_path(source: Path = SOURCE, stem: str = "libsunray_native") -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    h.update(source.read_bytes())
     h.update(_host_target())
-    return BUILD_DIR / f"libsunray_native_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def get_lib():
-    """The loaded native library, built on first call."""
-    global _lib
+def _load(source: Path, stem: str, declare):
+    """The library built from `source` (g++ on first call), its entry
+    points typed by declare(lib)."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
+        if source in _libs:
+            return _libs[source]
+        path = library_path(source, stem)
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(["g++", *FLAGS, "-o", str(tmp), str(SOURCE)],
-                                  capture_output=True, text=True, timeout=300)
+            try:
+                proc = subprocess.run(["g++", *FLAGS, "-o", str(tmp),
+                                       str(source)],
+                                      capture_output=True, text=True,
+                                      timeout=300)
+            except OSError as e:
+                raise NativeBuildError(f"g++ could not run: {e}") from None
             if proc.returncode != 0:
                 raise NativeBuildError(f"g++ exited {proc.returncode}:\n"
                                        f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
-        f, i = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
-        lib.sunray_build_sah_bvh.restype = ctypes.c_int
-        lib.sunray_build_sah_bvh.argtypes = [f, f, f, ctypes.c_int, ctypes.c_int,
-                                             i, i, i, i, f, f, i]
-        _lib = lib
-        return _lib
+        declare(lib)
+        _libs[source] = lib
+        return lib
+
+
+def _declare_sah(lib):
+    f, i = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+    lib.sunray_build_sah_bvh.restype = ctypes.c_int
+    lib.sunray_build_sah_bvh.argtypes = [f, f, f, ctypes.c_int, ctypes.c_int,
+                                         i, i, i, i, f, f, i]
+
+
+def _declare_jpeg(lib):
+    p = ctypes.c_void_p
+    lib.sunray_jpeg_encode.restype = ctypes.c_long
+    lib.sunray_jpeg_encode.argtypes = [p, ctypes.c_int, ctypes.c_int, p, p, p,
+                                       p, p, ctypes.c_long]
+
+
+def get_lib():
+    """The loaded SAH builder library, built on first call."""
+    return _load(SOURCE, "libsunray_native", _declare_sah)
+
+
+def jpeg_lib():
+    """The loaded JPEG encoder library, built on first call."""
+    return _load(JPEG_SOURCE, "libsunray_jpeg", _declare_jpeg)
 
 
 def build_sah_bvh(v0, v1, v2, leaf_size: int = 4, device="cpu"):

@@ -38,7 +38,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sunray_tpu_torch"
 SOURCES = ("trace.cu", "gather.cu", "atrous.cu", "restir.cu", "binned.cu",
-           "taa.cu", "history.cu", "boundary.cu", "bvh.cu")
+           "taa.cu", "history.cu", "boundary.cu", "bvh.cu", "overlay.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -174,6 +174,8 @@ def _signatures():
         "sunray_atrous_tile_shape": [ctypes.POINTER(i)],
         "sunray_boundary_launch_shape": [ctypes.POINTER(i)],
         "sunray_bvh_launch_shape": [ctypes.POINTER(i)],
+        "sunray_paint_meshes": [p, p, i, i, p, p, p, p, i, p],
+        "sunray_overlay_launch_shape": [ctypes.POINTER(i)],
     }
 
 
@@ -201,7 +203,8 @@ def _check_launch_shapes(lib) -> None:
     """The host's copies of the kernels' launch shapes, which the CPU models
     of the kernels and chip_smoke.py's counts read, must be the library's."""
     from sunray_tpu_torch.ops import (cuda_boundary, cuda_bvh, cuda_gather,
-                                      cuda_image, cuda_restir, cuda_trace)
+                                      cuda_image, cuda_overlay, cuda_restir,
+                                      cuda_trace)
 
     for name, want in (
             ("sunray_woop_launch_shape",
@@ -218,7 +221,9 @@ def _check_launch_shapes(lib) -> None:
             ("sunray_boundary_launch_shape", cuda_boundary.LAUNCH_SHAPE),
             ("sunray_gather_bwd_launch_shape", cuda_gather.BWD_LAUNCH_SHAPE),
             ("sunray_gather_runs_launch_shape", cuda_gather.RUN_SHAPE),
-            ("sunray_bvh_launch_shape", cuda_bvh.LAUNCH_SHAPE)):
+            ("sunray_bvh_launch_shape", cuda_bvh.LAUNCH_SHAPE),
+            ("sunray_overlay_launch_shape",
+             (*cuda_overlay.THREADS, cuda_overlay.TILE))):
         got = launch_shape(lib, name, len(want))
         if got != want:
             raise KernelError(f"{name}: the library launches {got}, the host "

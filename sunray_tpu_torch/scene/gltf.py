@@ -23,10 +23,11 @@ mod.rs + src/scene.rs) on numpy:
   - Images decoded to RGBA float by the port's own PNG and JPEG readers
     (utils/png.read_png_rgba, utils/jpeg.read_jpeg_rgba, chosen by the
     image's magic bytes; bit-equal to PIL's convert("RGBA")); an image
-    they cannot decode (16-bit or interlaced PNG, progressive JPEG, other
-    formats) raises NotImplementedError naming its type, a corrupt one
-    ValueError. Sampled as LINEAR data (the reference uploads
-    R8G8B8A8_UNORM, not SRGB — scene.rs:203-218 — so no sRGB decode).
+    they cannot decode (16-bit or interlaced PNG, lossless, hierarchical
+    or arithmetic-coded JPEG, other formats) raises NotImplementedError
+    naming its type, a corrupt one ValueError. Sampled as LINEAR data
+    (the reference uploads R8G8B8A8_UNORM, not SRGB — scene.rs:203-218 —
+    so no sRGB decode).
 
 Triangles only (gltf/mod.rs:363-372); other primitive modes are skipped
 with a warning.

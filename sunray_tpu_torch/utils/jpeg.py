@@ -1,14 +1,17 @@
-"""Dependency-free baseline JPEG decoder.
+"""Dependency-free JPEG decoder and baseline encoder.
 
-The port's JPEG reader for glTF textures (the machine with the card has
-no PIL; the JAX package decodes every image through PIL,
-sunray_tpu/scene/gltf.py). read_jpeg_rgba returns the (H, W, 4) uint8
-array that PIL's Image.open(...).convert("RGBA") gives, computed the way
+The port's JPEG reader for glTF textures and writer for the viewers'
+MJPEG streams (the machine with the card has no PIL; the JAX package
+decodes and encodes every image through PIL, sunray_tpu/scene/gltf.py,
+integrations/viewer.py). read_jpeg_rgba returns the (H, W, 4) uint8 array
+that PIL's Image.open(...).convert("RGBA") gives, computed the way
 libjpeg-turbo's default decompression computes it, so that the two agree
-bit for bit (tests/test_torch_jpeg.py):
+bit for bit (tests/test_torch_jpeg.py, test_torch_jpeg_progressive.py):
 
   - Huffman entropy decoding (a bit loop in Python; everything else is
-    vectorised numpy);
+    vectorised numpy): sequential scans, and progressive scans (DC first
+    and refinement, spectral bands with end-of-band runs and successive
+    approximation; jdphuff.c) into coefficient planes kept across scans;
   - dequantisation and the "islow" integer inverse DCT (jidctint.c: 13
     constant bits, 2 pass-1 bits), its output limited to [0, 255] as the
     SIMD build saturates it. The arithmetic here is 64-bit; the SIMD
@@ -21,16 +24,23 @@ bit for bit (tests/test_torch_jpeg.py):
     samples wide (libjpeg-turbo's rule);
   - jdcolor.c's fixed-point YCbCr -> RGB tables (16 scale bits).
 
-Covered: baseline and extended-sequential Huffman streams (SOF0, SOF1)
-of 8-bit samples; 1 component (grey, expanded to RGBA as PIL's "L") or
-3 (YCbCr, or RGB by an Adobe marker or the component ids, as libjpeg
-decides); sampling factors of 1 or 2 on each axis; several DQT (8- or
-16-bit) and DHT tables, optimised Huffman tables, restart intervals,
-interleaved or one-component scans, any width and height. APPn and COM
-segments are skipped. Progressive, lossless, hierarchical and
+Covered: baseline, extended-sequential and progressive Huffman streams
+(SOF0, SOF1, SOF2) of 8-bit samples; 1 component (grey, expanded to RGBA
+as PIL's "L") or 3 (YCbCr, or RGB by an Adobe marker or the component
+ids, as libjpeg decides); sampling factors of 1 or 2 on each axis;
+several DQT (8- or 16-bit) and DHT tables, optimised Huffman tables,
+restart intervals, interleaved or one-component scans, any width and
+height. APPn and COM segments are skipped. Lossless, hierarchical and
 arithmetic-coded streams, 12-bit samples and 4-component (CMYK, YCCK)
 images raise NotImplementedError naming what they are; a corrupt or
-truncated stream raises ValueError.
+truncated stream raises ValueError. A complete progressive stream needs
+no block smoothing (libjpeg applies it only while coefficients are
+missing).
+
+write_jpeg encodes (H, W, 3) uint8 RGB as the baseline stream PIL
+12.1.0 writes with Image.save(..., "JPEG", quality=q), byte for byte
+(tests/test_torch_jpeg_encode.py); its pixel work and entropy coding are
+native/jpeg_encoder.cpp, on the host.
 """
 
 from __future__ import annotations
@@ -48,7 +58,6 @@ ZIGZAG = np.array([
     np.int64)
 
 _SOF_UNSUPPORTED = {
-    0xC2: "progressive JPEG (SOF2)",
     0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)",
     0xC6: "hierarchical progressive JPEG (SOF6)",
@@ -181,6 +190,123 @@ def _decode_segment(seg, blocks, dc_tabs, ac_tabs, coef_idx, coef_val):
                     k += 16
                 else:
                     break
+    except IndexError:
+        raise ValueError("truncated JPEG (entropy-coded data)") from None
+    if 8 * pos - nbits > n_bits_real:
+        raise ValueError("truncated JPEG (entropy-coded data)")
+
+
+def _decode_progressive_segment(seg, blocks, dc_tabs, ac_tabs, scan, coef):
+    """Decode one restart interval of a progressive scan (jdphuff.c) into
+    coef, a flat list of the frame's coefficients kept across scans.
+    scan: (Ss, Se, Ah, Al). DC scans hold the first or a refining bit of
+    each block's DC; AC scans (one component) a spectral band, first
+    pass with end-of-band runs or a refinement of one bit."""
+    ss, se, ah, al = scan
+    data = seg + bytes(_PAD)
+    n_bits_real = 8 * len(seg)
+    zz = ZIGZAG.tolist()
+    buf = nbits = pos = 0
+
+    def get(n):
+        nonlocal buf, nbits, pos
+        while nbits < n:
+            buf = ((buf & ((1 << nbits) - 1)) << 8) | data[pos]
+            pos += 1
+            nbits += 8
+        nbits -= n
+        return (buf >> nbits) & ((1 << n) - 1)
+
+    def huff(tab):
+        nonlocal buf, nbits, pos
+        while nbits < 16:
+            buf = ((buf & ((1 << nbits) - 1)) << 8) | data[pos]
+            pos += 1
+            nbits += 8
+        e = tab[(buf >> (nbits - 16)) & 0xFFFF]
+        if not e:
+            raise ValueError("bad Huffman code in JPEG data")
+        nbits -= e >> 8
+        return e & 0xFF
+
+    def extend(v, n):
+        return v - (1 << n) + 1 if v < (1 << (n - 1)) else v
+
+    p1 = 1 << al
+    m1 = -p1
+    pred = [0] * len(dc_tabs)
+    eobrun = 0
+    try:
+        for slot, base in blocks:
+            if ss == 0 and ah == 0:             # DC, first scan
+                n = huff(dc_tabs[slot])
+                if n > 11:
+                    raise ValueError("bad DC difference size in JPEG data")
+                if n:
+                    pred[slot] += extend(get(n), n)
+                coef[base] = pred[slot] << al
+            elif ss == 0:                       # DC, refinement
+                if get(1):
+                    coef[base] |= p1
+            elif ah == 0:                       # AC, first scan
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                tab = ac_tabs[slot]
+                k = ss
+                while k <= se:
+                    rs = huff(tab)
+                    r, n = rs >> 4, rs & 15
+                    if n:
+                        k += r
+                        if k > se:
+                            raise ValueError("bad AC run in JPEG data")
+                        coef[base + zz[k]] = extend(get(n), n) << al
+                        k += 1
+                    elif r == 15:
+                        k += 16
+                    else:
+                        eobrun = (1 << r) - 1 + (get(r) if r else 0)
+                        break
+            else:                               # AC, refinement
+                tab = ac_tabs[slot]
+                k = ss
+                if eobrun == 0:
+                    while k <= se:
+                        rs = huff(tab)
+                        r, n = rs >> 4, rs & 15
+                        if n:
+                            if n != 1:
+                                raise ValueError("bad AC refinement in JPEG "
+                                                 "data")
+                            n = p1 if get(1) else m1
+                        elif r != 15:
+                            eobrun = (1 << r) + (get(r) if r else 0)
+                            break
+                        # Correction bits for the nonzero coefficients up to
+                        # the r-th zero one, which takes the new value.
+                        while k <= se:
+                            i = base + zz[k]
+                            if coef[i]:
+                                if get(1) and not coef[i] & p1:
+                                    coef[i] += p1 if coef[i] >= 0 else m1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                        if n:
+                            if k > se:
+                                raise ValueError("bad AC run in JPEG data")
+                            coef[base + zz[k]] = n
+                        k += 1
+                if eobrun > 0:
+                    while k <= se:
+                        i = base + zz[k]
+                        if coef[i] and get(1) and not coef[i] & p1:
+                            coef[i] += p1 if coef[i] >= 0 else m1
+                        k += 1
+                    eobrun -= 1
     except IndexError:
         raise ValueError("truncated JPEG (entropy-coded data)") from None
     if 8 * pos - nbits > n_bits_real:
@@ -340,8 +466,9 @@ class _Frame:
     def __init__(self, data, pos, marker):
         if marker in _SOF_UNSUPPORTED:
             raise NotImplementedError(f"{_SOF_UNSUPPORTED[marker]} is not "
-                                      "decoded (baseline and extended "
-                                      "sequential Huffman only)")
+                                      "decoded (baseline, extended "
+                                      "sequential and progressive Huffman "
+                                      "only)")
         length = _u16(data, pos)
         seg = data[pos + 2:pos + length]
         if len(seg) < 6:
@@ -350,6 +477,7 @@ class _Frame:
         self.height = (seg[1] << 8) | seg[2]
         self.width = (seg[3] << 8) | seg[4]
         nc = seg[5]
+        self.progressive = marker == 0xC2
         if precision != 8:
             raise NotImplementedError(f"{precision}-bit JPEG samples are not "
                                       "decoded (8-bit only)")
@@ -416,6 +544,7 @@ def _parse(data):
     pos = 2
     qt, dc_tabs, ac_tabs = {}, {}, {}
     frame, restart, coef_idx, coef_val = None, 0, [], []
+    dense = None                # a progressive frame's coefficients
     jfif, adobe = False, None
     n = len(data)
     while True:
@@ -435,7 +564,7 @@ def _parse(data):
         if length < 2 or pos + length > n:
             raise ValueError("truncated JPEG (marker segment)")
         seg = data[pos + 2:pos + length]
-        if marker in (0xC0, 0xC1) or marker in _SOF_UNSUPPORTED:
+        if marker in (0xC0, 0xC1, 0xC2) or marker in _SOF_UNSUPPORTED:
             if frame is not None:
                 raise ValueError("JPEG with two frame headers")
             frame = _Frame(data, pos, marker)
@@ -476,12 +605,24 @@ def _parse(data):
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
             ns = seg[0]
+            if len(seg) < 4 + 2 * ns:
+                raise ValueError("bad JPEG scan header")
+            ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
+            ah, al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+            prog = frame.progressive
+            if prog and ((ss == 0 and se != 0)
+                         or (ss > 0 and (ss > se or se > 63 or ns != 1))
+                         or (ah and al != ah - 1) or al > 13):
+                raise ValueError(f"bad JPEG progression (Ss {ss}, Se {se}, "
+                                 f"Ah {ah}, Al {al}, {ns} components)")
+            need_dc = not prog or (ss == 0 and ah == 0)
+            need_ac = not prog or ss > 0
             comps, dcs, acs = [], [], []
             for i in range(ns):
                 cid, t = seg[1 + 2 * i], seg[2 + 2 * i]
                 c = next((c for c in frame.comps if c["id"] == cid), None)
-                if c is None or (t >> 4) not in dc_tabs \
-                        or (t & 15) not in ac_tabs:
+                if c is None or (need_dc and (t >> 4) not in dc_tabs) \
+                        or (need_ac and (t & 15) not in ac_tabs):
                     raise ValueError("bad JPEG scan header")
                 if c["q"] is None:
                     if c["tq"] not in qt:
@@ -489,8 +630,8 @@ def _parse(data):
                                          "quantisation table")
                     c["q"] = qt[c["tq"]]
                 comps.append(c)
-                dcs.append(dc_tabs[t >> 4])
-                acs.append(ac_tabs[t & 15])
+                dcs.append(dc_tabs.get(t >> 4))
+                acs.append(ac_tabs.get(t & 15))
             segs, pos = _segments(data, pos + length)
             if len(comps) == 1:
                 c = comps[0]
@@ -500,18 +641,28 @@ def _parse(data):
             per = restart if restart else total
             if len(segs) < -(-total // per):
                 raise ValueError("truncated JPEG (restart intervals missing)")
+            if prog and dense is None:
+                dense = [0] * frame.n_coef
             for k in range(-(-total // per)):
                 mcus = range(k * per, min((k + 1) * per, total))
-                _decode_segment(segs[k], _scan_blocks(frame, comps, mcus),
-                                dcs, acs, coef_idx, coef_val)
+                blocks = _scan_blocks(frame, comps, mcus)
+                if prog:
+                    _decode_progressive_segment(segs[k], blocks, dcs, acs,
+                                                (ss, se, ah, al), dense)
+                else:
+                    _decode_segment(segs[k], blocks, dcs, acs, coef_idx,
+                                    coef_val)
             continue
         pos += length
     if frame is None:
         raise ValueError("JPEG without a frame header")
     if any(c["q"] is None for c in frame.comps):
         raise ValueError("truncated JPEG (a component has no scan)")
-    coef = np.zeros(frame.n_coef, np.int64)
-    coef[np.asarray(coef_idx, np.int64)] = coef_val
+    if frame.progressive:
+        coef = np.asarray(dense, np.int64)
+    else:
+        coef = np.zeros(frame.n_coef, np.int64)
+        coef[np.asarray(coef_idx, np.int64)] = coef_val
     if len(frame.comps) == 1:
         space = "grey"
     elif jfif:
@@ -559,3 +710,122 @@ def read_jpeg_rgba(src) -> np.ndarray:
     h, w = img.shape[:2]
     rgb = np.repeat(img, 3, axis=-1) if img.shape[-1] == 1 else img
     return np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], axis=-1)
+
+
+# -- the encoder -------------------------------------------------------------
+
+# The IJG example quantisation tables (jcparam.c; ITU-T T.81 K.1, K.2), in
+# natural order.
+STD_LUMA_QUANT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64)
+STD_CHROMA_QUANT = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32, np.int64)
+
+# The standard Huffman tables (jstdhuff.c; T.81 K.3-K.6): each is a DHT
+# body after its class/id byte, 16 code counts by length then the symbols.
+STD_HUFFMAN = {
+    0x00: bytes.fromhex(                        # DC luma
+        "00010501010101010100000000000000000102030405060708090a0b"),
+    0x10: bytes.fromhex(                        # AC luma
+        "0002010303020403050504040000017d01020300041105122131410613516107"
+        "227114328191a1082342b1c11552d1f02433627282090a161718191a25262728"
+        "292a3435363738393a434445464748494a535455565758595a63646566676869"
+        "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7"
+        "a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+        "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    0x01: bytes.fromhex(                        # DC chroma
+        "00030101010101010101010000000000000102030405060708090a0b"),
+    0x11: bytes.fromhex(                        # AC chroma
+        "0002010204040304070504040001027700010203110405213106124151076171"
+        "1322328108144291a1b1c109233352f0156272d10a162434e125f11718191a26"
+        "2728292a35363738393a434445464748494a535455565758595a636465666768"
+        "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5"
+        "a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+        "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"),
+}
+
+
+def quality_tables(quality: int):
+    """(luma, chroma) quantisation tables in natural order for an IJG
+    quality (jcparam.c jpeg_quality_scaling and jpeg_add_quant_table with
+    force_baseline, as PIL calls jpeg_set_quality)."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255)
+                 for t in (STD_LUMA_QUANT, STD_CHROMA_QUANT))
+
+
+def _huffman_codes(body):
+    """(code, length) by symbol, 256 each, of a DHT body (canonical codes,
+    jchuff.c jpeg_make_c_derived_tbl)."""
+    counts, symbols = body[:16], body[16:]
+    codes = np.zeros(256, np.int32)
+    sizes = np.zeros(256, np.int32)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[symbols[k]] = code
+            sizes[symbols[k]] = length
+            code += 1
+            k += 1
+        code <<= 1
+    return codes, sizes
+
+
+def _segment(marker, body):
+    return bytes([0xFF, marker]) + len(body + b"..").to_bytes(2, "big") + body
+
+
+def write_jpeg(u8, quality: int = 85) -> bytes:
+    """Encode an (H, W, 3) uint8 RGB array as a baseline JPEG: the bytes
+    PIL 12.1.0 (libjpeg-turbo) writes for Image.fromarray(u8).save(buf,
+    "JPEG", quality=quality): a JFIF 1.01 APP0, the IJG tables scaled by
+    quality, 4:2:0, the islow forward DCT and the standard Huffman tables
+    (tests/test_torch_jpeg_encode.py). The pixel work and the entropy
+    coding run in native/jpeg_encoder.cpp, built with g++ at first use."""
+    import ctypes
+
+    from sunray_tpu_torch.native import jpeg_lib
+
+    img = np.ascontiguousarray(u8)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_jpeg takes (H, W, 3) uint8, got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"write_jpeg: {w}x{h} is outside 1..65535")
+    luma, chroma = quality_tables(quality)
+    natural = np.ascontiguousarray(ZIGZAG, np.int32)
+    qt = np.ascontiguousarray(np.stack([luma, chroma]), np.int32)
+    tabs = [_huffman_codes(STD_HUFFMAN[k]) for k in (0x00, 0x10, 0x01, 0x11)]
+    codes = np.ascontiguousarray(np.stack([c for c, _ in tabs]), np.int32)
+    sizes = np.ascontiguousarray(np.stack([s for _, s in tabs]), np.int32)
+    lib = jpeg_lib()
+    cap = h * w * 3 + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.sunray_jpeg_encode(img.ctypes.data, h, w, natural.ctypes.data,
+                                   qt.ctypes.data, codes.ctypes.data,
+                                   sizes.ctypes.data, out.ctypes.data,
+                                   ctypes.c_long(cap))
+        if n >= 0:
+            break
+        cap *= 2
+    head = bytearray(b"\xff\xd8")
+    head += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t, q in enumerate((luma, chroma)):
+        head += _segment(0xDB, bytes([t])
+                         + q[ZIGZAG].astype(np.uint8).tobytes())
+    head += _segment(0xC0, bytes([8]) + h.to_bytes(2, "big")
+                     + w.to_bytes(2, "big")
+                     + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for k in (0x00, 0x10, 0x01, 0x11):
+        head += _segment(0xC4, bytes([k]) + STD_HUFFMAN[k])
+    head += _segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return bytes(head) + out[:n].tobytes() + b"\xff\xd9"

@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from sunray_tpu.native import build_sah_bvh as jbuild_sah
 from sunray_tpu.ops import bvh as jbvh
 from sunray_tpu_torch import convert
 from sunray_tpu_torch.native import build_sah_bvh
 from sunray_tpu_torch.ops import bvh, intersect
 from torch_bvh_cases import ray_families, soup
+from torch_parity import jax_build_sah as jbuild_sah
 from torch_parity import n, t, to_numpy
 
 FIELDS = ("child_l", "child_r", "node_min", "node_max", "leaf_tri",

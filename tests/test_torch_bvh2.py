@@ -17,7 +17,7 @@ from sunray_tpu.scene.manager import pad_scene_capacity as jpad
 from sunray_tpu_torch import convert
 from sunray_tpu_torch.ops import bvh2, intersect
 from torch_bvh_cases import ray_families
-from torch_parity import n, t, to_numpy
+from torch_parity import jax_native_lib, n, t, to_numpy
 
 TUV_ATOL = 1e-5
 
@@ -55,6 +55,7 @@ def instanced_scene(n_inst, seed=0, pad=False):
 
 @pytest.fixture(scope="module", params=["many", "one", "padded"])
 def case(request):
+    jax_native_lib()    # JAX's build_blas_set takes the LBVH without it
     js, ps = instanced_scene(*{"many": (7,), "one": (1,),
                                "padded": (5, 1, True)}[request.param])
     jbl = jbvh2.build_blas_set(js, leaf_size=4)

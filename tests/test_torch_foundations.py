@@ -212,8 +212,8 @@ def test_port_never_imports_jax():
         "'sunray_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules "
-        "if k == 'jax' or k.startswith(('jax.', 'sunray_tpu.')) "
-        "or k == 'sunray_tpu')\n"
+        "if k in ('jax', 'sunray_tpu', 'PIL') "
+        "or k.startswith(('jax.', 'sunray_tpu.', 'PIL.')))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules "
         "if k.startswith('sunray_tpu_torch')]))\n"

@@ -81,17 +81,17 @@ def test_untextured_gltf(tmp_path):
 
 
 def test_undecodable_image_raises(tmp_path):
-    """A progressive JPEG: PIL decodes it, the port's baseline reader
-    (utils/jpeg.py) names it and refuses."""
+    """A GIF: PIL decodes it, the port's readers (utils/png.py,
+    utils/jpeg.py) name it and refuse. (A progressive JPEG, refused until
+    utils/jpeg.py decoded it, is tests/test_torch_jpeg_progressive.py's.)"""
     doc, data = build_document(seed=2, tex=8, subdiv=0, spheres=2)
     buf = io.BytesIO()
-    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(
-        buf, format="JPEG", progressive=True)
-    doc["images"][3] = {"uri": "data:image/jpeg;base64,"
+    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(buf, format="GIF")
+    doc["images"][3] = {"uri": "data:image/gif;base64,"
                         + base64.b64encode(buf.getvalue()).decode()}
-    path = _write_gltf(tmp_path / "jpeg.gltf", doc, data)
+    path = _write_gltf(tmp_path / "gif.gltf", doc, data)
     jload_gltf(path)                       # PIL decodes it in the reference
-    with pytest.raises(NotImplementedError, match="progressive JPEG"):
+    with pytest.raises(NotImplementedError, match="GIF"):
         load_gltf(path, device="cpu")
 
 

@@ -12,9 +12,10 @@ decode (libjpeg-turbo), bit for bit, on
     one-component scans, 16-bit quantisation tables under SOF1, an Adobe
     or component-id RGB image, restart intervals across scans;
 
-and the streams it refuses: progressive, lossless, arithmetic-coded,
-12-bit and CMYK raise NotImplementedError naming the format, a truncated
-stream ValueError."""
+and the streams it refuses: arithmetic-coded progressive, lossless,
+arithmetic-coded, 12-bit and CMYK raise NotImplementedError naming the
+format, a truncated stream ValueError (progressive Huffman streams are
+tests/test_torch_jpeg_progressive.py's)."""
 
 import hashlib
 import io
@@ -347,8 +348,8 @@ def test_out_of_range_block_alone_differs():
 
 # -- the streams it refuses --------------------------------------------------
 
-def _patch_sof(data, marker=None, precision=None):
-    i = data.index(b"\xff\xc0")
+def _patch_sof(data, marker=None, precision=None, sof=0xC0):
+    i = data.index(bytes([0xFF, sof]))
     out = bytearray(data)
     if marker is not None:
         out[i + 1] = marker
@@ -369,8 +370,11 @@ BASE = pil_jpeg(seeded_image(16, 16, seed=1), quality=75)
 ])
 def test_unsupported_raise(kind, match):
     data = {
-        "progressive": lambda: pil_jpeg(seeded_image(16, 16, seed=1),
-                                        progressive=True),
+        # Progressive Huffman streams decode (test_torch_jpeg_progressive.py);
+        # the arithmetic-coded progressive process stays refused.
+        "progressive": lambda: _patch_sof(pil_jpeg(
+            seeded_image(16, 16, seed=1), progressive=True), marker=0xCA,
+            sof=0xC2),
         "lossless": lambda: _patch_sof(BASE, marker=0xC3),
         "arithmetic": lambda: _patch_sof(BASE, marker=0xC9),
         "12bit": lambda: _patch_sof(BASE, precision=12),

@@ -1,21 +1,22 @@
 """The host side of the kernel launches, on the CPU with stand-in libraries.
 
-K14's, K2's, K1's, K3's, K7's, B1's and K8's backward's launch shapes:
+K14's, K2's, K1's, K3's, K7's, B1's, K8's backward's and R1's launch
+shapes:
 the host's copies (cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS,
 OCC_THREADS, OCC_WIDE_MIN, CLOSEST_RAYS, CLOSEST_THREADS,
 CLOSEST_WIDE_MIN; cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
 ATROUS_HALO; cuda_boundary.LAUNCH_SHAPE; cuda_gather.BWD_LAUNCH_SHAPE,
-RUN_SHAPE; cuda_bvh.LAUNCH_SHAPE),
+RUN_SHAPE; cuda_bvh.LAUNCH_SHAPE; cuda_overlay.THREADS, TILE),
 which the CPU models of the kernels, the tests' table sizes and
 chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
-csrc/restir.cu, csrc/atrous.cu, csrc/boundary.cu, csrc/gather.cu and
-csrc/bvh.cu, and
+csrc/restir.cu, csrc/atrous.cu, csrc/boundary.cu, csrc/gather.cu,
+csrc/bvh.cu and csrc/overlay.cu, and
 cuda_build refuses a library whose shape queries report another shape.
 B1's K dispatch (every K of 1..MAX_K, nothing else); K8's backward's
 launch shape as a pure function of (G * N, K,
 C, SMs). The launch helpers that the before/after tools call with
 another build's library (K13, K14, K2, K1, K3, K5, K7, B1, K8's
-backward and its runs path) count a launch of the port's own library and no other."""
+backward and its runs path, R1) count a launch of the port's own library and no other."""
 
 import re
 
@@ -25,7 +26,7 @@ import torch
 import torch_parity  # noqa: F401  (one torch thread, as every port test)
 from sunray_tpu_torch.ops import (cuda_boundary, cuda_build, cuda_bvh,
                                   cuda_gather, cuda_history, cuda_image,
-                                  cuda_restir, cuda_trace)
+                                  cuda_overlay, cuda_restir, cuda_trace)
 
 SHAPES = {
     "sunray_woop_launch_shape": (
@@ -59,6 +60,9 @@ SHAPES = {
                       "kSortThreads", "kSortItems", "kDigitBits",
                       "kMaxPasses"),
         cuda_gather.RUN_SHAPE),
+    "sunray_overlay_launch_shape": (
+        "overlay.cu", ("kThreadsX", "kThreadsY", "kTile"),
+        (*cuda_overlay.THREADS, cuda_overlay.TILE)),
 }
 
 
@@ -157,12 +161,17 @@ def _launch(name):
         "gather_rows_bwd_runs": lambda lib: cuda_gather._launch_bwd_runs(
             torch.zeros((3, 4, 8)), torch.zeros((3, 8), dtype=torch.int32),
             600, lib=lib),
+        "paint_meshes": lambda lib: cuda_overlay._launch_paint(
+            img, torch.zeros((2, 24)),
+            torch.zeros((1, cuda_overlay.META_INTS), dtype=torch.int32),
+            torch.zeros((1, 4)), torch.zeros(4), lib=lib),
     }[name]
 
 
 @pytest.mark.parametrize("name", ["atrous_pass", "boundary_candidates",
                                   "di_spatial", "gather_rows_bwd",
-                                  "gather_rows_bwd_runs", "history_gather", "ris_audition",
+                                  "gather_rows_bwd_runs", "history_gather",
+                                  "paint_meshes", "ris_audition",
                                   "trace_closest", "trace_occluded",
                                   "trace_occluded_woop"])
 def test_launch_helpers_count_the_ports_library_only(name, monkeypatch):

@@ -11,6 +11,7 @@ results do not depend on the thread count.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -105,3 +106,81 @@ def check_reservoir(ps, pres, js, jres, idx="light_idx",
                                    np.asarray(jres[w_key])[same],
                                    rtol=3e-4, atol=1e-5, err_msg=w_key)
     return same.mean()
+
+
+class JaxNativeUnavailable(RuntimeError):
+    """The JAX package's native SAH library could not be built or loaded."""
+
+
+REPO = Path(__file__).resolve().parent.parent
+JAX_NATIVE_DIR = REPO / "build" / "sunray_tpu_native"
+
+
+def jax_native_lib(build_dir=None):
+    """The JAX package's native library (sunray_tpu/native), for certain.
+
+    sunray_tpu.native.get_lib() writes g++'s output straight onto its final
+    path and keeps a failed load as None for the life of the process, so a
+    worker that loads the file while another worker is still writing it
+    gets None, and build_sah_bvh then returns None. Where that happened,
+    this builds the package's unchanged sah_builder.cpp with the package's
+    own g++ command into a temporary file under build_dir (default:
+    build/sunray_tpu_native/ at the repository root), renames it to a name
+    that carries a hash of the source with os.replace, loads it with the
+    package loader's argument types and installs it as the loader's
+    library. Nothing under sunray_tpu/ changes. Raises JaxNativeUnavailable,
+    naming the cause, when g++ is missing or fails."""
+    import ctypes
+    import hashlib
+    import os
+    import subprocess
+
+    import sunray_tpu.native as jn
+
+    lib = jn.get_lib()
+    if lib is not None:
+        return lib
+    src = os.path.join(os.path.dirname(jn.__file__), "sah_builder.cpp")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    out_dir = JAX_NATIVE_DIR if build_dir is None else build_dir
+    out_dir = Path(out_dir)
+    path = out_dir / f"_sunray_native_{digest}.so"
+    if not path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+               "-o", str(tmp), src]      # sunray_tpu/native/__init__.py:31-34
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise JaxNativeUnavailable(
+                f"the JAX package's native SAH builder ({src}) could not be "
+                f"built: {e}") from None
+        if proc.returncode != 0:
+            raise JaxNativeUnavailable(
+                f"the JAX package's native SAH builder ({src}) could not be "
+                f"built: g++ exited {proc.returncode}:\n{proc.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    f, i = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+    lib.sunray_build_sah_bvh.restype = ctypes.c_int
+    lib.sunray_build_sah_bvh.argtypes = [f, f, f, ctypes.c_int, ctypes.c_int,
+                                         i, i, i, i, f, f, i]
+    with jn._lock:
+        jn._lib, jn._tried = lib, True
+    return lib
+
+
+def jax_build_sah(v0, v1, v2, leaf_size=4):
+    """sunray_tpu.native.build_sah_bvh with its library loaded for certain
+    (jax_native_lib); never None."""
+    from sunray_tpu.native import build_sah_bvh
+
+    jax_native_lib()
+    b = build_sah_bvh(v0, v1, v2, leaf_size=leaf_size)
+    assert b is not None, (
+        "sunray_tpu.native.build_sah_bvh returned None with its library "
+        "loaded: the native build returned no leaves")
+    return b
