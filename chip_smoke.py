@@ -246,8 +246,15 @@ Phases, in order; any failure raises and exits non-zero with no result:
      and on a seeded stress set of 2,000 triangles over 4 meshes
      (tests/torch_overlay_cases.py: overlapping and degenerate triangles
      of both windings, a textured and a clipped mesh), each timed beside
-     its bound; R1's launches read on hud_overlay over 3 rendered 1080p
-     frames; (b) utils/jpeg.write_jpeg on a rendered 1080p frame (ms at
+     its bound, two runs of the stress set bit-equal to each other; on
+     each adversarial set of tests/torch_overlay_cases.py at 1080p (thin,
+     far and non-finite triangles, edges through pixel centres, meshes off
+     the image, -0.0 image words, non-finite texels, negative colours, 40
+     meshes), bit-equal; hud_overlay's wall time a call (host tessellation,
+     packing, copies and launch) and paint_meshes' (packing, copies and
+     launch) beside
+     R1's device time; R1's launches read on hud_overlay over 3 rendered
+     1080p frames; (b) utils/jpeg.write_jpeg on a rendered 1080p frame (ms at
      q85, read back by utils/jpeg.read_jpeg: PSNR) and the committed
      progressive JPEG (tests/data/progressive_96x64.jpg) decoded, its
      pixels' SHA-256 against PIL's; (c) integrations.LiveViewer at
@@ -4702,10 +4709,23 @@ PROGRESSIVE_SHA256 = (
     "1c4458e1f301711493fa4722898932ae39c643d1cff790214bb17c552bd66458")
 
 
+def r1_mesh(m, dev):
+    """A mesh dict of tests/torch_overlay_cases.py as a Mesh2D on dev."""
+    from sunray_tpu_torch.render import overlay2d
+
+    return overlay2d.Mesh2D(
+        xy=torch.from_numpy(m["xy"]).to(dev),
+        uv=torch.from_numpy(m["uv"]).to(dev),
+        rgba=torch.from_numpy(m["rgba"]).to(dev),
+        tris=torch.from_numpy(m["tris"]).to(dev),
+        tex=None if m["tex"] is None else torch.from_numpy(m["tex"]).to(dev),
+        clip=m["clip"])
+
+
 def r1_sets(dev):
-    """R1's two inputs on the card: {label: (image, meshes)}: the 1080p HUD
-    of hud_overlay (4 lines at scale 2, a 120-sample plot) and the seeded
-    stress set (tests/torch_overlay_cases.py)."""
+    """R1's two timed inputs on the card: {label: (image, meshes)}: the
+    1080p HUD of hud_overlay (4 lines at scale 2, a 120-sample plot) and
+    the seeded stress set (tests/torch_overlay_cases.py)."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_overlay_cases import (HUD_LINES, frame_times, seeded_image,
                                      stress_meshes)
@@ -4715,14 +4735,67 @@ def r1_sets(dev):
     img = torch.from_numpy(seeded_image(h, w, 13)).to(dev)
     hud = [overlay2d.mesh_to(m, dev) for m in overlay2d.hud_meshes(
         HUD_LINES, frame_ms=frame_times(120, 14), scale=2.0)]
-    stress = [overlay2d.Mesh2D(
-        xy=torch.from_numpy(m["xy"]).to(dev),
-        uv=torch.from_numpy(m["uv"]).to(dev),
-        rgba=torch.from_numpy(m["rgba"]).to(dev),
-        tris=torch.from_numpy(m["tris"]).to(dev),
-        tex=None if m["tex"] is None else torch.from_numpy(m["tex"]).to(dev),
-        clip=m["clip"]) for m in stress_meshes(h, w, R1_STRESS_TRIS, 11)]
+    stress = [r1_mesh(m, dev)
+              for m in stress_meshes(h, w, R1_STRESS_TRIS, 11)]
     return {"hud": (img, hud), "stress": (img, stress)}
+
+
+def r1_words_differ(got, want):
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
+def r1_adversarial(dev):
+    """R1 against its plain twin, bit-equal, on every adversarial set of
+    tests/torch_overlay_cases.py at 1080p. Returns {name: (meshes,
+    triangles, words differing)}."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_overlay_cases import ADVERSARIAL, adversarial_set
+    from sunray_tpu_torch.ops import cuda_overlay
+    from sunray_tpu_torch.render.overlay2d import paint_meshes_plain
+
+    out = {}
+    for name in ADVERSARIAL:
+        img, meshes = adversarial_set(name, *R1_SIZE, seed=21)
+        img = torch.from_numpy(img).to(dev)
+        meshes = [r1_mesh(m, dev) for m in meshes]
+        diff = r1_words_differ(cuda_overlay.paint_meshes(img, meshes),
+                               paint_meshes_plain(img, meshes))
+        n_tris = sum(int(m.tris.shape[0]) for m in meshes)
+        out[name] = (len(meshes), n_tris, diff)
+        check(diff == 0, f"R1 {name}: {diff} words differ from the plain twin")
+    log(f"phase 14: R1 bit-equal to plain on the adversarial sets at "
+        f"{R1_SIZE[1]}x{R1_SIZE[0]} (meshes, triangles): "
+        + ", ".join(f"{k} ({v[0]}, {v[1]})" for k, v in out.items()))
+    return out
+
+
+def wall_ms_a_call(fn, reps=20):
+    """Host clock a call of fn(), its host work included: one warm-up,
+    then `reps` calls and one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def r1_host_ms(dev):
+    """wall_ms_a_call of hud_overlay (tessellation, packing, launch) and of
+    paint_meshes on the HUD's meshes as hud_meshes builds them on the host
+    (packing, copies, launch), on the 1080p image."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_overlay_cases import HUD_LINES, frame_times, seeded_image
+    from sunray_tpu_torch.render import overlay2d
+
+    img = torch.from_numpy(seeded_image(*R1_SIZE, 13)).to(dev)
+    ms = frame_times(120, 14)
+    meshes = overlay2d.hud_meshes(HUD_LINES, frame_ms=ms, scale=2.0)
+    return {"hud_overlay": wall_ms_a_call(lambda: overlay2d.hud_overlay(
+                img, HUD_LINES, frame_ms=ms, scale=2.0)),
+            "paint_meshes": wall_ms_a_call(
+                lambda: overlay2d.paint_meshes(img, meshes))}
 
 
 def r1_needed_ops(meshes, h, w):
@@ -4755,22 +4828,25 @@ def r1_row(dev):
 
     row = {}
     for label, (img, meshes) in r1_sets(dev).items():
-        packed = cuda_overlay.pack_meshes(meshes, dev)
+        h, w = img.shape[:2]
+        packed = cuda_overlay.pack_meshes(meshes, h, w, dev)
         got = cuda_overlay.paint_meshes(img, meshes)
         want = paint_meshes_plain(img, meshes)
-        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        diff = r1_words_differ(got, want)
         err = float((got - want).abs().max())
-        n_tris = int(packed[0].shape[0])
+        n_tris = int(packed.tris.shape[0])
         check(diff == 0, f"R1 {label}: {diff} words differ from the plain "
               f"twin (max abs err {err})")
-        ms = device_ms(lambda: cuda_overlay._launch_paint(img, *packed))
+        again = r1_words_differ(cuda_overlay.paint_meshes(img, meshes), got)
+        check(again == 0, f"R1 {label}: two runs differ in {again} words")
+        ms = device_ms(lambda: cuda_overlay._launch_paint(img, packed))
         plain = time_ms(lambda: paint_meshes_plain(img, meshes),
                         reps=3 if label == "hud" else 1)   # stress: ~2.6 s
-        h, w = img.shape[:2]
         ops = r1_needed_ops(meshes, h, w)
         b = bound(2 * nbytes(img) + nbytes(*packed), ops)
         log(f"phase 14: R1 {label}: {len(meshes)} meshes, {n_tris} triangles, "
-            f"{w}x{h}; bit-equal to plain; kernel {ms:.4f} ms, plain "
+            f"{w}x{h}; bit-equal to plain, two runs bit-equal; kernel "
+            f"{ms:.4f} ms, plain "
             f"{plain:.3f} ms, bound {b[0]:.4f} ms ({b[1]}; {ops:.3e} ops)")
         entry = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=b,
                      shape=f"{w}x{h}, {len(meshes)} meshes, {n_tris} tris")
@@ -5058,6 +5134,13 @@ def phase_viewers(dev):
     t_phase = time.perf_counter()
     summary = {}
     row = r1_row(dev)
+    summary["r1_adversarial"] = r1_adversarial(dev)
+    host = r1_host_ms(dev)
+    summary["r1_wall_ms_a_call"] = dict(host, device=row["ms"])
+    log(f"phase 14: wall a call on the 1080p HUD: hud_overlay "
+        f"{host['hud_overlay']:.4f} ms, paint_meshes {host['paint_meshes']:.4f} "
+        f"ms (host packing, copies and launch), against R1's {row['ms']:.4f} "
+        "ms on the card")
     launches = r1_main_path(dev)
     summary["live_viewer"], u8 = live_viewer_check(dev)
     summary["encoder"] = encoder_checks(u8)

@@ -174,7 +174,7 @@ def _signatures():
         "sunray_atrous_tile_shape": [ctypes.POINTER(i)],
         "sunray_boundary_launch_shape": [ctypes.POINTER(i)],
         "sunray_bvh_launch_shape": [ctypes.POINTER(i)],
-        "sunray_paint_meshes": [p, p, i, i, p, p, p, p, i, p],
+        "sunray_paint_meshes": [p, p, i, i, p, p, p, p, p, p, p, i, p],
         "sunray_overlay_launch_shape": [ctypes.POINTER(i)],
     }
 
@@ -223,7 +223,7 @@ def _check_launch_shapes(lib) -> None:
             ("sunray_gather_runs_launch_shape", cuda_gather.RUN_SHAPE),
             ("sunray_bvh_launch_shape", cuda_bvh.LAUNCH_SHAPE),
             ("sunray_overlay_launch_shape",
-             (*cuda_overlay.THREADS, cuda_overlay.TILE))):
+             (*cuda_overlay.TILE, cuda_overlay.CHUNK))):
         got = launch_shape(lib, name, len(want))
         if got != want:
             raise KernelError(f"{name}: the library launches {got}, the host "

@@ -6,7 +6,7 @@ the host's copies (cuda_trace.WOOP_RAYS, WOOP_THREADS, OCC_RAYS,
 OCC_THREADS, OCC_WIDE_MIN, CLOSEST_RAYS, CLOSEST_THREADS,
 CLOSEST_WIDE_MIN; cuda_restir.RIS_SMEM_LIGHTS; cuda_image.ATROUS_TILE,
 ATROUS_HALO; cuda_boundary.LAUNCH_SHAPE; cuda_gather.BWD_LAUNCH_SHAPE,
-RUN_SHAPE; cuda_bvh.LAUNCH_SHAPE; cuda_overlay.THREADS, TILE),
+RUN_SHAPE; cuda_bvh.LAUNCH_SHAPE; cuda_overlay.TILE, CHUNK),
 which the CPU models of the kernels, the tests' table sizes and
 chip_smoke.py's counts read, equal the constants of csrc/trace.cu,
 csrc/restir.cu, csrc/atrous.cu, csrc/boundary.cu, csrc/gather.cu,
@@ -27,6 +27,7 @@ import torch_parity  # noqa: F401  (one torch thread, as every port test)
 from sunray_tpu_torch.ops import (cuda_boundary, cuda_build, cuda_bvh,
                                   cuda_gather, cuda_history, cuda_image,
                                   cuda_overlay, cuda_restir, cuda_trace)
+from sunray_tpu_torch.render import overlay2d
 
 SHAPES = {
     "sunray_woop_launch_shape": (
@@ -61,8 +62,8 @@ SHAPES = {
                       "kMaxPasses"),
         cuda_gather.RUN_SHAPE),
     "sunray_overlay_launch_shape": (
-        "overlay.cu", ("kThreadsX", "kThreadsY", "kTile"),
-        (*cuda_overlay.THREADS, cuda_overlay.TILE)),
+        "overlay.cu", ("kTileX", "kTileY", "kChunk"),
+        (*cuda_overlay.TILE, cuda_overlay.CHUNK)),
 }
 
 
@@ -162,9 +163,9 @@ def _launch(name):
             torch.zeros((3, 4, 8)), torch.zeros((3, 8), dtype=torch.int32),
             600, lib=lib),
         "paint_meshes": lambda lib: cuda_overlay._launch_paint(
-            img, torch.zeros((2, 24)),
-            torch.zeros((1, cuda_overlay.META_INTS), dtype=torch.int32),
-            torch.zeros((1, 4)), torch.zeros(4), lib=lib),
+            img, cuda_overlay.pack_meshes(
+                [overlay2d.tess_rect(1, 1, 3, 3, (1.0, 0.5, 0.0, 0.5))], 4, 6,
+                "cpu"), lib=lib),
     }[name]
 
 
