@@ -266,6 +266,27 @@ Phases, in order; any failure raises and exits non-zero with no result:
      instance count and the frame, PAUSE freezes the camera clock, frames a
      second. Its summary is the line {"viewers": ...} after
      {"utilities": ...}. `python3 tools/viewer_run.py` runs phase 14 alone.
+ 15. Multi-device rendering (parallel/), on the one card: (a) NCCL at
+     world size 1 (a FileStore in a temporary directory): the row-sharded
+     frame (parallel/spmd.py) on phase 5's 1080p Cornell ReSTIR frame for
+     3 frames, bit-equal to render_frame from the same state, phase 5's
+     kernels launched (K5 and K7 in their window form), frame ms beside
+     phase 5's; (b) 4 gloo ranks sharing the card (torch.multiprocessing;
+     a child's failure fails the script): the 1080p frame in 270-row
+     bands (DI 30, GI 20, 4 a-trous passes, halo_t 16, history reads
+     through K13), 3 static and 3 slow-orbit frames gathered and held to
+     the single-device frame at tests/test_spmd.py's bars (99.5% of pixels
+     within 2e-5 static, 2e-4 moving, all finite), K5 and K7 in window
+     form, K6 and K13 launched on every rank and no whole-frame K5 or K7,
+     each rank's bytes a frame (traffic_tally) and host-staged exchange ms
+     a frame (not a scaling figure: the ranks share one card); (c)
+     training_step at (dp, sp) = (2, 2) over the 4 ranks at 320x180, loss
+     and gradient within 1e-5 of the single-device step; (d) K5 and K7 in
+     window form and K6 on the 1080p/4 band of frame 2's inputs against
+     their plain twins (take-flip scheme; K7 1e-5), timed as phase 3
+     times them. Its summary is the line {"parallel": ...} after
+     {"viewers": ...}. `python3 tools/parallel_run.py` runs phase 15
+     alone.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -331,8 +352,9 @@ ATROUS_TAP_OPS = 40
 DIFF_SIZE = (1280, 720)
 DIFF_OFF_SIZE = (480, 270)          # the step with the checkpoints off
 DIFF_STEPS = 3                      # card vs CPU, threaded state
-DIFF_TIMED = 5                      # timed steps, phases 8-9 (10 before
-                                    # phase 12 joined the script)
+DIFF_TIMED = 3                      # timed steps, phases 8-9 (10 before
+                                    # phase 12 joined the script, 5
+                                    # before phase 15 did)
 DIFF_LOSS_RTOL = 1e-5
 DIFF_GRAD_RTOL, DIFF_GRAD_FLOOR = 1e-4, 1e-5   # floor: of the largest |g|
 # Phase 9, the visibility gradients (cornell_restir_fwdbwd_720p with both
@@ -2432,6 +2454,12 @@ KERNELS = {
     # paint_meshes of the 2D overlay painter.
     "paint_meshes": ("sunray_tpu_torch/csrc/overlay.cu",
                      "sunray_tpu/render/overlay2d.py:79"),
+    # The window forms of K5 and K7 that the row-sharded frame runs
+    # (phase 15): a band's lanes, neighbours read in a halo window.
+    "di_spatial_window": ("sunray_tpu_torch/csrc/restir.cu",
+                          "sunray_tpu/ops/pallas_restir.py:566"),
+    "atrous_pass_window": ("sunray_tpu_torch/csrc/atrous.cu",
+                           "sunray_tpu/ops/pallas_image.py:258"),
 }
 BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
 SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
@@ -2446,9 +2474,12 @@ REAL_ONLY = ("bvh_walk", "bvh2_walk")
 RUNS_ONLY = ("gather_rows_bwd_runs",)
 # The interactive path's own kernel (phase 14): R1, on hud_overlay's path.
 OVERLAY_ONLY = ("paint_meshes",)
+# The row-sharded frame's own instantiations (phase 15).
+PARALLEL_ONLY = ("di_spatial_window", "atrous_pass_window")
 CORNELL_KERNELS = tuple(k for k in KERNELS
                         if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY
-                        + VIS_ONLY + REAL_ONLY + RUNS_ONLY + OVERLAY_ONLY)
+                        + VIS_ONLY + REAL_ONLY + RUNS_ONLY + OVERLAY_ONLY
+                        + PARALLEL_ONLY)
 # A differentiable frame: the tracer and K8 forward and backward; the plain
 # versions of K3-K7, K9 and K13 (JAX's gates).
 DIFF_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
@@ -3253,8 +3284,8 @@ def kernel_registers(regs, kernel, threads):
 # _auto_big_mode counts (renderer.py:160-168, in both packages) exceeds
 # bvh2_blas_max_tris: "auto" would take the binned tracer.
 REAL_GLB = dict(seed=10, tex=1024, subdiv=4, spheres=50)
-REAL_WARM, REAL_TIMED = 3, 6    # 5, 10 before phase 12 joined the
-                                # script
+REAL_WARM, REAL_TIMED = 2, 4    # 5, 10 before phase 12 joined the
+                                # script, 3, 6 before phase 15 did
 REAL_ANIMATE = 3            # set_instances frames (AsState UPDATE refits;
                             # 8 before phase 12 joined the script)
 WALK_LANES = 65536          # lanes of each query held to the plain twin
@@ -3689,7 +3720,8 @@ REAL_DIFF_CASES = (("nee", "bvh"), ("nee", "auto"), ("restir", "bvh"),
                    ("restir", "auto"))
 REAL_DIFF_SMALL = (96, 64)
 REAL_DIFF_FLOOR = 1e-5      # card vs CPU: of the largest finite |gradient|
-REAL_DIFF_WARM, REAL_DIFF_TIMED = 2, 4   # 3, 10 before phase 12
+REAL_DIFF_WARM, REAL_DIFF_TIMED = 1, 3   # 3, 10 before phase 12, 2, 4
+                                         # before phase 15
 REAL_DIFF_PARAMS = ("positions", "base_color", "inst_transform", "textures")
 # A differentiable real-scene step ("auto": B3): the walk, K8 forward and
 # backward, the runs path; the plain K3-K7, K9 and K13; no K1, K2.
@@ -5150,6 +5182,453 @@ def phase_viewers(dev):
     return summary, row, launches
 
 
+# -- phase 15: multi-device rendering (parallel/) -----------------------------
+
+PAR_SIZE = (1920, 1080)
+PAR_RANKS = 4                       # gloo processes sharing the one card
+PAR_FRAMES = 3                      # frames a camera path, (a) and (b)
+PAR_TRAIN_SIZE = (320, 180)         # (c), at (dp, sp) = (2, 2)
+PAR_TRAIN_KW = dict(lighting="nee", bounces=2, virtual_bounces=2,
+                    denoise_passes=0, enable_taa=False, differentiable=True)
+PAR_RTOL = 1e-5                     # (c): loss, and gradient of the largest
+PAR_TIMEOUT_S = 300                 # the ranks' join and gloo timeout
+# (b)'s frame: the default 1080p ReSTIR config (DI 30, GI 20, 4 a-trous
+# passes, halo_t 16) with the history reads through K13, so that K13 runs
+# on the halo-extended table.
+PAR_KW = dict(history_select_kernel="auto")
+# The kernels every rank must launch in (b) and those that must not run in
+# their whole-frame form there.
+PAR_RANK_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
+                    "gather_rows_multi", "ris_audition", "di_temporal",
+                    "di_spatial_window", "gi_spatial", "atrous_pass_window",
+                    "history_gather")
+PAR_ABSENT = ("di_spatial", "atrous_pass", "taa_clamp_blend")
+
+
+def par_cameras(kind):
+    """tests/test_spmd.py's static camera and slow orbit."""
+    from sunray_tpu_torch.camera import Camera
+
+    if kind == "static":
+        return [Camera(**CAMERA)] * PAR_FRAMES
+    return [Camera(position=(1.0 + 0.02 * i, 1.0, 3.4 - 0.02 * i),
+                   target=(1.0, 1.0, 0.0), fov_y=45.0)
+            for i in range(PAR_FRAMES)]
+
+
+def par_train_case(dev):
+    """(c)'s views (two, the dryrun's cameras) and seeded targets."""
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+
+    w, h = PAR_TRAIN_SIZE
+    per = [camera_matrices(Camera(position=(1.0, 1.0, 3.2 + 0.1 * i),
+                                  target=(1.0, 1.0, 0.0), fov_y=45.0),
+                           w, h, device=dev) for i in range(2)]
+    mats = {k: torch.stack([m[k] for m in per]) for k in per[0]}
+    gen = torch.Generator().manual_seed(15)
+    targets = torch.rand((2, h, w, 3), generator=gen).to(dev)
+    return mats, targets
+
+
+def par_train(dev, mesh):
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.parallel.sharding import training_step
+    from sunray_tpu_torch.scene import cornell_box
+
+    w, h = PAR_TRAIN_SIZE
+    cfg = RenderConfig(width=w, height=h, **PAR_TRAIN_KW)
+    mats, targets = par_train_case(dev)
+    loss, grad = training_step(cornell_box(device=dev), cfg, mats, targets,
+                               mesh)
+    torch.cuda.synchronize()
+    return float(loss), grad.cpu()
+
+
+def _timed_exchanges(record):
+    """Wrap halo.exchange_rows (and postprocess's import of it) so that
+    each call's wall time, the card synchronised before and after, adds
+    to record["ms"]; returns the undo."""
+    from sunray_tpu_torch.parallel import halo
+    from sunray_tpu_torch.render import postprocess
+
+    saved = halo.exchange_rows
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved(*args, **kwargs)
+        torch.cuda.synchronize()
+        record["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    halo.exchange_rows = postprocess.exchange_rows = timed
+
+    def undo():
+        halo.exchange_rows = postprocess.exchange_rows = saved
+    return undo
+
+
+def par_rank(rank, world, tmp):
+    """One gloo rank of phase 15 (b) and (c) on the card: the 1080p frame's
+    band for the static and slow paths (launches, tally, exchange and
+    frame ms; rank 0 also renders the single-device frames and compares),
+    then training_step on the (2, 2) mesh. Returns its measurements."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from sunray_tpu_torch.camera import camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.parallel.halo import traffic_tally
+    from sunray_tpu_torch.parallel.sharding import make_mesh
+    from sunray_tpu_torch.parallel.spmd import (
+        gather_rows,
+        make_spmd_step,
+        shard_state,
+    )
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+    from sunray_tpu_torch.scene import cornell_box
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    cuda_build.library()
+    w, h = PAR_SIZE
+    cfg = RenderConfig(width=w, height=h, **PAR_KW)
+    scene = cornell_box(device=dev)
+    out = {"rank": rank, "paths": {}}
+    images = {}
+    for kind in ("static", "slow"):
+        step = make_spmd_step(scene, cfg)
+        state = shard_state(RenderState.create(cfg, dev), cfg, step.grid)
+        record = {"ms": 0.0}
+        undo = _timed_exchanges(record)
+        cuda_build.launches.clear()
+        frame_ms, tallies, imgs = [], [], []
+        try:
+            for cam in par_cameras(kind):
+                mats = camera_matrices(cam, w, h, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with traffic_tally() as t:
+                    state, ldr, _ = step(state, mats)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                tallies.append(dict(t))
+                imgs.append(gather_rows(ldr))
+        finally:
+            undo()
+        out["paths"][kind] = dict(
+            launches=dict(cuda_build.launches), frame_ms=frame_ms,
+            exchange_ms_a_frame=record["ms"] / PAR_FRAMES,
+            bytes_a_frame=tallies[0]["bytes"],
+            sent_bytes_a_frame=tallies[0]["sent_bytes"],
+            tallies_equal=all(t == tallies[0] for t in tallies))
+        images[kind] = imgs
+    dist.barrier()
+    if rank == 0:
+        # The single-device frames on the card, rendered after every
+        # rank's timed frames.
+        for kind, bars in (("static", 2e-5), ("slow", 2e-4)):
+            state = RenderState.create(cfg, dev)
+            match, finite = [], True
+            for cam, got in zip(par_cameras(kind), images[kind]):
+                mats = camera_matrices(cam, w, h, device=dev)
+                state, ref, _ = render_frame(scene, cfg, state, mats)
+                ok = torch.isclose(got, ref, rtol=bars, atol=bars).all(dim=-1)
+                match.append(ok.float().mean().item())
+                finite = finite and bool(torch.isfinite(got).all())
+            out["paths"][kind].update(match=match, finite=finite, bar=bars)
+    dist.barrier()
+    mesh = make_mesh(world, dp=2)
+    t0 = time.perf_counter()
+    out["train"] = par_train(dev, mesh)
+    out["train_ms"] = (time.perf_counter() - t0) * 1e3
+    out["mesh"] = (mesh.dp, mesh.sp, mesh.dp_index, mesh.sp_index)
+    dist.destroy_process_group()
+    return out
+
+
+def _par_child(rank, world, tmp):
+    res = par_rank(rank, world, tmp)
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def par_spawn(world):
+    """par_rank on `world` spawned processes; their results. A child's
+    failure fails the phase (join re-raises), and so does a join that
+    outlasts PAR_TIMEOUT_S (the children are then terminated)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_par_child, args=(world, tmp), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.perf_counter() + PAR_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.terminate()
+                raise RuntimeError(f"chip_smoke: phase 15 ranks still running "
+                                   f"after {PAR_TIMEOUT_S} s")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+def par_world_one(dev, phase5_ms):
+    """(a): NCCL at world size 1 (a FileStore in a temporary directory):
+    the row-sharded frame on phase 5's 1080p Cornell ReSTIR frame for
+    PAR_FRAMES frames, bit-equal to render_frame from the same state, and
+    phase 5's kernels launched (K5 and K7 in their window form)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sunray_tpu_torch.camera import Camera, camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.ops import cuda_build
+    from sunray_tpu_torch.parallel.spmd import make_spmd_step, shard_state
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+    from sunray_tpu_torch.scene import cornell_box
+
+    w, h = PAR_SIZE
+    cfg = RenderConfig(width=w, height=h, lighting="restir")
+    scene = cornell_box(device=dev)
+    mats = camera_matrices(Camera(**CAMERA), w, h, device=dev)
+    refs, state = [], RenderState.create(cfg, dev)
+    for _ in range(PAR_FRAMES):
+        state, ldr, _ = render_frame(scene, cfg, state, mats)
+        refs.append(ldr)
+    ref_state = state
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            check(dist.get_backend() == "nccl", "phase 15 (a): not NCCL")
+            step = make_spmd_step(scene, cfg)
+            state = shard_state(RenderState.create(cfg, dev), cfg, step.grid)
+            cuda_build.launches.clear()
+            frame_ms, equal = [], []
+            for ref in refs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, ldr, _ = step(state, mats)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                equal.append(torch.equal(ldr.view(torch.int32),
+                                         ref.view(torch.int32)))
+            launches = dict(cuda_build.launches)
+        finally:
+            dist.destroy_process_group()
+    accum_equal = torch.equal(state.accum.view(torch.int32),
+                              ref_state.accum.view(torch.int32))
+    log(f"  (a) NCCL world 1, {w}x{h} ReSTIR, {PAR_FRAMES} frames: ldr "
+        f"bit-equal to render_frame {equal}, TAA history bit-equal "
+        f"{accum_equal}; frame ms {[round(t, 3) for t in frame_ms]} (phase 5: "
+        f"{phase5_ms:.3f} ms a frame, mean of 20)")
+    log(f"  (a) launches: {launches}")
+    check(all(equal) and accum_equal, "phase 15 (a): not bit-equal")
+    want = [{"di_spatial": "di_spatial_window",
+             "atrous_pass": "atrous_pass_window"}.get(k, k)
+            for k in CORNELL_KERNELS]
+    for name in want:
+        check(launches.get(name, 0) > 0, f"phase 15 (a): {name} never launched")
+    for name in ("di_spatial", "atrous_pass"):
+        check(launches.get(name, 0) == 0,
+              f"phase 15 (a): {name} launched in its whole-frame form")
+    return dict(bit_equal=all(equal) and accum_equal, frame_ms=frame_ms,
+                phase5_frame_ms=phase5_ms, launches=launches)
+
+
+def par_windows(dev):
+    """(d): K5 and K7 in window form and K6 on a band, on the 1080p/4 band
+    of rows 270-539 (rank 1 of 4) of frame 2's inputs, against their plain
+    twins (K5 and K6 by the take-flip scheme, K7 within ATROUS_ATOL) and
+    timed as phase 3 times them. Returns the two rows and K6's."""
+    from sunray_tpu_torch.ops import cuda_image, cuda_restir
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_window_cases import atrous_window, window
+
+    def band_window(x, halo):
+        return window(x, h, row0, hl, halo).contiguous()
+
+    w, h = PAR_SIZE
+    hl = h // PAR_RANKS
+    row0 = hl
+    lanes = slice(row0 * w, (row0 + hl) * w)
+    calls = capture_calls(dev, {"di_spatial": "cuda_restir",
+                                "gi_spatial": "cuda_restir"}, 2)
+    rows = {}
+
+    # K5: the centre reservoir and guides as a halo_s window.
+    whole = calls["di_spatial"][0][0]
+    (table, seeds, center, taps, pending, gnormal, gdepth, cur, pos, normal,
+     view, albedo, rough, metal, _, _, clamps) = whole
+    halo = 31                       # max(DI 30, GI 20) + 1
+    band = (table, seeds[lanes],
+            {k: band_window(v, halo) for k, v in center.items()},
+            taps, pending[lanes], band_window(gnormal, halo),
+            band_window(gdepth, halo), cur[lanes], pos[lanes],
+            normal[lanes], view[lanes], albedo[lanes], rough[lanes],
+            metal[lanes], w, hl, clamps)
+    win = dict(row0=row0, halo=halo, h_global=h)
+    agree, err = compare_restir("di_spatial", band, "1080p/4 window", win)
+    k_band = cuda_restir.di_spatial(*band, **win)
+    k_whole = cuda_restir.di_spatial(*whole)
+    torch.cuda.synchronize()
+    same = torch.equal(k_band[0], k_whole[0][lanes]) and all(
+        torch.equal(k_band[1][k], k_whole[1][k][lanes]) for k in k_band[1])
+    log(f"  K5 window: taps {taps}; bit-equal to the whole frame's K5 on "
+        f"the band's lanes {same}")
+    check(same, "phase 15 (d): K5's window form differs from the whole frame")
+    r = dict(agree=agree, max_abs_err=err, whole_frame_bit_equal=same,
+             shape=[hl, w, halo])
+    r["bound"] = bound(nbytes(*flatten(band)) + nbytes(*flatten(k_band)),
+                       hl * w * restir_lane_ops("di_spatial", band))
+    r["ms"] = device_ms(lambda: cuda_restir.di_spatial(*band, **win))
+    r["plain_ms"] = time_ms(lambda: cuda_restir.di_spatial_plain(*band, **win))
+    rows["di_spatial_window"] = r
+
+    # K6: the band's lanes of its (T, P) tap planes (cut from the window
+    # in the sharded frame).
+    g = calls["gi_spatial"][0][0]
+    gband = (g[0][lanes], {k: v[lanes] for k, v in g[1].items()},
+             {k: v[:, lanes].contiguous() for k, v in g[2].items()},
+             *(x[lanes] for x in g[3:8]), *g[8:])
+    agree, err = compare_restir("gi_spatial", gband, "1080p/4 band")
+    out = cuda_restir.gi_spatial(*gband)
+    r = dict(agree=agree, max_abs_err=err,
+             bound=bound(nbytes(*flatten(gband)) + nbytes(*flatten(out)),
+                         hl * w * restir_lane_ops("gi_spatial", gband)),
+             ms=device_ms(lambda: cuda_restir.gi_spatial(*gband)),
+             plain_ms=time_ms(lambda: cuda_restir.gi_spatial_plain(*gband)))
+    rows["gi_spatial_band"] = r
+
+    # K7: each pass's window (2 * step rows above and below).
+    guides = capture_denoise_inputs(dev)
+    err, ms, plain_ms, n_b, n_ops = 0.0, 0.0, 0.0, 0, 0
+    for i in range(4):
+        s = 1 << i
+        hp = 2 * s
+        wg, kw = atrous_window(guides, row0, hl, hp)
+        k = cuda_image.atrous_pass(*wg, s, **kw)
+        p = cuda_image.atrous_denoise_pass(*wg, s, **kw)
+        whole_k = cuda_image.atrous_pass(*guides, s)
+        torch.cuda.synchronize()
+        e = (k - p).abs().max().item()
+        band_equal = torch.equal(k[hp:hp + hl], whole_k[row0:row0 + hl])
+        log(f"  K7 window step {s}: {wg[0].shape[0]} rows, max abs err vs "
+            f"plain {e:.3g}, band rows bit-equal to the whole-image pass "
+            f"{band_equal}")
+        check(e <= ATROUS_ATOL, f"phase 15 (d): K7 window step {s} error {e}")
+        check(band_equal, f"phase 15 (d): K7 window step {s} differs from the "
+              "whole image's pass")
+        err = max(err, e)
+        ms += device_ms(lambda: cuda_image.atrous_pass(*wg, s, **kw))
+        plain_ms += time_ms(lambda: cuda_image.atrous_denoise_pass(*wg, s,
+                                                                   **kw))
+        n_b += nbytes(*wg) + nbytes(wg[0])
+        n_ops += round(wg[0].shape[0] * w * (1.0 - bypass_share(wg))) \
+            * 24 * ATROUS_TAP_OPS
+    rows["atrous_pass_window"] = dict(
+        max_abs_err=err, ms=ms / 4, plain_ms=plain_ms / 4,
+        bound=bound(n_b / 4, n_ops / 4), shape=[hl, w])
+    for name, r in rows.items():
+        log(f"  (d) {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    return rows
+
+
+def phase_parallel(dev, phase5_ms):
+    """Phase 15: multi-device rendering (parallel/) on the one card: (a)
+    NCCL at world size 1, bit-equal to render_frame; (b) PAR_RANKS gloo
+    ranks sharing the card on the 1080p frame (static and slow orbit) held
+    to the single-device frame at tests/test_spmd.py's bars, every rank's
+    kernels and halo traffic; (c) training_step at (dp, sp) = (2, 2)
+    against the single-device step; (d) the window kernels against their
+    plain twins. The exchange times are of host-staged gloo messages
+    between processes that share one card: not a scaling figure. Returns
+    (summary, kernel rows, launches of (b)'s rank 0)."""
+    from sunray_tpu_torch.parallel.sharding import make_mesh
+
+    t_phase = time.perf_counter()
+    w, h = PAR_SIZE
+    log(f"phase 15: multi-device rendering, {w}x{h}")
+    summary = {"world_one": par_world_one(dev, phase5_ms)}
+
+    mesh1 = make_mesh()
+    check(mesh1.shape == (1, 1), f"phase 15: world-1 mesh {mesh1.shape}")
+    ref_loss, ref_grad = par_train(dev, mesh1)
+    t0 = time.perf_counter()
+    ranks = par_spawn(PAR_RANKS)
+    spawn_s = time.perf_counter() - t0
+    per_rank = []
+    for r in ranks:
+        for kind, p in r["paths"].items():
+            for name in PAR_RANK_KERNELS:
+                check(p["launches"].get(name, 0) > 0,
+                      f"phase 15 (b) rank {r['rank']} {kind}: {name} never "
+                      "launched")
+            for name in PAR_ABSENT:
+                check(p["launches"].get(name, 0) == 0,
+                      f"phase 15 (b) rank {r['rank']} {kind}: {name} launched")
+            check(p["tallies_equal"], f"phase 15 (b) rank {r['rank']}: "
+                  "tallies differ between frames")
+        per_rank.append({kind: {k: p[k] for k in (
+            "frame_ms", "exchange_ms_a_frame", "bytes_a_frame",
+            "sent_bytes_a_frame")} for kind, p in r["paths"].items()})
+        log(f"  (b) rank {r['rank']}: " + "; ".join(
+            f"{kind} frame ms {[round(t, 2) for t in p['frame_ms']]}, "
+            f"host-staged exchanges {p['exchange_ms_a_frame']:.2f} ms a "
+            f"frame, {p['bytes_a_frame']} bytes a frame (sent "
+            f"{p['sent_bytes_a_frame']})" for kind, p in r["paths"].items()))
+    for kind, p in ranks[0]["paths"].items():
+        log(f"  (b) {kind}: pixels within {p['bar']:g} of the single-device "
+            f"frame {p['match']}, finite {p['finite']}")
+        check(p["finite"], f"phase 15 (b) {kind}: non-finite pixels")
+        check(min(p["match"]) >= 0.995,
+              f"phase 15 (b) {kind}: only {min(p['match'])} of pixels match")
+    summary["ranks"] = dict(
+        n=PAR_RANKS, spawn_s=spawn_s, per_rank=per_rank,
+        match={k: p["match"] for k, p in ranks[0]["paths"].items()},
+        launches_rank0=ranks[0]["paths"]["slow"]["launches"],
+        note="4 processes share one card over gloo, halos staged through "
+             "the host: not a scaling figure")
+
+    scale = ref_grad.abs().max().item()
+    train = []
+    for r in ranks:
+        loss, grad = r["train"]
+        gerr = (grad - ref_grad).abs().max().item()
+        train.append(dict(mesh=r["mesh"], loss=loss, grad_err=gerr,
+                          ms=r["train_ms"]))
+        check(abs(loss - ref_loss) <= PAR_RTOL * abs(ref_loss),
+              f"phase 15 (c) rank {r['rank']}: loss {loss} vs {ref_loss}")
+        check(gerr <= PAR_RTOL * scale,
+              f"phase 15 (c) rank {r['rank']}: gradient off by {gerr} "
+              f"(largest {scale})")
+    log(f"  (c) training_step (2, 2) at {PAR_TRAIN_SIZE}: single-device loss "
+        f"{ref_loss:.7g}; ranks {[(t['mesh'], t['loss'], t['grad_err']) for t in train]}")
+    summary["train"] = dict(size=list(PAR_TRAIN_SIZE), ref_loss=ref_loss,
+                            grad_scale=scale, ranks=train)
+
+    rows = par_windows(dev)
+    summary["windows"] = {k: {kk: vv for kk, vv in v.items()}
+                          for k, v in rows.items()}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 15 took {summary['phase_s']:.1f} s")
+    launches = dict(ranks[0]["paths"]["slow"]["launches"])
+    return summary, rows, launches
+
+
 def main():
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device available")
@@ -5280,6 +5759,9 @@ def main():
                                 phase5, provenance_frames)
     viewers, kernels["paint_meshes"], overlay_launches = phase_viewers(dev)
     launches.update({k: overlay_launches[k] for k in OVERLAY_ONLY})
+    parallel, par_rows, par_launches = phase_parallel(dev, phase5["frame_ms"])
+    kernels.update({k: par_rows[k] for k in PARALLEL_ONLY})
+    launches.update({k: par_launches[k] for k in PARALLEL_ONLY})
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -5322,13 +5804,15 @@ def main():
                     "bf16_launches_a_frame", "lights578_agree",
                     "lights578_max_abs_err", "lights578_ms",
                     "stress_max_abs_err", "stress_ms", "stress_plain_ms",
-                    "stress_bound", "stress_shape"):
+                    "stress_bound", "stress_shape",
+                    "whole_frame_bit_equal"):
             if key in r:
                 entry[key] = r[key]
         out.append(entry)
     log(json.dumps({"configs": configs}))
     log(json.dumps({"utilities": utilities}))
     log(json.dumps({"viewers": viewers}))
+    log(json.dumps({"parallel": parallel}))
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

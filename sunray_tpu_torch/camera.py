@@ -142,16 +142,31 @@ def pixel_centers(n: int, device):
     return (torch.arange(n, dtype=_F32, device=device) + 0.5) * inv
 
 
-def generate_rays(matrices, width: int, height: int):
+def pixel_rows(height: int, device, row0=None, rows: int = 0):
+    """pixel_centers(height) or its rows row0 .. row0 + rows - 1: a band
+    takes the global centres (row0 + i + 0.5) times the float32
+    reciprocal of the whole height, so it equals those rows of the whole
+    image bit for bit."""
+    if row0 is None:
+        return pixel_centers(height, device)
+    inv = torch.tensor(1.0 / height, dtype=_F32).item()
+    return (torch.arange(rows, dtype=_F32, device=device) + float(row0)
+            + 0.5) * inv
+
+
+def generate_rays(matrices, width: int, height: int, row0=None,
+                  rows: int = 0):
     """Primary camera rays for every pixel (ray_gen_ris.slang:44-53).
 
     Returns (origins, directions), each (H, W, 3). Row 0 is the top of the
-    image (Vulkan launch-id convention)."""
+    image (Vulkan launch-id convention). row0/rows: only the `rows`
+    global rows from row0 (a row-sharded frame, parallel/spmd.py); the
+    arrays are then (rows, W, 3)."""
     view_inverse = matrices["view_inverse"]
     proj_inverse = matrices["proj_inverse"]
     device = view_inverse.device
 
-    v, u = torch.meshgrid(pixel_centers(height, device),
+    v, u = torch.meshgrid(pixel_rows(height, device, row0, rows),
                           pixel_centers(width, device), indexing="ij")
     dx2 = u * 2.0 - 1.0
     dy2 = v * 2.0 - 1.0

@@ -78,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
 atrous_kernel(const float* __restrict__ color, const float* __restrict__ depth,
               const float* __restrict__ normal, const float* __restrict__ roughness,
               const float* __restrict__ diffuse, int h, int w, int step, int tiles_x,
-              float* __restrict__ out) {
+              int row0, int h_global, float* __restrict__ out) {
   __shared__ float4 s_il[kStaged];   // illuminance rgb, luma
   __shared__ float4 s_dd[kStaged];   // raw diffuse rgb, depth
   __shared__ float4 s_n[kStaged];    // normal xyz, unused
@@ -135,9 +135,11 @@ atrous_kernel(const float* __restrict__ color, const float* __restrict__ depth,
 #pragma unroll
     for (int dx = -2; dx <= 2; ++dx) {
       if (dx == 0 && dy == 0) continue;
-      const int iy = y + dy * step;
+      // The tap's in-image test runs on global rows: row0 is the global
+      // row of the window's row 0 (0 and h_global = h for a whole image).
+      const int iy = row0 + y + dy * step;
       const int ix = x + dx * step;
-      const bool in_b = iy >= 0 && iy < h && ix >= 0 && ix < w;
+      const bool in_b = iy >= 0 && iy < h_global && ix >= 0 && ix < w;
       const int q = c + dy * kStageX + dx;
       const float4 qil = s_il[q], qdd = s_dd[q], qn = s_n[q];
       const float si0 = qil.x, si1 = qil.y, si2 = qil.z;
@@ -166,10 +168,15 @@ atrous_kernel(const float* __restrict__ color, const float* __restrict__ depth,
 
 }  // namespace
 
-extern "C" int sunray_atrous_pass(const float* color, const float* depth,
-                                  const float* normal, const float* roughness,
-                                  const float* diffuse, int h, int w, int step, float* out,
-                                  void* stream) {
+// K7's window form: one pass over an h-row window of a row-sharded image
+// (parallel/halo.py) whose row 0 is global row row0 of an h_global-row
+// image; the edge-clamped staging stays inside the window and the taps'
+// in-image test takes global rows (postprocess.py:307-316).
+extern "C" int sunray_atrous_pass_window(const float* color, const float* depth,
+                                         const float* normal, const float* roughness,
+                                         const float* diffuse, int h, int w, int step,
+                                         int row0, int h_global, float* out,
+                                         void* stream) {
   if (h > 0 && w > 0 && step > 0) {
     // Tiles of the widest and tallest lattice (offset 0); the blocks of a
     // narrower lattice's last tile column or row exit at once.
@@ -179,9 +186,18 @@ extern "C" int sunray_atrous_pass(const float* color, const float* depth,
     if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
     atrous_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-        color, depth, normal, roughness, diffuse, h, w, step, tiles_x, out);
+        color, depth, normal, roughness, diffuse, h, w, step, tiles_x, row0, h_global,
+        out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sunray_atrous_pass(const float* color, const float* depth,
+                                  const float* normal, const float* roughness,
+                                  const float* diffuse, int h, int w, int step, float* out,
+                                  void* stream) {
+  return sunray_atrous_pass_window(color, depth, normal, roughness, diffuse, h, w, step, 0,
+                                   h, out, stream);
 }
 
 // K7's block shape, {kTileX, kTileY, kHalo}: the host's models of the

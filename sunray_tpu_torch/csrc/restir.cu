@@ -502,7 +502,12 @@ struct DiSpatialArgs {
   const float* pos;
   const A *nrm, *view, *alb, *rough, *metal;
   const float* tnrm;  // the neighbour test's fp32 normal (bf16 only)
-  int width, height;
+  // The centre lanes are `height` rows of `width`; the neighbour planes
+  // (c_*, gnormal, gdepth) are a window of height + 2 * halo rows whose
+  // row `halo` is the band's row 0, and the band's row 0 is global row
+  // row0 of an image of h_global rows. The whole frame: halo 0, row0 0,
+  // h_global = height.
+  int width, height, halo, row0, h_global;
   int taps[2 * kMaxTaps];
   int n_taps;
   float w_clamp, m_clamp, ws_clamp;
@@ -534,9 +539,10 @@ __device__ __forceinline__ TapHead tap_head(const DiSpatialArgs<A>& a, int x, in
                                             int t) {
   TapHead h = {};
   const int nx = x + a.taps[2 * t], ny = y + a.taps[2 * t + 1];
-  h.inside = nx >= 0 && ny >= 0 && nx < a.width && ny < a.height;
+  const int gy = a.row0 + ny;  // the in-image test runs on global rows
+  h.inside = nx >= 0 && gy >= 0 && nx < a.width && gy < a.h_global;
   if (!h.inside) return h;
-  h.j = (long long)ny * a.width + nx;
+  h.j = (long long)(ny + a.halo) * a.width + nx;
   h.gn = ld3(a.gnormal, h.j);
   h.gd = __ldg(a.gdepth + h.j);
   h.w = __ldg(a.c_w + h.j);
@@ -561,12 +567,14 @@ di_spatial_kernel(DiSpatialArgs<A> a) {
   const bool pending = a.pending[i] != 0;
   uint32_t seed = (uint32_t)a.seed[i];
 
-  // Centre merge (the pixel's own reservoir, ray_gen_final.slang:147-158).
-  const int c_raw = __ldg(a.c_idx + i);
-  const float c_w = __ldg(a.c_w + i), c_m = __ldg(a.c_m + i);
+  // Centre merge (the pixel's own reservoir, ray_gen_final.slang:147-158),
+  // read at its lane of the window.
+  const long long ci = i + (long long)a.halo * a.width;
+  const int c_raw = __ldg(a.c_idx + ci);
+  const float c_w = __ldg(a.c_w + ci), c_m = __ldg(a.c_m + ci);
   const bool c_ok = pending && c_w > 0.0f && c_raw < a.n_lights;
   const int c_idx = min(c_raw, a.n_lights - 1);
-  const V3 c_pos = ld3(a.c_pos, i), c_nrm = ld3(a.c_nrm, i);
+  const V3 c_pos = ld3(a.c_pos, ci), c_nrm = ld3(a.c_nrm, ci);
   const V3 c_em = emission(a.em, c_idx, a.n_lights);
   const float p_hat_c = max3(eval_light<false, bf>(s, t_full, c_em, c_pos, c_nrm));
   const float u_m = rnd(seed);
@@ -770,11 +778,19 @@ int launch_di_spatial(const float* em, int n_lights, const long long* seed,
                       const float* gnormal, const float* gdepth, const float* cur_depth,
                       const float* pos, const void* nrm, const void* view, const void* alb,
                       const void* rough, const void* metal, const float* tnrm, int width,
-                      int height, const int* taps, int n_taps, float w_clamp,
-                      float m_clamp, float ws_clamp, long long* seed_out, float* o_pos,
-                      float* o_nrm, float* o_wsum, float* o_m, int32_t* o_idx,
-                      float* o_wspatial, float* o_fy, uint8_t* o_has, void* stream) {
+                      int height, int halo, int row0, int h_global, const int* taps,
+                      int n_taps, float w_clamp, float m_clamp, float ws_clamp,
+                      long long* seed_out, float* o_pos, float* o_nrm, float* o_wsum,
+                      float* o_m, int32_t* o_idx, float* o_wspatial, float* o_fy,
+                      uint8_t* o_has, void* stream) {
   if (n_taps < 0 || n_taps > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
+  if (halo < 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int t = 0; t < n_taps; ++t) {
+    // A window's taps must stay inside it (the whole frame's are bounded
+    // by the in-image test).
+    if (halo > 0 && (taps[2 * t + 1] > halo || taps[2 * t + 1] < -halo))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int n = width * height;
   if (n > 0) {
     DiSpatialArgs<A> a;
@@ -799,6 +815,9 @@ int launch_di_spatial(const float* em, int n_lights, const long long* seed,
     a.tnrm = tnrm;
     a.width = width;
     a.height = height;
+    a.halo = halo;
+    a.row0 = row0;
+    a.h_global = h_global;
     for (int t = 0; t < 2 * kMaxTaps; ++t) a.taps[t] = taps[t];
     a.n_taps = n_taps;
     a.w_clamp = w_clamp;
@@ -932,9 +951,10 @@ int sunray_di_spatial(const float* em, int n_lights, const long long* seed,
                       float* o_wspatial, float* o_fy, uint8_t* o_has, void* stream) {
   return launch_di_spatial<float>(em, n_lights, seed, c_pos, c_nrm, c_w, c_m, c_idx,
                                   pending, gnormal, gdepth, cur_depth, pos, nrm, view, alb,
-                                  rough, metal, nrm, width, height, taps, n_taps, w_clamp,
-                                  m_clamp, ws_clamp, seed_out, o_pos, o_nrm, o_wsum, o_m,
-                                  o_idx, o_wspatial, o_fy, o_has, stream);
+                                  rough, metal, nrm, width, height, 0, 0, height, taps,
+                                  n_taps, w_clamp, m_clamp, ws_clamp, seed_out, o_pos,
+                                  o_nrm, o_wsum, o_m, o_idx, o_wspatial, o_fy, o_has,
+                                  stream);
 }
 
 int sunray_di_spatial_bf16(const float* em, int n_lights, const long long* seed,
@@ -950,9 +970,51 @@ int sunray_di_spatial_bf16(const float* em, int n_lights, const long long* seed,
                            float* o_wspatial, float* o_fy, uint8_t* o_has, void* stream) {
   return launch_di_spatial<__nv_bfloat16>(
       em, n_lights, seed, c_pos, c_nrm, c_w, c_m, c_idx, pending, gnormal, gdepth,
-      cur_depth, pos, nrm, view, alb, rough, metal, tnrm, width, height, taps, n_taps,
-      w_clamp, m_clamp, ws_clamp, seed_out, o_pos, o_nrm, o_wsum, o_m, o_idx, o_wspatial,
-      o_fy, o_has, stream);
+      cur_depth, pos, nrm, view, alb, rough, metal, tnrm, width, height, 0, 0, height, taps,
+      n_taps, w_clamp, m_clamp, ws_clamp, seed_out, o_pos, o_nrm, o_wsum, o_m, o_idx,
+      o_wspatial, o_fy, o_has, stream);
+}
+
+// K5's window form (a row-sharded frame, parallel/halo.py): the centre
+// lanes are the band's height x width pixels, the reservoir and guide
+// planes a window of height + 2 * halo rows around it, and the in-image
+// test runs on global rows (row0 + local row) of an h_global-row image.
+// With halo 0, row0 0 and h_global = height it is sunray_di_spatial.
+int sunray_di_spatial_window(const float* em, int n_lights, const long long* seed,
+                             const float* c_pos, const float* c_nrm, const float* c_w,
+                             const float* c_m, const int32_t* c_idx,
+                             const uint8_t* pending, const float* gnormal,
+                             const float* gdepth, const float* cur_depth, const float* pos,
+                             const float* nrm, const float* view, const float* alb,
+                             const float* rough, const float* metal, int width, int height,
+                             int halo, int row0, int h_global, const int* taps, int n_taps,
+                             float w_clamp, float m_clamp, float ws_clamp,
+                             long long* seed_out, float* o_pos, float* o_nrm, float* o_wsum,
+                             float* o_m, int32_t* o_idx, float* o_wspatial, float* o_fy,
+                             uint8_t* o_has, void* stream) {
+  return launch_di_spatial<float>(em, n_lights, seed, c_pos, c_nrm, c_w, c_m, c_idx,
+                                  pending, gnormal, gdepth, cur_depth, pos, nrm, view, alb,
+                                  rough, metal, nrm, width, height, halo, row0, h_global,
+                                  taps, n_taps, w_clamp, m_clamp, ws_clamp, seed_out, o_pos,
+                                  o_nrm, o_wsum, o_m, o_idx, o_wspatial, o_fy, o_has,
+                                  stream);
+}
+
+int sunray_di_spatial_window_bf16(
+    const float* em, int n_lights, const long long* seed, const float* c_pos,
+    const float* c_nrm, const float* c_w, const float* c_m, const int32_t* c_idx,
+    const uint8_t* pending, const float* gnormal, const float* gdepth,
+    const float* cur_depth, const float* pos, const void* nrm, const void* view,
+    const void* alb, const void* rough, const void* metal, const float* tnrm, int width,
+    int height, int halo, int row0, int h_global, const int* taps, int n_taps,
+    float w_clamp, float m_clamp, float ws_clamp, long long* seed_out, float* o_pos,
+    float* o_nrm, float* o_wsum, float* o_m, int32_t* o_idx, float* o_wspatial,
+    float* o_fy, uint8_t* o_has, void* stream) {
+  return launch_di_spatial<__nv_bfloat16>(
+      em, n_lights, seed, c_pos, c_nrm, c_w, c_m, c_idx, pending, gnormal, gdepth,
+      cur_depth, pos, nrm, view, alb, rough, metal, tnrm, width, height, halo, row0,
+      h_global, taps, n_taps, w_clamp, m_clamp, ws_clamp, seed_out, o_pos, o_nrm, o_wsum,
+      o_m, o_idx, o_wspatial, o_fy, o_has, stream);
 }
 
 int sunray_gi_spatial(const long long* seed, const float* c_spos, const float* c_srad,

@@ -151,6 +151,15 @@ def _signatures():
         "sunray_di_spatial_bf16": ([p, i, p] + [p] * 5 + [p] * 4 + [p] * 6
                                    + [p, i, i, ctypes.POINTER(i), i, f, f, f]
                                    + [p] * 9 + [p]),
+        "sunray_di_spatial_window": ([p, i, p] + [p] * 5 + [p] * 4 + [p] * 6
+                                     + [i, i, i, i, i, ctypes.POINTER(i), i,
+                                        f, f, f] + [p] * 9 + [p]),
+        "sunray_di_spatial_window_bf16": ([p, i, p] + [p] * 5 + [p] * 4
+                                          + [p] * 6 + [p, i, i, i, i, i,
+                                                       ctypes.POINTER(i), i,
+                                                       f, f, f]
+                                          + [p] * 9 + [p]),
+        "sunray_atrous_pass_window": [p, p, p, p, p, i, i, i, i, i, p, p],
         "sunray_gi_spatial_bf16": ([p] + [p] * 5 + [p] * 7 + [i, p]
                                    + [p] * 4 + [p] * 3 + [i, f] + [p] * 6
                                    + [p]),

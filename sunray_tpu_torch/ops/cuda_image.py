@@ -47,11 +47,16 @@ def shift2d(img, dy: int, dx: int):
 
 
 def atrous_denoise_pass(color, depth, normal, roughness, diffuse,
-                        step_width: int):
+                        step_width: int, row0: int = 0, h_global=None):
     """One a-trous pass (denoise.slang:27-116) in plain PyTorch.
 
     color: (H,W,3); depth: (H,W); normal: (H,W,3); roughness: (H,W);
-    diffuse: (H,W,3) demodulation albedo; step_width: int."""
+    diffuse: (H,W,3) demodulation albedo; step_width: int.
+
+    row0/h_global: the window form (a row-sharded frame,
+    postprocess.py:307-316): the inputs are a halo-extended row window
+    whose row 0 sits at global row row0 of an h_global-row image; the
+    taps' in-image test then runs on global rows."""
     h, w = color.shape[:2]
     dev = color.device
     bypass = (depth >= 10000.0) | (roughness < 0.1)
@@ -63,7 +68,8 @@ def atrous_denoise_pass(color, depth, normal, roughness, diffuse,
     kc = ATROUS_KERNEL[2] * ATROUS_KERNEL[2]
     sum_color = center_illum * kc
     sum_weight = torch.full((h, w), kc, dtype=color.dtype, device=dev)
-    ys = torch.arange(h, device=dev)
+    ys = torch.arange(h, device=dev) + row0
+    hb = h if h_global is None else h_global
     xs = torch.arange(w, device=dev)
 
     for dy in range(-2, 3):
@@ -74,7 +80,7 @@ def atrous_denoise_pass(color, depth, normal, roughness, diffuse,
             ox = dx * step_width
             iy = ys + oy
             ix = xs + ox
-            in_b = (((iy >= 0) & (iy < h))[:, None]
+            in_b = (((iy >= 0) & (iy < hb))[:, None]
                     & ((ix >= 0) & (ix < w))[None, :])
             s_color = shift2d(color, oy, ox)
             s_depth = shift2d(depth, oy, ox)
@@ -141,33 +147,47 @@ def _check_guides(name, guides):
     return dev, h, w
 
 
-def _launch_pass(src, depth, normal, roughness, diffuse, step, dst, lib=None):
+def _launch_pass(src, depth, normal, roughness, diffuse, step, dst, lib=None,
+                 window=None):
     """K7 once from `lib` (default: the port's library, whose launches are
     counted): dst = one pass of src at `step` (all checked by the caller;
-    each tensor held by the caller until the launch returns)."""
+    each tensor held by the caller until the launch returns). window:
+    (row0, h_global), K7's window form (sunray_atrous_pass_window,
+    counted as "atrous_pass_window")."""
     h, w = src.shape[:2]
     kernels = cuda_build.library() if lib is None else lib
-    err = kernels.sunray_atrous_pass(
-        src.data_ptr(), depth.data_ptr(), normal.data_ptr(),
-        roughness.data_ptr(), diffuse.data_ptr(), h, w, step,
-        dst.data_ptr(), cuda_build.stream_ptr(),
-    )
-    cuda_build.check_launch("atrous_pass", err)
+    ptrs = (src.data_ptr(), depth.data_ptr(), normal.data_ptr(),
+            roughness.data_ptr(), diffuse.data_ptr(), h, w, step)
+    name = "atrous_pass" if window is None else "atrous_pass_window"
+    if window is None:
+        err = kernels.sunray_atrous_pass(*ptrs, dst.data_ptr(),
+                                         cuda_build.stream_ptr())
+    else:
+        err = kernels.sunray_atrous_pass_window(*ptrs, *window,
+                                                dst.data_ptr(),
+                                                cuda_build.stream_ptr())
+    cuda_build.check_launch(name, err)
     if lib is None:
-        cuda_build.launches["atrous_pass"] += 1
+        cuda_build.launches[name] += 1
 
 
-def atrous_pass(color, depth, normal, roughness, diffuse, step_width: int):
+def atrous_pass(color, depth, normal, roughness, diffuse, step_width: int,
+                row0: int = 0, h_global=None):
     """One a-trous pass at any step width: K7 on CUDA tensors, the plain
-    pass on CPU tensors."""
+    pass on CPU tensors. row0/h_global: the window form
+    (atrous_denoise_pass), K7's window instantiation on the card."""
     guides = (color, depth, normal, roughness, diffuse)
     if cuda_build.on_cpu(*guides):
-        return atrous_denoise_pass(*guides, step_width)
+        return atrous_denoise_pass(*guides, step_width, row0, h_global)
     dev, h, w = _check_guides("atrous_pass", guides)
     if step_width <= 0:
         raise cuda_build.KernelError(f"atrous_pass: step {step_width} <= 0")
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    _launch_pass(color, depth, normal, roughness, diffuse, step_width, out)
+    window = None
+    if (row0, h_global) != (0, None):
+        window = (row0, h if h_global is None else h_global)
+    _launch_pass(color, depth, normal, roughness, diffuse, step_width, out,
+                 window=window)
     return out
 
 
@@ -237,10 +257,13 @@ def atrous_denoise(color, depth, normal, roughness, diffuse, passes: int,
     return _atrous_kernel(*guides, passes)
 
 
-def taa_clamp_blend_plain(raw, hist, use_history, accumulation_factor):
+def taa_clamp_blend_plain(raw, hist, use_history, accumulation_factor,
+                          raw_x=None):
     """3x3 luminance-gated neighbourhood min/max of `raw`, history clamped
     into that box, lerped by `accumulation_factor`, falling back to `raw`
-    where `use_history` is False (temporal_accumulation.slang:60-132)."""
+    where `use_history` is False (temporal_accumulation.slang:60-132).
+    raw_x: `raw` with one row exchanged above and below (a row-sharded
+    frame, postprocess.py:287-292); the neighbours are read there."""
     center_luma = luminance(raw)
     luma_threshold = torch.clamp(center_luma * 5.0, min=0.08)
     min_c = raw
@@ -249,7 +272,8 @@ def taa_clamp_blend_plain(raw, hist, use_history, accumulation_factor):
         for dx in (-1, 0, 1):
             if dx == 0 and dy == 0:
                 continue
-            nb = shift2d(raw, dy, dx)
+            nb = (shift2d(raw, dy, dx) if raw_x is None
+                  else shift2d(raw_x, dy, dx)[1:-1])
             ok = ((luminance(nb) - center_luma).abs() < luma_threshold)[..., None]
             min_c = torch.where(ok, torch.minimum(min_c, nb), min_c)
             max_c = torch.where(ok, torch.maximum(max_c, nb), max_c)

@@ -240,17 +240,41 @@ def shift_flat(x, dx, dy, h, w):
     return torch.roll(img, shifts=(-dy, -dx), dims=(0, 1)).reshape(x.shape)
 
 
+def shift_window(x, dx, dy, width, height, halo=0):
+    """shift_flat of a band of `height` rows whose field x is a window
+    extended by `halo` rows above and below (a row-sharded frame,
+    parallel/halo.py): lane i reads the window at pixel + (dx, dy), the
+    row slice of shift_flat_ext (halo.py:192-201), |dy| <= halo. halo 0:
+    shift_flat of the whole frame."""
+    if halo == 0:
+        return shift_flat(x, dx, dy, height, width)
+    if abs(dy) > halo:
+        raise ValueError(f"shift dy={dy} beyond the {halo}-row halo")
+    rest = tuple(x.shape[1:])
+    img = x.reshape((height + 2 * halo, width) + rest)
+    sl = torch.roll(img[halo + dy:halo + dy + height], shifts=-dx, dims=1)
+    return sl.reshape((height * width,) + rest)
+
+
+def window_rows(x, width, height, halo=0):
+    """The band's own lanes of a field held as a halo window."""
+    return x if halo == 0 else x[halo * width:(halo + height) * width]
+
+
 def neighbour_ok(dx, dy, width, height, normal, current_depth, gnormal,
-                 gdepth):
+                 gdepth, row0=0, halo=0, h_global=None):
     """Shared-tap neighbour test (pathtrace.py:583-599): on the image, its
     G-buffer normal within dot >= 0.9 and its depth within 10%. Returns
-    (ok, neighbour depth)."""
+    (ok, neighbour depth). row0, halo, h_global: a band of `height` rows
+    at global row row0 of an h_global-row image, its guides a halo window
+    (shift_window); the on-image test takes global rows."""
     pix = torch.arange(normal.shape[0], device=normal.device)
     nx = pix % width + dx
-    ny = pix // width + dy
-    inb = (nx >= 0) & (ny >= 0) & (nx < width) & (ny < height)
-    nn = shift_flat(gnormal, dx, dy, height, width)
-    nd = shift_flat(gdepth, dx, dy, height, width)
+    ny = pix // width + dy + row0
+    hg = height if h_global is None else h_global
+    inb = (nx >= 0) & (ny >= 0) & (nx < width) & (ny < hg)
+    nn = shift_window(gnormal, dx, dy, width, height, halo)
+    nd = shift_window(gdepth, dx, dy, width, height, halo)
     ok = (inb & (dot(normal, nn) >= 0.9)
           & (torch.abs(current_depth - nd) <= 0.1 * current_depth))
     return ok, nd
@@ -296,14 +320,20 @@ def di_resolve(table: LightTable, r, pending, attrs, w_spatial_clamp,
 def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
                      gdepth, current_depth, hit_pos, hit_normal, v_view,
                      albedo, roughness, metallic, width, height, clamps,
-                     test_normal=None, bf16=False):
+                     test_normal=None, bf16=False, row0=0, halo=0,
+                     h_global=None):
     """DI spatial reuse at the frozen hits (pathtrace.py:780-801 with the
     batched shared taps of :646-720): the centre merge (one draw), the T
     tap merges (rnd_chain(T)), the resolve with the w_spatial clamp, and
     the winner's f_y. clamps: (w_clamp, m_clamp, w_spatial_clamp).
     hit_normal ... metallic: the target function's attributes (float32 or,
     with bf16 shading, bfloat16); test_normal: the float32 normal of the
-    neighbour test (default hit_normal)."""
+    neighbour test (default hit_normal).
+
+    The window form (a row-sharded frame, pathtrace.py:464-615): the
+    lanes are a band of `height` rows at global row row0 of an
+    h_global-row image, and center, gnormal and gdepth are a window of
+    height + 2 * halo rows around it (parallel/halo.exchange_flat)."""
     w_clamp, m_clamp, w_spatial_clamp = clamps
     n_l = table.num
     p = hit_pos.shape[0]
@@ -311,20 +341,22 @@ def di_spatial_plain(table: LightTable, seed, center, taps, pending, gnormal,
     if test_normal is None:
         test_normal = hit_normal
 
-    seed, r = di_centre_merge(table, seed, center, pending, attrs, bf16=bf16)
+    window = dict(row0=row0, halo=halo, h_global=h_global)
+    own = {k: window_rows(v, width, height, halo) for k, v in center.items()}
+    seed, r = di_centre_merge(table, seed, own, pending, attrs, bf16=bf16)
     w_sum, m_acc = r["w_sum"], r["M"]
     light_idx, light_pos, light_normal = (r["light_idx"], r["light_pos"],
                                           r["light_normal"])
 
     t_n = len(taps)
     if t_n:
-        fields = [[shift_flat(center[k], dx, dy, height, width)
+        fields = [[shift_window(center[k], dx, dy, width, height, halo)
                    for k in ("light_idx", "W", "M", "light_pos",
                              "light_normal")]
                   for dx, dy in taps]
         okp = torch.stack([
             neighbour_ok(dx, dy, width, height, test_normal, current_depth,
-                         gnormal, gdepth)[0] for dx, dy in taps])
+                         gnormal, gdepth, **window)[0] for dx, dy in taps])
         idx_raw = torch.stack([f[0] for f in fields])
         w_cl = torch.clamp(torch.stack([f[1] for f in fields]), max=w_clamp)
         m_cl = torch.clamp(torch.stack([f[2] for f in fields]), max=m_clamp)
@@ -617,14 +649,22 @@ def _taps_arg(name, taps):
 
 def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
                current_depth, hit_pos, hit_normal, v_view, albedo, roughness,
-               metallic, width, height, clamps, test_normal=None):
+               metallic, width, height, clamps, test_normal=None, row0=0,
+               halo=0, h_global=None):
     """K5. center: the pass-1 DI reservoir over the whole frame (light_pos,
     light_normal, W, M, light_idx); taps: list of shared (dx, dy) offsets;
     gnormal/gdepth: the G-buffer guides of the neighbour test. The kernel
     reads each neighbour in place. hit_normal ... metallic: the target
     function's attributes, float32 or bfloat16 (bf16 shading, which also
     takes the float32 test_normal for the neighbour test). Returns (seed',
-    fields) as di_spatial_plain."""
+    fields) as di_spatial_plain.
+
+    row0, halo, h_global: K5's window form (a row-sharded frame): the
+    lanes are a band of `height` rows at global row row0 of an
+    h_global-row image; center, gnormal and gdepth are its window of
+    height + 2 * halo rows. Launched through sunray_di_spatial_window and
+    counted as "di_spatial_window"; halo 0, row0 0 and h_global = height
+    is the whole frame's kernel."""
     c_keys = ("light_pos", "light_normal", "W", "M", "light_idx")
     lanes = (seed, pending, gnormal, gdepth, current_depth, hit_pos,
              hit_normal, v_view, albedo, roughness, metallic,
@@ -633,11 +673,16 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
         return di_spatial_plain(table, seed, center, taps, pending, gnormal,
                                 gdepth, current_depth, hit_pos, hit_normal,
                                 v_view, albedo, roughness, metallic, width,
-                                height, clamps, test_normal)
+                                height, clamps, test_normal, row0=row0,
+                                halo=halo, h_global=h_global)
     name = "di_spatial"
     p = hit_pos.shape[0]
     if p != width * height:
         raise cuda_build.KernelError(f"{name}: {p} lanes for {width}x{height}")
+    n_win = (height + 2 * halo) * width
+    if halo < 0 or (halo > 0 and any(abs(dy) > halo for _, dy in taps)):
+        raise cuda_build.KernelError(f"{name}: taps {taps} leave the "
+                                     f"{halo}-row window")
     cuda_build.require_cuda(name, *table, *lanes)
     _f32(name, gnormal, gdepth, current_depth, hit_pos,
          *(center[k] for k in c_keys if k != "light_idx"))
@@ -651,23 +696,29 @@ def di_spatial(table: LightTable, seed, center, taps, pending, gnormal, gdepth,
         _check_lanes(name, p, test_normal=test_normal)
     cuda_build.require_dtype(name, center["light_idx"], torch.int32)
     _check_lanes(name, p, seed=_seed_arg(name, seed), pending=pending,
-                 gnormal=gnormal, gdepth=gdepth, current_depth=current_depth,
+                 current_depth=current_depth)
+    _check_lanes(name, n_win, gnormal=gnormal, gdepth=gdepth,
                  **{f"center.{k}": center[k] for k in c_keys})
     _check_table(name, table)
+    window = None
+    if (row0, halo, h_global) != (0, 0, None):
+        window = (halo, row0, height if h_global is None else h_global)
     return _launch_di_spatial(table, seed, center, taps, pending, gnormal,
                               gdepth, current_depth, hit_pos, hit_normal,
                               v_view, albedo, roughness, metallic, width,
-                              height, clamps, test_normal=test_normal)
+                              height, clamps, test_normal=test_normal,
+                              window=window)
 
 
 def _launch_di_spatial(table: LightTable, seed, center, taps, pending, gnormal,
                        gdepth, current_depth, hit_pos, hit_normal, v_view,
                        albedo, roughness, metallic, width, height, clamps,
-                       lib=None, test_normal=None):
+                       lib=None, test_normal=None, window=None):
     """K5 once on checked arguments, from `lib` (default: the port's
     library, whose launches are counted); the bf16 instantiation for
-    bf16 attributes, with test_normal."""
-    name = "di_spatial"
+    bf16 attributes, with test_normal. window: (halo, row0, h_global),
+    K5's window form (sunray_di_spatial_window)."""
+    name = "di_spatial" if window is None else "di_spatial_window"
     c_keys = ("light_pos", "light_normal", "W", "M", "light_idx")
     p, dev = hit_pos.shape[0], hit_pos.device
     w_clamp, m_clamp, w_spatial_clamp = clamps
@@ -684,7 +735,7 @@ def _launch_di_spatial(table: LightTable, seed, center, taps, pending, gnormal,
         hit_pos.data_ptr(), hit_normal.data_ptr(), v_view.data_ptr(),
         albedo.data_ptr(), roughness.data_ptr(), metallic.data_ptr(),
         *((test_normal.data_ptr(),) if bf16 else ()), width, height,
-        _taps_arg(name, taps), len(taps),
+        *(window or ()), _taps_arg(name, taps), len(taps),
         ctypes.c_float(w_clamp), ctypes.c_float(m_clamp),
         ctypes.c_float(w_spatial_clamp), seed_out.data_ptr(),
         *(o.data_ptr() for o in outs), cuda_build.stream_ptr(),

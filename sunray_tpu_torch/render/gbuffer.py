@@ -29,6 +29,7 @@ import torch
 from sunray_tpu_torch.camera import (
     generate_rays,
     pixel_centers,
+    pixel_rows,
     project_to_prev_uv,
 )
 from sunray_tpu_torch.ops import rng as rng_mod
@@ -202,17 +203,28 @@ def primary_walk(scene, cfg, tracer, origins, dirs, seed):
 
 
 def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
-             res_di_hist, res_gi_hist, frame_count):
+             res_di_hist, res_gi_hist, frame_count, grid=None):
     """Full pass 1. Returns (GBuffer, ReservoirDI, ReservoirGI, PrimaryHit,
-    walk rounds); the reservoirs are empty unless lighting is "restir"."""
+    walk rounds); the reservoirs are empty unless lighting is "restir".
+
+    grid (parallel/halo.ShardGrid): a row-sharded frame (gbuffer.py:
+    206-219) — every per-pixel array covers the band's rows; pixel ids,
+    uv and the reprojection stay GLOBAL (so each band equals those rows of
+    the single-device pass), and the temporal history reads go through
+    the halo exchange."""
     w, h = cfg.width, cfg.height
-    p = w * h
-    origins, dirs = generate_rays(mats, w, h)
+    if grid is not None:
+        hl, row0 = grid.hl, grid.row0
+        origins, dirs = generate_rays(mats, w, h, row0=row0, rows=hl)
+    else:
+        hl, row0 = h, None
+        origins, dirs = generate_rays(mats, w, h)
+    p = w * hl
     dev = dirs.device
     origins = origins.reshape(p, 3)
     dirs = dirs.reshape(p, 3)
 
-    pix = torch.arange(p, dtype=torch.int64, device=dev)
+    pix = torch.arange(p, dtype=torch.int64, device=dev) + (row0 or 0) * w
     seed = rng_mod.init_seed(pix, frame_count)
 
     walk = primary_walk(scene, cfg, tracer, origins, dirs, seed)
@@ -220,8 +232,8 @@ def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
     found = walk["found"]
 
     # Reprojection + motion vectors (ray_gen_ris.slang:118-136).
-    vv, uu = torch.meshgrid(pixel_centers(h, dev), pixel_centers(w, dev),
-                            indexing="ij")
+    vv, uu = torch.meshgrid(pixel_rows(h, dev, row0, hl),
+                            pixel_centers(w, dev), indexing="ij")
     in_uv = torch.stack([uu, vv], dim=-1).reshape(p, 2)
 
     virtual_pos = origins + dirs * walk["virtual_distance"][:, None]
@@ -259,15 +271,15 @@ def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
         return (gbuf, restir.ReservoirDI.empty(p, dev),
                 restir.ReservoirGI.empty(p, dev), hitd, walk["i"])
     r_di, r_gi = _restir_samples(scene, cfg, tracer, lights, seed, hitd,
-                                 res_di_hist, res_gi_hist, frame_count)
+                                 res_di_hist, res_gi_hist, frame_count, grid)
     return gbuf, r_di, r_gi, hitd, walk["i"]
 
 
 def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
-                    res_di_hist, res_gi_hist, frame_count):
+                    res_di_hist, res_gi_hist, frame_count, grid=None):
     """Phases 2 and 3 of pass 1: the DI and GI reservoirs of this frame."""
     w, h = cfg.width, cfg.height
-    p = w * h
+    p = hitd.found.shape[0]
     found = hitd.found
     pos, normal = hitd.pos, hitd.normal
     # The target functions read the attributes in cfg.shading_dtype
@@ -289,14 +301,14 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
         # histories (gbuffer.py:305-313); the GI merge reuses pre_gi.
         seed, h_di, h_gi, base_ok = restir.gather_temporal_histories(
             cfg, seed, res_di_hist, res_gi_hist, hitd.prev_uv,
-            hitd.prev_valid, frame_count, w, h)
+            hitd.prev_valid, frame_count, w, h, grid=grid)
         pre_di, pre_gi = (h_di, base_ok), (h_gi, base_ok)
     else:
         pre_di = pre_gi = None
     seed, r_di = restir.di_temporal_reuse(
         lights, cfg, seed, r_di, res_di_hist, hitd.prev_uv, hitd.prev_valid,
         frame_count, pos, normal_s, *attrs, hitd.virtual_distance, w, h,
-        enable_di, pregathered=pre_di,
+        enable_di, pregathered=pre_di, grid=grid,
     )
     # Visibility reuse (ray_gen_ris.slang:277-302), traced below together
     # with the GI NEE shadow ray.
@@ -379,7 +391,7 @@ def _restir_samples(scene, cfg, tracer, lights, seed, hitd: PrimaryHit,
     seed, r_gi = restir.gi_temporal_reuse(
         cfg, seed, r_gi, res_gi_hist, hitd.prev_uv, hitd.prev_valid,
         frame_count, pos, normal_s, albedo_s, metal_s,
-        hitd.virtual_distance, w, h, found, pregathered=pre_gi,
+        hitd.virtual_distance, w, h, found, pregathered=pre_gi, grid=grid,
     )
     r_gi = dataclasses.replace(
         r_gi, hit_normal=torch.where(found[:, None], normal, 0.0),

@@ -29,6 +29,7 @@ taps (rnd_chain(T_gi)); with per-pixel taps each tap draws its offset
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -47,9 +48,10 @@ from sunray_tpu_torch.ops.brdf import (
     smith_g1_ggx,
     vec_norm,
 )
-from sunray_tpu_torch.ops.cuda_restir import neighbour_ok, shift_flat
+from sunray_tpu_torch.ops.cuda_restir import neighbour_ok, shift_window
 from sunray_tpu_torch.ops.fp import clip, dot3, fma, pow5, sqrt
 from sunray_tpu_torch.ops.loops import bounded_loop, checkpointed
+from sunray_tpu_torch.parallel.halo import exchange_flat_many, window_index
 from sunray_tpu_torch.render import boundary
 from sunray_tpu_torch.render.gbuffer import (
     _sel3,
@@ -75,9 +77,14 @@ def _blue_noise_tiled(w, h):
     return bn1, bn2
 
 
-def _blue_noise_rands(cfg, frame_count, device):
-    """Per-pixel first-bounce random pair (ray_gen_final.slang:44-50,393-399)."""
+def _blue_noise_rands(cfg, frame_count, device, grid=None):
+    """Per-pixel first-bounce random pair (ray_gen_final.slang:44-50,393-399).
+    grid: the band's rows, global rows modulo the noise size
+    (pathtrace.py:77-95)."""
     bn1_np, bn2_np = _blue_noise_tiled(cfg.width, cfg.height)
+    if grid is not None:
+        band = slice(grid.row0 * cfg.width, (grid.row0 + grid.hl) * cfg.width)
+        bn1_np, bn2_np = bn1_np[band], bn2_np[band]
     bn1 = torch.from_numpy(bn1_np).to(device)
     bn2 = torch.from_numpy(bn2_np).to(device)
     fc = torch.remainder(frame_count, 1024).to(torch.float32)
@@ -87,31 +94,38 @@ def _blue_noise_rands(cfg, frame_count, device):
 
 
 def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
-               frame_count, sample_idx=0, first_hit=None):
+               frame_count, sample_idx=0, first_hit=None, grid=None):
     """-> (raw HDR color (P, 3), walk rounds). first_hit: pass 1's
     (first_tri, first_t), reused as round 0's hit. sample_idx: which of
     cfg.samples final passes this is; with samples > 1 the PCG stream is
     seeded by frame_count * samples + sample_idx (uint32, wrapping;
     pathtrace.py:131-136), samples == 1 keeps the frame's own stream. The
     blue-noise first-bounce pair takes the unsalted frame_count, so every
-    sample sees the same blue noise (pathtrace.py:137)."""
+    sample sees the same blue noise (pathtrace.py:137). grid: a row-sharded frame
+    (pathtrace.py:103-137): the band's rays, global pixel seeds and noise
+    rows, and spatial reuse through the halo exchange."""
     w, h = cfg.width, cfg.height
     num_lights = lights.num if lights is not None else 0
     use_restir = cfg.lighting == "restir" and num_lights > 0
     use_nee = cfg.lighting == "nee" and num_lights > 0
 
-    p = w * h
-    origins, dirs = generate_rays(mats, w, h)
+    if grid is not None:
+        p = w * grid.hl
+        origins, dirs = generate_rays(mats, w, h, row0=grid.row0,
+                                      rows=grid.hl)
+    else:
+        p = w * h
+        origins, dirs = generate_rays(mats, w, h)
     dev = dirs.device
     origins = origins.reshape(p, 3)
     dirs = dirs.reshape(p, 3)
 
-    pix = torch.arange(p, dtype=torch.int64, device=dev)
+    pix = torch.arange(p, dtype=torch.int64, device=dev) + _pix0(grid, w)
     fc = frame_count
     if cfg.samples > 1:
         fc = rng_mod.salt(frame_count, cfg.samples, sample_idx)
     seed = rng_mod.init_seed(pix, fc)
-    bn_r1, bn_r2 = _blue_noise_rands(cfg, frame_count, dev)
+    bn_r1, bn_r2 = _blue_noise_rands(cfg, frame_count, dev, grid)
 
     z3 = torch.zeros((p, 3), dtype=torch.float32, device=dev)
     z = torch.zeros((p,), dtype=torch.float32, device=dev)
@@ -298,11 +312,15 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     if use_restir:
         # Phase B's activations are recomputed in the backward pass of a
         # differentiable frame (ops/loops.checkpointed).
+        # (The grid rides only in a row-sharded frame, so the single-device
+        # call keeps its arguments.)
         radiance = radiance + checkpointed(
             _spatial_reuse, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             c["seed"], c, origins[0], frame_count,
-            enabled=cfg.differentiable)
-        if cfg.shadow_boundary_grads and cfg.differentiable:
+            *(() if grid is None else (grid,)), enabled=cfg.differentiable)
+        # Off in a row-sharded frame, as pathtrace.py:371 has it.
+        if (cfg.shadow_boundary_grads and cfg.differentiable
+                and grid is None):
             # The ReSTIR DI estimator estimates the same NEE area integral:
             # the term at the frozen first-rough hits, with the path
             # throughput (the diffuse integrand, pathtrace.py:371-388).
@@ -357,13 +375,20 @@ def _disc_tap(px, py, seed, radius):
 
 
 def _perpixel_neighbour(nx, ny, w, h, fields, gnormal, gdepth, normal,
-                        current_depth):
+                        current_depth, grid=None):
     """perpixel_neighbor (pathtrace.py:513-534): the fields at the clamped
     flat index of (nx, ny) with the neighbour's G-buffer normal and depth;
     ok: on the image, normal within dot >= 0.9 (against the float32
-    normal) and depth within 10%. Returns (fields', depth, ok)."""
+    normal) and depth within 10%. Returns (fields', depth, ok). grid:
+    nx, ny are global and fields, gnormal and gdepth the halo_s windows
+    around the band; a source outside the window is not ok (the packed
+    gather's in_halo, pathtrace.py:524-533, read from the windows that
+    spatial reuse exchanged once rather than from one exchange a tap)."""
     inb = (nx >= 0) & (ny >= 0) & (nx < w) & (ny < h)
     ni = torch.clamp(ny.long() * w + nx.long(), 0, w * h - 1)
+    if grid is not None:
+        ni, in_halo = window_index(ni, grid.halo_s, grid)
+        inb = inb & in_halo
     got = {k: v[ni] for k, v in fields.items()}
     nd = gdepth[ni]
     ok = (inb & (dot(normal, gnormal[ni]) >= 0.9)
@@ -372,25 +397,29 @@ def _perpixel_neighbour(nx, ny, w, h, fields, gnormal, gdepth, normal,
 
 
 def _di_spatial_perpixel(cfg, lights, seed, r_di, pending, gbuf,
-                         current_depth, pos, normal, shade):
+                         current_depth, pos, normal, shade, grid=None,
+                         window=None):
     """DI spatial reuse with per-pixel taps, plain PyTorch as in JAX
     (pathtrace.py:600-652, 777-800): the centre merge, then per tap its
     offset draws, the fetch, the target function and its merge draw, and
-    the resolve."""
+    the resolve. grid: a band; window: the halo_s windows of r_di's
+    fields (gbuf's normal and depth are windows too)."""
     w, h = cfg.width, cfg.height
     table, n_l = lights.table, lights.num
     attrs = (pos,) + tuple(shade)
     bf16 = cfg.shading_dtype == "bf16"
-    pix = torch.arange(pos.shape[0], device=pos.device)
+    keys = ("light_pos", "light_normal", "W", "M", "light_idx")
+    pix = torch.arange(pos.shape[0], device=pos.device) + _pix0(grid, w)
     px, py = pix % w, pix // w
-    center = {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
-                                            "M", "light_idx")}
+    center = {k: getattr(r_di, k) for k in keys}
+    fields = center if window is None else {k: window[k] for k in keys}
     seed, r = cuda_restir.di_centre_merge(table, seed, center, pending, attrs,
                                           bf16=bf16)
     for _ in range(cfg.di_spatial_samples):
         seed, nx, ny, _, _ = _disc_tap(px, py, seed, cfg.di_spatial_radius)
-        nr, _, ok = _perpixel_neighbour(nx, ny, w, h, center, gbuf.normal,
-                                        gbuf.depth, normal, current_depth)
+        nr, _, ok = _perpixel_neighbour(nx, ny, w, h, fields, gbuf.normal,
+                                        gbuf.depth, normal, current_depth,
+                                        grid)
         w_cl = torch.clamp(nr["W"], max=cfg.di_temporal_w_clamp)
         m_cl = torch.clamp(nr["M"], max=cfg.di_temporal_m_clamp)
         use = pending & ok & (w_cl > 0.0) & (nr["light_idx"] < n_l)
@@ -411,13 +440,38 @@ def _di_spatial_perpixel(cfg, lights, seed, r_di, pending, gbuf,
                                         cfg.di_spatial_w_clamp, bf16=bf16)
 
 
+def _pix0(grid, w):
+    """The global raster index of a band's first pixel (0: whole frame)."""
+    return 0 if grid is None else grid.row0 * w
+
+
 def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
-                   cam_origin, frame_count):
+                   cam_origin, frame_count, grid=None):
     """Phase B: ReSTIR DI + GI spatial reuse at the frozen first-rough hits
     (ray_gen_final.slang:136-327), shared or per-pixel taps. Returns
-    radiance to add, (P, 3)."""
+    radiance to add, (P, 3).
+
+    grid: a row-sharded frame (pathtrace.py:464-615): the reservoirs and
+    the G-buffer guides are exchanged once with halo_s rows; K5 runs in
+    its window form on them, the GI taps are cut from the windows
+    (cuda_restir.shift_window) for K6, and per-pixel taps read the
+    windows at global indices. Every other step is per lane on the band."""
     w, h = cfg.width, cfg.height
-    p = w * h
+    p = c["pending"].shape[0]
+    hl = p // w
+    win = {}
+    di_x = gi_x = None
+    if grid is not None:
+        # gbuf's guides as their windows from here on.
+        win = dict(row0=grid.row0, halo=grid.halo_s, h_global=h)
+        di_keys = [f.name for f in dataclasses.fields(r_di)]
+        gi_keys = [f.name for f in dataclasses.fields(r_gi)]
+        ext = exchange_flat_many(
+            [gbuf.normal, gbuf.depth] + [getattr(r_di, k) for k in di_keys]
+            + [getattr(r_gi, k) for k in gi_keys], grid.halo_s, grid)
+        gbuf = gbuf._replace(normal=ext[0], depth=ext[1])
+        di_x = dict(zip(di_keys, ext[2:2 + len(di_keys)]))
+        gi_x = dict(zip(gi_keys, ext[2 + len(di_keys):]))
     pending = c["pending"]
     pos, normal, albedo = c["f_pos"], c["f_normal"], c["f_albedo"]
     rough, metal, v_view = c["f_rough"], c["f_metal"], c["f_view"]
@@ -441,18 +495,18 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
             if plain else cuda_restir.di_spatial)
         seed, di = di_spatial(
             lights.table, seed,
-            {k: getattr(r_di, k) for k in ("light_pos", "light_normal", "W",
-                                           "M", "light_idx")},
+            {k: (getattr(r_di, k) if di_x is None else di_x[k])
+             for k in ("light_pos", "light_normal", "W", "M", "light_idx")},
             di_taps, pending, gbuf.normal, gbuf.depth, current_depth, pos,
-            *shade, w, h,
+            *shade, w, hl,
             (cfg.di_temporal_w_clamp, cfg.di_temporal_m_clamp,
              cfg.di_spatial_w_clamp),
-            **({"test_normal": normal} if bf16 else {}),
+            **({"test_normal": normal} if bf16 else {}), **win,
         )
     else:
         seed, di = _di_spatial_perpixel(cfg, lights, seed, r_di, pending,
                                         gbuf, current_depth, pos, normal,
-                                        shade)
+                                        shade, grid, di_x)
     # DI winner shadow ray, traced with the GI final visibility ray.
     sdir = di["light_pos"] - pos
     sdist = torch.clamp(vec_norm(sdir), min=1e-4)
@@ -466,7 +520,8 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
         gi_taps = _shared_taps(frame_count, cfg.gi_spatial_samples,
                                cfg.gi_spatial_radius, 0x6E5B2F)
         taps = _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending,
-                            pos, normal, current_depth, cam_origin)
+                            pos, normal, current_depth, cam_origin, grid,
+                            gi_x)
         gi_spatial = (
             functools.partial(cuda_restir.gi_spatial_plain, bf16=bf16)
             if plain else cuda_restir.gi_spatial)
@@ -480,7 +535,8 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
     else:
         seed, gi = _gi_spatial_perpixel(cfg, tracer, mats, gbuf, r_gi, seed,
                                         pending, pos, normal, albedo, metal,
-                                        current_depth, cam_origin, gi_shade)
+                                        current_depth, cam_origin, gi_shade,
+                                        grid, gi_x)
 
     # One trace for the DI winner shadow ray and the GI final visibility
     # ray, then the adds in the reference's order (DI, then GI;
@@ -503,16 +559,17 @@ _GI_KEYS = ("sample_pos", "sample_radiance", "sample_tri", "W", "M")
 
 
 def _gi_tap_geometry(cfg, mats, nr, n_depth, ok, nx, ny, pending, pos,
-                     normal, cam_origin):
+                     normal, cam_origin, pix0=0):
     """The geometry of one GI tap (pathtrace.py:833-898, every step but
     the fetch and the visibility trace): the W > 0 test and clamps, the
     neighbour's primary point x1 rebuilt from its depth, the reconnection
     Jacobian and the tests on it. nx, ny: a shared tap's offsets (ints)
-    or each pixel's neighbour (int tensors). Returns (nr clamped, ok with
-    pending, jac, (gdir, d_new, sample_tri))."""
+    or each pixel's neighbour (int tensors). pix0: the global index of the
+    lanes' first pixel (a band). Returns (nr clamped, ok with pending,
+    jac, (gdir, d_new, sample_tri))."""
     w, h = cfg.width, cfg.height
     p = pos.shape[0]
-    pix = torch.arange(p, device=pos.device)
+    pix = torch.arange(p, device=pos.device) + pix0
     px, py = pix % w, pix // w
     proj_inverse = mats["proj_inverse"]
     view_inverse = mats["view_inverse"]
@@ -555,25 +612,33 @@ def _gi_tap_geometry(cfg, mats, nr, n_depth, ok, nx, ny, pending, pos,
 
 
 def _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
-                 normal, current_depth, cam_origin):
+                 normal, current_depth, cam_origin, grid=None, window=None):
     """Every shared GI tap but its merge draw (pathtrace.py:833-898):
     neighbour fetch by whole-image shifts, validity, the geometry
     (_gi_tap_geometry), and one occlusion call for all T taps' visibility
-    rays. Returns the (T, P[, 3]) planes K6 takes."""
+    rays. Returns the (T, P[, 3]) planes K6 takes. grid: the band's taps,
+    cut from the halo_s windows (window: r_gi's fields; gbuf's normal and
+    depth are windows too) with the on-image test on global rows."""
     w, h = cfg.width, cfg.height
-    p = w * h
+    p = pos.shape[0]
+    hl = p // w
     dev = pos.device
+    win = ({} if grid is None else
+           dict(row0=grid.row0, halo=grid.halo_s, h_global=h))
+    halo = win.get("halo", 0)
+    src = ({k: getattr(r_gi, k) for k in _GI_KEYS + ("sample_normal",)}
+           if window is None else window)
     planes = {k: [] for k in _GI_KEYS + ("jac", "ok")}
     rays = []
     for dx, dy in gi_taps:
-        ok, n_depth = neighbour_ok(dx, dy, w, h, normal, current_depth,
-                                   gbuf.normal, gbuf.depth)
-        nr = {k: shift_flat(getattr(r_gi, k), dx, dy, h, w)
+        ok, n_depth = neighbour_ok(dx, dy, w, hl, normal, current_depth,
+                                   gbuf.normal, gbuf.depth, **win)
+        nr = {k: shift_window(src[k], dx, dy, w, hl, halo)
               for k in _GI_KEYS + ("sample_normal",)}
         ok = ok & (not (dx == 0 and dy == 0))
         nr, ok, jac, ray = _gi_tap_geometry(cfg, mats, nr, n_depth, ok, dx,
                                             dy, pending, pos, normal,
-                                            cam_origin)
+                                            cam_origin, _pix0(grid, w))
         rays.append(ray)
         for k in _GI_KEYS:
             planes[k].append(nr[k])
@@ -600,27 +665,30 @@ def _gi_tap_prep(cfg, tracer, mats, gbuf, r_gi, gi_taps, pending, pos,
 
 def _gi_spatial_perpixel(cfg, tracer, mats, gbuf, r_gi, seed, pending, pos,
                          normal, albedo, metal, current_depth, cam_origin,
-                         gi_shade):
+                         gi_shade, grid=None, window=None):
     """GI spatial reuse with per-pixel taps, plain PyTorch as in JAX
     (pathtrace.py:902-921, 1048-1075): per tap its offset draws, the
     fetch, the geometry, one visibility trace, the target function and
-    the merge draw, in that order; then K6's plain resolve."""
+    the merge draw, in that order; then K6's plain resolve. grid, window:
+    as in _di_spatial_perpixel."""
     w, h = cfg.width, cfg.height
-    pix = torch.arange(pos.shape[0], device=pos.device)
+    pix0 = _pix0(grid, w)
+    pix = torch.arange(pos.shape[0], device=pos.device) + pix0
     px, py = pix % w, pix // w
     s_nrm, s_alb, s_met = gi_shade.get("shade", (normal, albedo, metal))
-    fields = {k: getattr(r_gi, k) for k in _GI_KEYS + ("sample_normal",)}
+    fields = {k: (getattr(r_gi, k) if window is None else window[k])
+              for k in _GI_KEYS + ("sample_normal",)}
     comb = {k: getattr(r_gi, k) for k in ("sample_pos", "sample_radiance",
                                           "sample_tri", "w_sum", "M")}
     for _ in range(cfg.gi_spatial_samples):
         seed, nx, ny, dx, dy = _disc_tap(px, py, seed, cfg.gi_spatial_radius)
         nr, n_depth, ok = _perpixel_neighbour(nx, ny, w, h, fields,
                                               gbuf.normal, gbuf.depth, normal,
-                                              current_depth)
+                                              current_depth, grid)
         ok = ok & ~((dx == 0) & (dy == 0))
         nr, ok, jac, (gdir, gdist, tri) = _gi_tap_geometry(
             cfg, mats, nr, n_depth, ok, nx, ny, pending, pos, normal,
-            cam_origin)
+            cam_origin, pix0)
         ok = ok & ~trace_occluded(tracer, pos, gdir, gdist, exclude=tri)
         p_hat = gi_target_pdf(pos, s_nrm, s_alb, s_met, nr["sample_pos"],
                               nr["sample_radiance"],

@@ -11,7 +11,11 @@ no banded or shift ladder. With history_select_kernel="auto" the reads
 that are not fused into K4 go through the history gather K13
 (ops/cuda_history.py), which moves the same words; with
 history_joint_gather one reprojection and one K13 launch read the DI and
-GI histories together (gather_temporal_histories).
+GI histories together (gather_temporal_histories). In a row-sharded
+frame (grid, parallel/halo.py) the history table is exchanged once with
+halo_t rows and read at window-local indices, by the same K4 and K13;
+sources beyond the window come back invalid, as restir.py:431-435 has
+it.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from sunray_tpu_torch.ops.cuda_gather import take_rows
 from sunray_tpu_torch.ops.cuda_restir import one_minus_smoothstep, smoothstep
 from sunray_tpu_torch.ops.fp import fma, sqrt
 from sunray_tpu_torch.ops.loops import checkpointed
+from sunray_tpu_torch.parallel.halo import exchange_flat_many, window_index
 
 
 def _zeros(p, device, *shape):
@@ -187,32 +192,42 @@ def history_kernel_ok(cfg) -> bool:
     return cfg.history_select_kernel == "auto" and not cfg.differentiable
 
 
-def _read_histories(cfg, reservoirs, idx):
+def _read_histories(cfg, reservoirs, idx, grid=None):
     """The reservoirs' fields at idx in one gather (K13 under
     history_kernel_ok, plain indexing otherwise), each w_sum left out and
     returned as zeros: the merges read only the destination's w_sum
-    (restir.py:488-507)."""
+    (restir.py:488-507). grid: the fields hold the band's rows and idx is
+    global; the fields are exchanged once with halo_t rows and read at
+    window-local indices (restir.py:431-435). Returns (reservoirs,
+    in-window mask or None)."""
     names = [[f.name for f in dataclasses.fields(r) if f.name != "w_sum"]
              for r in reservoirs]
     fields = [getattr(r, k) for r, ks in zip(reservoirs, names) for k in ks]
+    in_band = None
+    if grid is not None:
+        fields = exchange_flat_many(fields, grid.halo_t, grid)
+        idx, in_band = window_index(idx, grid.halo_t, grid)
     gather = (cuda_history.history_gather if history_kernel_ok(cfg)
               else cuda_history.history_gather_plain)
     rows = iter(gather(fields, idx))
     w_sum = torch.zeros((idx.shape[0],), dtype=torch.float32, device=idx.device)
     return [type(r)(w_sum=w_sum, **{k: next(rows) for k in ks})
-            for r, ks in zip(reservoirs, names)]
+            for r, ks in zip(reservoirs, names)], in_band
 
 
 def gather_temporal_histories(cfg, seed, hist_di: ReservoirDI,
                               hist_gi: ReservoirGI, prev_uv, prev_valid,
-                              frame_count, width, height):
+                              frame_count, width, height, grid=None):
     """history_joint_gather (restir.py:524-568): ONE jittered reprojection
     and ONE gather of the DI and GI histories, where the reference draws a
     jitter for each. Returns (seed, h_di, h_gi, base_ok) with both w_sum
     zeroed; base_ok leaves out each pass's enable mask."""
     seed, pi, base_ok = reproject(seed, prev_uv, prev_valid, frame_count, True,
                                   width, height)
-    h_di, h_gi = _read_histories(cfg, (hist_di, hist_gi), pi)
+    (h_di, h_gi), in_band = _read_histories(cfg, (hist_di, hist_gi), pi,
+                                            grid)
+    if in_band is not None:
+        base_ok = base_ok & in_band
     return seed, h_di, h_gi, base_ok
 
 
@@ -220,13 +235,15 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
                       history: ReservoirDI, prev_uv, prev_valid, frame_count,
                       hit_pos, hit_normal, v_view, albedo, roughness, metallic,
                       virtual_distance, width, height, enable,
-                      pregathered=None):
+                      pregathered=None, grid=None):
     """DI temporal reuse with jittered reprojection and normal/depth
     confidence (ray_gen_ris.slang:233-267). The jitter draw and the
     reprojection come first in the pixel's stream, outside K4, as in the
     reference (pallas_restir.py:903-906); K4 reads the history in place.
     pregathered: (history, base_ok) from gather_temporal_histories; K4
-    then reads that history at its own lane."""
+    then reads that history at its own lane. grid: the history holds the
+    band's rows; K4 reads it in place in the halo_t window exchanged
+    around the band, and a source beyond the window is invalid."""
     if pregathered is not None:
         history, base_ok = pregathered
         ok = enable & base_ok
@@ -234,6 +251,16 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
     else:
         seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count,
                                  enable, width, height)
+        if grid is not None:
+            keys = [f.name for f in dataclasses.fields(history)
+                    if f.name != "w_sum"]
+            ext = exchange_flat_many([getattr(history, k) for k in keys],
+                                     grid.halo_t, grid)
+            history = dataclasses.replace(
+                history, w_sum=torch.zeros_like(ext[0][:, 0]),
+                **dict(zip(keys, ext)))
+            pi, in_band = window_index(pi, grid.halo_t, grid)
+            ok = ok & in_band
     # A differentiable frame keeps JAX's jnp merge (restir.py:596): K4
     # routes no gradient.
     merge_temporal = (
@@ -251,17 +278,19 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
 def gi_temporal_reuse(cfg, seed, r: ReservoirGI, history: ReservoirGI,
                       prev_uv, prev_valid, frame_count, hit_pos, hit_normal,
                       albedo, metallic, virtual_distance, width, height,
-                      enable, pregathered=None):
+                      enable, pregathered=None, grid=None):
     """GI temporal reuse (ray_gen_ris.slang:408-432), plain PyTorch (the
     reference has no kernel for it); the history read is K13's under
-    history_kernel_ok. pregathered: as in di_temporal_reuse."""
+    history_kernel_ok. pregathered, grid: as in di_temporal_reuse."""
     if pregathered is not None:
         h, base_ok = pregathered
         ok = enable & base_ok
     else:
         seed, pi, ok = reproject(seed, prev_uv, prev_valid, frame_count,
                                  enable, width, height)
-        h, = _read_histories(cfg, (history,), pi)
+        (h,), in_band = _read_histories(cfg, (history,), pi, grid)
+        if in_band is not None:
+            ok = ok & in_band
     conf = (smoothstep(0.8, 0.95, dot(hit_normal.float(), h.hit_normal))
             * one_minus_smoothstep(
                 0.05, 0.20,
