@@ -274,19 +274,26 @@ Phases, in order; any failure raises and exits non-zero with no result:
      phase 5's; (b) 4 gloo ranks sharing the card (torch.multiprocessing;
      a child's failure fails the script): the 1080p frame in 270-row
      bands (DI 30, GI 20, 4 a-trous passes, halo_t 16, history reads
-     through K13), 3 static and 3 slow-orbit frames gathered and held to
-     the single-device frame at tests/test_spmd.py's bars (99.5% of pixels
-     within 2e-5 static, 2e-4 moving, all finite), K5 and K7 in window
-     form, K6 and K13 launched on every rank and no whole-frame K5 or K7,
-     each rank's bytes a frame (traffic_tally) and host-staged exchange ms
-     a frame (not a scaling figure: the ranks share one card); (c)
-     training_step at (dp, sp) = (2, 2) over the 4 ranks at 320x180, loss
-     and gradient within 1e-5 of the single-device step; (d) K5 and K7 in
-     window form and K6 on the 1080p/4 band of frame 2's inputs against
-     their plain twins (take-flip scheme; K7 1e-5), timed as phase 3
-     times them. Its summary is the line {"parallel": ...} after
-     {"viewers": ...}. `python3 tools/parallel_run.py` runs phase 15
-     alone.
+     through K13, TAA through K9's window form), 3 static and 3
+     slow-orbit frames gathered and held to the single-device frame at
+     tests/test_spmd.py's bars (99.5% of pixels within 2e-5 static, 2e-4
+     moving, all finite), K5, K7 and K9 in window form, K6 and K13
+     launched on every rank and no whole-frame K5, K7 or K9, each rank's
+     bytes a frame (traffic_tally) and host-staged exchange ms a frame
+     (not a scaling figure: the ranks share one card); then
+     sharding.render_frame_sharded on the (1, 4) mesh for 3 frames of
+     fast motion (its history halo the whole image), held to the
+     single-device frame at 2e-4, with its bytes a frame; (c)
+     training_step at (dp, sp) = (2, 2) over the 4 ranks at 320x180 on
+     the default ReSTIR config (TAA, 4 a-trous passes) and on the JAX
+     dryrun's NEE config, loss and gradient within 1e-5 of the
+     single-device step, with each rank's step ms and forward and
+     backward halo bytes; (d) K5, K7 and K9 in window form and K6 on the
+     1080p/4 band of frame 2's inputs (K9: frame 3's) against their
+     plain twins (take-flip scheme; K7 1e-5; K9 bit-equal, and to the
+     whole frame's K9 on the band), timed as phase 3 times them. Its
+     summary is the line {"parallel": ...} after {"viewers": ...}.
+     `python3 tools/parallel_run.py` runs phase 15 alone.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
@@ -2454,12 +2461,14 @@ KERNELS = {
     # paint_meshes of the 2D overlay painter.
     "paint_meshes": ("sunray_tpu_torch/csrc/overlay.cu",
                      "sunray_tpu/render/overlay2d.py:79"),
-    # The window forms of K5 and K7 that the row-sharded frame runs
+    # The window forms of K5, K7 and K9 that the row-sharded frame runs
     # (phase 15): a band's lanes, neighbours read in a halo window.
     "di_spatial_window": ("sunray_tpu_torch/csrc/restir.cu",
                           "sunray_tpu/ops/pallas_restir.py:566"),
     "atrous_pass_window": ("sunray_tpu_torch/csrc/atrous.cu",
                            "sunray_tpu/ops/pallas_image.py:258"),
+    "taa_clamp_blend_window": ("sunray_tpu_torch/csrc/taa.cu",
+                               "sunray_tpu/ops/pallas_image.py:390"),
 }
 BINNED_KERNELS = ("binned_round", "cluster_scan", "pair_round")
 SWITCH_KERNELS = ("taa_clamp_blend", "history_gather", "trace_occluded_woop")
@@ -2475,7 +2484,8 @@ RUNS_ONLY = ("gather_rows_bwd_runs",)
 # The interactive path's own kernel (phase 14): R1, on hud_overlay's path.
 OVERLAY_ONLY = ("paint_meshes",)
 # The row-sharded frame's own instantiations (phase 15).
-PARALLEL_ONLY = ("di_spatial_window", "atrous_pass_window")
+PARALLEL_ONLY = ("di_spatial_window", "atrous_pass_window",
+                 "taa_clamp_blend_window")
 CORNELL_KERNELS = tuple(k for k in KERNELS
                         if k not in BINNED_KERNELS + SWITCH_KERNELS + DIFF_ONLY
                         + VIS_ONLY + REAL_ONLY + RUNS_ONLY + OVERLAY_ONLY
@@ -5188,29 +5198,41 @@ PAR_SIZE = (1920, 1080)
 PAR_RANKS = 4                       # gloo processes sharing the one card
 PAR_FRAMES = 3                      # frames a camera path, (a) and (b)
 PAR_TRAIN_SIZE = (320, 180)         # (c), at (dp, sp) = (2, 2)
-PAR_TRAIN_KW = dict(lighting="nee", bounces=2, virtual_bounces=2,
-                    denoise_passes=0, enable_taa=False, differentiable=True)
+# (c)'s configs: the default ReSTIR config (TAA on, 4 a-trous passes, DI
+# 30, GI 20) and the JAX dryrun's NEE config (TAA off, no denoise).
+PAR_TRAIN_KW = {"restir": dict(differentiable=True),
+                "nee": dict(lighting="nee", bounces=2, virtual_bounces=2,
+                            denoise_passes=0, enable_taa=False,
+                            differentiable=True)}
 PAR_RTOL = 1e-5                     # (c): loss, and gradient of the largest
 PAR_TIMEOUT_S = 300                 # the ranks' join and gloo timeout
 # (b)'s frame: the default 1080p ReSTIR config (DI 30, GI 20, 4 a-trous
 # passes, halo_t 16) with the history reads through K13, so that K13 runs
-# on the halo-extended table.
-PAR_KW = dict(history_select_kernel="auto")
+# on the halo-extended table, and TAA through K9's window form.
+PAR_KW = dict(history_select_kernel="auto", taa_kernel="auto")
 # The kernels every rank must launch in (b) and those that must not run in
 # their whole-frame form there.
 PAR_RANK_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
                     "gather_rows_multi", "ris_audition", "di_temporal",
                     "di_spatial_window", "gi_spatial", "atrous_pass_window",
-                    "history_gather")
+                    "history_gather", "taa_clamp_blend_window")
 PAR_ABSENT = ("di_spatial", "atrous_pass", "taa_clamp_blend")
+# (b)'s fast camera (tests/torch_dist.cameras("fast")): it moves far
+# beyond halo_t between frames, rendered by render_frame_sharded, whose
+# history halo reaches the whole image.
+PAR_FAST_STEP = 0.6
 
 
 def par_cameras(kind):
-    """tests/test_spmd.py's static camera and slow orbit."""
+    """tests/test_spmd.py's static camera, slow orbit and fast motion."""
     from sunray_tpu_torch.camera import Camera
 
     if kind == "static":
         return [Camera(**CAMERA)] * PAR_FRAMES
+    if kind == "fast":
+        return [Camera(position=(1.0, 1.0 + PAR_FAST_STEP * i, 3.4),
+                       target=(1.0, 1.0, 0.0), fov_y=45.0)
+                for i in range(PAR_FRAMES)]
     return [Camera(position=(1.0 + 0.02 * i, 1.0, 3.4 - 0.02 * i),
                    target=(1.0, 1.0, 0.0), fov_y=45.0)
             for i in range(PAR_FRAMES)]
@@ -5230,18 +5252,25 @@ def par_train_case(dev):
     return mats, targets
 
 
-def par_train(dev, mesh):
+def par_train(dev, mesh, name):
+    """training_step of (c)'s config `name` on `mesh`: (loss, gradient on
+    the host, ms, this rank's traffic tally)."""
     from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.parallel.halo import traffic_tally
     from sunray_tpu_torch.parallel.sharding import training_step
     from sunray_tpu_torch.scene import cornell_box
 
     w, h = PAR_TRAIN_SIZE
-    cfg = RenderConfig(width=w, height=h, **PAR_TRAIN_KW)
+    cfg = RenderConfig(width=w, height=h, **PAR_TRAIN_KW[name])
     mats, targets = par_train_case(dev)
-    loss, grad = training_step(cornell_box(device=dev), cfg, mats, targets,
-                               mesh)
+    scene = cornell_box(device=dev)
     torch.cuda.synchronize()
-    return float(loss), grad.cpu()
+    t0 = time.perf_counter()
+    with traffic_tally() as t:
+        loss, grad = training_step(scene, cfg, mats, targets, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return float(loss), grad.cpu(), ms, dict(t)
 
 
 def _timed_exchanges(record):
@@ -5272,7 +5301,9 @@ def par_rank(rank, world, tmp):
     """One gloo rank of phase 15 (b) and (c) on the card: the 1080p frame's
     band for the static and slow paths (launches, tally, exchange and
     frame ms; rank 0 also renders the single-device frames and compares),
-    then training_step on the (2, 2) mesh. Returns its measurements."""
+    render_frame_sharded on the (1, 4) mesh under fast motion (tally,
+    frame ms; rank 0 compares), then training_step on the (2, 2) mesh,
+    each config of (c). Returns its measurements."""
     import datetime
 
     import torch.distributed as dist
@@ -5282,7 +5313,10 @@ def par_rank(rank, world, tmp):
     from sunray_tpu_torch.config import RenderConfig
     from sunray_tpu_torch.ops import cuda_build
     from sunray_tpu_torch.parallel.halo import traffic_tally
-    from sunray_tpu_torch.parallel.sharding import make_mesh
+    from sunray_tpu_torch.parallel.sharding import (
+        make_mesh,
+        render_frame_sharded,
+    )
     from sunray_tpu_torch.parallel.spmd import (
         gather_rows,
         make_spmd_step,
@@ -5329,11 +5363,32 @@ def par_rank(rank, world, tmp):
             sent_bytes_a_frame=tallies[0]["sent_bytes"],
             tallies_equal=all(t == tallies[0] for t in tallies))
         images[kind] = imgs
+    # render_frame_sharded: each band a share of the single-device frame,
+    # the history halo the whole image (halo_t = H - hl).
+    mesh = make_mesh(world, dp=1)
+    state = RenderState.create(cfg, dev)
+    frame_ms, tallies, imgs = [], [], []
+    for cam in par_cameras("fast"):
+        mats = camera_matrices(cam, w, h, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with traffic_tally() as t:
+            state, ldr, _ = render_frame_sharded(scene, cfg, state, mats,
+                                                 mesh)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        tallies.append(dict(t))
+        imgs.append(ldr)
+    out["paths"]["fast"] = dict(
+        frame_ms=frame_ms, bytes_a_frame=tallies[0]["bytes"],
+        sent_bytes_a_frame=tallies[0]["sent_bytes"],
+        tallies_equal=all(t == tallies[0] for t in tallies))
+    images["fast"] = imgs
     dist.barrier()
     if rank == 0:
         # The single-device frames on the card, rendered after every
         # rank's timed frames.
-        for kind, bars in (("static", 2e-5), ("slow", 2e-4)):
+        for kind, bars in (("static", 2e-5), ("slow", 2e-4), ("fast", 2e-4)):
             state = RenderState.create(cfg, dev)
             match, finite = [], True
             for cam, got in zip(par_cameras(kind), images[kind]):
@@ -5345,9 +5400,7 @@ def par_rank(rank, world, tmp):
             out["paths"][kind].update(match=match, finite=finite, bar=bars)
     dist.barrier()
     mesh = make_mesh(world, dp=2)
-    t0 = time.perf_counter()
-    out["train"] = par_train(dev, mesh)
-    out["train_ms"] = (time.perf_counter() - t0) * 1e3
+    out["train"] = {name: par_train(dev, mesh, name) for name in PAR_TRAIN_KW}
     out["mesh"] = (mesh.dp, mesh.sp, mesh.dp_index, mesh.sp_index)
     dist.destroy_process_group()
     return out
@@ -5447,10 +5500,11 @@ def par_world_one(dev, phase5_ms):
 
 
 def par_windows(dev):
-    """(d): K5 and K7 in window form and K6 on a band, on the 1080p/4 band
-    of rows 270-539 (rank 1 of 4) of frame 2's inputs, against their plain
-    twins (K5 and K6 by the take-flip scheme, K7 within ATROUS_ATOL) and
-    timed as phase 3 times them. Returns the two rows and K6's."""
+    """(d): K5, K7 and K9 in window form and K6 on a band, on the 1080p/4
+    band of rows 270-539 (rank 1 of 4) of frame 2's inputs (K9: frame 3's,
+    the first whose TAA reads history), against their plain twins (K5 and
+    K6 by the take-flip scheme, K7 within ATROUS_ATOL, K9 bit-equal) and
+    timed as phase 3 times them. Returns the three rows and K6's."""
     from sunray_tpu_torch.ops import cuda_image, cuda_restir
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -5540,6 +5594,40 @@ def par_windows(dev):
     rows["atrous_pass_window"] = dict(
         max_abs_err=err, ms=ms / 4, plain_ms=plain_ms / 4,
         bound=bound(n_b / 4, n_ops / 4), shape=[hl, w])
+
+    # K9's window form: the band's raw with the rows above and below it,
+    # its history and mask, of frame 3 (the first whose TAA reads history:
+    # use_history needs frame_count > 2) of the 1080p ReSTIR frame.
+    (taa_args, _), = capture_calls(dev, {"taa_clamp_blend": "cuda_image"}, 3,
+                                   taa_kernel="auto")["taa_clamp_blend"]
+    raw, hist, use, factor = taa_args
+    band = slice(row0, row0 + hl)
+    wargs = (raw[band], hist[band].contiguous(), use[band].contiguous(),
+             factor)
+    raw_x = raw[row0 - 1:row0 + hl + 1].contiguous()
+    k = cuda_image.taa_clamp_blend(*wargs, raw_x=raw_x)
+    p = cuda_image.taa_clamp_blend_plain(*wargs, raw_x=raw_x)
+    whole = cuda_image.taa_clamp_blend(*taa_args)
+    torch.cuda.synchronize()
+    exact = torch.equal(k.view(torch.int32), p.view(torch.int32))
+    band_equal = torch.equal(k.view(torch.int32), whole[band].view(torch.int32))
+    share = wargs[2].float().mean().item()
+    log(f"  K9 window: {tuple(raw_x.shape)} window, use share {share:.4f}, "
+        f"bit-equal to its plain twin {exact}, to the whole frame's K9 on the "
+        f"band {band_equal}")
+    check(exact, "phase 15 (d): K9's window form differs from its plain twin")
+    check(band_equal, "phase 15 (d): K9's window form differs from the "
+          "whole frame's K9")
+    check(share > 0.5, f"phase 15 (d): K9 history used on only {share}")
+    rows["taa_clamp_blend_window"] = dict(
+        max_abs_err=(k - p).abs().max().item(), whole_frame_bit_equal=band_equal,
+        ms=device_ms(lambda: cuda_image.taa_clamp_blend(*wargs, raw_x=raw_x)),
+        plain_ms=time_ms(lambda: cuda_image.taa_clamp_blend_plain(
+            *wargs, raw_x=raw_x)),
+        # the window, history and mask read once, the band written once;
+        # phase 3's ~120 fp32 operations a pixel
+        bound=bound(nbytes(raw_x, *wargs[1:3]) + nbytes(k), hl * w * 120),
+        shape=[hl, w])
     for name, r in rows.items():
         log(f"  (d) {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -5566,13 +5654,17 @@ def phase_parallel(dev, phase5_ms):
 
     mesh1 = make_mesh()
     check(mesh1.shape == (1, 1), f"phase 15: world-1 mesh {mesh1.shape}")
-    ref_loss, ref_grad = par_train(dev, mesh1)
+    refs = {name: par_train(dev, mesh1, name) for name in PAR_TRAIN_KW}
     t0 = time.perf_counter()
     ranks = par_spawn(PAR_RANKS)
     spawn_s = time.perf_counter() - t0
     per_rank = []
     for r in ranks:
         for kind, p in r["paths"].items():
+            check(p["tallies_equal"], f"phase 15 (b) rank {r['rank']}: "
+                  f"{kind} tallies differ between frames")
+            if kind == "fast":
+                continue
             for name in PAR_RANK_KERNELS:
                 check(p["launches"].get(name, 0) > 0,
                       f"phase 15 (b) rank {r['rank']} {kind}: {name} never "
@@ -5580,15 +5672,16 @@ def phase_parallel(dev, phase5_ms):
             for name in PAR_ABSENT:
                 check(p["launches"].get(name, 0) == 0,
                       f"phase 15 (b) rank {r['rank']} {kind}: {name} launched")
-            check(p["tallies_equal"], f"phase 15 (b) rank {r['rank']}: "
-                  "tallies differ between frames")
         per_rank.append({kind: {k: p[k] for k in (
             "frame_ms", "exchange_ms_a_frame", "bytes_a_frame",
-            "sent_bytes_a_frame")} for kind, p in r["paths"].items()})
+            "sent_bytes_a_frame") if k in p}
+            for kind, p in r["paths"].items()})
         log(f"  (b) rank {r['rank']}: " + "; ".join(
             f"{kind} frame ms {[round(t, 2) for t in p['frame_ms']]}, "
-            f"host-staged exchanges {p['exchange_ms_a_frame']:.2f} ms a "
-            f"frame, {p['bytes_a_frame']} bytes a frame (sent "
+            + (f"host-staged exchanges {p['exchange_ms_a_frame']:.2f} ms a "
+               "frame, " if "exchange_ms_a_frame" in p else
+               "render_frame_sharded (1, 4), ")
+            + f"{p['bytes_a_frame']} bytes a frame (sent "
             f"{p['sent_bytes_a_frame']})" for kind, p in r["paths"].items()))
     for kind, p in ranks[0]["paths"].items():
         log(f"  (b) {kind}: pixels within {p['bar']:g} of the single-device "
@@ -5603,22 +5696,32 @@ def phase_parallel(dev, phase5_ms):
         note="4 processes share one card over gloo, halos staged through "
              "the host: not a scaling figure")
 
-    scale = ref_grad.abs().max().item()
-    train = []
-    for r in ranks:
-        loss, grad = r["train"]
-        gerr = (grad - ref_grad).abs().max().item()
-        train.append(dict(mesh=r["mesh"], loss=loss, grad_err=gerr,
-                          ms=r["train_ms"]))
-        check(abs(loss - ref_loss) <= PAR_RTOL * abs(ref_loss),
-              f"phase 15 (c) rank {r['rank']}: loss {loss} vs {ref_loss}")
-        check(gerr <= PAR_RTOL * scale,
-              f"phase 15 (c) rank {r['rank']}: gradient off by {gerr} "
-              f"(largest {scale})")
-    log(f"  (c) training_step (2, 2) at {PAR_TRAIN_SIZE}: single-device loss "
-        f"{ref_loss:.7g}; ranks {[(t['mesh'], t['loss'], t['grad_err']) for t in train]}")
-    summary["train"] = dict(size=list(PAR_TRAIN_SIZE), ref_loss=ref_loss,
-                            grad_scale=scale, ranks=train)
+    summary["train"] = {}
+    for name, (ref_loss, ref_grad, ref_ms, _) in refs.items():
+        scale = ref_grad.abs().max().item()
+        train = []
+        for r in ranks:
+            loss, grad, ms, tally = r["train"][name]
+            gerr = (grad - ref_grad).abs().max().item()
+            train.append(dict(mesh=r["mesh"], loss=loss, grad_err=gerr,
+                              ms=ms, bytes=tally["bytes"],
+                              grad_bytes=tally["grad_bytes"],
+                              grad_calls=tally["grad_calls"]))
+            check(abs(loss - ref_loss) <= PAR_RTOL * abs(ref_loss),
+                  f"phase 15 (c) {name} rank {r['rank']}: loss {loss} vs "
+                  f"{ref_loss}")
+            check(gerr <= PAR_RTOL * scale,
+                  f"phase 15 (c) {name} rank {r['rank']}: gradient off by "
+                  f"{gerr} (largest {scale})")
+        log(f"  (c) training_step {name} (2, 2) at {PAR_TRAIN_SIZE}: "
+            f"single-device loss {ref_loss:.7g}, {ref_ms:.1f} ms; ranks "
+            + "; ".join(f"{t['mesh']} loss {t['loss']:.7g} grad err "
+                        f"{t['grad_err']:.3g} {t['ms']:.1f} ms, {t['bytes']} "
+                        f"bytes, backward {t['grad_bytes']} bytes in "
+                        f"{t['grad_calls']} hops" for t in train))
+        summary["train"][name] = dict(size=list(PAR_TRAIN_SIZE),
+                                      ref_loss=ref_loss, ref_ms=ref_ms,
+                                      grad_scale=scale, ranks=train)
 
     rows = par_windows(dev)
     summary["windows"] = {k: {kk: vv for kk, vv in v.items()}

@@ -24,6 +24,17 @@
 // raw about once. No shared-memory tile: the halo would cost as many
 // loads as it saves at 3 floats a pixel.
 //
+// The window form (sunray_taa_clamp_blend_window) is the same clamp and
+// blend on one band of a row-sharded frame (parallel/spmd.py): it reads
+// raw_x, the band's raw with one edge-extended row above and below
+// ((h + 2) x w, exchanged from the neighbouring bands), and the band's
+// history and mask, and writes the band. The centre is raw_x's row y + 1
+// and a tap's row needs no clamp: the exchange has edge-replicated it.
+// Its plain twin is taa_clamp_blend_plain(..., raw_x=raw_x). JAX's grid
+// TAA computes the same function in jnp (postprocess.py:287-293); the
+// TPU has no window kernel. Bound: the same 37 B a band pixel plus the
+// two halo rows' 24 B a column.
+//
 // Numerics: the library is built with --fmad=false, so the luminance is
 // (c0 * 0.2126 + c1 * 0.7152) + c2 * 0.0722 in separate roundings as the
 // plain version computes it, and the blend's one fused multiply-add is the
@@ -52,6 +63,9 @@ __device__ __forceinline__ float tmax(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : (a > b ? a : b);
 }
 
+// kWindow: raw is the band's (h + 2)-row window, its row 0 one row above
+// the band.
+template <bool kWindow>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 taa_kernel(const float* __restrict__ raw, const float* __restrict__ hist,
            const uint8_t* __restrict__ use, int h, int w, float factor,
@@ -60,8 +74,9 @@ taa_kernel(const float* __restrict__ raw, const float* __restrict__ hist,
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= w || y >= h) return;
   const int64_t p = static_cast<int64_t>(y) * w + x;
-  const float c0 = __ldg(raw + 3 * p), c1 = __ldg(raw + 3 * p + 1),
-              c2 = __ldg(raw + 3 * p + 2);
+  const int64_t c = kWindow ? p + w : p;  // the centre in raw
+  const float c0 = __ldg(raw + 3 * c), c1 = __ldg(raw + 3 * c + 1),
+              c2 = __ldg(raw + 3 * c + 2);
   if (!use[p]) {
     out[3 * p] = c0;
     out[3 * p + 1] = c1;
@@ -73,7 +88,7 @@ taa_kernel(const float* __restrict__ raw, const float* __restrict__ hist,
   float mn0 = c0, mn1 = c1, mn2 = c2, mx0 = c0, mx1 = c1, mx2 = c2;
   // Taps in the plain version's order: dy outer, dx inner, centre skipped.
   for (int dy = -1; dy <= 1; ++dy) {
-    const int yy = min(max(y + dy, 0), h - 1);
+    const int yy = kWindow ? y + 1 + dy : min(max(y + dy, 0), h - 1);
     for (int dx = -1; dx <= 1; ++dx) {
       if (dx == 0 && dy == 0) continue;
       const int xx = min(max(x + dx, 0), w - 1);
@@ -97,16 +112,30 @@ taa_kernel(const float* __restrict__ raw, const float* __restrict__ hist,
   out[3 * p + 2] = fmaf(c2 - k2, factor, k2);
 }
 
+template <bool kWindow>
+int launch(const float* raw, const float* hist, const uint8_t* use, int h,
+           int w, float factor, float* out, void* stream) {
+  if (h > 0 && w > 0) {
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+    taa_kernel<kWindow><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        raw, hist, use, h, w, factor, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int sunray_taa_clamp_blend(const float* raw, const float* hist,
                                       const uint8_t* use, int h, int w, float factor,
                                       float* out, void* stream) {
-  if (h > 0 && w > 0) {
-    const dim3 block(kBlockX, kBlockY);
-    const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
-    taa_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        raw, hist, use, h, w, factor, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(raw, hist, use, h, w, factor, out, stream);
+}
+
+// raw_x: (h + 2) x w x 3, the band's raw with a row above and below; hist,
+// use and out: the band's h rows.
+extern "C" int sunray_taa_clamp_blend_window(const float* raw_x, const float* hist,
+                                             const uint8_t* use, int h, int w,
+                                             float factor, float* out, void* stream) {
+  return launch<true>(raw_x, hist, use, h, w, factor, out, stream);
 }

@@ -171,6 +171,7 @@ def _signatures():
         "sunray_trace_occluded_woop": [p, p, p, f, p, f, p, p, p, i, i, p, p],
         "sunray_inv_det": [p, p, i64, p],
         "sunray_taa_clamp_blend": [p, p, p, i, i, f, p, p],
+        "sunray_taa_clamp_blend_window": [p, p, p, i, i, f, p, p],
         "sunray_history_gather": [p, p, p, i, p, i64, i64, p],
         "sunray_boundary_candidates": [p, p, p, i, p, i, i64, i, p, p, p, p,
                                        p],

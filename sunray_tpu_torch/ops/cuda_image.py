@@ -282,14 +282,27 @@ def taa_clamp_blend_plain(raw, hist, use_history, accumulation_factor,
     return torch.where(use_history[..., None], blended, raw)
 
 
-def taa_clamp_blend(raw, hist, use_history, accumulation_factor):
+def taa_clamp_blend(raw, hist, use_history, accumulation_factor,
+                    raw_x=None):
     """K9: taa_clamp_blend_plain in one launch. raw, hist: (H, W, 3)
     float32; use_history: (H, W) bool. Differentiable in raw and hist
-    (the plain version's VJP, _TaaClampBlend)."""
+    (the plain version's VJP, _TaaClampBlend).
+
+    raw_x: K9's window form (a row-sharded frame's band): raw with one
+    edge-extended row above and below, (H + 2, W, 3), which the kernel
+    reads alone (raw is its rows 1..H); its gradient reaches raw
+    through raw_x."""
     if cuda_build.on_cpu(raw, hist, use_history):
         return taa_clamp_blend_plain(raw, hist, use_history,
-                                     accumulation_factor)
-    if torch.is_grad_enabled() and (raw.requires_grad or hist.requires_grad):
+                                     accumulation_factor, raw_x=raw_x)
+    grad = torch.is_grad_enabled()
+    if raw_x is not None:
+        if grad and (raw_x.requires_grad or hist.requires_grad):
+            return _TaaClampBlendWindow.apply(raw_x, hist, use_history,
+                                              accumulation_factor)
+        return _taa_kernel(raw_x, hist, use_history, accumulation_factor,
+                           window=True)
+    if grad and (raw.requires_grad or hist.requires_grad):
         return _TaaClampBlend.apply(raw, hist, use_history,
                                     accumulation_factor)
     return _taa_kernel(raw, hist, use_history, accumulation_factor)
@@ -312,23 +325,52 @@ class _TaaClampBlend(torch.autograd.Function):
         return (*grads[:2], None, None)
 
 
-def _taa_kernel(raw, hist, use_history, accumulation_factor):
-    name = "taa_clamp_blend"
-    dev = cuda_build.require_cuda(name, raw, hist, use_history)
-    h, w = raw.shape[:2]
-    for x in (raw, hist):
+class _TaaClampBlendWindow(torch.autograd.Function):
+    """K9's window form forward on raw_x, the plain window clamp and
+    blend's VJP backward (raw_x's rows 1..H are the centres)."""
+
+    @staticmethod
+    def forward(ctx, raw_x, hist, use_history, accumulation_factor):
+        ctx.factor = accumulation_factor
+        ctx.save_for_backward(raw_x, hist, use_history)
+        return _taa_kernel(raw_x, hist, use_history, accumulation_factor,
+                           window=True)
+
+    @staticmethod
+    def backward(ctx, ct):
+        grads = _plain_vjp(
+            lambda r, h, u: taa_clamp_blend_plain(r[1:-1], h, u, ctx.factor,
+                                                  raw_x=r),
+            ctx.saved_tensors, ct)
+        return (*grads[:2], None, None)
+
+
+def _taa_kernel(src, hist, use_history, accumulation_factor, window=False,
+                lib=None):
+    """K9 once from `lib` (default: the port's library, whose launches are
+    counted): src is raw (H, W, 3), or with `window` raw_x (H + 2, W, 3)
+    and the launch is the window form (counted as
+    "taa_clamp_blend_window")."""
+    name = "taa_clamp_blend_window" if window else "taa_clamp_blend"
+    dev = cuda_build.require_cuda(name, src, hist, use_history)
+    h, w = hist.shape[:2]
+    for x, rows in ((src, h + 2 if window else h), (hist, h)):
         cuda_build.require_dtype(name, x, torch.float32)
-        if tuple(x.shape) != (h, w, 3):
-            raise cuda_build.KernelError(f"{name}: expected {(h, w, 3)}, got "
-                                         f"{tuple(x.shape)}")
+        if tuple(x.shape) != (rows, w, 3) or not x.is_contiguous():
+            raise cuda_build.KernelError(
+                f"{name}: expected a contiguous {(rows, w, 3)}, got "
+                f"{tuple(x.shape)}")
     cuda_build.require_dtype(name, use_history, torch.bool)
-    if tuple(use_history.shape) != (h, w):
+    if tuple(use_history.shape) != (h, w) or not use_history.is_contiguous():
         raise cuda_build.KernelError(f"{name}: use mask {tuple(use_history.shape)}")
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    err = cuda_build.library().sunray_taa_clamp_blend(
-        raw.data_ptr(), hist.data_ptr(), use_history.data_ptr(), h, w,
-        float(accumulation_factor), out.data_ptr(), cuda_build.stream_ptr(),
-    )
+    kernels = cuda_build.library() if lib is None else lib
+    entry = (kernels.sunray_taa_clamp_blend_window if window
+             else kernels.sunray_taa_clamp_blend)
+    err = entry(src.data_ptr(), hist.data_ptr(), use_history.data_ptr(), h, w,
+                float(accumulation_factor), out.data_ptr(),
+                cuda_build.stream_ptr())
     cuda_build.check_launch(name, err)
-    cuda_build.launches[name] += 1
+    if lib is None:
+        cuda_build.launches[name] += 1
     return out

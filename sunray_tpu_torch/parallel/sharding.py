@@ -134,29 +134,17 @@ def render_frame_sharded(scene, cfg, state: RenderState, mats, mesh: Mesh,
     of the new state, the whole ldr image on every rank, the walk rounds,
     the sp group's maximum).
 
-    Where it differs from the JAX version (sharding.py:56-86): that one
-    lets GSPMD partition the unchanged frame, so it equals the
-    single-device frame bit for bit whatever the motion. This one runs
-    the row-sharded frame of parallel/spmd.py: history that moves more
-    than halo_t rows across a band boundary is rejected like off-screen
-    history (spmd.py:13-19), so under fast motion it differs from the
-    single-device frame where such history would have been reused; with
-    one sp rank, or a static camera, it is the single-device frame."""
+    The JAX version (sharding.py:56-86) lets GSPMD partition the
+    unchanged frame. This one runs the row-sharded frame of
+    parallel/spmd.py with each band a share of the single-device frame
+    (halo.make_grid(whole_frame=True)): the history halo reaches the whole
+    image, so no reprojected history is discarded at a band edge however
+    fast the camera moves, and the frame is the single-device frame up to
+    the reassociation of its sums."""
     new_state, ldr, rounds = render_frame_spmd(scene, cfg, state, mats,
-                                               mesh.sp_group, accel)
+                                               mesh.sp_group, accel,
+                                               whole_frame=True)
     return new_state, gather_rows(ldr, mesh.sp_group), rounds
-
-
-def cross_pixel_reads(cfg):
-    """The settings under which a frame reads across pixels (and so
-    across band boundaries)."""
-    reads = {
-        f"lighting={cfg.lighting!r} (ReSTIR reuse)": cfg.lighting == "restir",
-        "enable_taa=True": cfg.enable_taa,
-        f"denoise_passes={cfg.denoise_passes}": cfg.denoise_passes > 0,
-        "edge_antialias=True": cfg.edge_antialias,
-    }
-    return [name for name, on in reads.items() if on]
 
 
 def training_step(scene, cfg, mats_batch, targets, mesh: Mesh,
@@ -173,21 +161,20 @@ def training_step(scene, cfg, mats_batch, targets, mesh: Mesh,
 
     mats_batch: camera-matrices dict with a leading batch axis (K, ...);
     targets: (K, H, W, 3), whole on every rank; K a multiple of dp.
-    With sp > 1 a config that reads across pixels raises
-    NotImplementedError: the gradient would need a differentiable halo
-    exchange (ROADMAP)."""
+    Any config, at any (dp, sp): each band is a share of the
+    single-device frame (ShardGrid.whole_frame), its cross-pixel reads
+    ride the differentiable halo exchanges, and the ReSTIR
+    shadow-boundary term runs as in JAX's render_frame. The state is
+    fresh, so no history is read and the configured history halo
+    suffices."""
     assert cfg.differentiable, "training_step needs cfg.differentiable=True"
     if mesh.dp_index is None:
         raise ValueError("training_step on a rank outside the mesh")
-    if mesh.sp > 1 and cross_pixel_reads(cfg):
-        raise NotImplementedError(
-            f"training_step with sp={mesh.sp} and "
-            f"{', '.join(cross_pixel_reads(cfg))}: these read across band "
-            "boundaries and the halo exchange is not differentiable yet")
     k = targets.shape[0]
     assert k % mesh.dp == 0, f"{k} views over dp={mesh.dp}"
     per = k // mesh.dp
-    grid = make_grid(cfg, mesh.sp_group, halos=False)
+    grid = dataclasses.replace(make_grid(cfg, mesh.sp_group),
+                               whole_frame=True)
     dev = targets.device
 
     mt = scene.materials

@@ -4,29 +4,37 @@ sunray_tpu/parallel/spmd.py.
 Image rows shard over the ranks of an "sp" process group: each rank
 renders its band of hl = H / n rows through the same stages and hand
 kernels as the single-device frame (K1, K2 or K14, K3, K4, K8 on the
-band's lanes), and the frame's five cross-pixel reads ride explicit halo
+band's lanes), and the frame's six cross-pixel reads ride explicit halo
 exchanges (parallel/halo.py):
 
   1. ReSTIR DI/GI temporal history reads (halo_t rows; K4 in place and
      K13 on the halo-extended table),
   2. ReSTIR DI/GI spatial-reuse taps (halo_s = max tap radius + 1; K5's
      window form, K6 on taps cut from the window),
-  3. the TAA 3x3 neighbourhood clamp (1 row, edge-replicated),
+  3. the TAA 3x3 neighbourhood clamp (1 row, edge-replicated; K9's
+     window form under cfg.taa_kernel "auto" on the card, or "pallas"),
   4. the TAA bilinear history fetch (halo_t rows),
-  5. the a-trous denoise taps (2 * step rows a pass; K7's window form).
+  5. the a-trous denoise taps (2 * step rows a pass; K7's window form),
+  6. edge antialiasing's vertical pixel pairs (1 row;
+     render/antialias.primary_edge_aa's grid hook). JAX's spmd frame
+     leaves the pass out; its render_frame_sharded and training_step,
+     which GSPMD splits, run it, and so does this frame.
 
 Semantics against the single-device frame: the same, except that
 temporal history whose reprojection crosses more than halo_t rows of a
-band boundary is rejected like off-screen history (spmd.py:13-19). With
+band boundary is rejected like off-screen history (spmd.py:13-19), and
+the ReSTIR shadow-boundary term is left out (pathtrace.py:371). With
+whole_frame (sharding.render_frame_sharded, training_step) the term
+runs, and render_frame_sharded's halo_t spans the image: the
+single-device frame under any motion, as JAX's GSPMD frame is. With
 motion below the halo the two agree to reassociation noise; on one rank
 the sharded frame is the single-device frame bit for bit.
 
 Every rank runs the same exchanges in the same order (none sits behind
 a data-dependent branch), so the walks may end at different rounds on
 different ranks; the reported rounds are the group's maximum (the JAX
-pmax). Configurations with a cross-pixel read that has no halo path
-raise NotImplementedError: edge antialiasing (the JAX spmd frame leaves
-it out) and TAA through K9 (render/postprocess.py).
+pmax). Every exchange is differentiable (parallel/halo.py), so a
+differentiable frame reads across bands with its gradients.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from sunray_tpu_torch.parallel.halo import (
     make_grid,
 )
 from sunray_tpu_torch.render import restir
+from sunray_tpu_torch.render.antialias import primary_edge_aa
 from sunray_tpu_torch.render.gbuffer import ris_pass
 from sunray_tpu_torch.render.pathtrace import final_pass
 from sunray_tpu_torch.render.pipeline import RenderState, check_supported
@@ -73,10 +82,6 @@ def _frame_local(scene, cfg, state: RenderState, mats, grid: ShardGrid,
     """The per-rank frame body (spmd.py:51-119): pipeline.render_frame with
     every cross-pixel seam routed through the grid's halo exchanges."""
     check_supported(scene, cfg)
-    if cfg.edge_antialias:
-        raise NotImplementedError(
-            "edge_antialias in a row-sharded frame: its neighbour reads have "
-            "no halo path (the JAX spmd frame leaves it out; ROADMAP)")
     if cfg.differentiable:
         state = state.detach()
     w, hl = cfg.width, grid.hl
@@ -107,6 +112,10 @@ def _frame_local(scene, cfg, state: RenderState, mats, grid: ShardGrid,
         raw = raw / cfg.samples
 
     raw_img = raw.reshape(hl, w, 3)
+    if cfg.edge_antialias:
+        raw_img = primary_edge_aa(scene, cfg, tracer, mats, raw_img,
+                                  tri=hitd.first_tri, t_hit=hitd.first_t,
+                                  grid=grid)
     accum = raw_img
     if cfg.enable_taa:
         with record_function("taa"):
@@ -163,12 +172,14 @@ def shard_state(state: RenderState, cfg, grid: ShardGrid) -> RenderState:
     return cut(state)
 
 
-def make_spmd_step(scene, cfg, group=None, accel=None):
+def make_spmd_step(scene, cfg, group=None, accel=None, whole_frame=False):
     """One frame of the row-sharded pipeline over the ranks of `group`
     (default: every rank). Returns step(state, mats) -> (state', ldr
     band (hl, W, 3), (ris_rounds, final_rounds)); the state is this
-    rank's share (shard_state)."""
-    grid = make_grid(cfg, group)
+    rank's share (shard_state). whole_frame: each band a share of the
+    single-device frame (halo.make_grid), as JAX's GSPMD frame; default
+    JAX's spmd frame."""
+    grid = make_grid(cfg, group, whole_frame)
 
     def step(state, mats):
         return _frame_local(scene, cfg, state, mats, grid, accel)
@@ -178,10 +189,10 @@ def make_spmd_step(scene, cfg, group=None, accel=None):
 
 
 def render_frame_spmd(scene, cfg, state: RenderState, mats, group=None,
-                      accel=None):
+                      accel=None, whole_frame=False):
     """One frame through the row-sharded path. A whole state is sharded
     first. For a frame loop build the step once with make_spmd_step."""
-    step = make_spmd_step(scene, cfg, group, accel)
+    step = make_spmd_step(scene, cfg, group, accel, whole_frame)
     if state.accum.shape[0] == cfg.height and step.grid.hl != cfg.height:
         state = shard_state(state, cfg, step.grid)
     return step(state, mats)

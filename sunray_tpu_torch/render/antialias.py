@@ -14,7 +14,8 @@ the forward image gets analytic edge antialiasing.
 
 The winning triangles' vertices come in one row gather through K8
 (gather_rows), whose backward is K8's segment-sum kernel. Everything
-else is shifts and elementwise math on (H, W) planes.
+else is shifts and elementwise math on (H, W) planes. In a row-sharded
+frame the vertical pairs read one halo row above and below the band.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from sunray_tpu_torch.ops.cuda_gather import gather_rows
 from sunray_tpu_torch.ops.fp import fma, sum3
+from sunray_tpu_torch.parallel.halo import exchange_flat_many
 
 # A pair of adjacent pixels is a silhouette when the winning triangles
 # differ and the hit distances differ by this relative gap (interior
@@ -79,10 +81,16 @@ def _shift(a, axis):
     return a[1:, :], a[:-1, :]
 
 
-def _pair_blend(img, delta, sv, tri, t_hit, axis):
+def _pair_blend(img, delta, sv, tri, t_hit, axis, row0=0, height=None):
     """One pass over adjacent pixel pairs along `axis`; returns delta with
-    this pass's colour adjustments added."""
-    h, w = tri.shape
+    this pass's colour adjustments added.
+
+    row0, height: the planes are a window of rows whose row 0 is global
+    row row0 of a height-row image (a band with its halo rows): pixel
+    centres take global rows, and a vertical pair with a row outside the
+    image is no pair."""
+    rows, w = tri.shape
+    h = rows if height is None else height
     tri_q, tri_p = _shift(tri, axis)
     t_q, t_p = _shift(t_hit, axis)
     sil = (tri_p != tri_q) & ((t_p - t_q).abs()
@@ -96,11 +104,11 @@ def _pair_blend(img, delta, sv, tri, t_hit, axis):
         edge.append(torch.where(p_closer, cp, cq))
     # The first pixel's centre in pair coordinates.
     dev = img.device
-    ph, pw = (h, w - 1) if axis == 1 else (h - 1, w)
+    ph, pw = (rows, w - 1) if axis == 1 else (rows - 1, w)
     ccx = (torch.arange(pw, dtype=torch.float32, device=dev)[None, :]
            + 0.5).expand(ph, pw)
-    ccy = (torch.arange(ph, dtype=torch.float32, device=dev)[:, None]
-           + 0.5).expand(ph, pw)
+    ccy = (torch.arange(row0, row0 + ph, dtype=torch.float32,
+                        device=dev)[:, None] + 0.5).expand(ph, pw)
 
     best_e = torch.full((ph, pw), 0.5, dtype=torch.float32, device=dev)
     best_valid = torch.zeros((ph, pw), dtype=torch.bool, device=dev)
@@ -119,6 +127,9 @@ def _pair_blend(img, delta, sv, tri, t_hit, axis):
         best_valid = best_valid | valid
 
     active = sil & best_valid & ~any_behind
+    if axis == 0 and (row0 < 0 or row0 + rows > h):
+        first = torch.arange(row0, row0 + ph, device=dev)[:, None]
+        active = active & (first >= 0) & (first + 1 < h)
     e = torch.where(active, best_e, 0.5)
 
     # e > 0.5: the near surface leaks into the second pixel (q);
@@ -138,7 +149,8 @@ def _pair_blend(img, delta, sv, tri, t_hit, axis):
     return delta + F.pad(dp, (0, 0, 0, 0, 0, 1))
 
 
-def primary_edge_aa(scene, cfg, tracer, mats, img, tri=None, t_hit=None):
+def primary_edge_aa(scene, cfg, tracer, mats, img, tri=None, t_hit=None,
+                    grid=None):
     """Antialias `img` (H, W, 3 linear) along primary silhouettes and make
     it differentiable w.r.t. silhouette motion. Visibility ids are
     detached; the blend factors differentiate through the projected
@@ -147,11 +159,21 @@ def primary_edge_aa(scene, cfg, tracer, mats, img, tri=None, t_hit=None):
     tri / t_hit: the raw primary-hit (P,) triangle ids (-1 = miss) and
     distances, normally the RIS pass's first walk round
     (gbuffer.PrimaryHit.first_tri / first_t), so no extra trace runs;
-    traced here only when absent."""
+    traced here only when absent.
+
+    grid (parallel/halo.ShardGrid): a row-sharded frame; img, tri and
+    t_hit hold the band's rows and are given. One row above and below of
+    the three is exchanged (img's differentiably), the pairs are formed
+    on that window at global rows and the band's rows of the adjustment
+    are kept: a pair across a band edge is formed on both ranks, each
+    keeping its own pixel's share, so it counts once."""
     h, w = cfg.height, cfg.width
     if (tri is None) != (t_hit is None):
         raise ValueError("pass tri and t_hit together (or neither)")
     if tri is None:
+        if grid is not None:
+            raise ValueError("a row-sharded frame passes its band's tri and "
+                             "t_hit")
         from sunray_tpu_torch.camera import generate_rays
         from sunray_tpu_torch.render.trace import trace_closest
 
@@ -160,21 +182,30 @@ def primary_edge_aa(scene, cfg, tracer, mats, img, tri=None, t_hit=None):
         tri = torch.where(hit.hit, hit.tri, -1)
         t_hit = torch.where(hit.hit, hit.t, 1e9)
 
+    rows, row0, win = h, 0, img
+    if grid is not None:
+        rows, row0 = grid.hl + 2, grid.row0 - 1
+        win, tri, t_hit = exchange_flat_many(
+            [img.reshape(-1, 3), tri.to(torch.int32), t_hit.detach()], 1,
+            grid)
+        win = win.reshape(rows, w, 3)
+
     # The winning triangles' world vertices: one K8 row gather, then the
     # projection of each corner (differentiable in vertices and camera).
     v0, v1, v2 = scene.world_triangle_vertices()
     vcat = torch.cat([v0, v1, v2], dim=1).contiguous()       # (T, 9)
-    rows = gather_rows(vcat, tri.to(torch.int32)[None])[0]   # (9, P)
+    vrows = gather_rows(vcat, tri.to(torch.int32)[None])[0]  # (9, P)
     vp = mats["view_proj"]
     sv = []
     for k in range(3):
-        ux, uy, behind = _project_unit(vp, rows[3 * k], rows[3 * k + 1],
-                                       rows[3 * k + 2])
-        sv += [ux.reshape(h, w), uy.reshape(h, w), behind.reshape(h, w)]
+        ux, uy, behind = _project_unit(vp, vrows[3 * k], vrows[3 * k + 1],
+                                       vrows[3 * k + 2])
+        sv += [ux.reshape(rows, w), uy.reshape(rows, w),
+               behind.reshape(rows, w)]
 
-    tri_im = tri.reshape(h, w)
-    t_im = t_hit.reshape(h, w)
-    delta = torch.zeros_like(img)
-    delta = _pair_blend(img, delta, sv, tri_im, t_im, axis=1)
-    delta = _pair_blend(img, delta, sv, tri_im, t_im, axis=0)
-    return img + delta
+    tri_im = tri.reshape(rows, w)
+    t_im = t_hit.reshape(rows, w)
+    delta = torch.zeros_like(win)
+    delta = _pair_blend(win, delta, sv, tri_im, t_im, 1, row0, h)
+    delta = _pair_blend(win, delta, sv, tri_im, t_im, 0, row0, h)
+    return img + (delta if grid is None else delta[1:-1])

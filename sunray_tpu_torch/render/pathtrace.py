@@ -311,16 +311,21 @@ def final_pass(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
     radiance = c["radiance"]
     if use_restir:
         # Phase B's activations are recomputed in the backward pass of a
-        # differentiable frame (ops/loops.checkpointed).
-        # (The grid rides only in a row-sharded frame, so the single-device
-        # call keeps its arguments.)
+        # differentiable frame (ops/loops.checkpointed). A row-sharded
+        # frame exchanges its windows first, so that the recompute posts
+        # no message (parallel/halo.exchange_rows); the single-device call
+        # keeps its arguments.
+        sharded = (() if grid is None
+                   else (grid, _reuse_windows(gbuf, r_di, r_gi, grid)))
         radiance = radiance + checkpointed(
             _spatial_reuse, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
-            c["seed"], c, origins[0], frame_count,
-            *(() if grid is None else (grid,)), enabled=cfg.differentiable)
-        # Off in a row-sharded frame, as pathtrace.py:371 has it.
+            c["seed"], c, origins[0], frame_count, *sharded,
+            enabled=cfg.differentiable)
+        # Lane-local: it runs on a band that is a share of the
+        # single-device frame (JAX's GSPMD-split training_step), and not in
+        # the spmd frame, as pathtrace.py:371 has it.
         if (cfg.shadow_boundary_grads and cfg.differentiable
-                and grid is None):
+                and (grid is None or grid.whole_frame)):
             # The ReSTIR DI estimator estimates the same NEE area integral:
             # the term at the frozen first-rough hits, with the path
             # throughput (the diffuse integrand, pathtrace.py:371-388).
@@ -445,17 +450,32 @@ def _pix0(grid, w):
     return 0 if grid is None else grid.row0 * w
 
 
+def _reuse_windows(gbuf, r_di, r_gi, grid):
+    """Spatial reuse's windows: the G-buffer's normal and depth and every
+    reservoir field, exchanged once with halo_s rows. Returns (gbuf with
+    its guides as their windows, {DI field: window}, {GI field:
+    window})."""
+    di_keys = [f.name for f in dataclasses.fields(r_di)]
+    gi_keys = [f.name for f in dataclasses.fields(r_gi)]
+    ext = exchange_flat_many(
+        [gbuf.normal, gbuf.depth] + [getattr(r_di, k) for k in di_keys]
+        + [getattr(r_gi, k) for k in gi_keys], grid.halo_s, grid)
+    return (gbuf._replace(normal=ext[0], depth=ext[1]),
+            dict(zip(di_keys, ext[2:2 + len(di_keys)])),
+            dict(zip(gi_keys, ext[2 + len(di_keys):])))
+
+
 def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
-                   cam_origin, frame_count, grid=None):
+                   cam_origin, frame_count, grid=None, windows=None):
     """Phase B: ReSTIR DI + GI spatial reuse at the frozen first-rough hits
     (ray_gen_final.slang:136-327), shared or per-pixel taps. Returns
     radiance to add, (P, 3).
 
-    grid: a row-sharded frame (pathtrace.py:464-615): the reservoirs and
-    the G-buffer guides are exchanged once with halo_s rows; K5 runs in
-    its window form on them, the GI taps are cut from the windows
-    (cuda_restir.shift_window) for K6, and per-pixel taps read the
-    windows at global indices. Every other step is per lane on the band."""
+    grid: a row-sharded frame (pathtrace.py:464-615), with windows, the
+    halo_s windows of _reuse_windows: K5 runs in its window form on them,
+    the GI taps are cut from the windows (cuda_restir.shift_window) for
+    K6, and per-pixel taps read the windows at global indices. Every
+    other step is per lane on the band."""
     w, h = cfg.width, cfg.height
     p = c["pending"].shape[0]
     hl = p // w
@@ -464,14 +484,7 @@ def _spatial_reuse(cfg, tracer, lights, mats, gbuf, r_di, r_gi, seed, c,
     if grid is not None:
         # gbuf's guides as their windows from here on.
         win = dict(row0=grid.row0, halo=grid.halo_s, h_global=h)
-        di_keys = [f.name for f in dataclasses.fields(r_di)]
-        gi_keys = [f.name for f in dataclasses.fields(r_gi)]
-        ext = exchange_flat_many(
-            [gbuf.normal, gbuf.depth] + [getattr(r_di, k) for k in di_keys]
-            + [getattr(r_gi, k) for k in gi_keys], grid.halo_s, grid)
-        gbuf = gbuf._replace(normal=ext[0], depth=ext[1])
-        di_x = dict(zip(di_keys, ext[2:2 + len(di_keys)]))
-        gi_x = dict(zip(gi_keys, ext[2 + len(di_keys):]))
+        gbuf, di_x, gi_x = windows
     pending = c["pending"]
     pos, normal, albedo = c["f_pos"], c["f_normal"], c["f_albedo"]
     rough, metal, v_view = c["f_rough"], c["f_metal"], c["f_view"]

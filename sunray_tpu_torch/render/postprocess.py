@@ -6,7 +6,8 @@ package does off the TPU (plain gathers, ops/banded.py); the TPU-only band
 rejection is not ported. With history_select_kernel the four bilinear
 corners are fetched in one K13 launch (ops/cuda_history.py); kernel
 "pallas" (or "auto" on the card) runs the clamp and blend as K9
-(ops/cuda_image.taa_clamp_blend), else its plain version. The denoise
+(ops/cuda_image.taa_clamp_blend; its window form in a row-sharded
+frame), else its plain version. The denoise
 dispatches to K7. All images are (H, W, C) float32. In a row-sharded
 frame (grid, parallel/halo.py) the history fetch reads a halo_t-row
 window of the history, the 3x3 clamp a 1-row edge-extended raw, and the
@@ -106,15 +107,11 @@ def temporal_accumulate(raw, motion, history, frame_count,
     grid: a row-sharded frame (postprocess.py:241-293): the images hold
     the band's rows, the history is fetched from its halo_t window
     (history beyond it is rejected like off-screen history) and the clamp
-    reads a 1-row edge-extended raw. K9 has no window form: a switch that
-    would launch it raises NotImplementedError there."""
+    reads a 1-row edge-extended raw, through K9's window form where the
+    kernel is switched on."""
     h, w = raw.shape[:2]
     dev = raw.device
     k9 = kernel == "pallas" or (kernel == "auto" and dev.type == "cuda")
-    if grid is not None and k9:
-        raise NotImplementedError(
-            f"taa_kernel={kernel!r} in a row-sharded frame: K9 has no "
-            "window form (ROADMAP); use taa_kernel='jnp'")
     row0 = None if grid is None else grid.row0
     vv, uu = torch.meshgrid(pixel_rows(h if grid is None else grid.h, dev,
                                        row0, h),
@@ -128,8 +125,9 @@ def temporal_accumulate(raw, motion, history, frame_count,
         hist, valid = bilinear_sample(history, prev_uv, history_select_kernel,
                                       grid)
         raw_x = exchange_rows(raw, 1, 1, grid, edge="edge")
-        return taa_clamp_blend(raw, hist, use_history & valid,
-                               accumulation_factor, raw_x=raw_x)
+        blend = cuda_image.taa_clamp_blend if k9 else taa_clamp_blend
+        return blend(raw, hist, use_history & valid, accumulation_factor,
+                     raw_x=raw_x)
     hist = bilinear_sample(history, prev_uv, history_select_kernel)
     if k9:
         return cuda_image.taa_clamp_blend(raw.contiguous(), hist.contiguous(),

@@ -788,6 +788,35 @@ def test_taa_kernel_matches_plain(size, cuda_device):
     assert torch.equal(got[~use], raw[~use])
 
 
+@pytest.mark.parametrize("size", [(270, 480), (37, 53)])
+def test_taa_window_kernel_matches_plain(size, cuda_device):
+    """K9's window form on a band of rows [r0, r0 + h) of a frame: bit-equal
+    to its plain twin and to the whole-frame K9's band, on the first and
+    last band too (edge-replicated rows above and below)."""
+    rng = np.random.default_rng(size[1])
+    h, w = size
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.uniform(size=s).astype(np.float32)).to(cuda_device)
+    raw = 3.0 * f(3 * h, w, 3)
+    raw[h // 3:2 * h, w // 4:w // 2] *= 20.0
+    hist = 3.0 * f(3 * h, w, 3)
+    use = f(3 * h, w) > 0.3
+    whole = cuda_image.taa_clamp_blend(raw, hist, use, 0.14)
+    padded = torch.cat([raw[:1], raw, raw[-1:]])
+    cuda_build.launches.clear()
+    for r0 in (0, h, 2 * h):
+        band = (raw[r0:r0 + h], hist[r0:r0 + h].contiguous(),
+                use[r0:r0 + h].contiguous(), 0.14)
+        raw_x = padded[r0:r0 + h + 2].contiguous()
+        got = cuda_image.taa_clamp_blend(*band, raw_x=raw_x)
+        want = cuda_image.taa_clamp_blend_plain(*band, raw_x=raw_x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, whole[r0:r0 + h])
+    assert cuda_build.launches["taa_clamp_blend_window"] == 3
+    assert cuda_build.launches["taa_clamp_blend"] == 0
+
+
 def test_history_gather_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(11)
     p, m = 300_000, 1_200_000

@@ -1,5 +1,6 @@
 """Process groups for the port's multi-device tests (tests/test_torch_halo.py,
-_spmd.py, _spmd_jax.py, _training_step.py).
+_spmd.py, _spmd_jax.py, _training_step.py, _training_restir.py,
+_training_visibility.py, _halo_grad.py).
 
 run_ranks(world, fn, *args) spawns `world` processes with
 torch.multiprocessing, joins them into one gloo process group through a
@@ -218,12 +219,84 @@ def halo_ops(rank, world, case):
     return out
 
 
+def halo_grads(rank, world, case):
+    """The backward of exchange_rows (zero and edge fill) and of
+    exchange_flat_many (a float (P, 3) and an int32 field) on this rank's
+    band of seeded float64 (float32 for the flat fields) inputs: <ext, y>
+    and <x, grad> for the adjoint identity, the gradient of two runs, the
+    traffic tallies; then two exchanges whose backwards ranks 0 and 1 run
+    in opposite orders, and the error that raises."""
+    from sunray_tpu_torch.parallel.halo import (
+        ShardGrid,
+        exchange_flat_many,
+        exchange_rows,
+        traffic_tally,
+    )
+
+    h, w, hl, halo = (case[k] for k in ("h", "w", "hl", "halo"))
+    grid = ShardGrid(None, world, rank, rank * hl, h, w, hl, halo, halo)
+    gen = torch.Generator().manual_seed(7)
+    img = torch.randn(h, w, 3, generator=gen, dtype=torch.float64)
+    ys = torch.randn(world, hl + 2 * halo, w, 3, generator=gen,
+                     dtype=torch.float64)
+    flat = torch.randn(h * w, 3, generator=gen)
+    ints = torch.randint(-2**31, 2**31 - 1, (h * w,), generator=gen,
+                         dtype=torch.int32)
+    yf = torch.randn(world, (hl + 2 * halo) * w, 3, generator=gen)
+    band = slice(rank * hl, (rank + 1) * hl)
+    lanes = slice(rank * hl * w, (rank + 1) * hl * w)
+    out = {}
+    for edge in ("zero", "edge"):
+        grads = []
+        for _ in range(2):
+            x = img[band].clone().requires_grad_(True)
+            with traffic_tally() as t:
+                ext = exchange_rows(x, halo, halo, grid, edge=edge)
+                g, = torch.autograd.grad(ext, x, ys[rank])
+            grads.append(g)
+        out[edge] = dict(lhs=float((ext.detach() * ys[rank]).sum()),
+                         rhs=float((x.detach() * grads[0]).sum()),
+                         grad=grads[0].numpy(), grad2=grads[1].numpy(),
+                         tally=dict(t))
+    grads = []
+    for _ in range(2):
+        x = flat[lanes].clone().requires_grad_(True)
+        with traffic_tally() as t:
+            ext, ext_i = exchange_flat_many([x, ints[lanes]], halo, grid)
+            g, = torch.autograd.grad(ext, x, yf[rank])
+        grads.append(g)
+    ref_i = torch.cat([torch.zeros((halo * w,), dtype=torch.int32), ints,
+                       torch.zeros((halo * w,), dtype=torch.int32)])
+    win = slice((rank * hl) * w, (rank * hl + hl + 2 * halo) * w)
+    out["flat_many"] = dict(
+        lhs=float((ext.detach().double() * yf[rank].double()).sum()),
+        rhs=float((x.detach().double() * grads[0].double()).sum()),
+        grad=grads[0].numpy(), grad2=grads[1].numpy(), tally=dict(t),
+        int_exact=bool(torch.equal(ext_i, ref_i[win])))
+    # Two exchanges between ranks 0 and 1 alone; their backwards run in
+    # opposite orders on the two ranks.
+    out["mismatch"] = None
+    if rank < 2:
+        pair = ShardGrid(None, 2, rank, rank * hl, 2 * hl, w, hl, 1, 1)
+        x = img[band].clone().requires_grad_(True)
+        a = exchange_rows(x, 1, 1, pair)
+        b = exchange_rows(x * 2.0, 1, 1, pair)
+        first, second = (a, b) if rank == 0 else (b, a)
+        try:
+            torch.autograd.grad(first.sum(), x, retain_graph=True)
+            torch.autograd.grad(second.sum(), x)
+        except RuntimeError as e:
+            out["mismatch"] = str(e)
+    return out
+
+
 # -- the training step on every rank (tests/test_torch_training_step.py) -----
 
 def train_step(rank, world, case):
     """sharding.training_step on a (dp, sp) mesh of the ranks, on case's
     scene, view matrices and targets (numpy, from the JAX package), w.r.t.
-    base_color; and the error a ReSTIR config raises at this sp."""
+    base_color; and the same step with case["restir_kw"] (ReSTIR, TAA,
+    denoise)."""
     from sunray_tpu_torch import convert
     from sunray_tpu_torch.config import RenderConfig
     from sunray_tpu_torch.parallel.sharding import make_mesh, training_step
@@ -234,15 +307,107 @@ def train_step(rank, world, case):
     targets = torch.from_numpy(case["targets"])
     loss, grad = training_step(scene, RenderConfig(**case["kw"]), mats,
                                targets, mesh)
-    try:
-        training_step(scene, RenderConfig(**dict(case["kw"],
-                                                  lighting="restir")),
-                      mats, targets, mesh)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    return dict(loss=loss.numpy(), grad=grad.numpy(), refused=refused,
+    restir = training_step(scene, RenderConfig(**dict(case["kw"],
+                                                      **case["restir_kw"])),
+                           mats, targets, mesh)
+    return dict(loss=loss.numpy(), grad=grad.numpy(),
+                restir=tuple(x.numpy() for x in restir),
                 mesh=(mesh.dp, mesh.sp, mesh.dp_index, mesh.sp_index))
+
+
+def train_scene(case):
+    """case's scene in the port, with its edge topology when
+    case["topology"] (the shadow-boundary term needs it)."""
+    from sunray_tpu_torch import convert
+    from sunray_tpu_torch.render import boundary
+
+    scene = convert.scene_from_numpy(case["scene"], device="cpu")
+    if case.get("topology"):
+        scene = boundary.with_edge_topology(scene)
+    return scene
+
+
+def train_meshes(rank, world, case, shapes, repeats=1):
+    """training_step on each (dp, sp) of `shapes` over the ranks, `repeats`
+    times each; returns, a mesh each, [(loss, gradient, traffic tally)] a
+    run."""
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.parallel.halo import traffic_tally
+    from sunray_tpu_torch.parallel.sharding import make_mesh, training_step
+
+    scene = train_scene(case)
+    mats = {k: torch.from_numpy(v) for k, v in case["mats"].items()}
+    targets = torch.from_numpy(case["targets"])
+    out = []
+    for dp, sp in shapes:
+        mesh = make_mesh(world, dp=dp)
+        assert mesh.shape == (dp, sp)
+        runs = []
+        for _ in range(repeats):
+            with traffic_tally() as t:
+                loss, grad = training_step(scene, RenderConfig(**case["kw"]),
+                                           mats, targets, mesh)
+            runs.append((loss.numpy(), grad.numpy(), dict(t)))
+        out.append(runs)
+    return out
+
+
+def single_step(case):
+    """The port's single-device step on the CPU: mean((ldr - targets)^2)
+    over case's views through pipeline.render_frame, and its gradient
+    w.r.t. base_color (numpy)."""
+    import dataclasses
+
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.render.pipeline import RenderState, render_frame
+
+    scene = train_scene(case)
+    cfg = RenderConfig(**case["kw"])
+    mt = scene.materials
+    param = mt.base_color.clone().requires_grad_(True)
+    scene = dataclasses.replace(
+        scene, materials=dataclasses.replace(mt, base_color=param))
+    targets = torch.from_numpy(case["targets"])
+    imgs = [render_frame(scene, cfg, RenderState.create(cfg, "cpu"),
+                         {k: torch.from_numpy(v[i])
+                          for k, v in case["mats"].items()})[1]
+            for i in range(targets.shape[0])]
+    loss = ((torch.stack(imgs) - targets) ** 2).mean()
+    grad, = torch.autograd.grad(loss, param)
+    return float(loss.detach()), grad.numpy()
+
+
+def sharded_runs(rank, world, runs):
+    """Each run (path, kw, camera kind, frames) on this rank: path "spmd"
+    through spmd_frames' row-sharded frame, "sharded" through
+    sharding.render_frame_sharded on the (1, world) mesh; returns, a run
+    each, the whole ldr images (numpy)."""
+    from sunray_tpu_torch.camera import camera_matrices
+    from sunray_tpu_torch.config import RenderConfig
+    from sunray_tpu_torch.parallel.sharding import (
+        make_mesh,
+        render_frame_sharded,
+    )
+    from sunray_tpu_torch.render.pipeline import RenderState
+    from sunray_tpu_torch.scene import cornell_box
+
+    out = []
+    mesh = make_mesh(world, dp=1)
+    scene = cornell_box(device="cpu")
+    for path, kw, kind, frames in runs:
+        if path == "spmd":
+            out.append(spmd_frames(rank, world, [(kw, kind, frames)])[0][0])
+            continue
+        cfg = RenderConfig(**kw)
+        state = RenderState.create(cfg, "cpu")
+        ldrs = []
+        for cam in cameras(kind, frames):
+            mats = camera_matrices(cam, cfg.width, cfg.height, device="cpu")
+            state, ldr, _ = render_frame_sharded(scene, cfg, state, mats,
+                                                 mesh)
+            ldrs.append(ldr.numpy())
+        out.append(ldrs)
+    return out
 
 
 def mesh_frames(rank, world, kw, frames):

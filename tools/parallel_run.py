@@ -2,17 +2,18 @@
 card. (a) the row-sharded frame under NCCL at world size 1, bit-equal to
 render_frame on the 1080p Cornell ReSTIR frame; (b) 4 gloo ranks sharing
 the card on the 1080p frame, held to the single-device frame, with every
-rank's launches, halo bytes and host-staged exchange ms; (c)
-training_step at (dp, sp) = (2, 2) against the single-device step; (d)
-the window forms of K5 and K7, and K6 on a band, against their plain
-twins.
+rank's launches, halo bytes and host-staged exchange ms, and
+render_frame_sharded under fast motion; (c) training_step at (dp, sp) =
+(2, 2) on the default ReSTIR and the NEE configs against the
+single-device step; (d) the window forms of K5, K7 and K9, and K6 on a
+band, against their plain twins.
 
     python3 tools/parallel_run.py
 
 Builds the port's kernels, times 5 + 20 frames of phase 5's 1080p frame
 for the frame ms that (a) is set beside, then runs
 chip_smoke.phase_parallel. It prints the card's name and power limit,
-the phase's own log, the rows of the two window instantiations, and as
+the phase's own log, the rows of the three window instantiations, and as
 its last line one JSON object, the phase's summary.
 """
 
