@@ -294,10 +294,28 @@ Phases, in order; any failure raises and exits non-zero with no result:
      whole frame's K9 on the band), timed as phase 3 times them. Its
      summary is the line {"parallel": ...} after {"viewers": ...}.
      `python3 tools/parallel_run.py` runs phase 15 alone.
+ 16. The example programs (examples/torch_*.py), each through its
+     run(...) on the card with stdout redirected: render_png (Cornell and
+     room, 800x600, 16 warm-up frames), optimize_material (60 steps: max
+     albedo error below 0.05), optimize_camera (80 steps: RECOVERED;
+     --joint --edge-aa EX_JOINT_STEPS steps: the pose error falls), orbit
+     (Cornell, 72 frames, churn at 24/48, in flight 2: no recompile on
+     churn; its presented frames bit-equal to in flight 0 and to 2 present
+     workers; phase 10's glTF, EX_GLTF_ORBIT_FRAMES frames), term_viewer
+     (30 frames at 160x96, its summary line) and parity_report (phase 10's
+     glTF at 1600x1200: the camera arm passing, the aux checks); every
+     program's kernels launched (EX_KERNELS, the launch counters zeroed
+     before it), no plain twin on the card (TwinSpy; the loops: the
+     tracer's and K8's), every image finite; the loops' first 2 steps at
+     24x18 card vs CPU (phase 8's bars). Its summary is the line
+     {"examples": ...} after {"parallel": ...}; then {"phase_seconds":
+     ...}, each phase's wall seconds. `python3 tools/examples_run.py`
+     runs phase 16 alone.
 The line before the last is {"kernels": [...]}: per kernel its launches
 on its slice's main path, its error, kernel and library ms (CUDA events
 around 10 calls enqueued behind a spin kernel, so run back to back, a
-call; median of 3), plain ms (CUDA events around one call, median of 10)
+call; median of 3), plain ms (CUDA events around one call, median of 10;
+K10's and K12's plain versions one call after their comparison's)
 and its bound (the larger of bytes over 3.35 TB/s
 and operations over 67 TFLOP/s fp32, from this run's inputs; a trace
 counts the ray-triangle tests its rays need, e.g. K10 and K12 the
@@ -340,6 +358,10 @@ FP32_OPS_S = 67e12
 TEST_OPS = 53             # one Moller-Trumbore ray-triangle test, fp32 ops
 SLAB_OPS = 27             # one ray-box slab test (K11)
 BIG_SUBDIV = 6
+# Timed calls of K10's and K12's plain versions (1.7-9.3 s each at 1080p),
+# after the comparison's call: 10 after 2 warm-ups (3 on the fallbacks and
+# K12's any-hit) before phase 16 joined the script.
+BINNED_PLAIN_REPS = 1
 SMALL_BIG = dict(GOLDEN_KW, lighting="restir", width=48, height=32,
                  cluster_k=32)
 SMALL_BIG_SUBDIV, SMALL_BIG_FRAMES = 3, 3
@@ -413,10 +435,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, reps=REPS):
-    """Median of `reps` CUDA-event timings of fn() after two warm-ups: a
-    plain version's time, its host work included."""
-    for _ in range(2):
+def time_ms(fn, reps=REPS, warm=2):
+    """Median of `reps` CUDA-event timings of fn() after `warm` warm-ups:
+    a plain version's time, its host work included."""
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -1871,10 +1893,12 @@ def needed_anyhit_tests(cs, o_t, d_t, tn, tx, occ, step=1 << 14):
     return total
 
 
-def k10_launch(cs, label, args, closest, rule, plain_reps=REPS):
+def k10_launch(cs, label, args, closest, rule):
     """K10 timed on one launch's inputs, with its bound (the cluster tests
     its rays need) and its counts: needed tests, tests the warp rule runs
-    (`rule`, from binned_round_warp) and the old per-block items."""
+    (`rule`, from binned_round_warp) and the old per-block items. The
+    plain version (4.6-9.3 s a call) is timed on one call, warm from the
+    comparison before it (BINNED_PLAIN_REPS)."""
     from sunray_tpu_torch.ops import cuda_binned as cb
 
     order, ents, count, o_t, d_t, tn, tx = args[:7]
@@ -1887,7 +1911,7 @@ def k10_launch(cs, label, args, closest, rule, plain_reps=REPS):
     r = dict(
         ms=device_ms(lambda: cb.binned_round(*args, closest=closest)),
         plain_ms=time_ms(lambda: cb.binned_round_plain(*args, closest=closest),
-                         reps=plain_reps),
+                         reps=BINNED_PLAIN_REPS, warm=0),
         bound=bound(o_t.shape[1] * 52 + cs.num_clusters * 10 * k_tris * 4
                     + nbytes(order, ents, count), needed * k_tris * TEST_OPS),
         needed_tests=needed, rule_tests=rule, block_items=items)
@@ -1969,12 +1993,13 @@ def compare_k12(args, closest, label):
     return frac, err, rule
 
 
-def k12_launch(cs, label, args, closest, rule, plain_reps=REPS):
+def k12_launch(cs, label, args, closest, rule):
     """K12 timed on one launch's inputs, with its bound (the cluster tests
     its pair lanes need) and its counts: needed tests, tests the warp rule
     runs (`rule`, from pair_round_warp) and the SC_K a live lane that an
     unculled kernel runs; and the same launch with every lane dead
-    (no pair), the cost of the dead tail's blocks."""
+    (no pair), the cost of the dead tail's blocks. The plain version is
+    timed as k10_launch times K10's."""
     from sunray_tpu_torch.ops import cuda_binned as cb
 
     cid_s, pos_s, runs, o_t = args[:4]
@@ -1992,7 +2017,7 @@ def k12_launch(cs, label, args, closest, rule, plain_reps=REPS):
         ms=device_ms(lambda: cb.pair_round(*args, closest=closest)),
         dead_ms=device_ms(lambda: cb.pair_round(*dead, closest=closest)),
         plain_ms=time_ms(lambda: cb.pair_round_plain(*args, closest=closest),
-                         reps=plain_reps),
+                         reps=BINNED_PLAIN_REPS, warm=0),
         bound=bound(nbytes(cid_s, pos_s, runs) + o_t.shape[1] * 36
                     + cs.num_clusters * 10 * k_tris * 4 + out_bytes,
                     needed * k_tris * TEST_OPS),
@@ -2034,9 +2059,9 @@ def phase_binned_kernels(dev):
     f10_v, f12_v, _, over_v, _, pair_args_v, fb_v = pair_stream_checks(
         cs, "GI-tap visibility", vo, vd, seg, vex, closest=False)
     fb_close = k10_launch(cs, "GI bounce overflow fallback (closest)", fb_b,
-                          True, f10_b[2], plain_reps=3)
+                          True, f10_b[2])
     fb_any = k10_launch(cs, "GI-tap visibility overflow fallback (any-hit)",
-                        fb_v, False, f10_v[2], plain_reps=3)
+                        fb_v, False, f10_v[2])
 
     # The kernels line's row: the camera launch, the fallbacks beside it.
     results["binned_round"] = dict(
@@ -2060,7 +2085,7 @@ def phase_binned_kernels(dev):
     k12_close = k12_launch(cs, "GI bounce (closest)", pair_args, True,
                            f12_b[2])
     k12_any = k12_launch(cs, "GI-tap visibility (any-hit)", pair_args_v, False,
-                         f12_v[2], plain_reps=3)
+                         f12_v[2])
     log(f"  overflow share GI bounce {over:.6f}, GI-tap visibility {over_v:.6f}")
     results["pair_round"] = dict(
         k12_close, agree=min(f12_b[0], f12_v[0]), max_abs_err=f12_b[1],
@@ -5732,8 +5757,395 @@ def phase_parallel(dev, phase5_ms):
     return summary, rows, launches
 
 
+# -- phase 16: the example programs --------------------------------------------
+
+# Each examples/torch_*.py program's run(...) in-process on the card, its
+# stdout redirected (the script's last line is the contract's). Every
+# program runs at its defaults, except two depths cut to fit the script's
+# limit (PERF.md section 4): optimize_camera --joint --edge-aa runs
+# EX_JOINT_STEPS of its 80 steps and the orbit over phase 10's glTF
+# EX_GLTF_ORBIT_FRAMES of its 72 frames.
+EX_JOINT_STEPS = 20
+EX_GLTF_ORBIT_FRAMES = 12
+EX_TERM_FRAMES = 30
+EX_ALBEDO_ERR = 0.05            # the material loop's final max albedo error
+EX_CARD_CPU_SIZE, EX_CARD_CPU_STEPS = (24, 18), 2
+# The forward ReSTIR frame's kernels on the Cornell box and the reflection
+# room (brute force); on phase 10's glTF the two-level walk (B3) takes
+# every trace query in place of K1 and K2.
+EX_GLTF_KERNELS = ("bvh2_walk", "gather_rows", "gather_rows_multi",
+                   "ris_audition", "di_temporal", "di_spatial", "gi_spatial",
+                   "atrous_pass")
+# The differentiable loops: the tracer and K8 forward; K8's backward where
+# the material table requires grad; K3-K7's plain versions (JAX's gates,
+# DIFF_ABSENT) and, for the pose, no table gradient at all.
+EX_POSE_KERNELS = ("trace_closest", "trace_occluded", "gather_rows",
+                   "gather_rows_multi")
+EX_KERNELS = {
+    "render_png cornell": CORNELL_KERNELS,
+    "render_png room": CORNELL_KERNELS,
+    "optimize_material": DIFF_KERNELS,
+    "optimize_camera": EX_POSE_KERNELS,
+    "optimize_camera joint edge-aa": EX_POSE_KERNELS,
+    "orbit cornell": CORNELL_KERNELS,
+    "orbit gltf": EX_GLTF_KERNELS,
+    "term_viewer": CORNELL_KERNELS,
+    # the aux frame of parity_report.py:303-305 passes no load-time accel:
+    # an LBVH built in the frame, walked by B2
+    "parity_report": EX_GLTF_KERNELS + ("bvh_walk",),
+}
+EX_ABSENT = {"optimize_material": DIFF_ABSENT,
+             "optimize_camera": DIFF_ABSENT + ("gather_rows_bwd",),
+             "optimize_camera joint edge-aa": DIFF_ABSENT
+             + ("gather_rows_bwd",)}
+# Each kernel's plain twin, at the name its wrapper calls it by: a call on
+# card tensors is a path that skipped its kernel. The differentiable
+# loops run K7's plain passes on the card (JAX's gate), so they are held
+# to the tracer's and K8's twins only.
+EX_TWINS = (("ops.intersect", "trace_closest_brute"),
+            ("ops.intersect", "trace_occluded_brute"),
+            ("ops.intersect", "trace_occluded_woop"),
+            ("ops.cuda_gather", "gather_rows_plain"),
+            ("ops.cuda_gather", "gather_rows_bwd_plain"),
+            ("ops.cuda_image", "atrous_denoise_pass"),
+            ("ops.cuda_image", "atrous_denoise_plain"),
+            ("ops.cuda_image", "taa_clamp_blend_plain"),
+            ("ops.cuda_restir", "ris_audition_plain"),
+            ("ops.cuda_restir", "di_temporal_plain"),
+            ("ops.cuda_restir", "di_spatial_plain"),
+            ("ops.cuda_restir", "gi_spatial_plain"),
+            ("ops.cuda_history", "history_gather_plain"),
+            ("ops.cuda_bvh", "walk_plain"),
+            ("ops.cuda_bvh", "walk_alpha_plain"))
+EX_DIFF_TWINS = ("trace_closest_brute", "trace_occluded_brute",
+                 "gather_rows_plain", "gather_rows_bwd_plain")
+# The default config's own plain stages, as JAX's defaults: TAA's clamp
+# and blend (taa_kernel="jnp") and the history reads
+# (history_select_kernel="off"); K9 and K13 run only when switched on.
+EX_CONFIG_TWINS = ("taa_clamp_blend_plain", "history_gather_plain")
+
+
+class TwinSpy:
+    """While entered, counts the calls of each EX_TWINS function that get
+    a tensor on the card (the wrappers take their plain twin only for CPU
+    tensors, and the frame's gates for JAX's plain stages)."""
+
+    def __enter__(self):
+        import collections
+        import importlib
+
+        # Modules that bind a twin under their own name at import (e.g.
+        # render/postprocess.taa_clamp_blend) keep the function itself.
+        importlib.import_module("sunray_tpu_torch.render.renderer")
+        self.calls = collections.Counter()
+        self.saved = []
+        for mod_name, attr in EX_TWINS:
+            mod = importlib.import_module("sunray_tpu_torch." + mod_name)
+            fn = getattr(mod, attr)
+
+            def spy(*args, _fn=fn, _name=attr, **kw):
+                if any(torch.is_tensor(x) and x.is_cuda
+                       for x in (*args, *kw.values())):
+                    self.calls[_name] += 1
+                return _fn(*args, **kw)
+
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def example_run(name, fn, spy, **kw):
+    """fn(**kw) with stdout captured and the launch counters zeroed before
+    and read after; checks the program's kernels (EX_KERNELS) launched,
+    EX_ABSENT's did not, and no plain twin ran on the card (the loops:
+    EX_DIFF_TWINS). Returns (fn's result, its stdout, summary)."""
+    import contextlib
+    import io
+
+    from sunray_tpu_torch.ops import cuda_build
+
+    torch.cuda.synchronize()
+    cuda_build.launches.clear()
+    spy.calls.clear()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn(**kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_build.launches)
+    twins = dict(spy.calls)
+    for k in EX_KERNELS[name]:
+        check(launches.get(k, 0) > 0, f"phase 16 {name}: {k} never launched")
+    for k in EX_ABSENT.get(name, ()):
+        check(launches.get(k, 0) == 0, f"phase 16 {name}: {k} launched")
+    held = (EX_DIFF_TWINS if name in EX_ABSENT else
+            [a for _, a in EX_TWINS if a not in EX_CONFIG_TWINS])
+    bad = {k: v for k, v in twins.items() if k in held}
+    check(not bad, f"phase 16 {name}: plain twins on the card {bad}")
+    return result, out.getvalue(), dict(seconds=seconds, launches=launches,
+                                        card_twin_calls=twins)
+
+
+def material_steps(device):
+    """[(loss, [gradient])] of the first EX_CARD_CPU_STEPS steps of
+    torch_optimize_material's loop at EX_CARD_CPU_SIZE."""
+    from examples import torch_optimize_material as ex
+
+    pb = ex.problem(EX_CARD_CPU_SIZE, device=device)
+    p = pb.init.clone().requires_grad_()
+    opt = ex.optimizer(p, 0.6 * 0.05)
+    steps = []
+    for _ in range(EX_CARD_CPU_STEPS):
+        loss = pb.loss(p)
+        g, = torch.autograd.grad(loss, p)
+        steps.append((float(loss.detach()), [g.cpu()]))
+        ex.apply_step(opt, p, g)
+    return steps
+
+
+def pose_steps(device, **kw):
+    """The same for torch_optimize_camera's loop (kw: edge_aa, joint)."""
+    from examples import torch_optimize_camera as ex
+
+    pb = ex.problem(EX_CARD_CPU_SIZE, device=device, **kw)
+    params = {k: v.clone().requires_grad_() for k, v in pb.init.items()}
+    opt = ex.optimizer(params, 2e-2)
+    steps = []
+    for _ in range(EX_CARD_CPU_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = pb.loss(params)
+        loss.backward()
+        steps.append((float(loss.detach()),
+                      [p.grad.cpu() for p in params.values()]))
+        opt.step()
+    return steps
+
+
+def example_card_vs_cpu(dev, name, steps_fn, **kw):
+    """steps_fn on the card and on the CPU port: losses within
+    DIFF_LOSS_RTOL, gradients within phase 8's bars (grads_close)."""
+    card, cpu = steps_fn(dev, **kw), steps_fn(torch.device("cpu"), **kw)
+    out = []
+    for i, ((lg, gg), (lc, gc)) in enumerate(zip(card, cpu)):
+        rel = abs(lg - lc) / abs(lc)
+        errs = [grads_close(a, b) for a, b in zip(gg, gc)]
+        check(rel <= DIFF_LOSS_RTOL, f"phase 16 {name} step {i}: card vs CPU "
+              f"loss rel {rel}")
+        check(all(ok for ok, _ in errs), f"phase 16 {name} step {i}: "
+              f"gradient card vs CPU {[e for _, e in errs]}")
+        out.append(dict(loss_card=lg, loss_cpu=lc, loss_rel=rel,
+                        grad_err=[e for _, e in errs]))
+    log(f"  {name} card vs CPU at {EX_CARD_CPU_SIZE[0]}x{EX_CARD_CPU_SIZE[1]}"
+        f", {EX_CARD_CPU_STEPS} steps: " + "; ".join(
+            f"loss {s['loss_card']:.7g} / {s['loss_cpu']:.7g} (rel "
+            f"{s['loss_rel']:.2e}), gradient max diff / max |g| "
+            + ", ".join(f"{e:.2e}" for e in s["grad_err"]) for s in out))
+    return out
+
+
+def orbit_presented(ex, **kw):
+    """torch_orbit.run(**kw) with every presented frame kept as the host
+    image the HUD is drawn on: (stats, {frame: image})."""
+    presented = {}
+    hud = ex.hud_overlay_np
+
+    def capture(img, lines, **hud_kw):
+        presented[int(lines[1].split()[1])] = img.copy()
+        return hud(img, lines, **hud_kw)
+
+    ex.hud_overlay_np = capture
+    try:
+        return ex.run(**kw), presented
+    finally:
+        ex.hud_overlay_np = hud
+
+
+def phase_examples(dev):
+    """Phase 16: the example programs on the card (examples/torch_*.py),
+    each through its run(...) with stdout redirected: render_png (Cornell
+    and room at 800x600, 16 warm-up frames), optimize_material (60 steps),
+    optimize_camera (80 steps; --joint --edge-aa EX_JOINT_STEPS), orbit
+    (Cornell, 72 frames with churn, in flight 2; again in flight 0 and
+    with 2 present workers, every presented frame bit-equal; phase 10's
+    glTF for EX_GLTF_ORBIT_FRAMES), term_viewer (EX_TERM_FRAMES frames at
+    160x96) and parity_report on phase 10's glTF at 1600x1200; each
+    program's kernels launched and no plain twin on the card; the loops'
+    first steps card vs CPU. Returns the phase's summary."""
+    from examples import (torch_optimize_camera, torch_optimize_material,
+                          torch_orbit, torch_parity_report, torch_render_png,
+                          torch_term_viewer)
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(REPO, "build", "examples")
+    gltf = os.path.join(REPO, "build", "phase10", "scene.glb")
+    if not os.path.exists(gltf):
+        gltf = real_scene_path()
+    summary = {}
+    log("phase 16: the example programs")
+    with TwinSpy() as spy:
+        for scene in ("cornell", "room"):
+            name = f"render_png {scene}"
+            got, _, s = example_run(
+                name, torch_render_png.run, spy, scene=scene,
+                out=os.path.join(out_dir, f"render_{scene}.png"),
+                device=dev)
+            img = got["image"]
+            check(img.shape == (600, 800, 4), f"{name}: shape {img.shape}")
+            mean = float(img[..., :3].mean()) / 255.0
+            check(0.02 < mean < 0.95, f"{name}: mean {mean}")
+            s.update(render_s=got["seconds"], frames=got["frames"],
+                     fps=got["frames"] / got["seconds"], mean=mean)
+            summary[name] = s
+            log(f"  {name}: {got['size'][0]}x{got['size'][1]}, "
+                f"{got['frames']} frames in "
+                f"{got['seconds']:.2f} s ({s['fps']:.2f} frames a second), "
+                f"mean {mean:.4f}; wall {s['seconds']:.2f} s")
+
+        got, _, s = example_run("optimize_material",
+                                torch_optimize_material.run, spy, device=dev)
+        err = got["albedo_err"][-1]
+        check(all(math.isfinite(x) for x in got["losses"]),
+              "optimize_material: non-finite loss")
+        check(err < EX_ALBEDO_ERR, f"optimize_material: max albedo error {err}")
+        s.update(ms_a_step=got["seconds"] * 1e3 / len(got["losses"]),
+                 loss=[got["losses"][0], got["losses"][-1]],
+                 albedo_err=[got["albedo_err"][0], err])
+        summary["optimize_material"] = s
+        log(f"  optimize_material: {len(got['losses'])} steps, "
+            f"{s['ms_a_step']:.1f} ms a step; "
+            f"loss {s['loss'][0]:.6f} -> {s['loss'][1]:.6f}; max albedo "
+            f"error {s['albedo_err'][0]:.4f} -> {err:.4f}; wall "
+            f"{s['seconds']:.2f} s")
+
+        for name, kw in (("optimize_camera", {}),
+                         ("optimize_camera joint edge-aa",
+                          dict(joint=True, edge_aa=True,
+                               steps=EX_JOINT_STEPS))):
+            got, _, s = example_run(name, torch_optimize_camera.run, spy,
+                                    device=dev, **kw)
+            check(all(math.isfinite(x) for x in got["losses"]),
+                  f"{name}: non-finite loss")
+            check(got["e1"] < got["e0"], f"{name}: pose error "
+                  f"{got['e0']} -> {got['e1']}")
+            if not kw:
+                check(got["result"] == "RECOVERED",
+                      f"{name}: pose error {got['e0']} -> {got['e1']}")
+            s.update(steps=len(got["losses"]), ms_a_step=got["seconds"] * 1e3
+                     / len(got["losses"]), e0=got["e0"], e1=got["e1"],
+                     result=got["result"],
+                     loss=[got["losses"][0], got["losses"][-1]])
+            summary[name] = s
+            log(f"  {name}: {s['steps']} steps, {s['ms_a_step']:.1f} ms a "
+                f"step; pose error {got['e0']:.4f} -> {got['e1']:.4f} "
+                f"({got['result']}); wall {s['seconds']:.2f} s")
+
+        (stats, frames), _, s = example_run(
+            "orbit cornell", orbit_presented, spy, ex=torch_orbit,
+            out=os.path.join(out_dir, "orbit"), device=dev)
+        n = stats["frames"]
+        check(stats["churn_frames"] == list(torch_orbit.CHURN),
+              f"orbit: churn frames {stats['churn_frames']}")
+        check(stats["no_recompile_on_churn"], f"orbit: churn {stats}")
+        check(sorted(frames) == list(range(n)), "orbit: frames presented")
+        check(all(np.isfinite(f).all() for f in frames.values()),
+              "orbit: non-finite frame")
+        s.update(stats=stats)
+        same = {}
+        for inflight, workers in ((0, 1), (2, 2)):
+            (st, other), _, _ = example_run(
+                "orbit cornell", orbit_presented, spy, ex=torch_orbit,
+                out=os.path.join(out_dir, f"orbit_{inflight}_{workers}"),
+                no_save=True, inflight=inflight, present_workers=workers,
+                device=dev)
+            key = f"inflight {inflight}, workers {workers}"
+            same[key] = all(np.array_equal(other[f], frames[f])
+                            for f in range(n))
+            s[key] = {k: st[k] for k in ("steady_fps", "steady_p50_ms",
+                                         "churn_frame_ms")}
+            check(same[key], f"orbit {key}: presented frames differ from "
+                  "in flight 2")
+        s["bit_equal"] = same
+        summary["orbit cornell"] = s
+        log(f"  orbit cornell: {n} frames {stats['resolution']}, steady "
+            f"{stats['steady_fps']}"
+            f" fps (p50 {stats['steady_p50_ms']} ms), churn frames "
+            f"{stats['churn_frames']} {stats['churn_frame_ms']} ms, prewarm "
+            f"{stats['prewarm_s']} s; presented frames bit-equal in flight "
+            f"0 / 2 workers: {same}; wall {s['seconds']:.2f} s")
+
+        stats, _, s = example_run(
+            "orbit gltf", torch_orbit.run, spy, scene=gltf,
+            frames=EX_GLTF_ORBIT_FRAMES, out=os.path.join(out_dir, "orbit_gltf"),
+            device=dev)
+        check(stats["no_recompile_on_churn"], f"orbit gltf: churn {stats}")
+        s.update(stats=stats)
+        summary["orbit gltf"] = s
+        log(f"  orbit gltf: {stats['frames']} frames {stats['resolution']}, "
+            f"steady "
+            f"{stats['steady_fps']} fps (p50 {stats['steady_p50_ms']} ms), "
+            f"prewarm {stats['prewarm_s']} s; wall {s['seconds']:.2f} s")
+
+        with open(os.devnull) as null:
+            got, text, s = example_run(
+                "term_viewer", torch_term_viewer.run, spy,
+                frames=EX_TERM_FRAMES, device=dev, stdin=null)
+        last = text.rstrip().splitlines()[-1]
+        check(got["frames"] == EX_TERM_FRAMES and last.startswith(
+            f"term_viewer: {EX_TERM_FRAMES} frames"), f"term_viewer: {last!r}")
+        s.update(frames=got["frames"], fps=got["fps"],
+                 ansi_bytes=got["ansi_bytes"], last_line=last.strip())
+        summary["term_viewer"] = s
+        log(f"  term_viewer: {EX_TERM_FRAMES} frames, {got['fps']:.2f} "
+            f"fps, {got['ansi_bytes']} bytes of ANSI a frame; wall "
+            f"{s['seconds']:.2f} s")
+
+        got, _, s = example_run(
+            "parity_report", torch_parity_report.run, spy, gltf=gltf,
+            out=os.path.join(out_dir, "parity_1600x1200.png"), device=dev)
+        aux = got["aux_checks"]
+        check(got["camera_parity"]["pass"], f"parity_report: camera arm "
+              f"{got['camera_parity']}")
+        check(aux["finite_ldr"], "parity_report: non-finite ldr")
+        s.update(camera_parity=got["camera_parity"], render=got["render"],
+                 aux_checks=aux)
+        summary["parity_report"] = s
+        log(f"  parity_report: camera max |view_proj diff| "
+            f"{got['camera_parity']['max_abs_diff_view_proj']:.3g}, "
+            f"{'x'.join(map(str, got['setup']['size']))} render (16 + 1 "
+            f"frames) {got['render']['seconds']} s, aux "
+            f"{aux}; wall {s['seconds']:.2f} s")
+        for name, s in summary.items():
+            log(f"  {name}: launches {s['launches']}; plain twins on the card "
+                f"{s['card_twin_calls']}")
+
+    summary["card_vs_cpu"] = {
+        "optimize_material": example_card_vs_cpu(dev, "optimize_material",
+                                                 material_steps),
+        "optimize_camera": example_card_vs_cpu(dev, "optimize_camera",
+                                               pose_steps),
+        "optimize_camera joint edge-aa": example_card_vs_cpu(
+            dev, "optimize_camera joint edge-aa", pose_steps, joint=True,
+            edge_aa=True)}
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {summary['seconds']:.1f} s")
+    return summary
+
+
 def main():
     t_start = time.perf_counter()
+    seconds = {}     # each phase's wall seconds, for the depth cuts
+
+    def timed(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        result = fn(*args, **kw)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return result
+
     check(torch.cuda.is_available(), "no CUDA device available")
     sys.path.insert(0, REPO)
     from sunray_tpu_torch.ops import cuda_build
@@ -5771,19 +6183,19 @@ def main():
     log(f"  registers, resident warps an SM: K1 {k1_regs}, K5 {k5_regs}")
     counts = sass_counts(path)
 
-    kernels = phase_kernels(dev, counts)
-    restir_rows, cap = phase_restir_kernels(dev, counts)
+    kernels = timed("3 kernels", phase_kernels, dev, counts)
+    restir_rows, cap = timed("3 K3-K6", phase_restir_kernels, dev, counts)
     kernels.update(restir_rows)
-    phase_trace_live(dev, counts, cap, kernels)
+    timed("3 K1/K2 live", phase_trace_live, dev, counts, cap, kernels)
     del cap  # the captured inputs stay out of the frames' peak memory
     kernels["trace_closest"]["registers"] = k1_regs
     kernels["di_spatial"]["registers"] = k5_regs
-    kernels.update(phase_switch_kernels(dev, counts))
-    phase_golden(dev)
+    kernels.update(timed("3 switches", phase_switch_kernels, dev, counts))
+    timed("4 golden", phase_golden, dev)
     # Each kernel's launches are read on its own slice's main path.
     phase5 = {}
-    launches = phase_main(dev, "restir", CORNELL_KERNELS, n_warm=5, n_timed=20,
-                          record=phase5)
+    launches = timed("5 restir", phase_main, dev, "restir", CORNELL_KERNELS,
+                     n_warm=5, n_timed=20, record=phase5)
     # The frames phase 13 holds exec_paths to: (config, lights, launches,
     # frames), each read on its own run.
     from sunray_tpu_torch.config import RenderConfig
@@ -5792,7 +6204,8 @@ def main():
     provenance_frames = {"default (phase 5)": (
         RenderConfig(width=1920, height=1080), cornell_lights,
         dict(launches), 25)}
-    nee = phase_main(dev, "nee", NEE_KERNELS, n_warm=2, n_timed=5)
+    nee = timed("5 nee", phase_main, dev, "nee", NEE_KERNELS, n_warm=2,
+                n_timed=5)
     k2 = kernels["trace_occluded"]
     k2["nee_launches"] = nee["trace_occluded"]
     check(k2["nee_launches"] == 7 * k2["nee_calls_per_frame"],
@@ -5810,31 +6223,32 @@ def main():
           f"{k1['nee_calls_per_frame']} calls a frame captured")
     log(f"  K1 launches: {launches['trace_closest']} over 25 ReSTIR frames, "
         f"{k1['nee_launches']} over 7 NEE frames")
-    slice_launches = phase_main(dev, "restir", SLICE_KERNELS, n_warm=5,
-                                n_timed=20, switches=SWITCHES,
-                                absent=("trace_occluded",))
+    slice_launches = timed("7 switches", phase_main, dev, "restir",
+                           SLICE_KERNELS, n_warm=5, n_timed=20,
+                           switches=SWITCHES, absent=("trace_occluded",))
     provenance_frames["switches (phase 7)"] = (
         RenderConfig(width=1920, height=1080, **SWITCHES), cornell_lights,
         dict(slice_launches), 25)
     launches.update({k: slice_launches[k] for k in SWITCH_KERNELS})
-    kernels.update(phase_binned_kernels(dev))
-    phase_big_small(dev)
-    big_launches = phase_main(dev, "restir", BIG_KERNELS, n_warm=5, n_timed=20,
-                              big=True)
+    kernels.update(timed("6 K10-K12", phase_binned_kernels, dev))
+    timed("6 small", phase_big_small, dev)
+    big_launches = timed("6 big", phase_main, dev, "restir", BIG_KERNELS,
+                         n_warm=5, n_timed=20, big=True)
     launches.update({k: big_launches[k] for k in BINNED_KERNELS})
-    phase_big_vs_brute(dev)
+    timed("6 vs brute", phase_big_vs_brute, dev)
     # Phase 8 last: its 720p step's peak memory starts from the other
     # phases' tensors released.
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
-    kernels["gather_rows_bwd"], diff_launches = phase_diff(dev, gen)
+    kernels["gather_rows_bwd"], diff_launches = timed("8 diff", phase_diff,
+                                                       dev, gen)
     provenance_frames["differentiable (phase 8)"] = (
         RenderConfig(width=DIFF_SIZE[0], height=DIFF_SIZE[1],
                      differentiable=True), cornell_lights,
         dict(diff_launches), 1)
     launches.update({k: diff_launches[k] for k in DIFF_ONLY})
-    kernels["boundary_candidates"], vis_launches, bwd_vis = phase_visibility(
-        dev, gen)
+    kernels["boundary_candidates"], vis_launches, bwd_vis = timed(
+        "9 visibility", phase_visibility, dev, gen)
     launches.update({k: vis_launches[k] for k in VIS_ONLY})
     # K8's backward: launches of the step without the terms ("launches")
     # and with them; registers of the widths the step's calls take.
@@ -5845,26 +6259,32 @@ def main():
                                     32 * cuda_gather.BWD_MAX_WARPS).items()})
     kernels["boundary_candidates"]["registers"] = kernel_registers(
         regs, "boundary_candidates_kernelILi8E", cuda_boundary.THREADS)
-    real_rows, real_launches = phase_real_scene(dev, counts)
+    real_rows, real_launches = timed("10 real scene", phase_real_scene, dev,
+                                     counts)
     for name in REAL_ONLY:
         real_rows[name]["registers"] = kernel_registers(regs, "bvh_walk_kernel",
                                                         cuda_bvh.THREADS)
     kernels.update(real_rows)
     launches.update(real_launches)
-    kernels["gather_rows_bwd_runs"], diff_real_launches = phase_real_diff(dev)
+    kernels["gather_rows_bwd_runs"], diff_real_launches = timed(
+        "11 real diff", phase_real_diff, dev)
     launches.update({k: diff_real_launches[k] for k in RUNS_ONLY})
-    configs = phase_configs(dev, kernels)
+    configs = timed("12 configs", phase_configs, dev, kernels)
     provenance_frames["bf16 (phase 12)"] = (
         RenderConfig(width=1920, height=1080, **CONFIG_KW["bf16"]),
         cornell_lights, configs["bf16"]["launches_a_frame"],
         CONFIG_WARM + CONFIG_TIMED)
-    utilities = phase_utilities(dev, kernels["gather_rows_bwd"]["step_ms"],
-                                phase5, provenance_frames)
-    viewers, kernels["paint_meshes"], overlay_launches = phase_viewers(dev)
+    utilities = timed("13 utilities", phase_utilities, dev,
+                      kernels["gather_rows_bwd"]["step_ms"], phase5,
+                      provenance_frames)
+    viewers, kernels["paint_meshes"], overlay_launches = timed(
+        "14 viewers", phase_viewers, dev)
     launches.update({k: overlay_launches[k] for k in OVERLAY_ONLY})
-    parallel, par_rows, par_launches = phase_parallel(dev, phase5["frame_ms"])
+    parallel, par_rows, par_launches = timed("15 parallel", phase_parallel,
+                                             dev, phase5["frame_ms"])
     kernels.update({k: par_rows[k] for k in PARALLEL_ONLY})
     launches.update({k: par_launches[k] for k in PARALLEL_ONLY})
+    examples = timed("16 examples", phase_examples, dev)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -5916,6 +6336,8 @@ def main():
     log(json.dumps({"utilities": utilities}))
     log(json.dumps({"viewers": viewers}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"examples": examples}))
+    log(json.dumps({"phase_seconds": seconds}))
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

@@ -205,12 +205,20 @@ def test_tf32_off():
 
 
 def test_port_never_imports_jax():
+    """Every module of the port and every examples/torch_*.py example
+    imports without jax, sunray_tpu or PIL."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import glob, importlib, importlib.util, pkgutil, sys\n"
         "import sunray_tpu_torch\n"
         "for m in pkgutil.walk_packages(sunray_tpu_torch.__path__, "
         "'sunray_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "examples = sorted(glob.glob('examples/torch_*.py'))\n"
+        "assert len(examples) >= 9, examples\n"
+        "for path in examples:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        'example_' + path[9:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules "
         "if k in ('jax', 'sunray_tpu', 'PIL') "
         "or k.startswith(('jax.', 'sunray_tpu.', 'PIL.')))\n"
